@@ -1,0 +1,600 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a nonzero exit code):
+  1. device   — name, count, ``nvidia-smi`` name and power limit;
+  2. build    — every kernel from ``src/repro_torch/kernels/csrc`` with
+                 ``nvcc``, one process per source, with the ``-Xptxas -v``
+                 report (registers, shared memory, spills);
+  3. kernels  — each kernel against its plain PyTorch version at qwen-7b's
+                 shapes, with the tolerance stated; kernel, plain and
+                 library-call times (CUDA events, L2 flushed before each
+                 launch) beside the bound the card could reach;
+  4. model    — qwen-7b at full width and depth, random weights from a
+                 seeded generator, W4A16 ("dense"): mixed_step over a
+                 13-token prompt in 8-token chunks is bitwise equal to 13
+                 sequential decode steps (logits and cache);
+  5. serving  — the engine serves 9 requests; every token stream equals
+                 ``reference_decode`` and the kernel launch counts show the
+                 whole path ran through the kernels;
+  6. the ``kernels`` JSON line, the card's name and power limit, and the
+     final ``{"ok": true, ...}`` line.
+
+The script imports nothing of JAX.  Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+L2_FLUSH_BYTES = 64 << 20          # larger than the 50 MB L2
+SPIN_CYCLES = 1_000_000            # ~0.5 ms of GPU clock before each timing
+DEVICE = "cuda"
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+# -- timing and bounds --------------------------------------------------------
+
+class Timer:
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+
+    def ms(self, fn, iters: int) -> float:
+        """Mean device time of ``fn`` over ``iters`` launches, each after an
+        L2 flush (weights are cold on the serving path), warmed up first.
+        A spin kernel after the flush keeps the card busy while the host
+        enqueues ``fn``, so the host's launch cost stays outside the events
+        (for a call of many launches, gaps between them still count)."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_errs(got, want) -> tuple[float, float]:
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return float(d.max()), float(d.max() / scale)
+
+
+# -- phase 3: kernels against their plain versions ---------------------------
+
+def check_kernels(torch, timer, results: dict) -> dict:
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_flash import kv_block_size
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
+    from repro_torch.core.quant import dequantize
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    rows = []
+    line = {}
+    # Tolerances, relative to the largest |reference| value: bf16 outputs
+    # differ by the rounding of the last bit after f32 sums taken in another
+    # order (bf16 keeps 8 bits: 2^-7 ~ 7.8e-3), f32 by accumulation order.
+    tol = {"bfloat16": 1e-2, "float32": 1e-4}
+
+    # -- w4a16_matmul: T x out, in = 4096
+    d_in = 4096
+    weights = {o: quantize(randn(d_in, o, dtype=torch.float32) * 0.02)
+               for o in (512, 4096, 151936)}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        cases = ([(t, o) for t in (1, 4, 256) for o in (512, 4096, 151936)]
+                 if dtype == torch.bfloat16 else [(4, 4096), (4, 151936)])
+        for t, o in cases:
+            qt = weights[o]
+            x = randn(t, d_in, dtype=dtype)
+            got = ops.w4a16_matmul(x, qt)
+            want = ops.w4a16_matmul(x, qt, impl="torch")
+            err, rel = max_errs(got, want)
+            need(rel <= tol[dname], f"w4a16 T={t} out={o} {dname}: "
+                 f"rel err {rel:.3g} > {tol[dname]}")
+            row = {"kernel": "w4a16_matmul", "dtype": dname, "T": t,
+                   "in": d_in, "out": o, "max_abs_err": err, "max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == torch.bfloat16:
+                row["ms"] = timer.ms(lambda: ops.w4a16_matmul(x, qt), 20)
+                row["plain_ms"] = timer.ms(
+                    lambda: ops.w4a16_matmul(x, qt, impl="torch"), 3)
+                row["library_ms"] = timer.ms(
+                    lambda: x @ dequantize(qt, torch.bfloat16), 5)
+                nbytes = (x.numel() * 2 + qt.nbytes_model + t * o * 2)
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 2 * t * d_in * o, dname)
+            rows.append(row)
+            log(f"  w4a16 {dname} T={t:3d} out={o:6d}: max_abs {err:.3g} "
+                f"rel {rel:.3g} (tol {tol[dname]})"
+                + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                   f" ms library {row['library_ms']:.4f} ms bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                   if "ms" in row else ""))
+            if (t, o, dname) == (4, 4096, "bfloat16"):
+                line["w4a16_matmul"] = row
+    # batch invariance: the first 4 rows alone equal those rows inside 256
+    x = randn(256, d_in)
+    need(torch.equal(ops.w4a16_matmul(x[:4], weights[4096]),
+                     ops.w4a16_matmul(x, weights[4096])[:4]),
+         "w4a16: rows differ between T=4 and T=256 (batch invariance)")
+    log("  w4a16: T=4 rows bitwise equal inside T=256")
+
+    # -- ffn: d = 4096, f = 11008
+    d, f = 4096, 11008
+    gate = quantize(randn(d, f, dtype=torch.float32) * 0.02)
+    up = quantize(randn(d, f, dtype=torch.float32) * 0.02)
+    down = quantize(randn(f, d, dtype=torch.float32) * 0.02)
+    for dtype, tokens in ((torch.bfloat16, (4, 256)), (torch.float32, (4,))):
+        dname = str(dtype).split(".")[1]
+        for t in tokens:
+            x = randn(t, d, dtype=dtype)
+            h_got = ffn_gate_up_cuda(x, gate, up, "swiglu")
+            h_want = ffn_gate_up_torch(x, gate, up, "swiglu")
+            herr, hrel = max_errs(h_got, h_want)
+            got = ops.ffn_w4a16(x, gate, up, down)
+            want = ops.ffn_w4a16(x, gate, up, down, impl="torch")
+            err, rel = max_errs(got, want)
+            need(hrel <= tol[dname] and rel <= tol[dname],
+                 f"ffn T={t} {dname}: hidden rel {hrel:.3g}, out rel "
+                 f"{rel:.3g} > {tol[dname]}")
+            row = {"kernel": "ffn_fused_w4a16", "dtype": dname, "T": t,
+                   "d": d, "f": f, "max_abs_err": herr, "max_rel_err": hrel,
+                   "ffn_max_abs_err": err, "ffn_max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == torch.bfloat16:
+                row["ms"] = timer.ms(
+                    lambda: ffn_gate_up_cuda(x, gate, up, "swiglu"), 20)
+                row["plain_ms"] = timer.ms(
+                    lambda: ffn_gate_up_torch(x, gate, up, "swiglu"), 3)
+
+                def lib():
+                    gg = x @ dequantize(gate, torch.bfloat16)
+                    uu = x @ dequantize(up, torch.bfloat16)
+                    return torch.nn.functional.silu(gg) * uu
+                row["library_ms"] = timer.ms(lib, 5)
+                row["ffn_ms"] = timer.ms(
+                    lambda: ops.ffn_w4a16(x, gate, up, down), 20)
+                row["ffn_plain_ms"] = timer.ms(
+                    lambda: ops.ffn_w4a16(x, gate, up, down, impl="torch"), 3)
+                nbytes = (x.numel() * 2 + gate.nbytes_model + up.nbytes_model
+                          + t * f * 2)
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 2 * 2 * t * d * f, dname)
+                ffn_bytes = nbytes + down.nbytes_model + t * d * 2 - t * f * 2
+                row["ffn_bound_ms"], _ = bound(ffn_bytes, 3 * 2 * t * d * f,
+                                               dname)
+            rows.append(row)
+            log(f"  ffn {dname} T={t:3d}: hidden max_abs {herr:.3g} rel "
+                f"{hrel:.3g}; ffn max_abs {err:.3g} rel {rel:.3g} (tol "
+                f"{tol[dname]})"
+                + (f"  gate/up kernel {row['ms']:.4f} ms plain "
+                   f"{row['plain_ms']:.4f} ms library {row['library_ms']:.4f}"
+                   f" ms bound {row['bound_ms']:.4f} ms; whole ffn "
+                   f"{row['ffn_ms']:.4f} ms (bound {row['ffn_bound_ms']:.4f})"
+                   if "ms" in row else ""))
+            if (t, dname) == (4, "bfloat16"):
+                line["ffn_fused_w4a16"] = row
+
+    # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
+    b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
+    lengths = torch.tensor([300, 64, 512, 40], dtype=torch.int32,
+                           device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        kc = randn(b, hkv, max_len, hd, dtype=dtype)
+        vc = randn(b, hkv, max_len, hd, dtype=dtype)
+        q64 = randn(b, hq, 64, hd, dtype=dtype)
+        for window in (None, 128):
+            outs = {}
+            for c, q_lens in ((1, [1, 1, 1, 1]), (64, [64, 1, 17, 0])):
+                ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
+                q = q64[:, :, :c].contiguous()
+                got = ops.mixed_attention(q, kc, vc, lengths, ql,
+                                          window=window)
+                want = ops.mixed_attention(q, kc, vc, lengths, ql,
+                                           window=window, impl="torch")
+                err, rel = max_errs(got, want)
+                need(rel <= tol[dname], f"attention C={c} window={window} "
+                     f"{dname}: rel err {rel:.3g} > {tol[dname]}")
+                outs[c] = got
+                row = {"kernel": "mixed_flash_attention", "dtype": dname,
+                       "B": b, "hq": hq, "hkv": hkv, "d": hd,
+                       "max_len": max_len, "C": c, "window": window,
+                       "lengths": lengths.tolist(), "q_lens": q_lens,
+                       "kv_block": kv_block_size(max_len), "max_abs_err": err,
+                       "max_rel_err": rel, "tol_rel": tol[dname]}
+                if dtype == torch.bfloat16 and window is None:
+                    row["ms"] = timer.ms(lambda: ops.mixed_attention(
+                        q, kc, vc, lengths, ql), 20)
+                    row["plain_ms"] = timer.ms(lambda: ops.mixed_attention(
+                        q, kc, vc, lengths, ql, impl="torch"), 3)
+                    row["library_ms"] = timer.ms(
+                        lambda: sdpa_yardstick(torch, q, kc, vc, lengths, ql),
+                        5)
+                    nbytes, flops = attention_work(lengths.tolist(), q_lens,
+                                                   hq, hkv, hd, c)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                             dname)
+                rows.append(row)
+                log(f"  attention {dname} C={c:2d} window={window}: max_abs "
+                    f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
+                    + (f"  kernel {row['ms']:.4f} ms plain "
+                       f"{row['plain_ms']:.4f} ms library "
+                       f"{row['library_ms']:.4f} ms bound "
+                       f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                       if "ms" in row else ""))
+                if (c, dname, window) == (1, "bfloat16", None):
+                    line["mixed_flash_attention"] = row
+            # dead queries are exact zeros; q_lens = 1 in C = 64 == C = 1
+            need(bool((outs[64][3] == 0).all()) and
+                 bool((outs[64][1, :, 1:] == 0).all()) and
+                 bool((outs[64][2, :, 17:] == 0).all()),
+                 f"attention {dname} window={window}: dead queries not zero")
+            need(torch.equal(outs[64][1, :, 0], outs[1][1, :, 0]),
+                 f"attention {dname} window={window}: q_lens=1 in C=64 is "
+                 "not bitwise the C=1 result")
+        log(f"  attention {dname}: dead queries exact zeros; q_lens=1 inside "
+            "C=64 bitwise equal to C=1")
+
+    # -- rmsnorm: rows x 4096
+    gamma = (1 + 0.1 * randn(4096, dtype=torch.float32)).to(torch.bfloat16)
+    for t in (4, 256):
+        x = randn(t, 4096)
+        got = rmsnorm_cuda(x, gamma)
+        want = rmsnorm_torch(x, gamma)
+        err, rel = max_errs(got, want)
+        need(rel <= tol["bfloat16"], f"rmsnorm rows={t}: rel {rel:.3g}")
+        row = {"kernel": "rmsnorm", "dtype": "bfloat16", "rows": t, "d": 4096,
+               "max_abs_err": err, "max_rel_err": rel,
+               "tol_rel": tol["bfloat16"],
+               "ms": timer.ms(lambda: rmsnorm_cuda(x, gamma), 20),
+               "plain_ms": timer.ms(lambda: rmsnorm_torch(x, gamma), 5)}
+        lib = getattr(torch.nn.functional, "rms_norm", None)
+        row["library_ms"] = (timer.ms(lambda: lib(x, (4096,), gamma, 1e-6), 5)
+                             if lib is not None else None)
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * x.numel() * 2 + 4096 * 2, 4 * x.numel(), "bfloat16")
+        rows.append(row)
+        log(f"  rmsnorm rows={t:3d}: max_abs {err:.3g} rel {rel:.3g}  kernel "
+            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+            f"{row['bound_ms']:.4f} ms")
+        if t == 4:
+            line["rmsnorm"] = row
+    x = randn(256, 4096)
+    need(torch.equal(rmsnorm_cuda(x[:4], gamma), rmsnorm_cuda(x, gamma)[:4]),
+         "rmsnorm: rows differ between 4 and 256 rows (batch invariance)")
+    log("  rmsnorm: 4 rows bitwise equal inside 256")
+    results["kernel_checks"] = rows
+    return line
+
+
+def attention_work(lengths, q_lens, hq, hkv, d, c, elt=2):
+    """Bytes and operations the attention call needs on these inputs: q,
+    the live K/V rows, out; 4*d operations per (query head, visible key)."""
+    nbytes = 2 * (len(lengths) * hq * c * d * elt)
+    flops = 0
+    for length, ql in zip(lengths, q_lens):
+        nbytes += 2 * length * hkv * d * elt
+        for j in range(ql):
+            flops += 4 * d * hq * (length - ql + j + 1)
+    return nbytes, flops
+
+
+def sdpa_yardstick(torch, q, kc, vc, lengths, q_lens):
+    """One library call per row over its live cache (timed, never used)."""
+    import torch.nn.functional as F
+    outs = []
+    rep = q.shape[1] // kc.shape[1]
+    for i, (length, ql) in enumerate(zip(lengths.tolist(), q_lens.tolist())):
+        if ql == 0:
+            continue
+        k = kc[i:i + 1, :, :length].repeat_interleave(rep, dim=1)
+        v = vc[i:i + 1, :, :length].repeat_interleave(rep, dim=1)
+        qq = q[i:i + 1, :, :ql]
+        mask = (torch.arange(length, device=q.device)[None, :]
+                <= (length - ql + torch.arange(ql, device=q.device))[:, None])
+        outs.append(F.scaled_dot_product_attention(qq, k, v, attn_mask=mask))
+    return outs
+
+
+# -- phase 4 and 5: the model and the engine --------------------------------
+
+def build_model(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.compiler import quantize_model, quantized_bytes
+    from repro_torch.models import api
+    cfg = get_config("qwen-7b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    torch.cuda.synchronize()
+    log(f"  qwen-7b: {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size}; W4A16 params "
+        f"{quantized_bytes(params) / 1e9:.3f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def check_mixed_equals_sequential(torch, cfg, params, results):
+    import numpy as np
+    from repro_torch.models import api
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 13)
+    dev = DEVICE
+    seq = api.init_cache(cfg, 1, 32, dev)
+    logits_seq = None
+    for t, tok in enumerate(prompt.tolist()):
+        logits_seq, seq = api.decode_step(
+            cfg, params, seq, torch.tensor([[tok]], device=dev), [t + 1])
+    mix = api.init_cache(cfg, 1, 32, dev)
+    length = 0
+    while length < len(prompt):
+        ql = min(8, len(prompt) - length)
+        chunk = np.zeros(8, np.int64)
+        chunk[:ql] = prompt[length:length + ql]
+        logits_mix, mix = api.mixed_step(
+            cfg, params, mix, torch.tensor(chunk[None], device=dev),
+            [length], [ql])
+        length += ql
+    same_logits = torch.equal(logits_seq, logits_mix)
+    diff_layers = [i for i in range(cfg.n_layers)
+                   if not (torch.equal(seq["k"][i], mix["k"][i]) and
+                           torch.equal(seq["v"][i], mix["v"][i]))]
+    results["mixed_vs_sequential"] = {
+        "logits_equal": same_logits, "cache_layers_differing": diff_layers,
+        "logits_max_abs_diff": float((logits_seq.float()
+                                      - logits_mix.float()).abs().max())}
+    log(f"  mixed_step (C=8) vs 13 decode_steps: logits bitwise equal "
+        f"{same_logits}; cache layers differing {diff_layers}")
+    need(same_logits and not diff_layers,
+         "mixed_step is not bitwise equal to sequential decode_step "
+         f"(first differing cache layer: {diff_layers[:1]})")
+
+
+def first_divergence(torch, cfg, params, prompt, got, max_len):
+    """Step where the engine left the oracle, and the oracle's top-2 logit
+    margin there."""
+    from repro_torch.models import api
+    dev = DEVICE
+    cache = api.init_cache(cfg, 1, max_len, dev)
+    n = 0
+    for tok in prompt.tolist():
+        n += 1
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[tok]], device=dev), [n])
+    for step in range(len(got)):
+        top = torch.topk(logits[0].float(), 2)
+        ref_tok = int(top.indices[0])
+        if ref_tok != got[step]:
+            return step, float(top.values[0] - top.values[1])
+        n += 1
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[ref_tok]], device=dev), [n])
+    return None, None
+
+
+def serve(torch, cfg, params, results):
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    max_len, max_new = 512, 16
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
+               for _ in range(8)]
+    prompts.append(rng.integers(0, cfg.vocab_size, 200))
+    engine = Engine(cfg, params, batch_size=4, max_len=max_len,
+                    chunk_size=64, device=DEVICE)
+    reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    need(done.drained and len(done) == len(reqs) and all(r.done for r in reqs),
+         f"engine did not finish every request ({len(done)}/{len(reqs)})")
+    summary = Engine.summarize(done)
+    n_tok = sum(len(r.output) for r in reqs)
+    ticks = engine.steps
+    L = cfg.n_layers
+    expect = {"w4a16_matmul": ticks * (5 * L + 1),
+              "ffn_fused_w4a16": ticks * L,
+              "mixed_flash_attention": ticks * L,
+              "rmsnorm": ticks * (2 * L + 1)}
+    log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed), {n_tok} "
+        f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
+        f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches: {counts}  expected: {expect}")
+    need(counts == expect, "kernel launch counts do not match layers x calls"
+         " x ticks: the serving path did not run through every kernel")
+    mismatches = []
+    for r in reqs:
+        ref = reference_decode(cfg, params, r.prompt, r.max_new_tokens,
+                               max_len=max_len, device=DEVICE)
+        if r.output != ref:
+            step, margin = first_divergence(torch, cfg, params, r.prompt,
+                                            r.output, max_len)
+            mismatches.append({"rid": r.rid, "step": step,
+                               "oracle_top2_margin": margin})
+    log(f"  token streams equal to reference_decode: "
+        f"{len(reqs) - len(mismatches)}/{len(reqs)} {mismatches or ''}")
+    results["serving"] = {
+        "requests": len(reqs), "ticks": ticks,
+        "mixed_ticks": engine.mixed_ticks, "tokens": n_tok,
+        "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "ttft_p50_s": summary.get("ttft_p50_s"),
+        "itl_p50_s": summary.get("itl_p50_s"),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": counts, "expected_launches": expect,
+        "mismatches": mismatches}
+    need(not mismatches, "engine token streams differ from reference_decode")
+    return counts
+
+
+# -- main -------------------------------------------------------------------
+
+KERNEL_META = {
+    "w4a16_matmul": ("src/repro_torch/kernels/csrc/w4a16_matmul.cu",
+                     "src/repro/kernels/w4a16_matmul.py:78"),
+    "ffn_fused_w4a16": ("src/repro_torch/kernels/csrc/ffn_fused.cu",
+                        "src/repro/kernels/ffn_fused.py:215"),
+    "mixed_flash_attention": ("src/repro_torch/kernels/csrc/decode_flash.cu",
+                              "src/repro/kernels/decode_flash.py:181"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/models/layers.py:65 (XLA in the reference, no "
+                "Pallas kernel)"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        log(f"FAIL: torch is not importable: {e}")
+        return 1
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is False; this script needs "
+            "the card")
+        return 1
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        log(f"FAIL: the port is not importable from {ROOT}/src: {e}")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results: dict = {}
+    t_start = time.perf_counter()
+    try:
+        log("phase 1: device")
+        name = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        smi = nvidia_smi("name,power.limit")
+        log(f"  {name} x{count}; nvidia-smi: {smi}; torch "
+            f"{torch.__version__} cuda {torch.version.cuda}")
+        results["device"] = {"name": name, "count": count, "nvidia_smi": smi}
+
+        log("phase 2: build")
+        t0 = time.perf_counter()
+        reports = _build.build()
+        for k, rep in reports.items():
+            keep = [ln.strip() for ln in rep.splitlines()
+                    if any(w in ln for w in ("Compiling entry", "registers",
+                                             "spill", "smem"))]
+            log(f"  {k}:")
+            for ln in keep:
+                log(f"    {ln}")
+        log(f"  built in {time.perf_counter() - t0:.1f} s")
+        results["ptxas"] = reports
+
+        log("phase 3: kernels against their plain versions")
+        timer = Timer(torch)
+        line = check_kernels(torch, timer, results)
+        del timer
+        torch.cuda.empty_cache()
+
+        log("phase 4: qwen-7b, mixed_step vs sequential decode_step")
+        cfg, params = build_model(torch)
+        check_mixed_equals_sequential(torch, cfg, params, results)
+
+        log("phase 5: serving")
+        counts = serve(torch, cfg, params, results)
+    except SmokeFailure as e:
+        log(f"FAIL: {e}")
+        write_details(results)
+        return 1
+    results["seconds"] = time.perf_counter() - t_start
+    write_details(results)
+
+    kernels = []
+    for kname, (source, replaces) in KERNEL_META.items():
+        r = line[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(kname, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
+def write_details(results: dict) -> None:
+    out = os.path.join(ROOT, "chiprun_out")
+    try:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "chip_smoke.json"), "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    except OSError as e:
+        log(f"  (details not written: {e})")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

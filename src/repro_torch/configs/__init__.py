@@ -1,0 +1,34 @@
+"""Architecture config registry of the port (``qwen-7b`` only in this slice).
+
+``get_config(name)`` gives the full-size configuration and
+``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
+both accept ``dataclasses.replace`` overrides as keyword arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import qwen_7b
+
+_MODULES = {"qwen-7b": qwen_7b}
+
+
+def _module(name: str):
+    try:
+        return _MODULES[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (this slice serves "
+            f"{sorted(_MODULES)})") from None
+
+
+def get_config(name: str, **overrides):
+    cfg = _module(name).config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke_config(name: str, **overrides):
+    cfg = _module(name).smoke_config()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+

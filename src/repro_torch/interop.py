@@ -1,0 +1,60 @@
+"""Parameter interchange with the JAX reference, through numpy only.
+
+The caller (a test) turns the JAX params tree into numpy first; this module
+never imports the reference.  A quantized leaf is recognised by its
+attributes (``packed``, ``scales``, ``shape``, ``group_size``), so the
+reference's ``QuantizedTensor`` class is read without being imported.
+bfloat16 arrays (``ml_dtypes``) travel as their 16-bit patterns.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")      # writable: torch may write
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """JAX params tree (leaves already numpy) -> the port's params."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("packed", "scales", "shape",
+                                      "group_size")):
+        return QuantizedTensor(
+            packed=_to_torch(tree.packed, device),
+            scales=_to_torch(tree.scales, device),
+            shape=tuple(int(s) for s in tree.shape),
+            group_size=int(tree.group_size))
+    return _to_torch(tree, device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Inverse of :func:`params_from_numpy`: numpy leaves, quantized leaves
+    as namespaces with the same four attributes."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return SimpleNamespace(packed=_to_numpy(tree.packed),
+                               scales=_to_numpy(tree.scales),
+                               shape=tree.shape, group_size=tree.group_size)
+    return _to_numpy(tree)

@@ -1,0 +1,84 @@
+"""Public kernel entry points, mirroring ``repro/kernels/ops.py``.
+
+Each op picks its implementation by the tensors' device (``impl="auto"``):
+
+* ``"cuda"``  — the hand-written sm_90a kernel.  Taken for CUDA tensors; it
+  launches or raises, there is no fallback.
+* ``"torch"`` — the plain PyTorch version with the same numerics contract
+  (the role ``impl="xla"`` plays in the reference).  Taken for CPU tensors,
+  and on the card only when asked for, to compare a kernel with it.
+* ``"ref"``   — the dense oracle of ``kernels/ref.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.decode_flash import (
+    mixed_attention_torch, mixed_flash_attention_cuda)
+from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
+from repro_torch.kernels.w4a16_matmul import (
+    w4a16_matmul_cuda, w4a16_matmul_torch)
+
+__all__ = ["w4a16_matmul", "ffn_w4a16", "decode_attention",
+           "mixed_attention"]
+
+
+def _resolve(impl: str, x: torch.Tensor) -> str:
+    if impl == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if impl not in ("cuda", "torch", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
+def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """x @ dequant(qt); group-exact W4A16 numerics on every path."""
+    impl = _resolve(impl, x)
+    if impl == "cuda":
+        return w4a16_matmul_cuda(x, qt)
+    if impl == "torch":
+        return w4a16_matmul_torch(x, qt)
+    return _ref.w4a16_matmul_ref(x, qt)
+
+
+def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
+              down_bias=None, impl: str = "auto") -> torch.Tensor:
+    """Whole FFN ``down(act(x@gate) * (x@up))`` as one operator."""
+    impl = _resolve(impl, x)
+    kw = dict(activation=activation, up_bias=up_bias, down_bias=down_bias)
+    if impl == "cuda":
+        return ffn_w4a16_cuda(x, gate, up, down, **kw)
+    if impl == "torch":
+        return ffn_w4a16_torch(x, gate, up, down, **kw)
+    return _ref.ffn_ref(x, gate, up, down, **kw)
+
+
+def mixed_attention(q, k_cache, v_cache, lengths, q_lens, *, window=None,
+                    scale=None, impl: str = "auto") -> torch.Tensor:
+    """Mixed prefill/decode attention against the slot cache (fp)."""
+    impl = _resolve(impl, q)
+    kw = dict(window=window, scale=scale)
+    if impl == "cuda":
+        return mixed_flash_attention_cuda(q, k_cache, v_cache, lengths,
+                                          q_lens, **kw)
+    if impl == "torch":
+        return mixed_attention_torch(q, k_cache, v_cache, lengths, q_lens,
+                                     **kw)
+    return _ref.mixed_attention_ref(q, k_cache, v_cache, lengths, q_lens,
+                                    **kw)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, window=None,
+                     scale=None, impl: str = "auto") -> torch.Tensor:
+    """One-token decode attention: ``mixed_attention`` with ``q_lens = 1``
+    (the same kernel, as in the reference)."""
+    if q.shape[2] != 1:
+        raise ValueError(f"decode attention is single-token (sq="
+                         f"{q.shape[2]}); use mixed_attention")
+    ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+    return mixed_attention(q, k_cache, v_cache, length, ones, window=window,
+                           scale=scale, impl=impl)

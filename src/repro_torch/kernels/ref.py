@@ -1,0 +1,100 @@
+"""Dense oracles (the port of ``repro/kernels/ref.py``, main-path subset).
+
+Each is the semantic ground truth in its most obvious dense form, in f32:
+readability over speed.  ``ops`` reaches them with ``impl="ref"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import QuantizedTensor, unpack_int4
+
+__all__ = ["w4a16_matmul_ref", "ffn_ref", "decode_attention_ref",
+           "mixed_attention_ref"]
+
+
+def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """Group-exact oracle: per-128-group integer-exact f32 dot, scale
+    applied to the group's partial sum, groups summed, cast to x's dtype."""
+    in_f, out_f = qt.shape
+    g = qt.group_size
+    q = unpack_int4(qt.packed, g).to(torch.float32)
+    xg = x.reshape(*x.shape[:-1], in_f // g, g).to(torch.float32)
+    qg = q.reshape(in_f // g, g, out_f)
+    partial = torch.einsum("...kg,kgo->...ko", xg, qg)
+    out = (partial * qt.scales.to(torch.float32)).sum(dim=-2)
+    return out.to(x.dtype)
+
+
+def _mm(x, w, b=None):
+    if isinstance(w, QuantizedTensor):
+        y = w4a16_matmul_ref(x, w)
+    else:
+        y = (x @ w.to(x.dtype)).to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def ffn_ref(x, gate, up, down, *, activation="swiglu", up_bias=None,
+            down_bias=None) -> torch.Tensor:
+    """Unfused FFN oracle: three independent matmuls, activation in the
+    compute dtype (the reference's ``mlp_apply`` composition)."""
+    if activation == "swiglu":
+        return _mm(torch.nn.functional.silu(_mm(x, gate)) * _mm(x, up), down)
+    if activation == "geglu":
+        return _mm(_gelu(_mm(x, gate)) * _mm(x, up), down)
+    if activation == "gelu":
+        return _mm(_gelu(_mm(x, up, up_bias)), down, down_bias)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def mixed_attention_ref(q, k_cache, v_cache, lengths, q_lens, *,
+                        window=None, scale=None) -> torch.Tensor:
+    """Chunked q against the whole cache, dense.  q (b, hq, C, d); caches
+    (b, hkv, MAX, d); ``lengths`` (b,) includes the chunk; query j of row b
+    sits at ``lengths - q_lens + j``; dead queries return exact zeros."""
+    b, hq, c, d = q.shape
+    hkv, max_len = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else float(1.0 / d ** 0.5)
+    dev = q.device
+    lengths = torch.as_tensor(lengths, device=dev).reshape(-1).expand(b).long()
+    q_lens = torch.as_tensor(q_lens, device=dev).reshape(-1).expand(b).long()
+    qg = q.reshape(b, hkv, rep, c, d).to(torch.float32)
+    logits = torch.einsum("bgrqd,bgkd->bgrqk", qg,
+                          k_cache.to(torch.float32)) * scale
+    pos = torch.arange(max_len, device=dev)
+    j = torch.arange(c, device=dev)
+    q_pos = (lengths - q_lens)[:, None] + j[None, :]
+    valid = pos[None, None, :] < torch.clamp(lengths, max=max_len)[:, None,
+                                                                   None]
+    valid = valid & (pos[None, None, :] <= q_pos[:, :, None])
+    valid = valid & (j[None, :] < q_lens[:, None])[..., None]
+    if window is not None:
+        valid = valid & (pos[None, None, :] > q_pos[:, :, None] - window)
+    vm = valid[:, None, None]
+    logits = torch.where(vm, logits, torch.tensor(-torch.inf, device=dev))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.clamp(m, min=-1e30))
+    p = torch.where(vm, p, torch.zeros((), device=dev))
+    denom = p.sum(dim=-1, keepdim=True)
+    probs = p / torch.where(denom == 0, torch.ones((), device=dev), denom)
+    out = torch.einsum("bgrqk,bgkd->bgrqd",
+                       probs.to(q.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, hq, c, d).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, length, *, window=None,
+                         scale=None) -> torch.Tensor:
+    """Single-token decode oracle: the ``q_lens = 1`` case."""
+    b = q.shape[0]
+    ones = torch.ones(b, dtype=torch.int32, device=q.device)
+    return mixed_attention_ref(q, k_cache, v_cache, length, ones,
+                               window=window, scale=scale)

@@ -1,0 +1,50 @@
+"""Model configuration dataclass (the port's own copy, torch dtypes).
+
+Mirrors ``repro/models/config.py`` for the fields the dense serving path
+reads.  Fields the port does not serve yet (paged KV, int8 KV, non-dense
+families) are kept so a configuration can name them; the model and engine
+raise ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+
+    activation: str = "swiglu"        # swiglu | geglu | gelu
+    norm: str = "rmsnorm"             # rmsnorm | layernorm
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_type: str = "standard"       # standard | none
+    rope_theta: float = 1_000_000.0
+    window: int | None = None         # sliding-window attention
+    tie_embeddings: bool = False
+    embed_scale: bool = False         # scale embeddings by sqrt(d)
+    logit_softcap: float | None = None
+
+    kv_quant: str = "none"            # none (int8: a later slice)
+    kv_layout: str = "slot"           # slot (paged: a later slice)
+
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_heads % max(self.n_kv_heads, 1):
+            raise ValueError("n_heads must be divisible by n_kv_heads")
+        if self.kv_layout not in ("slot", "paged"):
+            raise ValueError(f"unknown kv_layout {self.kv_layout!r}")

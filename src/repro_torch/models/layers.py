@@ -1,0 +1,130 @@
+"""Shared layers (functional, dict params), port of ``repro/models/layers.py``.
+
+Every weight matmul goes through :func:`linear`, which dispatches on the
+parameter type: a dense tensor (plain matmul) or a :class:`QuantizedTensor`
+(the W4A16 op).  Quantizing a model for serving is a pure tree transform
+(``core/compiler.quantize_model``); no model code changes.  Random init
+takes an explicit ``torch.Generator``; its device is where the weights live.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.kernels import ops
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+
+Params = dict[str, Any]
+
+
+# -- init ------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_f: int, out_f: int,
+               dtype) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(in_f)
+    w = torch.randn((in_f, out_f), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# -- linear ----------------------------------------------------------------
+
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+    if isinstance(w, QuantizedTensor):
+        y = ops.w4a16_matmul(x, w)
+    else:
+        y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+# -- norms -----------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """f32 RMSNorm; on the card through the fixed-order kernel."""
+    return _rmsnorm(x, gamma, eps)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * gamma.to(torch.float32) + beta.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def norm_init(cfg, device) -> Params:
+    d = cfg.d_model
+    p = {"gamma": torch.ones((d,), dtype=cfg.dtype, device=device)}
+    if cfg.norm != "rmsnorm":
+        p["beta"] = torch.zeros((d,), dtype=cfg.dtype, device=device)
+    return p
+
+
+def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "beta" in p:
+        return layernorm(x, p["gamma"], p["beta"])
+    return rmsnorm(x, p["gamma"])
+
+
+# -- rotary embeddings -----------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (b, h, s, d); positions (b, s) int.  Angles in f32 from the int
+    positions, as the reference computes them."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    angles = positions[:, None, :, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- FFN -------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.activation in ("swiglu", "geglu"):
+        return {"gate": dense_init(gen, d, f, cfg.dtype),
+                "up": dense_init(gen, d, f, cfg.dtype),
+                "down": dense_init(gen, f, d, cfg.dtype)}
+    return {"up": dense_init(gen, d, f, cfg.dtype),
+            "up_bias": torch.zeros((f,), dtype=cfg.dtype, device=gen.device),
+            "down": dense_init(gen, f, d, cfg.dtype),
+            "down_bias": torch.zeros((d,), dtype=cfg.dtype,
+                                     device=gen.device)}
+
+
+def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """One MLP = one operator (``ops.ffn_w4a16``).  Quantized weights take
+    the device's path (the FFN kernels on the card); plain 16-bit weights
+    keep the unfused composition on every device, as in the reference."""
+    quantized = any(isinstance(p.get(k), QuantizedTensor)
+                    for k in ("gate", "up", "down"))
+    return ops.ffn_w4a16(x, p.get("gate"), p["up"], p["down"],
+                         activation=cfg.activation, up_bias=p.get("up_bias"),
+                         down_bias=p.get("down_bias"),
+                         impl="auto" if quantized else "ref")

@@ -1,0 +1,144 @@
+"""Decoder-only transformer, serving half (port of the dense path of
+``repro/models/transformer.py``).
+
+Block parameters are stacked along a leading layer axis, as in the
+reference; the layers run as a Python loop over views of the stacked
+tensors (``layer_params``), and the KV cache is a (layers, B, hkv, L, hd)
+pair updated in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.models.layers import Params
+
+
+def block_init(gen: torch.Generator, cfg) -> Params:
+    return {
+        "ln_attn": layers.norm_init(cfg, gen.device),
+        "attn": attention.attn_init(gen, cfg),
+        "ln_mlp": layers.norm_init(cfg, gen.device),
+        "mlp": layers.mlp_init(gen, cfg),
+    }
+
+
+def _stack_into(dst, layer, i):
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, i)
+        else:
+            dst[k][i] = v
+
+
+def _empty_stack(layer, n):
+    return {k: (_empty_stack(v, n) if isinstance(v, dict) else
+                torch.empty((n, *v.shape), dtype=v.dtype, device=v.device))
+            for k, v in layer.items()}
+
+
+def stack_blocks(gen: torch.Generator, cfg, n: int) -> Params:
+    """``n`` blocks initialised one after another into stacked tensors."""
+    first = block_init(gen, cfg)
+    out = _empty_stack(first, n)
+    _stack_into(out, first, 0)
+    for i in range(1, n):
+        _stack_into(out, block_init(gen, cfg), i)
+    return out
+
+
+def init_params(cfg, gen: torch.Generator) -> Params:
+    p: Params = {
+        "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                   cfg.dtype),
+        "blocks": stack_blocks(gen, cfg, cfg.n_layers),
+        "ln_f": layers.norm_init(cfg, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         cfg.dtype)
+    return p
+
+
+def layer_params(blocks: Params, i: int) -> Params:
+    """Layer ``i``'s parameters as views of the stacked tensors."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in blocks.items()}
+
+
+def embed_tokens(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def unembed(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = layers.linear(x, params["embed"].T)
+    else:
+        logits = layers.linear(x, params["lm_head"])
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def init_cache(cfg, batch: int, max_len: int, device) -> Params:
+    one = attention.init_kv_cache(cfg, batch, max_len, device)
+    return {k: v.unsqueeze(0).repeat(cfg.n_layers, *([1] * v.dim()))
+            for k, v in one.items()}
+
+
+def cache_slot_axes(cfg) -> Params:
+    return attention.kv_cache_slot_axes(cfg, axis=1)
+
+
+def _layer_cache(cache: Params, i: int) -> Params:
+    return {k: v[i] for k, v in cache.items()}
+
+
+def _mlp_residual(cfg, bp: Params, x: torch.Tensor) -> torch.Tensor:
+    return x + layers.mlp_apply(cfg, bp["mlp"],
+                                layers.apply_norm(cfg, bp["ln_mlp"], x))
+
+
+def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
+               lengths: torch.Tensor, q_lens: torch.Tensor):
+    """Mixed prefill/decode step: tokens (B, C); ``lengths`` (B,) = valid
+    cache tokens BEFORE this step; ``q_lens`` (B,) = live tokens per row.
+    Returns (logits (B, V) of each row's LAST live token, cache)."""
+    b, c = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    pos = lengths[:, None] + torch.arange(c, dtype=lengths.dtype,
+                                          device=tokens.device)[None, :]
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        lc = _layer_cache(cache, i)
+        h, _ = attention.attn_mixed(
+            cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
+            lc, lengths, q_lens)
+        x = _mlp_residual(cfg, bp, x + h)
+    # only each row's last live position reaches the LM head
+    idx = torch.clamp(q_lens - 1, 0, c - 1).long()
+    x_last = x[torch.arange(b, device=x.device), idx][:, None]
+    x_last = layers.apply_norm(cfg, params["ln_f"], x_last)
+    return unembed(cfg, params, x_last)[:, 0], cache
+
+
+def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
+                lengths: torch.Tensor, *,
+                write_mask: torch.Tensor | None = None):
+    """One decode step: tokens (B, 1); ``lengths`` (B,) = context length
+    including this token.  Returns (logits (B, V), cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    pos = (lengths - 1)[:, None]
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        lc = _layer_cache(cache, i)
+        h, _ = attention.attn_decode(
+            cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
+            lc, lengths, write_mask=write_mask)
+        x = _mlp_residual(cfg, bp, x + h)
+    x = layers.apply_norm(cfg, params["ln_f"], x)
+    return unembed(cfg, params, x)[:, 0], cache

@@ -1,0 +1,304 @@
+"""Serving engine: chunked-prefill continuous batching over one slot cache.
+
+Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
+
+* **One resident cache.**  ``api.init_cache(cfg, B, max_len)`` allocates a
+  single slot cache on the device for the engine's lifetime; requests lease
+  a slot.
+* **One dispatch per tick.**  ``api.mixed_step`` advances every slot in one
+  call (row ``b`` by ``q_lens[b]`` tokens: 1 for a decoding row, up to the
+  chunk width for a row mid-prefill); a tick with no prompt chunk in flight
+  runs ``api.decode_step``.  Prompts stream in chunk-width pieces
+  (Sarathi-style) beside the decode rows, so admission costs no extra
+  dispatch.  Chunk widths are bucketed by ``TokenBuckets``.
+* **True-length accounting.**  Slots track the request's real token count;
+  K/V land at real positions and a prompt is admissible whenever
+  ``len(prompt) <= max_len``.
+* **Greedy on the device.**  The argmax runs on the device; only the token
+  ids come back, unless a ``sample`` hook asks for the logits.
+
+The engine ≡ oracle contract holds: every token stream equals
+``reference_decode`` (batch-1 sequential decode), because the kernels reduce
+every row in an order independent of the batch and the chunk width.
+
+Left for later slices, and not accepted as arguments: the paged layout,
+int8 KV, speculation, prefix sharing, the request lifecycle and preemption,
+quarantine, audits, chaos and snapshots.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.compiler import TokenBuckets
+from repro_torch.models import api
+from repro_torch.models.attention import check_supported
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray               # (len,) int32
+    max_new_tokens: int = 32
+    # filled by the engine:
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    submitted_at: float = 0.0
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    token_times: list = dataclasses.field(default_factory=list)
+
+
+class RunResult(list):
+    """``Engine.run``'s return value: the requests finished during the call,
+    plus ``truncated`` (``max_steps`` ran out with work left) and the
+    ``in_flight`` / ``queued`` counts at return."""
+
+    def __init__(self, reqs=(), *, truncated: bool = False,
+                 in_flight: int = 0, queued: int = 0):
+        super().__init__(reqs)
+        self.truncated = truncated
+        self.in_flight = in_flight
+        self.queued = queued
+
+    @property
+    def drained(self) -> bool:
+        return not (self.truncated or self.in_flight or self.queued)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side mirror of one row of the resident cache."""
+    req: Request | None = None
+    length: int = 0                  # TRUE tokens resident in this row
+    pos: int = 0                     # prompt tokens consumed (chunk cursor)
+    last_token: int = 0              # input token for the next decode step
+
+    @property
+    def prefilling(self) -> bool:
+        return self.req is not None and self.pos < len(self.req.prompt)
+
+
+class Engine:
+    """Continuous-batching engine: one mixed-batch dispatch per tick."""
+
+    def __init__(self, cfg, params: Any, *, batch_size: int = 4,
+                 max_len: int = 512, eos_id: int | None = None,
+                 chunk_size: int = 64, device="cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.batch = batch_size
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = torch.device(device)
+        # >= 2 so a mixed tick never takes mixed_step's C == 1 delegation
+        self.chunk_size = max(2, min(chunk_size, max_len))
+        self.chunk_buckets = TokenBuckets(
+            max_tokens=self.chunk_size, min_bucket=min(16, self.chunk_size))
+        self._queue: "collections.deque[Request]" = collections.deque()
+        self.cache = api.init_cache(cfg, batch_size, max_len, self.device)
+        self._slots = [_Slot() for _ in range(batch_size)]
+        self.steps = 0
+        self.dispatches = 0          # must equal steps: one dispatch per tick
+        self.mixed_ticks = 0
+        self._occupancy_sum = 0.0
+
+    # -- client API ----------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) == 0:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if req.max_new_tokens < 1:
+            raise ValueError(f"request {req.rid}: max_new_tokens must be "
+                             f">= 1, got {req.max_new_tokens}")
+        if len(req.prompt) > self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt length {len(req.prompt)} exceeds "
+                f"engine max_len {self.max_len} — raise max_len or truncate")
+        req.submitted_at = time.monotonic()
+        self._queue.append(req)
+
+    # -- internals -----------------------------------------------------------
+
+    def _free_slot(self, idx: int) -> None:
+        """Retire a row: a host-side release only.  The dead row's stale KV
+        hides behind true-length masking until the next occupant writes."""
+        self._slots[idx] = _Slot()
+
+    def _schedule_chunks(self) -> list[int]:
+        """This tick's per-slot prompt-chunk sizes (0 for non-prefill rows):
+        every mid-prefill row advances by up to one chunk width."""
+        return [min(self.chunk_size, len(s.req.prompt) - s.pos)
+                if s.prefilling else 0 for s in self._slots]
+
+    def _emit(self, idx: int, token: int, completed: list[Request],
+              first: bool) -> None:
+        """Record one generated token; finish and free the slot when done."""
+        slot = self._slots[idx]
+        req = slot.req
+        now = time.monotonic()
+        if first:
+            req.first_token_at = now
+        req.output.append(token)
+        req.token_times.append(now)
+        slot.last_token = token
+        if (len(req.output) >= req.max_new_tokens or
+                slot.length >= self.max_len or   # no cache room to decode into
+                (self.eos_id is not None and token == self.eos_id)):
+            req.done = True
+            req.finished_at = now
+            completed.append(req)
+            self._free_slot(idx)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def run(self, *, max_steps: int = 10_000,
+            sample: Callable | None = None) -> RunResult:
+        """Drain the queue; returns the requests finished during the call.
+
+        Each tick: (1) refill free slots from the queue (a host-side lease),
+        (2) co-schedule prompt chunks with decode rows, (3) advance ALL slots
+        with exactly one call — ``mixed_step`` when any prompt chunk is in
+        flight, ``decode_step`` otherwise — and consume the tokens.
+        ``sample`` maps a logits row (V,) to a token id; greedy argmax on
+        the device when None."""
+        completed: list[Request] = []
+        start_steps = self.steps
+        while self.steps - start_steps < max_steps:
+            for i in range(self.batch):
+                if self._slots[i].req is None and self._queue:
+                    self._slots[i] = _Slot(req=self._queue.popleft())
+            live = [i for i, s in enumerate(self._slots) if s.req is not None]
+            if not live:
+                break
+            chunks = self._schedule_chunks()
+            decoding = [i for i in live if not self._slots[i].prefilling]
+
+            if any(chunks):
+                # mixed tick: prompt chunks + decode rows, one dispatch
+                w = self.chunk_buckets.bucket(max(max(chunks), 2))
+                tokens = np.zeros((self.batch, w), np.int32)
+                lengths = np.zeros(self.batch, np.int32)
+                q_lens = np.zeros(self.batch, np.int32)
+                for i, s in enumerate(self._slots):
+                    lengths[i] = s.length
+                    if chunks[i]:
+                        q_lens[i] = chunks[i]
+                        tokens[i, :chunks[i]] = \
+                            s.req.prompt[s.pos:s.pos + chunks[i]]
+                    elif i in decoding:
+                        q_lens[i] = 1
+                        tokens[i, 0] = s.last_token
+                logits, self.cache = api.mixed_step(
+                    self.cfg, self.params, self.cache,
+                    self._tensor(tokens).long(), self._tensor(lengths),
+                    self._tensor(q_lens))
+                self.mixed_ticks += 1
+            else:
+                # pure-decode tick (dead rows ride along, output ignored)
+                tokens = np.fromiter((s.last_token for s in self._slots),
+                                     np.int64, self.batch).reshape(-1, 1)
+                lengths = np.fromiter(
+                    (s.length + 1 if i in decoding else max(s.length, 1)
+                     for i, s in enumerate(self._slots)),
+                    np.int32, self.batch)
+                logits, self.cache = api.decode_step(
+                    self.cfg, self.params, self.cache, self._tensor(tokens),
+                    self._tensor(lengths))
+            next_np = torch.argmax(logits, dim=-1).cpu().numpy()
+            logits_np = (logits.float().cpu().numpy() if sample is not None
+                         else None)
+            self.steps += 1
+            self.dispatches += 1
+            self._occupancy_sum += len(live) / self.batch
+
+            for i in live:
+                slot = self._slots[i]
+                if chunks[i]:
+                    slot.pos += chunks[i]
+                    slot.length += chunks[i]
+                    if slot.pos == len(slot.req.prompt):
+                        # final chunk: this row's logits are its first token
+                        tok = (int(next_np[i]) if sample is None
+                               else int(sample(logits_np[i])))
+                        self._emit(i, tok, completed, first=True)
+                elif i in decoding:
+                    slot.length += 1
+                    tok = (int(next_np[i]) if sample is None
+                           else int(sample(logits_np[i])))
+                    self._emit(i, tok, completed, first=False)
+        in_flight = sum(s.req is not None for s in self._slots)
+        truncated = (self.steps - start_steps >= max_steps and
+                     bool(in_flight or self._queue))
+        return RunResult(completed, truncated=truncated,
+                         in_flight=in_flight, queued=len(self._queue))
+
+    # -- metrics ---------------------------------------------------------------
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Mean fraction of slots live per tick (1.0 = saturated)."""
+        return self._occupancy_sum / self.steps if self.steps else 0.0
+
+    @staticmethod
+    def summarize(reqs: list[Request]) -> dict[str, float]:
+        if not reqs:
+            return {}
+        ttft = [r.first_token_at - r.submitted_at for r in reqs
+                if r.first_token_at is not None]
+        tps = [(len(r.output) - 1) /
+               max(r.finished_at - r.first_token_at, 1e-9)
+               for r in reqs
+               if r.finished_at and r.first_token_at and len(r.output) > 1]
+        itl = [dt for r in reqs for dt in np.diff(r.token_times).tolist()]
+        out = {"n": len(reqs),
+               "total_tokens": float(sum(len(r.output) for r in reqs)),
+               "completed": sum(r.done for r in reqs)}
+        if ttft:
+            out["mean_ttft_s"] = float(np.mean(ttft))
+            out["ttft_p50_s"] = float(np.percentile(ttft, 50))
+            out["ttft_p99_s"] = float(np.percentile(ttft, 99))
+        if tps:
+            out["mean_tokens_per_s"] = float(np.mean(tps))
+        if itl:
+            out["itl_p50_s"] = float(np.percentile(itl, 50))
+            out["itl_p99_s"] = float(np.percentile(itl, 99))
+        return out
+
+
+def reference_decode(cfg, params: Any, prompt: np.ndarray,
+                     max_new_tokens: int, *, max_len: int = 512,
+                     eos_id: int | None = None, device="cuda") -> list[int]:
+    """Per-request batch-1 greedy decode — the exact numerics oracle.
+
+    Teacher-forces the prompt through ``api.decode_step`` one token at a
+    time (true positions and lengths), then decodes greedily.  The engine
+    must match it token for token."""
+    if len(prompt) > max_len:
+        raise ValueError(f"prompt length {len(prompt)} exceeds {max_len}")
+    dev = torch.device(device)
+    cache = api.init_cache(cfg, 1, max_len, dev)
+    logits = None
+    n_cached = 0
+    for t in np.asarray(prompt).tolist():
+        n_cached += 1
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[t]], device=dev),
+            torch.tensor([n_cached], dtype=torch.int32, device=dev))
+    out = [int(torch.argmax(logits[0]))]
+    while (len(out) < max_new_tokens and n_cached < max_len and
+           (eos_id is None or out[-1] != eos_id)):
+        n_cached += 1
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[out[-1]]], device=dev),
+            torch.tensor([n_cached], dtype=torch.int32, device=dev))
+        out.append(int(torch.argmax(logits[0])))
+    return out

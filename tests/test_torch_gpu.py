@@ -1,0 +1,132 @@
+"""Card-only tests of the port's CUDA kernels (marker ``gpu``).
+
+Each hand kernel is held against its plain PyTorch version on the card, and
+the batch-invariance properties the engine's oracle parity rests on are
+checked bitwise.  This file imports nothing of JAX, so it runs on the
+machine with the card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+On a machine without a card every test skips (decided inside the
+``cuda`` fixture, never at import time)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.quant import quantize  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+# relative to max |reference|: bf16 rounding of f32 sums taken in another
+# order (2^-7), f32 accumulation order
+TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max()
+    assert float(err) <= TOL[dtype] * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,out_f", [(1, 128), (4, 644), (37, 1024)])
+def test_w4a16_kernel_matches_plain(cuda, dtype, tokens, out_f):
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    qt = quantize(_rand(gen, 384, out_f) * 0.05)
+    x = _rand(gen, tokens, 384, dtype=dtype)
+    before = _build.launches["w4a16_matmul"]
+    got = ops.w4a16_matmul(x, qt)
+    assert _build.launches["w4a16_matmul"] == before + 1
+    _close(got, ops.w4a16_matmul(x, qt, impl="torch"), dtype)
+    # batch invariance: a row alone equals the same row inside the batch
+    assert torch.equal(ops.w4a16_matmul(x[:1], qt), got[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+def test_ffn_kernel_matches_plain(cuda, dtype, activation):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d, f = 256, 384
+    gate, up = (quantize(_rand(gen, d, f) * 0.05) for _ in range(2))
+    down = quantize(_rand(gen, f, d) * 0.05)
+    x = _rand(gen, 9, d, dtype=dtype)
+    got = ops.ffn_w4a16(x, gate, up, down, activation=activation)
+    want = ops.ffn_w4a16(x, gate, up, down, activation=activation,
+                         impl="torch")
+    _close(got, want, dtype)
+    assert torch.equal(ops.ffn_w4a16(x[:2], gate, up, down,
+                                     activation=activation), got[:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("head_dim", [32, 128])
+def test_attention_kernel_matches_plain(cuda, dtype, window, head_dim):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hq, hkv, c, max_len = 3, 8, 2, 16, 192
+    q = _rand(gen, b, hq, c, head_dim, dtype=dtype)
+    k = _rand(gen, b, hkv, max_len, head_dim, dtype=dtype)
+    v = _rand(gen, b, hkv, max_len, head_dim, dtype=dtype)
+    lengths = torch.tensor([20, 1, 180], dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor([16, 1, 5], dtype=torch.int32, device="cuda")
+    got = ops.mixed_attention(q, k, v, lengths, q_lens, window=window)
+    _close(got, ops.mixed_attention(q, k, v, lengths, q_lens, window=window,
+                                    impl="torch"), dtype)
+    assert bool((got[1, :, 1:] == 0).all()) and \
+        bool((got[2, :, 5:] == 0).all())
+    # q_lens = 1 inside a C = 16 chunk is bitwise the C = 1 result
+    one = ops.mixed_attention(q[:, :, :1].contiguous(), k, v, lengths,
+                              torch.ones_like(q_lens), window=window)
+    assert torch.equal(got[1, :, 0], one[1, :, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_batch_invariant(cuda, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = _rand(gen, 64, 4096, dtype=dtype)
+    gamma = (1 + 0.1 * _rand(gen, 4096)).to(dtype)
+    got = rmsnorm(x, gamma)
+    _close(got, rmsnorm(x, gamma, impl="torch"), dtype)
+    assert torch.equal(rmsnorm(x[:3], gamma), got[:3])
+
+
+def test_engine_matches_oracle_on_card(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, head_dim=128,
+                           n_heads=2, n_kv_heads=1, d_model=256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
+                    device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run()
+    assert len(done) == 6
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda")

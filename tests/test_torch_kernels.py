@@ -1,0 +1,250 @@
+"""The port's kernel ops against the JAX reference on the CPU.
+
+Each plain PyTorch version (what a CPU tensor runs) is held against the
+reference's ``impl="xla"`` twin, its ``impl="ref"`` oracle and the Pallas
+kernel in interpret mode, on the same numpy inputs, in float32 with the
+2e-4 tolerance the reference's own kernel tests use (sums taken in another
+order by another library).  The CUDA kernels themselves are held against
+these plain versions on the card (``tests/test_torch_gpu.py`` and
+``chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.quant import quantize as jax_quantize  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.decode_flash import mixed_flash_attention_pallas  # noqa: E402
+from repro.kernels.ffn_fused import ffn_fused_w4a16_pallas  # noqa: E402
+from repro.kernels.w4a16_matmul import w4a16_matmul_pallas  # noqa: E402
+from repro.kernels.xla_attention import mixed_attention_blocked  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.decode_flash import (  # noqa: E402
+    kv_block_size, mixed_attention_torch)
+from repro_torch.kernels.ffn_fused import ffn_w4a16_torch  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch  # noqa: E402
+from repro_torch.kernels.w4a16_matmul import w4a16_matmul_torch  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _port_qt(jqt):
+    return interop.params_from_numpy(
+        {"w": jax_tree_np(jqt)}, "cpu")["w"]
+
+
+def jax_tree_np(jqt):
+    return type("QT", (), {"packed": np.asarray(jqt.packed),
+                           "scales": np.asarray(jqt.scales),
+                           "shape": jqt.shape,
+                           "group_size": jqt.group_size})()
+
+
+def _weights(rng, in_f, out_f):
+    w = rng.normal(size=(in_f, out_f)).astype(np.float32) / np.sqrt(in_f)
+    jqt = jax_quantize(jnp.asarray(w))
+    return jqt, _port_qt(jqt)
+
+
+# -- w4a16_matmul ------------------------------------------------------------
+
+@pytest.mark.parametrize("tokens", [1, 33])
+@pytest.mark.parametrize("out_f", [128, 384, 1024])
+def test_w4a16_plain_matches_reference(tokens, out_f):
+    rng = np.random.default_rng(tokens * 7 + out_f)
+    jqt, tqt = _weights(rng, 256, out_f)
+    x = rng.normal(size=(tokens, 256)).astype(np.float32)
+    got = w4a16_matmul_torch(torch.from_numpy(x), tqt).numpy()
+    jx = jnp.asarray(x)
+    for want in (jops.w4a16_matmul(jx, jqt, impl="xla"),
+                 w4a16_matmul_pallas(jx, jqt, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        got, ops.w4a16_matmul(torch.from_numpy(x), tqt, impl="ref").numpy(),
+        **TOL)
+
+
+def test_w4a16_ragged_out_and_lead_dims():
+    """out = 640 (not a multiple of the 512-wide output block): the
+    reference's Pallas kernel refuses it, as it refuses qwen-7b's 151936-wide
+    lm_head; the port's plain version (and kernel) take it."""
+    rng = np.random.default_rng(3)
+    jqt, tqt = _weights(rng, 128, 640)
+    x = rng.normal(size=(2, 3, 128)).astype(np.float32)
+    got = ops.w4a16_matmul(torch.from_numpy(x), tqt)
+    assert got.shape == (2, 3, 640)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jops.w4a16_matmul(jnp.asarray(x), jqt,
+                                                  impl="xla")), **TOL)
+    with pytest.raises(ValueError, match="block_out"):
+        w4a16_matmul_pallas(jnp.asarray(x), jqt, interpret=True)
+
+
+# -- ffn ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+@pytest.mark.parametrize("tokens", [3, 40])
+def test_ffn_plain_matches_reference(activation, tokens):
+    rng = np.random.default_rng(tokens)
+    d, f = 128, 256
+    gj, gt = _weights(rng, d, f)
+    uj, ut = _weights(rng, d, f)
+    dj, dt = _weights(rng, f, d)
+    x = rng.normal(size=(tokens, d)).astype(np.float32)
+    kw = {}
+    if activation == "gelu":
+        ub = rng.normal(size=(f,)).astype(np.float32) * 0.1
+        db = rng.normal(size=(d,)).astype(np.float32) * 0.1
+        kw = {"up_bias": ub, "down_bias": db}
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    tkw = {k: torch.from_numpy(v) for k, v in kw.items()}
+    got = ffn_w4a16_torch(torch.from_numpy(x), gt, ut, dt,
+                          activation=activation, **tkw).numpy()
+    jx = jnp.asarray(x)
+    wants = [
+        jops.ffn_w4a16(jx, gj, uj, dj, activation=activation, impl="xla",
+                       **jkw),
+        jops.ffn_w4a16(jx, gj, uj, dj, activation=activation, impl="ref",
+                       **jkw),
+        ffn_fused_w4a16_pallas(jx, gj, uj, dj, activation=activation,
+                               interpret=True, **jkw),
+    ]
+    for want in wants:
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# -- attention ---------------------------------------------------------------
+
+def _attn_operands(*, hq=8, hkv=2, c=16, d=32, max_len=128):
+    rng = np.random.default_rng(0)
+    b = 3
+    q = rng.normal(size=(b, hq, c, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, max_len, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, max_len, d)).astype(np.float32)
+    lengths = np.asarray([20, 1, 97], np.int32)       # incl. the chunk
+    q_lens = np.asarray([16, 1, 5], np.int32)
+    return q, k, v, lengths, q_lens
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("hkv", [2, 1])
+def test_mixed_attention_plain_matches_reference(window, hkv):
+    q, k, v, lengths, q_lens = _attn_operands(hkv=hkv)
+    got = mixed_attention_torch(*_t(q, k, v, lengths, q_lens),
+                                window=window).numpy()
+    j = [jnp.asarray(a) for a in (q, k, v, lengths, q_lens)]
+    wants = [
+        jops.mixed_attention(*j, window=window, impl="ref"),
+        mixed_attention_blocked(*j, window=window),
+        mixed_flash_attention_pallas(*j, window=window, interpret=True),
+    ]
+    for want in wants:
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        got, ops.mixed_attention(*_t(q, k, v, lengths, q_lens),
+                                 window=window, impl="ref").numpy(), **TOL)
+
+
+def test_decode_attention_matches_reference():
+    q, k, v, lengths, _ = _attn_operands(c=1)
+    got = ops.decode_attention(*_t(q, k, v, lengths)).numpy()
+    want = jops.decode_attention(*[jnp.asarray(a) for a in (q, k, v,
+                                                            lengths)],
+                                 impl="xla")
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_dead_queries_exact_zero():
+    q, k, v, lengths, q_lens = _attn_operands()
+    out = ops.mixed_attention(*_t(q, k, v, lengths, q_lens))
+    assert torch.equal(out[2, :, 5:], torch.zeros_like(out[2, :, 5:]))
+    assert torch.equal(out[1, :, 1:], torch.zeros_like(out[1, :, 1:]))
+
+
+def test_qlen1_bitwise_equals_decode():
+    """A chunk of one is literally the decode contract."""
+    q, k, v, lengths, _ = _attn_operands(c=1)
+    dec = ops.decode_attention(*_t(q, k, v, lengths))
+    mix = ops.mixed_attention(*_t(q, k, v, lengths),
+                              torch.ones(3, dtype=torch.int32))
+    assert torch.equal(dec, mix)
+
+
+def test_qlen1_inside_chunk_matches_decode():
+    """Row 1 has q_lens = 1 inside a C = 16 chunk: the same value as the
+    C = 1 call (bitwise on the card; within tolerance for the CPU plain
+    version, whose matmuls change shape with C)."""
+    q, k, v, lengths, q_lens = _attn_operands()
+    chunk = ops.mixed_attention(*_t(q, k, v, lengths, q_lens))
+    one = ops.decode_attention(*_t(np.ascontiguousarray(q[:, :, :1]), k, v,
+                                   lengths))
+    np.testing.assert_allclose(chunk[1, :, 0].numpy(), one[1, :, 0].numpy(),
+                               **TOL)
+
+
+def test_kv_block_size_matches_reference():
+    from repro.kernels.decode_flash import kv_block_size as jax_kv_block
+    for n in (1, 7, 96, 128, 500, 512, 4096):
+        assert kv_block_size(n, 128) == jax_kv_block(n, 128)
+
+
+# -- rmsnorm and rope --------------------------------------------------------
+
+def test_rmsnorm_matches_reference():
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(5, 3, 256)).astype(np.float32)
+    g = rng.normal(size=(256,)).astype(np.float32)
+    got = rmsnorm(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    want = jlayers.rmsnorm(jnp.asarray(x), jnp.asarray(g))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert np.array_equal(got, rmsnorm_torch(*_t(x, g)).numpy())
+
+
+def test_rope_matches_reference():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 4, 7, 32)).astype(np.float32)
+    pos = rng.integers(0, 500, size=(2, 7)).astype(np.int32)
+    got = tlayers.apply_rope(*_t(x, pos), 10000.0).numpy()
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# -- dispatch ----------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version():
+    rng = np.random.default_rng(6)
+    _, tqt = _weights(rng, 128, 256)
+    x = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32))
+    assert torch.equal(ops.w4a16_matmul(x, tqt), w4a16_matmul_torch(x, tqt))
+    assert not _build.launches
+
+
+@pytest.mark.parametrize("op", ["w4a16", "ffn", "attention", "rmsnorm"])
+def test_cuda_impl_refuses_cpu_tensors(op):
+    """A CUDA wrapper never falls back: on a CPU tensor it raises."""
+    rng = np.random.default_rng(7)
+    _, tqt = _weights(rng, 128, 128)
+    x = torch.from_numpy(rng.normal(size=(2, 128)).astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        if op == "w4a16":
+            ops.w4a16_matmul(x, tqt, impl="cuda")
+        elif op == "ffn":
+            ops.ffn_w4a16(x, tqt, tqt, tqt, impl="cuda")
+        elif op == "attention":
+            q, k, v, lengths, q_lens = _attn_operands()
+            ops.mixed_attention(*_t(q, k, v, lengths, q_lens), impl="cuda")
+        else:
+            rmsnorm(x, torch.ones(128), impl="cuda")
