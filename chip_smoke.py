@@ -11,18 +11,26 @@ Phases (any failure ends the run with a nonzero exit code):
                  ``nvcc``, one process per source, with the ``-Xptxas -v``
                  report (registers, shared memory, spills);
   3. kernels  — each kernel against its plain PyTorch version at qwen-7b's
-                 shapes, with the tolerance stated; kernel, plain and
-                 library-call times (CUDA events, L2 flushed before each
-                 launch) beside the bound the card could reach;
+                 shapes, with the tolerance stated (the sparse ones at the
+                 layouts strategy1-3 give wo and the FFN); kernel, plain
+                 and library-call times (CUDA events, L2 flushed before
+                 each launch) beside the bound the card could reach; T=4
+                 rows bitwise equal inside T=256;
   4. model    — qwen-7b at full width and depth, random weights from a
-                 seeded generator, W4A16 ("dense"): mixed_step over a
-                 13-token prompt in 8-token chunks is bitwise equal to 13
-                 sequential decode steps (logits and cache);
-  5. serving  — the engine serves 9 requests; every token stream equals
-                 ``reference_decode`` and the kernel launch counts show the
-                 whole path ran through the kernels;
+                 seeded generator, quantized "dense" (W4A16), "strategy2"
+                 and "strategy3" (log-scale sparse), one model at a time:
+                 mixed_step over a 13-token prompt in 8-token chunks is
+                 bitwise equal to 13 sequential decode steps (logits and
+                 cache);
+  5. serving  — with each of the three models, the engine serves 9
+                 requests; every token stream equals ``reference_decode``
+                 and the kernel launch counts (reset before each model's
+                 run, read just after it) equal layers x calls x ticks as
+                 the weights' types route them;
   6. the ``kernels`` JSON line, the card's name and power limit, and the
-     final ``{"ok": true, ...}`` line.
+     final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
+     count of one path's own run (``launches_path``: the path of the slice
+     that ported it); ``launches_by_path`` gives every path's count.
 
 The script imports nothing of JAX.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -233,6 +241,8 @@ def check_kernels(torch, timer, results: dict) -> dict:
             if (t, dname) == (4, "bfloat16"):
                 line["ffn_fused_w4a16"] = row
 
+    line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
+
     # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
     b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
     lengths = torch.tensor([300, 64, 512, 40], dtype=torch.int32,
@@ -326,6 +336,177 @@ def check_kernels(torch, timer, results: dict) -> dict:
     return line
 
 
+def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
+    """Kernels 4 and 5 at the layouts the compiler gives qwen-7b: ``wo``
+    (4096 -> 4096) at density 0.5, and the FFN (4096 -> 11008 -> 4096) of
+    strategy1-3, whose ``down`` is tile_uniform sparse (1, 2) or
+    dense-quantized (3)."""
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.core.quant import dequantize
+    from repro_torch.core.sparsity import (
+        SparseQuantizedTensor, sparse_dequantize)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles,
+        tile_subset)
+
+    line = {}
+    d, f = 4096, 11008
+    bf16 = torch.bfloat16
+
+    def dense_of(w):
+        return (sparse_dequantize(w, bf16)
+                if isinstance(w, SparseQuantizedTensor) else
+                dequantize(w, bf16))
+
+    # -- sparse_w4a16_matmul: wo, S = 16 of 32 blocks per output tile
+    wo = quantize_model({"wo": randn(d, d, dtype=torch.float32) * 0.02},
+                        "strategy2")["wo"]
+    need(isinstance(wo, SparseQuantizedTensor)
+         and wo.kept_blocks == d // 128 // 2,
+         "wo at density 0.5 does not keep half its blocks")
+    for dtype, tokens in ((bf16, (4, 256)), (torch.float32, (4,))):
+        dname = str(dtype).split(".")[1]
+        for t in tokens:
+            x = randn(t, d, dtype=dtype)
+            got = ops.sparse_w4a16_matmul(x, wo)
+            want = ops.sparse_w4a16_matmul(x, wo, impl="torch")
+            err, rel = max_errs(got, want)
+            need(rel <= tol[dname], f"sparse_w4a16 T={t} {dname}: rel err "
+                 f"{rel:.3g} > {tol[dname]}")
+            row = {"kernel": "sparse_w4a16_matmul", "dtype": dname, "T": t,
+                   "in": d, "out": d, "kept_blocks": wo.kept_blocks,
+                   "max_abs_err": err, "max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == bf16:
+                row["ms"] = timer.ms(lambda: ops.sparse_w4a16_matmul(x, wo),
+                                     20)
+                row["plain_ms"] = timer.ms(
+                    lambda: ops.sparse_w4a16_matmul(x, wo, impl="torch"), 3)
+                row["library_ms"] = timer.ms(lambda: x @ dense_of(wo), 5)
+                nbytes = x.numel() * 2 + wo.nbytes_model + t * d * 2
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 2 * t * wo.kept_blocks * 128 * d, dname)
+            rows.append(row)
+            log(f"  sparse_w4a16 (wo) {dname} T={t:3d}: max_abs {err:.3g} "
+                f"rel {rel:.3g} (tol {tol[dname]})"
+                + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                   f" ms library {row['library_ms']:.4f} ms bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                   if "ms" in row else ""))
+            if (t, dname) == (4, "bfloat16"):
+                line["sparse_w4a16_matmul"] = row
+    x = randn(256, d)
+    need(torch.equal(ops.sparse_w4a16_matmul(x[:4], wo),
+                     ops.sparse_w4a16_matmul(x, wo)[:4]),
+         "sparse_w4a16: rows differ between T=4 and T=256")
+    log("  sparse_w4a16: T=4 rows bitwise equal inside T=256")
+    del wo
+
+    # -- ffn_fused_sparse (+ the down projection): the FFN of strategy1-3
+    for strategy in ("strategy1", "strategy2", "strategy3"):
+        w = quantize_model(
+            {"gate": randn(d, f, dtype=torch.float32) * 0.02,
+             "up": randn(d, f, dtype=torch.float32) * 0.02,
+             "down": randn(f, d, dtype=torch.float32) * 0.02}, strategy)
+        gate, up, down = w["gate"], w["up"], w["down"]
+        tiles = kept_f_tiles(down)
+        n_f = f // 128 if tiles is None else tiles.numel()
+        cols = (torch.arange(f, device="cuda") if tiles is None else
+                (tiles.long()[:, None] * 128
+                 + torch.arange(128, device="cuda")).reshape(-1))
+        gate_k, up_k = ((gate, up) if tiles is None else
+                        (tile_subset(gate, tiles), tile_subset(up, tiles)))
+        layout = (f"gate/up S={gate.kept_blocks}, down "
+                  + (f"sparse S={down.kept_blocks} (f-tiles kept {n_f} of "
+                     f"{f // 128})" if tiles is not None else "dense"))
+        dtypes = ((bf16, (4, 256)), (torch.float32, (4,)))
+        for dtype, tokens in dtypes:
+            dname = str(dtype).split(".")[1]
+            for t in tokens:
+                x = randn(t, d, dtype=dtype)
+                h_got = ffn_gate_up_sparse_cuda(x, gate, up, "swiglu",
+                                                tiles)[:, cols]
+                h_want = ffn_gate_up_sparse_torch(x, gate, up, "swiglu",
+                                                  tiles)
+                herr, hrel = max_errs(h_got, h_want)
+                got = ops.ffn_w4a16(x, gate, up, down)
+                want = ops.ffn_w4a16(x, gate, up, down, impl="torch")
+                err, rel = max_errs(got, want)
+                need(hrel <= tol[dname] and rel <= tol[dname],
+                     f"sparse ffn {strategy} T={t} {dname}: hidden rel "
+                     f"{hrel:.3g}, out rel {rel:.3g} > {tol[dname]}")
+                row = {"kernel": "ffn_fused_sparse", "strategy": strategy,
+                       "dtype": dname, "T": t, "d": d, "f": f,
+                       "gate_up_kept_blocks": gate.kept_blocks,
+                       "f_tiles": n_f,
+                       "down": ("sparse" if tiles is not None else "dense"),
+                       "max_abs_err": herr, "max_rel_err": hrel,
+                       "ffn_max_abs_err": err, "ffn_max_rel_err": rel,
+                       "tol_rel": tol[dname]}
+                if dtype == bf16:
+                    row["ms"] = timer.ms(lambda: ffn_gate_up_sparse_cuda(
+                        x, gate, up, "swiglu", tiles), 20)
+                    row["plain_ms"] = timer.ms(
+                        lambda: ffn_gate_up_sparse_torch(
+                            x, gate, up, "swiglu", tiles), 3)
+
+                    def lib():
+                        gg = x @ dense_of(gate_k)
+                        uu = x @ dense_of(up_k)
+                        return torch.nn.functional.silu(gg) * uu
+
+                    def ffn_lib():
+                        gg = x @ dense_of(gate)
+                        uu = x @ dense_of(up)
+                        h = torch.nn.functional.silu(gg) * uu
+                        return h @ dense_of(down)
+                    row["library_ms"] = timer.ms(lib, 5)
+                    row["ffn_ms"] = timer.ms(
+                        lambda: ops.ffn_w4a16(x, gate, up, down), 20)
+                    row["ffn_plain_ms"] = timer.ms(
+                        lambda: ops.ffn_w4a16(x, gate, up, down,
+                                              impl="torch"), 3)
+                    row["ffn_library_ms"] = timer.ms(ffn_lib, 5)
+                    # what this data needs: the kept f-tiles' gate/up
+                    # blocks, down as stored, x in, hidden or out written
+                    gu_bytes = gate_k.nbytes_model + up_k.nbytes_model
+                    gu_flops = 2 * 2 * t * gate.kept_blocks * 128 * n_f * 128
+                    row["bound_ms"], row["bound_by"] = bound(
+                        x.numel() * 2 + gu_bytes + t * n_f * 128 * 2,
+                        gu_flops, dname)
+                    down_rows = (down.kept_blocks * 128 if tiles is not None
+                                 else f)
+                    row["ffn_bytes"] = (x.numel() * 2 + gu_bytes
+                                        + down.nbytes_model + t * d * 2)
+                    row["ffn_bound_ms"], _ = bound(
+                        row["ffn_bytes"], gu_flops + 2 * t * down_rows * d,
+                        dname)
+                rows.append(row)
+                log(f"  sparse ffn {strategy} ({layout}) {dname} T={t:3d}: "
+                    f"hidden max_abs {herr:.3g} rel {hrel:.3g}; ffn max_abs "
+                    f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
+                    + (f"  gate/up kernel {row['ms']:.4f} ms plain "
+                       f"{row['plain_ms']:.4f} ms library "
+                       f"{row['library_ms']:.4f} ms bound "
+                       f"{row['bound_ms']:.4f} ms; whole ffn "
+                       f"{row['ffn_ms']:.4f} ms (plain "
+                       f"{row['ffn_plain_ms']:.4f}, library "
+                       f"{row['ffn_library_ms']:.4f}, bound "
+                       f"{row['ffn_bound_ms']:.4f}, "
+                       f"{row['ffn_bytes'] / 1e6:.2f} MB)"
+                       if "ms" in row else ""))
+                if (strategy, t, dname) == ("strategy2", 4, "bfloat16"):
+                    line["ffn_fused_sparse"] = row
+        x = randn(256, d)
+        need(torch.equal(ops.ffn_w4a16(x[:4], gate, up, down),
+                         ops.ffn_w4a16(x, gate, up, down)[:4]),
+             f"sparse ffn {strategy}: rows differ between T=4 and T=256")
+        log(f"  sparse ffn {strategy}: T=4 rows bitwise equal inside T=256")
+        del w, gate, up, down, gate_k, up_k
+    return line
+
+
 def attention_work(lengths, q_lens, hq, hkv, d, c, elt=2):
     """Bytes and operations the attention call needs on these inputs: q,
     the live K/V rows, out; 4*d operations per (query head, visible key)."""
@@ -357,24 +538,27 @@ def sdpa_yardstick(torch, q, kc, vc, lengths, q_lens):
 
 # -- phase 4 and 5: the model and the engine --------------------------------
 
-def build_model(torch):
+def build_model(torch, strategy):
     from repro_torch.configs import get_config
     from repro_torch.core.compiler import quantize_model, quantized_bytes
     from repro_torch.models import api
     cfg = get_config("qwen-7b")
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    params = quantize_model(api.init_params(cfg, gen), "dense")
+    params = quantize_model(api.init_params(cfg, gen), strategy)
     torch.cuda.synchronize()
-    log(f"  qwen-7b: {cfg.n_layers} layers d={cfg.d_model} "
+    kinds = {k: type(v).__name__ for k, v in {
+        **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
+        if k in ("wq", "wo", "gate", "down")}
+    log(f"  qwen-7b {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size}; W4A16 params "
+        f"vocab={cfg.vocab_size}; {kinds}; packed params "
         f"{quantized_bytes(params) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
-def check_mixed_equals_sequential(torch, cfg, params, results):
+def check_mixed_equals_sequential(torch, cfg, params, results, strategy):
     import numpy as np
     from repro_torch.models import api
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 13)
@@ -398,15 +582,15 @@ def check_mixed_equals_sequential(torch, cfg, params, results):
     diff_layers = [i for i in range(cfg.n_layers)
                    if not (torch.equal(seq["k"][i], mix["k"][i]) and
                            torch.equal(seq["v"][i], mix["v"][i]))]
-    results["mixed_vs_sequential"] = {
+    results.setdefault("mixed_vs_sequential", {})[strategy] = {
         "logits_equal": same_logits, "cache_layers_differing": diff_layers,
         "logits_max_abs_diff": float((logits_seq.float()
                                       - logits_mix.float()).abs().max())}
     log(f"  mixed_step (C=8) vs 13 decode_steps: logits bitwise equal "
         f"{same_logits}; cache layers differing {diff_layers}")
     need(same_logits and not diff_layers,
-         "mixed_step is not bitwise equal to sequential decode_step "
-         f"(first differing cache layer: {diff_layers[:1]})")
+         f"{strategy}: mixed_step is not bitwise equal to sequential "
+         f"decode_step (first differing cache layer: {diff_layers[:1]})")
 
 
 def first_divergence(torch, cfg, params, prompt, got, max_len):
@@ -431,7 +615,40 @@ def first_divergence(torch, cfg, params, prompt, got, max_len):
     return None, None
 
 
-def serve(torch, cfg, params, results):
+def expected_launches(cfg, params, ticks):
+    """Launches per kernel for ``ticks`` engine ticks: layers x calls x
+    ticks, read from the weights' leaf types.  Each projection goes to the
+    W4A16 or the sparse kernel by its type; the FFN's gate/up to the kernel
+    ``fused_variant`` picks, its down to the kernel of down's type."""
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.core.sparsity import SparseQuantizedTensor
+    from repro_torch.kernels.ffn_fused import fused_variant
+
+    def matmul(w, name):
+        if isinstance(w, QuantizedTensor):
+            return "w4a16_matmul"
+        need(isinstance(w, SparseQuantizedTensor),
+             f"{name} is a {type(w).__name__}: no kernel serves it")
+        return "sparse_w4a16_matmul"
+
+    L = cfg.n_layers
+    per_tick = {"mixed_flash_attention": L, "rmsnorm": 2 * L + 1}
+
+    def add(kernel, n):
+        per_tick[kernel] = per_tick.get(kernel, 0) + n
+    attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+    for name in ("wq", "wk", "wv", "wo"):
+        add(matmul(attn[name], name), L)
+    variant = fused_variant(mlp["gate"], mlp["up"], mlp["down"],
+                            cfg.activation)
+    need(variant is not None, "the FFN weights take no CUDA path")
+    add("ffn_fused_w4a16" if variant == "quant" else "ffn_fused_sparse", L)
+    add(matmul(mlp["down"], "down"), L)
+    add(matmul(params["lm_head"], "lm_head"), 1)
+    return {k: ticks * n for k, n in per_tick.items()}
+
+
+def serve(torch, cfg, params, results, strategy):
     import numpy as np
     from repro_torch.kernels._build import launches
     from repro_torch.serving.engine import Engine, Request, reference_decode
@@ -459,11 +676,7 @@ def serve(torch, cfg, params, results):
     summary = Engine.summarize(done)
     n_tok = sum(len(r.output) for r in reqs)
     ticks = engine.steps
-    L = cfg.n_layers
-    expect = {"w4a16_matmul": ticks * (5 * L + 1),
-              "ffn_fused_w4a16": ticks * L,
-              "mixed_flash_attention": ticks * L,
-              "rmsnorm": ticks * (2 * L + 1)}
+    expect = expected_launches(cfg, params, ticks)
     log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed), {n_tok} "
         f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
         f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, peak "
@@ -482,7 +695,7 @@ def serve(torch, cfg, params, results):
                                "oracle_top2_margin": margin})
     log(f"  token streams equal to reference_decode: "
         f"{len(reqs) - len(mismatches)}/{len(reqs)} {mismatches or ''}")
-    results["serving"] = {
+    results.setdefault("serving", {})[strategy] = {
         "requests": len(reqs), "ticks": ticks,
         "mixed_ticks": engine.mixed_ticks, "tokens": n_tok,
         "wall_s": wall, "tokens_per_s": n_tok / wall,
@@ -491,23 +704,34 @@ def serve(torch, cfg, params, results):
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": counts, "expected_launches": expect,
         "mismatches": mismatches}
-    need(not mismatches, "engine token streams differ from reference_decode")
+    need(not mismatches, f"{strategy}: engine token streams differ from "
+         "reference_decode")
     return counts
 
 
 # -- main -------------------------------------------------------------------
 
+# kernel: (source, TPU kernel it replaces, the served path whose own run
+# gives its "launches": the path of the slice that ported it)
 KERNEL_META = {
     "w4a16_matmul": ("src/repro_torch/kernels/csrc/w4a16_matmul.cu",
-                     "src/repro/kernels/w4a16_matmul.py:78"),
+                     "src/repro/kernels/w4a16_matmul.py:78", "dense"),
     "ffn_fused_w4a16": ("src/repro_torch/kernels/csrc/ffn_fused.cu",
-                        "src/repro/kernels/ffn_fused.py:215"),
+                        "src/repro/kernels/ffn_fused.py:215", "dense"),
     "mixed_flash_attention": ("src/repro_torch/kernels/csrc/decode_flash.cu",
-                              "src/repro/kernels/decode_flash.py:181"),
+                              "src/repro/kernels/decode_flash.py:181",
+                              "dense"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/models/layers.py:65 (XLA in the reference, no "
-                "Pallas kernel)"),
+                "Pallas kernel)", "dense"),
+    "sparse_w4a16_matmul": ("src/repro_torch/kernels/csrc/sparse_w4a16.cu",
+                            "src/repro/kernels/sparse_w4a16.py:74",
+                            "strategy2"),
+    "ffn_fused_sparse": ("src/repro_torch/kernels/csrc/ffn_fused_sparse.cu",
+                         "src/repro/kernels/ffn_fused.py:455", "strategy2"),
 }
+# each model is built, checked (phase 4), served (phase 5) and freed in turn
+MODELS = ("dense", "strategy2", "strategy3")
 
 
 def main() -> int:
@@ -557,12 +781,17 @@ def main() -> int:
         del timer
         torch.cuda.empty_cache()
 
-        log("phase 4: qwen-7b, mixed_step vs sequential decode_step")
-        cfg, params = build_model(torch)
-        check_mixed_equals_sequential(torch, cfg, params, results)
-
-        log("phase 5: serving")
-        counts = serve(torch, cfg, params, results)
+        counts: dict = {}       # path -> that path's own launch counts
+        for strategy in MODELS:
+            log(f"phase 4 [{strategy}]: qwen-7b, mixed_step vs sequential "
+                "decode_step")
+            cfg, params = build_model(torch, strategy)
+            check_mixed_equals_sequential(torch, cfg, params, results,
+                                          strategy)
+            log(f"phase 5 [{strategy}]: serving")
+            counts[strategy] = serve(torch, cfg, params, results, strategy)
+            del params
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         write_details(results)
@@ -571,11 +800,14 @@ def main() -> int:
     write_details(results)
 
     kernels = []
-    for kname, (source, replaces) in KERNEL_META.items():
+    for kname, (source, replaces, path) in KERNEL_META.items():
         r = line[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts.get(kname, 0),
+            "replaces": replaces, "launches": counts[path].get(kname, 0),
+            "launches_path": path,
+            "launches_by_path": {p: c.get(kname, 0)
+                                 for p, c in counts.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

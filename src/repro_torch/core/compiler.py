@@ -1,11 +1,11 @@
 """Offline model compiler (EdgeLLM §IV), the port's subset.
 
 ``quantize_model`` walks the parameter tree and replaces every static weight
-matrix with its W4A16 :class:`QuantizedTensor`, exactly as
-``repro/core/compiler.py`` does for the ``"dense"`` strategy (paper Table II:
-every kind at density 1.0).  Stacked leading axes (layers) are quantized in
-one call.  The log-scale sparse strategies need the sparse kernels, which a
-later slice ports.
+matrix of the dense family with its packed form per a *sparse strategy*
+(paper Table II: a density per layer kind), exactly as
+``repro/core/compiler.py`` does: a :class:`QuantizedTensor` at density 1.0,
+a log-scale block-sparse :class:`SparseQuantizedTensor` below it.  Stacked
+layers are quantized matrix by matrix (the reference's ``vmap``).
 
 ``TokenBuckets`` keeps the engine's chunk widths on a bounded power-of-two
 set, so a later slice can capture one CUDA graph per width.
@@ -19,37 +19,90 @@ from typing import Any
 import torch
 
 from repro_torch.core.quant import GROUP_SIZE, QuantizedTensor, quantize
+from repro_torch.core.sparsity import (
+    BLOCKS_PER_GROUP, SparseQuantizedTensor, block_sparsify_quantize)
 
-STRATEGIES = ("none", "dense")
-_SPARSE_STRATEGIES = ("strategy1", "strategy2", "strategy3")
+# layer kind -> density (1.0 = dense-quantized)
+SPARSE_STRATEGIES: dict[str, dict[str, float]] = {
+    # paper Table II, GLM-6B
+    "dense": {"qkv": 1.0, "o": 1.0, "h_to_4h": 1.0, "4h_to_h": 1.0,
+              "head": 1.0},
+    "strategy1": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.5, "4h_to_h": 0.5,
+                  "head": 1.0},
+    "strategy2": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.25, "4h_to_h": 0.5,
+                  "head": 1.0},
+    "strategy3": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.25, "4h_to_h": 0.25,
+                  "head": 1.0},
+}
+STRATEGIES = ("none", *SPARSE_STRATEGIES)
 
-# leaf name -> quantized (the dense strategy quantizes every kind)
-_QUANTIZED_NAMES = {"wq", "wk", "wv", "wo", "gate", "up", "down", "lm_head"}
+# the dense family's weight names -> layer kind
+_KIND_BY_NAME = {"wq": "qkv", "wk": "qkv", "wv": "qkv", "wo": "o",
+                 "gate": "h_to_4h", "up": "h_to_4h", "down": "4h_to_h",
+                 "lm_head": "head"}
+
+
+def _quantize_2d(w: torch.Tensor, density: float, tile_uniform: bool):
+    """One (in, out) matrix, the reference's rules: 16-bit when it does not
+    tile; dense-quantized at density 1.0 or when no group size ``m`` in
+    (8, 4, 2) divides the block count with ``round(density * m) >= 1``.
+    Dense quantization takes a stack of matrices whole."""
+    in_f, out_f = w.shape[-2:]
+    if in_f % GROUP_SIZE or (density < 1.0 and out_f % GROUP_SIZE):
+        return w
+    if density >= 1.0:
+        return quantize(w)
+    n_blocks = in_f // GROUP_SIZE
+    for m in (BLOCKS_PER_GROUP, 4, 2):
+        if n_blocks % m == 0 and round(density * m) >= 1:
+            return block_sparsify_quantize(w, density, blocks_per_group=m,
+                                           tile_uniform=tile_uniform)
+    return quantize(w)
+
+
+def _stack(parts: list):
+    """Stack per-layer results (tensors, or packed tensors field by field)."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(parts)
+    return dataclasses.replace(first, **{
+        f.name: torch.stack([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(first)
+        if isinstance(getattr(first, f.name), torch.Tensor)})
+
+
+def _quantize_leaf(w: torch.Tensor, density: float, tile_uniform: bool):
+    """A pruned stack is quantized layer by layer (the reference's vmap):
+    each matrix keeps its own blocks."""
+    if w.ndim == 2 or density >= 1.0:
+        return _quantize_2d(w, density, tile_uniform)
+    return _stack([_quantize_leaf(layer, density, tile_uniform)
+                   for layer in w])
 
 
 def quantize_model(params: dict, strategy: str = "dense") -> dict:
-    """Tree transform: static weight matrices -> packed int4 (dense).
+    """Tree transform: static weight matrices -> packed int4 (+ sparse).
 
     Norms, biases and the embedding (a lookup) stay 16-bit, the paper's
     rule.  ``"none"`` returns the tree unchanged."""
-    if strategy in _SPARSE_STRATEGIES:
-        raise NotImplementedError(
-            f"strategy {strategy!r} needs the block-sparse W4A16 kernels "
-            "(sparse_w4a16_matmul_pallas, ffn_fused_sparse_pallas), which "
-            "a later slice of the port brings; use 'dense' or 'none'")
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     if strategy == "none":
         return params
+    dmap = SPARSE_STRATEGIES[strategy]
 
     def walk(tree, name=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
-        if (name in _QUANTIZED_NAMES and isinstance(tree, torch.Tensor)
-                and tree.is_floating_point() and tree.ndim >= 2
-                and tree.shape[-2] % GROUP_SIZE == 0):
-            return quantize(tree)
-        return tree
+        kind = _KIND_BY_NAME.get(name)
+        if (kind is None or not isinstance(tree, torch.Tensor)
+                or not tree.is_floating_point() or tree.ndim < 2):
+            return tree
+        # the down projection contracts over d_ff, the axis the fused FFN
+        # walks: one kept set for all its output tiles lets it skip the
+        # hidden tiles down drops (and their gate/up blocks)
+        return _quantize_leaf(tree, dmap[kind],
+                              tile_uniform=(kind == "4h_to_h"))
 
     return walk(params)
 
@@ -58,7 +111,7 @@ def quantized_bytes(params: Any) -> int:
     """Total device bytes of the packed model (the paper's Table II sums)."""
     if isinstance(params, dict):
         return sum(quantized_bytes(v) for v in params.values())
-    if isinstance(params, QuantizedTensor):
+    if isinstance(params, (QuantizedTensor, SparseQuantizedTensor)):
         return params.nbytes_model
     if isinstance(params, torch.Tensor):
         return params.numel() * params.element_size()

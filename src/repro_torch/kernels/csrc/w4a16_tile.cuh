@@ -1,5 +1,6 @@
 // The W4A16 tile shared by w4a16_matmul.cu (one weight) and ffn_fused.cu
-// (gate and up together, with the activation in the epilogue).
+// (gate and up together, with the activation in the epilogue).  Its
+// cross-warp epilogue serves the block-sparse tile (sparse_tile.cuh) too.
 //
 // Layout read as the reference stores it (core/quant.py): packed uint8
 // (in/2, out), where byte r of each 128-row group holds row r in its low
@@ -49,6 +50,50 @@ constexpr int w4a16_smem_bytes() {
               ? kW4Warps * kTok * kGroup
               : kW4Warps * NW * kTok * kCols) *
          (int)sizeof(float);
+}
+
+// Adds the 8 warps' sums in warp order through shared memory (`red`, at
+// least kW4Warps * NW * kTok * kCols floats, free once every warp is done
+// with its x tiles), applies the epilogue and writes the block's tile:
+// tokens t0.., columns col0.. of a row-major (n_tok, out_f) output, masked
+// at n_tok and out_f.
+template <typename T, int NW, int EPI>
+__device__ __forceinline__ void w4a16_reduce_store(
+    float (&acc)[NW][kTok][4], float* red, int t0, int n_tok,
+    int col0, int out_f, T* __restrict__ out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int t = 0; t < kTok; ++t)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[((warp * NW + w) * kTok + t) * kCols + lane * 4 + c] =
+            acc[w][t][c];
+  __syncthreads();
+  for (int o = threadIdx.x; o < kTok * kCols; o += kW4Threads) {
+    const int t = o / kCols, cc = o % kCols;
+    const int gcol = col0 + cc;
+    if (t0 + t >= n_tok || gcol >= out_f) continue;
+    float s[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      s[w] = 0.0f;
+      for (int k = 0; k < kW4Warps; ++k)
+        s[w] += red[((k * NW + w) * kTok + t) * kCols + cc];
+    }
+    float y;
+    if constexpr (EPI == kEpiNone) {
+      y = s[0];
+    } else if constexpr (EPI == kEpiSwiglu) {
+      y = silu(s[0]) * s[NW - 1];
+    } else {
+      y = gelu_tanh(s[0]) * s[NW - 1];
+    }
+    out[(size_t)(t0 + t) * out_f + gcol] = from_f32<T>(y);
+  }
 }
 
 // NW = number of weight matrices read against the same x (1, or 2 for the
@@ -142,39 +187,8 @@ __global__ void __launch_bounds__(kW4Threads)
     __syncwarp();
   }
 
-  // fixed-order cross-warp reduction
-  __syncthreads();
-  float* red = smem;   // [warp][w][t][kCols]
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int t = 0; t < kTok; ++t)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        red[((warp * NW + w) * kTok + t) * kCols + lane * 4 + c] =
-            acc[w][t][c];
-  __syncthreads();
-  for (int o = threadIdx.x; o < kTok * kCols; o += kW4Threads) {
-    const int t = o / kCols, cc = o % kCols;
-    const int gcol = blockIdx.x * kCols + cc;
-    if (t0 + t >= n_tok || gcol >= out_f) continue;
-    float s[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      s[w] = 0.0f;
-      for (int k = 0; k < kW4Warps; ++k)
-        s[w] += red[((k * NW + w) * kTok + t) * kCols + cc];
-    }
-    float y;
-    if constexpr (EPI == kEpiNone) {
-      y = s[0];
-    } else if constexpr (EPI == kEpiSwiglu) {
-      y = silu(s[0]) * s[NW - 1];
-    } else {
-      y = gelu_tanh(s[0]) * s[NW - 1];
-    }
-    out[(size_t)(t0 + t) * out_f + gcol] = from_f32<T>(y);
-  }
+  w4a16_reduce_store<T, NW, EPI>(acc, smem, t0, n_tok, blockIdx.x * kCols,
+                                 out_f, out);
 }
 
 template <typename T, int NW, int EPI>

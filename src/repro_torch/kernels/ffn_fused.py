@@ -1,23 +1,35 @@
-"""Fused W4A16 FFN: CUDA path and its plain version.
+"""Fused W4A16 FFN, dense-quantized and log-scale sparse: CUDA paths and
+their plain version.
 
-Port of ``repro/kernels/ffn_fused.py::ffn_fused_w4a16_pallas`` (quant
-variant) and of its blocked twin ``ffn_w4a16_xla``.  The CUDA path is two
-hand kernels: ``csrc/ffn_fused.cu`` computes ``act(x@gate) * (x@up)`` with
-per-group scale-after-dot and writes the hidden in x's dtype, then
-``csrc/w4a16_matmul.cu`` contracts it with ``down``.  The reference rounds
-each hidden tile to x's dtype before the down contraction too, so the split
-changes no arithmetic; it costs one launch and the hidden's round trip
-through device memory (see PERF.md).
+Port of ``repro/kernels/ffn_fused.py``: ``ffn_fused_w4a16_pallas`` (quant
+variant), ``ffn_fused_sparse_pallas`` (sparse variant) and their blocked
+twin ``ffn_w4a16_xla``.  Each CUDA path is two hand kernels:
+
+* ``"quant"``: ``csrc/ffn_fused.cu`` computes ``act(x@gate) * (x@up)``
+  with per-group scale-after-dot and writes the hidden in x's dtype, then
+  ``csrc/w4a16_matmul.cu`` contracts it with ``down``;
+* ``"sparse"``: ``csrc/ffn_fused_sparse.cu`` does the same for block-sparse
+  gate/up, only for the hidden tiles ``down`` keeps (all of them for a
+  dense-quantized down), then ``csrc/sparse_w4a16.cu`` (sparse down, its own
+  ``block_idx``) or ``csrc/w4a16_matmul.cu`` (dense down) contracts them.
+
+The reference rounds each hidden tile to x's dtype before the down
+contraction too, so the split changes no arithmetic; it costs one launch
+and the hidden's round trip through device memory (see PERF.md).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
-from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.quant import GROUP_SIZE, QuantizedTensor
+from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.sparse_w4a16 import (
+    check_sparse, sparse_matmul_f32, sparse_w4a16_matmul_cuda)
 from repro_torch.kernels.w4a16_matmul import (
     DTYPE_CODES, check_activation, check_quantized, w4a16_matmul_cuda,
     w4a16_matmul_f32)
@@ -25,8 +37,12 @@ from repro_torch.kernels.w4a16_matmul import (
 NAME = "ffn_fused_w4a16"
 GATED_ACTIVATIONS = ("swiglu", "geglu")
 _ACT_CODES = {"swiglu": 1, "geglu": 2}
+SPARSE_NAME = "ffn_fused_sparse"
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_SPARSE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p])
 
 
 def _check_gated_bias(activation, up_bias, down_bias):
@@ -53,27 +69,31 @@ def ffn_gate_up_torch(x: torch.Tensor, gate: QuantizedTensor,
     return _act(activation, g, u).to(x.dtype)
 
 
+def _mm_f32(x: torch.Tensor, w) -> torch.Tensor:
+    if isinstance(w, QuantizedTensor):
+        return w4a16_matmul_f32(x, w)
+    if isinstance(w, SparseQuantizedTensor):
+        return sparse_matmul_f32(x, w)
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
 def ffn_w4a16_torch(x, gate, up, down, *, activation="swiglu", up_bias=None,
                     down_bias=None) -> torch.Tensor:
-    """Plain version (twin of ``ffn_w4a16_xla``): f32 scale-after-dot per
-    quant group, activation on the f32 sums, hidden cast to x's dtype for
-    the down contraction.  Unquantized weights take the unfused oracle."""
+    """Plain version (twin of ``ffn_w4a16_xla``, any weight mix): f32
+    scale-after-dot per quant group or kept block, activation on the f32
+    sums, hidden cast to x's dtype for the down contraction.  Unquantized
+    weights take the unfused oracle."""
     _check_gated_bias(activation, up_bias, down_bias)
     ws = (gate, up, down) if activation in GATED_ACTIVATIONS else (up, down)
-    if not any(isinstance(w, QuantizedTensor) for w in ws):
+    if not any(isinstance(w, (QuantizedTensor, SparseQuantizedTensor))
+               for w in ws):
         return ref.ffn_ref(x, gate, up, down, activation=activation,
                            up_bias=up_bias, down_bias=down_bias)
-
-    def mm(x_, w):
-        if isinstance(w, QuantizedTensor):
-            return w4a16_matmul_f32(x_, w)
-        return x_.to(torch.float32) @ w.to(torch.float32)
-
-    u = mm(x, up)
+    u = _mm_f32(x, up)
     if up_bias is not None:
         u = u + up_bias.to(torch.float32)
-    g = mm(x, gate) if activation in GATED_ACTIVATIONS else None
-    out = mm(_act(activation, g, u).to(x.dtype), down)
+    g = _mm_f32(x, gate) if activation in GATED_ACTIVATIONS else None
+    out = _mm_f32(_act(activation, g, u).to(x.dtype), down)
     if down_bias is not None:
         out = out + down_bias.to(torch.float32)
     return out.to(x.dtype)
@@ -108,14 +128,128 @@ def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor,
     return hidden.reshape(*x.shape[:-1], f)
 
 
+def kept_f_tiles(down) -> torch.Tensor | None:
+    """The hidden tiles the down projection reads: a tile_uniform sparse
+    down's kept blocks (one list for all its output tiles), or ``None``
+    for a dense-quantized down (every tile)."""
+    if isinstance(down, SparseQuantizedTensor):
+        return down.block_idx[0]
+    return None
+
+
+def tile_subset(st: SparseQuantizedTensor,
+                tiles: torch.Tensor) -> SparseQuantizedTensor:
+    """The output tiles ``tiles`` of one sparse matrix, as a narrower one."""
+    t = tiles.long()
+    return dataclasses.replace(
+        st, packed=st.packed[t], scales=st.scales[t],
+        block_idx=st.block_idx[t], shape=(st.shape[0], t.numel() * GROUP_SIZE))
+
+
+def ffn_gate_up_sparse_torch(x: torch.Tensor, gate: SparseQuantizedTensor,
+                             up: SparseQuantizedTensor, activation: str,
+                             f_tiles: torch.Tensor | None) -> torch.Tensor:
+    """Plain version of ``csrc/ffn_fused_sparse.cu``: the hidden columns of
+    the f-tiles in ``f_tiles`` (all when ``None``), ``(tokens,
+    n_tiles * 128)`` in x's dtype."""
+    if f_tiles is not None:
+        gate, up = tile_subset(gate, f_tiles), tile_subset(up, f_tiles)
+    return _act(activation, sparse_matmul_f32(x, gate),
+                sparse_matmul_f32(x, up)).to(x.dtype)
+
+
+def ffn_gate_up_sparse_cuda(x: torch.Tensor, gate: SparseQuantizedTensor,
+                            up: SparseQuantizedTensor, activation: str,
+                            f_tiles: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``csrc/ffn_fused_sparse.cu``: a (tokens, d_ff) hidden in x's
+    dtype whose columns are written only for the f-tiles in ``f_tiles``
+    (all tiles when ``None``).  The other columns are left unwritten, and
+    the gate/up blocks of their tiles are never read."""
+    check_activation(x, SPARSE_NAME)
+    if activation not in _ACT_CODES:
+        raise NotImplementedError(
+            f"activation {activation!r}: the ungated gelu FFN with biases "
+            "is not ported to CUDA yet (a later slice); swiglu and geglu are")
+    check_sparse(gate, x.device, f"{SPARSE_NAME} gate")
+    check_sparse(up, x.device, f"{SPARSE_NAME} up")
+    d, f = up.shape
+    if (gate.shape != up.shape or gate.kept_blocks != up.kept_blocks
+            or x.shape[-1] != d):
+        raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate {gate.shape}"
+                         f" ({gate.kept_blocks} kept), up {up.shape} "
+                         f"({up.kept_blocks} kept)")
+    n_tiles = f // GROUP_SIZE
+    if f_tiles is not None:
+        if (f_tiles.dtype != torch.int32 or f_tiles.dim() != 1
+                or f_tiles.device != x.device or not f_tiles.is_contiguous()):
+            raise ValueError("f_tiles must be a contiguous int32 vector on "
+                             f"{x.device}")
+        n_tiles = f_tiles.numel()
+    x2 = x.reshape(-1, d).contiguous()
+    n = x2.shape[0]
+    hidden = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    if n and n_tiles:
+        fn = _build.function("ffn_fused_sparse", "ffn_fused_sparse_launch",
+                             _SPARSE_ARGTYPES)
+        rc = fn(x2.data_ptr(),
+                None if f_tiles is None else f_tiles.data_ptr(), n_tiles,
+                gate.block_idx.data_ptr(), gate.packed.data_ptr(),
+                gate.scales.data_ptr(), up.block_idx.data_ptr(),
+                up.packed.data_ptr(), up.scales.data_ptr(), hidden.data_ptr(),
+                n, d, f, up.kept_blocks, _ACT_CODES[activation],
+                DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+        _build.check("ffn_fused_sparse", rc)
+        _build.launches[SPARSE_NAME] += 1
+    return hidden.reshape(*x.shape[:-1], f)
+
+
+def fused_variant(gate, up, down, activation: str) -> str | None:
+    """Which CUDA FFN path takes these weights (port of the reference's
+    ``fused_variant``, a static choice from types and flags): ``"quant"``
+    (all W4A16), ``"sparse"`` (sparse gate/up; down dense-quantized or
+    tile_uniform sparse), or ``None``."""
+    gated = activation in GATED_ACTIVATIONS
+    ws = (gate, up, down) if gated else (up, down)
+    if all(isinstance(w, QuantizedTensor) for w in ws):
+        return "quant"
+    if (isinstance(up, SparseQuantizedTensor)
+            and (not gated or isinstance(gate, SparseQuantizedTensor))):
+        if gated and (gate.shape != up.shape
+                      or gate.kept_blocks != up.kept_blocks):
+            return None
+        if isinstance(down, QuantizedTensor):
+            return "sparse"
+        if isinstance(down, SparseQuantizedTensor) and down.tile_uniform:
+            return "sparse"
+    return None
+
+
+def ffn_fused_sparse_cuda(x, gate, up, down, *,
+                          activation="swiglu") -> torch.Tensor:
+    """The sparse CUDA path: gate/up/activation for the f-tiles ``down``
+    keeps, then the down projection through the sparse W4A16 kernel (its
+    own ``block_idx`` reads exactly those tiles) or, for a dense down, the
+    W4A16 kernel."""
+    f_tiles = kept_f_tiles(down)
+    hidden = ffn_gate_up_sparse_cuda(x, gate, up, activation, f_tiles)
+    if f_tiles is None:
+        return w4a16_matmul_cuda(hidden, down)
+    return sparse_w4a16_matmul_cuda(hidden, down)
+
+
 def ffn_w4a16_cuda(x, gate, up, down, *, activation="swiglu", up_bias=None,
                    down_bias=None) -> torch.Tensor:
-    """The CUDA path: gate/up/activation kernel, then the down projection
-    through the W4A16 kernel."""
+    """The CUDA path, chosen by :func:`fused_variant`; any other weight mix
+    raises."""
     _check_gated_bias(activation, up_bias, down_bias)
-    if not all(isinstance(w, QuantizedTensor) for w in (gate, up, down)):
-        raise NotImplementedError(
-            "the CUDA FFN takes W4A16 gate/up/down; 16-bit weights go "
-            "through ops.ffn_w4a16's plain path on CPU only in this slice")
-    hidden = ffn_gate_up_cuda(x, gate, up, activation)
-    return w4a16_matmul_cuda(hidden, down)
+    variant = fused_variant(gate, up, down, activation)
+    if variant == "quant":
+        hidden = ffn_gate_up_cuda(x, gate, up, activation)
+        return w4a16_matmul_cuda(hidden, down)
+    if variant == "sparse":
+        return ffn_fused_sparse_cuda(x, gate, up, down, activation=activation)
+    raise NotImplementedError(
+        "the CUDA FFN takes W4A16 gate/up/down, or block-sparse gate/up with "
+        "a dense-quantized or tile_uniform sparse down; other mixes (16-bit "
+        "weights, a non-tile_uniform sparse down) go through "
+        "ops.ffn_w4a16's plain path on CPU only")

@@ -15,15 +15,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_flash import (
     mixed_attention_torch, mixed_flash_attention_cuda)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
+from repro_torch.kernels.sparse_w4a16 import (
+    sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
 from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
-__all__ = ["w4a16_matmul", "ffn_w4a16", "decode_attention",
-           "mixed_attention"]
+__all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16",
+           "decode_attention", "mixed_attention"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -45,9 +48,24 @@ def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     return _ref.w4a16_matmul_ref(x, qt)
 
 
+def sparse_w4a16_matmul(x: torch.Tensor, st: SparseQuantizedTensor, *,
+                        impl: str = "auto") -> torch.Tensor:
+    """x @ sparse_dequant(st); per-kept-block scale-after-dot on every
+    path."""
+    impl = _resolve(impl, x)
+    if impl == "cuda":
+        return sparse_w4a16_matmul_cuda(x, st)
+    if impl == "torch":
+        return sparse_w4a16_matmul_torch(x, st)
+    return _ref.sparse_w4a16_matmul_ref(x, st)
+
+
 def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
               down_bias=None, impl: str = "auto") -> torch.Tensor:
-    """Whole FFN ``down(act(x@gate) * (x@up))`` as one operator."""
+    """Whole FFN ``down(act(x@gate) * (x@up))`` as one operator.  Weights
+    may be dense, ``QuantizedTensor``s or ``SparseQuantizedTensor``s; the
+    CUDA path takes all-W4A16 or sparse gate/up (``ffn_fused
+    .fused_variant``) and raises on other mixes."""
     impl = _resolve(impl, x)
     kw = dict(activation=activation, up_bias=up_bias, down_bias=down_bias)
     if impl == "cuda":

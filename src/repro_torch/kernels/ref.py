@@ -9,9 +9,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import QuantizedTensor, unpack_int4
+from repro_torch.core.sparsity import (
+    SparseQuantizedTensor, sparse_to_quantized)
 
-__all__ = ["w4a16_matmul_ref", "ffn_ref", "decode_attention_ref",
-           "mixed_attention_ref"]
+__all__ = ["w4a16_matmul_ref", "sparse_w4a16_matmul_ref", "ffn_ref",
+           "decode_attention_ref", "mixed_attention_ref"]
 
 
 def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -27,9 +29,19 @@ def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def sparse_w4a16_matmul_ref(x: torch.Tensor,
+                            st: SparseQuantizedTensor) -> torch.Tensor:
+    """Dense oracle of the block-sparse matmul: the kept blocks scattered
+    back into the dense W4A16 layout (zero scales for dropped blocks), then
+    the group-exact dot of :func:`w4a16_matmul_ref`."""
+    return w4a16_matmul_ref(x, sparse_to_quantized(st))
+
+
 def _mm(x, w, b=None):
     if isinstance(w, QuantizedTensor):
         y = w4a16_matmul_ref(x, w)
+    elif isinstance(w, SparseQuantizedTensor):
+        y = sparse_w4a16_matmul_ref(x, w)
     else:
         y = (x @ w.to(x.dtype)).to(x.dtype)
     if b is not None:

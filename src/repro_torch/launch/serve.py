@@ -1,10 +1,11 @@
 """Serving launcher of the port:
-``python -m repro_torch.launch.serve --full --strategy dense``.
+``python -m repro_torch.launch.serve --full --strategy strategy2``.
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
-port's compiler, starts the continuous-batching engine and runs a synthetic
-request workload (prompts of 4–32 tokens from ``numpy.random
-.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
+port's compiler (``--strategy``: ``none``, ``dense`` W4A16, or the
+log-scale sparse ``strategy1``-``strategy3`` of paper Table II), starts the
+continuous-batching engine and runs a synthetic request workload (prompts
+of 4–32 tokens from ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
 without ``--full`` it serves the reduced ``-smoke`` configuration.
 Prints the summary, the scheduler line and each kernel's launch count.
 """
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.compiler import quantize_model, quantized_bytes
+from repro_torch.core.compiler import (
+    STRATEGIES, quantize_model, quantized_bytes)
 from repro_torch.kernels._build import launches
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine, Request
@@ -26,7 +28,7 @@ from repro_torch.serving.engine import Engine, Request
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen-7b")
-    ap.add_argument("--strategy", default="dense", choices=["none", "dense"])
+    ap.add_argument("--strategy", default="dense", choices=STRATEGIES)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)

@@ -1,8 +1,9 @@
 """Shared layers (functional, dict params), port of ``repro/models/layers.py``.
 
 Every weight matmul goes through :func:`linear`, which dispatches on the
-parameter type: a dense tensor (plain matmul) or a :class:`QuantizedTensor`
-(the W4A16 op).  Quantizing a model for serving is a pure tree transform
+parameter type: a dense tensor (plain matmul), a :class:`QuantizedTensor`
+(the W4A16 op) or a :class:`SparseQuantizedTensor` (the sparse W4A16 op).
+Quantizing a model for serving is a pure tree transform
 (``core/compiler.quantize_model``); no model code changes.  Random init
 takes an explicit ``torch.Generator``; its device is where the weights live.
 """
@@ -15,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 
@@ -43,6 +45,8 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         y = ops.w4a16_matmul(x, w)
+    elif isinstance(w, SparseQuantizedTensor):
+        y = ops.sparse_w4a16_matmul(x, w)
     else:
         y = x @ w.to(x.dtype)
     if b is not None:
@@ -119,10 +123,12 @@ def mlp_init(gen: torch.Generator, cfg) -> Params:
 
 
 def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """One MLP = one operator (``ops.ffn_w4a16``).  Quantized weights take
-    the device's path (the FFN kernels on the card); plain 16-bit weights
-    keep the unfused composition on every device, as in the reference."""
-    quantized = any(isinstance(p.get(k), QuantizedTensor)
+    """One MLP = one operator (``ops.ffn_w4a16``).  Quantized weights,
+    dense or sparse, take the device's path (the FFN kernels on the card);
+    plain 16-bit weights keep the unfused composition on every device, as
+    in the reference."""
+    quantized = any(isinstance(p.get(k), (QuantizedTensor,
+                                          SparseQuantizedTensor))
                     for k in ("gate", "up", "down"))
     return ops.ffn_w4a16(x, p.get("gate"), p["up"], p["down"],
                          activation=cfg.activation, up_bias=p.get("up_bias"),

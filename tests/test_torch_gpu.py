@@ -16,7 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.quant import quantize  # noqa: E402
+from repro_torch.core.sparsity import block_sparsify_quantize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.ffn_fused import (  # noqa: E402
+    ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -75,6 +78,79 @@ def test_ffn_kernel_matches_plain(cuda, dtype, activation):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 4, 37])
+@pytest.mark.parametrize("in_f,out_f,m,tile_uniform",
+                         [(1024, 384, 8, False), (768, 256, 2, True)])
+def test_sparse_w4a16_kernel_matches_plain(cuda, dtype, tokens, in_f, out_f,
+                                           m, tile_uniform):
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    st = block_sparsify_quantize(_rand(gen, in_f, out_f) * 0.05, 0.5,
+                                 blocks_per_group=m,
+                                 tile_uniform=tile_uniform)
+    x = _rand(gen, tokens, in_f, dtype=dtype)
+    before = _build.launches["sparse_w4a16_matmul"]
+    got = ops.sparse_w4a16_matmul(x, st)
+    assert _build.launches["sparse_w4a16_matmul"] == before + 1
+    _close(got, ops.sparse_w4a16_matmul(x, st, impl="torch"), dtype)
+    assert torch.equal(ops.sparse_w4a16_matmul(x[:1], st), got[:1])
+
+
+def _sparse_ffn(gen, d, f, down_kind):
+    gate, up = (block_sparsify_quantize(_rand(gen, d, f) * 0.05, 0.25)
+                for _ in range(2))
+    w = _rand(gen, f, d) * 0.05
+    down = (block_sparsify_quantize(w, 0.5, blocks_per_group=2,
+                                    tile_uniform=True)
+            if down_kind == "sparse" else quantize(w))
+    return gate, up, down
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+@pytest.mark.parametrize("down_kind", ["sparse", "dense"])
+def test_sparse_ffn_kernel_matches_plain(cuda, dtype, activation, down_kind):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    gate, up, down = _sparse_ffn(gen, 1024, 768, down_kind)
+    x = _rand(gen, 9, 1024, dtype=dtype)
+    before = dict(_build.launches)
+    got = ops.ffn_w4a16(x, gate, up, down, activation=activation)
+    launched = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
+    second = ("sparse_w4a16_matmul" if down_kind == "sparse"
+              else "w4a16_matmul")
+    assert launched == {"ffn_fused_sparse": 1, second: 1}
+    _close(got, ops.ffn_w4a16(x, gate, up, down, activation=activation,
+                              impl="torch"), dtype)
+    assert torch.equal(ops.ffn_w4a16(x[:2], gate, up, down,
+                                     activation=activation), got[:2])
+    # the hidden tiles the kernel writes match the plain version's
+    tiles = kept_f_tiles(down)
+    cols = (torch.arange(768, device="cuda") if tiles is None else
+            (tiles.long()[:, None] * 128
+             + torch.arange(128, device="cuda")).reshape(-1))
+    h = ffn_gate_up_sparse_cuda(x, gate, up, activation, tiles)
+    _close(h[:, cols], ffn_gate_up_sparse_torch(x, gate, up, activation,
+                                                tiles), dtype)
+
+
+def test_sparse_ffn_never_reads_dropped_f_tiles(cuda):
+    """With a tile_uniform down, the gate/up blocks of the hidden tiles
+    down drops are never read: NaN scales there change nothing."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gate, up, down = _sparse_ffn(gen, 1024, 768, "sparse")
+    x = _rand(gen, 5, 1024, dtype=torch.bfloat16)
+    clean = ops.ffn_w4a16(x, gate, up, down)
+    dropped = torch.ones(768 // 128, dtype=torch.bool, device="cuda")
+    dropped[kept_f_tiles(down).long()] = False
+    assert bool(dropped.any())
+    for w in (gate, up):
+        w.scales[dropped] = float("nan")
+    poisoned = ops.ffn_w4a16(x, gate, up, down)
+    assert bool(torch.isfinite(poisoned).all())
+    assert torch.equal(poisoned, clean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 24])
 @pytest.mark.parametrize("head_dim", [32, 128])
 def test_attention_kernel_matches_plain(cuda, dtype, window, head_dim):
@@ -106,15 +182,23 @@ def test_rmsnorm_kernel_batch_invariant(cuda, dtype):
     assert torch.equal(rmsnorm(x[:3], gamma), got[:3])
 
 
-def test_engine_matches_oracle_on_card(cuda):
+@pytest.mark.parametrize("strategy", ["dense", "strategy2", "strategy3"])
+def test_engine_matches_oracle_on_card(cuda, strategy):
+    """strategy2/3 at d_model 1024, d_ff 768: wo, gate and up block-sparse,
+    down tile_uniform sparse (strategy2) or dense-quantized (strategy3), so
+    every MLP runs the sparse gate/up kernel and one of the two downs."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.compiler import quantize_model
     from repro_torch.models import api
     from repro_torch.serving.engine import Engine, Request, reference_decode
-    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, head_dim=128,
-                           n_heads=2, n_kv_heads=1, d_model=256)
+    over = (dict(head_dim=128, n_heads=2, n_kv_heads=1, d_model=256)
+            if strategy == "dense" else
+            dict(head_dim=128, n_heads=8, n_kv_heads=2, d_model=1024,
+                 d_ff=768))
+    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, **over)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = quantize_model(api.init_params(cfg, gen), "dense")
+    params = quantize_model(api.init_params(cfg, gen), strategy)
+    _build.launches.clear()
     engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
                     device="cuda")
     rng = np.random.default_rng(2)
@@ -126,6 +210,12 @@ def test_engine_matches_oracle_on_card(cuda):
         engine.submit(r)
     done = engine.run()
     assert len(done) == 6
+    if strategy != "dense":
+        sparse_per_layer = 2 if strategy == "strategy2" else 1   # wo (+down)
+        assert _build.launches["ffn_fused_sparse"] == (engine.steps
+                                                       * cfg.n_layers)
+        assert _build.launches["sparse_w4a16_matmul"] == (
+            sparse_per_layer * engine.steps * cfg.n_layers)
     for r in reqs:
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,

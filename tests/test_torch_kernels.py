@@ -23,11 +23,14 @@ from repro.kernels.w4a16_matmul import w4a16_matmul_pallas  # noqa: E402
 from repro.kernels.xla_attention import mixed_attention_blocked  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch.core.sparsity import block_sparsify_quantize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_flash import (  # noqa: E402
     kv_block_size, mixed_attention_torch)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_torch  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch  # noqa: E402
+from repro_torch.kernels.sparse_w4a16 import (  # noqa: E402
+    sparse_w4a16_matmul_torch)
 from repro_torch.kernels.w4a16_matmul import w4a16_matmul_torch  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 
@@ -229,20 +232,37 @@ def test_cpu_tensors_take_the_plain_version():
     _, tqt = _weights(rng, 128, 256)
     x = torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32))
     assert torch.equal(ops.w4a16_matmul(x, tqt), w4a16_matmul_torch(x, tqt))
+    tst = block_sparsify_quantize(torch.from_numpy(
+        rng.normal(size=(256, 128)).astype(np.float32)), 0.5,
+        blocks_per_group=2)
+    x2 = torch.cat([x, x], -1)
+    assert torch.equal(ops.sparse_w4a16_matmul(x2, tst),
+                       sparse_w4a16_matmul_torch(x2, tst))
     assert not _build.launches
 
 
-@pytest.mark.parametrize("op", ["w4a16", "ffn", "attention", "rmsnorm"])
+@pytest.mark.parametrize("op", ["w4a16", "ffn", "attention", "rmsnorm",
+                                "sparse_w4a16", "sparse_ffn"])
 def test_cuda_impl_refuses_cpu_tensors(op):
     """A CUDA wrapper never falls back: on a CPU tensor it raises."""
     rng = np.random.default_rng(7)
     _, tqt = _weights(rng, 128, 128)
+    tst = block_sparsify_quantize(torch.from_numpy(
+        rng.normal(size=(256, 128)).astype(np.float32)), 0.5,
+        blocks_per_group=2, tile_uniform=True)
     x = torch.from_numpy(rng.normal(size=(2, 128)).astype(np.float32))
     with pytest.raises(ValueError, match="CUDA"):
         if op == "w4a16":
             ops.w4a16_matmul(x, tqt, impl="cuda")
         elif op == "ffn":
             ops.ffn_w4a16(x, tqt, tqt, tqt, impl="cuda")
+        elif op == "sparse_w4a16":
+            ops.sparse_w4a16_matmul(torch.cat([x, x], -1), tst, impl="cuda")
+        elif op == "sparse_ffn":
+            gate = block_sparsify_quantize(torch.from_numpy(
+                rng.normal(size=(128, 256)).astype(np.float32)), 1.0,
+                blocks_per_group=1)
+            ops.ffn_w4a16(x, gate, gate, tst, impl="cuda")
         elif op == "attention":
             q, k, v, lengths, q_lens = _attn_operands()
             ops.mixed_attention(*_t(q, k, v, lengths, q_lens), impl="cuda")

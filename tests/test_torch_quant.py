@@ -1,6 +1,6 @@
 """The port's int4 packing, quantization and compiler against the JAX
 reference: bit-exact, including out widths that are not multiples of 512,
-and the numpy interchange round trip."""
+the log-scale sparse strategies, and the numpy interchange round trip."""
 
 import numpy as np
 import pytest
@@ -12,11 +12,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.core import quant as jquant  # noqa: E402
+from repro.core import sparsity as jsparsity  # noqa: E402
 from repro.core.compiler import quantize_model as jax_quantize_model  # noqa: E402
 from repro.core.compiler import quantized_bytes as jax_quantized_bytes  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import quant as tquant  # noqa: E402
+from repro_torch.core import sparsity as tsparsity  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
     TokenBuckets, quantize_model, quantized_bytes)
 
@@ -138,10 +140,79 @@ def test_interop_bfloat16_bits():
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
+# d_model 1024 and d_ff 768 make wo, gate and up block-sparse; down (6
+# blocks, m = 2) is tile_uniform sparse at 0.5 and dense-quantized at 0.25
+SPARSE_OVERRIDES = dict(n_layers=2, d_model=1024, n_heads=8, n_kv_heads=2,
+                        head_dim=128, d_ff=768, vocab_size=256)
+SPARSE_KINDS = {"strategy1": ("sparse", "sparse"),
+                "strategy2": ("sparse", "sparse"),
+                "strategy3": ("sparse", "dense")}     # (gate/up, down)
+
+
+@pytest.fixture(scope="module")
+def jax_sparse_base():
+    cfg = jax_smoke_config("qwen-7b", **SPARSE_OVERRIDES)
+    return japi.init_params(cfg, jax.random.PRNGKey(0))
+
+
+def _assert_leaves_equal(jtree, ttree):
+    tl = dict(_leaves(ttree))
+    for name, leaf in _leaves(jtree):
+        got = tl[name]
+        if isinstance(leaf, jsparsity.SparseQuantizedTensor):
+            assert isinstance(got, tsparsity.SparseQuantizedTensor), name
+            for attr in ("shape", "density", "group_size", "tile_uniform"):
+                assert getattr(got, attr) == getattr(leaf, attr), (name, attr)
+            np.testing.assert_array_equal(np.asarray(leaf.block_idx),
+                                          got.block_idx.numpy())
+        elif isinstance(leaf, jquant.QuantizedTensor):
+            assert isinstance(got, tquant.QuantizedTensor), name
+        else:
+            assert isinstance(got, torch.Tensor), name
+            np.testing.assert_array_equal(_f32(leaf), got.float().numpy())
+            continue
+        np.testing.assert_array_equal(np.asarray(leaf.packed),
+                                      got.packed.numpy())
+        np.testing.assert_array_equal(_f32(leaf.scales),
+                                      got.scales.float().numpy())
+
+
 @pytest.mark.parametrize("strategy", ["strategy1", "strategy2", "strategy3"])
-def test_sparse_strategies_name_the_later_slice(strategy):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        quantize_model({"wq": torch.zeros(128, 128)}, strategy)
+def test_sparse_strategies_match_reference(jax_sparse_base, strategy):
+    """Same leaf types, flags and arrays (bitwise), same byte count."""
+    jq = jax_quantize_model(jax_sparse_base, strategy)
+    tq = quantize_model(interop.params_from_numpy(
+        jax.tree.map(np.asarray, jax_sparse_base), "cpu"), strategy)
+    _assert_leaves_equal(jq, tq)
+    assert quantized_bytes(tq) == jax_quantized_bytes(jq)
+    mlp = tq["blocks"]["mlp"]
+    kinds = tuple("sparse" if isinstance(mlp[k], tsparsity.
+                                         SparseQuantizedTensor) else "dense"
+                  for k in ("gate", "down"))
+    assert kinds == SPARSE_KINDS[strategy]
+    assert isinstance(tq["blocks"]["attn"]["wo"],
+                      tsparsity.SparseQuantizedTensor)
+    assert isinstance(tq["blocks"]["attn"]["wq"], tquant.QuantizedTensor)
+    if kinds[1] == "sparse":
+        assert mlp["down"].tile_uniform and not mlp["gate"].tile_uniform
+
+
+def test_interop_roundtrip_preserves_sparse_leaves(jax_sparse_base):
+    """numpy -> port -> numpy keeps every sparse leaf's arrays and flags
+    (PR 11 read a sparse leaf as a dense QuantizedTensor)."""
+    jq = jax.tree.map(np.asarray, jax_quantize_model(jax_sparse_base,
+                                                     "strategy2"))
+    port = interop.params_from_numpy(jq, "cpu")
+    back = interop.params_to_numpy(port)
+    _assert_leaves_equal(jq, interop.params_from_numpy(back, "cpu"))
+    src = jq["blocks"]["mlp"]["down"]
+    got = back["blocks"]["mlp"]["down"]
+    for attr in ("packed", "scales", "block_idx"):
+        a, b = getattr(src, attr), getattr(got, attr)
+        assert a.dtype == b.dtype and a.shape == b.shape, attr
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    assert (got.shape, got.density, got.group_size, got.tile_uniform) == (
+        tuple(src.shape), src.density, src.group_size, src.tile_uniform)
 
 
 def test_none_strategy_is_identity():

@@ -159,6 +159,14 @@ def test_launcher_runs_on_cpu(capsys):
     assert "scheduler:" in out and "kernel launches:" in out
 
 
+def test_launcher_serves_a_sparse_strategy_on_cpu(capsys):
+    serve.main(["--device", "cpu", "--strategy", "strategy2", "--requests",
+                "2", "--max-new-tokens", "2", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "strategy=strategy2 device=cpu" in out
+    assert "'completed': 2" in out
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
