@@ -12,21 +12,31 @@ Phases (any failure ends the run with a nonzero exit code):
                  report (registers, shared memory, spills);
   3. kernels  — each kernel against its plain PyTorch version at qwen-7b's
                  shapes, with the tolerance stated (the sparse ones at the
-                 layouts strategy1-3 give wo and the FFN); kernel, plain
-                 and library-call times (CUDA events, L2 flushed before
-                 each launch) beside the bound the card could reach; T=4
-                 rows bitwise equal inside T=256;
+                 layouts strategy1-3 give wo and the FFN; the attention
+                 kernel's slot-int8, paged and paged-int8 variants on a
+                 scrambled page table of 16-token pages, paged bitwise
+                 equal to slot at block_kv = 16, NaN in the null and
+                 unleased blocks changing nothing); kernel, plain and
+                 library-call times (CUDA events, L2 flushed before each
+                 launch) beside the bound the card could reach; T=4 rows
+                 bitwise equal inside T=256;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
                  and "strategy3" (log-scale sparse), one model at a time:
                  mixed_step over a 13-token prompt in 8-token chunks is
                  bitwise equal to 13 sequential decode steps (logits and
-                 cache);
+                 every cache leaf of all layers); strategy2 also with int8
+                 K/V, a paged pool and a paged int8 pool;
   5. serving  — with each of the three models, the engine serves 9
                  requests; every token stream equals ``reference_decode``
-                 and the kernel launch counts (reset before each model's
+                 and the kernel launch counts (reset before each path's
                  run, read just after it) equal layers x calls x ticks as
-                 the weights' types route them;
+                 the weights' types and the cache route them.  Strategy2
+                 is served again from int8 K/V, from a 20-block pool of
+                 16-token pages (the 200-token request needs 14, so
+                 admissions stall) and from the same pool in int8, with
+                 ``audit()`` on every tick and the pool whole after the
+                 drain;
   6. the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
@@ -38,6 +48,7 @@ The script imports nothing of JAX.  Details go to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -242,6 +253,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
                 line["ffn_fused_w4a16"] = row
 
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
+    line.update(check_attention_variants(torch, timer, randn, tol, rows))
 
     # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
     b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
@@ -507,13 +519,18 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
     return line
 
 
-def attention_work(lengths, q_lens, hq, hkv, d, c, elt=2):
+def attention_work(lengths, q_lens, hq, hkv, d, c, elt=2, kv_elt=None,
+                   scale_bytes=0):
     """Bytes and operations the attention call needs on these inputs: q,
-    the live K/V rows, out; 4*d operations per (query head, visible key)."""
+    the live K/V rows (``kv_elt`` bytes a value, plus ``scale_bytes`` per
+    token and head for int8), out; 4*d operations per (query head, visible
+    key).  The kernel reads no key at or past a row's length, so a paged
+    row's partly filled last page counts its live keys only."""
+    kv_elt = elt if kv_elt is None else kv_elt
     nbytes = 2 * (len(lengths) * hq * c * d * elt)
     flops = 0
     for length, ql in zip(lengths, q_lens):
-        nbytes += 2 * length * hkv * d * elt
+        nbytes += 2 * length * hkv * (d * kv_elt + scale_bytes)
         for j in range(ql):
             flops += 4 * d * hq * (length - ql + j + 1)
     return nbytes, flops
@@ -534,6 +551,142 @@ def sdpa_yardstick(torch, q, kc, vc, lengths, q_lens):
                 <= (length - ql + torch.arange(ql, device=q.device))[:, None])
         outs.append(F.scaled_dot_product_attention(qq, k, v, attn_mask=mask))
     return outs
+
+
+def cache_yardstick(torch, q, cache, lengths, q_lens, page_table):
+    """The library yardstick of a paged or int8 call: gather the pool
+    contiguous, dequantize, then ``sdpa_yardstick`` (timed, never used)."""
+    from repro_torch.kernels.ops import _materialize_ref_cache
+    k, v = _materialize_ref_cache(q, cache["k"], cache["v"],
+                                  cache.get("k_scale"), cache.get("v_scale"),
+                                  page_table)
+    return sdpa_yardstick(torch, q, k, v, lengths, q_lens)
+
+
+def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
+    """The attention kernel's int8-KV and paged variants at qwen-7b's
+    shapes: B=4, hq 32, hkv 4, d 128, pages of 16 tokens, MAX 512, decode
+    (C=1) and a 64-wide chunk, on a scrambled page table (4 spare blocks,
+    the null block last)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_flash import VARIANTS
+    from repro_torch.models.attention import quantize_kv
+
+    line = {}
+    b, hq, hkv, hd, max_len, bs = 4, 32, 4, 128, 512, 16
+    n_pages = max_len // bs
+    lengths = torch.tensor([37, 200, 5, 511], dtype=torch.int32,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    perm = torch.randperm(b * n_pages + 4, generator=gen, device="cuda")
+    table = perm[:b * n_pages].reshape(b, n_pages).to(torch.int32)
+    null = b * n_pages + 4
+
+    def to_pool(t):
+        pool = torch.zeros((null + 1, hkv, bs, t.shape[-1]), dtype=t.dtype,
+                           device="cuda")
+        pool[table.long()] = t.reshape(b, hkv, n_pages, bs, -1).transpose(1, 2)
+        return pool
+
+    def attend(q, cache, ql, impl="auto", **kw):
+        return ops.mixed_attention(
+            q, cache["k"], cache["v"], lengths, ql, k_scale=cache.get(
+                "k_scale"), v_scale=cache.get("v_scale"), impl=impl, **kw)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        k = randn(b, hkv, max_len, hd, dtype=torch.float32)
+        v = randn(b, hkv, max_len, hd, dtype=torch.float32)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        slot = {False: {"k": k.to(dtype), "v": v.to(dtype)},
+                True: {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}}
+        paged = {qnt: {n: to_pool(t) for n, t in c.items()}
+                 for qnt, c in slot.items()}
+        q64 = randn(b, hq, 64, hd, dtype=dtype)
+        for c, q_lens in ((1, [1, 1, 1, 1]), (64, [1, 64, 5, 17])):
+            ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
+            q = q64[:, :, :c].contiguous()
+            if dtype == torch.bfloat16:
+                # the slot fp kernel on the same data: the yardstick of
+                # what int8 and 16-key pages cost (not a variant of its own)
+                ms = timer.ms(lambda: attend(q, slot[False], ql), 20)
+                rows.append({"kernel": VARIANTS[(False, False)],
+                             "inputs": "variants'", "dtype": dname, "C": c,
+                             "lengths": lengths.tolist(), "q_lens": q_lens,
+                             "ms": ms})
+                log(f"  {VARIANTS[(False, False)]} (slot fp, same inputs) "
+                    f"{dname} C={c:2d}: kernel {ms:.4f} ms")
+            for is_paged, quant in ((False, True), (True, False),
+                                    (True, True)):
+                name = VARIANTS[(is_paged, quant)]
+                cache = (paged if is_paged else slot)[quant]
+                kw = {"page_table": table} if is_paged else {}
+                got = attend(q, cache, ql, **kw)
+                want = attend(q, cache, ql, impl="torch", **kw)
+                err, rel = max_errs(got, want)
+                need(rel <= tol[dname], f"{name} C={c} {dname}: rel err "
+                     f"{rel:.3g} > {tol[dname]}")
+                row = {"kernel": name, "dtype": dname, "B": b, "hq": hq,
+                       "hkv": hkv, "d": hd, "max_len": max_len, "C": c,
+                       "page": bs if is_paged else None,
+                       "lengths": lengths.tolist(), "q_lens": q_lens,
+                       "max_abs_err": err, "max_rel_err": rel,
+                       "tol_rel": tol[dname]}
+                if is_paged:
+                    # paging is a layout change: the slot kernel walking
+                    # 16-key tiles reduces in the same order
+                    same = torch.equal(got, attend(q, slot[quant], ql,
+                                                   block_kv=bs))
+                    row["bitwise_equal_slot_block_kv_16"] = same
+                    need(same, f"{name} C={c} {dname}: paged is not bitwise "
+                         "the slot kernel at block_kv = 16")
+                if dtype == torch.bfloat16:
+                    row["ms"] = timer.ms(lambda: attend(q, cache, ql, **kw),
+                                         20)
+                    row["plain_ms"] = timer.ms(
+                        lambda: attend(q, cache, ql, impl="torch", **kw), 3)
+                    row["library_ms"] = timer.ms(
+                        lambda: cache_yardstick(torch, q, cache, lengths, ql,
+                                                kw.get("page_table")), 5)
+                    nbytes, flops = attention_work(
+                        lengths.tolist(), q_lens, hq, hkv, hd, c,
+                        kv_elt=1 if quant else 2,
+                        scale_bytes=4 if quant else 0)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                             dname)
+                rows.append(row)
+                log(f"  {name} {dname} C={c:2d}: max_abs {err:.3g} rel "
+                    f"{rel:.3g} (tol {tol[dname]})"
+                    + ("; bitwise = slot at block_kv 16" if is_paged else "")
+                    + (f"  kernel {row['ms']:.4f} ms plain "
+                       f"{row['plain_ms']:.4f} ms library "
+                       f"{row['library_ms']:.4f} ms bound "
+                       f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                       if "ms" in row else ""))
+                if (c, dname) == (1, "bfloat16"):
+                    line[name] = row
+        # the null block and every unleased block never reach a sum
+        ql = torch.tensor([1, 64, 5, 17], dtype=torch.int32, device="cuda")
+        live = (lengths.long() + bs - 1) // bs
+        short = table.clone()
+        short[torch.arange(n_pages, device="cuda")[None, :]
+              >= live[:, None]] = null
+        leased = torch.zeros(null + 1, dtype=torch.bool, device="cuda")
+        leased[short[short != null].long()] = True
+        for quant in (False, True):
+            clean = attend(q64, paged[quant], ql, page_table=short)
+            for t in paged[quant].values():
+                if t.dtype != torch.int8:
+                    t[~leased] = float("nan")
+            poisoned = attend(q64, paged[quant], ql, page_table=short)
+            need(bool(torch.isfinite(poisoned).all())
+                 and torch.equal(poisoned, clean),
+                 f"{VARIANTS[(True, quant)]} {dname}: NaN in the null or "
+                 "an unleased block reached the output")
+        log(f"  paged {dname}: NaN in the null and unleased blocks changes "
+            "nothing (fp and int8)")
+        del slot, paged
+    return line
 
 
 # -- phase 4 and 5: the model and the engine --------------------------------
@@ -558,7 +711,7 @@ def build_model(torch, strategy):
     return cfg, params
 
 
-def check_mixed_equals_sequential(torch, cfg, params, results, strategy):
+def check_mixed_equals_sequential(torch, cfg, params, results, path):
     import numpy as np
     from repro_torch.models import api
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 13)
@@ -580,16 +733,16 @@ def check_mixed_equals_sequential(torch, cfg, params, results, strategy):
         length += ql
     same_logits = torch.equal(logits_seq, logits_mix)
     diff_layers = [i for i in range(cfg.n_layers)
-                   if not (torch.equal(seq["k"][i], mix["k"][i]) and
-                           torch.equal(seq["v"][i], mix["v"][i]))]
-    results.setdefault("mixed_vs_sequential", {})[strategy] = {
+                   if not all(torch.equal(seq[n][i], mix[n][i]) for n in seq)]
+    results.setdefault("mixed_vs_sequential", {})[path] = {
         "logits_equal": same_logits, "cache_layers_differing": diff_layers,
         "logits_max_abs_diff": float((logits_seq.float()
                                       - logits_mix.float()).abs().max())}
     log(f"  mixed_step (C=8) vs 13 decode_steps: logits bitwise equal "
-        f"{same_logits}; cache layers differing {diff_layers}")
+        f"{same_logits}; cache layers differing {diff_layers} (leaves "
+        f"{sorted(seq)})")
     need(same_logits and not diff_layers,
-         f"{strategy}: mixed_step is not bitwise equal to sequential "
+         f"{path}: mixed_step is not bitwise equal to sequential "
          f"decode_step (first differing cache layer: {diff_layers[:1]})")
 
 
@@ -631,8 +784,10 @@ def expected_launches(cfg, params, ticks):
              f"{name} is a {type(w).__name__}: no kernel serves it")
         return "sparse_w4a16_matmul"
 
+    from repro_torch.kernels.decode_flash import VARIANTS
     L = cfg.n_layers
-    per_tick = {"mixed_flash_attention": L, "rmsnorm": 2 * L + 1}
+    attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
+    per_tick = {attention: L, "rmsnorm": 2 * L + 1}
 
     def add(kernel, n):
         per_tick[kernel] = per_tick.get(kernel, 0) + n
@@ -648,7 +803,11 @@ def expected_launches(cfg, params, ticks):
     return {k: ticks * n for k, n in per_tick.items()}
 
 
-def serve(torch, cfg, params, results, strategy):
+def serve(torch, cfg, params, results, path, slot_streams=None):
+    """Serve the 9-request workload; returns (launch counts, streams).
+    Every engine audits every tick; a paged one must stall admissions and
+    end with its pool whole; ``slot_streams`` (the slot run's) are compared as
+    information only (tiles of 16 against 128 keys can flip bf16 ties)."""
     import numpy as np
     from repro_torch.kernels._build import launches
     from repro_torch.serving.engine import Engine, Request, reference_decode
@@ -658,10 +817,14 @@ def serve(torch, cfg, params, results, strategy):
                for _ in range(8)]
     prompts.append(rng.integers(0, cfg.vocab_size, 200))
     engine = Engine(cfg, params, batch_size=4, max_len=max_len,
-                    chunk_size=64, device=DEVICE)
+                    chunk_size=64, audit_every=1, device=DEVICE)
     reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
-    for r in reqs:
+    # a paged run submits the 200-token request first: its 14-block
+    # reservation then holds the pool while the short ones queue behind it
+    # (in rid order the short ones leave in two whole waves and the long
+    # one runs alone, and the pool never stalls)
+    for r in (reqs[-1:] + reqs[:-1] if engine.paged else reqs):
         engine.submit(r)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -679,8 +842,21 @@ def serve(torch, cfg, params, results, strategy):
     expect = expected_launches(cfg, params, ticks)
     log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed), {n_tok} "
         f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
-        f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, ITL p50 "
+        f"{summary.get('itl_p50_s', float('nan')) * 1e3:.1f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{engine.audits} audits, peak resident "
+        f"{engine.peak_resident_tokens} tokens")
+    pool = None
+    if engine.paged:
+        pool = engine.pool_stats()
+        log(f"  paged KV: {engine.pool_blocks} blocks x {engine.block_size} "
+            f"tokens, {engine.admission_stalls} admission stalls, pool "
+            f"{pool}")
+        need(engine.admission_stalls > 0, f"{path}: the pool never stalled "
+             "an admission")
+        need(pool["free"] == pool["total"] and not pool["leased"],
+             f"{path}: the pool is not whole after the drain: {pool}")
     log(f"  launches: {counts}  expected: {expect}")
     need(counts == expect, "kernel launch counts do not match layers x calls"
          " x ticks: the serving path did not run through every kernel")
@@ -695,18 +871,28 @@ def serve(torch, cfg, params, results, strategy):
                                "oracle_top2_margin": margin})
     log(f"  token streams equal to reference_decode: "
         f"{len(reqs) - len(mismatches)}/{len(reqs)} {mismatches or ''}")
-    results.setdefault("serving", {})[strategy] = {
+    streams = [r.output for r in reqs]
+    same_as_slot = (None if slot_streams is None else
+                    sum(a == b for a, b in zip(streams, slot_streams)))
+    if same_as_slot is not None:
+        log(f"  streams equal to the slot fp run's (information only): "
+            f"{same_as_slot}/{len(reqs)}")
+    results.setdefault("serving", {})[path] = {
         "requests": len(reqs), "ticks": ticks,
         "mixed_ticks": engine.mixed_ticks, "tokens": n_tok,
         "wall_s": wall, "tokens_per_s": n_tok / wall,
         "ttft_p50_s": summary.get("ttft_p50_s"),
         "itl_p50_s": summary.get("itl_p50_s"),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "audits": engine.audits,
+        "admission_stalls": engine.admission_stalls,
+        "peak_resident_tokens": engine.peak_resident_tokens, "pool": pool,
+        "streams_equal_slot_run": same_as_slot,
         "launches": counts, "expected_launches": expect,
         "mismatches": mismatches}
-    need(not mismatches, f"{strategy}: engine token streams differ from "
+    need(not mismatches, f"{path}: engine token streams differ from "
          "reference_decode")
-    return counts
+    return counts, streams
 
 
 # -- main -------------------------------------------------------------------
@@ -729,9 +915,28 @@ KERNEL_META = {
                             "strategy2"),
     "ffn_fused_sparse": ("src/repro_torch/kernels/csrc/ffn_fused_sparse.cu",
                          "src/repro/kernels/ffn_fused.py:455", "strategy2"),
+    "mixed_flash_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_flash.cu",
+        "src/repro/kernels/decode_flash.py:181 (int8 K/V: :103-107, "
+        ":136-140, :160-162, :271-281)", "strategy2-int8"),
+    "mixed_flash_attention_paged": (
+        "src/repro_torch/kernels/csrc/decode_flash.cu",
+        "src/repro/kernels/decode_flash.py:181 (paged: :206-212, :218-226, "
+        ":253-257, :287-289)", "strategy2-paged"),
+    "mixed_flash_attention_paged_int8": (
+        "src/repro_torch/kernels/csrc/decode_flash.cu",
+        "src/repro/kernels/decode_flash.py:181 (paged and int8 K/V)",
+        "strategy2-paged-int8"),
 }
 # each model is built, checked (phase 4), served (phase 5) and freed in turn
 MODELS = ("dense", "strategy2", "strategy3")
+# cache configurations served with a model's weights besides the slot fp
+# cache: (path suffix, config overrides)
+KV_PATHS = {"strategy2": (
+    ("int8", dict(kv_quant="int8")),
+    ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),
+    ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
+                        kv_pool_blocks=20, kv_quant="int8")))}
 
 
 def main() -> int:
@@ -783,13 +988,22 @@ def main() -> int:
 
         counts: dict = {}       # path -> that path's own launch counts
         for strategy in MODELS:
-            log(f"phase 4 [{strategy}]: qwen-7b, mixed_step vs sequential "
-                "decode_step")
             cfg, params = build_model(torch, strategy)
-            check_mixed_equals_sequential(torch, cfg, params, results,
-                                          strategy)
-            log(f"phase 5 [{strategy}]: serving")
-            counts[strategy] = serve(torch, cfg, params, results, strategy)
+            paths = [(strategy, cfg)] + [
+                (f"{strategy}-{kv}", dataclasses.replace(cfg, **over))
+                for kv, over in KV_PATHS.get(strategy, ())]
+            for path, pcfg in paths:
+                log(f"phase 4 [{path}]: qwen-7b, mixed_step vs sequential "
+                    "decode_step")
+                check_mixed_equals_sequential(torch, pcfg, params, results,
+                                              path)
+            slot_streams = None
+            for path, pcfg in paths:
+                log(f"phase 5 [{path}]: serving")
+                counts[path], streams = serve(torch, pcfg, params, results,
+                                              path, slot_streams)
+                if slot_streams is None:
+                    slot_streams = streams
             del params
             torch.cuda.empty_cache()
     except SmokeFailure as e:

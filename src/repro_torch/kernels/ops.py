@@ -18,7 +18,7 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_flash import (
-    mixed_attention_torch, mixed_flash_attention_cuda)
+    DEFAULT_BLOCK_KV, mixed_attention_torch, mixed_flash_attention_cuda)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -26,7 +26,7 @@ from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16",
-           "decode_attention", "mixed_attention"]
+           "decode_attention", "mixed_attention", "gather_paged_cache"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -75,23 +75,65 @@ def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
     return _ref.ffn_ref(x, gate, up, down, **kw)
 
 
+def gather_paged_cache(pool: torch.Tensor,
+                       page_table: torch.Tensor) -> torch.Tensor:
+    """Materialize a paged pool ``(P, g, bs, ...)`` as the contiguous
+    per-slot cache ``(b, g, n_pages*bs, ...)`` a dense oracle expects (the
+    layout inverse of the engine's block leasing; null-block pages gather
+    whatever the null block holds, which true-length masking hides)."""
+    g = pool[page_table.long()]                   # (b, n_pages, g, bs, ...)
+    b, npg, heads, bs = g.shape[:4]
+    g = g.movedim(2, 1)                           # (b, g, n_pages, bs, ...)
+    return g.reshape(b, heads, npg * bs, *g.shape[4:])
+
+
+def _materialize_ref_cache(q, k_cache, v_cache, k_scale, v_scale,
+                           page_table):
+    """The ref oracle's operand preparation: gather a paged pool
+    contiguous, then drop int8 quantization through a full-precision copy."""
+    if page_table is not None:
+        k_cache = gather_paged_cache(k_cache, page_table)
+        v_cache = gather_paged_cache(v_cache, page_table)
+        if k_scale is not None:
+            k_scale = gather_paged_cache(k_scale, page_table)
+            v_scale = gather_paged_cache(v_scale, page_table)
+    if k_scale is not None:
+        from repro_torch.models.attention import dequantize_kv
+        k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
+    return k_cache, v_cache
+
+
 def mixed_attention(q, k_cache, v_cache, lengths, q_lens, *, window=None,
-                    scale=None, impl: str = "auto") -> torch.Tensor:
-    """Mixed prefill/decode attention against the slot cache (fp)."""
+                    scale=None, k_scale=None, v_scale=None, page_table=None,
+                    block_kv: int = DEFAULT_BLOCK_KV,
+                    impl: str = "auto") -> torch.Tensor:
+    """Mixed prefill/decode attention against the slot cache or, with
+    ``page_table`` (B, n_pages), the shared paged pools; fp, or int8 K/V
+    with ``k_scale``/``v_scale`` (dequant fused after the dot).
+    ``block_kv`` caps the slot walk's KV tile (the paged tile is the page),
+    so a slot walk can be pinned to the page size."""
     impl = _resolve(impl, q)
+    if page_table is not None:
+        page_table = torch.as_tensor(page_table, device=q.device)
     kw = dict(window=window, scale=scale)
+    if impl == "ref":
+        k_full, v_full = _materialize_ref_cache(q, k_cache, v_cache, k_scale,
+                                                v_scale, page_table)
+        return _ref.mixed_attention_ref(q, k_full, v_full, lengths, q_lens,
+                                        **kw)
+    kw.update(k_scale=k_scale, v_scale=v_scale, page_table=page_table,
+              block_kv=block_kv)
     if impl == "cuda":
         return mixed_flash_attention_cuda(q, k_cache, v_cache, lengths,
                                           q_lens, **kw)
-    if impl == "torch":
-        return mixed_attention_torch(q, k_cache, v_cache, lengths, q_lens,
-                                     **kw)
-    return _ref.mixed_attention_ref(q, k_cache, v_cache, lengths, q_lens,
-                                    **kw)
+    return mixed_attention_torch(q, k_cache, v_cache, lengths, q_lens, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window=None,
-                     scale=None, impl: str = "auto") -> torch.Tensor:
+                     scale=None, k_scale=None, v_scale=None, page_table=None,
+                     block_kv: int = DEFAULT_BLOCK_KV,
+                     impl: str = "auto") -> torch.Tensor:
     """One-token decode attention: ``mixed_attention`` with ``q_lens = 1``
     (the same kernel, as in the reference)."""
     if q.shape[2] != 1:
@@ -99,4 +141,6 @@ def decode_attention(q, k_cache, v_cache, length, *, window=None,
                          f"{q.shape[2]}); use mixed_attention")
     ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
     return mixed_attention(q, k_cache, v_cache, length, ones, window=window,
-                           scale=scale, impl=impl)
+                           scale=scale, k_scale=k_scale, v_scale=v_scale,
+                           page_table=page_table, block_kv=block_kv,
+                           impl=impl)

@@ -4,10 +4,12 @@
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none``, ``dense`` W4A16, or the
 log-scale sparse ``strategy1``-``strategy3`` of paper Table II), starts the
-continuous-batching engine and runs a synthetic request workload (prompts
-of 4–32 tokens from ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
+continuous-batching engine over a slot cache or, with ``--kv-layout
+paged``, a shared block pool, and runs a synthetic request workload
+(prompts of 4–32 tokens from ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
 without ``--full`` it serves the reduced ``-smoke`` configuration.
-Prints the summary, the scheduler line and each kernel's launch count.
+Prints the summary, the scheduler line, the pool line of a paged run and
+each kernel's launch count.
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--kv-layout", default="slot", choices=["slot", "paged"],
+                    help="paged = shared block pool + per-slot page tables")
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="tokens per KV page (paged layout)")
+    ap.add_argument("--kv-pool-blocks", type=int, default=0,
+                    help="shared-pool blocks (0 = batch * pages per slot)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true")
@@ -41,7 +49,10 @@ def main(argv=None) -> None:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "PyTorch path")
-    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    kv = dict(kv_layout=args.kv_layout, kv_block_size=args.kv_block_size,
+              kv_pool_blocks=args.kv_pool_blocks)
+    cfg = (get_config(args.arch, **kv) if args.full
+           else get_smoke_config(args.arch, **kv))
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = quantize_model(api.init_params(cfg, gen), args.strategy)
     print(f"arch={cfg.name} packed={quantized_bytes(params) / 1e6:.1f} MB "
@@ -63,6 +74,12 @@ def main(argv=None) -> None:
     print(f"scheduler: {engine.steps} ticks, {engine.dispatches} dispatches "
           f"(1 per tick, {engine.mixed_ticks} mixed), slot occupancy "
           f"{engine.slot_occupancy:.2f}")
+    if engine.paged:
+        print(f"paged KV: {engine.pool_blocks} blocks x "
+              f"{engine.block_size} tokens, peak resident "
+              f"{engine.peak_resident_tokens} tokens, "
+              f"{engine.admission_stalls} admission stalls, "
+              f"pool {engine.pool_stats()}")
     print(f"kernel launches: {dict(sorted(launches.items()))}")
 
 

@@ -1,12 +1,24 @@
-"""Attention for serving: GQA, RoPE, slot KV cache (port of the slot subset
-of ``repro/models/attention.py``).
+"""Attention for serving: GQA, RoPE, slot or paged KV cache, fp or int8
+K/V (port of the serving half of ``repro/models/attention.py``).
 
-The cache is updated IN PLACE, which JAX could not do: ``_chunk_write`` and
-the decode write assign into the cache tensors the caller passes, and
-``attn_mixed`` / ``attn_decode`` return that same dict.  A cache row is
-written only at the positions its request really occupies, so a
-``q_lens == 0`` row (or a decode row outside ``write_mask``) is untouched,
-the property the reference gets from its read-modify-write and select.
+The cache is updated IN PLACE, which JAX could not do: the chunk and token
+writers assign into the cache tensors the caller passes, and ``attn_mixed``
+/ ``attn_decode`` return that same dict.  A cache row is written only at the
+positions its request really occupies, so a ``q_lens == 0`` row (or a
+decode row outside ``write_mask``) is untouched, the property the reference
+gets from its read-modify-write and select.  Paged: the reference routes
+dead positions and masked rows to the null block; here they are skipped,
+so no write ever lands in a block the row has not leased and the null
+block is never written (nor read: the kernels address only a row's live
+pages).
+
+Paged layout.  Per layer the pool leaf is ``(n_blocks + 1, hkv, bs, hd)``;
+the LAST block is the null block, and page-table entries of pages a slot
+has not leased point there, so a stale table never aliases a live block.
+The page table ``(B, pages_per_slot)`` of physical block ids is host-owned
+(the engine leases and frees blocks) and rides into each dispatch as a
+tensor: logical position ``p`` of slot ``b`` lives at
+``pool[page_table[b, p // bs], :, p % bs]``.
 """
 
 from __future__ import annotations
@@ -14,25 +26,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_flash import PAGE_SIZES
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dense_init, linear
 
 
-def check_supported(cfg) -> None:
-    """Raise for the configurations a later slice of the port brings."""
+def check_supported(cfg, device=None) -> None:
+    """Raise for the configurations a later slice of the port brings, and
+    for a page size the paged kernel does not take when ``device`` is a
+    CUDA device (the CPU's plain version takes any)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense only)")
-    if cfg.kv_layout != "slot":
-        raise NotImplementedError(
-            "kv_layout='paged' needs the paged variant of the attention "
-            "kernel, which a later slice ports")
-    if cfg.kv_quant != "none":
-        raise NotImplementedError(
-            f"kv_quant={cfg.kv_quant!r} needs the int8-KV variant of the "
-            "attention kernel, which a later slice ports")
+    if cfg.kv_quant not in ("none", "int8"):
+        raise NotImplementedError(f"kv_quant {cfg.kv_quant!r} is not ported")
     if cfg.rope_type not in ("standard", "none"):
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r}")
+        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not ported")
+    if (cfg.kv_layout == "paged" and device is not None
+            and torch.device(device).type == "cuda"
+            and cfg.kv_block_size not in PAGE_SIZES):
+        raise NotImplementedError(
+            f"kv_block_size={cfg.kv_block_size}: the paged attention kernel "
+            f"takes pages of {PAGE_SIZES.start} to {PAGE_SIZES.stop - 1} "
+            "tokens (the reference's kernel wants >= 8; the CUDA tile holds "
+            "at most 128 keys)")
 
 
 def attn_init(gen: torch.Generator, cfg) -> Params:
@@ -73,16 +90,108 @@ def _project_qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     return q.contiguous(), k, v
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, device) -> Params:
-    check_supported(cfg)
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+# -- paged KV layout ---------------------------------------------------------
+
+def paged_blocks_for(length: int, block_size: int) -> int:
+    """Blocks needed to cover ``length`` logical tokens (ceil division)."""
+    return -(-length // block_size)
+
+
+def paged_geometry(cfg, max_len: int) -> tuple[int, int]:
+    """(block_size, pages_per_slot) for a paged cache addressing ``max_len``
+    logical positions per slot (the last page may be partially
+    addressable)."""
+    bs = cfg.kv_block_size
+    return bs, paged_blocks_for(max_len, bs)
+
+
+def paged_pool_blocks(cfg, batch: int, max_len: int) -> int:
+    """Usable (non-null) pool blocks: ``cfg.kv_pool_blocks`` or the slot
+    layout's exact capacity ``batch * pages_per_slot``."""
+    _, n_pages = paged_geometry(cfg, max_len)
+    return cfg.kv_pool_blocks or batch * n_pages
+
+
+def default_page_table(batch: int, pool_blocks: int,
+                       device=None) -> torch.Tensor:
+    """Linear identity table for a default-sized pool (slot ``b`` owns
+    blocks ``b*pages .. (b+1)*pages-1``), the layout bit-equivalent to the
+    slot cache.  ``pool_blocks`` is the pool leaf's leading dim INCLUDING
+    the null block."""
+    n_pages = (pool_blocks - 1) // batch
+    return torch.arange(batch * n_pages, dtype=torch.int32,
+                        device=device).reshape(batch, n_pages)
+
+
+def _kv_leaves(cfg, shape: tuple, device) -> Params:
+    """K/V leaves of one layer with token axes ``shape`` (..., hd): the
+    activation dtype, or int8 with per-(token, head) f32 scales."""
+    if cfg.kv_quant == "int8":
+        scale_shape = (*shape[:-1], 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(scale_shape, dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def init_kv_cache_paged(cfg, batch: int, max_len: int, device) -> Params:
+    """Shared-pool paged KV leaves (one layer): ``(P+1, hkv, bs, hd)``."""
+    bs, _ = paged_geometry(cfg, max_len)
+    p = paged_pool_blocks(cfg, batch, max_len) + 1   # + null block (last)
+    return _kv_leaves(cfg, (p, cfg.n_kv_heads, bs, cfg.head_dim), device)
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device) -> Params:
+    check_supported(cfg, device)
+    if cfg.kv_layout == "paged":
+        return init_kv_cache_paged(cfg, batch, max_len, device)
+    return _kv_leaves(cfg, (batch, cfg.n_kv_heads, max_len, cfg.head_dim),
+                      device)
+
+
 def kv_cache_slot_axes(cfg, axis: int = 1) -> Params:
-    """Request-slot axis of each cache leaf (1 for a (layers, B, ...) stack)."""
-    return {"k": axis, "v": axis}
+    """Request-slot axis of each cache leaf (1 for a (layers, B, ...)
+    stack).  Paged leaves are SHARED pools with no slot axis, marked with
+    the ``-1`` sentinel."""
+    if cfg.kv_layout == "paged":
+        axis = -1
+    axes: Params = {"k": axis, "v": axis}
+    if cfg.kv_quant == "int8":
+        axes["k_scale"] = axis
+        axes["v_scale"] = axis
+    return axes
+
+
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, hd) -> int8 values + per-vector absmax scale (round half to
+    even, as ``jnp.round``)."""
+    tf = t.to(torch.float32)
+    a = tf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(a / 127.0, min=1e-10)
+    q = torch.clamp(torch.round(tf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> Params:
+    """This step's K/V (b, hkv, s, hd) as the cache stores them."""
+    if cfg.kv_quant != "int8":
+        return {"k": k, "v": v}
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _scales(cache: Params) -> dict:
+    return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
 def _chunk_write(cache_leaf: torch.Tensor, new: torch.Tensor,
@@ -97,50 +206,105 @@ def _chunk_write(cache_leaf: torch.Tensor, new: torch.Tensor,
         new[rows, :, cols].to(cache_leaf.dtype)
 
 
+def _paged_chunk_write(pool: torch.Tensor, new: torch.Tensor,
+                       page_table: torch.Tensor, starts: torch.Tensor,
+                       q_lens: torch.Tensor) -> None:
+    """In place, through the page table: row ``b`` writes its first
+    ``q_lens[b]`` chunk tokens ``new[b, :, j]`` at logical positions
+    ``starts[b] + j``.  Dead chunk positions write nothing (the reference
+    routes them to the null block), so a ``q_lens == 0`` row is a no-op."""
+    c = new.shape[2]
+    bs = pool.shape[2]
+    j = torch.arange(c, device=new.device)
+    rows, cols = (j[None, :] < q_lens[:, None]).nonzero(as_tuple=True)
+    pos = starts.long()[rows] + cols
+    blk = page_table.long()[rows, pos // bs]
+    pool[blk, :, pos % bs] = new[rows, :, cols].to(pool.dtype)
+
+
+def _paged_token_write(pool: torch.Tensor, new: torch.Tensor,
+                       page_table: torch.Tensor, pos: torch.Tensor,
+                       mask: torch.Tensor | None) -> None:
+    """In place: one token per row, ``new`` (b, hkv, w) at logical
+    positions ``pos`` (b,).  Rows with ``mask == False`` write nothing."""
+    rows = torch.arange(new.shape[0], device=new.device)
+    if mask is not None:
+        rows = rows[mask]
+    pos = pos.long()[rows]
+    bs = pool.shape[2]
+    blk = page_table.long()[rows, pos // bs]
+    pool[blk, :, pos % bs] = new[rows].to(pool.dtype)
+
+
 def attn_mixed(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
-               lengths: torch.Tensor, q_lens: torch.Tensor):
+               lengths: torch.Tensor, q_lens: torch.Tensor, *,
+               page_table: torch.Tensor | None = None):
     """Mixed prefill/decode step.  x (b, C, d); ``lengths`` (b,) = valid
     cache tokens BEFORE this step; ``q_lens`` (b,) = live new tokens per
-    row.  Writes each row's live K/V at its true positions, then attends
-    with intra-chunk causal masking.  Returns (out, cache)."""
+    row.  Writes each row's live K/V at its true positions (through
+    ``page_table`` for a paged pool: None = the linear default table of a
+    default-sized pool), then attends with intra-chunk causal masking.
+    Requires ``lengths + q_lens <= cache span``, so a rolling window never
+    wraps here and ``cfg.window`` masks directly.  Returns (out, cache)."""
     b, c, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
-    _chunk_write(cache["k"], k, lengths, q_lens)
-    _chunk_write(cache["v"], v, lengths, q_lens)
+    if cfg.kv_layout == "paged" and page_table is None:
+        page_table = default_page_table(b, cache["k"].shape[0], x.device)
+    for name, new in _new_kv(cfg, k, v).items():
+        if cfg.kv_layout == "paged":
+            _paged_chunk_write(cache[name], new, page_table, lengths, q_lens)
+        else:
+            _chunk_write(cache[name], new, lengths, q_lens)
     o = ops.mixed_attention(q, cache["k"], cache["v"], lengths + q_lens,
-                            q_lens, window=cfg.window)
+                            q_lens, window=cfg.window, page_table=page_table,
+                            **_scales(cache))
     o = o.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.head_dim)
     return linear(o, p["wo"]), cache
 
 
 def attn_decode(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
                 lengths: torch.Tensor, *,
+                page_table: torch.Tensor | None = None,
                 write_mask: torch.Tensor | None = None):
     """One-token decode.  x (b, 1, d); ``lengths`` (b,) = context length
     INCLUDING the new token.  ``write_mask`` (b,) bool keeps masked rows'
     caches untouched (the reference writes them and selects the old rows
-    back; in place the write is simply skipped).  Returns (out, cache)."""
+    back, or routes a paged write to the null block; in place the write is
+    simply skipped).  A window no longer than the cache span makes it a
+    rolling buffer (slot = position mod span), on a paged pool as on the
+    slot cache.  Returns (out, cache)."""
     b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, positions)
-    cache_len = cache["k"].shape[2]
-    rolling = cfg.window is not None and cache_len <= cfg.window
+    paged = cfg.kv_layout == "paged"
+    if paged:
+        if page_table is None:
+            page_table = default_page_table(b, cache["k"].shape[0], x.device)
+        span = page_table.shape[1] * cache["k"].shape[2]
+    else:
+        span = cache["k"].shape[2]
+    rolling = cfg.window is not None and span <= cfg.window
     if rolling:
-        # rolling SWA buffer: slot = pos mod window; RoPE is applied before
+        # rolling SWA buffer: slot = pos mod span; RoPE is applied before
         # caching and softmax is permutation-invariant
-        write_idx = (lengths - 1) % cache_len
-        attn_len = torch.clamp(lengths, max=cache_len)
+        write_idx = (lengths - 1) % span
+        attn_len = torch.clamp(lengths, max=span)
         attn_window = None
     else:
-        write_idx = lengths - 1
+        write_idx = torch.clamp(lengths - 1, 0, span - 1)
         attn_len = lengths
         attn_window = cfg.window
     rows = torch.arange(b, device=x.device)
     if write_mask is not None:
         rows = rows[write_mask]
-    write_idx = write_idx.long()
-    cache["k"][rows, :, write_idx[rows]] = k[rows, :, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, write_idx[rows]] = v[rows, :, 0].to(cache["v"].dtype)
+    for name, new in _new_kv(cfg, k, v).items():
+        if paged:
+            _paged_token_write(cache[name], new[:, :, 0], page_table,
+                               write_idx, write_mask)
+        else:
+            idx = write_idx.long()[rows]
+            cache[name][rows, :, idx] = new[rows, :, 0].to(cache[name].dtype)
     o = ops.decode_attention(q, cache["k"], cache["v"], attn_len,
-                             window=attn_window)
+                             window=attn_window, page_table=page_table,
+                             **_scales(cache))
     o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return linear(o, p["wo"]), cache

@@ -1,9 +1,9 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
 Mirrors ``repro/models/config.py`` for the fields the dense serving path
-reads.  Fields the port does not serve yet (paged KV, int8 KV, non-dense
-families) are kept so a configuration can name them; the model and engine
-raise ``NotImplementedError`` for them.
+reads, the slot and paged KV layouts and the int8 KV cache included.  The
+``family`` field is kept so a configuration can name a family the port does
+not serve yet; the model and engine raise ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ class ModelConfig:
     embed_scale: bool = False         # scale embeddings by sqrt(d)
     logit_softcap: float | None = None
 
-    kv_quant: str = "none"            # none (int8: a later slice)
-    kv_layout: str = "slot"           # slot (paged: a later slice)
+    kv_quant: str = "none"            # none | int8 (per-token absmax scale)
+    kv_layout: str = "slot"           # slot | paged
+    kv_block_size: int = 16           # tokens per page (paged layout only)
+    kv_pool_blocks: int = 0           # shared-pool blocks (0 = B * pages/slot)
 
     dtype: torch.dtype = torch.bfloat16
 
@@ -48,3 +50,5 @@ class ModelConfig:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         if self.kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
+        if self.kv_layout == "paged" and self.kv_block_size < 1:
+            raise ValueError("kv_block_size must be >= 1 for paged layout")

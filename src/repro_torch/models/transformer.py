@@ -3,8 +3,10 @@
 
 Block parameters are stacked along a leading layer axis, as in the
 reference; the layers run as a Python loop over views of the stacked
-tensors (``layer_params``), and the KV cache is a (layers, B, hkv, L, hd)
-pair updated in place.
+tensors (``layer_params``), and the KV cache stacks one layer's leaves
+along a leading layer axis: (layers, B, hkv, L, hd) slots, or one
+(layers, P+1, hkv, bs, hd) pool per layer for the paged layout, updated in
+place.
 """
 
 from __future__ import annotations
@@ -104,10 +106,12 @@ def _mlp_residual(cfg, bp: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
-               lengths: torch.Tensor, q_lens: torch.Tensor):
+               lengths: torch.Tensor, q_lens: torch.Tensor, *,
+               page_table: torch.Tensor | None = None):
     """Mixed prefill/decode step: tokens (B, C); ``lengths`` (B,) = valid
-    cache tokens BEFORE this step; ``q_lens`` (B,) = live tokens per row.
-    Returns (logits (B, V) of each row's LAST live token, cache)."""
+    cache tokens BEFORE this step; ``q_lens`` (B,) = live tokens per row;
+    ``page_table`` (B, pages) routes paged K/V placement.  Returns (logits
+    (B, V) of each row's LAST live token, cache)."""
     b, c = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     pos = lengths[:, None] + torch.arange(c, dtype=lengths.dtype,
@@ -117,7 +121,7 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
         lc = _layer_cache(cache, i)
         h, _ = attention.attn_mixed(
             cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
-            lc, lengths, q_lens)
+            lc, lengths, q_lens, page_table=page_table)
         x = _mlp_residual(cfg, bp, x + h)
     # only each row's last live position reaches the LM head
     idx = torch.clamp(q_lens - 1, 0, c - 1).long()
@@ -128,9 +132,12 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
 
 def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
                 lengths: torch.Tensor, *,
+                page_table: torch.Tensor | None = None,
                 write_mask: torch.Tensor | None = None):
     """One decode step: tokens (B, 1); ``lengths`` (B,) = context length
-    including this token.  Returns (logits (B, V), cache)."""
+    including this token; ``page_table`` routes paged K/V placement and
+    ``write_mask`` (B,) bool leaves masked rows' caches untouched.  Returns
+    (logits (B, V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     pos = (lengths - 1)[:, None]
     for i in range(cfg.n_layers):
@@ -138,7 +145,7 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
         lc = _layer_cache(cache, i)
         h, _ = attention.attn_decode(
             cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
-            lc, lengths, write_mask=write_mask)
+            lc, lengths, page_table=page_table, write_mask=write_mask)
         x = _mlp_residual(cfg, bp, x + h)
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return unembed(cfg, params, x)[:, 0], cache

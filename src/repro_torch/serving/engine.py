@@ -1,10 +1,12 @@
-"""Serving engine: chunked-prefill continuous batching over one slot cache.
+"""Serving engine: chunked-prefill continuous batching over one resident
+KV cache, slot or paged.
 
 Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
 
 * **One resident cache.**  ``api.init_cache(cfg, B, max_len)`` allocates a
-  single slot cache on the device for the engine's lifetime; requests lease
-  a slot.
+  single cache on the device for the engine's lifetime; requests lease a
+  slot.  With ``kv_layout="paged"`` the cache is one shared block pool per
+  layer, and the engine keeps the host side of it (below).
 * **One dispatch per tick.**  ``api.mixed_step`` advances every slot in one
   call (row ``b`` by ``q_lens[b]`` tokens: 1 for a decoding row, up to the
   chunk width for a row mid-prefill); a tick with no prompt chunk in flight
@@ -21,9 +23,32 @@ The engine ≡ oracle contract holds: every token stream equals
 ``reference_decode`` (batch-1 sequential decode), because the kernels reduce
 every row in an order independent of the batch and the chunk width.
 
-Left for later slices, and not accepted as arguments: the paged layout,
-int8 KV, speculation, prefix sharing, the request lifecycle and preemption,
-quarantine, audits, chaos and snapshots.
+Paged KV bookkeeping (host only; the device sees a page table):
+
+* **Geometry.**  ``block_size`` tokens per page, ``n_pages`` pages per slot,
+  ``pool_blocks`` usable blocks (``kv_pool_blocks``, or ``B * n_pages``);
+  the null block is ``pool_blocks``, the pool's last row.  The page table
+  ``(B, n_pages)`` starts all-null and goes into every dispatch as a device
+  tensor.
+* **Reservation admission.**  A request's worst case is
+  ``ceil(min(prompt + max_new_tokens, max_len) / block_size)`` blocks
+  (``submit`` refuses one larger than the pool).  The queue head is
+  admitted only when the free blocks not yet reserved cover its worst case
+  (strict FIFO); otherwise the tick counts an ``admission_stalls`` and
+  admits nothing more.  ``sum(reserve) <= free`` therefore always holds, so
+  an admitted row can always lease its next block: pressure shows up as
+  stalls, never as a stuck batch.
+* **Leasing on demand.**  Before each dispatch every advancing row leases
+  the blocks its new length crosses into (``BlockAllocator``, LIFO).
+* **Release.**  Retirement drops the row's block references and points its
+  page-table row back at the null block.
+* ``pool_stats``, ``peak_resident_tokens`` and ``audit`` (every
+  ``audit_every`` ticks) expose and check these invariants.
+
+One card means one block home: the reference's per-home reservation split
+is the total check here.  Left for later slices, and not accepted as
+arguments: speculation, prefix sharing and copy-on-write, the request
+lifecycle and preemption, quarantine, chaos and snapshots.
 """
 
 from __future__ import annotations
@@ -38,7 +63,9 @@ import torch
 
 from repro_torch.core.compiler import TokenBuckets
 from repro_torch.models import api
-from repro_torch.models.attention import check_supported
+from repro_torch.models.attention import (
+    check_supported, paged_geometry, paged_pool_blocks)
+from repro_torch.serving.prefix import BlockAllocator
 
 
 @dataclasses.dataclass
@@ -90,14 +117,15 @@ class Engine:
 
     def __init__(self, cfg, params: Any, *, batch_size: int = 4,
                  max_len: int = 512, eos_id: int | None = None,
-                 chunk_size: int = 64, device="cuda"):
-        check_supported(cfg)
+                 chunk_size: int = 64, audit_every: int = 0,
+                 device="cuda"):
+        self.device = torch.device(device)
+        check_supported(cfg, self.device)
         self.cfg = cfg
         self.params = params
         self.batch = batch_size
         self.max_len = max_len
         self.eos_id = eos_id
-        self.device = torch.device(device)
         # >= 2 so a mixed tick never takes mixed_step's C == 1 delegation
         self.chunk_size = max(2, min(chunk_size, max_len))
         self.chunk_buckets = TokenBuckets(
@@ -105,6 +133,21 @@ class Engine:
         self._queue: "collections.deque[Request]" = collections.deque()
         self.cache = api.init_cache(cfg, batch_size, max_len, self.device)
         self._slots = [_Slot() for _ in range(batch_size)]
+        self.paged = api.has_paged_kv(cfg)
+        if self.paged:
+            self.block_size, self.n_pages = paged_geometry(cfg, max_len)
+            self.pool_blocks = paged_pool_blocks(cfg, batch_size, max_len)
+            self._null_block = self.pool_blocks      # last pool row
+            self.alloc = BlockAllocator(self.pool_blocks)
+            self._page_table = np.full((batch_size, self.n_pages),
+                                       self._null_block, np.int32)
+            self._slot_blocks: list[list[int]] = [[] for _ in
+                                                  range(batch_size)]
+            self._slot_reserve = [0] * batch_size    # worst-case not-yet-leased
+        self.admission_stalls = 0    # admissions held back by the block pool
+        self.peak_resident_tokens = 0
+        self.audit_every = audit_every
+        self.audits = 0              # audit() passes run (all green)
         self.steps = 0
         self.dispatches = 0          # must equal steps: one dispatch per tick
         self.mixed_ticks = 0
@@ -122,14 +165,114 @@ class Engine:
             raise ValueError(
                 f"request {req.rid}: prompt length {len(req.prompt)} exceeds "
                 f"engine max_len {self.max_len} — raise max_len or truncate")
+        if self.paged and self._worst_case_blocks(req) > self.pool_blocks:
+            raise ValueError(
+                f"request {req.rid}: worst case needs "
+                f"{self._worst_case_blocks(req)} KV blocks but the pool has "
+                f"{self.pool_blocks} — raise kv_pool_blocks")
         req.submitted_at = time.monotonic()
         self._queue.append(req)
+
+    # -- paged-KV block accounting -------------------------------------------
+
+    def _worst_case_blocks(self, req: Request) -> int:
+        """Blocks the request can ever hold: its prompt plus its generation,
+        capped by the cache's addressable span (the ``_emit`` stop rules)."""
+        toks = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        return -(-toks // self.block_size)
+
+    def _can_reserve(self, req: Request) -> bool:
+        """Admission gate: the free blocks nobody has reserved yet must
+        cover the request's worst case."""
+        return (self.alloc.n_free - sum(self._slot_reserve)
+                >= self._worst_case_blocks(req))
+
+    def _admit_head(self, idx: int) -> bool:
+        """Admit the queue head into free slot ``idx``, or count an
+        admission stall when the pool cannot cover its reservation."""
+        head = self._queue[0]
+        if self.paged:
+            if not self._can_reserve(head):
+                self.admission_stalls += 1
+                return False
+            self._slot_reserve[idx] = self._worst_case_blocks(head)
+        self._slots[idx] = _Slot(req=self._queue.popleft())
+        return True
+
+    def _lease_to(self, idx: int, new_len: int) -> None:
+        """Grow slot ``idx`` to cover ``new_len`` tokens, leasing blocks as
+        the length crosses page boundaries, against its reservation."""
+        owned = self._slot_blocks[idx]
+        while len(owned) < -(-new_len // self.block_size):
+            if self._slot_reserve[idx] <= 0:
+                raise RuntimeError(
+                    f"slot {idx} leased past its reservation — worst-case "
+                    "accounting is wrong")
+            blk = self.alloc.lease()
+            self._slot_reserve[idx] -= 1
+            self._page_table[idx, len(owned)] = blk
+            owned.append(blk)
+
+    def pool_stats(self) -> dict[str, int]:
+        """Free-list invariants, exposed for leak/double-free checks:
+        ``free + leased == total`` always."""
+        return {
+            "total": self.pool_blocks,
+            "free": self.alloc.n_free,
+            "leased": self.alloc.n_live,
+            "n_homes": self.alloc.n_homes,
+            "reserved_outstanding": sum(self._slot_reserve),
+        }
+
+    def audit(self) -> None:
+        """One-shot invariant audit (``audit_every`` runs it each N ticks).
+        Raises AssertionError on the first violation: the allocator's
+        partition, deadlock freedom (``sum(reserve) <= free``), page-table
+        rows mirroring exactly the blocks each slot owns with a null tail,
+        dead slots owning nothing, and no slot past ``max_len``."""
+        self.audits += 1
+        if self.paged:
+            self.alloc.check()
+            reserved = sum(self._slot_reserve)
+            assert reserved <= self.alloc.n_free, (
+                f"reservation invariant broken: {reserved} reserved > "
+                f"{self.alloc.n_free} free")
+            for i, s in enumerate(self._slots):
+                owned = self._slot_blocks[i]
+                if s.req is None:
+                    assert not owned and not self._slot_reserve[i], (
+                        f"dead slot {i} owns blocks/reservation")
+                row = self._page_table[i]
+                assert list(row[:len(owned)]) == owned, (
+                    f"slot {i} page table != owned blocks")
+                assert all(b == self._null_block for b in row[len(owned):]), (
+                    f"slot {i} page table has stale tail entries")
+                for blk in owned:
+                    assert 0 <= blk < self.pool_blocks, (
+                        f"slot {i} maps out-of-pool block {blk}")
+                    assert self.alloc.ref(blk) >= 1, (
+                        f"slot {i} maps freed block {blk}")
+        for i, s in enumerate(self._slots):
+            if s.req is not None:
+                assert s.length <= self.max_len, f"slot {i} overran max_len"
 
     # -- internals -----------------------------------------------------------
 
     def _free_slot(self, idx: int) -> None:
         """Retire a row: a host-side release only.  The dead row's stale KV
-        hides behind true-length masking until the next occupant writes."""
+        hides behind true-length masking until the next occupant writes.
+        Paged: the row's block references are dropped and its page-table
+        row points at the null block again, so a stale entry can never
+        alias a block the next occupant is handed."""
+        if self.paged:
+            for blk in self._slot_blocks[idx]:
+                try:
+                    self.alloc.decref(blk)
+                except RuntimeError as e:
+                    raise RuntimeError(f"{e} (slot {idx})") from None
+            self._slot_blocks[idx] = []
+            self._slot_reserve[idx] = 0
+            self._page_table[idx, :] = self._null_block
         self._slots[idx] = _Slot()
 
     def _schedule_chunks(self) -> list[int]:
@@ -164,10 +307,12 @@ class Engine:
             sample: Callable | None = None) -> RunResult:
         """Drain the queue; returns the requests finished during the call.
 
-        Each tick: (1) refill free slots from the queue (a host-side lease),
-        (2) co-schedule prompt chunks with decode rows, (3) advance ALL slots
-        with exactly one call — ``mixed_step`` when any prompt chunk is in
-        flight, ``decode_step`` otherwise — and consume the tokens.
+        Each tick: (1) refill free slots from the queue (a host-side lease;
+        paged: strict FIFO behind the block reservation), (2) co-schedule
+        prompt chunks with decode rows and, paged, lease the blocks they
+        grow into, (3) advance ALL slots with exactly one call —
+        ``mixed_step`` when any prompt chunk is in flight, ``decode_step``
+        otherwise — and consume the tokens.
         ``sample`` maps a logits row (V,) to a token id; greedy argmax on
         the device when None."""
         completed: list[Request] = []
@@ -175,12 +320,21 @@ class Engine:
         while self.steps - start_steps < max_steps:
             for i in range(self.batch):
                 if self._slots[i].req is None and self._queue:
-                    self._slots[i] = _Slot(req=self._queue.popleft())
+                    if not self._admit_head(i):
+                        break
             live = [i for i, s in enumerate(self._slots) if s.req is not None]
             if not live:
                 break
             chunks = self._schedule_chunks()
             decoding = [i for i in live if not self._slots[i].prefilling]
+            paged_kw = {}
+            if self.paged:
+                for i, s in enumerate(self._slots):
+                    if chunks[i]:
+                        self._lease_to(i, s.length + chunks[i])
+                    elif i in decoding:
+                        self._lease_to(i, s.length + 1)
+                paged_kw["page_table"] = self._tensor(self._page_table)
 
             if any(chunks):
                 # mixed tick: prompt chunks + decode rows, one dispatch
@@ -200,25 +354,36 @@ class Engine:
                 logits, self.cache = api.mixed_step(
                     self.cfg, self.params, self.cache,
                     self._tensor(tokens).long(), self._tensor(lengths),
-                    self._tensor(q_lens))
+                    self._tensor(q_lens), **paged_kw)
                 self.mixed_ticks += 1
             else:
-                # pure-decode tick (dead rows ride along, output ignored)
+                # pure-decode tick (dead rows ride along, output ignored;
+                # paged: at length 0 and masked, so they neither read nor
+                # write any block of the pool, the null block included)
                 tokens = np.fromiter((s.last_token for s in self._slots),
                                      np.int64, self.batch).reshape(-1, 1)
                 lengths = np.fromiter(
-                    (s.length + 1 if i in decoding else max(s.length, 1)
+                    (s.length + 1 if i in decoding else
+                     0 if self.paged else max(s.length, 1)
                      for i, s in enumerate(self._slots)),
                     np.int32, self.batch)
+                if self.paged:
+                    adv = np.zeros(self.batch, bool)
+                    adv[decoding] = True
+                    paged_kw["write_mask"] = self._tensor(adv)
                 logits, self.cache = api.decode_step(
                     self.cfg, self.params, self.cache, self._tensor(tokens),
-                    self._tensor(lengths))
+                    self._tensor(lengths), **paged_kw)
             next_np = torch.argmax(logits, dim=-1).cpu().numpy()
             logits_np = (logits.float().cpu().numpy() if sample is not None
                          else None)
             self.steps += 1
             self.dispatches += 1
             self._occupancy_sum += len(live) / self.batch
+            self.peak_resident_tokens = max(
+                self.peak_resident_tokens,
+                sum(self._slots[i].length + chunks[i] + (i in decoding)
+                    for i in live))
 
             for i in live:
                 slot = self._slots[i]
@@ -235,6 +400,8 @@ class Engine:
                     tok = (int(next_np[i]) if sample is None
                            else int(sample(logits_np[i])))
                     self._emit(i, tok, completed, first=False)
+            if self.audit_every and self.steps % self.audit_every == 0:
+                self.audit()
         in_flight = sum(s.req is not None for s in self._slots)
         truncated = (self.steps - start_steps >= max_steps and
                      bool(in_flight or self._queue))
@@ -280,8 +447,10 @@ def reference_decode(cfg, params: Any, prompt: np.ndarray,
     """Per-request batch-1 greedy decode — the exact numerics oracle.
 
     Teacher-forces the prompt through ``api.decode_step`` one token at a
-    time (true positions and lengths), then decodes greedily.  The engine
-    must match it token for token."""
+    time (true positions and lengths), then decodes greedily.  A paged or
+    int8 configuration runs through its own batch-1 cache (paged: a pool
+    under the default linear page table).  The engine must match it token
+    for token."""
     if len(prompt) > max_len:
         raise ValueError(f"prompt length {len(prompt)} exceeds {max_len}")
     dev = torch.device(device)

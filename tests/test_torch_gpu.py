@@ -20,6 +20,7 @@ from repro_torch.core.sparsity import block_sparsify_quantize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.ffn_fused import (  # noqa: E402
     ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles)
+from repro_torch.kernels.decode_flash import VARIANTS as VARIANTS_NAMES  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -172,6 +173,135 @@ def test_attention_kernel_matches_plain(cuda, dtype, window, head_dim):
     assert torch.equal(got[1, :, 0], one[1, :, 0])
 
 
+def _attention_operands(gen, dtype, b, hkv, s, d, bs, quant):
+    """A contiguous cache (fp or int8 with scales), the same cache scattered
+    into a pool under a scrambled page table (3 unassigned blocks and the
+    null block last), and both as keyword arguments of ``ops``."""
+    from repro_torch.models.attention import quantize_kv
+    k = _rand(gen, b, hkv, s, d)
+    v = _rand(gen, b, hkv, s, d)
+    leaves = {"k": k.to(dtype), "v": v.to(dtype)}
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        leaves = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    n_pages = s // bs
+    rows = b * n_pages + 4
+    perm = torch.randperm(rows - 1, generator=gen, device="cuda")
+    table = perm[:b * n_pages].reshape(b, n_pages).to(torch.int32)
+    pool = {}
+    for name, t in leaves.items():
+        p = torch.zeros((rows, hkv, bs, t.shape[-1]), dtype=t.dtype,
+                        device="cuda")
+        p[table.long()] = t.reshape(b, hkv, n_pages, bs, -1).transpose(1, 2)
+        pool[name] = p
+    return leaves, pool, table
+
+
+def _attend(q, leaves, lengths, q_lens, **kw):
+    scales = {n: leaves[n] for n in ("k_scale", "v_scale") if n in leaves}
+    return ops.mixed_attention(q, leaves["k"], leaves["v"], lengths, q_lens,
+                               **scales, **kw)
+
+
+VARIANTS = [(False, True), (True, False), (True, True)]   # (paged, int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged,quant", VARIANTS,
+                         ids=["slot-int8", "paged", "paged-int8"])
+@pytest.mark.parametrize("chunk,window", [(1, None), (16, None), (16, 24)])
+def test_attention_variants_match_plain(cuda, dtype, paged, quant, chunk,
+                                        window):
+    """Each new variant against its plain version, with the launch counted
+    under its own name; paged equals slot bitwise at ``block_kv = bs``."""
+    gen = torch.Generator(device="cuda").manual_seed(9 + chunk)
+    b, hq, hkv, s, d, bs = 3, 8, 2, 128, 128, 16
+    leaves, pool, table = _attention_operands(gen, dtype, b, hkv, s, d, bs,
+                                              quant)
+    q = _rand(gen, b, hq, chunk, d, dtype=dtype)
+    lengths = torch.tensor([37, 128, 5], dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor([min(chunk, 3), chunk, 1], dtype=torch.int32,
+                          device="cuda")
+    cache, kw = ((pool, {"page_table": table}) if paged else (leaves, {}))
+    name = VARIANTS_NAMES[(paged, quant)]
+    before = _build.launches[name]
+    got = _attend(q, cache, lengths, q_lens, window=window, **kw)
+    assert _build.launches[name] == before + 1
+    _close(got, _attend(q, cache, lengths, q_lens, window=window,
+                        impl="torch", **kw), dtype)
+    if paged:
+        slot = _attend(q, leaves, lengths, q_lens, window=window, block_kv=bs)
+        assert torch.equal(got, slot)
+
+
+@pytest.mark.parametrize("paged,quant", VARIANTS,
+                         ids=["slot-int8", "paged", "paged-int8"])
+def test_attention_variants_row_invariant(cuda, paged, quant):
+    """4 rows alone are bitwise those rows inside a batch of 64."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b, hq, hkv, s, d, bs = 64, 8, 2, 64, 128, 16
+    leaves, pool, table = _attention_operands(gen, torch.bfloat16, b, hkv, s,
+                                              d, bs, quant)
+    q = _rand(gen, b, hq, 8, d, dtype=torch.bfloat16)
+    lengths = torch.randint(8, s + 1, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    q_lens = torch.randint(0, 9, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    if paged:
+        full = _attend(q, pool, lengths, q_lens, page_table=table)
+        four = _attend(q[:4], pool, lengths[:4], q_lens[:4],
+                       page_table=table[:4])
+    else:
+        full = _attend(q, leaves, lengths, q_lens)
+        four = _attend(q[:4], {n: t[:4] for n, t in leaves.items()},
+                       lengths[:4], q_lens[:4])
+    assert torch.equal(four, full[:4])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_paged_kernel_never_reads_null_or_unleased_blocks(cuda, quant):
+    """Pages past each row's live range point at the null block; it, every
+    unleased block and the tail of each row's last page hold NaN (int8:
+    NaN scales): the output stays finite and bitwise unchanged."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, s, d, bs = 3, 8, 2, 128, 128, 16
+    _, pool, table = _attention_operands(gen, torch.bfloat16, b, hkv, s, d,
+                                         bs, quant)
+    q = _rand(gen, b, hq, 16, d, dtype=torch.bfloat16)
+    lengths = torch.tensor([37, 128, 5], dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor([16, 3, 1], dtype=torch.int32, device="cuda")
+    clean = _attend(q, pool, lengths, q_lens, page_table=table)
+    null = pool["k"].shape[0] - 1
+    live = (lengths.long() + bs - 1) // bs
+    table = table.clone()
+    table[torch.arange(s // bs, device="cuda")[None, :] >= live[:, None]] = \
+        null
+    leased = torch.zeros(null + 1, dtype=torch.bool, device="cuda")
+    leased[table[table != null].long()] = True
+    for name, leaf in pool.items():
+        if leaf.dtype == torch.int8:
+            continue
+        leaf[~leased] = float("nan")
+        for r in range(b):
+            page, off = divmod(int(lengths[r]), bs)
+            if off:
+                leaf[table[r, page].long(), :, off:] = float("nan")
+    poisoned = _attend(q, pool, lengths, q_lens, page_table=table)
+    assert bool(torch.isfinite(poisoned).all())
+    assert torch.equal(poisoned, clean)
+
+
+def test_paged_kernel_refuses_page_sizes_it_cannot_tile(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = _rand(gen, 1, 4, 1, 32, dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    for bs in (4, 256):
+        pool = _rand(gen, 3, 2, bs, 32, dtype=torch.bfloat16)
+        table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="page size"):
+            ops.mixed_attention(q, pool, pool, one, one, page_table=table)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_batch_invariant(cuda, dtype):
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -182,11 +312,26 @@ def test_rmsnorm_kernel_batch_invariant(cuda, dtype):
     assert torch.equal(rmsnorm(x[:3], gamma), got[:3])
 
 
-@pytest.mark.parametrize("strategy", ["dense", "strategy2", "strategy3"])
-def test_engine_matches_oracle_on_card(cuda, strategy):
+ENGINE_CASES = {"dense": ("dense", {}), "strategy2": ("strategy2", {}),
+                "strategy3": ("strategy3", {}),
+                "paged": ("strategy2", dict(kv_layout="paged",
+                                            kv_block_size=16,
+                                            kv_pool_blocks=6)),
+                "paged-int8": ("strategy2", dict(kv_layout="paged",
+                                                 kv_block_size=16,
+                                                 kv_pool_blocks=6,
+                                                 kv_quant="int8"))}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_matches_oracle_on_card(cuda, case):
     """strategy2/3 at d_model 1024, d_ff 768: wo, gate and up block-sparse,
     down tile_uniform sparse (strategy2) or dense-quantized (strategy3), so
-    every MLP runs the sparse gate/up kernel and one of the two downs."""
+    every MLP runs the sparse gate/up kernel and one of the two downs.  The
+    paged cases serve strategy2 from a 6-block pool of 16-token pages
+    (fewer than 3 slots x 4 pages: admission stalls), fp and int8 K/V, with
+    ``audit()`` on every tick."""
+    strategy, kv = ENGINE_CASES[case]
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.compiler import quantize_model
     from repro_torch.models import api
@@ -195,12 +340,12 @@ def test_engine_matches_oracle_on_card(cuda, strategy):
             if strategy == "dense" else
             dict(head_dim=128, n_heads=8, n_kv_heads=2, d_model=1024,
                  d_ff=768))
-    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, **over)
+    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, **over, **kv)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = quantize_model(api.init_params(cfg, gen), strategy)
     _build.launches.clear()
     engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
-                    device="cuda")
+                    audit_every=1, device="cuda")
     rng = np.random.default_rng(2)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                int(rng.integers(3, 40))),
@@ -210,6 +355,12 @@ def test_engine_matches_oracle_on_card(cuda, strategy):
         engine.submit(r)
     done = engine.run()
     assert len(done) == 6
+    attention = VARIANTS_NAMES[(cfg.kv_layout == "paged",
+                                cfg.kv_quant == "int8")]
+    assert _build.launches[attention] == engine.steps * cfg.n_layers
+    if engine.paged:
+        assert engine.admission_stalls > 0
+        assert engine.pool_stats()["free"] == engine.pool_blocks
     if strategy != "dense":
         sparse_per_layer = 2 if strategy == "strategy2" else 1   # wo (+down)
         assert _build.launches["ffn_fused_sparse"] == (engine.steps

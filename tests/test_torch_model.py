@@ -135,8 +135,8 @@ def test_mixed_step_equals_sequential_decode(models):
     assert int(ml.argmax()) == int(sl.argmax())
 
 
-@pytest.mark.parametrize("override", [{"kv_layout": "paged"},
-                                      {"kv_quant": "int8"},
+@pytest.mark.parametrize("override", [{"family": "hybrid"},
+                                      {"rope_type": "mrope"},
                                       {"family": "moe"}])
 def test_unported_configs_raise(override):
     cfg = get_smoke_config("qwen-7b", **override)

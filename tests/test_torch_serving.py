@@ -30,6 +30,19 @@ from repro_torch.serving.engine import (  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU path issues many ops on tiny tensors.  On a loaded
+    machine (the suite runs test files in parallel) intra-op threads wait
+    for each other far longer than the work takes, so these tests run the
+    port on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 OVERRIDES = dict(d_model=128, d_ff=256, vocab_size=512)
 
@@ -143,11 +156,21 @@ def test_engine_stop_rules_and_admission(setup):
 
 
 def test_engine_refuses_unported_configs(setup):
+    """A family the port does not serve yet is refused on any device; a
+    page size the paged kernel does not take (8 to 128 tokens) is refused
+    for a CUDA engine before anything is allocated, while the CPU's plain
+    version serves it."""
     _, _, tcfg, tparams = setup
     import dataclasses
-    for over in ({"kv_layout": "paged"}, {"kv_quant": "int8"}):
-        with pytest.raises(NotImplementedError):
-            Engine(dataclasses.replace(tcfg, **over), tparams, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Engine(dataclasses.replace(tcfg, family="moe"), tparams,
+               device="cpu")
+    for bs in (4, 129):
+        cfg = dataclasses.replace(tcfg, kv_layout="paged", kv_block_size=bs)
+        with pytest.raises(NotImplementedError, match="pages of 8 to 128"):
+            Engine(cfg, tparams, device="cuda")
+    Engine(dataclasses.replace(tcfg, kv_layout="paged", kv_block_size=4),
+           tparams, device="cpu")
 
 
 def test_launcher_runs_on_cpu(capsys):

@@ -46,6 +46,19 @@ from repro_torch.serving.engine import (  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU path issues many ops on tiny tensors.  On a loaded
+    machine (the suite runs test files in parallel) intra-op threads wait
+    for each other far longer than the work takes, so these tests run the
+    port on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KERNEL_TOL = dict(rtol=2e-4, atol=2e-4)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 OVERRIDES = dict(n_layers=2, d_model=1024, n_heads=8, n_kv_heads=2,
