@@ -19,15 +19,20 @@ Phases (any failure ends the run with a nonzero exit code):
                  unleased blocks changing nothing); kernel, plain and
                  library-call times (CUDA events, L2 flushed before each
                  launch) beside the bound the card could reach; T=4 rows
-                 bitwise equal inside T=256;
+                 bitwise equal inside T=256; the full-sequence flash
+                 attention at the prefill shapes against its plain version
+                 and the dense oracle, with ``scaled_dot_product_attention``
+                 timed beside it, a row of B=3 and the last queries of a
+                 call bitwise equal alone;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
-                 and "strategy3" (log-scale sparse), one model at a time:
+                 and "strategy3" (log-scale sparse), and chatglm-6b (the
+                 paper's ChatGLM2-6B, "dense"), one model at a time:
                  mixed_step over a 13-token prompt in 8-token chunks is
                  bitwise equal to 13 sequential decode steps (logits and
                  every cache leaf of all layers); strategy2 also with int8
                  K/V, a paged pool and a paged int8 pool;
-  5. serving  — with each of the three models, the engine serves 9
+  5. serving  — with each of the four models, the engine serves 9
                  requests; every token stream equals ``reference_decode``
                  and the kernel launch counts (reset before each path's
                  run, read just after it) equal layers x calls x ticks as
@@ -37,7 +42,15 @@ Phases (any failure ends the run with a nonzero exit code):
                  admissions stall) and from the same pool in int8, with
                  ``audit()`` on every tick and the pool whole after the
                  drain;
-  6. the ``kernels`` JSON line, the card's name and power limit, and the
+  6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
+                 bitwise equal to prefill's logits, launch counts exact
+                 (the path ``<model>-prefill``); the slot prefill against
+                 the one-mixed_step route; greedy prefill + decode against
+                 the engine's stream; qwen-7b: 8192 tokens in two chunks
+                 against one shot.  On strategy2: the int8 slot prefill
+                 and the paged prefill (kernel 3's paged variant, never the
+                 flash kernel) against their engines;
+  then the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
      that ported it); ``launches_by_path`` gives every path's count.
@@ -254,6 +267,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
 
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
     line.update(check_attention_variants(torch, timer, randn, tol, rows))
+    line.update(check_flash_attention(torch, timer, randn, tol, rows))
 
     # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
     b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
@@ -689,13 +703,138 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
     return line
 
 
+def visible_pairs(sq, skv, causal, window):
+    """(query, key) pairs the masks leave visible, per batch row and head:
+    the work this call's data needs (skipped and masked pairs excluded)."""
+    import numpy as np
+    q_pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(q_pos + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def sdpa_full(torch, q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call on the same inputs, the
+    q block ending the context (timed, never used by the port)."""
+    import torch.nn.functional as F
+    sq, skv = q.shape[2], k.shape[2]
+    mask = None
+    if causal or window:
+        q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        k_pos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window:
+            mask &= q_pos - k_pos < window
+    if causal and not window and sq == skv:
+        mask = None
+    return F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=mask is None and causal,
+        enable_gqa=q.shape[1] != k.shape[1])
+
+
+# name: (B, hq, hkv, Sq, Skv, d, causal, window)
+FLASH_CASES = {
+    "qwen-7b causal S=2048": (1, 32, 4, 2048, 2048, 128, True, None),
+    "chunked Sq=4096 Skv=8192": (1, 32, 4, 4096, 8192, 128, True, None),
+    "ragged S=300": (1, 32, 4, 300, 300, 128, True, None),
+    "chatglm-6b rep 16 S=1024": (1, 32, 2, 1024, 1024, 128, True, None),
+    "window 256 S=1024": (1, 32, 4, 1024, 1024, 128, True, 256),
+    "non-causal Sq=448 Skv=1500 d=64": (1, 12, 12, 448, 1500, 64, False,
+                                        None),
+}
+
+
+def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
+    """Kernel 7 against its plain version (at the kernel's tiles and at the
+    TPU kernel's, which ``impl="torch"`` runs) and the dense oracle, bf16
+    and f32, at the shapes the prefill and forward paths give it; kernel,
+    plain and ``scaled_dot_product_attention`` times beside the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_KV, BLOCK_Q, flash_attention_torch)
+    line = {}
+    for name, (b, hq, hkv, sq, skv, d, causal, window) in FLASH_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q = randn(b, hq, sq, d, dtype=dtype)
+            k = randn(b, hkv, skv, d, dtype=dtype)
+            v = randn(b, hkv, skv, d, dtype=dtype)
+            kw = dict(causal=causal, window=window)
+            got = ops.attention(q, k, v, **kw)
+            errs = {}
+            for what, want in (
+                    ("plain_kernel_tiles", lambda: flash_attention_torch(
+                        q, k, v, block_q=BLOCK_Q, block_kv=BLOCK_KV, **kw)),
+                    ("plain", lambda: ops.attention(q, k, v, impl="torch",
+                                                    **kw)),
+                    ("ref", lambda: ops.attention(q, k, v, impl="ref",
+                                                  **kw))):
+                errs[what] = max_errs(got, want())
+                torch.cuda.empty_cache()
+            bad = {w: e for w, e in errs.items() if not e[1] <= tol[dname]}
+            need(not bad and bool(torch.isfinite(got).all()),
+                 f"flash_attention {name} {dname}: rel err {bad} > "
+                 f"{tol[dname]}")
+            row = {"kernel": "flash_attention", "case": name, "dtype": dname,
+                   "B": b, "hq": hq, "hkv": hkv, "Sq": sq, "Skv": skv, "d": d,
+                   "causal": causal, "window": window,
+                   "max_abs_err": errs["plain"][0],
+                   "max_rel_err": errs["plain"][1],
+                   "errs": {w: {"max_abs": e[0], "max_rel": e[1]}
+                            for w, e in errs.items()},
+                   "tol_rel": tol[dname]}
+            if dtype == torch.bfloat16:
+                big = sq * skv >= 4096 * 8192
+                row["ms"] = timer.ms(lambda: ops.attention(q, k, v, **kw),
+                                     5 if big else 10)
+                row["plain_ms"] = timer.ms(
+                    lambda: ops.attention(q, k, v, impl="torch", **kw), 1)
+                row["library_ms"] = timer.ms(
+                    lambda: sdpa_full(torch, q, k, v, causal, window), 5)
+                pairs = visible_pairs(sq, skv, causal, window)
+                nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+                row["visible_pairs"] = pairs
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes, 4 * d * b * hq * pairs, dname)
+            rows.append(row)
+            log(f"  flash_attention {name} {dname}: max_abs "
+                f"{errs['plain'][0]:.3g} rel {errs['plain'][1]:.3g} (vs "
+                f"kernel tiles {errs['plain_kernel_tiles'][1]:.3g}, oracle "
+                f"{errs['ref'][1]:.3g}; tol {tol[dname]})"
+                + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                   f" ms sdpa {row['library_ms']:.4f} ms bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                   if "ms" in row else ""))
+            if (name, dname) == ("qwen-7b causal S=2048", "bfloat16"):
+                line["flash_attention"] = row
+            del q, k, v, got
+            torch.cuda.empty_cache()
+    # batch and query invariance: a row of B=3 is the row alone, and the
+    # last 64 queries are those queries alone
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(3, 32, 512, 128, dtype=dtype)
+        k = randn(3, 4, 512, 128, dtype=dtype)
+        v = randn(3, 4, 512, 128, dtype=dtype)
+        full = ops.attention(q, k, v)
+        need(torch.equal(full[1:2], ops.attention(q[1:2], k[1:2], v[1:2])),
+             f"flash_attention {dtype}: row 1 of B=3 differs from B=1")
+        need(torch.equal(full[:, :, -64:], ops.attention(q[:, :, -64:], k,
+                                                         v)),
+             f"flash_attention {dtype}: the last 64 queries differ alone")
+    log("  flash_attention: a row of B=3 bitwise equal to B=1; the last 64 "
+        "queries bitwise equal alone (bf16 and f32)")
+    return line
+
+
 # -- phase 4 and 5: the model and the engine --------------------------------
 
-def build_model(torch, strategy):
+def build_model(torch, arch, strategy):
     from repro_torch.configs import get_config
     from repro_torch.core.compiler import quantize_model, quantized_bytes
     from repro_torch.models import api
-    cfg = get_config("qwen-7b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = quantize_model(api.init_params(cfg, gen), strategy)
@@ -703,7 +842,7 @@ def build_model(torch, strategy):
     kinds = {k: type(v).__name__ for k, v in {
         **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
         if k in ("wq", "wo", "gate", "down")}
-    log(f"  qwen-7b {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
+    log(f"  {arch} {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab_size}; {kinds}; packed params "
         f"{quantized_bytes(params) / 1e9:.3f} GB, built in "
@@ -803,6 +942,19 @@ def expected_launches(cfg, params, ticks):
     return {k: ticks * n for k, n in per_tick.items()}
 
 
+SERVE_MAX_LEN, SERVE_NEW_TOKENS = 512, 16
+
+
+def workload(cfg):
+    """Phase 5's prompts: 8 of 4-31 tokens and one of 200."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
+               for _ in range(8)]
+    prompts.append(rng.integers(0, cfg.vocab_size, 200))
+    return prompts
+
+
 def serve(torch, cfg, params, results, path, slot_streams=None):
     """Serve the 9-request workload; returns (launch counts, streams).
     Every engine audits every tick; a paged one must stall admissions and
@@ -811,11 +963,8 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
     import numpy as np
     from repro_torch.kernels._build import launches
     from repro_torch.serving.engine import Engine, Request, reference_decode
-    max_len, max_new = 512, 16
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
-               for _ in range(8)]
-    prompts.append(rng.integers(0, cfg.vocab_size, 200))
+    max_len, max_new = SERVE_MAX_LEN, SERVE_NEW_TOKENS
+    prompts = workload(cfg)
     engine = Engine(cfg, params, batch_size=4, max_len=max_len,
                     chunk_size=64, audit_every=1, device=DEVICE)
     reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=max_new)
@@ -895,6 +1044,232 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
     return counts, streams
 
 
+# -- phase 6: whole-prompt prefill and full-sequence forward ---------------
+
+# bf16 logits of two routes through 28-32 layers of random weights, relative
+# to the largest |logit|: a few bf16 roundings (2^-8) per layer that
+# attention tiles in another order, carried by the residual stream
+PREFILL_TOL = 5e-2
+
+
+def expected_full_launches(cfg, params, calls):
+    """Launches of ``calls`` forward or slot-prefill calls: a serving
+    tick's kernels per layer and the lm_head once, with kernel 7 in place
+    of the mixed attention kernel."""
+    from repro_torch.kernels.decode_flash import VARIANTS
+    per = expected_launches(cfg, params, 1)
+    per.pop(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")])
+    per["flash_attention"] = cfg.n_layers
+    return {k: calls * n for k, n in per.items()}
+
+
+def greedy_after_prefill(torch, cfg, params, prompt, n_new, max_len):
+    """Prefill one prompt, then decode greedily: the first ``n_new``
+    tokens."""
+    from repro_torch.models import api
+    logits, cache = api.prefill(
+        cfg, params, {"tokens": torch.tensor(prompt[None], device=DEVICE)},
+        max_len)
+    out, n = [], len(prompt)
+    while True:
+        out.append(int(logits[0].argmax()))
+        if len(out) == n_new:
+            return out
+        n += 1
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[out[-1]]], device=DEVICE), [n])
+
+
+def oracle_margin(torch, cfg, params, prompt, stream, step):
+    """Top-2 logit margin of the sequential oracle where it picks
+    ``stream[step]``: the prompt and ``stream[:step]`` fed one token at a
+    time through ``decode_step``."""
+    from repro_torch.models import api
+    cache = api.init_cache(cfg, 1, SERVE_MAX_LEN, DEVICE)
+    for n, tok in enumerate(list(prompt) + list(stream[:step]), start=1):
+        logits, cache = api.decode_step(
+            cfg, params, cache, torch.tensor([[int(tok)]], device=DEVICE),
+            [n])
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def check_stream(torch, cfg, params, prompt, got, want, bound, what):
+    """``got`` equals the engine's ``want`` (which phase 5 held equal to
+    the oracle); or, where it leaves it, the oracle's top-2 margin is below
+    ``bound`` (a near tie that two routes' bf16 roundings may flip)."""
+    if got == want:
+        return {"equal": True}
+    step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    margin = oracle_margin(torch, cfg, params, prompt, want, step)
+    log(f"  {what}: first divergence at step {step}, oracle top-2 margin "
+        f"{margin} (bound {bound:.4g})")
+    need(margin < bound, f"{what}: diverges from the engine at step {step} "
+         f"with a top-2 margin {margin} >= {bound:.4g}")
+    return {"equal": False, "step": step, "oracle_top2_margin": margin}
+
+
+def check_prefill_forward(torch, cfg, params, results, path, counts,
+                          engine_stream):
+    """Phase 6 on one model's dense weights: (a) forward ≡ prefill at the
+    last position, launch counts; (b) slot prefill vs the mixed-step route;
+    (c) greedy prefill + decode vs the engine; (d) qwen-7b only: 8192
+    tokens chunked vs one shot."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api
+    res = results.setdefault("prefill", {}).setdefault(path, {})
+    rng = np.random.default_rng(6)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 512)),
+                        device=DEVICE)
+    # (a) forward and prefill: the counts of this run are the path's own
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    logits, aux = api.forward(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last, cache = api.prefill(cfg, params, {"tokens": toks}, 528)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    got = dict(launches)
+    counts[f"{path}-prefill"] = got
+    expect = expected_full_launches(cfg, params, 2)
+    same = torch.equal(logits[:, -1], last)
+    log(f"  (a) forward B=2 S=512 {t_fwd * 1e3:.1f} ms, prefill "
+        f"{t_pre * 1e3:.1f} ms; logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; last position bitwise = "
+        f"prefill {same}; launches {got} expected {expect}")
+    res["a"] = {"forward_s": t_fwd, "prefill_s": t_pre, "bitwise": same,
+                "launches": got, "expected_launches": expect}
+    need(logits.shape == (2, 512, cfg.vocab_size)
+         and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+         f"{path}: forward logits are not finite of shape (2, 512, V)")
+    need(same, f"{path}: forward's last position is not bitwise prefill's")
+    need(got == expect, f"{path}: forward + prefill launches {got} != "
+         f"{expect}")
+    del logits
+    # (b) the slot prefill against the mixed-step route on the same prompts
+    bl, bcache = api._bulk_prefill(cfg, params, toks, 528)
+    diff = max_errs(last, bl)
+    layers = [max_errs(cache["k"][i], bcache["k"][i])[1]
+              for i in range(cfg.n_layers)]
+    l0 = all(torch.equal(cache[n][0], bcache[n][0]) for n in cache)
+    log(f"  (b) prefill vs mixed_step route: layer-0 K/V bitwise {l0}; "
+        f"logits max_abs {diff[0]:.4g} rel {diff[1]:.4g} (tol "
+        f"{PREFILL_TOL}); K rel diff by layer max {max(layers):.4g}")
+    res["b"] = {"layer0_bitwise": l0, "logits_max_abs": diff[0],
+                "logits_rel": diff[1], "k_rel_by_layer": layers}
+    need(l0, f"{path}: layer-0 K/V differ between the two prefill routes")
+    need(diff[1] <= PREFILL_TOL and max(layers) <= PREFILL_TOL,
+         f"{path}: the prefill routes differ by {diff[1]:.4g} (logits), "
+         f"{max(layers):.4g} (K) > {PREFILL_TOL}")
+    del cache, bcache
+    # (c) greedy prefill + decode against the engine's stream
+    prompt = workload(cfg)[-1]
+    stream = greedy_after_prefill(torch, cfg, params, prompt,
+                                  SERVE_NEW_TOKENS, SERVE_MAX_LEN)
+    res["c"] = check_stream(torch, cfg, params, prompt, stream,
+                            engine_stream, diff[0], f"{path} (c)")
+    log(f"  (c) greedy prefill + {SERVE_NEW_TOKENS - 1} decode steps vs the "
+        f"engine's stream (200-token prompt): {res['c']}")
+    if cfg.name == "qwen-7b":
+        res["d"] = check_chunked_prefill(torch, cfg, params)
+    torch.cuda.empty_cache()
+
+
+def check_chunked_prefill(torch, cfg, params):
+    """(d) An 8192-token prompt in two 4096-token chunks against one shot
+    with ``PREFILL_CHUNK`` raised, then 4 decode steps from each cache."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api, transformer
+    s = 2 * transformer.PREFILL_CHUNK
+    max_len = s + 128
+    toks = torch.tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, s)), device=DEVICE)
+    out = {}
+    for mode in ("chunked", "one-shot"):
+        old = transformer.PREFILL_CHUNK
+        if mode == "one-shot":
+            transformer.PREFILL_CHUNK = s
+        try:
+            torch.cuda.synchronize()
+            launches.clear()
+            t0 = time.perf_counter()
+            logits, cache = api.prefill(cfg, params, {"tokens": toks},
+                                        max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            transformer.PREFILL_CHUNK = old
+        n_flash = launches["flash_attention"]
+        want = cfg.n_layers * (2 if mode == "chunked" else 1)
+        log(f"  (d) {mode} prefill of {s} tokens: {wall:.2f} s, "
+            f"flash_attention launches {n_flash} (expected {want})")
+        need(n_flash == want, f"(d) {mode}: {n_flash} flash launches != "
+             f"{want}")
+        out[mode] = (logits, cache, wall)
+    (lc, cc, wc), (lo, co, wo) = out["chunked"], out["one-shot"]
+    diff = max_errs(lc, lo)
+    steps = []
+    n = s
+    for _ in range(4):
+        tok = torch.tensor([[int(lc[0].argmax())]], device=DEVICE)
+        n += 1
+        lc, cc = api.decode_step(cfg, params, cc, tok, [n])
+        lo, co = api.decode_step(cfg, params, co, tok, [n])
+        steps.append(max_errs(lc, lo)[1])
+    log(f"  (d) chunked vs one-shot: last logits rel {diff[1]:.4g}, 4 decode "
+        f"steps rel {[f'{x:.4g}' for x in steps]} (tol {PREFILL_TOL})")
+    need(diff[1] <= PREFILL_TOL and max(steps) <= PREFILL_TOL,
+         f"(d) chunked and one-shot prefill differ: {diff[1]:.4g}, {steps}")
+    return {"seconds": {"chunked": wc, "one-shot": wo},
+            "logits_rel": diff[1], "decode_rel": steps}
+
+
+def check_prefill_caches(torch, cfg, params, results, streams):
+    """(e) On strategy2 weights: the int8 slot cache through
+    ``attn_prefill``'s int8 branch, then decode, against the int8 engine;
+    the paged config through ``api.prefill``: kernel 3's paged variant,
+    never kernel 7, then decode against the paged engine."""
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api
+    res = results.setdefault("prefill", {}).setdefault("strategy2", {})
+    prompt = workload(cfg)[-1]
+    toks = torch.tensor(prompt[None], device=DEVICE)
+    for kv, over in KV_PATHS["strategy2"]:
+        if kv not in ("int8", "paged"):
+            continue
+        pcfg = dataclasses.replace(cfg, **{**over, "kv_pool_blocks": 0})
+        launches.clear()
+        logits, _ = api.prefill(pcfg, params, {"tokens": toks},
+                                SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        got = dict(launches)
+        flash, paged = got.get("flash_attention", 0), got.get(
+            "mixed_flash_attention_paged", 0)
+        want = ((cfg.n_layers, 0) if kv == "int8" else (0, cfg.n_layers))
+        bl, _ = api._bulk_prefill(pcfg, params, toks, SERVE_MAX_LEN)
+        diff = max_errs(logits, bl)
+        stream = greedy_after_prefill(torch, pcfg, params, prompt,
+                                      SERVE_NEW_TOKENS, SERVE_MAX_LEN)
+        log(f"  (e) strategy2-{kv} prefill: launches flash_attention {flash},"
+            f" mixed_flash_attention_paged {paged} (expected {want}); vs "
+            f"the mixed-step route: logits max_abs {diff[0]:.4g}")
+        need((flash, paged) == want, f"(e) strategy2-{kv}: launches "
+             f"{(flash, paged)} != {want}")
+        res[f"e-{kv}"] = {"launches": got, "bulk_logits_max_abs": diff[0],
+                          "stream": check_stream(
+                              torch, pcfg, params, prompt, stream,
+                              streams[f"strategy2-{kv}"][-1], max(diff[0],
+                                                                  1e-6),
+                              f"strategy2-{kv} (e)")}
+        log(f"  (e) greedy prefill + decode vs the strategy2-{kv} engine: "
+            f"{res[f'e-{kv}']['stream']}")
+
+
 # -- main -------------------------------------------------------------------
 
 # kernel: (source, TPU kernel it replaces, the served path whose own run
@@ -927,9 +1302,16 @@ KERNEL_META = {
         "src/repro_torch/kernels/csrc/decode_flash.cu",
         "src/repro/kernels/decode_flash.py:181 (paged and int8 K/V)",
         "strategy2-paged-int8"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:101",
+                        "dense-prefill"),
 }
-# each model is built, checked (phase 4), served (phase 5) and freed in turn
-MODELS = ("dense", "strategy2", "strategy3")
+# each model is built, checked (phase 4), served (phase 5), prefilled
+# (phase 6, where listed) and freed in turn: (path, arch, strategy)
+MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
+          ("strategy3", "qwen-7b", "strategy3"),
+          ("chatglm-dense", "chatglm-6b", "dense"))
+PREFILL_PATHS = ("dense", "chatglm-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
@@ -987,25 +1369,31 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         counts: dict = {}       # path -> that path's own launch counts
-        for strategy in MODELS:
-            cfg, params = build_model(torch, strategy)
-            paths = [(strategy, cfg)] + [
-                (f"{strategy}-{kv}", dataclasses.replace(cfg, **over))
-                for kv, over in KV_PATHS.get(strategy, ())]
+        for model, arch, strategy in MODELS:
+            cfg, params = build_model(torch, arch, strategy)
+            paths = [(model, cfg)] + [
+                (f"{model}-{kv}", dataclasses.replace(cfg, **over))
+                for kv, over in KV_PATHS.get(model, ())]
             for path, pcfg in paths:
-                log(f"phase 4 [{path}]: qwen-7b, mixed_step vs sequential "
+                log(f"phase 4 [{path}]: {arch}, mixed_step vs sequential "
                     "decode_step")
                 check_mixed_equals_sequential(torch, pcfg, params, results,
                                               path)
-            slot_streams = None
+            streams: dict = {}
             for path, pcfg in paths:
                 log(f"phase 5 [{path}]: serving")
-                counts[path], streams = serve(torch, pcfg, params, results,
-                                              path, slot_streams)
-                if slot_streams is None:
-                    slot_streams = streams
+                counts[path], streams[path] = serve(
+                    torch, pcfg, params, results, path, streams.get(model))
+            if model in PREFILL_PATHS:
+                log(f"phase 6 [{model}]: {arch}, prefill and forward")
+                check_prefill_forward(torch, cfg, params, results, model,
+                                      counts, streams[model][-1])
+            if model in KV_PATHS:
+                log(f"phase 6 [{model}]: prefill into int8 and paged caches")
+                check_prefill_caches(torch, cfg, params, results, streams)
             del params
             torch.cuda.empty_cache()
+            log(f"  ({time.perf_counter() - t_start:.0f} s so far)")
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         write_details(results)

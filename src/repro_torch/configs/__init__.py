@@ -1,4 +1,4 @@
-"""Architecture config registry of the port (``qwen-7b`` only in this slice).
+"""Architecture config registry of the port (``qwen-7b`` and ``chatglm-6b``).
 
 ``get_config(name)`` gives the full-size configuration and
 ``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen_7b
+from repro_torch.configs import chatglm_6b, qwen_7b
 
-_MODULES = {"qwen-7b": qwen_7b}
+_MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b}
 
 
 def _module(name: str):

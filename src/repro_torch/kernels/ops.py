@@ -20,12 +20,14 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_flash import (
     DEFAULT_BLOCK_KV, mixed_attention_torch, mixed_flash_attention_cuda)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_torch)
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
 from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
-__all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16",
+__all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16", "attention",
            "decode_attention", "mixed_attention", "gather_paged_cache"]
 
 
@@ -73,6 +75,19 @@ def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
     if impl == "torch":
         return ffn_w4a16_torch(x, gate, up, down, **kw)
     return _ref.ffn_ref(x, gate, up, down, **kw)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              scale: float | None = None, impl: str = "auto") -> torch.Tensor:
+    """Full-sequence flash attention (forward, whole-prompt prefill).  q
+    (b, hq, sq, d), k/v (b, hkv, skv, d); the q block ends the context."""
+    impl = _resolve(impl, q)
+    kw = dict(causal=causal, window=window, scale=scale)
+    if impl == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    if impl == "torch":
+        return flash_attention_torch(q, k, v, **kw)
+    return _ref.attention_ref(q, k, v, **kw)
 
 
 def gather_paged_cache(pool: torch.Tensor,

@@ -13,7 +13,7 @@ from repro_torch.core.sparsity import (
     SparseQuantizedTensor, sparse_to_quantized)
 
 __all__ = ["w4a16_matmul_ref", "sparse_w4a16_matmul_ref", "ffn_ref",
-           "decode_attention_ref", "mixed_attention_ref"]
+           "attention_ref", "decode_attention_ref", "mixed_attention_ref"]
 
 
 def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -64,6 +64,36 @@ def ffn_ref(x, gate, up, down, *, activation="swiglu", up_bias=None,
     if activation == "gelu":
         return _mm(_gelu(_mm(x, up, up_bias)), down, down_bias)
     raise ValueError(f"unknown activation {activation!r}")
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=None,
+                  scale=None) -> torch.Tensor:
+    """Dense full-sequence oracle.  q (b, hq, sq, d), k/v (b, hkv, skv, d),
+    GQA by repeating K/V; q occupies the LAST sq positions of the skv
+    context; ``window`` = sliding-window size; f32 softmax (a row with no
+    visible key gives NaN, as the reference's)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    rep = hq // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else float(1.0 / d ** 0.5)
+    dev = q.device
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    q_pos = torch.arange(sq, device=dev) + (skv - sq)
+    k_pos = torch.arange(skv, device=dev)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    logits = torch.where(mask, logits, torch.tensor(-torch.inf, device=dev))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(q.dtype)
 
 
 def mixed_attention_ref(q, k_cache, v_cache, lengths, q_lens, *,

@@ -1,13 +1,21 @@
-"""Model API of the port: the dense-family serving subset of
-``repro/models/api.py``.
+"""Model API of the port: the dense-family subset of ``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
+    forward(cfg, params, batch)               -> (logits (B, S, V), aux)
+    prefill(cfg, params, batch, max_len)      -> (last logits (B, V), cache)
     init_cache(cfg, batch, max_len, device)   -> KV cache (updated in place)
     has_paged_kv(cfg)                         -> shared-pool layout?
     cache_slot_axes(cfg)                      -> request-slot axis per leaf
     mixed_step(cfg, params, cache, tokens, lengths, q_lens, page_table=)
     decode_step(cfg, params, cache, tokens, lengths, page_table=,
                 write_mask=)
+
+``batch`` is a dict ``{"tokens": (B, S)}``.  ``forward`` and the slot
+layout's ``prefill`` run the whole sequence through the full-sequence
+flash attention (``ops.attention``); a prompt longer than
+``transformer.PREFILL_CHUNK`` prefills chunk by chunk.  A paged cache has no
+full-sequence prefill: ``prefill`` runs the whole prompt as one
+``mixed_step`` chunk under the default page table (``_bulk_prefill``).
 
 ``init_cache`` allocates ONE resident cache: slots indexed by request row,
 or, with ``kv_layout="paged"``, one shared block pool per layer that the
@@ -34,6 +42,36 @@ def init_params(cfg, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``."""
     attention.check_supported(cfg)
     return transformer.init_params(cfg, gen)
+
+
+def forward(cfg, params: Params, batch: dict):
+    """tokens (B, S) -> (logits (B, S, V), aux loss = 0)."""
+    attention.check_supported(cfg)
+    if batch.get("vision_embeds") is not None:
+        raise NotImplementedError("vision embeddings come with the vlm family")
+    return transformer.forward(cfg, params, batch["tokens"])
+
+
+def _bulk_prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):
+    """Whole-prompt prefill through the mixed-step chunk writer: one call
+    whose chunk IS the prompt (``q_lens[b] = S``), writing K/V at true
+    positions, so a paged pool prefills through its normal write path
+    under the default page table."""
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+    cache = init_cache(cfg, b, max_len, tokens.device)
+    zeros = torch.zeros(b, dtype=torch.int32, device=tokens.device)
+    return mixed_step(cfg, params, cache, tokens, zeros, zeros + s)
+
+
+def prefill(cfg, params: Params, batch: dict, max_len: int):
+    """Prefill a fresh cache of ``max_len`` with ``batch["tokens"]`` (B, S):
+    returns (logits (B, V) of the last prompt token, cache)."""
+    tokens = batch["tokens"]
+    if has_paged_kv(cfg):
+        return _bulk_prefill(cfg, params, tokens, max_len)
+    return transformer.prefill(cfg, params, tokens, max_len)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:

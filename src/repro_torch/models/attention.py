@@ -1,5 +1,8 @@
-"""Attention for serving: GQA, RoPE, slot or paged KV cache, fp or int8
-K/V (port of the serving half of ``repro/models/attention.py``).
+"""Attention: GQA, RoPE, slot or paged KV cache, fp or int8 K/V (port of
+the dense path of ``repro/models/attention.py``).  The full-sequence path
+(``attn_apply``, ``attn_prefill``) runs ``ops.attention``; the serving
+steps (``attn_mixed``, ``attn_decode``) run ``ops.mixed_attention``
+against the cache.
 
 The cache is updated IN PLACE, which JAX could not do: the chunk and token
 writers assign into the cache tensors the caller passes, and ``attn_mixed``
@@ -88,6 +91,46 @@ def _project_qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q.contiguous(), k, v
+
+
+def _merge_heads(cfg, o: torch.Tensor) -> torch.Tensor:
+    """(b, h, s, hd) attention output -> (b, s, h * hd) for ``wo``."""
+    b, _, s, _ = o.shape
+    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+PAGED_PREFILL_ERROR = (
+    "paged KV caches have no full-sequence prefill path — serve through "
+    "mixed_step/decode_step (chunked admission); the standalone api.prefill "
+    "is a slot-layout/training surface")
+
+
+def attn_apply(cfg, p: Params, x: torch.Tensor, positions, *,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (forward): every query against the whole
+    sequence through ``ops.attention`` (the flash kernel on the card)."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    o = ops.attention(q, k, v, causal=causal, window=cfg.window)
+    return linear(_merge_heads(cfg, o), p["wo"])
+
+
+def attn_prefill(cfg, p: Params, x: torch.Tensor, positions, cache: Params):
+    """Whole-prompt prefill: full attention over the prompt AND the slot
+    cache written in place from position 0 (fp, or int8 through
+    ``quantize_kv``).  With a cache shorter than the prompt (a rolling
+    window) only the last ``cache_len`` tokens' K/V are kept, the set a
+    windowed decode will ever read.  Returns (out, cache)."""
+    if cfg.kv_layout == "paged":
+        raise ValueError(PAGED_PREFILL_ERROR)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    o = ops.attention(q, k, v, causal=True, window=cfg.window)
+    out = linear(_merge_heads(cfg, o), p["wo"])
+    cache_len = cache["k"].shape[2]
+    if cache_len < k.shape[2]:
+        k, v = k[:, :, -cache_len:], v[:, :, -cache_len:]
+    for name, new in _new_kv(cfg, k, v).items():
+        cache[name][:, :, :new.shape[2]] = new.to(cache[name].dtype)
+    return out, cache
 
 
 # -- paged KV layout ---------------------------------------------------------
@@ -258,8 +301,7 @@ def attn_mixed(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
     o = ops.mixed_attention(q, cache["k"], cache["v"], lengths + q_lens,
                             q_lens, window=cfg.window, page_table=page_table,
                             **_scales(cache))
-    o = o.transpose(1, 2).reshape(b, c, cfg.n_heads * cfg.head_dim)
-    return linear(o, p["wo"]), cache
+    return linear(_merge_heads(cfg, o), p["wo"]), cache
 
 
 def attn_decode(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
@@ -306,5 +348,4 @@ def attn_decode(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
     o = ops.decode_attention(q, cache["k"], cache["v"], attn_len,
                              window=attn_window, page_table=page_table,
                              **_scales(cache))
-    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return linear(o, p["wo"]), cache
+    return linear(_merge_heads(cfg, o), p["wo"]), cache

@@ -107,6 +107,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def positions_for(cfg, batch: int, seq: int, offset: int = 0,
+                  device=None) -> torch.Tensor:
+    """Position ids (batch, seq) ``offset .. offset + seq - 1`` of every row
+    (standard RoPE; M-RoPE's 3-axis ids come with the vlm family)."""
+    if cfg.rope_type == "mrope":
+        raise NotImplementedError("M-RoPE positions come with the vlm family")
+    base = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return base[None, :].expand(batch, seq)
+
+
 # -- FFN -------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg) -> Params:

@@ -21,6 +21,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.ffn_fused import (  # noqa: E402
     ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles)
 from repro_torch.kernels.decode_flash import VARIANTS as VARIANTS_NAMES  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BLOCK_KV, BLOCK_Q, flash_attention_torch)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -300,6 +302,99 @@ def test_paged_kernel_refuses_page_sizes_it_cannot_tile(cuda):
         table = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
         with pytest.raises(ValueError, match="page size"):
             ops.mixed_attention(q, pool, pool, one, one, page_table=table)
+
+
+# (Sq, Skv, rep, head_dim, causal, window): whole tiles, ragged edges, a q
+# block ending a longer context, chatglm's rep 16, windows, non-causal
+# (cross-attention) and Sq > Skv (rows that see no key return zeros)
+FLASH_CASES = {"causal": (256, 256, 8, 128, True, None),
+               "ragged": (300, 300, 4, 128, True, None),
+               "offset": (100, 333, 2, 64, True, None),
+               "window-rep16": (200, 260, 16, 128, True, 37),
+               "non-causal": (45, 150, 1, 64, False, None),
+               "non-causal-window": (64, 130, 2, 64, False, 20),
+               "head-dim-32": (70, 70, 2, 32, True, None),
+               "sq-over-skv": (80, 50, 2, 64, True, None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    """Kernel 7 against its plain version walking the kernel's own tiles,
+    and against the plain version at the TPU kernel's tiles."""
+    sq, skv, rep, d, causal, window = FLASH_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(sq + skv)
+    q = _rand(gen, 2, 2 * rep, sq, d, dtype=dtype)
+    k = _rand(gen, 2, 2, skv, d, dtype=dtype)
+    v = _rand(gen, 2, 2, skv, d, dtype=dtype)
+    before = _build.launches["flash_attention"]
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    assert _build.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, flash_attention_torch(q, k, v, causal=causal, window=window,
+                                      block_q=BLOCK_Q, block_kv=BLOCK_KV),
+           dtype)
+    _close(got, ops.attention(q, k, v, causal=causal, window=window,
+                              impl="torch"), dtype)
+    if sq > skv and causal:
+        assert bool((got[:, :, :sq - skv] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_batch_and_query_invariant(cuda, dtype):
+    """A row of a batch of 3 is bitwise the same row alone, and the last 40
+    queries of a 300-query call are bitwise those queries alone (the q block
+    ends the context in both): no reduction follows B or Sq."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q = _rand(gen, 3, 8, 300, 128, dtype=dtype)
+    k = _rand(gen, 3, 2, 300, 128, dtype=dtype)
+    v = _rand(gen, 3, 2, 300, 128, dtype=dtype)
+    for window in (None, 50):
+        full = ops.attention(q, k, v, window=window)
+        assert torch.equal(full[1:2], ops.attention(q[1:2], k[1:2], v[1:2],
+                                                    window=window))
+        assert torch.equal(full[:, :, -40:], ops.attention(
+            q[:, :, -40:], k, v, window=window))
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q = _rand(gen, 1, 4, 8, 64, dtype=torch.bfloat16)
+    k = _rand(gen, 1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="bfloat16 on cuda"):
+        ops.attention(q, k.cpu(), k.cpu(), impl="cuda")
+    with pytest.raises(ValueError, match="must be"):
+        ops.attention(q, k.float(), k.float())
+    with pytest.raises(ValueError, match="head_dim 96"):
+        ops.attention(_rand(gen, 1, 4, 8, 96, dtype=torch.bfloat16),
+                      *[_rand(gen, 1, 2, 8, 96, dtype=torch.bfloat16)] * 2)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.attention(_rand(gen, 1, 3, 8, 64, dtype=torch.bfloat16), k, k)
+    with pytest.raises(ValueError, match="window"):
+        ops.attention(q, k, k, window=0)
+
+
+def test_forward_last_position_is_prefill_on_card(cuda):
+    """forward's last position is bitwise prefill's logits (every kernel on
+    the path is row-invariant), one flash launch per layer and call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    cfg = get_smoke_config("chatglm-6b", dtype=torch.bfloat16, head_dim=128,
+                           n_heads=4, n_kv_heads=1, d_model=256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    toks = torch.randint(0, cfg.vocab_size, (2, 77), generator=gen,
+                         device="cuda")
+    _build.launches.clear()
+    logits, _ = api.forward(cfg, params, {"tokens": toks})
+    last, cache = api.prefill(cfg, params, {"tokens": toks}, 96)
+    assert _build.launches["flash_attention"] == 2 * cfg.n_layers
+    assert _build.launches["mixed_flash_attention"] == 0
+    assert torch.equal(logits[:, -1], last)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
