@@ -23,20 +23,30 @@ Phases (any failure ends the run with a nonzero exit code):
                  attention at the prefill shapes against its plain version
                  and the dense oracle, with ``scaled_dot_product_attention``
                  timed beside it, a row of B=3 and the last queries of a
-                 call bitwise equal alone;
+                 call bitwise equal alone; kernel 8 (the sLSTM scan) at
+                 xlstm-1.3b's 4 heads of 512 with bf16 R over B=2 x L=512,
+                 a ragged L=300 and a B=4 decode step from a state, and the
+                 mLSTM decode cell at B=4, 4 heads of 1024, each against
+                 its plain version (the scan also against ``_slstm_step``'s
+                 loop), a row bitwise equal alone, an inactive row's state
+                 kept;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
-                 and "strategy3" (log-scale sparse), and chatglm-6b (the
-                 paper's ChatGLM2-6B, "dense"), one model at a time:
+                 and "strategy3" (log-scale sparse), chatglm-6b (the
+                 paper's ChatGLM2-6B, "dense") and xlstm-1.3b ("dense", 48
+                 blocks, the path ``xlstm-dense``), one model at a time:
                  mixed_step over a 13-token prompt in 8-token chunks is
                  bitwise equal to 13 sequential decode steps (logits and
-                 every cache leaf of all layers); strategy2 also with int8
-                 K/V, a paged pool and a paged int8 pool;
+                 every cache leaf of all layers, or every state leaf of
+                 all blocks); strategy2 also with int8 K/V, a paged pool
+                 and a paged int8 pool;
   5. serving  — with each of the four models, the engine serves 9
                  requests; every token stream equals ``reference_decode``
                  and the kernel launch counts (reset before each path's
                  run, read just after it) equal layers x calls x ticks as
-                 the weights' types and the cache route them.  Strategy2
+                 the weights' types and the cache route them (the xLSTM:
+                 per-step counts x the token columns the ticks dispatched,
+                 since a mixed tick steps its chunk width).  Strategy2
                  is served again from int8 K/V, from a 20-block pool of
                  16-token pages (the 200-token request needs 14, so
                  admissions stall) and from the same pool in int8, with
@@ -49,7 +59,13 @@ Phases (any failure ends the run with a nonzero exit code):
                  the engine's stream; qwen-7b: 8192 tokens in two chunks
                  against one shot.  On strategy2: the int8 slot prefill
                  and the paged prefill (kernel 3's paged variant, never the
-                 flash kernel) against their engines;
+                 flash kernel) against their engines.  On xlstm-1.3b:
+                 forward's launches exact (kernel 8 once per sLSTM block,
+                 the path ``xlstm-dense-prefill``) and prefill's (512
+                 recurrent steps); in float32, forward's last position
+                 within ``XLSTM_PREFILL_TOL`` of prefill's (bf16's gap
+                 recorded); greedy prefill + decode equal to the engine's
+                 stream;
   then the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
@@ -268,6 +284,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
     line.update(check_attention_variants(torch, timer, randn, tol, rows))
     line.update(check_flash_attention(torch, timer, randn, tol, rows))
+    line.update(check_xlstm_kernels(torch, timer, randn, tol, rows))
 
     # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
     b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
@@ -828,6 +845,142 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
     return line
 
 
+# kernel 8 against its plain version and the `_slstm_step` oracle: the
+# reference's own tolerance (rtol = atol = 2e-4, tests/test_kernels.py:272),
+# all three in f32 over bf16 R widened exactly
+SCAN_TOL = 2e-4
+XLSTM_H, XLSTM_SLSTM_DH, XLSTM_MLSTM_DH = 4, 512, 1024   # xlstm-1.3b
+
+
+def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
+    """Kernel 8 (``slstm_scan``) and the mLSTM decode cell at xlstm-1.3b's
+    widths: the scan over a forward's B=2 x L=512 and a ragged L=300, and
+    one decode step of B=4 from a lived-in state (an inactive row keeps
+    its state); the cell at B=4, 4 heads of 1024.  Each against its plain
+    version, rows bitwise equal alone; times after an L2 flush.  No single
+    PyTorch call computes either, so neither has a library time."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.slstm_scan import slstm_scan_torch
+    from repro_torch.kernels.mlstm_cell import mlstm_cell_torch
+
+    line = {}
+    h, dh = XLSTM_H, XLSTM_SLSTM_DH
+    r = (randn(h, dh, 4 * dh, dtype=torch.float32) * 0.02).to(torch.bfloat16)
+    bias = randn(h, 4 * dh, dtype=torch.float32) * 0.1
+
+    def state(b):
+        c, hid, m = (randn(b, h, dh, dtype=torch.float32) for _ in range(3))
+        return c, randn(b, h, dh, dtype=torch.float32).abs() + 0.5, hid, m
+
+    for b, L, what in ((2, 512, "forward"), (2, 300, "ragged"),
+                       (4, 1, "decode")):
+        gx = randn(b, L, h, 4 * dh, dtype=torch.float32)
+        st0 = state(b) if what == "decode" else None
+        active = (torch.tensor([True, True, False, True], device=DEVICE)
+                  if what == "decode" else None)
+
+        def copy():
+            return None if st0 is None else tuple(t.clone() for t in st0)
+        kst, pst = copy(), copy()
+        got = ops.slstm_scan(gx, r, bias, kst, active=active)
+        want = slstm_scan_torch(gx, r, bias, pst, active)
+        oracle = ops.slstm_scan(gx, r, bias, copy(), impl="ref")
+        err, rel = max_errs(got, want)
+        ok = (torch.allclose(got, want, rtol=SCAN_TOL, atol=SCAN_TOL)
+              and torch.allclose(got, oracle, rtol=SCAN_TOL, atol=SCAN_TOL))
+        if st0 is not None:
+            ok = ok and all(torch.allclose(k, p, rtol=SCAN_TOL, atol=SCAN_TOL)
+                            for k, p in zip(kst, pst))
+            need(all(torch.equal(k[2], s[2]) for k, s in zip(kst, st0)),
+                 "slstm_scan decode: the inactive row's state changed")
+        need(ok, f"slstm_scan {what} B={b} L={L}: max_abs {err:.3g} beyond "
+             f"rtol = atol = {SCAN_TOL} of the plain scan or the oracle")
+        # a row alone is bitwise the same row in the batch (and state)
+        one = copy()
+        alone = ops.slstm_scan(gx[1:2].contiguous(), r, bias,
+                               None if one is None else
+                               tuple(t[1:2].clone() for t in one))
+        need(torch.equal(alone[0], got[1]),
+             f"slstm_scan {what}: row 1 alone differs from row 1 of B={b}")
+        row = {"kernel": "slstm_scan", "case": what, "B": b, "L": L, "h": h,
+               "dh": dh, "r_dtype": "bfloat16", "max_abs_err": err,
+               "max_rel_err": rel, "tol_abs_rel": SCAN_TOL}
+        if what != "ragged":
+            scratch = copy()      # the timed calls advance it in place
+            row["ms"] = timer.ms(lambda: ops.slstm_scan(
+                gx, r, bias, scratch, active=active), 10)
+            row["plain_ms"] = timer.ms(lambda: slstm_scan_torch(
+                gx, r, bias, scratch, active), 2)
+            row["library_ms"] = None
+            nbytes = (gx.numel() * 4 + b * L * h * dh * 4 + r.numel() * 2
+                      + bias.numel() * 4
+                      + (8 * b * h * dh * 4 if st0 is not None else 0))
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 2 * b * L * h * dh * 4 * dh, "float32")
+        rows.append(row)
+        log(f"  slstm_scan {what} B={b} L={L} h={h} dh={dh}: max_abs "
+            f"{err:.3g} rel {rel:.3g} (rtol = atol = {SCAN_TOL}, plain and "
+            "oracle); row 1 alone bitwise"
+            + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; a chain "
+               f"of {L} dependent steps); library: none"
+               if "ms" in row else ""))
+        if what == "decode":
+            line["slstm_scan"] = row
+
+    # -- the mLSTM decode cell: B=4, 4 heads of 1024, bf16 activations
+    b, dh = 4, XLSTM_MLSTM_DH
+    di = h * dh
+    xp = randn(b, di)
+    q, k, v = (randn(b, h, dh) for _ in range(3))
+    w_i, w_f = ((randn(di, h, dtype=torch.float32) * 0.01).to(torch.bfloat16)
+                for _ in range(2))
+    b_i = randn(h, dtype=torch.float32) * 0.1
+    b_f = 3.0 + randn(h, dtype=torch.float32) * 0.1
+    C0 = randn(b, h, dh, dh, dtype=torch.float32) * 0.1
+    n0 = randn(b, h, dh, dtype=torch.float32).abs() + 0.5
+    m0 = randn(b, h, dtype=torch.float32)
+    active = torch.tensor([True, False, True, True], device=DEVICE)
+    args = (xp, q, k, v, w_i, w_f, b_i, b_f)
+    Ck, Cp = C0.clone(), C0.clone()
+    got = ops.mlstm_cell(*args, Ck, n0, m0, active=active)
+    want = mlstm_cell_torch(*args, Cp, n0, m0, active)
+    errs = [max_errs(g, w) for g, w in zip(got + (Ck,), want + (Cp,))]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    # bf16 activations: a gate that rounds one bf16 step apart moves the
+    # exponentials by 2^-8 (the state itself is f32)
+    need(rel <= tol["bfloat16"], f"mlstm_cell: rel err {rel:.3g} > "
+         f"{tol['bfloat16']} (y, n', m', C')")
+    need(torch.equal(Ck[1], C0[1]) and torch.equal(got[1][1], n0[1])
+         and torch.equal(got[2][1], m0[1]),
+         "mlstm_cell: the inactive row's state changed")
+    Cr = C0[2:3].clone()
+    yr, nr, mr = ops.mlstm_cell(*(t[2:3].contiguous() for t in args[:4]),
+                                *args[4:], Cr, n0[2:3].contiguous(),
+                                m0[2:3].contiguous())
+    need(torch.equal(yr[0], got[0][2]) and torch.equal(Cr[0], Ck[2])
+         and torch.equal(nr[0], got[1][2]) and torch.equal(mr[0], got[2][2]),
+         "mlstm_cell: row 2 alone differs from row 2 of B=4")
+    row = {"kernel": "mlstm_cell", "B": b, "h": h, "dh": dh,
+           "dtype": "bfloat16", "max_abs_err": err, "max_rel_err": rel,
+           "tol_rel": tol["bfloat16"],
+           "ms": timer.ms(lambda: ops.mlstm_cell(*args, Ck, n0, m0), 10),
+           "plain_ms": timer.ms(lambda: mlstm_cell_torch(*args, Cp, n0, m0),
+                                3),
+           "library_ms": None}
+    nbytes = (2 * C0.numel() * 4 + 2 * (n0.numel() + m0.numel()) * 4
+              + sum(t.numel() * 2 for t in args[:6]) + b * h * dh * 4)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 5 * C0.numel()
+                                             + 4 * b * di * h, "float32")
+    rows.append(row)
+    log(f"  mlstm_cell B={b} h={h} dh={dh}: max_abs {err:.3g} rel {rel:.3g} "
+        f"(tol {tol['bfloat16']}); inactive row kept; row 2 alone bitwise"
+        f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); library: none")
+    line["mlstm_cell"] = row
+    return line
+
+
 # -- phase 4 and 5: the model and the engine --------------------------------
 
 def build_model(torch, arch, strategy):
@@ -839,15 +992,41 @@ def build_model(torch, arch, strategy):
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = quantize_model(api.init_params(cfg, gen), strategy)
     torch.cuda.synchronize()
-    kinds = {k: type(v).__name__ for k, v in {
-        **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
-        if k in ("wq", "wo", "gate", "down")}
+    if cfg.family == "ssm":
+        kinds = {f"{g}.{k}": type(v).__name__ for g in ("mlstm_main", "slstm")
+                 for k, v in params[g].items()
+                 if k in ("up_x", "wq", "w_i", "down", "w_gates", "r_gates")}
+        shape = f"sLSTM every {cfg.slstm_every}"
+    else:
+        kinds = {k: type(v).__name__ for k, v in {
+            **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
+            if k in ("wq", "wo", "gate", "down")}
+        shape = f"d_ff={cfg.d_ff}"
     log(f"  {arch} {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} {shape} "
         f"vocab={cfg.vocab_size}; {kinds}; packed params "
         f"{quantized_bytes(params) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+def cache_leaves(cache, prefix=""):
+    """(name, tensor) of every cache leaf, nested groups joined by '/'."""
+    for k in sorted(cache):
+        if isinstance(cache[k], dict):
+            yield from cache_leaves(cache[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, cache[k]
+
+
+def differing_slices(torch, a, b):
+    """Names of the leading-axis slices (layers, segments) where two caches
+    differ, e.g. ``k[3]`` or ``mlstm_main/C[2]``."""
+    out = []
+    for (name, x), (_, y) in zip(cache_leaves(a), cache_leaves(b)):
+        out += [f"{name}[{i}]" for i in range(x.shape[0])
+                if not torch.equal(x[i], y[i])]
+    return out
 
 
 def check_mixed_equals_sequential(torch, cfg, params, results, path):
@@ -871,18 +1050,17 @@ def check_mixed_equals_sequential(torch, cfg, params, results, path):
             [length], [ql])
         length += ql
     same_logits = torch.equal(logits_seq, logits_mix)
-    diff_layers = [i for i in range(cfg.n_layers)
-                   if not all(torch.equal(seq[n][i], mix[n][i]) for n in seq)]
+    diff = differing_slices(torch, seq, mix)
     results.setdefault("mixed_vs_sequential", {})[path] = {
-        "logits_equal": same_logits, "cache_layers_differing": diff_layers,
+        "logits_equal": same_logits, "cache_slices_differing": diff,
         "logits_max_abs_diff": float((logits_seq.float()
                                       - logits_mix.float()).abs().max())}
     log(f"  mixed_step (C=8) vs 13 decode_steps: logits bitwise equal "
-        f"{same_logits}; cache layers differing {diff_layers} (leaves "
-        f"{sorted(seq)})")
-    need(same_logits and not diff_layers,
+        f"{same_logits}; cache slices differing {diff} (leaves "
+        f"{[n for n, _ in cache_leaves(seq)]})")
+    need(same_logits and not diff,
          f"{path}: mixed_step is not bitwise equal to sequential "
-         f"decode_step (first differing cache layer: {diff_layers[:1]})")
+         f"decode_step (first differing cache slice: {diff[:1]})")
 
 
 def first_divergence(torch, cfg, params, prompt, got, max_len):
@@ -942,6 +1120,51 @@ def expected_launches(cfg, params, ticks):
     return {k: ticks * n for k, n in per_tick.items()}
 
 
+def expected_launches_ssm(cfg, params, steps, full_sequence=False):
+    """Launches per kernel for ``steps`` decode steps of the xLSTM stack
+    (a mixed tick steps its whole chunk width, so the engine's
+    ``dispatched_columns``), read from the weights' leaf types: per mLSTM
+    block two rmsnorms, up_x, up_z, wq, wk, wv and down by their type and
+    one ``mlstm_cell`` (which takes the 16-bit w_i/w_f); per sLSTM block two
+    rmsnorms, w_gates and down, one ``slstm_scan``; then ln_f and the
+    lm_head.  ``full_sequence``: one ``forward`` call instead, where the
+    mLSTM runs its parallel form (no cell kernel) and the scan runs once
+    over the sequence."""
+    from repro_torch.core.quant import QuantizedTensor
+
+    def matmul(w, name):
+        need(isinstance(w, QuantizedTensor),
+             f"{name} is a {type(w).__name__}: no kernel serves it")
+        return "w4a16_matmul"
+    per = {}
+
+    def add(kernel, n):
+        per[kernel] = per.get(kernel, 0) + n
+    groups = [(g, params[g]) for g in ("mlstm_main", "mlstm_tail", "slstm")
+              if g in params]
+    for g, p in groups:
+        lead = p["norm"].shape[:-1]             # (seg, blk) or (n,)
+        n = 1
+        for dim in lead:
+            n *= dim
+        names = (("w_gates", "down") if g == "slstm" else
+                 ("up_x", "up_z", "wq", "wk", "wv", "down"))
+        for name in names:
+            add(matmul(p[name], name), n)
+        add("rmsnorm", 2 * n)
+        if g == "slstm":
+            add("slstm_scan", n)
+        else:
+            need(not any(isinstance(p[w], QuantizedTensor)
+                         for w in ("w_i", "w_f")),
+                 "w_i/w_f are packed: the cell kernel takes 16-bit gates")
+            if not full_sequence:
+                add("mlstm_cell", n)
+    add("rmsnorm", 1)
+    add(matmul(params["lm_head"], "lm_head"), 1)
+    return {k: steps * n for k, n in per.items()}
+
+
 SERVE_MAX_LEN, SERVE_NEW_TOKENS = 512, 16
 
 
@@ -983,17 +1206,21 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()   # the engine's, not the oracle's
     need(done.drained and len(done) == len(reqs) and all(r.done for r in reqs),
          f"engine did not finish every request ({len(done)}/{len(reqs)})")
     summary = Engine.summarize(done)
     n_tok = sum(len(r.output) for r in reqs)
     ticks = engine.steps
-    expect = expected_launches(cfg, params, ticks)
-    log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed), {n_tok} "
+    expect = (expected_launches_ssm(cfg, params, engine.dispatched_columns)
+              if cfg.family == "ssm" else
+              expected_launches(cfg, params, ticks))
+    log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed, "
+        f"{engine.dispatched_columns} token columns), {n_tok} "
         f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
         f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, ITL p50 "
         f"{summary.get('itl_p50_s', float('nan')) * 1e3:.1f} ms, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"memory {peak / 2**30:.2f} GiB, "
         f"{engine.audits} audits, peak resident "
         f"{engine.peak_resident_tokens} tokens")
     pool = None
@@ -1028,11 +1255,12 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
             f"{same_as_slot}/{len(reqs)}")
     results.setdefault("serving", {})[path] = {
         "requests": len(reqs), "ticks": ticks,
-        "mixed_ticks": engine.mixed_ticks, "tokens": n_tok,
+        "mixed_ticks": engine.mixed_ticks,
+        "dispatched_columns": engine.dispatched_columns, "tokens": n_tok,
         "wall_s": wall, "tokens_per_s": n_tok / wall,
         "ttft_p50_s": summary.get("ttft_p50_s"),
         "itl_p50_s": summary.get("itl_p50_s"),
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": peak,
         "audits": engine.audits,
         "admission_stalls": engine.admission_stalls,
         "peak_resident_tokens": engine.peak_resident_tokens, "pool": pool,
@@ -1179,6 +1407,99 @@ def check_prefill_forward(torch, cfg, params, results, path, counts,
     torch.cuda.empty_cache()
 
 
+# forward (the mLSTM's parallel and chunked forms, kernel 8 over the
+# sequence) against prefill (512 recurrent steps): two forms of one function
+# through 48 blocks, relative to the largest |logit|, held in float32.  The
+# gap grows with depth: the mLSTM readout divides by max(|q . n|, e^-m),
+# which random weights bring near zero, so a rounding apart in one block is
+# amplified by the next.  In bf16 (the served dtype) the two forms part
+# after a few blocks, so that gap is recorded, not held.
+XLSTM_PREFILL_TOL = 1e-2
+
+
+def check_xlstm_prefill(torch, cfg, params, results, path, counts,
+                        engine_stream):
+    """Phase 6 on the xLSTM: (a) ``forward`` at B=2 x S=512, launches
+    exact (kernel 8 once per sLSTM block), and ``prefill`` (512 decode
+    steps) with its own launches; their last positions compared (bf16:
+    recorded); (b) the same model in float32 (W4A16 weights from the same
+    seed, f32 activations): forward's last position within
+    ``XLSTM_PREFILL_TOL`` of prefill's; (c) greedy prefill + decode of phase
+    5's 200-token prompt equal to the engine's stream (both are the same
+    row-invariant recurrent steps, so bitwise)."""
+    import numpy as np
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api
+    res = results.setdefault("prefill", {}).setdefault(path, {})
+    rng = np.random.default_rng(6)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 512)),
+                        device=DEVICE)
+
+    def both(c, p):
+        """forward, then prefill: (logits, last, seconds, launches)."""
+        torch.cuda.synchronize()
+        launches.clear()
+        t0 = time.perf_counter()
+        logits, aux = api.forward(c, p, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_fwd, got_fwd = time.perf_counter() - t0, dict(launches)
+        need(logits.shape == (2, 512, c.vocab_size)
+             and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+             f"{path}: forward logits are not finite of shape (2, 512, V)")
+        launches.clear()
+        t0 = time.perf_counter()
+        last, _ = api.prefill(c, p, {"tokens": toks}, SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        t_pre, got_pre = time.perf_counter() - t0, dict(launches)
+        return logits[:, -1], last, (t_fwd, t_pre), (got_fwd, got_pre)
+
+    fwd_last, last, secs, (got_fwd, got_pre) = both(cfg, params)
+    counts[f"{path}-prefill"] = got_fwd
+    want_fwd = expected_launches_ssm(cfg, params, 1, full_sequence=True)
+    want_pre = expected_launches_ssm(cfg, params, toks.shape[1])
+    err, rel = max_errs(fwd_last, last)
+    log(f"  (a) forward B=2 S=512 {secs[0] * 1e3:.1f} ms, launches "
+        f"{got_fwd} expected {want_fwd}; prefill (512 recurrent steps) "
+        f"{secs[1] * 1e3:.1f} ms, launches {got_pre} expected {want_pre}; "
+        f"{str(cfg.dtype).split('.')[1]}: last position vs prefill max_abs "
+        f"{err:.4g} rel {rel:.4g} (recorded: the forms part in bf16)")
+    res["a"] = {"forward_s": secs[0], "prefill_s": secs[1],
+                "bf16_max_abs": err, "bf16_rel": rel,
+                "forward_launches": got_fwd,
+                "expected_forward_launches": want_fwd,
+                "prefill_launches": got_pre,
+                "expected_prefill_launches": want_pre}
+    need(got_fwd == want_fwd, f"{path}: forward launches {got_fwd} != "
+         f"{want_fwd}")
+    need(got_pre == want_pre, f"{path}: prefill launches {got_pre} != "
+         f"{want_pre}")
+    # (b) float32: the same weights' seed, f32 activations and state
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    p32 = quantize_model(api.init_params(cfg32, gen), "dense")
+    fwd_last, last, secs, _ = both(cfg32, p32)
+    del p32
+    err, rel = max_errs(fwd_last, last)
+    log(f"  (b) float32: forward {secs[0] * 1e3:.1f} ms, prefill "
+        f"{secs[1] * 1e3:.1f} ms; last position vs prefill max_abs "
+        f"{err:.4g} rel {rel:.4g} (tol {XLSTM_PREFILL_TOL})")
+    res["b"] = {"forward_s": secs[0], "prefill_s": secs[1], "max_abs": err,
+                "rel": rel, "tol_rel": XLSTM_PREFILL_TOL}
+    need(rel <= XLSTM_PREFILL_TOL, f"{path} (b): float32 forward's last "
+         f"position is {rel:.4g} from prefill's > {XLSTM_PREFILL_TOL}")
+    torch.cuda.empty_cache()
+    prompt = workload(cfg)[-1]
+    stream = greedy_after_prefill(torch, cfg, params, prompt,
+                                  SERVE_NEW_TOKENS, SERVE_MAX_LEN)
+    res["c"] = {"equal": stream == engine_stream}
+    log(f"  (c) greedy prefill + {SERVE_NEW_TOKENS - 1} decode steps vs the "
+        f"engine's stream (200-token prompt): {res['c']}")
+    need(stream == engine_stream, f"{path} (c): greedy prefill + decode "
+         f"{stream} != the engine's {engine_stream}")
+    torch.cuda.empty_cache()
+
+
 def check_chunked_prefill(torch, cfg, params):
     """(d) An 8192-token prompt in two 4096-token chunks against one shot
     with ``PREFILL_CHUNK`` raised, then 4 decode steps from each cache."""
@@ -1305,13 +1626,19 @@ KERNEL_META = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:101",
                         "dense-prefill"),
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
+                   "src/repro/kernels/slstm_scan.py:79", "xlstm-dense"),
+    "mlstm_cell": ("src/repro_torch/kernels/csrc/mlstm_cell.cu",
+                   "src/repro/models/xlstm.py:205-217 (XLA in the "
+                   "reference, no Pallas kernel)", "xlstm-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
 MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("strategy3", "qwen-7b", "strategy3"),
-          ("chatglm-dense", "chatglm-6b", "dense"))
-PREFILL_PATHS = ("dense", "chatglm-dense")
+          ("chatglm-dense", "chatglm-6b", "dense"),
+          ("xlstm-dense", "xlstm-1.3b", "dense"))
+PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
@@ -1386,8 +1713,10 @@ def main() -> int:
                     torch, pcfg, params, results, path, streams.get(model))
             if model in PREFILL_PATHS:
                 log(f"phase 6 [{model}]: {arch}, prefill and forward")
-                check_prefill_forward(torch, cfg, params, results, model,
-                                      counts, streams[model][-1])
+                check = (check_xlstm_prefill if cfg.family == "ssm" else
+                         check_prefill_forward)
+                check(torch, cfg, params, results, model, counts,
+                      streams[model][-1])
             if model in KV_PATHS:
                 log(f"phase 6 [{model}]: prefill into int8 and paged caches")
                 check_prefill_caches(torch, cfg, params, results, streams)

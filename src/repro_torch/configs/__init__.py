@@ -1,4 +1,5 @@
-"""Architecture config registry of the port (``qwen-7b`` and ``chatglm-6b``).
+"""Architecture config registry of the port: ``qwen-7b`` and ``chatglm-6b``
+(family ``dense``) and ``xlstm-1.3b`` (family ``ssm``).
 
 ``get_config(name)`` gives the full-size configuration and
 ``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
@@ -9,9 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import chatglm_6b, qwen_7b
+from repro_torch.configs import chatglm_6b, qwen_7b, xlstm_1_3b
 
-_MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b}
+_MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b,
+            "xlstm-1.3b": xlstm_1_3b}
 
 
 def _module(name: str):
@@ -19,8 +21,8 @@ def _module(name: str):
         return _MODULES[name]
     except KeyError:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (this slice serves "
-            f"{sorted(_MODULES)})") from None
+            f"arch {name!r} is not ported yet (the port serves the dense "
+            f"and ssm families: {sorted(_MODULES)})") from None
 
 
 def get_config(name: str, **overrides):

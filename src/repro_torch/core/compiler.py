@@ -5,7 +5,10 @@ matrix of the dense family with its packed form per a *sparse strategy*
 (paper Table II: a density per layer kind), exactly as
 ``repro/core/compiler.py`` does: a :class:`QuantizedTensor` at density 1.0,
 a log-scale block-sparse :class:`SparseQuantizedTensor` below it.  Stacked
-layers are quantized matrix by matrix (the reference's ``vmap``).
+layers, one leading axis or two (the xLSTM's ``(segments, blocks, in,
+out)``), are quantized per matrix, as the reference's nested ``vmap`` does:
+dense quantization works per 128-row group, so a stack goes whole; a pruned
+stack goes matrix by matrix.
 
 ``TokenBuckets`` keeps the engine's chunk widths on a bounded power-of-two
 set, so a later slice can capture one CUDA graph per width.
@@ -26,20 +29,23 @@ from repro_torch.core.sparsity import (
 SPARSE_STRATEGIES: dict[str, dict[str, float]] = {
     # paper Table II, GLM-6B
     "dense": {"qkv": 1.0, "o": 1.0, "h_to_4h": 1.0, "4h_to_h": 1.0,
-              "head": 1.0},
+              "head": 1.0, "other": 1.0},
     "strategy1": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.5, "4h_to_h": 0.5,
-                  "head": 1.0},
+                  "head": 1.0, "other": 1.0},
     "strategy2": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.25, "4h_to_h": 0.5,
-                  "head": 1.0},
+                  "head": 1.0, "other": 1.0},
     "strategy3": {"qkv": 1.0, "o": 0.5, "h_to_4h": 0.25, "4h_to_h": 0.25,
-                  "head": 1.0},
+                  "head": 1.0, "other": 1.0},
 }
 STRATEGIES = ("none", *SPARSE_STRATEGIES)
 
-# the dense family's weight names -> layer kind
+# weight names -> layer kind (dense and xLSTM families).  The xLSTM's gate
+# projections w_i / w_f (one column per head), the sLSTM's block-diagonal
+# recurrent r_gates and every norm and bias stay 16-bit, as in the reference
 _KIND_BY_NAME = {"wq": "qkv", "wk": "qkv", "wv": "qkv", "wo": "o",
                  "gate": "h_to_4h", "up": "h_to_4h", "down": "4h_to_h",
-                 "lm_head": "head"}
+                 "lm_head": "head",
+                 "up_x": "h_to_4h", "up_z": "h_to_4h", "w_gates": "other"}
 
 
 def _quantize_2d(w: torch.Tensor, density: float, tile_uniform: bool):

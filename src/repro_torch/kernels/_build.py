@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("w4a16_matmul", "ffn_fused", "decode_flash", "rmsnorm",
-                  "sparse_w4a16", "ffn_fused_sparse", "flash_attention")
+                  "sparse_w4a16", "ffn_fused_sparse", "flash_attention",
+                  "slstm_scan", "mlstm_cell")
 
 launches: "collections.Counter[str]" = collections.Counter()
 

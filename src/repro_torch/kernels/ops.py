@@ -22,13 +22,16 @@ from repro_torch.kernels.decode_flash import (
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_torch)
+from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
+from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
 from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16", "attention",
-           "decode_attention", "mixed_attention", "gather_paged_cache"]
+           "decode_attention", "mixed_attention", "gather_paged_cache",
+           "slstm_scan", "mlstm_cell"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -88,6 +91,34 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if impl == "torch":
         return flash_attention_torch(q, k, v, **kw)
     return _ref.attention_ref(q, k, v, **kw)
+
+
+def slstm_scan(gates_x, r, b, state=None, *, active=None,
+               impl: str = "auto") -> torch.Tensor:
+    """sLSTM hidden states ``(B, L, h, dh)`` f32 from ``gates_x (B, L, h,
+    4dh)``, block-diagonal ``r (h, dh, 4dh)`` and ``b (h, 4dh)``.  Any L;
+    ``state = (c, n, h, m)`` (each ``(B, h, dh)`` f32) is the scan's start
+    and is updated in place where ``active`` (B,) allows (None: a fresh
+    state, nothing written back)."""
+    impl = _resolve(impl, gates_x)
+    if impl == "cuda":
+        return slstm_scan_cuda(gates_x, r, b, state, active)
+    if impl == "torch":
+        return slstm_scan_torch(gates_x, r, b, state, active)
+    if active is not None:
+        raise ValueError("the ref oracle takes no active mask")
+    return _ref.slstm_scan_ref(gates_x, r, b, state)
+
+
+def mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, *, active=None,
+               impl: str = "auto"):
+    """One mLSTM decode step: gate projections, the matrix-memory update of
+    ``C`` (in place) and its readout; returns ``(y, n', m')``
+    (``kernels/mlstm_cell.py``).  The plain version is the reference's
+    algebra, so ``"ref"`` takes it too."""
+    impl = _resolve(impl, q)
+    fn = mlstm_cell_cuda if impl == "cuda" else mlstm_cell_torch
+    return fn(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
 
 
 def gather_paged_cache(pool: torch.Tensor,

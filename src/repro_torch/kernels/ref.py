@@ -13,7 +13,8 @@ from repro_torch.core.sparsity import (
     SparseQuantizedTensor, sparse_to_quantized)
 
 __all__ = ["w4a16_matmul_ref", "sparse_w4a16_matmul_ref", "ffn_ref",
-           "attention_ref", "decode_attention_ref", "mixed_attention_ref"]
+           "attention_ref", "decode_attention_ref", "mixed_attention_ref",
+           "slstm_scan_ref"]
 
 
 def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -140,3 +141,35 @@ def decode_attention_ref(q, k_cache, v_cache, length, *, window=None,
     ones = torch.ones(b, dtype=torch.int32, device=q.device)
     return mixed_attention_ref(q, k_cache, v_cache, length, ones,
                                window=window, scale=scale)
+
+
+def slstm_scan_ref(gates_x, r, b, state=None) -> torch.Tensor:
+    """The straight ``_slstm_step`` loop of ``repro/models/xlstm.py:249``:
+    gates_x (B, L, h, 4dh), r (h, dh, 4dh), b (h, 4dh) -> hs (B, L, h, dh),
+    from ``state = (c, n, h, m)`` or zeros with ``m = -1e30``; the state is
+    not written back."""
+    bsz, seq, heads, g4 = gates_x.shape
+    dh = g4 // 4
+    if state is None:
+        z = torch.zeros((bsz, heads, dh), dtype=torch.float32,
+                        device=gates_x.device)
+        state = (z, z, z, torch.full_like(z, -1e30))
+    c, n, hid, m = state
+    rf = r.to(torch.float32)
+    hs = []
+    for t in range(seq):
+        gates = gates_x[:, t] + torch.einsum("bhd,hde->bhe", hid, rf) + b[None]
+        z_t = torch.tanh(gates[..., :dh])
+        i_t = gates[..., dh:2 * dh]
+        f_t = gates[..., 2 * dh:3 * dh]
+        o_t = torch.sigmoid(gates[..., 3 * dh:])
+        logf = torch.nn.functional.logsigmoid(f_t)
+        m_new = torch.maximum(logf + m, i_t)
+        i_act = torch.exp(i_t - m_new)
+        f_act = torch.exp(logf + m - m_new)
+        c = f_act * c + i_act * z_t
+        n = torch.maximum(f_act * n + i_act, torch.exp(-m_new))
+        hid = o_t * c / n
+        m = m_new
+        hs.append(hid)
+    return torch.stack(hs, dim=1)

@@ -1,11 +1,13 @@
 """Serving launcher of the port:
-``python -m repro_torch.launch.serve --full --strategy strategy2``.
+``python -m repro_torch.launch.serve --full --strategy strategy2``, or
+``--full --arch xlstm-1.3b`` for the xLSTM family.
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none``, ``dense`` W4A16, or the
-log-scale sparse ``strategy1``-``strategy3`` of paper Table II), starts the
-continuous-batching engine over a slot cache or, with ``--kv-layout
-paged``, a shared block pool, and runs a synthetic request workload
+log-scale sparse ``strategy1``-``strategy3`` of paper Table II; the xLSTM
+takes ``none`` and ``dense``), starts the continuous-batching engine over a
+slot cache or, with ``--kv-layout paged``, a shared block pool (refused for
+the xLSTM, which has no KV cache), and runs a synthetic request workload
 (prompts of 4–32 tokens from ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
 without ``--full`` it serves the reduced ``-smoke`` configuration.
 Prints the summary, the scheduler line, the pool line of a paged run and
@@ -53,6 +55,13 @@ def main(argv=None) -> None:
               kv_pool_blocks=args.kv_pool_blocks)
     cfg = (get_config(args.arch, **kv) if args.full
            else get_smoke_config(args.arch, **kv))
+    if cfg.family == "ssm" and args.kv_layout == "paged":
+        raise SystemExit(f"{args.arch} keeps a recurrent state and no KV "
+                         "cache: --kv-layout paged does not apply")
+    if cfg.family == "ssm" and args.strategy not in ("none", "dense"):
+        raise SystemExit(f"{args.arch} is served with --strategy none or "
+                         "dense (the log-scale sparse strategies are ported "
+                         "for the dense family only)")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = quantize_model(api.init_params(cfg, gen), args.strategy)
     print(f"arch={cfg.name} packed={quantized_bytes(params) / 1e6:.1f} MB "

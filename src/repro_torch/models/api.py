@@ -1,30 +1,43 @@
-"""Model API of the port: the dense-family subset of ``repro/models/api.py``.
+"""Model API of the port: the dense and ssm (xLSTM) families of
+``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
     forward(cfg, params, batch)               -> (logits (B, S, V), aux)
     prefill(cfg, params, batch, max_len)      -> (last logits (B, V), cache)
-    init_cache(cfg, batch, max_len, device)   -> KV cache (updated in place)
+    init_cache(cfg, batch, max_len, device)   -> cache (updated in place)
     has_paged_kv(cfg)                         -> shared-pool layout?
     cache_slot_axes(cfg)                      -> request-slot axis per leaf
+    insert_request(cfg, cache, row, slot)     -> cache with row at slot
+    evict_slot(cfg, cache, slot, max_len)     -> cache with slot reset
+    request_cache(cfg, params, batch, max_len, device) -> admission row
+    needs_admission_insert(cfg)               -> reset a slot at admission?
     mixed_step(cfg, params, cache, tokens, lengths, q_lens, page_table=)
     decode_step(cfg, params, cache, tokens, lengths, page_table=,
                 write_mask=)
 
-``batch`` is a dict ``{"tokens": (B, S)}``.  ``forward`` and the slot
-layout's ``prefill`` run the whole sequence through the full-sequence
-flash attention (``ops.attention``); a prompt longer than
+``batch`` is a dict ``{"tokens": (B, S)}``.  Dense family: ``forward`` and
+the slot layout's ``prefill`` run the whole sequence through the
+full-sequence flash attention (``ops.attention``); a prompt longer than
 ``transformer.PREFILL_CHUNK`` prefills chunk by chunk.  A paged cache has no
 full-sequence prefill: ``prefill`` runs the whole prompt as one
 ``mixed_step`` chunk under the default page table (``_bulk_prefill``).
-
 ``init_cache`` allocates ONE resident cache: slots indexed by request row,
 or, with ``kv_layout="paged"``, one shared block pool per layer that the
 caller addresses through a ``(B, pages)`` page table (None = the linear
 default table of a default-sized pool).  ``kv_quant="int8"`` stores K/V as
-int8 with per-token scales.  ``mixed_step`` advances row ``b`` by
-``q_lens[b]`` tokens (1 = decoding row, up to C = mid-prefill row, 0 =
-idle) in one call.  Speculation and prefix sharing are later slices: their
-gates answer False here.
+int8 with per-token scales.
+
+The ssm family (``xlstm_stack``) has no KV cache: its cache is the
+recurrent state, and the KV options are ignored, as in the reference.
+``forward`` runs the mLSTM's parallel form and the sLSTM scan (kernel 8);
+``prefill`` is ``_bulk_prefill``, which gives the true post-prompt state;
+``mixed_step`` steps the chunk through ``decode_step`` one position at a
+time (``_mixed_step_scan``), each row advancing only while the position is
+below its ``q_lens``, so the state is bitwise that of sequential decode.
+
+``mixed_step`` advances row ``b`` by ``q_lens[b]`` tokens (1 = decoding
+row, up to C = mid-prefill row, 0 = idle) in one call.  Speculation and
+prefix sharing are later slices: their gates answer False here.
 """
 
 from __future__ import annotations
@@ -33,14 +46,20 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, transformer, xlstm_stack
 
 Params = dict[str, Any]
+
+
+def _ssm(cfg) -> bool:
+    return cfg.family == "ssm"
 
 
 def init_params(cfg, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``."""
     attention.check_supported(cfg)
+    if _ssm(cfg):
+        return xlstm_stack.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
@@ -49,6 +68,8 @@ def forward(cfg, params: Params, batch: dict):
     attention.check_supported(cfg)
     if batch.get("vision_embeds") is not None:
         raise NotImplementedError("vision embeddings come with the vlm family")
+    if _ssm(cfg):
+        return xlstm_stack.forward(cfg, params, batch["tokens"])
     return transformer.forward(cfg, params, batch["tokens"])
 
 
@@ -56,7 +77,8 @@ def _bulk_prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):
     """Whole-prompt prefill through the mixed-step chunk writer: one call
     whose chunk IS the prompt (``q_lens[b] = S``), writing K/V at true
     positions, so a paged pool prefills through its normal write path
-    under the default page table."""
+    under the default page table, and a recurrent family ends with its
+    true post-prompt state."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
@@ -69,24 +91,74 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
     """Prefill a fresh cache of ``max_len`` with ``batch["tokens"]`` (B, S):
     returns (logits (B, V) of the last prompt token, cache)."""
     tokens = batch["tokens"]
-    if has_paged_kv(cfg):
+    if has_paged_kv(cfg) or _ssm(cfg):
         return _bulk_prefill(cfg, params, tokens, max_len)
     return transformer.prefill(cfg, params, tokens, max_len)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:
+    if _ssm(cfg):
+        return xlstm_stack.init_cache(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device)
 
 
 def has_paged_kv(cfg) -> bool:
-    """Whether this config's cache carries paged (shared-pool) KV leaves."""
-    return cfg.kv_layout == "paged"
+    """Whether this config's cache carries paged (shared-pool) KV leaves.
+    The ssm family is pure recurrent state, so paging is a no-op there."""
+    return cfg.kv_layout == "paged" and not _ssm(cfg)
 
 
 def cache_slot_axes(cfg) -> Params:
     """The request-slot axis of each cache leaf; ``-1`` marks a paged
     shared-pool leaf, which has none."""
+    if _ssm(cfg):
+        return xlstm_stack.cache_slot_axes(cfg)
     return transformer.cache_slot_axes(cfg)
+
+
+def _leaves(cache: Params, axes: Params):
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, axes[k])
+        else:
+            yield v, axes[k]
+
+
+def insert_request(cfg, cache: Params, row_cache: Params,
+                   slot: int) -> Params:
+    """Copy a batch-1 cache into request slot ``slot`` of every leaf, in
+    place (paged pool leaves, which have no slot axis, are skipped)."""
+    axes = cache_slot_axes(cfg)
+    for (dst, ax), (row, _) in zip(_leaves(cache, axes),
+                                   _leaves(row_cache, axes)):
+        if ax >= 0:
+            dst.select(ax, slot).copy_(row.select(ax, 0))
+    return cache
+
+
+def evict_slot(cfg, cache: Params, slot: int, max_len: int) -> Params:
+    """Reset one slot to its freshly initialized state.  KV rows hide
+    behind the lengths anyway; recurrent state must return to its init
+    value (the mLSTM stabilizer ``m = -1e30``) before the next request."""
+    device = next(_leaves(cache, cache_slot_axes(cfg)))[0].device
+    return insert_request(cfg, cache, init_cache(cfg, 1, max_len, device),
+                          slot)
+
+
+def request_cache(cfg, params: Params, batch: dict, max_len: int,
+                  device="cuda") -> Params:
+    """Batch-1 cache a request's chunked admission starts from: a pristine
+    ``init_cache`` row (audio's cross-attention K/V come with that
+    family)."""
+    return init_cache(cfg, 1, max_len, device)
+
+
+def needs_admission_insert(cfg) -> bool:
+    """Whether chunked admission must copy ``request_cache`` into the slot
+    before the prompt streams in.  Recurrent families carry state the
+    previous occupant mutated (the mLSTM stabilizer ``m``); pure-KV
+    families need nothing, their stale rows hide behind the lengths."""
+    return cfg.family in ("ssm", "hybrid", "audio")
 
 
 def _rows(v, b: int, device) -> torch.Tensor:
@@ -108,6 +180,9 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     this token.  ``page_table`` (B, pages) routes paged K/V placement;
     ``write_mask`` (B,) bool leaves masked rows' caches untouched.  Returns
     (logits (B, V), cache)."""
+    if _ssm(cfg):
+        return xlstm_stack.decode_step(cfg, params, cache, tokens,
+                                       write_mask=write_mask)
     b = tokens.shape[0]
     return transformer.decode_step(cfg, params, cache, tokens,
                                    _rows(lengths, b, tokens.device),
@@ -132,13 +207,40 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     page_table = _table(page_table, tokens.device)
     if c == 1:
         active = q_lens > 0
-        logits, cache = transformer.decode_step(
+        logits, cache = decode_step(
             cfg, params, cache, tokens, lengths + torch.clamp(q_lens, min=1),
             page_table=page_table, write_mask=active)
         return torch.where(active[:, None], logits,
                            torch.zeros_like(logits)), cache
+    if _ssm(cfg):
+        return _mixed_step_scan(cfg, params, cache, tokens, lengths, q_lens)
     return transformer.mixed_step(cfg, params, cache, tokens, lengths, q_lens,
                                   page_table=page_table)
+
+
+def _mixed_step_scan(cfg, params: Params, cache: Params,
+                     tokens: torch.Tensor, lengths: torch.Tensor,
+                     q_lens: torch.Tensor):
+    """Mixed step of a recurrent family: the chunk's positions one
+    ``decode_step`` at a time, every position of the chunk (C steps, as
+    the reference's scan), row ``b`` advancing only while ``j <
+    q_lens[b]`` (the kernels leave masked rows' state untouched, the
+    reference's per-row select).  Recurrences are order-exact, so the
+    state is bitwise that of feeding the tokens one ``decode_step`` at a
+    time; the logits are each row's at position ``q_lens - 1`` (zeros for
+    an idle row)."""
+    b, c = tokens.shape
+    logits = torch.zeros((b, cfg.vocab_size), dtype=cfg.dtype,
+                         device=tokens.device)
+    for j in range(c):
+        active = j < q_lens
+        lg, cache = decode_step(
+            cfg, params, cache, tokens[:, j:j + 1],
+            lengths + torch.clamp(q_lens, min=1).clamp(max=j + 1),
+            write_mask=active)
+        logits = torch.where((q_lens - 1 == j)[:, None], lg.to(cfg.dtype),
+                             logits)
+    return logits, cache
 
 
 def supports_speculation(cfg) -> bool:

@@ -37,10 +37,13 @@ from repro_torch.models.layers import Params, dense_init, linear
 def check_supported(cfg, device=None) -> None:
     """Raise for the configurations a later slice of the port brings, and
     for a page size the paged kernel does not take when ``device`` is a
-    CUDA device (the CPU's plain version takes any)."""
-    if cfg.family != "dense":
+    CUDA device (the CPU's plain version takes any).  The ssm family has no
+    KV cache and ignores the KV options, as in the reference."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+    if cfg.family == "ssm":
+        return
     if cfg.kv_quant not in ("none", "int8"):
         raise NotImplementedError(f"kv_quant {cfg.kv_quant!r} is not ported")
     if cfg.rope_type not in ("standard", "none"):

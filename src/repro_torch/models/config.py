@@ -1,7 +1,8 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
-Mirrors ``repro/models/config.py`` for the fields the dense serving path
-reads, the slot and paged KV layouts and the int8 KV cache included.  The
+Mirrors ``repro/models/config.py`` for the fields the dense and xLSTM
+(``ssm``) serving paths read, the slot and paged KV layouts and the int8 KV
+cache included (the ``ssm`` family has no KV cache and ignores them).  The
 ``family`` field is kept so a configuration can name a family the port does
 not serve yet; the model and engine raise ``NotImplementedError`` for it.
 """
@@ -35,6 +36,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False         # scale embeddings by sqrt(d)
     logit_softcap: float | None = None
+
+    slstm_every: int = 0              # xLSTM: one sLSTM block in N (0: none)
 
     kv_quant: str = "none"            # none | int8 (per-token absmax scale)
     kv_layout: str = "slot"           # slot | paged

@@ -25,9 +25,9 @@ Params = dict[str, Any]
 
 # -- init ------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, in_f: int, out_f: int,
-               dtype) -> torch.Tensor:
-    scale = 1.0 / math.sqrt(in_f)
+def dense_init(gen: torch.Generator, in_f: int, out_f: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_f)
     w = torch.randn((in_f, out_f), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * scale).to(dtype)

@@ -42,13 +42,15 @@ def _empty_stack(layer, n):
             for k, v in layer.items()}
 
 
-def stack_blocks(gen: torch.Generator, cfg, n: int) -> Params:
-    """``n`` blocks initialised one after another into stacked tensors."""
-    first = block_init(gen, cfg)
+def stack_blocks(gen: torch.Generator, cfg, n: int,
+                 init_fn=block_init) -> Params:
+    """``n`` blocks of ``init_fn(gen, cfg)`` initialised one after another
+    into stacked tensors."""
+    first = init_fn(gen, cfg)
     out = _empty_stack(first, n)
     _stack_into(out, first, 0)
     for i in range(1, n):
-        _stack_into(out, block_init(gen, cfg), i)
+        _stack_into(out, init_fn(gen, cfg), i)
     return out
 
 

@@ -18,6 +18,14 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
   ``len(prompt) <= max_len``.
 * **Greedy on the device.**  The argmax runs on the device; only the token
   ids come back, unless a ``sample`` hook asks for the logits.
+* **Recurrent families** (``api.needs_admission_insert``: the xLSTM's
+  ``ssm``) get a fresh ``api.request_cache`` row copied into the slot at
+  admission, so the previous occupant's state (the mLSTM stabilizer ``m``)
+  never leaks into the next request; a pure-decode tick's dead rows may
+  mutate their state meanwhile.  Their mixed tick steps the chunk one
+  position at a time (``api.mixed_step``), so ``dispatched_columns``
+  counts the token columns each tick dispatched: the chunk bucket of a
+  mixed tick, one for a decode tick.
 
 The engine ≡ oracle contract holds: every token stream equals
 ``reference_decode`` (batch-1 sequential decode), because the kernels reduce
@@ -134,6 +142,10 @@ class Engine:
         self.cache = api.init_cache(cfg, batch_size, max_len, self.device)
         self._slots = [_Slot() for _ in range(batch_size)]
         self.paged = api.has_paged_kv(cfg)
+        # the pristine row an admission copies into its slot
+        self._fresh_row = (api.request_cache(cfg, params, {}, max_len,
+                                             self.device)
+                           if api.needs_admission_insert(cfg) else None)
         if self.paged:
             self.block_size, self.n_pages = paged_geometry(cfg, max_len)
             self.pool_blocks = paged_pool_blocks(cfg, batch_size, max_len)
@@ -151,6 +163,7 @@ class Engine:
         self.steps = 0
         self.dispatches = 0          # must equal steps: one dispatch per tick
         self.mixed_ticks = 0
+        self.dispatched_columns = 0  # chunk width of each tick, summed
         self._occupancy_sum = 0.0
 
     # -- client API ----------------------------------------------------------
@@ -196,6 +209,9 @@ class Engine:
                 self.admission_stalls += 1
                 return False
             self._slot_reserve[idx] = self._worst_case_blocks(head)
+        if self._fresh_row is not None:
+            self.cache = api.insert_request(self.cfg, self.cache,
+                                            self._fresh_row, idx)
         self._slots[idx] = _Slot(req=self._queue.popleft())
         return True
 
@@ -356,6 +372,7 @@ class Engine:
                     self._tensor(tokens).long(), self._tensor(lengths),
                     self._tensor(q_lens), **paged_kw)
                 self.mixed_ticks += 1
+                self.dispatched_columns += w
             else:
                 # pure-decode tick (dead rows ride along, output ignored;
                 # paged: at length 0 and masked, so they neither read nor
@@ -374,6 +391,7 @@ class Engine:
                 logits, self.cache = api.decode_step(
                     self.cfg, self.params, self.cache, self._tensor(tokens),
                     self._tensor(lengths), **paged_kw)
+                self.dispatched_columns += 1
             next_np = torch.argmax(logits, dim=-1).cpu().numpy()
             logits_np = (logits.float().cpu().numpy() if sample is not None
                          else None)

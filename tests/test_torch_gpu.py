@@ -466,3 +466,156 @@ def test_engine_matches_oracle_on_card(cuda, case):
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
                                             device="cuda")
+
+
+# -- the xLSTM family: kernel 8 (the sLSTM scan) and the mLSTM decode cell ----
+
+def _scan_operands(gen, b, L, h, dh, r_dtype):
+    gx = _rand(gen, b, L, h, 4 * dh)
+    r = (_rand(gen, h, dh, 4 * dh) * 0.02).to(r_dtype)
+    bias = _rand(gen, h, 4 * dh) * 0.1
+    return gx, r, bias
+
+
+def _lived_in_state(gen, b, h, dh):
+    """(c, n, h, m): c, h, m random, n positive."""
+    c, hid, m = (_rand(gen, b, h, dh) for _ in range(3))
+    return c, _rand(gen, b, h, dh).abs() + 0.5, hid, m
+
+
+@pytest.mark.parametrize("b,L,h,dh,r_dtype", [
+    (2, 512, 4, 512, torch.bfloat16),       # xlstm-1.3b's sLSTM, forward
+    (2, 300, 4, 512, torch.bfloat16),       # ragged: no time chunk
+    (3, 96, 2, 64, torch.float32),
+])
+def test_slstm_scan_kernel_matches_plain(cuda, b, L, h, dh, r_dtype):
+    """Within the reference's own kernel tolerance (2e-4) of the plain
+    scan and the ``_slstm_step`` oracle, all in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(L)
+    gx, r, bias = _scan_operands(gen, b, L, h, dh, r_dtype)
+    before = _build.launches["slstm_scan"]
+    got = ops.slstm_scan(gx, r, bias)
+    assert _build.launches["slstm_scan"] == before + 1
+    for want in (ops.slstm_scan(gx, r, bias, impl="torch"),
+                 ops.slstm_scan(gx, r, bias, impl="ref")):
+        assert float((got - want).abs().max()) <= 2e-4 * (
+            1 + float(want.abs().max()))
+
+
+def test_slstm_scan_kernel_decode_step_from_a_state(cuda):
+    """L = 1 from a lived-in state at xlstm-1.3b's width: hidden states and
+    the state written back match the plain version; an inactive row keeps
+    its state; rows are bitwise independent of the batch."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, dh = 4, 4, 512
+    gx, r, bias = _scan_operands(gen, b, 1, h, dh, torch.bfloat16)
+    state = _lived_in_state(gen, b, h, dh)
+    plain = tuple(t.clone() for t in state)
+    kern = tuple(t.clone() for t in state)
+    active = torch.tensor([True, True, False, True], device="cuda")
+    want = ops.slstm_scan(gx, r, bias, plain, active=active, impl="torch")
+    got = ops.slstm_scan(gx, r, bias, kern, active=active)
+    assert float((got - want).abs().max()) <= 2e-4 * (
+        1 + float(want.abs().max()))
+    for k, p, s0 in zip(kern, plain, state):
+        assert float((k - p).abs().max()) <= 2e-4 * (1 + float(p.abs().max()))
+        assert torch.equal(k[2], s0[2])
+    alone = tuple(t[1:2].clone() for t in state)
+    one = ops.slstm_scan(gx[1:2].contiguous(), r, bias, alone)
+    assert torch.equal(one[0], got[1])
+    assert all(torch.equal(a[0], k[1]) for a, k in zip(alone, kern))
+
+
+def test_slstm_scan_kernel_rows_batch_invariant(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    gx, r, bias = _scan_operands(gen, 4, 64, 4, 512, torch.bfloat16)
+    got = ops.slstm_scan(gx, r, bias)
+    for row in range(4):
+        alone = ops.slstm_scan(gx[row:row + 1].contiguous(), r, bias)
+        assert torch.equal(alone[0], got[row])
+
+
+def _cell_operands(gen, b, h, dh, dtype):
+    di = h * dh
+    xp = _rand(gen, b, di, dtype=dtype)
+    q, k, v = (_rand(gen, b, h, dh, dtype=dtype) for _ in range(3))
+    w_i, w_f = ((_rand(gen, di, h) * 0.01).to(dtype) for _ in range(2))
+    b_i = _rand(gen, h) * 0.1
+    b_f = 3.0 + _rand(gen, h) * 0.1
+    C = _rand(gen, b, h, dh, dh) * 0.1
+    n = _rand(gen, b, h, dh).abs() + 0.5
+    m = _rand(gen, b, h)
+    return xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,dh", [(4, 4, 1024), (3, 2, 96)])
+def test_mlstm_cell_kernel_matches_plain(cuda, dtype, b, h, dh):
+    """Readout, C', n' and m' against the reference's algebra, relative to
+    the largest value (the gates round to the model dtype: a bf16 gate one
+    step apart moves the exponentials by 2^-8); an inactive row keeps its
+    state."""
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m = _cell_operands(gen, b, h, dh,
+                                                              dtype)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    active[1] = False
+    Cp, Ck = C.clone(), C.clone()
+    want = ops.mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, Cp, n, m,
+                          active=active, impl="torch")
+    before = _build.launches["mlstm_cell"]
+    got = ops.mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, Ck, n, m,
+                         active=active)
+    assert _build.launches["mlstm_cell"] == before + 1
+    for g, w in zip(got + (Ck,), want + (Cp,)):
+        _close(g, w, dtype)
+    assert torch.equal(Ck[1], C[1])
+    assert torch.equal(got[1][1], n[1]) and torch.equal(got[2][1], m[1])
+
+
+def test_mlstm_cell_kernel_rows_batch_invariant(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ops_in = _cell_operands(gen, 4, 4, 1024, torch.bfloat16)
+    *head, C, n, m = ops_in
+    Cb = C.clone()
+    y, n2, m2 = ops.mlstm_cell(*head, Cb, n, m)
+    for row in range(4):
+        sl = [t[row:row + 1].contiguous() for t in head[:4]]
+        Cr = C[row:row + 1].clone()
+        yr, nr, mr = ops.mlstm_cell(*sl, *head[4:], Cr, n[row:row + 1]
+                                    .contiguous(), m[row:row + 1]
+                                    .contiguous())
+        assert torch.equal(yr[0], y[row]) and torch.equal(Cr[0], Cb[row])
+        assert torch.equal(nr[0], n2[row]) and torch.equal(mr[0], m2[row])
+
+
+def test_xlstm_engine_matches_oracle_on_card(cuda):
+    """A reduced xlstm-1.3b in bf16 ("dense" W4A16, 4 blocks: mLSTM and
+    sLSTM in turn, d_model 256): every stream equals ``reference_decode``,
+    3 slots reused by 6 requests; each decode step launches both xLSTM
+    kernels once per block of their kind."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    cfg = get_smoke_config("xlstm-1.3b", dtype=torch.bfloat16, d_model=256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    _build.launches.clear()
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
+                    device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+    for r in reqs:
+        engine.submit(r)
+    assert len(engine.run()) == 6
+    steps = engine.dispatched_columns
+    assert _build.launches["slstm_scan"] == 2 * steps
+    assert _build.launches["mlstm_cell"] == 2 * steps
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda")
