@@ -29,18 +29,29 @@ Phases (any failure ends the run with a nonzero exit code):
                  mLSTM decode cell at B=4, 4 heads of 1024, each against
                  its plain version (the scan also against ``_slstm_step``'s
                  loop), a row bitwise equal alone, an inactive row's state
-                 kept;
+                 kept; the 16-bit path: ``dense_matmul`` at T=4 and 256 x
+                 4096^2 and at qwen-7b's 16-bit lm_head, kernel 6 (the
+                 fused FFN with 16-bit weights) gated at qwen-7b's widths
+                 and ungated gelu with biases at starcoder2-7b's, kernel
+                 2's gelu variant at starcoder2-7b's widths and
+                 ``layernorm`` at 4 x 4608, each with its library call
+                 (``torch.matmul``, the unfused chain, ``F.layer_norm``);
+                 whether ``torch.matmul``'s rows are bitwise the same at
+                 T=1, 4 and 256 as at T=64 is recorded;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
                  and "strategy3" (log-scale sparse), chatglm-6b (the
-                 paper's ChatGLM2-6B, "dense") and xlstm-1.3b ("dense", 48
-                 blocks, the path ``xlstm-dense``), one model at a time:
+                 paper's ChatGLM2-6B, "dense"), xlstm-1.3b ("dense", 48
+                 blocks, the path ``xlstm-dense``), qwen-7b with 16-bit
+                 weights (``none``) and starcoder2-7b (LayerNorm, the
+                 ungated gelu FFN with biases; ``starcoder2-none`` and
+                 ``starcoder2-dense``), one model at a time:
                  mixed_step over a 13-token prompt in 8-token chunks is
                  bitwise equal to 13 sequential decode steps (logits and
                  every cache leaf of all layers, or every state leaf of
                  all blocks); strategy2 also with int8 K/V, a paged pool
                  and a paged int8 pool;
-  5. serving  — with each of the four models, the engine serves 9
+  5. serving  — with each of the eight weight sets, the engine serves 9
                  requests; every token stream equals ``reference_decode``
                  and the kernel launch counts (reset before each path's
                  run, read just after it) equal layers x calls x ticks as
@@ -285,6 +296,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_attention_variants(torch, timer, randn, tol, rows))
     line.update(check_flash_attention(torch, timer, randn, tol, rows))
     line.update(check_xlstm_kernels(torch, timer, randn, tol, rows))
+    line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
 
     # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
     b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
@@ -981,6 +993,280 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
     return line
 
 
+# -- the 16-bit path: dense_matmul, kernel 6, layernorm; kernel 2's gelu ------
+
+def ffn_chain(torch, x, gate, up, down, activation, ub, db, stage=False):
+    """The unfused chain of library calls on 16-bit weights: matmuls, the
+    activation, the bias adds (timed, never used by the port); ``stage``
+    stops at the hidden."""
+    F = torch.nn.functional
+    if activation == "gelu":
+        h = F.gelu(torch.matmul(x, up) + ub, approximate="tanh")
+    else:
+        g = torch.matmul(x, gate)
+        a = F.silu(g) if activation == "swiglu" else F.gelu(
+            g, approximate="tanh")
+        h = a * torch.matmul(x, up)
+    if stage:
+        return h
+    out = torch.matmul(h, down)
+    return out if db is None else out + db
+
+
+# qwen-7b's d_model, d_ff and vocabulary; starcoder2-7b's d_model and d_ff
+QWEN_D, QWEN_F, QWEN_VOCAB = 4096, 11008, 151936
+STARCODER_D, STARCODER_F = 4608, 18432
+
+
+def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
+    """The 16-bit serving path's kernels against their plain versions:
+    ``dense_matmul`` at T=4 and 256 x 4096^2 and at qwen-7b's 16-bit
+    lm_head; kernel 6 gated at qwen-7b's FFN (4096 -> 11008 -> 4096) and
+    ungated gelu with biases at starcoder2-7b's (4608 -> 18432 -> 4608);
+    kernel 2's gelu variant at starcoder2-7b's widths; ``layernorm`` at 4
+    and 256 x 4608.  Each with its library call (``torch.matmul``, the
+    unfused chain, ``F.layer_norm``), and T=4 rows bitwise inside T=256.
+    Recorded, not held: whether ``torch.matmul`` gives a row bitwise the
+    same at T=1, 4 and 256 as at T=64 (the fault the fixed-order kernels
+    rule out by construction)."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_dense_gate_up_cuda, ffn_fused_dense_torch, ffn_gate_up_cuda,
+        ffn_gate_up_torch)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    line = {}
+
+    def timed(row, kernel, plain, library, nbytes, flops, dname, prefix=""):
+        row[prefix + "ms"] = timer.ms(kernel, 20)
+        row[prefix + "plain_ms"] = timer.ms(plain, 3)
+        row[prefix + "library_ms"] = timer.ms(library, 10)
+        b, by = bound(nbytes, flops, dname)
+        row[prefix + "bound_ms"] = b
+        if not prefix:
+            row["bound_by"] = by
+
+    def times(row, prefix=""):
+        return (f"  kernel {row[prefix + 'ms']:.4f} ms plain "
+                f"{row[prefix + 'plain_ms']:.4f} ms library "
+                f"{row[prefix + 'library_ms']:.4f} ms bound "
+                f"{row[prefix + 'bound_ms']:.4f} ms"
+                if prefix + "ms" in row else "")
+
+    # -- dense_matmul: T x 4096 -> 4096, and the 4096 -> 151936 lm_head
+    d_in = QWEN_D
+    for o, cases in ((QWEN_D, ((bf16, 4), (bf16, 256), (f32, 4))),
+                     (QWEN_VOCAB, ((bf16, 4), (f32, 4)))):
+        w32 = randn(d_in, o, dtype=f32) * 0.02
+        ws = {bf16: w32.to(bf16), f32: w32}
+        del w32
+        for dtype, t in cases:
+            dname = str(dtype).split(".")[1]
+            w = ws[dtype]
+            x = randn(t, d_in, dtype=dtype)
+            got = ops.dense_matmul(x, w)
+            err, rel = max_errs(got, ops.dense_matmul(x, w, impl="torch"))
+            need(rel <= tol[dname], f"dense_matmul T={t} out={o} {dname}: "
+                 f"rel err {rel:.3g} > {tol[dname]}")
+            row = {"kernel": "dense_matmul", "dtype": dname, "T": t,
+                   "in": d_in, "out": o, "max_abs_err": err,
+                   "max_rel_err": rel, "tol_rel": tol[dname]}
+            if dtype == bf16:
+                timed(row, lambda: ops.dense_matmul(x, w),
+                      lambda: ops.dense_matmul(x, w, impl="torch"),
+                      lambda: torch.matmul(x, w),
+                      (x.numel() + w.numel() + t * o) * 2,
+                      2 * t * d_in * o, dname)
+            rows.append(row)
+            log(f"  dense_matmul {dname} T={t:3d} out={o:6d}: max_abs "
+                f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})" + times(row))
+            if (t, o, dname) == (4, QWEN_D, "bfloat16"):
+                line["dense_matmul"] = row
+        w = ws[bf16]
+        x = randn(256, d_in)
+        need(torch.equal(ops.dense_matmul(x[:4], w),
+                         ops.dense_matmul(x, w)[:4]),
+             f"dense_matmul out={o}: rows differ between T=4 and T=256")
+        # recorded: the library call's rows at T=1, 4 and 256 against T=64
+        ref64 = torch.matmul(x[:64], w)
+        lib = {}
+        for n in (1, 4, 256):
+            rows_n = torch.matmul(x[:n], w)[:64]
+            k = min(n, 64)
+            lib[f"T={n}"] = torch.equal(rows_n, ref64[:k])
+            lib[f"T={n} max_abs_diff"] = float(
+                (rows_n.float() - ref64[:k].float()).abs().max())
+        results.setdefault("torch_matmul_rows_equal_at_T64", {})[
+            f"bf16 {d_in}x{o}"] = lib
+        log(f"  dense_matmul out={o}: T=4 rows bitwise equal inside T=256; "
+            f"torch.matmul rows bitwise equal to T=64's (recorded): {lib}")
+        del ws, w, x
+        torch.cuda.empty_cache()
+
+    # -- kernel 6 (16-bit weights): qwen-7b's gated FFN, starcoder2-7b's
+    # ungated gelu with biases
+    for case, (d, f, act) in (
+            ("qwen-7b swiglu", (QWEN_D, QWEN_F, "swiglu")),
+            ("starcoder2-7b gelu", (STARCODER_D, STARCODER_F, "gelu"))):
+        gated = act != "gelu"
+        w16 = {"gate": (randn(d, f) * 0.02) if gated else None,
+               "up": randn(d, f) * 0.02, "down": randn(f, d) * 0.02,
+               "ub": None if gated else randn(f) * 0.1,
+               "db": None if gated else randn(d) * 0.1}
+        for dtype, tokens in ((bf16, (4, 256)), (f32, (4,))):
+            dname = str(dtype).split(".")[1]
+            wt = {k: None if v is None else v.to(dtype)
+                  for k, v in w16.items()}
+            gate, up, down, ub, db = (wt[k] for k in
+                                      ("gate", "up", "down", "ub", "db"))
+            kw = dict(activation=act, up_bias=ub, down_bias=db)
+            for t in tokens:
+                x = randn(t, d, dtype=dtype)
+                herr, hrel = max_errs(
+                    ffn_dense_gate_up_cuda(x, gate, up, act, ub),
+                    ffn_gate_up_torch(x, gate, up, act, ub))
+                err, rel = max_errs(
+                    ops.ffn_w4a16(x, gate, up, down, **kw),
+                    ffn_fused_dense_torch(x, gate, up, down, **kw))
+                need(hrel <= tol[dname] and rel <= tol[dname],
+                     f"ffn_fused_dense {case} T={t} {dname}: hidden rel "
+                     f"{hrel:.3g}, out rel {rel:.3g} > {tol[dname]}")
+                row = {"kernel": "ffn_fused_dense", "case": case,
+                       "dtype": dname, "T": t, "d": d, "f": f,
+                       "activation": act, "max_abs_err": herr,
+                       "max_rel_err": hrel, "ffn_max_abs_err": err,
+                       "ffn_max_rel_err": rel, "tol_rel": tol[dname]}
+                if dtype == bf16:
+                    nw = 2 if gated else 1
+                    stage_bytes = (x.numel() + nw * d * f + t * f
+                                   + (0 if gated else f)) * 2
+                    timed(row,
+                          lambda: ffn_dense_gate_up_cuda(x, gate, up, act,
+                                                         ub),
+                          lambda: ffn_gate_up_torch(x, gate, up, act, ub),
+                          lambda: ffn_chain(torch, x, gate, up, down, act,
+                                            ub, db, stage=True),
+                          stage_bytes, 2 * nw * t * d * f, dname)
+                    row["ffn_bytes"] = (x.numel() + (nw + 1) * d * f
+                                        + t * d + (0 if gated else f + d)) * 2
+                    timed(row, lambda: ops.ffn_w4a16(x, gate, up, down, **kw),
+                          lambda: ffn_fused_dense_torch(x, gate, up, down,
+                                                        **kw),
+                          lambda: ffn_chain(torch, x, gate, up, down, act,
+                                            ub, db),
+                          row["ffn_bytes"], 2 * (nw + 1) * t * d * f, dname,
+                          prefix="ffn_")
+                rows.append(row)
+                log(f"  ffn_fused_dense {case} {dname} T={t:3d}: hidden "
+                    f"max_abs {herr:.3g} rel {hrel:.3g}; ffn max_abs "
+                    f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
+                    + times(row) + ("; whole ffn" + times(row, "ffn_")
+                                    if "ms" in row else ""))
+                if (case, t, dname) == ("qwen-7b swiglu", 4, "bfloat16"):
+                    line["ffn_fused_dense"] = row
+            del wt, gate, up, down, ub, db
+        x = randn(256, d)
+        kw = dict(activation=act, up_bias=w16["ub"], down_bias=w16["db"])
+        args = (w16["gate"], w16["up"], w16["down"])
+        need(torch.equal(ops.ffn_w4a16(x[:4], *args, **kw),
+                         ops.ffn_w4a16(x, *args, **kw)[:4]),
+             f"ffn_fused_dense {case}: rows differ between T=4 and T=256")
+        log(f"  ffn_fused_dense {case}: T=4 rows bitwise equal inside T=256")
+        del w16, args, kw
+        torch.cuda.empty_cache()
+
+    # -- kernel 2's gelu variant: starcoder2-7b's FFN, W4A16, with biases
+    d, f = STARCODER_D, STARCODER_F
+    up = quantize(randn(d, f, dtype=f32) * 0.02)
+    down = quantize(randn(f, d, dtype=f32) * 0.02)
+    b16 = (randn(f) * 0.1, randn(d) * 0.1)
+    for dtype, tokens in ((bf16, (4, 256)), (f32, (4,))):
+        dname = str(dtype).split(".")[1]
+        ub, db = (b.to(dtype) for b in b16)
+        kw = dict(activation="gelu", up_bias=ub, down_bias=db)
+        for t in tokens:
+            x = randn(t, d, dtype=dtype)
+            herr, hrel = max_errs(ffn_gate_up_cuda(x, None, up, "gelu", ub),
+                                  ffn_gate_up_torch(x, None, up, "gelu", ub))
+            err, rel = max_errs(ops.ffn_w4a16(x, None, up, down, **kw),
+                                ops.ffn_w4a16(x, None, up, down,
+                                              impl="torch", **kw))
+            need(hrel <= tol[dname] and rel <= tol[dname],
+                 f"ffn_fused_w4a16_gelu T={t} {dname}: hidden rel "
+                 f"{hrel:.3g}, out rel {rel:.3g} > {tol[dname]}")
+            row = {"kernel": "ffn_fused_w4a16_gelu", "dtype": dname, "T": t,
+                   "d": d, "f": f, "max_abs_err": herr, "max_rel_err": hrel,
+                   "ffn_max_abs_err": err, "ffn_max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == bf16:
+                def lib(stage):
+                    return lambda: ffn_chain(
+                        torch, x, None, dequantize(up, bf16),
+                        None if stage else dequantize(down, bf16), "gelu",
+                        ub, db, stage=stage)
+                timed(row, lambda: ffn_gate_up_cuda(x, None, up, "gelu", ub),
+                      lambda: ffn_gate_up_torch(x, None, up, "gelu", ub),
+                      lib(True),
+                      x.numel() * 2 + up.nbytes_model + (t * f + f) * 2,
+                      2 * t * d * f, dname)
+                row["ffn_bytes"] = (x.numel() * 2 + up.nbytes_model
+                                    + down.nbytes_model + (t * d + f + d) * 2)
+                timed(row, lambda: ops.ffn_w4a16(x, None, up, down, **kw),
+                      lambda: ops.ffn_w4a16(x, None, up, down, impl="torch",
+                                            **kw),
+                      lib(False), row["ffn_bytes"], 2 * 2 * t * d * f, dname,
+                      prefix="ffn_")
+            rows.append(row)
+            log(f"  ffn_fused_w4a16_gelu {dname} T={t:3d}: hidden max_abs "
+                f"{herr:.3g} rel {hrel:.3g}; ffn max_abs {err:.3g} rel "
+                f"{rel:.3g} (tol {tol[dname]})" + times(row)
+                + ("; whole ffn" + times(row, "ffn_") if "ms" in row else ""))
+            if (t, dname) == (4, "bfloat16"):
+                line["ffn_fused_w4a16_gelu"] = row
+    x = randn(256, d)
+    kw = dict(activation="gelu", up_bias=b16[0], down_bias=b16[1])
+    need(torch.equal(ops.ffn_w4a16(x[:4], None, up, down, **kw),
+                     ops.ffn_w4a16(x, None, up, down, **kw)[:4]),
+         "ffn_fused_w4a16_gelu: rows differ between T=4 and T=256")
+    log("  ffn_fused_w4a16_gelu: T=4 rows bitwise equal inside T=256")
+    del up, down, b16
+    torch.cuda.empty_cache()
+
+    # -- layernorm: rows x 4608
+    d = STARCODER_D
+    gamma = 1 + 0.1 * randn(d, dtype=f32)
+    beta = 0.1 * randn(d, dtype=f32)
+    for dtype, tokens in ((bf16, (4, 256)), (f32, (4,))):
+        dname = str(dtype).split(".")[1]
+        g, b = gamma.to(dtype), beta.to(dtype)
+        for t in tokens:
+            x = randn(t, d, dtype=dtype) * 3 + 1
+            err, rel = max_errs(ops.layernorm(x, g, b),
+                                ops.layernorm(x, g, b, impl="torch"))
+            need(rel <= tol[dname], f"layernorm rows={t} {dname}: rel "
+                 f"{rel:.3g} > {tol[dname]}")
+            row = {"kernel": "layernorm", "dtype": dname, "rows": t, "d": d,
+                   "max_abs_err": err, "max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == bf16:
+                timed(row, lambda: ops.layernorm(x, g, b),
+                      lambda: ops.layernorm(x, g, b, impl="torch"),
+                      lambda: F.layer_norm(x, (d,), g, b, 1e-5),
+                      (2 * x.numel() + 2 * d) * 2, 8 * x.numel(), dname)
+            rows.append(row)
+            log(f"  layernorm {dname} rows={t:3d}: max_abs {err:.3g} rel "
+                f"{rel:.3g} (tol {tol[dname]})" + times(row))
+            if (t, dname) == (4, "bfloat16"):
+                line["layernorm"] = row
+    x = randn(256, d)
+    g, b = gamma.to(bf16), beta.to(bf16)
+    need(torch.equal(ops.layernorm(x[:4], g, b), ops.layernorm(x, g, b)[:4]),
+         "layernorm: rows differ between 4 and 256 rows")
+    log("  layernorm: 4 rows bitwise equal inside 256")
+    return line
+
+
 # -- phase 4 and 5: the model and the engine --------------------------------
 
 def build_model(torch, arch, strategy):
@@ -1000,7 +1286,7 @@ def build_model(torch, arch, strategy):
     else:
         kinds = {k: type(v).__name__ for k, v in {
             **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
-            if k in ("wq", "wo", "gate", "down")}
+            if k in ("wq", "wo", "gate", "up", "down")}
         shape = f"d_ff={cfg.d_ff}"
     log(f"  {arch} {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} {shape} "
@@ -1085,38 +1371,57 @@ def first_divergence(torch, cfg, params, prompt, got, max_len):
     return None, None
 
 
+def matmul_kernel(w, name):
+    """The kernel a projection's leaf type routes it to: W4A16, sparse
+    W4A16 or, for a 16-bit tensor, ``dense_matmul``."""
+    import torch
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.core.sparsity import SparseQuantizedTensor
+    if isinstance(w, QuantizedTensor):
+        return "w4a16_matmul"
+    if isinstance(w, SparseQuantizedTensor):
+        return "sparse_w4a16_matmul"
+    need(isinstance(w, torch.Tensor) and w.is_floating_point(),
+         f"{name} is a {type(w).__name__}: no kernel serves it")
+    return "dense_matmul"
+
+
+# the gate/up stage of each CUDA FFN path (ffn_fused.fused_variant)
+FFN_KERNELS = {("quant", True): "ffn_fused_w4a16",
+               ("quant", False): "ffn_fused_w4a16_gelu",
+               ("sparse", True): "ffn_fused_sparse",
+               ("fp", True): "ffn_fused_dense",
+               ("fp", False): "ffn_fused_dense"}
+
+
 def expected_launches(cfg, params, ticks):
     """Launches per kernel for ``ticks`` engine ticks: layers x calls x
     ticks, read from the weights' leaf types.  Each projection goes to the
-    W4A16 or the sparse kernel by its type; the FFN's gate/up to the kernel
-    ``fused_variant`` picks, its down to the kernel of down's type."""
-    from repro_torch.core.quant import QuantizedTensor
-    from repro_torch.core.sparsity import SparseQuantizedTensor
-    from repro_torch.kernels.ffn_fused import fused_variant
-
-    def matmul(w, name):
-        if isinstance(w, QuantizedTensor):
-            return "w4a16_matmul"
-        need(isinstance(w, SparseQuantizedTensor),
-             f"{name} is a {type(w).__name__}: no kernel serves it")
-        return "sparse_w4a16_matmul"
-
+    W4A16, the sparse or the 16-bit kernel by its type; the FFN's gate/up
+    to the kernel ``fused_variant`` picks, its down to the kernel of down's
+    type; the norms to rmsnorm or layernorm by the config."""
     from repro_torch.kernels.decode_flash import VARIANTS
+    from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
+    from repro_torch.models.transformer import layer_params
     L = cfg.n_layers
     attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
-    per_tick = {attention: L, "rmsnorm": 2 * L + 1}
+    norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
+    per_tick = {attention: L, norm: 2 * L + 1}
 
     def add(kernel, n):
         per_tick[kernel] = per_tick.get(kernel, 0) + n
     attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
     for name in ("wq", "wk", "wv", "wo"):
-        add(matmul(attn[name], name), L)
-    variant = fused_variant(mlp["gate"], mlp["up"], mlp["down"],
+        add(matmul_kernel(attn[name], name), L)
+    gated = cfg.activation in GATED_ACTIVATIONS
+    one = layer_params(mlp, 0)             # one layer's leaves, as served
+    variant = fused_variant(one.get("gate"), one["up"], one["down"],
                             cfg.activation)
-    need(variant is not None, "the FFN weights take no CUDA path")
-    add("ffn_fused_w4a16" if variant == "quant" else "ffn_fused_sparse", L)
-    add(matmul(mlp["down"], "down"), L)
-    add(matmul(params["lm_head"], "lm_head"), 1)
+    need((variant, gated) in FFN_KERNELS,
+         f"the FFN weights take no CUDA path ({variant}, {cfg.activation})")
+    add(FFN_KERNELS[(variant, gated)], L)
+    add(matmul_kernel(mlp["down"], "down"), L)
+    add(matmul_kernel(params["lm_head"], "lm_head"), 1)
     return {k: ticks * n for k, n in per_tick.items()}
 
 
@@ -1128,8 +1433,8 @@ def expected_launches_ssm(cfg, params, steps, full_sequence=False):
     one ``mlstm_cell`` (which takes the 16-bit w_i/w_f); per sLSTM block two
     rmsnorms, w_gates and down, one ``slstm_scan``; then ln_f and the
     lm_head.  ``full_sequence``: one ``forward`` call instead, where the
-    mLSTM runs its parallel form (no cell kernel) and the scan runs once
-    over the sequence."""
+    mLSTM runs its parallel form (no cell kernel; its 16-bit w_i/w_f go
+    through ``dense_matmul``) and the scan runs once over the sequence."""
     from repro_torch.core.quant import QuantizedTensor
 
     def matmul(w, name):
@@ -1158,7 +1463,10 @@ def expected_launches_ssm(cfg, params, steps, full_sequence=False):
             need(not any(isinstance(p[w], QuantizedTensor)
                          for w in ("w_i", "w_f")),
                  "w_i/w_f are packed: the cell kernel takes 16-bit gates")
-            if not full_sequence:
+            if full_sequence:
+                for w in ("w_i", "w_f"):
+                    add(matmul_kernel(p[w], w), n)
+            else:
                 add("mlstm_cell", n)
     add("rmsnorm", 1)
     add(matmul(params["lm_head"], "lm_head"), 1)
@@ -1631,13 +1939,28 @@ KERNEL_META = {
     "mlstm_cell": ("src/repro_torch/kernels/csrc/mlstm_cell.cu",
                    "src/repro/models/xlstm.py:205-217 (XLA in the "
                    "reference, no Pallas kernel)", "xlstm-dense"),
+    "ffn_fused_dense": ("src/repro_torch/kernels/csrc/ffn_fused_dense.cu",
+                        "src/repro/kernels/ffn_fused.py:300", "none"),
+    "dense_matmul": ("src/repro_torch/kernels/csrc/dense_matmul.cu",
+                     "src/repro/models/layers.py:43 (XLA in the reference, "
+                     "no Pallas kernel)", "none"),
+    "layernorm": ("src/repro_torch/kernels/csrc/layernorm.cu",
+                  "src/repro/models/layers.py:72 (XLA in the reference, no "
+                  "Pallas kernel)", "starcoder2-none"),
+    "ffn_fused_w4a16_gelu": ("src/repro_torch/kernels/csrc/ffn_fused.cu",
+                             "src/repro/kernels/ffn_fused.py:215 (the "
+                             "ungated gelu variant with biases)",
+                             "starcoder2-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
 MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("strategy3", "qwen-7b", "strategy3"),
           ("chatglm-dense", "chatglm-6b", "dense"),
-          ("xlstm-dense", "xlstm-1.3b", "dense"))
+          ("xlstm-dense", "xlstm-1.3b", "dense"),
+          ("none", "qwen-7b", "none"),
+          ("starcoder2-none", "starcoder2-7b", "none"),
+          ("starcoder2-dense", "starcoder2-7b", "dense"))
 PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)

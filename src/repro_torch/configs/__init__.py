@@ -1,5 +1,6 @@
-"""Architecture config registry of the port: ``qwen-7b`` and ``chatglm-6b``
-(family ``dense``) and ``xlstm-1.3b`` (family ``ssm``).
+"""Architecture config registry of the port: ``qwen-7b``, ``chatglm-6b``
+and ``starcoder2-7b`` (family ``dense``; starcoder2 brings LayerNorm and the
+ungated gelu FFN with biases) and ``xlstm-1.3b`` (family ``ssm``).
 
 ``get_config(name)`` gives the full-size configuration and
 ``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
@@ -10,10 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import chatglm_6b, qwen_7b, xlstm_1_3b
+from repro_torch.configs import chatglm_6b, qwen_7b, starcoder2_7b, xlstm_1_3b
 
 _MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b,
-            "xlstm-1.3b": xlstm_1_3b}
+            "starcoder2-7b": starcoder2_7b, "xlstm-1.3b": xlstm_1_3b}
 
 
 def _module(name: str):

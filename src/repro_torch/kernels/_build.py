@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_SOURCES = ("w4a16_matmul", "ffn_fused", "decode_flash", "rmsnorm",
                   "sparse_w4a16", "ffn_fused_sparse", "flash_attention",
-                  "slstm_scan", "mlstm_cell")
+                  "slstm_scan", "mlstm_cell", "dense_matmul",
+                  "ffn_fused_dense", "layernorm")
 
 launches: "collections.Counter[str]" = collections.Counter()
 

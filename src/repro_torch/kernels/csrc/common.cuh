@@ -48,6 +48,45 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// What the finished f32 sums s[0..NW) of one output become before the cast,
+// in the weight tiles (w4a16_tile.cuh, dense_tile.cuh).  The codes are the
+// activation codes the Python wrappers pass.
+enum Epilogue : int {
+  kEpiNone = 0,      // s[0]
+  kEpiSwiglu = 1,    // silu(gate) * up                NW = 2: gate, up
+  kEpiGeglu = 2,     // gelu_tanh(gate) * up           NW = 2
+  kEpiGeluBias = 3,  // gelu_tanh(up + bias)           NW = 1: up
+  kEpiBias = 4,      // s[0] + bias
+};
+
+__device__ __forceinline__ float silu(float g) {
+  return g / (1.0f + expf(-g));
+}
+
+__device__ __forceinline__ float gelu_tanh(float g) {
+  const float c = 0.7978845608028654f;   // sqrt(2 / pi)
+  return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
+}
+
+// bias: f32 per output column, added to the f32 sum before the activation
+// or the cast, as the reference adds its FFN biases; null adds nothing.
+template <int NW, int EPI>
+__device__ __forceinline__ float epilogue(const float (&s)[NW],
+                                          const float* __restrict__ bias,
+                                          int col) {
+  if constexpr (EPI == kEpiSwiglu) {
+    return silu(s[0]) * s[NW - 1];
+  } else if constexpr (EPI == kEpiGeglu) {
+    return gelu_tanh(s[0]) * s[NW - 1];
+  } else if constexpr (EPI == kEpiGeluBias) {
+    return gelu_tanh(bias ? s[0] + bias[col] : s[0]);
+  } else if constexpr (EPI == kEpiBias) {
+    return bias ? s[0] + bias[col] : s[0];
+  } else {
+    return s[0];
+  }
+}
+
 }  // namespace repro
 
 // Opts a kernel into more than 48 KB of dynamic shared memory, once.

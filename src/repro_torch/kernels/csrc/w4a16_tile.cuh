@@ -1,5 +1,6 @@
-// The W4A16 tile shared by w4a16_matmul.cu (one weight) and ffn_fused.cu
-// (gate and up together, with the activation in the epilogue).  Its
+// The W4A16 tile shared by w4a16_matmul.cu (one weight, optionally with a
+// bias) and ffn_fused.cu (gate and up together, or up alone with its bias
+// for the ungated gelu FFN, the activation in the epilogue).  Its
 // cross-warp epilogue serves the block-sparse tile (sparse_tile.cuh) too.
 //
 // Layout read as the reference stores it (core/quant.py): packed uint8
@@ -32,17 +33,6 @@ constexpr int kCols = 128;                  // 32 lanes x 4 columns
 constexpr int kTok = 8;                     // tokens per block
 constexpr int kGroup = 128;
 
-enum Epilogue : int { kEpiNone = 0, kEpiSwiglu = 1, kEpiGeglu = 2 };
-
-__device__ __forceinline__ float silu(float g) {
-  return g / (1.0f + expf(-g));
-}
-
-__device__ __forceinline__ float gelu_tanh(float g) {
-  const float c = 0.7978845608028654f;   // sqrt(2 / pi)
-  return 0.5f * g * (1.0f + tanhf(c * (g + 0.044715f * g * g * g)));
-}
-
 // Shared memory: max(x tiles of every warp, the cross-warp sums).
 template <int NW>
 constexpr int w4a16_smem_bytes() {
@@ -54,13 +44,15 @@ constexpr int w4a16_smem_bytes() {
 
 // Adds the 8 warps' sums in warp order through shared memory (`red`, at
 // least kW4Warps * NW * kTok * kCols floats, free once every warp is done
-// with its x tiles), applies the epilogue and writes the block's tile:
-// tokens t0.., columns col0.. of a row-major (n_tok, out_f) output, masked
-// at n_tok and out_f.
+// with its x tiles), applies the epilogue (common.cuh; `bias` f32 per
+// output column, for kEpiGeluBias and kEpiBias) and writes the block's
+// tile: tokens t0.., columns col0.. of a row-major (n_tok, out_f) output,
+// masked at n_tok and out_f.
 template <typename T, int NW, int EPI>
 __device__ __forceinline__ void w4a16_reduce_store(
     float (&acc)[NW][kTok][4], float* red, int t0, int n_tok,
-    int col0, int out_f, T* __restrict__ out) {
+    int col0, int out_f, T* __restrict__ out,
+    const float* __restrict__ bias = nullptr) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   __syncthreads();
@@ -84,20 +76,13 @@ __device__ __forceinline__ void w4a16_reduce_store(
       for (int k = 0; k < kW4Warps; ++k)
         s[w] += red[((k * NW + w) * kTok + t) * kCols + cc];
     }
-    float y;
-    if constexpr (EPI == kEpiNone) {
-      y = s[0];
-    } else if constexpr (EPI == kEpiSwiglu) {
-      y = silu(s[0]) * s[NW - 1];
-    } else {
-      y = gelu_tanh(s[0]) * s[NW - 1];
-    }
-    out[(size_t)(t0 + t) * out_f + gcol] = from_f32<T>(y);
+    out[(size_t)(t0 + t) * out_f + gcol] =
+        from_f32<T>(epilogue<NW, EPI>(s, bias, gcol));
   }
 }
 
 // NW = number of weight matrices read against the same x (1, or 2 for the
-// gated FFN).  out_f is a multiple of 4 (checked by the wrapper), so a
+// gated FFN); bias is read by the kEpiGeluBias and kEpiBias epilogues.  out_f is a multiple of 4 (checked by the wrapper), so a
 // lane's 4 columns are either all inside the matrix or all past its edge.
 template <typename T, int NW, int EPI>
 __global__ void __launch_bounds__(kW4Threads)
@@ -106,6 +91,7 @@ __global__ void __launch_bounds__(kW4Threads)
                       const __nv_bfloat16* __restrict__ sc0,
                       const uint8_t* __restrict__ pk1,
                       const __nv_bfloat16* __restrict__ sc1,
+                      const float* __restrict__ bias,
                       T* __restrict__ out) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
@@ -188,13 +174,14 @@ __global__ void __launch_bounds__(kW4Threads)
   }
 
   w4a16_reduce_store<T, NW, EPI>(acc, smem, t0, n_tok, blockIdx.x * kCols,
-                                 out_f, out);
+                                 out_f, out, bias);
 }
 
 template <typename T, int NW, int EPI>
 int launch_w4a16_tile(const void* x, int n_tok, int in_f, int out_f,
                       const void* pk0, const void* sc0, const void* pk1,
-                      const void* sc1, void* out, cudaStream_t stream) {
+                      const void* sc1, const float* bias, void* out,
+                      cudaStream_t stream) {
   constexpr int smem = w4a16_smem_bytes<NW>();
   auto kernel = w4a16_tile_kernel<T, NW, EPI>;
   REPRO_SMEM_OPT_IN(kernel, smem);
@@ -204,7 +191,7 @@ int launch_w4a16_tile(const void* x, int n_tok, int in_f, int out_f,
       static_cast<const uint8_t*>(pk0),
       static_cast<const __nv_bfloat16*>(sc0),
       static_cast<const uint8_t*>(pk1),
-      static_cast<const __nv_bfloat16*>(sc1), static_cast<T*>(out));
+      static_cast<const __nv_bfloat16*>(sc1), bias, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,24 @@
-"""Fused W4A16 FFN, dense-quantized and log-scale sparse: CUDA paths and
-their plain version.
+"""Fused FFN, dense-quantized, log-scale sparse and 16-bit: CUDA paths and
+their plain versions.
 
 Port of ``repro/kernels/ffn_fused.py``: ``ffn_fused_w4a16_pallas`` (quant
-variant), ``ffn_fused_sparse_pallas`` (sparse variant) and their blocked
-twin ``ffn_w4a16_xla``.  Each CUDA path is two hand kernels:
+variant, gated and the ungated gelu with biases), ``ffn_fused_sparse_pallas``
+(sparse variant), ``ffn_fused_dense_pallas`` (fp variant, 16-bit weights)
+and their blocked twin ``ffn_w4a16_xla``.  Each CUDA path is two hand
+kernels:
 
 * ``"quant"``: ``csrc/ffn_fused.cu`` computes ``act(x@gate) * (x@up)``
-  with per-group scale-after-dot and writes the hidden in x's dtype, then
-  ``csrc/w4a16_matmul.cu`` contracts it with ``down``;
+  (or ``gelu(x@up + up_bias)``) with per-group scale-after-dot and writes
+  the hidden in x's dtype, then ``csrc/w4a16_matmul.cu`` contracts it with
+  ``down`` (adding ``down_bias`` in f32 before its cast);
 * ``"sparse"``: ``csrc/ffn_fused_sparse.cu`` does the same for block-sparse
   gate/up, only for the hidden tiles ``down`` keeps (all of them for a
   dense-quantized down), then ``csrc/sparse_w4a16.cu`` (sparse down, its own
-  ``block_idx``) or ``csrc/w4a16_matmul.cu`` (dense down) contracts them.
+  ``block_idx``) or ``csrc/w4a16_matmul.cu`` (dense down) contracts them;
+  gated activations only (the gelu variant is not ported);
+* ``"fp"``: ``csrc/ffn_fused_dense.cu`` computes the hidden from 16-bit
+  gate/up in f32, then ``csrc/dense_matmul.cu`` contracts it with ``down``
+  (the down bias as its f32 epilogue).
 
 The reference rounds each hidden tile to x's dtype before the down
 contraction too, so the split changes no arithmetic; it costs one launch
@@ -28,18 +35,25 @@ import torch
 from repro_torch.core.quant import GROUP_SIZE, QuantizedTensor
 from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.dense_matmul import (
+    dense_matmul_cuda, dense_matmul_f32, dense_weight)
 from repro_torch.kernels.sparse_w4a16 import (
     check_sparse, sparse_matmul_f32, sparse_w4a16_matmul_cuda)
 from repro_torch.kernels.w4a16_matmul import (
-    DTYPE_CODES, check_activation, check_quantized, w4a16_matmul_cuda,
-    w4a16_matmul_f32)
+    DTYPE_CODES, bias_f32, check_activation, check_quantized,
+    w4a16_matmul_cuda, w4a16_matmul_f32)
 
 NAME = "ffn_fused_w4a16"
+GELU_NAME = "ffn_fused_w4a16_gelu"        # the ungated variant's launches
+DENSE_NAME = "ffn_fused_dense"
 GATED_ACTIVATIONS = ("swiglu", "geglu")
-_ACT_CODES = {"swiglu": 1, "geglu": 2}
+# the epilogue codes of csrc/common.cuh
+_ACT_CODES = {"swiglu": 1, "geglu": 2, "gelu": 3}
 SPARSE_NAME = "ffn_fused_sparse"
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
+_DENSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
 _SPARSE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                     + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
@@ -61,12 +75,9 @@ def _act(name: str, g, u):
     raise ValueError(f"unknown activation {name!r}")
 
 
-def ffn_gate_up_torch(x: torch.Tensor, gate: QuantizedTensor,
-                      up: QuantizedTensor, activation: str) -> torch.Tensor:
-    """Plain version of ``csrc/ffn_fused.cu``: the hidden in x's dtype."""
-    g = w4a16_matmul_f32(x, gate)
-    u = w4a16_matmul_f32(x, up)
-    return _act(activation, g, u).to(x.dtype)
+def _check_activation_name(activation: str) -> None:
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
 
 
 def _mm_f32(x: torch.Tensor, w) -> torch.Tensor:
@@ -74,58 +85,132 @@ def _mm_f32(x: torch.Tensor, w) -> torch.Tensor:
         return w4a16_matmul_f32(x, w)
     if isinstance(w, SparseQuantizedTensor):
         return sparse_matmul_f32(x, w)
-    return x.to(torch.float32) @ w.to(torch.float32)
+    return dense_matmul_f32(x, w)
+
+
+def ffn_gate_up_torch(x: torch.Tensor, gate, up, activation: str,
+                      up_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the first stage, ``csrc/ffn_fused.cu`` (W4A16
+    weights) or ``csrc/ffn_fused_dense.cu`` (16-bit weights): f32 sums (per
+    quant group, scale after the dot), the up bias in f32, the activation
+    on the f32 sums, the hidden in x's dtype."""
+    u = _mm_f32(x, up)
+    if up_bias is not None:
+        u = u + up_bias.to(torch.float32)
+    g = _mm_f32(x, gate) if activation in GATED_ACTIVATIONS else None
+    return _act(activation, g, u).to(x.dtype)
+
+
+def _ffn_f32(x, gate, up, down, activation, up_bias, down_bias):
+    """The fused kernels' numerics for any weight mix: the first stage of
+    :func:`ffn_gate_up_torch`, then the down contraction in f32, the down
+    bias in f32, one cast."""
+    out = _mm_f32(ffn_gate_up_torch(x, gate, up, activation, up_bias), down)
+    if down_bias is not None:
+        out = out + down_bias.to(torch.float32)
+    return out.to(x.dtype)
 
 
 def ffn_w4a16_torch(x, gate, up, down, *, activation="swiglu", up_bias=None,
                     down_bias=None) -> torch.Tensor:
-    """Plain version (twin of ``ffn_w4a16_xla``, any weight mix): f32
-    scale-after-dot per quant group or kept block, activation on the f32
-    sums, hidden cast to x's dtype for the down contraction.  Unquantized
-    weights take the unfused oracle."""
+    """Plain version (twin of ``ffn_w4a16_xla``, any weight mix): the fused
+    numerics of :func:`_ffn_f32`.  All-16-bit weights take the unfused
+    oracle, as the reference's twin does (``repro/kernels/ops.py:96-98``);
+    kernel 6's own plain version is :func:`ffn_fused_dense_torch`."""
     _check_gated_bias(activation, up_bias, down_bias)
     ws = (gate, up, down) if activation in GATED_ACTIVATIONS else (up, down)
     if not any(isinstance(w, (QuantizedTensor, SparseQuantizedTensor))
                for w in ws):
         return ref.ffn_ref(x, gate, up, down, activation=activation,
                            up_bias=up_bias, down_bias=down_bias)
-    u = _mm_f32(x, up)
-    if up_bias is not None:
-        u = u + up_bias.to(torch.float32)
-    g = _mm_f32(x, gate) if activation in GATED_ACTIVATIONS else None
-    out = _mm_f32(_act(activation, g, u).to(x.dtype), down)
-    if down_bias is not None:
-        out = out + down_bias.to(torch.float32)
-    return out.to(x.dtype)
+    return _ffn_f32(x, gate, up, down, activation, up_bias, down_bias)
 
 
-def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor,
-                     up: QuantizedTensor, activation: str) -> torch.Tensor:
-    """Launch ``csrc/ffn_fused.cu``: the (tokens, d_ff) hidden in x's dtype."""
-    check_activation(x, NAME)
-    if activation not in _ACT_CODES:
-        raise NotImplementedError(
-            f"activation {activation!r}: the ungated gelu FFN with biases "
-            "is not ported to CUDA yet (a later slice); swiglu and geglu are")
-    check_quantized(gate, x.device, f"{NAME} gate")
-    check_quantized(up, x.device, f"{NAME} up")
-    d, f = up.shape
-    if gate.shape != up.shape or x.shape[-1] != d:
-        raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate {gate.shape},"
-                         f" up {up.shape}")
+def ffn_fused_dense_torch(x, gate, up, down, *, activation="swiglu",
+                          up_bias=None, down_bias=None) -> torch.Tensor:
+    """Plain version of kernel 6 (``ffn_fused_dense_pallas``, 16-bit
+    weights): gate/up in f32, the activation on the f32 sums, the hidden
+    rounded once to x's dtype, down in f32 with its bias, one cast.  The
+    unfused composition (``ref.ffn_ref``) rounds each projection to x's
+    dtype instead."""
+    _check_gated_bias(activation, up_bias, down_bias)
+    return _ffn_f32(x, gate, up, down, activation, up_bias, down_bias)
+
+
+def _hidden_launch(x, d, f, launch):
+    """Flatten x, allocate the (tokens, f) hidden, call ``launch(x2, hidden,
+    n)`` when there are tokens; the hidden in x's leading shape."""
     x2 = x.reshape(-1, d).contiguous()
     n = x2.shape[0]
     hidden = torch.empty((n, f), dtype=x.dtype, device=x.device)
     if n:
+        launch(x2, hidden, n)
+    return hidden.reshape(*x.shape[:-1], f)
+
+
+def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor | None,
+                     up: QuantizedTensor, activation: str,
+                     up_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/ffn_fused.cu``: the (tokens, d_ff) hidden in x's dtype.
+    Gated (gate and up) or ``"gelu"`` (up alone, with ``up_bias``)."""
+    check_activation(x, NAME)
+    _check_activation_name(activation)
+    gated = activation in GATED_ACTIVATIONS
+    _check_gated_bias(activation, up_bias, None)
+    check_quantized(up, x.device, f"{NAME} up")
+    d, f = up.shape
+    if gated:
+        check_quantized(gate, x.device, f"{NAME} gate")
+    if (gated and gate.shape != up.shape) or x.shape[-1] != d:
+        raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate "
+                         f"{gate.shape if gated else None}, up {up.shape}")
+    ub = bias_f32(up_bias, f, x.device, f"{NAME} up_bias")
+
+    def launch(x2, hidden, n):
         fn = _build.function("ffn_fused", "ffn_gate_up_launch", _ARGTYPES)
-        rc = fn(x2.data_ptr(), gate.packed.data_ptr(),
-                gate.scales.data_ptr(), up.packed.data_ptr(),
-                up.scales.data_ptr(), hidden.data_ptr(), n, d, f,
-                _ACT_CODES[activation], DTYPE_CODES[x.dtype],
+        rc = fn(x2.data_ptr(),
+                gate.packed.data_ptr() if gated else None,
+                gate.scales.data_ptr() if gated else None,
+                up.packed.data_ptr(), up.scales.data_ptr(),
+                None if ub is None else ub.data_ptr(), hidden.data_ptr(), n,
+                d, f, _ACT_CODES[activation], DTYPE_CODES[x.dtype],
                 _build.stream_ptr(x.device))
         _build.check("ffn_fused", rc)
-        _build.launches[NAME] += 1
-    return hidden.reshape(*x.shape[:-1], f)
+        _build.launches[NAME if gated else GELU_NAME] += 1
+    return _hidden_launch(x, d, f, launch)
+
+
+def ffn_dense_gate_up_cuda(x: torch.Tensor, gate: torch.Tensor | None,
+                           up: torch.Tensor, activation: str,
+                           up_bias: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Launch ``csrc/ffn_fused_dense.cu`` (kernel 6's first stage): the
+    (tokens, d_ff) hidden in x's dtype from 16-bit gate and up (gated) or up
+    alone with ``up_bias`` (``"gelu"``)."""
+    check_activation(x, DENSE_NAME)
+    _check_activation_name(activation)
+    gated = activation in GATED_ACTIVATIONS
+    _check_gated_bias(activation, up_bias, None)
+    up = dense_weight(up, x, f"{DENSE_NAME} up")
+    d, f = up.shape
+    if gated:
+        gate = dense_weight(gate, x, f"{DENSE_NAME} gate")
+    if (gated and gate.shape != up.shape) or x.shape[-1] != d:
+        raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate "
+                         f"{tuple(gate.shape) if gated else None}, up "
+                         f"{tuple(up.shape)}")
+    ub = bias_f32(up_bias, f, x.device, f"{DENSE_NAME} up_bias")
+
+    def launch(x2, hidden, n):
+        fn = _build.function("ffn_fused_dense", "ffn_dense_gate_up_launch",
+                             _DENSE_ARGTYPES)
+        rc = fn(x2.data_ptr(), gate.data_ptr() if gated else None,
+                up.data_ptr(), None if ub is None else ub.data_ptr(),
+                hidden.data_ptr(), n, d, f, _ACT_CODES[activation],
+                DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+        _build.check("ffn_fused_dense", rc)
+        _build.launches[DENSE_NAME] += 1
+    return _hidden_launch(x, d, f, launch)
 
 
 def kept_f_tiles(down) -> torch.Tensor | None:
@@ -166,10 +251,11 @@ def ffn_gate_up_sparse_cuda(x: torch.Tensor, gate: SparseQuantizedTensor,
     (all tiles when ``None``).  The other columns are left unwritten, and
     the gate/up blocks of their tiles are never read."""
     check_activation(x, SPARSE_NAME)
-    if activation not in _ACT_CODES:
+    if activation not in GATED_ACTIVATIONS:
         raise NotImplementedError(
             f"activation {activation!r}: the ungated gelu FFN with biases "
-            "is not ported to CUDA yet (a later slice); swiglu and geglu are")
+            "is not ported to the sparse CUDA kernel yet (a later slice); "
+            "swiglu and geglu are")
     check_sparse(gate, x.device, f"{SPARSE_NAME} gate")
     check_sparse(up, x.device, f"{SPARSE_NAME} up")
     d, f = up.shape
@@ -207,11 +293,20 @@ def fused_variant(gate, up, down, activation: str) -> str | None:
     """Which CUDA FFN path takes these weights (port of the reference's
     ``fused_variant``, a static choice from types and flags): ``"quant"``
     (all W4A16), ``"sparse"`` (sparse gate/up; down dense-quantized or
-    tile_uniform sparse), or ``None``."""
+    tile_uniform sparse), ``"fp"`` (all 16-bit floating tensors, d, d_ff
+    and out multiples of 128, as the reference's ``:715-717``), or
+    ``None``."""
     gated = activation in GATED_ACTIVATIONS
     ws = (gate, up, down) if gated else (up, down)
     if all(isinstance(w, QuantizedTensor) for w in ws):
         return "quant"
+    if all(isinstance(w, torch.Tensor) and w.is_floating_point()
+           and w.dim() == 2 for w in ws):
+        (d, f), out_f = up.shape, down.shape[1]
+        if (down.shape[0] != f or (gated and gate.shape != up.shape)
+                or d % GROUP_SIZE or f % GROUP_SIZE or out_f % GROUP_SIZE):
+            return None
+        return "fp"
     if (isinstance(up, SparseQuantizedTensor)
             and (not gated or isinstance(gate, SparseQuantizedTensor))):
         if gated and (gate.shape != up.shape
@@ -237,6 +332,16 @@ def ffn_fused_sparse_cuda(x, gate, up, down, *,
     return sparse_w4a16_matmul_cuda(hidden, down)
 
 
+def ffn_fused_dense_cuda(x, gate, up, down, *, activation="swiglu",
+                         up_bias=None, down_bias=None) -> torch.Tensor:
+    """Kernel 6, the fp path: ``csrc/ffn_fused_dense.cu`` for the hidden,
+    then ``csrc/dense_matmul.cu`` for down with ``down_bias`` added in f32
+    before the cast."""
+    _check_gated_bias(activation, up_bias, down_bias)
+    hidden = ffn_dense_gate_up_cuda(x, gate, up, activation, up_bias)
+    return dense_matmul_cuda(hidden, down, down_bias)
+
+
 def ffn_w4a16_cuda(x, gate, up, down, *, activation="swiglu", up_bias=None,
                    down_bias=None) -> torch.Tensor:
     """The CUDA path, chosen by :func:`fused_variant`; any other weight mix
@@ -244,12 +349,16 @@ def ffn_w4a16_cuda(x, gate, up, down, *, activation="swiglu", up_bias=None,
     _check_gated_bias(activation, up_bias, down_bias)
     variant = fused_variant(gate, up, down, activation)
     if variant == "quant":
-        hidden = ffn_gate_up_cuda(x, gate, up, activation)
-        return w4a16_matmul_cuda(hidden, down)
+        hidden = ffn_gate_up_cuda(x, gate, up, activation, up_bias)
+        return w4a16_matmul_cuda(hidden, down, down_bias)
     if variant == "sparse":
         return ffn_fused_sparse_cuda(x, gate, up, down, activation=activation)
+    if variant == "fp":
+        return ffn_fused_dense_cuda(x, gate, up, down, activation=activation,
+                                    up_bias=up_bias, down_bias=down_bias)
     raise NotImplementedError(
-        "the CUDA FFN takes W4A16 gate/up/down, or block-sparse gate/up with "
-        "a dense-quantized or tile_uniform sparse down; other mixes (16-bit "
-        "weights, a non-tile_uniform sparse down) go through "
-        "ops.ffn_w4a16's plain path on CPU only")
+        "the CUDA FFN takes W4A16 gate/up/down, block-sparse gate/up with "
+        "a dense-quantized or tile_uniform sparse down, or all-16-bit "
+        "weights with widths that are multiples of 128; other mixes (16-bit "
+        "and packed weights together, a non-tile_uniform sparse down) go "
+        "through ops.ffn_w4a16's plain path on CPU only")

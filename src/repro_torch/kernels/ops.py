@@ -19,9 +19,12 @@ from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_flash import (
     DEFAULT_BLOCK_KV, mixed_attention_torch, mixed_flash_attention_cuda)
+from repro_torch.kernels.dense_matmul import (
+    dense_matmul_cuda, dense_matmul_torch)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_torch)
+from repro_torch.kernels.layernorm import layernorm_cuda, layernorm_torch
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
@@ -29,9 +32,10 @@ from repro_torch.kernels.sparse_w4a16 import (
 from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
-__all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "ffn_w4a16", "attention",
-           "decode_attention", "mixed_attention", "gather_paged_cache",
-           "slstm_scan", "mlstm_cell"]
+__all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
+           "ffn_w4a16", "layernorm", "attention", "decode_attention",
+           "mixed_attention", "gather_paged_cache", "slstm_scan",
+           "mlstm_cell"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -65,12 +69,37 @@ def sparse_w4a16_matmul(x: torch.Tensor, st: SparseQuantizedTensor, *,
     return _ref.sparse_w4a16_matmul_ref(x, st)
 
 
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None, *,
+                 impl: str = "auto") -> torch.Tensor:
+    """x @ w for a 16-bit weight: an f32 sum per output in a fixed order,
+    ``bias`` added in f32, one cast to x's dtype."""
+    impl = _resolve(impl, x)
+    if impl == "cuda":
+        return dense_matmul_cuda(x, w, bias)
+    if impl == "torch":
+        return dense_matmul_torch(x, w, bias)
+    return _ref.dense_matmul_ref(x, w, bias)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5, *, impl: str = "auto") -> torch.Tensor:
+    """f32 LayerNorm, two passes (mean, then the mean of the squared
+    deviations).  The plain version is the reference's formula, so
+    ``"ref"`` takes it too."""
+    impl = _resolve(impl, x)
+    fn = layernorm_cuda if impl == "cuda" else layernorm_torch
+    return fn(x, gamma, beta, eps)
+
+
 def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
               down_bias=None, impl: str = "auto") -> torch.Tensor:
     """Whole FFN ``down(act(x@gate) * (x@up))`` as one operator.  Weights
     may be dense, ``QuantizedTensor``s or ``SparseQuantizedTensor``s; the
-    CUDA path takes all-W4A16 or sparse gate/up (``ffn_fused
-    .fused_variant``) and raises on other mixes."""
+    CUDA path takes all-W4A16, sparse gate/up or all-16-bit weights (kernel
+    6; ``ffn_fused.fused_variant``) and raises on other mixes.  The plain
+    path keeps the unfused oracle for all-16-bit weights, as the
+    reference's twin does."""
     impl = _resolve(impl, x)
     kw = dict(activation=activation, up_bias=up_bias, down_bias=down_bias)
     if impl == "cuda":

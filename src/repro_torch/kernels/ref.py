@@ -12,7 +12,8 @@ from repro_torch.core.quant import QuantizedTensor, unpack_int4
 from repro_torch.core.sparsity import (
     SparseQuantizedTensor, sparse_to_quantized)
 
-__all__ = ["w4a16_matmul_ref", "sparse_w4a16_matmul_ref", "ffn_ref",
+__all__ = ["w4a16_matmul_ref", "sparse_w4a16_matmul_ref", "dense_matmul_ref",
+           "ffn_ref",
            "attention_ref", "decode_attention_ref", "mixed_attention_ref",
            "slstm_scan_ref"]
 
@@ -36,6 +37,17 @@ def sparse_w4a16_matmul_ref(x: torch.Tensor,
     back into the dense W4A16 layout (zero scales for dropped blocks), then
     the group-exact dot of :func:`w4a16_matmul_ref`."""
     return w4a16_matmul_ref(x, sparse_to_quantized(st))
+
+
+def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None) -> torch.Tensor:
+    """16-bit-weight oracle: the weight in x's dtype, the dot in f32, the
+    bias in f32, cast to x's dtype."""
+    y = torch.einsum("...k,ko->...o", x.to(torch.float32),
+                     w.to(x.dtype).to(torch.float32))
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def _mm(x, w, b=None):

@@ -3,7 +3,9 @@
 Port of ``repro/kernels/w4a16_matmul.py::w4a16_matmul_pallas``; the kernel
 is ``csrc/w4a16_matmul.cu`` (its note says what bounds it on the card).
 ``x (..., in) @ dequant(qt) -> (..., out)`` in x's dtype, with each
-128-row group's f32 partial sum multiplied by the group's scale.
+128-row group's f32 partial sum multiplied by the group's scale; an optional
+f32 bias is added to the f32 sum before the cast (the down projection of the
+ungated gelu FFN, as the reference's fused kernel adds its down bias).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from repro_torch.kernels import _build
 NAME = "w4a16_matmul"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def w4a16_matmul_f32(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -37,9 +39,13 @@ def w4a16_matmul_f32(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     return acc.reshape(*x.shape[:-1], out_f)
 
 
-def w4a16_matmul_torch(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def w4a16_matmul_torch(x: torch.Tensor, qt: QuantizedTensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (CPU path and card reference)."""
-    return w4a16_matmul_f32(x, qt).to(x.dtype)
+    y = w4a16_matmul_f32(x, qt)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def check_quantized(qt: QuantizedTensor, device: torch.device,
@@ -70,21 +76,34 @@ def check_activation(x: torch.Tensor, what: str) -> None:
                         f"got {x.dtype}")
 
 
-def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def bias_f32(bias: torch.Tensor | None, n: int, device,
+             what: str) -> torch.Tensor | None:
+    """A bias as the kernels' epilogues read it: contiguous f32 ``(n,)``."""
+    if bias is None:
+        return None
+    if bias.shape != (n,) or bias.device != device:
+        raise ValueError(f"{what}: bias must be ({n},) on {device}, got "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    return bias.to(torch.float32).contiguous()
+
+
+def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor,
+                      bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/w4a16_matmul.cu`` on the current stream."""
     check_activation(x, NAME)
     check_quantized(qt, x.device, NAME)
     in_f, out_f = qt.shape
     if x.shape[-1] != in_f:
         raise ValueError(f"contraction mismatch {x.shape[-1]} vs {in_f}")
+    b = bias_f32(bias, out_f, x.device, NAME)
     x2 = x.reshape(-1, in_f).contiguous()
     n = x2.shape[0]
     out = torch.empty((n, out_f), dtype=x.dtype, device=x.device)
     if n:
         fn = _build.function(NAME, "w4a16_matmul_launch", _ARGTYPES)
         rc = fn(x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
-                out.data_ptr(), n, in_f, out_f, DTYPE_CODES[x.dtype],
-                _build.stream_ptr(x.device))
+                None if b is None else b.data_ptr(), out.data_ptr(), n, in_f,
+                out_f, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1
     return out.reshape(*x.shape[:-1], out_f)

@@ -1,8 +1,12 @@
 """Shared layers (functional, dict params), port of ``repro/models/layers.py``.
 
 Every weight matmul goes through :func:`linear`, which dispatches on the
-parameter type: a dense tensor (plain matmul), a :class:`QuantizedTensor`
-(the W4A16 op) or a :class:`SparseQuantizedTensor` (the sparse W4A16 op).
+parameter type: a dense tensor (the 16-bit op, ``ops.dense_matmul``), a
+:class:`QuantizedTensor` (the W4A16 op) or a :class:`SparseQuantizedTensor`
+(the sparse W4A16 op).  On the card every product and norm of a served path
+goes through a kernel whose reduction order per row is fixed, whatever the
+number of rows (cuBLAS and PyTorch's reductions may pick their split from
+the row count, which would break the engine's bitwise oracle parity).
 Quantizing a model for serving is a pure tree transform
 (``core/compiler.quantize_model``); no model code changes.  Random init
 takes an explicit ``torch.Generator``; its device is where the weights live.
@@ -48,7 +52,7 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
     elif isinstance(w, SparseQuantizedTensor):
         y = ops.sparse_w4a16_matmul(x, w)
     else:
-        y = x @ w.to(x.dtype)
+        y = ops.dense_matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -64,12 +68,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    out = out * gamma.to(torch.float32) + beta.to(torch.float32)
-    return out.to(x.dtype)
+    """f32 LayerNorm; on the card through the fixed-order kernel."""
+    return ops.layernorm(x, gamma, beta, eps)
 
 
 def norm_init(cfg, device) -> Params:
@@ -133,14 +133,18 @@ def mlp_init(gen: torch.Generator, cfg) -> Params:
 
 
 def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """One MLP = one operator (``ops.ffn_w4a16``).  Quantized weights,
-    dense or sparse, take the device's path (the FFN kernels on the card);
-    plain 16-bit weights keep the unfused composition on every device, as
-    in the reference."""
-    quantized = any(isinstance(p.get(k), (QuantizedTensor,
-                                          SparseQuantizedTensor))
-                    for k in ("gate", "up", "down"))
+    """One MLP = one operator (``ops.ffn_w4a16``, the device's path): on
+    the card the fused FFN kernels, quantized, sparse or 16-bit (kernel 6);
+    on the CPU the plain version, which keeps the unfused composition for
+    16-bit weights, as the reference does.
+
+    A difference by design from the reference's ``mlp_apply``, which keeps
+    16-bit MLPs unfused on every device so its training path stays
+    differentiable: on the card a 16-bit MLP takes kernel 6, which applies
+    the activation to f32 sums and rounds the hidden once, where the unfused
+    composition rounds each projection to x's dtype (the two agree within
+    the reference's own ``tests/test_ffn_fused.py`` tolerance).  A training
+    path keeps the unfused composition."""
     return ops.ffn_w4a16(x, p.get("gate"), p["up"], p["down"],
                          activation=cfg.activation, up_bias=p.get("up_bias"),
-                         down_bias=p.get("down_bias"),
-                         impl="auto" if quantized else "ref")
+                         down_bias=p.get("down_bias"))

@@ -619,3 +619,141 @@ def test_xlstm_engine_matches_oracle_on_card(cuda):
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
                                             device="cuda")
+
+
+# -- 16-bit serving: dense_matmul, kernel 6, layernorm, kernel 2's gelu -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,in_f,out_f,bias", [
+    (1, 256, 128, False), (4, 384, 300, True), (37, 200, 644, False),
+    (9, 1024, 4, True)])
+def test_dense_matmul_kernel_matches_plain(cuda, dtype, tokens, in_f, out_f,
+                                           bias):
+    """Ragged outputs (300, 644, 4 columns), a contraction that is no
+    multiple of 128 (200) and the f32 bias epilogue; a row alone is bitwise
+    the row in the batch."""
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    w = (_rand(gen, in_f, out_f) * 0.05).to(dtype)
+    b = _rand(gen, out_f) * 0.1 if bias else None
+    x = _rand(gen, tokens, in_f, dtype=dtype)
+    before = _build.launches["dense_matmul"]
+    got = ops.dense_matmul(x, w, b)
+    assert _build.launches["dense_matmul"] == before + 1
+    _close(got, ops.dense_matmul(x, w, b, impl="torch"), dtype)
+    _close(got, ops.dense_matmul(x, w, b, impl="ref"), dtype)
+    assert torch.equal(ops.dense_matmul(x[:1], w, b), got[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+def test_ffn_dense_kernel_matches_plain(cuda, dtype, activation):
+    """Kernel 6 (16-bit weights): the hidden stage and the whole FFN
+    against ``ffn_fused_dense_torch``, one launch of each stage; rows
+    bitwise independent of the batch."""
+    from repro_torch.kernels.ffn_fused import (
+        ffn_dense_gate_up_cuda, ffn_fused_dense_torch, ffn_gate_up_torch)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    d, f = 256, 384
+    gated = activation != "gelu"
+    gate = (_rand(gen, d, f) * 0.05).to(dtype) if gated else None
+    up = (_rand(gen, d, f) * 0.05).to(dtype)
+    down = (_rand(gen, f, d) * 0.05).to(dtype)
+    kw = ({} if gated else
+          dict(up_bias=(_rand(gen, f) * 0.1).to(dtype),
+               down_bias=(_rand(gen, d) * 0.1).to(dtype)))
+    x = _rand(gen, 9, d, dtype=dtype)
+    _close(ffn_dense_gate_up_cuda(x, gate, up, activation, kw.get("up_bias")),
+           ffn_gate_up_torch(x, gate, up, activation, kw.get("up_bias")),
+           dtype)
+    before = dict(_build.launches)
+    got = ops.ffn_w4a16(x, gate, up, down, activation=activation, **kw)
+    assert {k: v - before.get(k, 0) for k, v in _build.launches.items()
+            if v != before.get(k, 0)} == {"ffn_fused_dense": 1,
+                                          "dense_matmul": 1}
+    _close(got, ffn_fused_dense_torch(x, gate, up, down,
+                                      activation=activation, **kw), dtype)
+    assert torch.equal(ops.ffn_w4a16(x[:2], gate, up, down,
+                                     activation=activation, **kw), got[:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_w4a16_gelu_kernel_matches_plain(cuda, dtype):
+    """Kernel 2's ungated gelu variant with up and down biases: the up
+    stage under its own launch name, down through the W4A16 kernel with
+    its f32 bias epilogue."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d, f = 256, 384
+    up = quantize(_rand(gen, d, f) * 0.05)
+    down = quantize(_rand(gen, f, d) * 0.05)
+    kw = dict(activation="gelu", up_bias=(_rand(gen, f) * 0.1).to(dtype),
+              down_bias=(_rand(gen, d) * 0.1).to(dtype))
+    x = _rand(gen, 9, d, dtype=dtype)
+    before = dict(_build.launches)
+    got = ops.ffn_w4a16(x, None, up, down, **kw)
+    assert {k: v - before.get(k, 0) for k, v in _build.launches.items()
+            if v != before.get(k, 0)} == {"ffn_fused_w4a16_gelu": 1,
+                                          "w4a16_matmul": 1}
+    _close(got, ops.ffn_w4a16(x, None, up, down, impl="torch", **kw), dtype)
+    assert torch.equal(ops.ffn_w4a16(x[:2], None, up, down, **kw), got[:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_kernel_batch_invariant(cuda, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = _rand(gen, 64, 4608, dtype=dtype) * 3 + 1
+    gamma = (1 + 0.1 * _rand(gen, 4608)).to(dtype)
+    beta = (0.1 * _rand(gen, 4608)).to(dtype)
+    before = _build.launches["layernorm"]
+    got = ops.layernorm(x, gamma, beta)
+    assert _build.launches["layernorm"] == before + 1
+    _close(got, ops.layernorm(x, gamma, beta, impl="torch"), dtype)
+    assert torch.equal(ops.layernorm(x[:3], gamma, beta), got[:3])
+
+
+# arch, strategy, overrides of the full config: a few layers at full width
+ENGINE_16BIT_CASES = {
+    "none": ("qwen-7b", "none", dict(n_layers=2)),
+    "starcoder2-none": ("starcoder2-7b", "none", dict(n_layers=2)),
+    "starcoder2-dense": ("starcoder2-7b", "dense", dict(n_layers=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_16BIT_CASES))
+def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
+    """16-bit qwen-7b and starcoder2-7b (16-bit and W4A16) at full width,
+    2 layers: every stream equals ``reference_decode``; per tick one
+    attention launch and one FFN launch per layer, the norms through the
+    fixed-order kernels, and no 16-bit product outside ``dense_matmul``."""
+    arch, strategy, over = ENGINE_16BIT_CASES[case]
+    from repro_torch.configs import get_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    cfg = get_config(arch, **over)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), strategy)
+    _build.launches.clear()
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
+                    device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+    for r in reqs:
+        engine.submit(r)
+    assert len(engine.run()) == 6
+    L, ticks = cfg.n_layers, engine.steps
+    norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
+    ffn = {"none": "ffn_fused_dense", "dense": (
+        "ffn_fused_w4a16_gelu" if cfg.activation == "gelu"
+        else "ffn_fused_w4a16")}[strategy]
+    matmul = "dense_matmul" if strategy == "none" else "w4a16_matmul"
+    assert _build.launches["mixed_flash_attention"] == ticks * L
+    assert _build.launches[norm] == ticks * (2 * L + 1)
+    assert _build.launches[ffn] == ticks * L
+    assert _build.launches[matmul] == ticks * (5 * L + 1)
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda")

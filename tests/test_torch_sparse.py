@@ -221,7 +221,8 @@ def test_fused_variant_and_refused_mixes():
     assert fv(gate, up, qt, "geglu") == "sparse"
     assert fv(gate, up, down_free, "swiglu") is None    # not tile_uniform
     assert fv(qt, up, qt, "swiglu") is None
-    assert fv(dense, dense, dense, "swiglu") is None
+    assert fv(dense, dense, dense, "swiglu") == "fp"        # kernel 6
+    assert fv(dense[:, :200], dense[:, :200], dense[:200], "swiglu") is None
     x = torch.zeros(2, 256)
     with pytest.raises(NotImplementedError, match="tile_uniform"):
         ops.ffn_w4a16(x, gate, up, down_free, impl="cuda")
