@@ -29,13 +29,18 @@ Phases (any failure ends the run with a nonzero exit code):
                  mLSTM decode cell at B=4, 4 heads of 1024, each against
                  its plain version (the scan also against ``_slstm_step``'s
                  loop), a row bitwise equal alone, an inactive row's state
-                 kept; the 16-bit path: ``dense_matmul`` at T=4 and 256 x
-                 4096^2 and at qwen-7b's 16-bit lm_head, kernel 6 (the
-                 fused FFN with 16-bit weights) gated at qwen-7b's widths
-                 and ungated gelu with biases at starcoder2-7b's, kernel
-                 2's gelu variant at starcoder2-7b's widths and
-                 ``layernorm`` at 4 x 4608, each with its library call
-                 (``torch.matmul``, the unfused chain, ``F.layer_norm``);
+                 kept; the 16-bit path: ``dense_matmul`` at T=4, 256 and
+                 1024 x 4096^2 and at qwen-7b's 16-bit lm_head and wk/wv
+                 (T=4), kernel 6 (the fused FFN with 16-bit weights) gated
+                 at qwen-7b's widths (T=4, 256, 1024) and ungated gelu
+                 with biases at starcoder2-7b's, kernel 2's gelu variant at
+                 starcoder2-7b's widths and ``layernorm`` at 4 x 4608, each
+                 with its library call (``torch.matmul``, the unfused
+                 chain, ``F.layer_norm``) and the kernel / library factor;
+                 rows 100-103 alone bitwise equal inside calls of 17, 64,
+                 256, 300 and 1024 tokens (every bf16 tile configuration;
+                 row 299 in a ragged last tile) for ``dense_matmul`` with
+                 and without its bias and for kernel 6 gated and gelu;
                  whether ``torch.matmul``'s rows are bitwise the same at
                  T=1, 4 and 256 as at T=64 is recorded;
   4. model    — qwen-7b at full width and depth, random weights from a
@@ -1013,19 +1018,46 @@ def ffn_chain(torch, x, gate, up, down, activation, ub, db, stage=False):
     return out if db is None else out + db
 
 
-# qwen-7b's d_model, d_ff and vocabulary; starcoder2-7b's d_model and d_ff
-QWEN_D, QWEN_F, QWEN_VOCAB = 4096, 11008, 151936
+# qwen-7b's d_model, d_ff, vocabulary and wk/wv width; starcoder2-7b's
+# d_model and d_ff
+QWEN_D, QWEN_F, QWEN_VOCAB, QWEN_KV = 4096, 11008, 151936, 512
 STARCODER_D, STARCODER_F = 4608, 18432
+
+# Cross-configuration invariance of the 16-bit tiles: the launcher picks the
+# bf16 tile by the token count, so rows 100-103 run alone (T=4) must be
+# bitwise the same rows inside calls of each of these (start, T) windows;
+# row 299 alone must be the last row of the T=300 call (a ragged last
+# token tile) and row 299 of the T=1024 call.
+INVARIANCE_ROWS = 1024
+INVARIANCE_WINDOWS = ((100, 17), (64, 64), (0, 256), (0, 300), (0, 1024))
+
+
+def check_tile_invariance(torch, fn, x, what) -> None:
+    want = fn(x[100:104])
+    for start, t in INVARIANCE_WINDOWS:
+        got = fn(x[start:start + t])[100 - start:104 - start]
+        need(torch.equal(got, want), f"{what}: rows 100-103 inside T={t} "
+             f"(from row {start}) differ from the rows alone (T=4)")
+    last = fn(x[299:300])
+    for t in (300, 1024):
+        need(torch.equal(fn(x[:t])[299:300], last),
+             f"{what}: row 299 inside T={t} differs from the row alone")
+    log(f"  {what}: rows 100-103 alone bitwise equal inside T=17, 64, 256, "
+        "300, 1024; row 299 (ragged last tile of T=300) alone equal too")
 
 
 def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
     """The 16-bit serving path's kernels against their plain versions:
-    ``dense_matmul`` at T=4 and 256 x 4096^2 and at qwen-7b's 16-bit
-    lm_head; kernel 6 gated at qwen-7b's FFN (4096 -> 11008 -> 4096) and
-    ungated gelu with biases at starcoder2-7b's (4608 -> 18432 -> 4608);
-    kernel 2's gelu variant at starcoder2-7b's widths; ``layernorm`` at 4
-    and 256 x 4608.  Each with its library call (``torch.matmul``, the
-    unfused chain, ``F.layer_norm``), and T=4 rows bitwise inside T=256.
+    ``dense_matmul`` at T=4, 256 and 1024 x 4096^2 and at qwen-7b's 16-bit
+    lm_head and 512-wide wk/wv (T=4); kernel 6 gated at qwen-7b's FFN (4096 -> 11008 -> 4096; T=4,
+    256, 1024) and ungated gelu with biases at starcoder2-7b's (4608 ->
+    18432 -> 4608; T=4, 256); kernel 2's gelu variant at starcoder2-7b's
+    widths; ``layernorm`` at 4 and 256 x 4608.  Each with its library call
+    (``torch.matmul``, the unfused chain, ``F.layer_norm``) and the kernel
+    / library factor, T=4 rows bitwise inside T=256, and for
+    ``dense_matmul`` (4096^2, with and without the f32 bias) and kernel 6
+    (hidden and whole FFN) the rows of ``check_tile_invariance`` bitwise
+    across the token counts that pick each bf16 tile configuration.
     Recorded, not held: whether ``torch.matmul`` gives a row bitwise the
     same at T=1, 4 and 256 as at T=64 (the fault the fixed-order kernels
     rule out by construction)."""
@@ -1044,6 +1076,8 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
         row[prefix + "library_ms"] = timer.ms(library, 10)
         b, by = bound(nbytes, flops, dname)
         row[prefix + "bound_ms"] = b
+        row[prefix + "library_factor"] = (row[prefix + "ms"]
+                                          / row[prefix + "library_ms"])
         if not prefix:
             row["bound_by"] = by
 
@@ -1051,13 +1085,17 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
         return (f"  kernel {row[prefix + 'ms']:.4f} ms plain "
                 f"{row[prefix + 'plain_ms']:.4f} ms library "
                 f"{row[prefix + 'library_ms']:.4f} ms bound "
-                f"{row[prefix + 'bound_ms']:.4f} ms"
+                f"{row[prefix + 'bound_ms']:.4f} ms; kernel / library "
+                f"{row[prefix + 'library_factor']:.2f}"
                 if prefix + "ms" in row else "")
 
-    # -- dense_matmul: T x 4096 -> 4096, and the 4096 -> 151936 lm_head
+    # -- dense_matmul: T x 4096 -> 4096, the 4096 -> 151936 lm_head and the
+    # 4096 -> 512 wk/wv
     d_in = QWEN_D
-    for o, cases in ((QWEN_D, ((bf16, 4), (bf16, 256), (f32, 4))),
-                     (QWEN_VOCAB, ((bf16, 4), (f32, 4)))):
+    for o, cases in ((QWEN_D, ((bf16, 4), (bf16, 256), (bf16, 1024),
+                               (f32, 4))),
+                     (QWEN_VOCAB, ((bf16, 4), (f32, 4))),
+                     (QWEN_KV, ((bf16, 4),))):
         w32 = randn(d_in, o, dtype=f32) * 0.02
         ws = {bf16: w32.to(bf16), f32: w32}
         del w32
@@ -1088,6 +1126,14 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
         need(torch.equal(ops.dense_matmul(x[:4], w),
                          ops.dense_matmul(x, w)[:4]),
              f"dense_matmul out={o}: rows differ between T=4 and T=256")
+        if o == QWEN_D:
+            bias = randn(o, dtype=f32) * 0.1
+            xi = randn(INVARIANCE_ROWS, d_in)
+            for b, what in ((None, ""), (bias, " with the f32 bias")):
+                check_tile_invariance(
+                    torch, lambda v, b=b: ops.dense_matmul(v, w, b), xi,
+                    f"dense_matmul {d_in}x{o}{what}")
+            del bias, xi
         # recorded: the library call's rows at T=1, 4 and 256 against T=64
         ref64 = torch.matmul(x[:64], w)
         lib = {}
@@ -1114,7 +1160,8 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
                "up": randn(d, f) * 0.02, "down": randn(f, d) * 0.02,
                "ub": None if gated else randn(f) * 0.1,
                "db": None if gated else randn(d) * 0.1}
-        for dtype, tokens in ((bf16, (4, 256)), (f32, (4,))):
+        for dtype, tokens in ((bf16, (4, 256, 1024) if gated else (4, 256)),
+                              (f32, (4,))):
             dname = str(dtype).split(".")[1]
             wt = {k: None if v is None else v.to(dtype)
                   for k, v in w16.items()}
@@ -1173,7 +1220,14 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
                          ops.ffn_w4a16(x, *args, **kw)[:4]),
              f"ffn_fused_dense {case}: rows differ between T=4 and T=256")
         log(f"  ffn_fused_dense {case}: T=4 rows bitwise equal inside T=256")
-        del w16, args, kw
+        xi = randn(INVARIANCE_ROWS, d)
+        check_tile_invariance(
+            torch, lambda v: ffn_dense_gate_up_cuda(
+                v, w16["gate"], w16["up"], act, w16["ub"]), xi,
+            f"ffn_fused_dense {case} hidden")
+        check_tile_invariance(torch, lambda v: ops.ffn_w4a16(v, *args, **kw),
+                              xi, f"ffn_fused_dense {case} ffn")
+        del w16, args, kw, xi
         torch.cuda.empty_cache()
 
     # -- kernel 2's gelu variant: starcoder2-7b's FFN, W4A16, with biases

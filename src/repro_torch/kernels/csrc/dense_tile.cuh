@@ -1,31 +1,32 @@
-// The 16-bit-weight tile shared by dense_matmul.cu (one weight, optionally
-// with an f32 bias) and ffn_fused_dense.cu (gate and up together, or up
-// alone with its bias for the ungated gelu FFN, the activation in the
-// epilogue).  Weights are plain row-major (in, out) matrices in x's dtype
-// (bfloat16 or float32); the epilogues are common.cuh's, as in
-// w4a16_tile.cuh.
+// The float32 tile of the 16-bit-weight kernels, on the CUDA cores, shared
+// by dense_matmul.cu (one weight, optionally with an f32 bias) and
+// ffn_fused_dense.cu (gate and up together, or up alone with its bias for
+// the ungated gelu FFN, the activation in the epilogue).  Weights are plain
+// row-major (in, out) float32 matrices; the epilogues are common.cuh's, as
+// in w4a16_tile.cuh.  bfloat16 takes the tensor-core tile of
+// dense_mma_tile.cuh; float32 stays here, in full f32 FMAs (TF32 would drop
+// the precision the fp32 configs are held to).
 //
 // One block computes a tile of kDenseTok tokens x kDenseCols output
 // columns; a warp's 32 lanes are 4 row quarters x 8 column quads.  Lane l
 // owns columns [4 (l % 8), 4 (l % 8) + 4) of the tile and reads their four
-// weights as one 8-byte (bf16) or 16-byte (f32) load; its quarter l / 8
-// takes rows 32 q .. 32 q + 31 of every 128-row group the warp holds.  The
-// groups are dealt to the 8 warps round robin (warp w takes groups w,
-// w + 8, ...), and each warp stages its group's x rows in shared memory as
-// f32 (one row of 33 floats per quarter and token, so the four quarters
-// read four banks).  A lane accumulates its rows in order with f32 FMAs; the
-// four quarters of a warp are then added in quarter order by shuffles, and
-// the 8 warp sums in warp order through shared memory.
+// weights as one 16-byte load; its quarter l / 8 takes rows 32 q .. 32 q +
+// 31 of every 128-row group the warp holds.  The groups are dealt to the 8
+// warps round robin (warp w takes groups w, w + 8, ...), and each warp
+// stages its group's x rows in shared memory (one row of 33 floats per
+// quarter and token, so the four quarters read four banks).  A lane
+// accumulates its rows in order with f32 FMAs; the four quarters of a warp
+// are then added in quarter order by shuffles, and the 8 warp sums in warp
+// order through shared memory.
 //
 // Batch invariance: every output element is reduced in an order fixed by
 // in_features alone.  The tile never follows the token count, there is no
 // split across blocks and no atomic, so a row's result is bitwise the same
 // whatever the other rows and however many there are.
 //
-// Why 32 columns a block: at decode the kernel is a GEMV bounded by the
-// weight bytes, and a block streams its column strip of the whole weight;
-// 32 columns give 4096 / 32 = 128 blocks for a 4096-wide output (the
-// W4A16 tile's 128 columns would give 32 and leave most SMs idle).
+// What bounds it: at decode the weight bytes (32 columns a block give
+// 4096 / 32 = 128 blocks for a 4096-wide output); at prefill widths the
+// f32 FMAs (67 TFLOP/s on the H100).
 #pragma once
 
 #include "common.cuh"
@@ -50,7 +51,7 @@ constexpr int dense_smem_bytes() {
          (int)sizeof(float);
 }
 
-// Four consecutive weights of one row as f32 (exact widening).
+// Four consecutive weights of one row.
 __device__ __forceinline__ void load_quad(const float* p, float (&v)[4]) {
   const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x;
@@ -59,25 +60,18 @@ __device__ __forceinline__ void load_quad(const float* p, float (&v)[4]) {
   v[3] = q.w;
 }
 
-__device__ __forceinline__ void load_quad(const __nv_bfloat16* p,
-                                          float (&v)[4]) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xFFFF0000u);
-}
-
 // NW = number of weight matrices read against the same x (1, or 2 for the
 // gated FFN: w0 = gate, w1 = up).  out_f is a multiple of 4 and every weight
 // pointer 4-element aligned (checked by the wrapper), so a lane's quad is
 // either all inside the matrix or all past its edge.  in_f is any size:
 // rows past it are neither loaded nor added.
-template <typename T, int NW, int EPI>
+template <int NW, int EPI>
 __global__ void __launch_bounds__(kDenseThreads)
-    dense_tile_kernel(const T* __restrict__ x, int n_tok, int in_f, int out_f,
-                      const T* __restrict__ w0, const T* __restrict__ w1,
-                      const float* __restrict__ bias, T* __restrict__ out) {
+    dense_tile_kernel(const float* __restrict__ x, int n_tok, int in_f,
+                      int out_f, const float* __restrict__ w0,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ bias,
+                      float* __restrict__ out) {
   extern __shared__ float smem[];
   constexpr int kBatch = 8 / NW;        // rows loaded ahead per weight
   const int warp = threadIdx.x >> 5;
@@ -89,7 +83,7 @@ __global__ void __launch_bounds__(kDenseThreads)
   const bool col_ok = col < out_f;
   const int n_groups = (in_f + kDenseGroup - 1) / kDenseGroup;
   float* xs = smem + warp * kDenseXTile;
-  const T* ws[2] = {w0, w1};
+  const float* ws[2] = {w0, w1};
 
   float acc[NW][kDenseTok][4];
 #pragma unroll
@@ -101,14 +95,14 @@ __global__ void __launch_bounds__(kDenseThreads)
 
   for (int g = warp; g < n_groups; g += kDenseWarps) {
     const int row0 = g * kDenseGroup;
-    // this warp's x tile for group g, as f32 (zeros past the last token
-    // and past in_f)
+    // this warp's x tile for group g (zeros past the last token and past
+    // in_f)
     for (int i = lane; i < kDenseTok * kDenseGroup; i += 32) {
       const int t = i / kDenseGroup, k = i % kDenseGroup;
       const bool ok = t0 + t < n_tok && row0 + k < in_f;
       xs[t * 4 * kDenseRowPad + (k / kDenseQuarter) * kDenseRowPad +
          k % kDenseQuarter] =
-          ok ? to_f32(x[(size_t)(t0 + t) * in_f + row0 + k]) : 0.0f;
+          ok ? x[(size_t)(t0 + t) * in_f + row0 + k] : 0.0f;
     }
     __syncwarp();
     const int r_base = row0 + quarter * kDenseQuarter;
@@ -189,23 +183,23 @@ __global__ void __launch_bounds__(kDenseThreads)
       for (int k = 0; k < kDenseWarps; ++k)
         s[w] += red[((k * NW + w) * kDenseTok + t) * kDenseCols + cc];
     }
-    out[(size_t)(t0 + t) * out_f + gcol] =
-        from_f32<T>(epilogue<NW, EPI>(s, bias, gcol));
+    out[(size_t)(t0 + t) * out_f + gcol] = epilogue<NW, EPI>(s, bias, gcol);
   }
 }
 
-template <typename T, int NW, int EPI>
+template <int NW, int EPI>
 int launch_dense_tile(const void* x, int n_tok, int in_f, int out_f,
                       const void* w0, const void* w1, const float* bias,
                       void* out, cudaStream_t stream) {
   constexpr int smem = dense_smem_bytes<NW>();
-  auto kernel = dense_tile_kernel<T, NW, EPI>;
+  auto kernel = dense_tile_kernel<NW, EPI>;
   REPRO_SMEM_OPT_IN(kernel, smem);
   dim3 grid((out_f + kDenseCols - 1) / kDenseCols,
             (n_tok + kDenseTok - 1) / kDenseTok);
   kernel<<<grid, kDenseThreads, smem, stream>>>(
-      static_cast<const T*>(x), n_tok, in_f, out_f, static_cast<const T*>(w0),
-      static_cast<const T*>(w1), bias, static_cast<T*>(out));
+      static_cast<const float*>(x), n_tok, in_f, out_f,
+      static_cast<const float*>(w0), static_cast<const float*>(w1), bias,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

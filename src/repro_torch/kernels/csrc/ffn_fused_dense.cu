@@ -14,13 +14,20 @@
 // it at once against the matching 128 rows of down, so the split changes
 // no arithmetic; it costs one launch and the hidden's round trip through
 // device memory (2 * tokens * d_ff * sizeof(x) bytes), which a single-
-// launch fusion of a later PR removes.  The reference's contraction runs
-// per 128-row group in group order; here the groups are dealt to 8 warps
-// and added in a fixed order (dense_tile.cuh), so the sums agree to f32
-// rounding and each row is bitwise independent of the others.
+// launch fusion of a later PR removes.  The reference sums each output over
+// 128-row groups in group order; here bfloat16 runs on the tensor cores
+// (dense_mma_tile.cuh: mma.sync m16n8k16, f32 accumulation, gate and up
+// fragments of one output in the same lane, each summed over the whole
+// contraction in increasing k16 steps by one warp), float32 on the CUDA
+// cores (dense_tile.cuh), so the sums agree to f32 rounding and each row is
+// bitwise independent of the others and of the tile the token count picks.
 //
-// What bounds it on the card: at decode the weight bytes (2 * d * f each
-// of gate and up in bf16); at prefill widths f32 FMAs on the CUDA cores.
+// What bounds it on the card: at decode and up to T = 128 the weight bytes
+// (2 * d * f each of gate and up in bf16); above, the tensor cores.
+// -Xptxas -v: gate and up together 64-118 registers by bf16 configuration
+// (dense_mma_tile.cuh lists them), 183 in the f32 tile; up alone as
+// dense_matmul's; no spills.
+#include "dense_mma_tile.cuh"
 #include "dense_tile.cuh"
 
 REPRO_ERROR_STRING_FN
@@ -36,20 +43,15 @@ extern "C" int ffn_dense_gate_up_launch(const void* x, const void* gate,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ub = static_cast<const float*>(up_bias);
   const bool bf16 = dtype == kBF16;
-#define REPRO_FFN_DENSE(T, NW, EPI, W0, W1)                                  \
-  return launch_dense_tile<T, NW, EPI>(x, n_tok, d, f, W0, W1, ub, hidden, s)
-  if (activation == kEpiSwiglu) {
-    if (bf16) REPRO_FFN_DENSE(__nv_bfloat16, 2, kEpiSwiglu, gate, up);
-    REPRO_FFN_DENSE(float, 2, kEpiSwiglu, gate, up);
-  }
-  if (activation == kEpiGeglu) {
-    if (bf16) REPRO_FFN_DENSE(__nv_bfloat16, 2, kEpiGeglu, gate, up);
-    REPRO_FFN_DENSE(float, 2, kEpiGeglu, gate, up);
-  }
-  if (activation == kEpiGeluBias) {
-    if (bf16) REPRO_FFN_DENSE(__nv_bfloat16, 1, kEpiGeluBias, up, nullptr);
-    REPRO_FFN_DENSE(float, 1, kEpiGeluBias, up, nullptr);
-  }
+#define REPRO_FFN_DENSE(NW, EPI, W0, W1)                                      \
+  return bf16 ? launch_dense_mma<NW, EPI>(x, n_tok, d, f, W0, W1, ub, hidden, \
+                                          s)                                  \
+              : launch_dense_tile<NW, EPI>(x, n_tok, d, f, W0, W1, ub, hidden, \
+                                           s)
+  if (activation == kEpiSwiglu) REPRO_FFN_DENSE(2, kEpiSwiglu, gate, up);
+  if (activation == kEpiGeglu) REPRO_FFN_DENSE(2, kEpiGeglu, gate, up);
+  if (activation == kEpiGeluBias)
+    REPRO_FFN_DENSE(1, kEpiGeluBias, up, nullptr);
 #undef REPRO_FFN_DENSE
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,10 @@ its plain version.
 The reference leaves ``x @ w`` for a plain weight to XLA
 (``repro/models/layers.py:43-61``: a dot in x's dtype with f32 accumulation,
 one cast).  On the card the port runs it through ``csrc/dense_matmul.cu``
-(the tile is ``csrc/dense_tile.cuh``) rather than cuBLAS, which may pick its
-split of the contraction from the row count and so make a row's result
-depend on the batch: the engine's bitwise oracle parity needs every row to
+(bfloat16 on the tensor-core tile ``csrc/dense_mma_tile.cuh``, float32 on
+the CUDA-core tile ``csrc/dense_tile.cuh``) rather than cuBLAS, which may
+pick its split of the contraction from the row count and so make a row's
+result depend on the batch: the engine's bitwise oracle parity needs every row to
 be reduced in one fixed order.  The optional ``bias`` is the f32 epilogue
 kernel 6's down stage uses (added to the f32 sum before the cast);
 ``models/layers.linear`` adds its bias after the cast, as the reference

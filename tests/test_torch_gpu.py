@@ -676,6 +676,156 @@ def test_ffn_dense_kernel_matches_plain(cuda, dtype, activation):
                                      activation=activation, **kw), got[:2])
 
 
+# -- the bf16 tensor-core tile (csrc/dense_mma_tile.cuh) ----------------------
+# The launcher picks its tile by the token count: T <= 16, T <= 128, above.
+
+def _rows_alone_equal(fn, x, got):
+    """The first row, the last row (in a ragged last token tile unless T is
+    a multiple of 64) and, past 16 tokens, 4 rows from the middle, each run
+    alone, are bitwise the rows of the whole call."""
+    n = x.shape[0]
+    windows = [(0, 1), (n - 1, n)] + ([(n // 2, n // 2 + 4)] if n > 16
+                                      else [])
+    for a, b in windows:
+        assert torch.equal(fn(x[a:b]), got[a:b]), (n, a, b)
+
+
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 255, 300])
+@pytest.mark.parametrize("in_f", [200, 4100])
+@pytest.mark.parametrize("out_f", [4, 36, 300, 644])
+def test_dense_mma_tile_ragged_shapes(cuda, tokens, in_f, out_f):
+    """bf16 ``dense_matmul`` on the tensor-core tile at a contraction that
+    is no multiple of the stage (200) or of 8 (4100: the masked scalar x
+    path), output widths that are no multiple of 8 (4, 36, 300, 644: the
+    8-byte weight copies) and token counts on both sides of each tile
+    boundary; the f32 bias on the 4100-wide cases."""
+    gen = torch.Generator(device="cuda").manual_seed(tokens + in_f + out_f)
+    w = (_rand(gen, in_f, out_f) * 0.05).to(torch.bfloat16)
+    b = _rand(gen, out_f) * 0.1 if in_f == 4100 else None
+    x = _rand(gen, tokens, in_f, dtype=torch.bfloat16)
+    before = _build.launches["dense_matmul"]
+    got = ops.dense_matmul(x, w, b)
+    assert _build.launches["dense_matmul"] == before + 1
+    _close(got, ops.dense_matmul(x, w, b, impl="torch"), torch.bfloat16)
+    _rows_alone_equal(lambda v: ops.dense_matmul(v, w, b), x, got)
+
+
+@pytest.mark.parametrize("tokens", [3, 40, 300])
+def test_dense_mma_tile_unaligned_operands_bitwise(cuda, tokens):
+    """x 2 bytes past a 16-byte boundary (the masked scalar x path) and the
+    weight 8 bytes past one (the 8-byte copies) fill the ring with the same
+    bits as the aligned 16-byte copies: the results are bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    in_f, out_f = 264, 520
+    w = (_rand(gen, in_f, out_f) * 0.05).to(torch.bfloat16)
+    x = _rand(gen, tokens, in_f, dtype=torch.bfloat16)
+    want = ops.dense_matmul(x, w)
+    xs = torch.empty(tokens * in_f + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = xs[1:].view(tokens, in_f)
+    x_odd.copy_(x)
+    ws = torch.empty(in_f * out_f + 4, dtype=torch.bfloat16, device="cuda")
+    w_odd = ws[4:].view(in_f, out_f)
+    w_odd.copy_(w)
+    assert x_odd.data_ptr() % 16 and w_odd.data_ptr() % 16
+    assert torch.equal(ops.dense_matmul(x_odd, w), want)
+    assert torch.equal(ops.dense_matmul(x, w_odd), want)
+    assert torch.equal(ops.dense_matmul(x_odd, w_odd), want)
+
+
+@pytest.mark.parametrize("tokens", [40, 300])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+def test_ffn_dense_mma_prefill_tiles(cuda, tokens, activation):
+    """Kernel 6 in bf16 at token counts that take the two prefill tile
+    configurations (40: T <= 128; 300: above, with a ragged last tile):
+    the hidden stage and the whole FFN against the plain version, rows
+    alone bitwise equal."""
+    from repro_torch.kernels.ffn_fused import (
+        ffn_dense_gate_up_cuda, ffn_fused_dense_torch, ffn_gate_up_torch)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    d, f = 384, 1152
+    gated = activation != "gelu"
+    gate = (_rand(gen, d, f) * 0.05).to(bf16) if gated else None
+    up = (_rand(gen, d, f) * 0.05).to(bf16)
+    down = (_rand(gen, f, d) * 0.05).to(bf16)
+    ub = (_rand(gen, f) * 0.1).to(bf16) if not gated else None
+    kw = {} if gated else dict(up_bias=ub,
+                               down_bias=(_rand(gen, d) * 0.1).to(bf16))
+    x = _rand(gen, tokens, d, dtype=bf16)
+
+    def stage(v):
+        return ffn_dense_gate_up_cuda(v, gate, up, activation, ub)
+
+    def ffn(v):
+        return ops.ffn_w4a16(v, gate, up, down, activation=activation, **kw)
+
+    h = stage(x)
+    _close(h, ffn_gate_up_torch(x, gate, up, activation, ub), bf16)
+    _rows_alone_equal(stage, x, h)
+    got = ffn(x)
+    _close(got, ffn_fused_dense_torch(x, gate, up, down,
+                                      activation=activation, **kw), bf16)
+    _rows_alone_equal(ffn, x, got)
+
+
+@pytest.mark.parametrize("tokens", [17, 300])
+@pytest.mark.parametrize("in_f,out_f", [(200, 300), (4100, 644)])
+def test_dense_f32_tile_matches_plain(cuda, tokens, in_f, out_f):
+    """float32 keeps the CUDA-core tile (dense_tile.cuh): within the f32
+    tolerance of the plain version at prefill token counts and ragged
+    shapes, the f32 bias too, rows alone bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(tokens + in_f)
+    w = _rand(gen, in_f, out_f) * 0.05
+    b = _rand(gen, out_f) * 0.1
+    x = _rand(gen, tokens, in_f)
+    got = ops.dense_matmul(x, w, b)
+    _close(got, ops.dense_matmul(x, w, b, impl="torch"), torch.float32)
+    _rows_alone_equal(lambda v: ops.dense_matmul(v, w, b), x, got)
+
+
+def _tile_invariant(fn, x):
+    """Rows 100-103 alone (T=4, the decode tile) are bitwise the same rows
+    inside calls of 17 and 64 tokens (the T <= 128 tile) and of 256, 300
+    and 1024 (the wide tile); row 299 alone is the last row of the T=300
+    call (a ragged last tile) and row 299 of the T=1024 call."""
+    want = fn(x[100:104])
+    for start, t in ((100, 17), (64, 64), (0, 256), (0, 300), (0, 1024)):
+        assert torch.equal(fn(x[start:start + t])[100 - start:104 - start],
+                           want), t
+    last = fn(x[299:300])
+    for t in (300, 1024):
+        assert torch.equal(fn(x[:t])[299:300], last), t
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_dense_matmul_rows_invariant_across_tiles(cuda, bias):
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    w = (_rand(gen, 4096, 4096) * 0.02).to(torch.bfloat16)
+    b = _rand(gen, 4096) * 0.1 if bias else None
+    x = _rand(gen, 1024, 4096, dtype=torch.bfloat16)
+    _tile_invariant(lambda v: ops.dense_matmul(v, w, b), x)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+def test_ffn_dense_rows_invariant_across_tiles(cuda, activation):
+    from repro_torch.kernels.ffn_fused import ffn_dense_gate_up_cuda
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    d, f = 1024, 2816
+    gated = activation != "gelu"
+    gate = (_rand(gen, d, f) * 0.02).to(bf16) if gated else None
+    up = (_rand(gen, d, f) * 0.02).to(bf16)
+    down = (_rand(gen, f, d) * 0.02).to(bf16)
+    ub = None if gated else (_rand(gen, f) * 0.1).to(bf16)
+    kw = {} if gated else dict(up_bias=ub,
+                               down_bias=(_rand(gen, d) * 0.1).to(bf16))
+    x = _rand(gen, 1024, d, dtype=bf16)
+    _tile_invariant(lambda v: ffn_dense_gate_up_cuda(v, gate, up, activation,
+                                                     ub), x)
+    _tile_invariant(lambda v: ops.ffn_w4a16(v, gate, up, down,
+                                            activation=activation, **kw), x)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ffn_w4a16_gelu_kernel_matches_plain(cuda, dtype):
     """Kernel 2's ungated gelu variant with up and down biases: the up
