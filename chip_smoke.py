@@ -19,11 +19,19 @@ Phases (any failure ends the run with a nonzero exit code):
                  unleased blocks changing nothing); kernel, plain and
                  library-call times (CUDA events, L2 flushed before each
                  launch) beside the bound the card could reach; T=4 rows
-                 bitwise equal inside T=256; the full-sequence flash
+                 bitwise equal inside T=256; the W4A16 kernel also at
+                 T=1024 x 4096^2 and at qwen-7b's down (11008 -> 4096, T=4
+                 and 1024), with dequantize + ``torch.matmul`` and
+                 ``torch.matmul`` alone on a weight dequantized once, and
+                 rows 100-103 alone bitwise inside T=17, 64, 256, 300 and
+                 1024, and inside T=100, (every bf16 tile configuration)
+                 with and without its f32 bias; the full-sequence flash
                  attention at the prefill shapes against its plain version
                  and the dense oracle, with ``scaled_dot_product_attention``
-                 timed beside it, a row of B=3 and the last queries of a
-                 call bitwise equal alone; kernel 8 (the sLSTM scan) at
+                 timed beside it and the kernel / SDPA factor, a row of B=3
+                 and the last 64 queries of a call bitwise equal alone
+                 (bf16 at d=128 and 64, f32), the last 300 of 1024 queries
+                 bitwise equal alone (bf16); kernel 8 (the sLSTM scan) at
                  xlstm-1.3b's 4 heads of 512 with bf16 R over B=2 x L=512,
                  a ragged L=300 and a B=4 decode step from a state, and the
                  mLSTM decode cell at B=4, 4 heads of 1024, each against
@@ -38,7 +46,7 @@ Phases (any failure ends the run with a nonzero exit code):
                  with its library call (``torch.matmul``, the unfused
                  chain, ``F.layer_norm``) and the kernel / library factor;
                  rows 100-103 alone bitwise equal inside calls of 17, 64,
-                 256, 300 and 1024 tokens (every bf16 tile configuration;
+                 100, 256, 300 and 1024 tokens (every bf16 tile configuration;
                  row 299 in a ragged last tile) for ``dense_matmul`` with
                  and without its bias and for kernel 6 gated and gelu;
                  whether ``torch.matmul``'s rows are bitwise the same at
@@ -183,6 +191,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     from repro_torch.kernels.ffn_fused import (
         ffn_gate_up_cuda, ffn_gate_up_torch)
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
+    from repro_torch.kernels.w4a16_matmul import w4a16_matmul_cuda
     from repro_torch.core.quant import dequantize
 
     g = torch.Generator(device="cuda").manual_seed(1234)
@@ -197,21 +206,24 @@ def check_kernels(torch, timer, results: dict) -> dict:
     # order (bf16 keeps 8 bits: 2^-7 ~ 7.8e-3), f32 by accumulation order.
     tol = {"bfloat16": 1e-2, "float32": 1e-4}
 
-    # -- w4a16_matmul: T x out, in = 4096
-    d_in = 4096
-    weights = {o: quantize(randn(d_in, o, dtype=torch.float32) * 0.02)
-               for o in (512, 4096, 151936)}
+    # -- w4a16_matmul: T x (in -> out): 4096 -> 512 / 4096 / 151936 (wk/wv,
+    # wq/wo, the lm_head) and qwen-7b's down, 11008 -> 4096
+    shapes = ((4096, 512), (4096, 4096), (4096, 151936), (11008, 4096))
+    weights = {s: quantize(randn(*s, dtype=torch.float32) * 0.02)
+               for s in shapes}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        cases = ([(t, o) for t in (1, 4, 256) for o in (512, 4096, 151936)]
-                 if dtype == torch.bfloat16 else [(4, 4096), (4, 151936)])
-        for t, o in cases:
-            qt = weights[o]
+        cases = ([(t, s) for t in (1, 4, 256) for s in shapes[:3]]
+                 + [(1024, shapes[1]), (4, shapes[3]), (1024, shapes[3])]
+                 if dtype == torch.bfloat16
+                 else [(4, shapes[1]), (4, shapes[2])])
+        for t, (d_in, o) in cases:
+            qt = weights[(d_in, o)]
             x = randn(t, d_in, dtype=dtype)
             got = ops.w4a16_matmul(x, qt)
             want = ops.w4a16_matmul(x, qt, impl="torch")
             err, rel = max_errs(got, want)
-            need(rel <= tol[dname], f"w4a16 T={t} out={o} {dname}: "
+            need(rel <= tol[dname], f"w4a16 T={t} {d_in}->{o} {dname}: "
                  f"rel err {rel:.3g} > {tol[dname]}")
             row = {"kernel": "w4a16_matmul", "dtype": dname, "T": t,
                    "in": d_in, "out": o, "max_abs_err": err, "max_rel_err": rel,
@@ -220,26 +232,48 @@ def check_kernels(torch, timer, results: dict) -> dict:
                 row["ms"] = timer.ms(lambda: ops.w4a16_matmul(x, qt), 20)
                 row["plain_ms"] = timer.ms(
                     lambda: ops.w4a16_matmul(x, qt, impl="torch"), 3)
+                # dequantize + torch.matmul on every call, and torch.matmul
+                # alone on a weight dequantized once outside the timed call
                 row["library_ms"] = timer.ms(
                     lambda: x @ dequantize(qt, torch.bfloat16), 5)
+                w16 = dequantize(qt, torch.bfloat16)
+                row["library_bf16_ms"] = timer.ms(lambda: x @ w16, 10)
+                del w16
+                row["library_factor"] = row["ms"] / row["library_ms"]
+                row["library_bf16_factor"] = (row["ms"]
+                                              / row["library_bf16_ms"])
                 nbytes = (x.numel() * 2 + qt.nbytes_model + t * o * 2)
                 row["bound_ms"], row["bound_by"] = bound(
                     nbytes, 2 * t * d_in * o, dname)
             rows.append(row)
-            log(f"  w4a16 {dname} T={t:3d} out={o:6d}: max_abs {err:.3g} "
-                f"rel {rel:.3g} (tol {tol[dname]})"
+            log(f"  w4a16 {dname} T={t:4d} {d_in:5d}->{o:6d}: max_abs "
+                f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
                 + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
-                   f" ms library {row['library_ms']:.4f} ms bound "
+                   f" ms library {row['library_ms']:.4f} ms (kernel / "
+                   f"library {row['library_factor']:.2f}), bf16 matmul "
+                   f"{row['library_bf16_ms']:.4f} ms (kernel / matmul "
+                   f"{row['library_bf16_factor']:.2f}) bound "
                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
                    if "ms" in row else ""))
-            if (t, o, dname) == (4, 4096, "bfloat16"):
+            if (t, d_in, o, dname) == (4, 4096, 4096, "bfloat16"):
                 line["w4a16_matmul"] = row
     # batch invariance: the first 4 rows alone equal those rows inside 256
-    x = randn(256, d_in)
-    need(torch.equal(ops.w4a16_matmul(x[:4], weights[4096]),
-                     ops.w4a16_matmul(x, weights[4096])[:4]),
+    qt = weights[(4096, 4096)]
+    x = randn(256, 4096)
+    need(torch.equal(ops.w4a16_matmul(x[:4], qt),
+                     ops.w4a16_matmul(x, qt)[:4]),
          "w4a16: rows differ between T=4 and T=256 (batch invariance)")
     log("  w4a16: T=4 rows bitwise equal inside T=256")
+    # ... and across every bf16 tile configuration, with and without the
+    # f32 bias epilogue
+    bias = randn(4096, dtype=torch.float32) * 0.1
+    xi = randn(INVARIANCE_ROWS, 4096)
+    for b, what in ((None, ""), (bias, " with the f32 bias")):
+        check_tile_invariance(
+            torch, lambda v, b=b: w4a16_matmul_cuda(v, qt, b), xi,
+            f"w4a16_matmul 4096x4096{what}")
+    del weights, qt, x, bias, xi
+    torch.cuda.empty_cache()
 
     # -- ffn: d = 4096, f = 11008
     d, f = 4096, 11008
@@ -827,6 +861,7 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
                     lambda: ops.attention(q, k, v, impl="torch", **kw), 1)
                 row["library_ms"] = timer.ms(
                     lambda: sdpa_full(torch, q, k, v, causal, window), 5)
+                row["library_factor"] = row["ms"] / row["library_ms"]
                 pairs = visible_pairs(sq, skv, causal, window)
                 nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
                 row["visible_pairs"] = pairs
@@ -838,7 +873,8 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
                 f"kernel tiles {errs['plain_kernel_tiles'][1]:.3g}, oracle "
                 f"{errs['ref'][1]:.3g}; tol {tol[dname]})"
                 + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
-                   f" ms sdpa {row['library_ms']:.4f} ms bound "
+                   f" ms sdpa {row['library_ms']:.4f} ms (kernel / sdpa "
+                   f"{row['library_factor']:.2f}) bound "
                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
                    if "ms" in row else ""))
             if (name, dname) == ("qwen-7b causal S=2048", "bfloat16"):
@@ -846,19 +882,32 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
             del q, k, v, got
             torch.cuda.empty_cache()
     # batch and query invariance: a row of B=3 is the row alone, and the
-    # last 64 queries are those queries alone
-    for dtype in (torch.bfloat16, torch.float32):
-        q = randn(3, 32, 512, 128, dtype=dtype)
-        k = randn(3, 4, 512, 128, dtype=dtype)
-        v = randn(3, 4, 512, 128, dtype=dtype)
+    # last 64 queries are those queries alone (bf16 also at d = 64); the
+    # last 300 queries of a 1024-query call (a ragged query tiling) are
+    # those queries alone (bf16, d = 128 and 64)
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128),
+                     (torch.bfloat16, 64)):
+        q = randn(3, 32, 512, d, dtype=dtype)
+        k = randn(3, 4, 512, d, dtype=dtype)
+        v = randn(3, 4, 512, d, dtype=dtype)
         full = ops.attention(q, k, v)
         need(torch.equal(full[1:2], ops.attention(q[1:2], k[1:2], v[1:2])),
-             f"flash_attention {dtype}: row 1 of B=3 differs from B=1")
+             f"flash_attention {dtype} d={d}: row 1 of B=3 differs from B=1")
         need(torch.equal(full[:, :, -64:], ops.attention(q[:, :, -64:], k,
                                                          v)),
-             f"flash_attention {dtype}: the last 64 queries differ alone")
+             f"flash_attention {dtype} d={d}: the last 64 queries differ "
+             "alone")
+    for d in (128, 64):
+        q = randn(1, 32, 1024, d)
+        k = randn(1, 4, 1024, d)
+        v = randn(1, 4, 1024, d)
+        need(torch.equal(ops.attention(q, k, v)[:, :, -300:],
+                         ops.attention(q[:, :, -300:], k, v)),
+             f"flash_attention bf16 d={d}: the last 300 of 1024 queries "
+             "differ alone")
     log("  flash_attention: a row of B=3 bitwise equal to B=1; the last 64 "
-        "queries bitwise equal alone (bf16 and f32)")
+        "queries bitwise equal alone (bf16 d=128 and 64, f32 d=128); the "
+        "last 300 of 1024 queries bitwise equal alone (bf16 d=128 and 64)")
     return line
 
 
@@ -1023,13 +1072,15 @@ def ffn_chain(torch, x, gate, up, down, activation, ub, db, stage=False):
 QWEN_D, QWEN_F, QWEN_VOCAB, QWEN_KV = 4096, 11008, 151936, 512
 STARCODER_D, STARCODER_F = 4608, 18432
 
-# Cross-configuration invariance of the 16-bit tiles: the launcher picks the
-# bf16 tile by the token count, so rows 100-103 run alone (T=4) must be
-# bitwise the same rows inside calls of each of these (start, T) windows;
-# row 299 alone must be the last row of the T=300 call (a ragged last
-# token tile) and row 299 of the T=1024 call.
+# Cross-configuration invariance of the bf16 tensor-core tiles (the 16-bit
+# ones and W4A16's): the launcher picks the tile by the token count, so
+# rows 100-103 run alone (T=4) must be bitwise the same rows inside calls
+# of each of these (start, T) windows; row 299 alone must be the last row
+# of the T=300 call (a ragged last token tile) and row 299 of the T=1024
+# call.
 INVARIANCE_ROWS = 1024
-INVARIANCE_WINDOWS = ((100, 17), (64, 64), (0, 256), (0, 300), (0, 1024))
+INVARIANCE_WINDOWS = ((100, 17), (64, 64), (50, 100), (0, 256), (0, 300),
+                      (0, 1024))
 
 
 def check_tile_invariance(torch, fn, x, what) -> None:
@@ -1042,8 +1093,8 @@ def check_tile_invariance(torch, fn, x, what) -> None:
     for t in (300, 1024):
         need(torch.equal(fn(x[:t])[299:300], last),
              f"{what}: row 299 inside T={t} differs from the row alone")
-    log(f"  {what}: rows 100-103 alone bitwise equal inside T=17, 64, 256, "
-        "300, 1024; row 299 (ragged last tile of T=300) alone equal too")
+    log(f"  {what}: rows 100-103 alone bitwise equal inside T=17, 64, 100, "
+        "256, 300, 1024; row 299 (ragged last tile of T=300) alone equal too")
 
 
 def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:

@@ -11,12 +11,18 @@
 // fused kernel adds in f32 before its cast
 // (src/repro/kernels/ffn_fused.py:182-187).
 //
-// What bounds it on the card: at decode (a few tokens) the packed weights,
-// in*out/2 bytes plus in*out/64 bytes of scales; each weight byte is read
-// once per 8-token tile and the kernel is a GEMV.  At prefill widths it is
-// bounded by f32 FMAs on the CUDA cores (no tensor cores yet).  The design
-// reads the nibble layout in place with 32-bit coalesced loads and keeps all
-// partial sums in registers; the tile is in w4a16_tile.cuh.
+// bfloat16 runs on the tensor cores (w4a16_mma_tile.cuh: mma.sync m16n8k16,
+// the packed nibbles dequantized in registers, a tile configuration picked
+// by T, every sum's order fixed by in_f; its note says what bounds each
+// regime).  float32 keeps the CUDA-core tile of w4a16_tile.cuh, which
+// reads the nibble layout in place with 32-bit coalesced loads and is a
+// GEMV bounded by the packed bytes at decode and by f32 FMAs at prefill
+// widths.
+//
+// -Xptxas -v (sm_90a): the bf16 tile's instantiations are listed in
+// w4a16_mma_tile.cuh; the f32 tile takes 128 registers and 32 KB of
+// dynamic shared memory, no spills, with and without the bias.
+#include "w4a16_mma_tile.cuh"
 #include "w4a16_tile.cuh"
 
 REPRO_ERROR_STRING_FN
@@ -28,17 +34,15 @@ extern "C" int w4a16_matmul_launch(const void* x, const void* packed,
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (bias != nullptr) {
-    if (dtype == kBF16)
-      return launch_w4a16_tile<__nv_bfloat16, 1, kEpiBias>(
-          x, n_tok, in_f, out_f, packed, scales, nullptr, nullptr, b, out, s);
+  if (dtype == kBF16)
+    return bias != nullptr
+               ? launch_w4a16_mma<kEpiBias>(x, n_tok, in_f, out_f, packed,
+                                            scales, b, out, s)
+               : launch_w4a16_mma<kEpiNone>(x, n_tok, in_f, out_f, packed,
+                                            scales, nullptr, out, s);
+  if (bias != nullptr)
     return launch_w4a16_tile<float, 1, kEpiBias>(
         x, n_tok, in_f, out_f, packed, scales, nullptr, nullptr, b, out, s);
-  }
-  if (dtype == kBF16)
-    return launch_w4a16_tile<__nv_bfloat16, 1, kEpiNone>(
-        x, n_tok, in_f, out_f, packed, scales, nullptr, nullptr, nullptr, out,
-        s);
   return launch_w4a16_tile<float, 1, kEpiNone>(
       x, n_tok, in_f, out_f, packed, scales, nullptr, nullptr, nullptr, out,
       s);

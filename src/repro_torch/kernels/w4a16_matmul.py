@@ -87,6 +87,12 @@ def bias_f32(bias: torch.Tensor | None, n: int, device,
     return bias.to(torch.float32).contiguous()
 
 
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t`` (contiguous), or a copy of it if its data does not start on an
+    ``nbytes`` boundary."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor,
                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/w4a16_matmul.cu`` on the current stream."""
@@ -96,12 +102,15 @@ def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor,
     if x.shape[-1] != in_f:
         raise ValueError(f"contraction mismatch {x.shape[-1]} vs {in_f}")
     b = bias_f32(bias, out_f, x.device, NAME)
-    x2 = x.reshape(-1, in_f).contiguous()
+    # the bf16 tile's cp.async copies: x in 16-byte chunks, the weights in
+    # 4- (packed) and 8-byte (scales) pieces at least
+    x2 = aligned(x.reshape(-1, in_f).contiguous(), 16)
+    packed, scales = aligned(qt.packed, 4), aligned(qt.scales, 8)
     n = x2.shape[0]
     out = torch.empty((n, out_f), dtype=x.dtype, device=x.device)
     if n:
         fn = _build.function(NAME, "w4a16_matmul_launch", _ARGTYPES)
-        rc = fn(x2.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(),
+        rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                 None if b is None else b.data_ptr(), out.data_ptr(), n, in_f,
                 out_f, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
         _build.check(NAME, rc)

@@ -785,11 +785,12 @@ def test_dense_f32_tile_matches_plain(cuda, tokens, in_f, out_f):
 
 def _tile_invariant(fn, x):
     """Rows 100-103 alone (T=4, the decode tile) are bitwise the same rows
-    inside calls of 17 and 64 tokens (the T <= 128 tile) and of 256, 300
-    and 1024 (the wide tile); row 299 alone is the last row of the T=300
-    call (a ragged last tile) and row 299 of the T=1024 call."""
+    inside calls of 17, 64 and 100 tokens (the T <= 128 tiles) and of 256,
+    300 and 1024 (the wide tiles); row 299 alone is the last row of the
+    T=300 call (a ragged last tile) and row 299 of the T=1024 call."""
     want = fn(x[100:104])
-    for start, t in ((100, 17), (64, 64), (0, 256), (0, 300), (0, 1024)):
+    for start, t in ((100, 17), (64, 64), (50, 100), (0, 256), (0, 300),
+                     (0, 1024)):
         assert torch.equal(fn(x[start:start + t])[100 - start:104 - start],
                            want), t
     last = fn(x[299:300])
@@ -907,3 +908,117 @@ def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
                                             device="cuda")
+
+
+# -- the bf16 W4A16 tensor-core tile (csrc/w4a16_mma_tile.cuh) ---------------
+# The launcher picks its tile by the token count: T <= 16 (16 x 32, or
+# 16 x 128 past 33792 outputs), T <= 128, above (64 x 128, or 128 x 128
+# once that gives every SM a block).
+
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 255, 300])
+@pytest.mark.parametrize("in_f", [128, 384])
+@pytest.mark.parametrize("out_f", [4, 36, 300, 644, 151936])
+def test_w4a16_mma_tile_ragged_shapes(cuda, tokens, in_f, out_f):
+    """bf16 kernel 1 at a contraction of one and three 128-row groups (the
+    decode tiles' two-group stages then end half past in_f), output
+    widths that are no multiple of 16 (4, 36, 300, 644: the 4-byte packed
+    and 8-byte scale copies) and qwen-7b's vocabulary, token counts on
+    both sides of each tile boundary; the f32 bias on the 384-row cases."""
+    from repro_torch.kernels.w4a16_matmul import (
+        w4a16_matmul_cuda, w4a16_matmul_torch)
+    gen = torch.Generator(device="cuda").manual_seed(tokens + in_f + out_f)
+    qt = quantize(_rand(gen, in_f, out_f) * 0.05)
+    b = _rand(gen, out_f) * 0.1 if in_f == 384 else None
+    x = _rand(gen, tokens, in_f, dtype=torch.bfloat16)
+    before = _build.launches["w4a16_matmul"]
+    got = w4a16_matmul_cuda(x, qt, b)
+    assert _build.launches["w4a16_matmul"] == before + 1
+    _close(got, w4a16_matmul_torch(x, qt, b), torch.bfloat16)
+    _rows_alone_equal(lambda v: w4a16_matmul_cuda(v, qt, b), x, got)
+
+
+@pytest.mark.parametrize("tokens", [3, 40, 300])
+def test_w4a16_mma_tile_unaligned_operands_bitwise(cuda, tokens):
+    """Packed weights 4 bytes and scales 8 bytes past a 16-byte boundary
+    (the 4- and 8-byte copies) fill the ring with the same bits as the
+    16-byte copies, and an x 2 bytes past one is copied to an aligned
+    buffer: the results are bitwise equal."""
+    from repro_torch.core.quant import QuantizedTensor
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    in_f, out_f = 256, 528
+    qt = quantize(_rand(gen, in_f, out_f) * 0.05)
+    x = _rand(gen, tokens, in_f, dtype=torch.bfloat16)
+    want = ops.w4a16_matmul(x, qt)
+    pk = torch.empty(qt.packed.numel() + 4, dtype=torch.uint8, device="cuda")
+    pk_odd = pk[4:].view(qt.packed.shape)
+    pk_odd.copy_(qt.packed)
+    sc = torch.empty(qt.scales.numel() + 4, dtype=torch.bfloat16,
+                     device="cuda")
+    sc_odd = sc[4:].view(qt.scales.shape)
+    sc_odd.copy_(qt.scales)
+    assert pk_odd.data_ptr() % 16 and sc_odd.data_ptr() % 16
+    odd = QuantizedTensor(pk_odd, sc_odd, qt.shape, qt.group_size)
+    xs = torch.empty(tokens * in_f + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = xs[1:].view(tokens, in_f)
+    x_odd.copy_(x)
+    assert x_odd.data_ptr() % 16
+    assert torch.equal(ops.w4a16_matmul(x, odd), want)
+    assert torch.equal(ops.w4a16_matmul(x_odd, qt), want)
+    assert torch.equal(ops.w4a16_matmul(x_odd, odd), want)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_w4a16_matmul_rows_invariant_across_tiles(cuda, bias):
+    from repro_torch.kernels.w4a16_matmul import w4a16_matmul_cuda
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    qt = quantize(_rand(gen, 4096, 4096) * 0.02)
+    b = _rand(gen, 4096) * 0.1 if bias else None
+    x = _rand(gen, 1024, 4096, dtype=torch.bfloat16)
+    _tile_invariant(lambda v: w4a16_matmul_cuda(v, qt, b), x)
+
+
+# -- the bf16 tensor-core flash attention (kernel 7) --------------------------
+
+MASKS = {"causal": (True, None), "window": (True, 40),
+         "non-causal": (False, None)}
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("sq,skv", [(70, 203), (150, 90)])
+def test_flash_mma_kernel_matches_plain(cuda, head_dim, mask, sq, skv):
+    """bf16 kernel 7 on the tensor cores at every head dim it takes, each
+    mask, a q block ending a longer context (Sq < Skv) and Sq > Skv, where
+    under the causal masks the first Sq - Skv rows see no key and are
+    zeros; ragged query and key tiles throughout."""
+    causal, window = MASKS[mask]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(head_dim + sq)
+    q = _rand(gen, 2, 6, sq, head_dim, dtype=bf16)
+    k = _rand(gen, 2, 2, skv, head_dim, dtype=bf16)
+    v = _rand(gen, 2, 2, skv, head_dim, dtype=bf16)
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got).all())
+    _close(got, flash_attention_torch(q, k, v, causal=causal, window=window,
+                                      block_q=BLOCK_Q, block_kv=BLOCK_KV),
+           bf16)
+    if causal and sq > skv:
+        assert bool((got[:, :, :sq - skv] == 0).all())
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_flash_mma_rows_invariant_across_query_tiling(cuda, head_dim, mask):
+    """A query row's bits do not depend on where the query tiling puts it:
+    the last 237, 64 and 1 queries of a 300-query call (each start falls
+    at another row of a 64-row tile) are bitwise those queries alone."""
+    causal, window = MASKS[mask]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(head_dim)
+    q = _rand(gen, 1, 4, 300, head_dim, dtype=bf16)
+    k = _rand(gen, 1, 2, 300, head_dim, dtype=bf16)
+    v = _rand(gen, 1, 2, 300, head_dim, dtype=bf16)
+    full = ops.attention(q, k, v, causal=causal, window=window)
+    for n in (237, 64, 1):
+        assert torch.equal(full[:, :, -n:], ops.attention(
+            q[:, :, -n:], k, v, causal=causal, window=window)), n
