@@ -25,7 +25,14 @@ Phases (any failure ends the run with a nonzero exit code):
                  ``torch.matmul`` alone on a weight dequantized once, and
                  rows 100-103 alone bitwise inside T=17, 64, 256, 300 and
                  1024, and inside T=100, (every bf16 tile configuration)
-                 with and without its f32 bias; the full-sequence flash
+                 with and without its f32 bias; kernel 2's gate/up stage
+                 at qwen-7b's FFN (T=4, 256, 1024) with two
+                 ``torch.matmul`` on weights dequantized once (and silu *
+                 up) beside it, and its rows 100-103 bitwise across its
+                 tile configurations, gated and (at starcoder2-7b's
+                 widths) gelu with its f32 bias; kernel 3 at qwen-7b's
+                 decode shape (hkv 4) and chatglm-6b's (hkv 2, rep 16);
+                 the full-sequence flash
                  attention at the prefill shapes against its plain version
                  and the dense oracle, with ``scaled_dot_product_attention``
                  timed beside it and the kernel / SDPA factor, a row of B=3
@@ -280,7 +287,8 @@ def check_kernels(torch, timer, results: dict) -> dict:
     gate = quantize(randn(d, f, dtype=torch.float32) * 0.02)
     up = quantize(randn(d, f, dtype=torch.float32) * 0.02)
     down = quantize(randn(f, d, dtype=torch.float32) * 0.02)
-    for dtype, tokens in ((torch.bfloat16, (4, 256)), (torch.float32, (4,))):
+    for dtype, tokens in ((torch.bfloat16, (4, 256, 1024)),
+                          (torch.float32, (4,))):
         dname = str(dtype).split(".")[1]
         for t in tokens:
             x = randn(t, d, dtype=dtype)
@@ -308,6 +316,14 @@ def check_kernels(torch, timer, results: dict) -> dict:
                     uu = x @ dequantize(up, torch.bfloat16)
                     return torch.nn.functional.silu(gg) * uu
                 row["library_ms"] = timer.ms(lib, 5)
+                # two torch.matmul on weights dequantized once, silu * up
+                g16, u16 = (dequantize(w, torch.bfloat16) for w in (gate, up))
+                row["library_bf16_ms"] = timer.ms(
+                    lambda: torch.nn.functional.silu(x @ g16) * (x @ u16), 10)
+                del g16, u16
+                row["library_factor"] = row["ms"] / row["library_ms"]
+                row["library_bf16_factor"] = (row["ms"]
+                                              / row["library_bf16_ms"])
                 row["ffn_ms"] = timer.ms(
                     lambda: ops.ffn_w4a16(x, gate, up, down), 20)
                 row["ffn_plain_ms"] = timer.ms(
@@ -325,11 +341,21 @@ def check_kernels(torch, timer, results: dict) -> dict:
                 f"{tol[dname]})"
                 + (f"  gate/up kernel {row['ms']:.4f} ms plain "
                    f"{row['plain_ms']:.4f} ms library {row['library_ms']:.4f}"
-                   f" ms bound {row['bound_ms']:.4f} ms; whole ffn "
-                   f"{row['ffn_ms']:.4f} ms (bound {row['ffn_bound_ms']:.4f})"
+                   f" ms (kernel / library {row['library_factor']:.2f}), "
+                   f"bf16 matmuls {row['library_bf16_ms']:.4f} ms (kernel / "
+                   f"matmuls {row['library_bf16_factor']:.2f}) bound "
+                   f"{row['bound_ms']:.4f} ms; whole ffn {row['ffn_ms']:.4f}"
+                   f" ms (bound {row['ffn_bound_ms']:.4f})"
                    if "ms" in row else ""))
             if (t, dname) == (4, "bfloat16"):
                 line["ffn_fused_w4a16"] = row
+    # rows 100-103 of the bf16 gate/up stage across its tile configurations
+    xi = randn(INVARIANCE_ROWS, d)
+    check_tile_invariance(
+        torch, lambda v: ffn_gate_up_cuda(v, gate, up, "swiglu"), xi,
+        "ffn_fused_w4a16 swiglu gate/up")
+    del gate, up, down, xi
+    torch.cuda.empty_cache()
 
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
     line.update(check_attention_variants(torch, timer, randn, tol, rows))
@@ -337,11 +363,13 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_xlstm_kernels(torch, timer, randn, tol, rows))
     line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
 
-    # -- attention: B=4, hq=32, hkv=4, d=128, MAX=512
-    b, hq, hkv, hd, max_len = 4, 32, 4, 128, 512
+    # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
+    # only, hkv=2 (chatglm-6b's rep 16)
+    b, hq, hd, max_len = 4, 32, 128, 512
     lengths = torch.tensor([300, 64, 512, 40], dtype=torch.int32,
                            device="cuda")
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, hkv in ((torch.bfloat16, 4), (torch.float32, 4),
+                       (torch.bfloat16, 2)):
         dname = str(dtype).split(".")[1]
         kc = randn(b, hkv, max_len, hd, dtype=dtype)
         vc = randn(b, hkv, max_len, hd, dtype=dtype)
@@ -378,14 +406,15 @@ def check_kernels(torch, timer, results: dict) -> dict:
                     row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                              dname)
                 rows.append(row)
-                log(f"  attention {dname} C={c:2d} window={window}: max_abs "
+                log(f"  attention {dname} hkv={hkv} C={c:2d} window={window}:"
+                    f" max_abs "
                     f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
                     + (f"  kernel {row['ms']:.4f} ms plain "
                        f"{row['plain_ms']:.4f} ms library "
                        f"{row['library_ms']:.4f} ms bound "
                        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
                        if "ms" in row else ""))
-                if (c, dname, window) == (1, "bfloat16", None):
+                if (c, dname, window, hkv) == (1, "bfloat16", None, 4):
                     line["mixed_flash_attention"] = row
             # dead queries are exact zeros; q_lens = 1 in C = 64 == C = 1
             need(bool((outs[64][3] == 0).all()) and
@@ -393,10 +422,10 @@ def check_kernels(torch, timer, results: dict) -> dict:
                  bool((outs[64][2, :, 17:] == 0).all()),
                  f"attention {dname} window={window}: dead queries not zero")
             need(torch.equal(outs[64][1, :, 0], outs[1][1, :, 0]),
-                 f"attention {dname} window={window}: q_lens=1 in C=64 is "
-                 "not bitwise the C=1 result")
-        log(f"  attention {dname}: dead queries exact zeros; q_lens=1 inside "
-            "C=64 bitwise equal to C=1")
+                 f"attention {dname} hkv={hkv} window={window}: q_lens=1 in "
+                 "C=64 is not bitwise the C=1 result")
+        log(f"  attention {dname} hkv={hkv}: dead queries exact zeros; "
+            "q_lens=1 inside C=64 bitwise equal to C=1")
 
     # -- rmsnorm: rows x 4096
     gamma = (1 + 0.1 * randn(4096, dtype=torch.float32)).to(torch.bfloat16)
@@ -1315,6 +1344,11 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
                       lib(True),
                       x.numel() * 2 + up.nbytes_model + (t * f + f) * 2,
                       2 * t * d * f, dname)
+                u16 = dequantize(up, bf16)
+                row["library_bf16_ms"] = timer.ms(lambda: ffn_chain(
+                    torch, x, None, u16, None, "gelu", ub, db, stage=True),
+                    10)
+                del u16
                 row["ffn_bytes"] = (x.numel() * 2 + up.nbytes_model
                                     + down.nbytes_model + (t * d + f + d) * 2)
                 timed(row, lambda: ops.ffn_w4a16(x, None, up, down, **kw),
@@ -1335,6 +1369,11 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
                      ops.ffn_w4a16(x, None, up, down, **kw)[:4]),
          "ffn_fused_w4a16_gelu: rows differ between T=4 and T=256")
     log("  ffn_fused_w4a16_gelu: T=4 rows bitwise equal inside T=256")
+    xi = randn(INVARIANCE_ROWS, d)
+    check_tile_invariance(
+        torch, lambda v: ffn_gate_up_cuda(v, None, up, "gelu", b16[0]), xi,
+        "ffn_fused_w4a16_gelu up (gelu with the f32 bias)")
+    del xi
     del up, down, b16
     torch.cuda.empty_cache()
 

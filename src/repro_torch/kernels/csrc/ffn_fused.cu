@@ -14,13 +14,39 @@
 // both); the cost is one more launch and 2 * tokens * d_ff * sizeof(x)
 // bytes, which the single-launch fusion of a later PR removes.
 //
-// Gate and up are accumulated in one pass over x (each x tile is staged
-// once for both), with the per-group scale applied after each group's dot;
-// the up bias (f32) is added to the f32 sum and silu (or tanh-gelu) applied
-// to the f32 sums in the epilogue.
-// What bounds it on the card: at decode the packed weights
-// (d * f / 2 bytes + scales each); at prefill widths f32 FMAs on the CUDA
-// cores.
+// bfloat16 runs on the tensor cores, on kernel 1's tile
+// (w4a16_mma_tile.cuh): mma.sync m16n8k16 with x as A and the nibbles read
+// in place and dequantized in registers into the B fragments, one warp's
+// fragment per 128-row group summed from +0 over its k16 steps in order,
+// scaled and added in group order.  Gated, gate and up stream against one
+// staged x tile (two weights a ring stage, two accumulators and two
+// per-group partials a warp, the A fragments shared); the activation is
+// applied to the two f32 sums (common.cuh's epilogue) and the result cast
+// once.  The ungated gelu is kernel 1's one-weight tile with the
+// kEpiGeluBias epilogue (the f32 up bias added before the tanh-gelu).
+// Each output's sum order is fixed by d alone, so the configuration (by
+// token count) moves no bit.  Configurations (W4MmaGated*): T <= 16: 16 x 32
+// blocks, 4 warps of 16 x 8, 4 stages of 2 groups; T <= 128: 64 x 64, 8
+// warps of 32 x 16, 4 stages of 1 group; above: 64 x 128, 8 warps of
+// 32 x 32, 3 stages.  (128 x 128, kernel 1's largest, would need 64 x 32
+// warp tiles: four accumulators' worth of registers with two weights.)
+//
+// What bounds it: at decode the packed weights (2 * d * f / 2 bytes plus
+// scales), read once; at prefill widths the tensor cores, the in-register
+// dequantization and the shared memory that feeds them.
+//
+// -Xptxas -v (sm_90a), the gated configurations (the gelu variant: kernel
+// 1's, listed in w4a16_mma_tile.cuh), the same for swiglu and geglu, no
+// spills, one barrier; registers a thread and the ring's shared memory:
+//   T <= 16, 16 x 32:  64 registers, 65 KB
+//   T <= 128, 64 x 64: 128 registers, 97 KB
+//   above, 64 x 128:   186 registers, 97.5 KB
+// The f32 tile: 254 registers, no spills.
+//
+// float32 keeps the CUDA-core tile of w4a16_tile.cuh: gate and up
+// accumulated in one pass over x with the per-group scale after each
+// group's dot, f32 FMAs (a GEMV at decode).
+#include "w4a16_mma_tile.cuh"
 #include "w4a16_tile.cuh"
 
 REPRO_ERROR_STRING_FN
@@ -37,24 +63,20 @@ extern "C" int ffn_gate_up_launch(const void* x, const void* gate_packed,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ub = static_cast<const float*>(up_bias);
   const bool bf16 = dtype == kBF16;
-#define REPRO_FFN_GATED(T, EPI)                                              \
-  return launch_w4a16_tile<T, 2, EPI>(x, n_tok, d, f, gate_packed,          \
-                                      gate_scales, up_packed, up_scales,    \
-                                      nullptr, hidden, s)
-  if (activation == kEpiSwiglu) {
-    if (bf16) REPRO_FFN_GATED(__nv_bfloat16, kEpiSwiglu);
-    REPRO_FFN_GATED(float, kEpiSwiglu);
-  }
-  if (activation == kEpiGeglu) {
-    if (bf16) REPRO_FFN_GATED(__nv_bfloat16, kEpiGeglu);
-    REPRO_FFN_GATED(float, kEpiGeglu);
-  }
+#define REPRO_FFN_GATED(EPI)                                                 \
+  return bf16 ? launch_w4a16_mma_gated<EPI>(x, n_tok, d, f, gate_packed,     \
+                                            gate_scales, up_packed,          \
+                                            up_scales, hidden, s)            \
+              : launch_w4a16_tile<float, 2, EPI>(                            \
+                    x, n_tok, d, f, gate_packed, gate_scales, up_packed,     \
+                    up_scales, nullptr, hidden, s)
+  if (activation == kEpiSwiglu) REPRO_FFN_GATED(kEpiSwiglu);
+  if (activation == kEpiGeglu) REPRO_FFN_GATED(kEpiGeglu);
 #undef REPRO_FFN_GATED
   if (activation == kEpiGeluBias) {
     if (bf16)
-      return launch_w4a16_tile<__nv_bfloat16, 1, kEpiGeluBias>(
-          x, n_tok, d, f, up_packed, up_scales, nullptr, nullptr, ub, hidden,
-          s);
+      return launch_w4a16_mma<kEpiGeluBias>(x, n_tok, d, f, up_packed,
+                                            up_scales, ub, hidden, s);
     return launch_w4a16_tile<float, 1, kEpiGeluBias>(
         x, n_tok, d, f, up_packed, up_scales, nullptr, nullptr, ub, hidden, s);
   }

@@ -333,7 +333,6 @@ int dispatch_head_dim(int d, const void* q, const void* k, const void* v,
 
 constexpr int kFmWarps = 4;       // 16 query rows a warp: kFaBq
 constexpr int kFmThreads = 32 * kFmWarps;
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kFaBq == 16 * kFmWarps && kFaBk == 64,
               "a warp per 16 query rows, 8 n8 score fragments a key tile");
 
@@ -359,18 +358,6 @@ __device__ __forceinline__ void fa_mma_load(__nv_bfloat16* dst,
     cp_async16(dst + (r * R + swz<R>(r, c)) * 8,
                ok ? src + (size_t)(row0 + r) * D + c * 8 : src, ok ? 16 : 0);
   }
-}
-
-// Max and sum over the 4 lanes of a quad (the lanes that share a row of
-// an accumulator fragment); every lane of the quad ends with the same value.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // The online softmax of one 64-key tile for this lane's rows g (h = 0) and

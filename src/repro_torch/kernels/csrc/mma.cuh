@@ -1,7 +1,8 @@
 // PTX helpers of the bf16 tensor-core kernels (dense_mma_tile.cuh,
-// w4a16_mma_tile.cuh, flash_attention.cu): cp.async into a shared-memory
-// ring, ldmatrix into mma fragments, mma.sync m16n8k16 with f32
-// accumulation, and the XOR swizzle of 16-byte chunks in a ring row.
+// w4a16_mma_tile.cuh, flash_attention.cu, decode_flash.cu): cp.async into a
+// shared-memory ring, ldmatrix into mma fragments, mma.sync m16n8k16 with
+// f32 accumulation, the XOR swizzle of 16-byte chunks in a ring row, and the
+// quad reductions of the attention kernels' online softmax.
 #pragma once
 
 #include "common.cuh"
@@ -105,5 +106,21 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// Max and sum over the 4 lanes of a quad (the lanes that share a row of
+// an accumulator fragment); every lane of the quad ends with the same value.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Scores are taken to the log2 domain (s * scale * log2 e) and exponentiated
+// with exp2f.
+constexpr float kLog2e = 1.4426950408889634f;
 
 }  // namespace repro

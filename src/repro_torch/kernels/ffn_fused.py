@@ -40,7 +40,7 @@ from repro_torch.kernels.dense_matmul import (
 from repro_torch.kernels.sparse_w4a16 import (
     check_sparse, sparse_matmul_f32, sparse_w4a16_matmul_cuda)
 from repro_torch.kernels.w4a16_matmul import (
-    DTYPE_CODES, bias_f32, check_activation, check_quantized,
+    DTYPE_CODES, aligned, bias_f32, check_activation, check_quantized,
     w4a16_matmul_cuda, w4a16_matmul_f32)
 
 NAME = "ffn_fused_w4a16"
@@ -166,14 +166,22 @@ def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor | None,
                          f"{gate.shape if gated else None}, up {up.shape}")
     ub = bias_f32(up_bias, f, x.device, f"{NAME} up_bias")
 
+    # the bf16 tile's cp.async copies: x in 16-byte chunks, the weights in
+    # 4- (packed) and 8-byte (scales) pieces at least
+    pk = [aligned(w.packed, 4) if w is not None else None
+          for w in (gate if gated else None, up)]
+    sc = [aligned(w.scales, 8) if w is not None else None
+          for w in (gate if gated else None, up)]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     def launch(x2, hidden, n):
+        x2 = aligned(x2, 16)
         fn = _build.function("ffn_fused", "ffn_gate_up_launch", _ARGTYPES)
-        rc = fn(x2.data_ptr(),
-                gate.packed.data_ptr() if gated else None,
-                gate.scales.data_ptr() if gated else None,
-                up.packed.data_ptr(), up.scales.data_ptr(),
-                None if ub is None else ub.data_ptr(), hidden.data_ptr(), n,
-                d, f, _ACT_CODES[activation], DTYPE_CODES[x.dtype],
+        rc = fn(x2.data_ptr(), ptr(pk[0]), ptr(sc[0]), ptr(pk[1]),
+                ptr(sc[1]), ptr(ub), hidden.data_ptr(), n, d, f,
+                _ACT_CODES[activation], DTYPE_CODES[x.dtype],
                 _build.stream_ptr(x.device))
         _build.check("ffn_fused", rc)
         _build.launches[NAME if gated else GELU_NAME] += 1

@@ -1022,3 +1022,175 @@ def test_flash_mma_rows_invariant_across_query_tiling(cuda, head_dim, mask):
     for n in (237, 64, 1):
         assert torch.equal(full[:, :, -n:], ops.attention(
             q[:, :, -n:], k, v, causal=causal, window=window)), n
+
+
+# -- kernel 3's bf16 tensor-core kernel (csrc/decode_flash.cu) ----------------
+# Splits of split_span(bk) keys from key 0, 64-key steps, folded in order.
+
+ATTN_VARIANTS = [(False, False), (False, True), (True, False), (True, True)]
+ATTN_IDS = ["slot", "slot-int8", "paged", "paged-int8"]
+
+
+@pytest.mark.parametrize("paged,quant", ATTN_VARIANTS, ids=ATTN_IDS)
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("page", [8, 16, 32, 48, 96, 128])
+@pytest.mark.parametrize("chunk", [1, 16, 64])
+@pytest.mark.parametrize("window", [None, 24])
+def test_attention_mma_matches_plain(cuda, paged, quant, head_dim, page,
+                                     chunk, window):
+    """bf16 kernel 3, every variant, head dim and page size (the slot
+    layout walking tiles of the same size), decode and chunks, with and
+    without a window, against its plain version; 256- or 288-key caches,
+    so rows cross split boundaries (spans of 128 keys, and of 96 at pages
+    48 and 96: a partial second step, keys past the split masked); dead
+    queries are exact zeros; paged is bitwise the slot kernel at
+    ``block_kv = page``."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        head_dim + page + chunk + 7 * quant)
+    b, hq, hkv, s = 3, 8, 2, 256 if 256 % page == 0 else 288
+    leaves, pool, table = _attention_operands(
+        gen, torch.bfloat16, b, hkv, s, head_dim, page, quant)
+    q = _rand(gen, b, hq, chunk, head_dim, dtype=torch.bfloat16)
+    lengths = torch.tensor([37, 256, 130 + chunk], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([min(chunk, 3), chunk, max(chunk - 2, 1)],
+                          dtype=torch.int32, device="cuda")
+    cache, kw = ((pool, {"page_table": table}) if paged
+                 else (leaves, {"block_kv": page}))
+    name = VARIANTS_NAMES[(paged, quant)]
+    before = _build.launches[name]
+    got = _attend(q, cache, lengths, q_lens, window=window, **kw)
+    assert _build.launches[name] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, _attend(q, cache, lengths, q_lens, window=window,
+                        impl="torch", **kw), torch.bfloat16)
+    for r in range(b):
+        assert bool((got[r, :, int(q_lens[r]):] == 0).all())
+    if paged:
+        assert torch.equal(got, _attend(q, leaves, lengths, q_lens,
+                                        window=window, block_kv=page))
+
+
+@pytest.mark.parametrize("paged,quant", ATTN_VARIANTS, ids=ATTN_IDS)
+@pytest.mark.parametrize("window", [None, 40])
+def test_attention_mma_rows_bitwise(cuda, paged, quant, window, monkeypatch):
+    """A query row's bits do not depend on B, C or how many splits the call
+    has: each query of a 64-wide chunk is its own decode (C = 1 at length
+    q_pos + 1, the engine's oracle); rows 0-1 alone are those rows of a
+    batch of 5; moving other rows' lengths across split boundaries, or
+    launching the chunk in slices of its queries (a small scratch budget),
+    changes nothing."""
+    from repro_torch.kernels import decode_flash
+    gen = torch.Generator(device="cuda").manual_seed(30 + 2 * paged + quant)
+    b, hq, hkv, s, d, bs = 5, 16, 2, 512, 128, 16
+    leaves, pool, table = _attention_operands(gen, torch.bfloat16, b, hkv,
+                                              s, d, bs, quant)
+    cache, kw = (pool, {"page_table": table}) if paged else (leaves, {})
+
+    def rows(idx):
+        if paged:
+            return pool, {"page_table": table[idx]}
+        return {n: t[idx] for n, t in leaves.items()}, {}
+    q = _rand(gen, b, hq, 64, d, dtype=torch.bfloat16)
+    lengths = torch.tensor([300, 129, 512, 64, 200], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([64, 1, 17, 64, 0], dtype=torch.int32,
+                          device="cuda")
+    full = _attend(q, cache, lengths, q_lens, window=window, **kw)
+    c0, k0 = rows(slice(0, 1))
+    for j in (0, 13, 63):
+        at = torch.tensor([300 - 64 + j + 1], dtype=torch.int32,
+                          device="cuda")
+        one = _attend(q[:1, :, j:j + 1].contiguous(), c0, at,
+                      torch.ones_like(at), window=window, **k0)
+        assert torch.equal(full[0, :, j], one[0, :, 0]), j
+    c2, k2 = rows(slice(0, 2))
+    assert torch.equal(_attend(q[:2], c2, lengths[:2], q_lens[:2],
+                               window=window, **k2), full[:2])
+    moved = lengths.clone()
+    moved[2], moved[3], moved[4] = 127, 257, 385
+    other = _attend(q, cache, moved, q_lens, window=window, **kw)
+    assert torch.equal(other[:2], full[:2])
+    monkeypatch.setattr(decode_flash, "SPLIT_SCRATCH_BYTES", 1 << 20)
+    assert torch.equal(_attend(q, cache, lengths, q_lens, window=window,
+                               **kw), full)
+
+
+# -- kernel 2's bf16 gate/up stage on the W4A16 tensor-core tile --------------
+# Gated: gate and up against one staged x tile (W4MmaGated*); gelu: kernel
+# 1's one-weight tile with the f32 up bias in the epilogue.
+
+@pytest.mark.parametrize("tokens", [1, 16, 17, 255, 300])
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("f", [36, 300, 644])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+def test_ffn_gate_up_mma_ragged_shapes(cuda, tokens, d, f, activation):
+    """bf16 kernel 2's first stage at one and three 128-row groups, hidden
+    widths that are no multiple of 16 (the 4- and 8-byte weight copies)
+    and token counts on both sides of each tile boundary, against its plain
+    version; rows alone are bitwise the rows of the call."""
+    from repro_torch.kernels.ffn_fused import (
+        GELU_NAME, NAME, ffn_gate_up_cuda, ffn_gate_up_torch)
+    gen = torch.Generator(device="cuda").manual_seed(tokens + d + f)
+    gated = activation != "gelu"
+    gate = quantize(_rand(gen, d, f) * 0.05) if gated else None
+    up = quantize(_rand(gen, d, f) * 0.05)
+    ub = None if gated else _rand(gen, f) * 0.1
+    x = _rand(gen, tokens, d, dtype=torch.bfloat16)
+    name = NAME if gated else GELU_NAME
+    before = _build.launches[name]
+    got = ffn_gate_up_cuda(x, gate, up, activation, ub)
+    assert _build.launches[name] == before + 1
+    _close(got, ffn_gate_up_torch(x, gate, up, activation, ub),
+           torch.bfloat16)
+    _rows_alone_equal(lambda v: ffn_gate_up_cuda(v, gate, up, activation,
+                                                 ub), x, got)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+def test_ffn_gate_up_mma_rows_invariant_across_tiles(cuda, activation):
+    """Rows 100-103 of kernel 2's bf16 stage (and of the whole FFN) are
+    bitwise the same alone and inside every tile configuration's calls."""
+    from repro_torch.kernels.ffn_fused import ffn_gate_up_cuda
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, f = 1024, 2816
+    gated = activation != "gelu"
+    gate = quantize(_rand(gen, d, f) * 0.02) if gated else None
+    up = quantize(_rand(gen, d, f) * 0.02)
+    down = quantize(_rand(gen, f, d) * 0.02)
+    ub = None if gated else _rand(gen, f) * 0.1
+    kw = {} if gated else dict(up_bias=ub, down_bias=_rand(gen, d) * 0.1)
+    x = _rand(gen, 1024, d, dtype=torch.bfloat16)
+    _tile_invariant(lambda v: ffn_gate_up_cuda(v, gate, up, activation, ub),
+                    x)
+    _tile_invariant(lambda v: ops.ffn_w4a16(v, gate, up, down,
+                                            activation=activation, **kw), x)
+
+
+@pytest.mark.parametrize("tokens", [3, 40, 300])
+def test_ffn_gate_up_mma_unaligned_operands_bitwise(cuda, tokens):
+    """Gate and up weights 4 (packed) and 8 bytes (scales) past a 16-byte
+    boundary take the narrow copies and fill the ring with the same bits;
+    an x 2 bytes past one is copied to an aligned buffer."""
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.kernels.ffn_fused import ffn_gate_up_cuda
+    gen = torch.Generator(device="cuda").manual_seed(40 + tokens)
+    d, f = 256, 528
+    gate, up = (quantize(_rand(gen, d, f) * 0.05) for _ in range(2))
+    x = _rand(gen, tokens, d, dtype=torch.bfloat16)
+    want = ffn_gate_up_cuda(x, gate, up, "swiglu")
+
+    def odd(qt):
+        pk = torch.empty(qt.packed.numel() + 4, dtype=torch.uint8,
+                         device="cuda")[4:].view(qt.packed.shape)
+        pk.copy_(qt.packed)
+        sc = torch.empty(qt.scales.numel() + 4, dtype=torch.bfloat16,
+                         device="cuda")[4:].view(qt.scales.shape)
+        sc.copy_(qt.scales)
+        assert pk.data_ptr() % 16 and sc.data_ptr() % 16
+        return QuantizedTensor(pk, sc, qt.shape, qt.group_size)
+    xs = torch.empty(tokens * d + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = xs[1:].view(tokens, d)
+    x_odd.copy_(x)
+    assert torch.equal(ffn_gate_up_cuda(x, odd(gate), up, "swiglu"), want)
+    assert torch.equal(ffn_gate_up_cuda(x_odd, gate, odd(up), "swiglu"), want)

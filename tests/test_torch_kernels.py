@@ -26,7 +26,8 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.core.sparsity import block_sparsify_quantize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_flash import (  # noqa: E402
-    kv_block_size, mixed_attention_torch)
+    KV_SPLIT_KEYS, KV_STEP_KEYS, fold_split, kv_block_size,
+    mixed_attention_torch, split_span)
 from repro_torch.kernels.ffn_fused import ffn_w4a16_torch  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch  # noqa: E402
 from repro_torch.kernels.sparse_w4a16 import (  # noqa: E402
@@ -196,6 +197,128 @@ def test_qlen1_inside_chunk_matches_decode():
                                    lengths))
     np.testing.assert_allclose(chunk[1, :, 0].numpy(), one[1, :, 0].numpy(),
                                **TOL)
+
+
+# -- kernel 3's split-and-fold order (the plain version repeats the bf16
+# kernel's arithmetic: splits of split_span(bk) keys, 64-key steps, a fold
+# in increasing split order)
+
+def test_split_span_is_a_function_of_the_tile():
+    for bk in range(8, 129):
+        span = split_span(bk)
+        assert span % bk == 0 and KV_SPLIT_KEYS // 2 < span <= KV_SPLIT_KEYS
+        assert -(-span // KV_STEP_KEYS) <= 2       # at most two steps
+    assert split_span(16) == split_span(128) == 128
+
+
+@pytest.mark.parametrize("block_kv,window", [(128, None), (48, None),
+                                             (32, 40), (8, None)])
+def test_mixed_attention_plain_across_splits_matches_reference(block_kv,
+                                                               window):
+    """Rows spanning several splits (a 384-key cache; spans of 128 and, at
+    block_kv 48, 96 keys with a partial second step): the plain version
+    equals the reference's dense oracle, its blocked twin and its Pallas
+    kernel (interpret mode) within the f32 tolerance."""
+    rng = np.random.default_rng(block_kv)
+    b, hq, hkv, c, d, s = 3, 8, 2, 16, 32, 384
+    q = rng.normal(size=(b, hq, c, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    lengths = np.asarray([300, 129, 384], np.int32)
+    q_lens = np.asarray([16, 1, 9], np.int32)
+    got = mixed_attention_torch(*_t(q, k, v, lengths, q_lens), window=window,
+                                block_kv=block_kv).numpy()
+    j = [jnp.asarray(a) for a in (q, k, v, lengths, q_lens)]
+    for want in (jops.mixed_attention(*j, window=window, impl="ref"),
+                 mixed_attention_blocked(*j, window=window),
+                 mixed_flash_attention_pallas(*j, window=window,
+                                              interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def _split_operands(b=4, max_len=384):
+    rng = np.random.default_rng(11)
+    hq, hkv, c, d = 8, 2, 8, 32
+    q = rng.normal(size=(b, hq, c, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, max_len, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, max_len, d)).astype(np.float32)
+    return _t(q, k, v)
+
+
+def test_row_bitwise_when_another_row_crosses_a_split():
+    """Rows 0 and 2 keep their bits when row 1's length moves from inside
+    its first split to its third, and row 3's from its third to its
+    first."""
+    q, k, v = _split_operands()
+    q_lens = torch.tensor([8, 1, 5, 3], dtype=torch.int32)
+    a = mixed_attention_torch(q, k, v, torch.tensor([200, 100, 50, 300]),
+                              q_lens)
+    b = mixed_attention_torch(q, k, v, torch.tensor([200, 290, 50, 20]),
+                              q_lens)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+
+
+def test_row_bitwise_when_the_batch_grows():
+    """Two rows alone are bitwise those rows inside a batch of five."""
+    q, k, v = _split_operands(b=5)
+    lengths = torch.tensor([300, 129, 40, 384, 7], dtype=torch.int32)
+    q_lens = torch.tensor([8, 1, 3, 8, 0], dtype=torch.int32)
+    full = mixed_attention_torch(q, k, v, lengths, q_lens, window=70)
+    two = mixed_attention_torch(q[:2], k[:2], v[:2], lengths[:2], q_lens[:2],
+                                window=70)
+    assert torch.equal(two, full[:2])
+
+
+@pytest.mark.parametrize("bs", [8, 16, 48])
+def test_scrambled_pool_bitwise_equals_slot_across_splits(bs):
+    """The same keys scattered over a scrambled pool (spare blocks, the null
+    block last) give the slot walk's bits at ``block_kv = bs``: the split
+    span is a function of the tile alone; at bs 8 and 16 the span is 128
+    keys, as the slot cache's default 128-key tile gives, so the default
+    slot walk is bitwise the pool too."""
+    q, k, v = _split_operands()
+    b, hkv, s, d = k.shape
+    n_pages = s // bs
+    rng = np.random.default_rng(bs)
+    table = torch.from_numpy(rng.permutation(b * n_pages + 3)[:b * n_pages]
+                             .reshape(b, n_pages).astype(np.int32))
+    pools = []
+    for leaf in (k, v):
+        pool = torch.full((b * n_pages + 4, hkv, bs, d), 7.5)
+        pool[table.long()] = leaf.reshape(b, hkv, n_pages, bs, d
+                                          ).transpose(1, 2)
+        pools.append(pool)
+    lengths = torch.tensor([300, 129, 40, 384], dtype=torch.int32)
+    q_lens = torch.tensor([8, 1, 3, 8], dtype=torch.int32)
+    paged = mixed_attention_torch(q, *pools, lengths, q_lens,
+                                  page_table=table)
+    assert torch.equal(paged, mixed_attention_torch(q, k, v, lengths, q_lens,
+                                                    block_kv=bs))
+    if split_span(bs) == split_span(kv_block_size(s)):
+        assert torch.equal(paged, mixed_attention_torch(q, k, v, lengths,
+                                                        q_lens))
+
+
+def test_fold_of_a_split_the_query_does_not_see_keeps_its_bits():
+    """A split wholly past a query's position has m = -1e30, l = 0,
+    acc = 0: folding it leaves the running state bitwise unchanged
+    (alpha = 1, contribution 0), from a live state and from the empty
+    one; the plain version's fold skips such a split, which is the same."""
+    rng = np.random.default_rng(5)
+    m = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 9, (2, 3)).astype(np.float32))
+    acc = torch.from_numpy(rng.normal(size=(2, 3, 4)).astype(np.float32))
+    empty = (torch.full((2, 3), -1e30), torch.zeros(2, 3),
+             torch.zeros(2, 3, 4))
+    yes = torch.ones(2, 3, dtype=torch.bool)
+    for state in ((m, l, acc), empty):
+        out = fold_split(state, empty, yes)
+        for a, b in zip(out, state):
+            assert torch.equal(a, b)
+    # and the first split a query sees is taken as it is
+    out = fold_split(empty, (m, l, acc), yes)
+    for a, b in zip(out, (m, l, acc)):
+        assert torch.equal(a, b)
 
 
 def test_kv_block_size_matches_reference():

@@ -9,7 +9,11 @@ the A fragment is x's 16-byte chunks s and 8 + s.  These tests rebuild the
 fragments with the kernel's own bit operations in numpy, hold them against
 ``unpack_int4``, and hold a product summed in the kernel's order against the
 plain version and the reference's Pallas kernel (interpret mode) on the same
-numpy inputs.  The kernel itself is held against the plain version on the
+numpy inputs.  Kernel 2's bf16 gate/up stage runs the same tile with two
+weights against one staged x tile (shared A fragments, one partial and one
+accumulator per weight) and the activation on the two f32 sums; the last
+tests model that order against the plain stage and the reference's fused
+FFN.  The kernels themselves are held against the plain versions on the
 card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
 import numpy as np
@@ -20,9 +24,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core.quant import quantize as jax_quantize  # noqa: E402
+from repro.kernels.ffn_fused import ffn_fused_w4a16_pallas  # noqa: E402
 from repro.kernels.w4a16_matmul import w4a16_matmul_pallas  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core.quant import GROUP_SIZE, unpack_int4  # noqa: E402
+from repro_torch.kernels.ffn_fused import ffn_gate_up_torch  # noqa: E402
 from repro_torch.kernels.w4a16_matmul import w4a16_matmul_torch  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -139,3 +145,80 @@ def test_kernel_order_matches_plain_and_reference(tokens):
     np.testing.assert_allclose(
         acc, np.asarray(w4a16_matmul_pallas(jnp.asarray(x), jqt,
                                             interpret=True)), **TOL)
+
+
+def _tile_sums(x, weights):
+    """The W4A16 tile's f32 sums for one or more weights against the same
+    x, in its order: for each 128-row group, each weight's partial from +0
+    over the 8 k16 steps (A = x's chunks s and 8 + s, shared by the
+    weights; B from that weight's packed bytes), then times that weight's
+    group scale, added to its running sum in group order."""
+    tokens, in_f = x.shape
+    out_f = weights[0].shape[1]
+    accs = [np.zeros((tokens, out_f), np.float32) for _ in weights]
+    packed = [w.packed.numpy() for w in weights]
+    scales = [w.scales.to(torch.float32).numpy() for w in weights]
+    for g in range(in_f // GROUP_SIZE):
+        xg = x[:, g * GROUP_SIZE:(g + 1) * GROUP_SIZE]
+        parts = [np.zeros((tokens, out_f), np.float32) for _ in weights]
+        for s in range(8):
+            a = np.concatenate([xg[:, 8 * s:8 * s + 8],
+                                xg[:, 64 + 8 * s:64 + 8 * s + 8]], axis=1)
+            for wi, pk in enumerate(packed):
+                pg = pk[g * 64:(g + 1) * 64]
+                b = np.zeros((16, out_f), np.float32)
+                for t in range(4):
+                    (b00, b01), (b10, b11) = _b_fragments(pg, s, t)
+                    b[2 * t], b[2 * t + 1] = b00, b01
+                    b[8 + 2 * t], b[8 + 2 * t + 1] = b10, b11
+                parts[wi] = parts[wi] + a @ b
+        for wi in range(len(weights)):
+            accs[wi] = accs[wi] + parts[wi] * scales[wi][g]
+    return accs
+
+
+def _epilogue(activation, sums, up_bias):
+    """common.cuh's epilogue on the f32 sums (gate, up) or (up,)."""
+    def gelu_tanh(v):
+        return 0.5 * v * (1.0 + np.tanh(0.7978845608028654
+                                        * (v + 0.044715 * v ** 3)))
+    if activation == "gelu":
+        return gelu_tanh(sums[0] + up_bias).astype(np.float32)
+    g, u = sums
+    act = g / (1.0 + np.exp(-g)) if activation == "swiglu" else gelu_tanh(g)
+    return (act * u).astype(np.float32)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+@pytest.mark.parametrize("tokens", [1, 17])
+def test_gate_up_tile_order_matches_plain_and_reference(activation, tokens):
+    """Kernel 2's bf16 stage modelled in the tile's order (gate and up as
+    two weights of one tile, or up alone for gelu with its f32 bias): each
+    weight's sums are the one-weight tile's, bitwise, and the activated
+    hidden equals the plain stage; followed by the down projection in f32
+    it equals the reference's fused FFN (interpret mode), all within the
+    reference's f32 tolerance."""
+    rng = np.random.default_rng(40 + tokens)
+    d, f = 2 * GROUP_SIZE, 2 * GROUP_SIZE
+    gated = activation != "gelu"
+    gj, gt = _weights(rng, d, f)
+    uj, ut = _weights(rng, d, f)
+    dj, dt = _weights(rng, f, d)
+    x = rng.normal(size=(tokens, d)).astype(np.float32)
+    ub = (rng.normal(size=(f,)) * 0.1).astype(np.float32)
+    ws = (gt, ut) if gated else (ut,)
+    sums = _tile_sums(x, ws)
+    for wi, w in enumerate(ws):
+        np.testing.assert_array_equal(sums[wi], _tile_sums(x, (w,))[0])
+    hidden = _epilogue(activation, sums, ub)
+    tx = torch.from_numpy(x)
+    tub = None if gated else torch.from_numpy(ub)
+    np.testing.assert_allclose(
+        hidden, ffn_gate_up_torch(tx, gt if gated else None, ut, activation,
+                                  tub).numpy(), **TOL)
+    out = w4a16_matmul_torch(torch.from_numpy(hidden), dt).numpy()
+    jkw = {} if gated else {"up_bias": jnp.asarray(ub)}
+    want = ffn_fused_w4a16_pallas(jnp.asarray(x), gj if gated else None, uj,
+                                  dj, activation=activation, interpret=True,
+                                  **jkw)
+    np.testing.assert_allclose(out, np.asarray(want), **TOL)
