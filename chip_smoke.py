@@ -12,7 +12,15 @@ Phases (any failure ends the run with a nonzero exit code):
                  report (registers, shared memory, spills);
   3. kernels  — each kernel against its plain PyTorch version at qwen-7b's
                  shapes, with the tolerance stated (the sparse ones at the
-                 layouts strategy1-3 give wo and the FFN; the attention
+                 layouts strategy1-3 give wo and the FFN, bf16 at T=4, 256
+                 and 1024, and kernel 5's ungated gelu branch with biases
+                 at starcoder2-7b's strategy2 FFN, T=4 and 256, each beside
+                 sparse_dequantize + ``torch.matmul`` and ``torch.matmul``
+                 on weights dequantized once, rows 100-103 bitwise across
+                 the bf16 tile configurations (kernel 4 with and without
+                 its bias, both branches of kernel 5), ragged T=37 and 300,
+                 and weights and x off a 16-byte boundary bitwise equal to
+                 aligned ones; the attention
                  kernel's slot-int8, paged and paged-int8 variants on a
                  scrambled page table of 16-token pages, paged bitwise
                  equal to slot at block_kv = 16, NaN in the null and
@@ -64,14 +72,16 @@ Phases (any failure ends the run with a nonzero exit code):
                  paper's ChatGLM2-6B, "dense"), xlstm-1.3b ("dense", 48
                  blocks, the path ``xlstm-dense``), qwen-7b with 16-bit
                  weights (``none``) and starcoder2-7b (LayerNorm, the
-                 ungated gelu FFN with biases; ``starcoder2-none`` and
-                 ``starcoder2-dense``), one model at a time:
+                 ungated gelu FFN with biases; ``starcoder2-none``,
+                 ``starcoder2-dense`` and ``starcoder2-strategy2``, whose
+                 FFN runs kernel 5's gelu branch and kernel 4 with the
+                 down bias), one model at a time:
                  mixed_step over a 13-token prompt in 8-token chunks is
                  bitwise equal to 13 sequential decode steps (logits and
                  every cache leaf of all layers, or every state leaf of
                  all blocks); strategy2 also with int8 K/V, a paged pool
                  and a paged int8 pool;
-  5. serving  — with each of the eight weight sets, the engine serves 9
+  5. serving  — with each of the nine weight sets, the engine serves 9
                  requests; every token stream equals ``reference_decode``
                  and the kernel launch counts (reset before each path's
                  run, read just after it) equal layers x calls x ticks as
@@ -90,7 +100,8 @@ Phases (any failure ends the run with a nonzero exit code):
                  the engine's stream; qwen-7b: 8192 tokens in two chunks
                  against one shot.  On strategy2: the int8 slot prefill
                  and the paged prefill (kernel 3's paged variant, never the
-                 flash kernel) against their engines.  On xlstm-1.3b:
+                 flash kernel) against their engines, with their seconds
+                 (kernels 4 and 5 at T=200).  On xlstm-1.3b:
                  forward's launches exact (kernel 8 once per sLSTM block,
                  the path ``xlstm-dense-prefill``) and prefill's (512
                  recurrent steps); in float32, forward's last position
@@ -463,7 +474,16 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
     """Kernels 4 and 5 at the layouts the compiler gives qwen-7b: ``wo``
     (4096 -> 4096) at density 0.5, and the FFN (4096 -> 11008 -> 4096) of
     strategy1-3, whose ``down`` is tile_uniform sparse (1, 2) or
-    dense-quantized (3)."""
+    dense-quantized (3); and kernel 5's ungated gelu branch with biases at
+    starcoder2-7b's (4608 -> 18432 -> 4608, strategy2: up at 0.25, down
+    tile_uniform at 0.5, kernel 4 with the down bias).  bf16 at T=4, 256
+    and 1024 (gelu: 4, 256), f32 at T=4; beside each, sparse_dequantize +
+    ``torch.matmul`` and ``torch.matmul`` on the weights dequantized once
+    (all blocks, dense), with the kernel / library factors.  Rows 100-103
+    bitwise across the bf16 tile configurations (kernel 4 with and without
+    its bias, both branches of kernel 5); ragged T (37, 300) against the
+    plain versions; operands off a 16-byte boundary bitwise equal to
+    aligned ones."""
     from repro_torch.core.compiler import quantize_model
     from repro_torch.core.quant import dequantize
     from repro_torch.core.sparsity import (
@@ -472,23 +492,54 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
     from repro_torch.kernels.ffn_fused import (
         ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles,
         tile_subset)
+    from repro_torch.kernels.sparse_w4a16 import (
+        sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
 
     line = {}
-    d, f = 4096, 11008
-    bf16 = torch.bfloat16
+    d, f = QWEN_D, QWEN_F
+    bf16, f32 = torch.bfloat16, torch.float32
+    F = torch.nn.functional
 
     def dense_of(w):
         return (sparse_dequantize(w, bf16)
                 if isinstance(w, SparseQuantizedTensor) else
                 dequantize(w, bf16))
 
+    def library(row, per_call, once, prefix=""):
+        """``per_call``: the library chain dequantizing on every call;
+        ``once``: the same on weights dequantized once, outside the call."""
+        row[prefix + "library_ms"] = timer.ms(per_call, 5)
+        row[prefix + "library_bf16_ms"] = timer.ms(once, 10)
+        for k in ("library", "library_bf16"):
+            row[f"{prefix}{k}_factor"] = (row[prefix + "ms"]
+                                          / row[f"{prefix}{k}_ms"])
+
+    def times(row, prefix=""):
+        return (f"  kernel {row[prefix + 'ms']:.4f} ms plain "
+                f"{row[prefix + 'plain_ms']:.4f} ms library "
+                f"{row[prefix + 'library_ms']:.4f} ms (kernel / library "
+                f"{row[prefix + 'library_factor']:.2f}), on weights "
+                f"dequantized once {row[prefix + 'library_bf16_ms']:.4f} ms "
+                f"(kernel / that {row[prefix + 'library_bf16_factor']:.2f}) "
+                f"bound {row[prefix + 'bound_ms']:.4f} ms"
+                if prefix + "ms" in row else "")
+
+    def columns(tiles, width):
+        """The hidden columns a stage writes: the kept f-tiles' (all when
+        ``tiles`` is None)."""
+        if tiles is None:
+            return torch.arange(width, device=DEVICE)
+        return (tiles.long()[:, None] * 128
+                + torch.arange(128, device=DEVICE)).reshape(-1)
+
     # -- sparse_w4a16_matmul: wo, S = 16 of 32 blocks per output tile
-    wo = quantize_model({"wo": randn(d, d, dtype=torch.float32) * 0.02},
+    wo = quantize_model({"wo": randn(d, d, dtype=f32) * 0.02},
                         "strategy2")["wo"]
     need(isinstance(wo, SparseQuantizedTensor)
          and wo.kept_blocks == d // 128 // 2,
          "wo at density 0.5 does not keep half its blocks")
-    for dtype, tokens in ((bf16, (4, 256)), (torch.float32, (4,))):
+    wo16 = dense_of(wo)
+    for dtype, tokens in ((bf16, (4, 256, 1024)), (f32, (4,))):
         dname = str(dtype).split(".")[1]
         for t in tokens:
             x = randn(t, d, dtype=dtype)
@@ -506,45 +557,56 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
                                      20)
                 row["plain_ms"] = timer.ms(
                     lambda: ops.sparse_w4a16_matmul(x, wo, impl="torch"), 3)
-                row["library_ms"] = timer.ms(lambda: x @ dense_of(wo), 5)
+                library(row, lambda: x @ dense_of(wo), lambda: x @ wo16)
                 nbytes = x.numel() * 2 + wo.nbytes_model + t * d * 2
                 row["bound_ms"], row["bound_by"] = bound(
                     nbytes, 2 * t * wo.kept_blocks * 128 * d, dname)
             rows.append(row)
-            log(f"  sparse_w4a16 (wo) {dname} T={t:3d}: max_abs {err:.3g} "
-                f"rel {rel:.3g} (tol {tol[dname]})"
-                + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
-                   f" ms library {row['library_ms']:.4f} ms bound "
-                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-                   if "ms" in row else ""))
+            log(f"  sparse_w4a16 (wo) {dname} T={t:4d}: max_abs {err:.3g} "
+                f"rel {rel:.3g} (tol {tol[dname]})" + times(row))
             if (t, dname) == (4, "bfloat16"):
                 line["sparse_w4a16_matmul"] = row
+    del wo16
     x = randn(256, d)
     need(torch.equal(ops.sparse_w4a16_matmul(x[:4], wo),
                      ops.sparse_w4a16_matmul(x, wo)[:4]),
          "sparse_w4a16: rows differ between T=4 and T=256")
     log("  sparse_w4a16: T=4 rows bitwise equal inside T=256")
-    del wo
+    bias = randn(d, dtype=f32) * 0.1
+    xi = randn(INVARIANCE_ROWS, d)
+    for b, what in ((None, ""), (bias, " with the f32 bias")):
+        check_tile_invariance(
+            torch, lambda v, b=b: sparse_w4a16_matmul_cuda(v, wo, b), xi,
+            f"sparse_w4a16_matmul (wo){what}")
+        for t in (37, 300):
+            err, rel = max_errs(sparse_w4a16_matmul_cuda(xi[:t], wo, b),
+                                sparse_w4a16_matmul_torch(xi[:t], wo, b))
+            need(rel <= tol["bfloat16"], f"sparse_w4a16 T={t}{what}: rel "
+                 f"err {rel:.3g}")
+    log("  sparse_w4a16: ragged T=37, 300 (with and without the bias) "
+        "within tolerance of the plain version")
+    check_unaligned(torch, lambda xx, ww: sparse_w4a16_matmul_cuda(
+        xx, ww, bias), xi[:40], wo, "sparse_w4a16_matmul (wo)")
+    del wo, xi, bias
 
     # -- ffn_fused_sparse (+ the down projection): the FFN of strategy1-3
     for strategy in ("strategy1", "strategy2", "strategy3"):
         w = quantize_model(
-            {"gate": randn(d, f, dtype=torch.float32) * 0.02,
-             "up": randn(d, f, dtype=torch.float32) * 0.02,
-             "down": randn(f, d, dtype=torch.float32) * 0.02}, strategy)
+            {"gate": randn(d, f, dtype=f32) * 0.02,
+             "up": randn(d, f, dtype=f32) * 0.02,
+             "down": randn(f, d, dtype=f32) * 0.02}, strategy)
         gate, up, down = w["gate"], w["up"], w["down"]
         tiles = kept_f_tiles(down)
         n_f = f // 128 if tiles is None else tiles.numel()
-        cols = (torch.arange(f, device="cuda") if tiles is None else
-                (tiles.long()[:, None] * 128
-                 + torch.arange(128, device="cuda")).reshape(-1))
+        cols = columns(tiles, f)
         gate_k, up_k = ((gate, up) if tiles is None else
                         (tile_subset(gate, tiles), tile_subset(up, tiles)))
+        g16, u16, d16 = dense_of(gate), dense_of(up), dense_of(down)
+        gk16, uk16 = g16[:, cols], u16[:, cols]
         layout = (f"gate/up S={gate.kept_blocks}, down "
                   + (f"sparse S={down.kept_blocks} (f-tiles kept {n_f} of "
                      f"{f // 128})" if tiles is not None else "dense"))
-        dtypes = ((bf16, (4, 256)), (torch.float32, (4,)))
-        for dtype, tokens in dtypes:
+        for dtype, tokens in ((bf16, (4, 256, 1024)), (f32, (4,))):
             dname = str(dtype).split(".")[1]
             for t in tokens:
                 x = randn(t, d, dtype=dtype)
@@ -573,24 +635,19 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
                     row["plain_ms"] = timer.ms(
                         lambda: ffn_gate_up_sparse_torch(
                             x, gate, up, "swiglu", tiles), 3)
-
-                    def lib():
-                        gg = x @ dense_of(gate_k)
-                        uu = x @ dense_of(up_k)
-                        return torch.nn.functional.silu(gg) * uu
-
-                    def ffn_lib():
-                        gg = x @ dense_of(gate)
-                        uu = x @ dense_of(up)
-                        h = torch.nn.functional.silu(gg) * uu
-                        return h @ dense_of(down)
-                    row["library_ms"] = timer.ms(lib, 5)
+                    library(row, lambda: F.silu(x @ dense_of(gate_k))
+                            * (x @ dense_of(up_k)),
+                            lambda: F.silu(x @ gk16) * (x @ uk16))
                     row["ffn_ms"] = timer.ms(
                         lambda: ops.ffn_w4a16(x, gate, up, down), 20)
                     row["ffn_plain_ms"] = timer.ms(
                         lambda: ops.ffn_w4a16(x, gate, up, down,
                                               impl="torch"), 3)
-                    row["ffn_library_ms"] = timer.ms(ffn_lib, 5)
+                    library(row, lambda: ffn_chain(
+                        torch, x, dense_of(gate), dense_of(up),
+                        dense_of(down), "swiglu", None, None),
+                        lambda: ffn_chain(torch, x, g16, u16, d16, "swiglu",
+                                          None, None), prefix="ffn_")
                     # what this data needs: the kept f-tiles' gate/up
                     # blocks, down as stored, x in, hidden or out written
                     gu_bytes = gate_k.nbytes_model + up_k.nbytes_model
@@ -602,32 +659,205 @@ def check_sparse_kernels(torch, timer, randn, tol, rows) -> dict:
                                  else f)
                     row["ffn_bytes"] = (x.numel() * 2 + gu_bytes
                                         + down.nbytes_model + t * d * 2)
-                    row["ffn_bound_ms"], _ = bound(
+                    row["ffn_bound_ms"], row["ffn_bound_by"] = bound(
                         row["ffn_bytes"], gu_flops + 2 * t * down_rows * d,
                         dname)
                 rows.append(row)
-                log(f"  sparse ffn {strategy} ({layout}) {dname} T={t:3d}: "
+                log(f"  sparse ffn {strategy} ({layout}) {dname} T={t:4d}: "
                     f"hidden max_abs {herr:.3g} rel {hrel:.3g}; ffn max_abs "
                     f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
-                    + (f"  gate/up kernel {row['ms']:.4f} ms plain "
-                       f"{row['plain_ms']:.4f} ms library "
-                       f"{row['library_ms']:.4f} ms bound "
-                       f"{row['bound_ms']:.4f} ms; whole ffn "
-                       f"{row['ffn_ms']:.4f} ms (plain "
-                       f"{row['ffn_plain_ms']:.4f}, library "
-                       f"{row['ffn_library_ms']:.4f}, bound "
-                       f"{row['ffn_bound_ms']:.4f}, "
-                       f"{row['ffn_bytes'] / 1e6:.2f} MB)"
-                       if "ms" in row else ""))
+                    + times(row) + ("; whole ffn" + times(row, "ffn_")
+                                    if "ms" in row else ""))
                 if (strategy, t, dname) == ("strategy2", 4, "bfloat16"):
                     line["ffn_fused_sparse"] = row
+        del g16, u16, d16, gk16, uk16
         x = randn(256, d)
         need(torch.equal(ops.ffn_w4a16(x[:4], gate, up, down),
                          ops.ffn_w4a16(x, gate, up, down)[:4]),
              f"sparse ffn {strategy}: rows differ between T=4 and T=256")
         log(f"  sparse ffn {strategy}: T=4 rows bitwise equal inside T=256")
+        if strategy == "strategy2":
+            xi = randn(INVARIANCE_ROWS, d)
+            check_tile_invariance(
+                torch, lambda v: ffn_gate_up_sparse_cuda(
+                    v, gate, up, "swiglu", tiles)[:, cols], xi,
+                "ffn_fused_sparse swiglu gate/up (strategy2)")
+            check_tile_invariance(
+                torch, lambda v: ops.ffn_w4a16(v, gate, up, down), xi,
+                "sparse ffn (strategy2)")
+            for t in (37, 300):
+                herr, hrel = max_errs(
+                    ffn_gate_up_sparse_cuda(xi[:t], gate, up, "swiglu",
+                                            tiles)[:, cols],
+                    ffn_gate_up_sparse_torch(xi[:t], gate, up, "swiglu",
+                                             tiles))
+                need(hrel <= tol["bfloat16"], f"sparse ffn T={t}: hidden "
+                     f"rel err {hrel:.3g}")
+            log("  ffn_fused_sparse swiglu: ragged T=37, 300 within "
+                "tolerance of the plain version")
+            check_unaligned(
+                torch, lambda xx, ww: ffn_gate_up_sparse_cuda(
+                    xx, ww, up, "swiglu", tiles)[:, cols], xi[:40], gate,
+                "ffn_fused_sparse swiglu (gate)")
+            check_unaligned(
+                torch, lambda xx, ww: ffn_gate_up_sparse_cuda(
+                    xx, gate, ww, "swiglu", tiles)[:, cols], xi[:40], up,
+                "ffn_fused_sparse swiglu (up)")
+            del xi
         del w, gate, up, down, gate_k, up_k
+        torch.cuda.empty_cache()
+    line.update(check_sparse_gelu(torch, timer, randn, tol, rows, dense_of,
+                                  library, times, columns))
     return line
+
+
+def check_sparse_gelu(torch, timer, randn, tol, rows, dense_of, library,
+                      times, columns) -> dict:
+    """Kernel 5's ungated gelu branch at starcoder2-7b's FFN under
+    strategy2 (up 4608 -> 18432 at density 0.25, down tile_uniform at 0.5),
+    with up and down biases: the up stage (``ffn_fused_sparse_gelu``) and
+    the whole FFN (kernel 4 with the down bias for down)."""
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles,
+        tile_subset)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, f = STARCODER_D, STARCODER_F
+    w = quantize_model({"up": randn(d, f, dtype=f32) * 0.02,
+                        "down": randn(f, d, dtype=f32) * 0.02}, "strategy2")
+    up, down = w["up"], w["down"]
+    tiles = kept_f_tiles(down)
+    need(tiles is not None and up.kept_blocks == d // 128 // 4,
+         f"starcoder2-7b strategy2: up keeps {up.kept_blocks} blocks, down "
+         f"is {type(down).__name__}")
+    n_f, cols = tiles.numel(), columns(tiles, f)
+    up_k = tile_subset(up, tiles)
+    u16, d16 = dense_of(up), dense_of(down)
+    uk16 = u16[:, cols]
+    b16 = (randn(f) * 0.1, randn(d) * 0.1)
+    line = {}
+    for dtype, tokens in ((bf16, (4, 256)), (f32, (4,))):
+        dname = str(dtype).split(".")[1]
+        ub, db = (b.to(dtype) for b in b16)
+        kw = dict(activation="gelu", up_bias=ub, down_bias=db)
+        for t in tokens:
+            x = randn(t, d, dtype=dtype)
+            herr, hrel = max_errs(
+                ffn_gate_up_sparse_cuda(x, None, up, "gelu", tiles,
+                                        ub)[:, cols],
+                ffn_gate_up_sparse_torch(x, None, up, "gelu", tiles, ub))
+            err, rel = max_errs(ops.ffn_w4a16(x, None, up, down, **kw),
+                                ops.ffn_w4a16(x, None, up, down,
+                                              impl="torch", **kw))
+            need(hrel <= tol[dname] and rel <= tol[dname],
+                 f"ffn_fused_sparse_gelu T={t} {dname}: hidden rel "
+                 f"{hrel:.3g}, out rel {rel:.3g} > {tol[dname]}")
+            row = {"kernel": "ffn_fused_sparse_gelu", "strategy": "strategy2",
+                   "dtype": dname, "T": t, "d": d, "f": f,
+                   "up_kept_blocks": up.kept_blocks, "f_tiles": n_f,
+                   "down_kept_blocks": down.kept_blocks,
+                   "max_abs_err": herr, "max_rel_err": hrel,
+                   "ffn_max_abs_err": err, "ffn_max_rel_err": rel,
+                   "tol_rel": tol[dname]}
+            if dtype == bf16:
+                ubk = ub[cols]
+                row["ms"] = timer.ms(lambda: ffn_gate_up_sparse_cuda(
+                    x, None, up, "gelu", tiles, ub), 20)
+                row["plain_ms"] = timer.ms(lambda: ffn_gate_up_sparse_torch(
+                    x, None, up, "gelu", tiles, ub), 3)
+                library(row, lambda: F.gelu(x @ dense_of(up_k) + ubk,
+                                            approximate="tanh"),
+                        lambda: F.gelu(x @ uk16 + ubk, approximate="tanh"))
+                row["ffn_ms"] = timer.ms(
+                    lambda: ops.ffn_w4a16(x, None, up, down, **kw), 20)
+                row["ffn_plain_ms"] = timer.ms(lambda: ops.ffn_w4a16(
+                    x, None, up, down, impl="torch", **kw), 3)
+                library(row, lambda: ffn_chain(
+                    torch, x, None, dense_of(up), dense_of(down), "gelu",
+                    ub, db),
+                    lambda: ffn_chain(torch, x, None, u16, d16, "gelu", ub,
+                                      db), prefix="ffn_")
+                # the kept f-tiles' up blocks and up bias, x in, the
+                # hidden written; the whole FFN adds down and its bias
+                u_flops = 2 * t * up.kept_blocks * 128 * n_f * 128
+                row["bound_ms"], row["bound_by"] = bound(
+                    x.numel() * 2 + up_k.nbytes_model + n_f * 128 * 2
+                    + t * n_f * 128 * 2, u_flops, dname)
+                row["ffn_bytes"] = (x.numel() * 2 + up_k.nbytes_model
+                                    + down.nbytes_model
+                                    + (n_f * 128 + d) * 2 + t * d * 2)
+                row["ffn_bound_ms"], row["ffn_bound_by"] = bound(
+                    row["ffn_bytes"],
+                    u_flops + 2 * t * down.kept_blocks * 128 * d, dname)
+            rows.append(row)
+            log(f"  sparse gelu ffn (starcoder2-7b strategy2: up S="
+                f"{up.kept_blocks}, down S={down.kept_blocks}, f-tiles kept "
+                f"{n_f} of {f // 128}) {dname} T={t:3d}: hidden max_abs "
+                f"{herr:.3g} rel {hrel:.3g}; ffn max_abs {err:.3g} rel "
+                f"{rel:.3g} (tol {tol[dname]})" + times(row)
+                + ("; whole ffn" + times(row, "ffn_") if "ms" in row else ""))
+            if (t, dname) == (4, "bfloat16"):
+                line["ffn_fused_sparse_gelu"] = row
+    del u16, d16, uk16
+    ub, db = b16
+    kw = dict(activation="gelu", up_bias=ub, down_bias=db)
+    xi = randn(INVARIANCE_ROWS, d)
+    need(torch.equal(ops.ffn_w4a16(xi[:4], None, up, down, **kw),
+                     ops.ffn_w4a16(xi[:256], None, up, down, **kw)[:4]),
+         "ffn_fused_sparse_gelu: rows differ between T=4 and T=256")
+    log("  ffn_fused_sparse_gelu: T=4 rows bitwise equal inside T=256")
+    check_tile_invariance(
+        torch, lambda v: ffn_gate_up_sparse_cuda(v, None, up, "gelu", tiles,
+                                                 ub)[:, cols], xi,
+        "ffn_fused_sparse_gelu up (gelu with the f32 bias)")
+    check_tile_invariance(
+        torch, lambda v: ops.ffn_w4a16(v, None, up, down, **kw), xi,
+        "sparse gelu ffn (kernel 4 with the down bias)")
+    for t in (37, 300):
+        herr, hrel = max_errs(
+            ffn_gate_up_sparse_cuda(xi[:t], None, up, "gelu", tiles,
+                                    ub)[:, cols],
+            ffn_gate_up_sparse_torch(xi[:t], None, up, "gelu", tiles, ub))
+        err, rel = max_errs(
+            ops.ffn_w4a16(xi[:t], None, up, down, **kw),
+            ops.ffn_w4a16(xi[:t], None, up, down, impl="torch", **kw))
+        need(max(hrel, rel) <= tol["bfloat16"], f"sparse gelu ffn T={t}: "
+             f"hidden rel {hrel:.3g}, out rel {rel:.3g}")
+    log("  ffn_fused_sparse_gelu: ragged T=37, 300 (stage and whole FFN) "
+        "within tolerance of the plain versions")
+    check_unaligned(
+        torch, lambda xx, ww: ffn_gate_up_sparse_cuda(
+            xx, None, ww, "gelu", tiles, ub)[:, cols], xi[:40], up,
+        "ffn_fused_sparse_gelu (up)")
+    del w, up, down, up_k, xi
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_unaligned(torch, fn, x, st, what) -> None:
+    """``fn(x, st)`` with the sparse weight's packed blocks 4 bytes and its
+    scales 8 bytes past a 16-byte boundary (the tile's narrow copies), and
+    with x 2 bytes past one (copied to an aligned buffer by the wrapper),
+    bitwise equal to the aligned call."""
+    want = fn(x, st)
+    pk = torch.empty(st.packed.numel() + 4, dtype=torch.uint8,
+                     device=DEVICE)[4:].view(st.packed.shape)
+    pk.copy_(st.packed)
+    sc = torch.empty(st.scales.numel() + 4, dtype=torch.bfloat16,
+                     device=DEVICE)[4:].view(st.scales.shape)
+    sc.copy_(st.scales)
+    odd = dataclasses.replace(st, packed=pk, scales=sc)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEVICE)
+    x_odd = xs[1:].view(x.shape)
+    x_odd.copy_(x)
+    need(pk.data_ptr() % 16 != 0 and sc.data_ptr() % 16 != 0
+         and x_odd.data_ptr() % 16 != 0, f"{what}: operands not misaligned")
+    need(torch.equal(fn(x, odd), want) and torch.equal(fn(x_odd, st), want),
+         f"{what}: misaligned operands change the result")
+    log(f"  {what}: weights 4/8 bytes and x 2 bytes off a 16-byte boundary "
+        "bitwise equal to aligned")
 
 
 def attention_work(lengths, q_lens, hq, hkv, d, c, elt=2, kv_elt=None,
@@ -1534,6 +1764,7 @@ def matmul_kernel(w, name):
 FFN_KERNELS = {("quant", True): "ffn_fused_w4a16",
                ("quant", False): "ffn_fused_w4a16_gelu",
                ("sparse", True): "ffn_fused_sparse",
+               ("sparse", False): "ffn_fused_sparse_gelu",
                ("fp", True): "ffn_fused_dense",
                ("fp", False): "ffn_fused_dense"}
 
@@ -2017,9 +2248,11 @@ def check_prefill_caches(torch, cfg, params, results, streams):
             continue
         pcfg = dataclasses.replace(cfg, **{**over, "kv_pool_blocks": 0})
         launches.clear()
+        t0 = time.perf_counter()
         logits, _ = api.prefill(pcfg, params, {"tokens": toks},
                                 SERVE_MAX_LEN)
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         got = dict(launches)
         flash, paged = got.get("flash_attention", 0), got.get(
             "mixed_flash_attention_paged", 0)
@@ -2028,12 +2261,14 @@ def check_prefill_caches(torch, cfg, params, results, streams):
         diff = max_errs(logits, bl)
         stream = greedy_after_prefill(torch, pcfg, params, prompt,
                                       SERVE_NEW_TOKENS, SERVE_MAX_LEN)
-        log(f"  (e) strategy2-{kv} prefill: launches flash_attention {flash},"
+        log(f"  (e) strategy2-{kv} prefill of {len(prompt)} tokens: "
+            f"{seconds:.4f} s; launches flash_attention {flash},"
             f" mixed_flash_attention_paged {paged} (expected {want}); vs "
             f"the mixed-step route: logits max_abs {diff[0]:.4g}")
         need((flash, paged) == want, f"(e) strategy2-{kv}: launches "
              f"{(flash, paged)} != {want}")
-        res[f"e-{kv}"] = {"launches": got, "bulk_logits_max_abs": diff[0],
+        res[f"e-{kv}"] = {"launches": got, "seconds": seconds,
+                          "bulk_logits_max_abs": diff[0],
                           "stream": check_stream(
                               torch, pcfg, params, prompt, stream,
                               streams[f"strategy2-{kv}"][-1], max(diff[0],
@@ -2095,6 +2330,11 @@ KERNEL_META = {
                              "src/repro/kernels/ffn_fused.py:215 (the "
                              "ungated gelu variant with biases)",
                              "starcoder2-dense"),
+    "ffn_fused_sparse_gelu": ("src/repro_torch/kernels/csrc/"
+                              "ffn_fused_sparse.cu",
+                              "src/repro/kernels/ffn_fused.py:455 (the "
+                              "ungated gelu variant with biases)",
+                              "starcoder2-strategy2"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -2104,7 +2344,8 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("xlstm-dense", "xlstm-1.3b", "dense"),
           ("none", "qwen-7b", "none"),
           ("starcoder2-none", "starcoder2-7b", "none"),
-          ("starcoder2-dense", "starcoder2-7b", "dense"))
+          ("starcoder2-dense", "starcoder2-7b", "dense"),
+          ("starcoder2-strategy2", "starcoder2-7b", "strategy2"))
 PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)

@@ -1,6 +1,8 @@
-// The block-sparse W4A16 tile shared by sparse_w4a16.cu (one weight) and
-// ffn_fused_sparse.cu (gate and up together, with the activation in the
-// epilogue).
+// The float32 block-sparse W4A16 tile of sparse_w4a16.cu (one weight,
+// optionally with a bias) and ffn_fused_sparse.cu (gate and up together, or
+// up alone with its bias for the ungated gelu FFN, the activation in the
+// epilogue), on the CUDA cores.  bfloat16 runs on the tensor-core tile of
+// sparse_mma_tile.cuh.
 //
 // Layout read as the port stores it (core/sparsity.py): for output tile o
 // (128 columns) the S kept 128-row blocks of the contraction axis are listed
@@ -53,6 +55,7 @@ __global__ void __launch_bounds__(kW4Threads)
                        const int* __restrict__ idx1,
                        const uint8_t* __restrict__ pk1,
                        const __nv_bfloat16* __restrict__ sc1,
+                       const float* __restrict__ bias,
                        T* __restrict__ out) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
@@ -138,17 +141,18 @@ __global__ void __launch_bounds__(kW4Threads)
     __syncwarp();
   }
   w4a16_reduce_store<T, NW, EPI>(acc, smem, t0, n_tok, o * kCols, out_f,
-                                 out);
+                                 out, bias);
 }
 
 // n_tiles output tiles are computed: tile_map[0..n_tiles) when tile_map is
-// given, else tiles 0..n_tiles.
+// given, else tiles 0..n_tiles; bias (f32 per output column) is read by
+// kEpiBias and kEpiGeluBias.
 template <typename T, int NW, int EPI>
 int launch_sparse_tile(const void* x, int n_tok, int in_f, int out_f,
                        int n_tiles, int n_kept, const void* tile_map,
                        const void* idx0, const void* pk0, const void* sc0,
                        const void* idx1, const void* pk1, const void* sc1,
-                       void* out, cudaStream_t stream) {
+                       const float* bias, void* out, cudaStream_t stream) {
   constexpr int smem = sparse_smem_bytes<NW>();
   auto kernel = sparse_tile_kernel<T, NW, EPI>;
   REPRO_SMEM_OPT_IN(kernel, smem);
@@ -159,7 +163,7 @@ int launch_sparse_tile(const void* x, int n_tok, int in_f, int out_f,
       static_cast<const uint8_t*>(pk0),
       static_cast<const __nv_bfloat16*>(sc0), static_cast<const int*>(idx1),
       static_cast<const uint8_t*>(pk1),
-      static_cast<const __nv_bfloat16*>(sc1), static_cast<T*>(out));
+      static_cast<const __nv_bfloat16*>(sc1), bias, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 

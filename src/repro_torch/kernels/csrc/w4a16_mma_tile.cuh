@@ -1,7 +1,9 @@
 // The bfloat16 W4A16 tile of w4a16_matmul.cu (one weight) and of kernel 2's
 // gate/up stage (ffn_fused.cu: gate and up as two weights against the same
 // staged x, or up alone for the gelu variant), on Hopper's tensor cores.
-// float32 inputs keep the CUDA-core tile of w4a16_tile.cuh.
+// float32 inputs keep the CUDA-core tile of w4a16_tile.cuh.  Its weight
+// loader, stage and epilogue also build the log-scale sparse tile
+// (sparse_mma_tile.cuh).
 //
 // Layout read as the reference stores it (core/quant.py), with no repack:
 // packed uint8 (in/2, out), where byte r of each 128-row group holds row r
@@ -302,6 +304,49 @@ __device__ __forceinline__ void w4_mma_stage(
   }
 }
 
+// The epilogue of a block (common.cuh's, on the f32 sums of every weight;
+// gated: gate then up); acc(wi, i, j, e) is element e of weight wi's
+// fragment (i, j), t0 and n0 the block's first row and column.  A lane holds
+// rows g and g + 8 of 2 kNT adjacent columns, in two units of kNT; out_f %
+// 4 == 0 keeps a unit inside the matrix or wholly past it, and each unit is
+// one aligned store.
+template <class C, int NW, int EPI, class Acc>
+__device__ __forceinline__ void w4_mma_store(
+    const Acc& acc, const float* __restrict__ bias,
+    __nv_bfloat16* __restrict__ out, int n_tok, int out_f, int t0, int n0,
+    int wm, int wn, int lane) {
+#pragma unroll
+  for (int i = 0; i < C::kFragM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = t0 + wm * C::kWarpM + i * 16 + (lane >> 2) + 8 * h;
+      if (row >= n_tok) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = n0 + wn * C::kWarpN + 2 * C::kNT * (lane & 3) +
+                        u * C::kNT;
+        if (col >= out_f) continue;
+        float f[C::kNT];
+#pragma unroll
+        for (int j = 0; j < C::kNT; ++j) {
+          float s[NW];
+#pragma unroll
+          for (int wi = 0; wi < NW; ++wi) s[wi] = acc(wi, i, j, 2 * h + u);
+          f[j] = epilogue<NW, EPI>(s, bias, col + j);
+        }
+        __nv_bfloat16* dst = out + (size_t)row * out_f + col;
+        if constexpr (C::kNT == 4) {
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+        } else if constexpr (C::kNT == 2) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(f[0], f[1]);
+        } else {
+          *dst = from_f32<__nv_bfloat16>(f[0]);
+        }
+      }
+    }
+}
+
 template <class C, int EPI>
 __global__ void __launch_bounds__(C::kThreads)
     w4a16_mma_kernel(const __nv_bfloat16* __restrict__ x, int n_tok,
@@ -349,40 +394,9 @@ __global__ void __launch_bounds__(C::kThreads)
   }
   cp_async_wait<0>();
 
-  // epilogue (common.cuh's, on the f32 sums of every weight; gated: gate
-  // then up): a lane holds rows g and g + 8 of 2 kNT adjacent columns, in
-  // two units of kNT; out_f % 4 == 0 keeps a unit inside the matrix or
-  // wholly past it, and each unit is one aligned store
-#pragma unroll
-  for (int i = 0; i < C::kFragM; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = t0 + wm * C::kWarpM + i * 16 + (lane >> 2) + 8 * h;
-      if (row >= n_tok) continue;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int col = n0 + wn * C::kWarpN + 2 * C::kNT * (lane & 3) +
-                        u * C::kNT;
-        if (col >= out_f) continue;
-        float f[C::kNT];
-#pragma unroll
-        for (int j = 0; j < C::kNT; ++j) {
-          float s[C::NW];
-#pragma unroll
-          for (int wi = 0; wi < C::NW; ++wi) s[wi] = acc[wi][i][j][2 * h + u];
-          f[j] = epilogue<C::NW, EPI>(s, bias, col + j);
-        }
-        __nv_bfloat16* dst = out + (size_t)row * out_f + col;
-        if constexpr (C::kNT == 4) {
-          *reinterpret_cast<uint2*>(dst) =
-              make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
-        } else if constexpr (C::kNT == 2) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(f[0], f[1]);
-        } else {
-          *dst = from_f32<__nv_bfloat16>(f[0]);
-        }
-      }
-    }
+  w4_mma_store<C, C::NW, EPI>(
+      [&](int wi, int i, int j, int e) { return acc[wi][i][j][e]; }, bias,
+      out, n_tok, out_f, t0, n0, wm, wn, lane);
 }
 
 // pk2, sc2: the second weight (up) of a two-weight tile, else null.

@@ -12,10 +12,11 @@ kernels:
   the hidden in x's dtype, then ``csrc/w4a16_matmul.cu`` contracts it with
   ``down`` (adding ``down_bias`` in f32 before its cast);
 * ``"sparse"``: ``csrc/ffn_fused_sparse.cu`` does the same for block-sparse
-  gate/up, only for the hidden tiles ``down`` keeps (all of them for a
-  dense-quantized down), then ``csrc/sparse_w4a16.cu`` (sparse down, its own
-  ``block_idx``) or ``csrc/w4a16_matmul.cu`` (dense down) contracts them;
-  gated activations only (the gelu variant is not ported);
+  gate/up (or up alone with ``up_bias``), only for the hidden tiles
+  ``down`` keeps (all of them for a dense-quantized down), then
+  ``csrc/sparse_w4a16.cu`` (sparse down, its own ``block_idx``) or
+  ``csrc/w4a16_matmul.cu`` (dense down) contracts them, adding
+  ``down_bias`` in f32 before the cast;
 * ``"fp"``: ``csrc/ffn_fused_dense.cu`` computes the hidden from 16-bit
   gate/up in f32, then ``csrc/dense_matmul.cu`` contracts it with ``down``
   (the down bias as its f32 epilogue).
@@ -38,7 +39,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.dense_matmul import (
     dense_matmul_cuda, dense_matmul_f32, dense_weight)
 from repro_torch.kernels.sparse_w4a16 import (
-    check_sparse, sparse_matmul_f32, sparse_w4a16_matmul_cuda)
+    check_sparse, sparse_matmul_f32, sparse_operands, sparse_w4a16_matmul_cuda)
 from repro_torch.kernels.w4a16_matmul import (
     DTYPE_CODES, aligned, bias_f32, check_activation, check_quantized,
     w4a16_matmul_cuda, w4a16_matmul_f32)
@@ -50,12 +51,13 @@ GATED_ACTIVATIONS = ("swiglu", "geglu")
 # the epilogue codes of csrc/common.cuh
 _ACT_CODES = {"swiglu": 1, "geglu": 2, "gelu": 3}
 SPARSE_NAME = "ffn_fused_sparse"
+SPARSE_GELU_NAME = "ffn_fused_sparse_gelu"   # the ungated variant's launches
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 _DENSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
 _SPARSE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                    + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 
 
@@ -239,39 +241,57 @@ def tile_subset(st: SparseQuantizedTensor,
         block_idx=st.block_idx[t], shape=(st.shape[0], t.numel() * GROUP_SIZE))
 
 
-def ffn_gate_up_sparse_torch(x: torch.Tensor, gate: SparseQuantizedTensor,
+def ffn_gate_up_sparse_torch(x: torch.Tensor,
+                             gate: SparseQuantizedTensor | None,
                              up: SparseQuantizedTensor, activation: str,
-                             f_tiles: torch.Tensor | None) -> torch.Tensor:
+                             f_tiles: torch.Tensor | None,
+                             up_bias: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """Plain version of ``csrc/ffn_fused_sparse.cu``: the hidden columns of
     the f-tiles in ``f_tiles`` (all when ``None``), ``(tokens,
-    n_tiles * 128)`` in x's dtype."""
+    n_tiles * 128)`` in x's dtype; gated, or ``"gelu"`` (up alone, with
+    ``up_bias`` over all d_ff columns)."""
+    gated = activation in GATED_ACTIVATIONS
     if f_tiles is not None:
-        gate, up = tile_subset(gate, f_tiles), tile_subset(up, f_tiles)
-    return _act(activation, sparse_matmul_f32(x, gate),
-                sparse_matmul_f32(x, up)).to(x.dtype)
+        up = tile_subset(up, f_tiles)
+        gate = tile_subset(gate, f_tiles) if gated else None
+        if up_bias is not None:
+            up_bias = up_bias.reshape(-1, GROUP_SIZE)[f_tiles.long()
+                                                      ].reshape(-1)
+    u = sparse_matmul_f32(x, up)
+    if up_bias is not None:
+        u = u + up_bias.to(torch.float32)
+    g = sparse_matmul_f32(x, gate) if gated else None
+    return _act(activation, g, u).to(x.dtype)
 
 
-def ffn_gate_up_sparse_cuda(x: torch.Tensor, gate: SparseQuantizedTensor,
+def ffn_gate_up_sparse_cuda(x: torch.Tensor,
+                            gate: SparseQuantizedTensor | None,
                             up: SparseQuantizedTensor, activation: str,
-                            f_tiles: torch.Tensor | None) -> torch.Tensor:
+                            f_tiles: torch.Tensor | None,
+                            up_bias: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Launch ``csrc/ffn_fused_sparse.cu``: a (tokens, d_ff) hidden in x's
     dtype whose columns are written only for the f-tiles in ``f_tiles``
     (all tiles when ``None``).  The other columns are left unwritten, and
-    the gate/up blocks of their tiles are never read."""
+    the gate/up blocks of their tiles are never read.  Gated (gate and up)
+    or ``"gelu"`` (up alone, with ``up_bias``)."""
     check_activation(x, SPARSE_NAME)
-    if activation not in GATED_ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {activation!r}: the ungated gelu FFN with biases "
-            "is not ported to the sparse CUDA kernel yet (a later slice); "
-            "swiglu and geglu are")
-    check_sparse(gate, x.device, f"{SPARSE_NAME} gate")
+    _check_activation_name(activation)
+    gated = activation in GATED_ACTIVATIONS
+    _check_gated_bias(activation, up_bias, None)
     check_sparse(up, x.device, f"{SPARSE_NAME} up")
     d, f = up.shape
-    if (gate.shape != up.shape or gate.kept_blocks != up.kept_blocks
+    if gated:
+        check_sparse(gate, x.device, f"{SPARSE_NAME} gate")
+    if ((gated and (gate.shape != up.shape
+                    or gate.kept_blocks != up.kept_blocks))
             or x.shape[-1] != d):
-        raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate {gate.shape}"
-                         f" ({gate.kept_blocks} kept), up {up.shape} "
-                         f"({up.kept_blocks} kept)")
+        raise ValueError(
+            f"FFN shapes: x {tuple(x.shape)}, gate "
+            f"{(gate.shape, gate.kept_blocks) if gated else None}, up "
+            f"{up.shape} ({up.kept_blocks} kept)")
+    ub = bias_f32(up_bias, f, x.device, f"{SPARSE_NAME} up_bias")
     n_tiles = f // GROUP_SIZE
     if f_tiles is not None:
         if (f_tiles.dtype != torch.int32 or f_tiles.dim() != 1
@@ -279,22 +299,27 @@ def ffn_gate_up_sparse_cuda(x: torch.Tensor, gate: SparseQuantizedTensor,
             raise ValueError("f_tiles must be a contiguous int32 vector on "
                              f"{x.device}")
         n_tiles = f_tiles.numel()
-    x2 = x.reshape(-1, d).contiguous()
-    n = x2.shape[0]
-    hidden = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    if n and n_tiles:
+    g_idx, g_pk, g_sc = ((gate.block_idx, *sparse_operands(gate)) if gated
+                         else (None, None, None))
+    u_pk, u_sc = sparse_operands(up)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch(x2, hidden, n):
+        if not n_tiles:
+            return
+        x2 = aligned(x2, 16)
         fn = _build.function("ffn_fused_sparse", "ffn_fused_sparse_launch",
                              _SPARSE_ARGTYPES)
-        rc = fn(x2.data_ptr(),
-                None if f_tiles is None else f_tiles.data_ptr(), n_tiles,
-                gate.block_idx.data_ptr(), gate.packed.data_ptr(),
-                gate.scales.data_ptr(), up.block_idx.data_ptr(),
-                up.packed.data_ptr(), up.scales.data_ptr(), hidden.data_ptr(),
-                n, d, f, up.kept_blocks, _ACT_CODES[activation],
-                DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+        rc = fn(x2.data_ptr(), ptr(f_tiles), n_tiles, ptr(g_idx), ptr(g_pk),
+                ptr(g_sc), up.block_idx.data_ptr(), u_pk.data_ptr(),
+                u_sc.data_ptr(), ptr(ub), hidden.data_ptr(), n, d, f,
+                up.kept_blocks, _ACT_CODES[activation], DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x.device))
         _build.check("ffn_fused_sparse", rc)
-        _build.launches[SPARSE_NAME] += 1
-    return hidden.reshape(*x.shape[:-1], f)
+        _build.launches[SPARSE_NAME if gated else SPARSE_GELU_NAME] += 1
+    return _hidden_launch(x, d, f, launch)
 
 
 def fused_variant(gate, up, down, activation: str) -> str | None:
@@ -327,17 +352,20 @@ def fused_variant(gate, up, down, activation: str) -> str | None:
     return None
 
 
-def ffn_fused_sparse_cuda(x, gate, up, down, *,
-                          activation="swiglu") -> torch.Tensor:
-    """The sparse CUDA path: gate/up/activation for the f-tiles ``down``
-    keeps, then the down projection through the sparse W4A16 kernel (its
-    own ``block_idx`` reads exactly those tiles) or, for a dense down, the
-    W4A16 kernel."""
+def ffn_fused_sparse_cuda(x, gate, up, down, *, activation="swiglu",
+                          up_bias=None, down_bias=None) -> torch.Tensor:
+    """The sparse CUDA path: gate/up/activation (or gelu of up with its
+    bias) for the f-tiles ``down`` keeps, then the down projection, with
+    ``down_bias`` in f32 before the cast, through the sparse W4A16 kernel
+    (its own ``block_idx`` reads exactly those tiles) or, for a dense down,
+    the W4A16 kernel."""
+    _check_gated_bias(activation, up_bias, down_bias)
     f_tiles = kept_f_tiles(down)
-    hidden = ffn_gate_up_sparse_cuda(x, gate, up, activation, f_tiles)
+    hidden = ffn_gate_up_sparse_cuda(x, gate, up, activation, f_tiles,
+                                     up_bias)
     if f_tiles is None:
-        return w4a16_matmul_cuda(hidden, down)
-    return sparse_w4a16_matmul_cuda(hidden, down)
+        return w4a16_matmul_cuda(hidden, down, down_bias)
+    return sparse_w4a16_matmul_cuda(hidden, down, down_bias)
 
 
 def ffn_fused_dense_cuda(x, gate, up, down, *, activation="swiglu",
@@ -360,7 +388,8 @@ def ffn_w4a16_cuda(x, gate, up, down, *, activation="swiglu", up_bias=None,
         hidden = ffn_gate_up_cuda(x, gate, up, activation, up_bias)
         return w4a16_matmul_cuda(hidden, down, down_bias)
     if variant == "sparse":
-        return ffn_fused_sparse_cuda(x, gate, up, down, activation=activation)
+        return ffn_fused_sparse_cuda(x, gate, up, down, activation=activation,
+                                     up_bias=up_bias, down_bias=down_bias)
     if variant == "fp":
         return ffn_fused_dense_cuda(x, gate, up, down, activation=activation,
                                     up_bias=up_bias, down_bias=down_bias)

@@ -1,18 +1,19 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --full --strategy strategy2``,
-``--full --arch starcoder2-7b --strategy none`` (LayerNorm and the ungated
-gelu FFN), or ``--full --arch xlstm-1.3b`` for the xLSTM family.
+``--full --arch starcoder2-7b --strategy strategy2`` (LayerNorm and the
+ungated gelu FFN with biases), or ``--full --arch xlstm-1.3b`` for the
+xLSTM family.
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none`` (16-bit weights), ``dense``
 W4A16, or the log-scale sparse ``strategy1``-``strategy3`` of paper Table
-II; the xLSTM takes ``none`` and ``dense``, and on the card so does an
-ungated-gelu model such as starcoder2-7b, whose sparse FFN kernel is not
-ported), starts the continuous-batching engine over a
-slot cache or, with ``--kv-layout paged``, a shared block pool (refused for
-the xLSTM, which has no KV cache), and runs a synthetic request workload
-(prompts of 4–32 tokens from ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu`` is given;
-without ``--full`` it serves the reduced ``-smoke`` configuration.
+II; the xLSTM takes ``none`` and ``dense``), starts the continuous-batching
+engine over a slot cache or, with ``--kv-layout paged``, a shared block
+pool (refused for the xLSTM, which has no KV cache), and runs a synthetic
+request workload (prompts of 4–32 tokens from
+``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu``
+is given; without ``--full`` it serves the reduced ``-smoke``
+configuration.
 Prints the summary, the scheduler line, the pool line of a paged run and
 each kernel's launch count.
 """
@@ -65,11 +66,6 @@ def main(argv=None) -> None:
         raise SystemExit(f"{args.arch} is served with --strategy none or "
                          "dense (the log-scale sparse strategies are ported "
                          "for the dense family only)")
-    if (cfg.activation == "gelu" and args.device != "cpu"
-            and args.strategy not in ("none", "dense")):
-        raise SystemExit(f"{args.arch}'s ungated gelu FFN is served on the "
-                         "card with --strategy none or dense (the sparse "
-                         "FFN kernel takes swiglu and geglu)")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = quantize_model(api.init_params(cfg, gen), args.strategy)
     print(f"arch={cfg.name} packed={quantized_bytes(params) / 1e6:.1f} MB "

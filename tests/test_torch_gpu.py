@@ -108,49 +108,76 @@ def _sparse_ffn(gen, d, f, down_kind):
     return gate, up, down
 
 
+def _ffn_biases(gen, activation, f, d):
+    """The gelu FFN's up and down biases (f32), none for a gated one."""
+    if activation != "gelu":
+        return {}
+    return {"up_bias": _rand(gen, f) * 0.1, "down_bias": _rand(gen, d) * 0.1}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
 @pytest.mark.parametrize("down_kind", ["sparse", "dense"])
 def test_sparse_ffn_kernel_matches_plain(cuda, dtype, activation, down_kind):
+    """Kernel 5 with either down; gelu: up alone with both biases, counted
+    as ``ffn_fused_sparse_gelu``."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     gate, up, down = _sparse_ffn(gen, 1024, 768, down_kind)
+    kw = _ffn_biases(gen, activation, 768, 1024)
+    if activation == "gelu":
+        gate = None
     x = _rand(gen, 9, 1024, dtype=dtype)
     before = dict(_build.launches)
-    got = ops.ffn_w4a16(x, gate, up, down, activation=activation)
+    got = ops.ffn_w4a16(x, gate, up, down, activation=activation, **kw)
     launched = {k: v - before.get(k, 0) for k, v in _build.launches.items()
                 if v != before.get(k, 0)}
     second = ("sparse_w4a16_matmul" if down_kind == "sparse"
               else "w4a16_matmul")
-    assert launched == {"ffn_fused_sparse": 1, second: 1}
+    first = ("ffn_fused_sparse_gelu" if activation == "gelu"
+             else "ffn_fused_sparse")
+    assert launched == {first: 1, second: 1}
     _close(got, ops.ffn_w4a16(x, gate, up, down, activation=activation,
-                              impl="torch"), dtype)
+                              impl="torch", **kw), dtype)
     assert torch.equal(ops.ffn_w4a16(x[:2], gate, up, down,
-                                     activation=activation), got[:2])
+                                     activation=activation, **kw), got[:2])
     # the hidden tiles the kernel writes match the plain version's
     tiles = kept_f_tiles(down)
     cols = (torch.arange(768, device="cuda") if tiles is None else
             (tiles.long()[:, None] * 128
              + torch.arange(128, device="cuda")).reshape(-1))
-    h = ffn_gate_up_sparse_cuda(x, gate, up, activation, tiles)
+    ub = kw.get("up_bias")
+    h = ffn_gate_up_sparse_cuda(x, gate, up, activation, tiles, ub)
     _close(h[:, cols], ffn_gate_up_sparse_torch(x, gate, up, activation,
-                                                tiles), dtype)
+                                                tiles, ub), dtype)
 
 
 def test_sparse_ffn_never_reads_dropped_f_tiles(cuda):
-    """With a tile_uniform down, the gate/up blocks of the hidden tiles
-    down drops are never read: NaN scales there change nothing."""
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    gate, up, down = _sparse_ffn(gen, 1024, 768, "sparse")
-    x = _rand(gen, 5, 1024, dtype=torch.bfloat16)
-    clean = ops.ffn_w4a16(x, gate, up, down)
-    dropped = torch.ones(768 // 128, dtype=torch.bool, device="cuda")
-    dropped[kept_f_tiles(down).long()] = False
-    assert bool(dropped.any())
-    for w in (gate, up):
-        w.scales[dropped] = float("nan")
-    poisoned = ops.ffn_w4a16(x, gate, up, down)
-    assert bool(torch.isfinite(poisoned).all())
-    assert torch.equal(poisoned, clean)
+    """With a tile_uniform down, the gate/up blocks (gelu: the up blocks
+    and the up bias) of the hidden tiles down drops are never read: NaN
+    there changes nothing, in both dtypes."""
+    for activation in ("swiglu", "gelu"):
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            gate, up, down = _sparse_ffn(gen, 1024, 768, "sparse")
+            kw = _ffn_biases(gen, activation, 768, 1024)
+            if activation == "gelu":
+                gate = None
+            x = _rand(gen, 5, 1024, dtype=dtype)
+            clean = ops.ffn_w4a16(x, gate, up, down, activation=activation,
+                                  **kw)
+            dropped = torch.ones(768 // 128, dtype=torch.bool,
+                                 device="cuda")
+            dropped[kept_f_tiles(down).long()] = False
+            assert bool(dropped.any())
+            for w in (gate, up):
+                if w is not None:
+                    w.scales[dropped] = float("nan")
+            if "up_bias" in kw:
+                kw["up_bias"].view(-1, 128)[dropped] = float("nan")
+            poisoned = ops.ffn_w4a16(x, gate, up, down,
+                                     activation=activation, **kw)
+            assert bool(torch.isfinite(poisoned).all()), (activation, dtype)
+            assert torch.equal(poisoned, clean), (activation, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -866,15 +893,19 @@ ENGINE_16BIT_CASES = {
     "none": ("qwen-7b", "none", dict(n_layers=2)),
     "starcoder2-none": ("starcoder2-7b", "none", dict(n_layers=2)),
     "starcoder2-dense": ("starcoder2-7b", "dense", dict(n_layers=2)),
+    "starcoder2-strategy2": ("starcoder2-7b", "strategy2",
+                             dict(n_layers=2)),
 }
 
 
 @pytest.mark.parametrize("case", list(ENGINE_16BIT_CASES))
 def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
-    """16-bit qwen-7b and starcoder2-7b (16-bit and W4A16) at full width,
-    2 layers: every stream equals ``reference_decode``; per tick one
-    attention launch and one FFN launch per layer, the norms through the
-    fixed-order kernels, and no 16-bit product outside ``dense_matmul``."""
+    """16-bit qwen-7b and starcoder2-7b (16-bit, W4A16 and strategy2:
+    sparse wo and up, tile_uniform sparse down, the gelu FFN's biases) at
+    full width, 2 layers: every stream equals ``reference_decode``; per
+    tick one attention launch and one FFN launch per layer, the norms
+    through the fixed-order kernels, and no 16-bit product outside
+    ``dense_matmul``."""
     arch, strategy, over = ENGINE_16BIT_CASES[case]
     from repro_torch.configs import get_config
     from repro_torch.core.compiler import quantize_model
@@ -898,12 +929,15 @@ def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
     ffn = {"none": "ffn_fused_dense", "dense": (
         "ffn_fused_w4a16_gelu" if cfg.activation == "gelu"
-        else "ffn_fused_w4a16")}[strategy]
+        else "ffn_fused_w4a16"), "strategy2": "ffn_fused_sparse_gelu"}[
+            strategy]
     matmul = "dense_matmul" if strategy == "none" else "w4a16_matmul"
+    sparse = 2 * L if strategy == "strategy2" else 0     # wo and down
     assert _build.launches["mixed_flash_attention"] == ticks * L
     assert _build.launches[norm] == ticks * (2 * L + 1)
     assert _build.launches[ffn] == ticks * L
-    assert _build.launches[matmul] == ticks * (5 * L + 1)
+    assert _build.launches[matmul] == ticks * (5 * L + 1) - ticks * sparse
+    assert _build.launches["sparse_w4a16_matmul"] == ticks * sparse
     for r in reqs:
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
@@ -1194,3 +1228,149 @@ def test_ffn_gate_up_mma_unaligned_operands_bitwise(cuda, tokens):
     x_odd.copy_(x)
     assert torch.equal(ffn_gate_up_cuda(x, odd(gate), up, "swiglu"), want)
     assert torch.equal(ffn_gate_up_cuda(x_odd, gate, odd(up), "swiglu"), want)
+
+
+# -- the bf16 log-scale sparse tile (csrc/sparse_mma_tile.cuh) ----------------
+# Kernel 4 and kernel 5's gate/up stage (two weights, or up alone with its
+# bias for gelu) on mma.sync; the launcher picks the tile by the token
+# count: T <= 16 (16 x 32), T <= 128 (64 x 64), above (64 x 128, or, for
+# one weight, 128 x 128 once that gives every SM a block).
+
+# (in_f, out_f, density, m, tile_uniform): qwen-7b's wo pattern, down
+# patterns (m = 2, tile_uniform), an odd kept count (S = 3: the two-block
+# decode stages end half past the last block) and one kept block a tile
+SPARSE_LAYOUTS = {"wo": (1024, 384, 0.5, 8, False),
+                  "down": (768, 256, 0.5, 2, True),
+                  "odd-S": (768, 512, 0.5, 2, False),
+                  "S=1": (256, 640, 0.5, 2, True)}
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 17, 37, 300])
+@pytest.mark.parametrize("layout", list(SPARSE_LAYOUTS))
+@pytest.mark.parametrize("bias", [False, True])
+def test_sparse_mma_tile_ragged_shapes(cuda, tokens, layout, bias):
+    """bf16 kernel 4 on the tensor-core tile against its plain version over
+    ragged token counts on both sides of each tile boundary, with and
+    without the f32 bias; rows alone are bitwise the rows of the call."""
+    from repro_torch.kernels.sparse_w4a16 import (
+        sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
+    in_f, out_f, density, m, tu = SPARSE_LAYOUTS[layout]
+    gen = torch.Generator(device="cuda").manual_seed(tokens + in_f + out_f)
+    st = block_sparsify_quantize(_rand(gen, in_f, out_f) * 0.05, density,
+                                 blocks_per_group=m, tile_uniform=tu)
+    b = _rand(gen, out_f) * 0.1 if bias else None
+    x = _rand(gen, tokens, in_f, dtype=torch.bfloat16)
+    before = _build.launches["sparse_w4a16_matmul"]
+    got = sparse_w4a16_matmul_cuda(x, st, b)
+    assert _build.launches["sparse_w4a16_matmul"] == before + 1
+    _close(got, sparse_w4a16_matmul_torch(x, st, b), torch.bfloat16)
+    _rows_alone_equal(lambda v: sparse_w4a16_matmul_cuda(v, st, b), x, got)
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 17, 37, 300])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
+@pytest.mark.parametrize("f_tiles", ["all", "kept"])
+def test_sparse_ffn_mma_ragged_shapes(cuda, tokens, activation, f_tiles):
+    """bf16 kernel 5's first stage against its plain version: gate and up
+    each gather their own kept blocks (two weights), or up alone with its
+    bias (gelu), over every f-tile or a tile_uniform down's kept ones."""
+    gen = torch.Generator(device="cuda").manual_seed(60 + tokens)
+    d, f = 768, 640
+    gated = activation != "gelu"
+    gate, up = (block_sparsify_quantize(_rand(gen, d, f) * 0.05, 0.5,
+                                        blocks_per_group=2)
+                for _ in range(2))
+    if not gated:
+        gate = None
+    assert gated is False or not torch.equal(gate.block_idx, up.block_idx)
+    ub = None if gated else _rand(gen, f) * 0.1
+    tiles = (None if f_tiles == "all" else
+             torch.tensor([4, 1, 3], dtype=torch.int32, device="cuda"))
+    cols = (torch.arange(f, device="cuda") if tiles is None else
+            (tiles.long()[:, None] * 128
+             + torch.arange(128, device="cuda")).reshape(-1))
+    x = _rand(gen, tokens, d, dtype=torch.bfloat16)
+    h = ffn_gate_up_sparse_cuda(x, gate, up, activation, tiles, ub)
+    _close(h[:, cols], ffn_gate_up_sparse_torch(x, gate, up, activation,
+                                                tiles, ub), torch.bfloat16)
+    _rows_alone_equal(
+        lambda v: ffn_gate_up_sparse_cuda(v, gate, up, activation, tiles,
+                                          ub)[:, cols], x, h[:, cols])
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_sparse_w4a16_rows_invariant_across_tiles(cuda, bias):
+    """Rows 100-103 of bf16 kernel 4 at qwen-7b's wo (4096 -> 4096, half
+    the blocks kept) alone are bitwise the same inside every tile
+    configuration's calls, with and without the bias."""
+    from repro_torch.kernels.sparse_w4a16 import sparse_w4a16_matmul_cuda
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    st = block_sparsify_quantize(_rand(gen, 4096, 4096) * 0.02, 0.5)
+    b = _rand(gen, 4096) * 0.1 if bias else None
+    x = _rand(gen, 1024, 4096, dtype=torch.bfloat16)
+    _tile_invariant(lambda v: sparse_w4a16_matmul_cuda(v, st, b), x)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_sparse_ffn_rows_invariant_across_tiles(cuda, activation):
+    """Rows 100-103 of bf16 kernel 5's stage and of the whole sparse FFN
+    (tile_uniform sparse down) alone are bitwise the same inside every
+    tile configuration's calls."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    d, f = 1024, 2816
+    gate, up, down = _sparse_ffn(gen, d, f, "sparse")
+    kw = _ffn_biases(gen, activation, f, d)
+    if activation == "gelu":
+        gate = None
+    tiles = kept_f_tiles(down)
+    x = _rand(gen, 1024, d, dtype=torch.bfloat16)
+    cols = (tiles.long()[:, None] * 128
+            + torch.arange(128, device="cuda")).reshape(-1)
+    _tile_invariant(lambda v: ffn_gate_up_sparse_cuda(
+        v, gate, up, activation, tiles, kw.get("up_bias"))[:, cols], x)
+    _tile_invariant(lambda v: ops.ffn_w4a16(v, gate, up, down,
+                                            activation=activation, **kw), x)
+
+
+def _odd_sparse(st):
+    """``st`` with its packed blocks 4 bytes and its scales 8 bytes past a
+    16-byte boundary."""
+    import dataclasses
+    pk = torch.empty(st.packed.numel() + 4, dtype=torch.uint8,
+                     device="cuda")[4:].view(st.packed.shape)
+    pk.copy_(st.packed)
+    sc = torch.empty(st.scales.numel() + 4, dtype=torch.bfloat16,
+                     device="cuda")[4:].view(st.scales.shape)
+    sc.copy_(st.scales)
+    assert pk.data_ptr() % 16 and sc.data_ptr() % 16
+    return dataclasses.replace(st, packed=pk, scales=sc)
+
+
+@pytest.mark.parametrize("tokens", [3, 40, 300])
+def test_sparse_mma_unaligned_operands_bitwise(cuda, tokens):
+    """Sparse weights 4 (packed) and 8 bytes (scales) past a 16-byte
+    boundary take the narrow copies and fill the ring with the same bits;
+    an x 2 bytes past one is copied to an aligned buffer: kernel 4 and both
+    branches of kernel 5 give the same bits as with aligned operands."""
+    gen = torch.Generator(device="cuda").manual_seed(70 + tokens)
+    d, f = 768, 640
+    st = block_sparsify_quantize(_rand(gen, d, f) * 0.05, 0.5,
+                                 blocks_per_group=2)
+    up = block_sparsify_quantize(_rand(gen, d, f) * 0.05, 0.5,
+                                 blocks_per_group=2)
+    ub = _rand(gen, f) * 0.1
+    x = _rand(gen, tokens, d, dtype=torch.bfloat16)
+    xs = torch.empty(tokens * d + 1, dtype=torch.bfloat16, device="cuda")
+    x_odd = xs[1:].view(tokens, d)
+    x_odd.copy_(x)
+    assert x_odd.data_ptr() % 16
+    want = ops.sparse_w4a16_matmul(x, st)
+    assert torch.equal(ops.sparse_w4a16_matmul(x, _odd_sparse(st)), want)
+    assert torch.equal(ops.sparse_w4a16_matmul(x_odd, st), want)
+    for act, gate, bias in (("swiglu", st, None), ("gelu", None, ub)):
+        want = ffn_gate_up_sparse_cuda(x, gate, up, act, None, bias)
+        odd_gate = None if gate is None else _odd_sparse(gate)
+        assert torch.equal(ffn_gate_up_sparse_cuda(
+            x, odd_gate, up, act, None, bias), want), act
+        assert torch.equal(ffn_gate_up_sparse_cuda(
+            x_odd, gate, _odd_sparse(up), act, None, bias), want), act

@@ -2,15 +2,18 @@
 CPU: block selection and packing (bitwise), the plain versions of the two
 sparse kernels, the model's steps and the engine's token streams.
 
-The model is ``qwen-7b-smoke`` at d_model 1024, 8 query heads over 2 KV
+The models are ``qwen-7b-smoke`` and ``starcoder2-7b-smoke`` (LayerNorm,
+the ungated gelu FFN with biases) at d_model 1024, 8 query heads over 2 KV
 heads of 128, d_ff 768, vocab 256, 2 layers, f32; weights from the
-reference (``init_params`` at PRNGKey(0), then ``quantize_model``) reach the
-port through numpy and ``repro_torch.interop``.  Under strategy1-3 ``wo``,
-``gate`` and ``up`` are block-sparse; ``down`` has 6 blocks, so it groups
-them in pairs (m = 2) as qwen-7b's 86-block ``down`` does: a tile_uniform
-sparse tensor at density 0.5 (strategy1, 2) and a dense ``QuantizedTensor``
-at 0.25 (strategy3, where ``round(0.5) == 0``).  Both branches of the
-sparse FFN run.
+reference (``init_params`` at PRNGKey(0); starcoder2's biases and LayerNorm
+shifts made random from a numpy seed, since they start at zero; then
+``quantize_model``) reach the port through numpy and
+``repro_torch.interop``.  Under strategy1-3 ``wo``, ``gate`` and ``up`` are
+block-sparse; ``down`` has 6 blocks, so it groups them in pairs (m = 2) as
+qwen-7b's 86-block ``down`` does: a tile_uniform sparse tensor at density
+0.5 (strategy1, 2) and a dense ``QuantizedTensor`` at 0.25 (strategy3,
+where ``round(0.5) == 0``).  Both branches of the sparse FFN run, gated and
+gelu.
 
 Tolerances: kernels in f32 at 2e-4, as the reference's own kernel tests
 (sums taken in another order by another library); logits and caches at
@@ -38,7 +41,9 @@ from repro_torch.core.compiler import quantize_model  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
 from repro_torch.kernels import ffn_fused, ops  # noqa: E402
 from repro_torch.kernels.ffn_fused import ffn_w4a16_torch  # noqa: E402
-from repro_torch.kernels.sparse_w4a16 import sparse_matmul_f32  # noqa: E402
+from repro_torch.kernels.sparse_w4a16 import (  # noqa: E402
+    sparse_matmul_f32, sparse_w4a16_matmul_torch)
+from repro_torch.kernels.w4a16_matmul import w4a16_matmul_torch  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Engine, Request, reference_decode)
@@ -156,13 +161,37 @@ def test_sparse_matmul_plain_matches_reference(tokens, tile_uniform):
                                                  tst).numpy())
 
 
+@pytest.mark.parametrize("tokens", [1, 33])
+def test_sparse_matmul_plain_with_bias_matches_reference(tokens):
+    """Kernel 4's plain version with the f32 bias a sparse down projection
+    of the gelu FFN carries: the reference's product, then the bias added
+    to the f32 sum before the cast (the reference's fused kernel adds its
+    down bias so)."""
+    rng = np.random.default_rng(10 + tokens)
+    jst, tst = _sparse(rng, 768, 1024, 0.5, m=2, tile_uniform=True)
+    x = rng.normal(size=(tokens, 768)).astype(np.float32)
+    b = rng.normal(size=(1024,)).astype(np.float32)
+    got = sparse_w4a16_matmul_torch(torch.from_numpy(x), tst,
+                                    torch.from_numpy(b))
+    assert torch.equal(got, sparse_matmul_f32(torch.from_numpy(x), tst)
+                       + torch.from_numpy(b))
+    jx = jnp.asarray(x)
+    for impl in ("xla", "pallas"):
+        want = np.asarray(jops.sparse_w4a16_matmul(jx, jst, impl=impl)) + b
+        np.testing.assert_allclose(got.numpy(), want, **KERNEL_TOL)
+    bf = sparse_w4a16_matmul_torch(torch.from_numpy(x).bfloat16(), tst,
+                                   torch.from_numpy(b))
+    assert bf.dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("down_kind", ["sparse", "dense"])
-@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "gelu"])
 @pytest.mark.parametrize("tokens", [3, 40])
 def test_sparse_ffn_plain_matches_reference(tokens, activation, down_kind):
-    """d 1024, d_ff 768: sparse gate/up at density 0.25, down either the
-    tile_uniform sparse tensor (m = 2) or dense-quantized, as the
-    compiler's strategies 2 and 3 make them."""
+    """d 1024, d_ff 768: sparse gate/up (gelu: up alone, with random up and
+    down biases) at density 0.25, down either the tile_uniform sparse
+    tensor (m = 2) or dense-quantized, as the compiler's strategies 2 and 3
+    make them."""
     rng = np.random.default_rng(tokens)
     gj, gt = _sparse(rng, 1024, 768, 0.25)
     uj, ut = _sparse(rng, 1024, 768, 0.25)
@@ -173,18 +202,36 @@ def test_sparse_ffn_plain_matches_reference(tokens, activation, down_kind):
         dj = jquantize(jnp.asarray(_weight(rng, 768, 1024)))
         dt = _port(dj)
     x = rng.normal(size=(tokens, 1024)).astype(np.float32)
+    jb, tb = {}, {}
+    if activation == "gelu":
+        gj = gt = None
+        for name, n in (("up_bias", 768), ("down_bias", 1024)):
+            b = rng.normal(size=(n,)).astype(np.float32) * 0.5
+            jb[name], tb[name] = jnp.asarray(b), torch.from_numpy(b)
     got = ffn_w4a16_torch(torch.from_numpy(x), gt, ut, dt,
-                          activation=activation).numpy()
+                          activation=activation, **tb).numpy()
     assert ffn_fused.fused_variant(gt, ut, dt, activation) == "sparse"
     jx = jnp.asarray(x)
     for impl in ("xla", "pallas", "ref"):
         want = jops.ffn_w4a16(jx, gj, uj, dj, activation=activation,
-                              impl=impl)
+                              impl=impl, **jb)
         np.testing.assert_allclose(got, np.asarray(want), **KERNEL_TOL)
     np.testing.assert_allclose(
         got, ops.ffn_w4a16(torch.from_numpy(x), gt, ut, dt,
-                           activation=activation, impl="ref").numpy(),
+                           activation=activation, impl="ref", **tb).numpy(),
         **KERNEL_TOL)
+    # the card's two stages, in their plain versions: the kept f-tiles'
+    # hidden, then down over exactly those tiles with the down bias
+    tiles = ffn_fused.kept_f_tiles(dt)
+    hidden = torch.zeros(tokens, 768)
+    kept = (torch.arange(768) if tiles is None else
+            (tiles.long()[:, None] * 128 + torch.arange(128)).reshape(-1))
+    hidden[:, kept] = ffn_fused.ffn_gate_up_sparse_torch(
+        torch.from_numpy(x), gt, ut, activation, tiles, tb.get("up_bias"))
+    down = (sparse_w4a16_matmul_torch(hidden, dt, tb.get("down_bias"))
+            if tiles is not None else
+            w4a16_matmul_torch(hidden, dt, tb.get("down_bias")))
+    assert np.array_equal(down.numpy(), got)
 
 
 def test_sparse_gate_up_plain_computes_only_kept_tiles():
@@ -204,6 +251,13 @@ def test_sparse_gate_up_plain_computes_only_kept_tiles():
     assert whole.shape == (5, 768) and kept.shape == (5, 384)
     np.testing.assert_allclose(kept.numpy(), whole[:, cols].numpy(),
                                rtol=1e-6, atol=1e-6)
+    # the gelu stage takes the up bias of the real hidden columns
+    ub = torch.from_numpy(rng.normal(size=(768,)).astype(np.float32))
+    whole = ffn_fused.ffn_gate_up_sparse_torch(x, None, up, "gelu", None, ub)
+    kept = ffn_fused.ffn_gate_up_sparse_torch(x, None, up, "gelu", tiles, ub)
+    assert kept.shape == (5, 384)
+    np.testing.assert_allclose(kept.numpy(), whole[:, cols].numpy(),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_fused_variant_and_refused_mixes():
@@ -219,6 +273,9 @@ def test_fused_variant_and_refused_mixes():
     assert fv(qt, qt, qt, "swiglu") == "quant"
     assert fv(gate, up, down_tu, "swiglu") == "sparse"
     assert fv(gate, up, qt, "geglu") == "sparse"
+    assert fv(None, up, down_tu, "gelu") == "sparse"      # ungated gelu
+    assert fv(None, up, qt, "gelu") == "sparse"
+    assert fv(None, up, down_free, "gelu") is None
     assert fv(gate, up, down_free, "swiglu") is None    # not tile_uniform
     assert fv(qt, up, qt, "swiglu") is None
     assert fv(dense, dense, dense, "swiglu") == "fp"        # kernel 6
@@ -250,31 +307,134 @@ def test_mlp_apply_routes_sparse_weights_to_the_device_path(monkeypatch):
                                             p["down"]))
 
 
+def test_card_dispatch_reaches_the_sparse_gelu_kernels(monkeypatch):
+    """On the card (``ops._resolve`` patched to "cuda"), a gelu MLP with
+    sparse up and a tile_uniform sparse or dense-quantized down reaches
+    ``ffn_gate_up_sparse_cuda`` with the up bias and the f-tiles down
+    keeps, then the down kernel with the down bias; no plain version or
+    oracle runs."""
+    rng = np.random.default_rng(7)
+    calls = []
+
+    def gate_up(x, gate, up, activation, f_tiles, up_bias=None):
+        calls.append(("ffn_fused_sparse_gelu", gate, activation, f_tiles,
+                      up_bias))
+        return torch.zeros(*x.shape[:-1], up.shape[1])
+
+    def down_stub(name):
+        def fn(x, w, bias=None):
+            calls.append((name, bias))
+            return torch.zeros(*x.shape[:-1], w.shape[1])
+        return fn
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version or the oracle ran on the "
+                             "card's path")
+    monkeypatch.setattr(ops, "_resolve",
+                        lambda impl, x: "cuda" if impl == "auto" else impl)
+    monkeypatch.setattr(ffn_fused, "ffn_gate_up_sparse_cuda", gate_up)
+    monkeypatch.setattr(ffn_fused, "sparse_w4a16_matmul_cuda",
+                        down_stub("sparse_w4a16_matmul"))
+    monkeypatch.setattr(ffn_fused, "w4a16_matmul_cuda",
+                        down_stub("w4a16_matmul"))
+    for name in ("ffn_w4a16_torch", "ffn_gate_up_sparse_torch",
+                 "sparse_matmul_f32", "w4a16_matmul_f32"):
+        monkeypatch.setattr(ffn_fused, name, refuse)
+    monkeypatch.setattr(ops, "ffn_w4a16_torch", refuse)
+    monkeypatch.setattr(ops._ref, "ffn_ref", refuse)
+    cfg = get_smoke_config("starcoder2-7b", d_model=256, d_ff=256)
+    x = torch.from_numpy(rng.normal(size=(3, 256)).astype(np.float32))
+    up = _sparse(rng, 256, 256, 0.5, m=2)[1]
+    downs = {"sparse_w4a16_matmul":
+             _sparse(rng, 256, 256, 0.5, m=2, tile_uniform=True)[1],
+             "w4a16_matmul": _port(jax_quantize(
+                 {"down": jnp.asarray(_weight(rng, 256, 256))},
+                 "dense")["down"])}
+    ub, db = (torch.from_numpy(rng.normal(size=(256,)).astype(np.float32))
+              for _ in range(2))
+    for name, down in downs.items():
+        calls.clear()
+        p = {"up": up, "up_bias": ub, "down": down, "down_bias": db}
+        out = layers.mlp_apply(cfg, p, x)
+        assert out.shape == x.shape
+        (stage, gate, act, tiles, got_ub), (second, got_db) = calls
+        assert (stage, gate, act, second) == (
+            "ffn_fused_sparse_gelu", None, "gelu", name)
+        assert got_ub is ub and got_db is db
+        assert (tiles is None) == (name == "w4a16_matmul")
+        if tiles is not None:
+            assert torch.equal(tiles, down.block_idx[0])
+
+
 # -- the model and the engine -------------------------------------------------
 
-@pytest.fixture(scope="module")
-def dense_params():
-    jcfg = jax_smoke_config("qwen-7b", **OVERRIDES)
-    return jcfg, japi.init_params(jcfg, jax.random.PRNGKey(0))
-
-
+# (arch, strategy) cases; the qwen-7b ones keep their earlier ids
+MODEL_CASES = {"strategy2": ("qwen-7b", "strategy2"),
+               "strategy3": ("qwen-7b", "strategy3"),
+               "starcoder2-strategy2": ("starcoder2-7b", "strategy2"),
+               "starcoder2-strategy3": ("starcoder2-7b", "strategy3")}
+_DENSE = {}
 _MODELS = {}
 
 
-def _models(dense_params, strategy):
-    if strategy not in _MODELS:
-        jcfg, dense = dense_params
+def _jax_dense(arch):
+    """The reference's smoke model at the sparse-compatible widths; for
+    starcoder2, its biases and LayerNorm shifts drawn at random (they start
+    at zero), so the sparse gelu FFN's biases are exercised."""
+    if arch not in _DENSE:
+        jcfg = jax_smoke_config(arch, **OVERRIDES)
+        params = japi.init_params(jcfg, jax.random.PRNGKey(0))
+        if arch == "starcoder2-7b":
+            rng = np.random.default_rng(3)
+
+            def rand(path, leaf):
+                name = str(path[-1])
+                if "bias" in name or "beta" in name or name in (
+                        "['bq']", "['bk']", "['bv']"):
+                    return jnp.asarray(rng.normal(
+                        size=leaf.shape).astype(np.float32) * 0.1,
+                        leaf.dtype)
+                return leaf
+            params = jax.tree_util.tree_map_with_path(rand, params)
+        _DENSE[arch] = (jcfg, params)
+    return _DENSE[arch]
+
+
+def _models(arch, strategy):
+    if (arch, strategy) not in _MODELS:
+        jcfg, dense = _jax_dense(arch)
         jparams = jax_quantize(dense, strategy)
-        tcfg = get_smoke_config("qwen-7b", **OVERRIDES)
+        tcfg = get_smoke_config(arch, **OVERRIDES)
         tparams = interop.params_from_numpy(
             jax.tree.map(np.asarray, jparams), "cpu")
-        _MODELS[strategy] = (jcfg, jparams, tcfg, tparams)
-    return _MODELS[strategy]
+        _MODELS[(arch, strategy)] = (jcfg, jparams, tcfg, tparams)
+    return _MODELS[(arch, strategy)]
 
 
-@pytest.mark.parametrize("strategy", ["strategy2", "strategy3"])
-def test_mixed_and_decode_steps_match_reference(dense_params, strategy):
-    jcfg, jparams, tcfg, tparams = _models(dense_params, strategy)
+def test_starcoder2_sparse_model_takes_the_gelu_path():
+    """At these widths starcoder2-7b under strategy2 has sparse wo and up,
+    a tile_uniform sparse down, random FFN biases, and its MLP takes the
+    sparse CUDA path."""
+    _, jparams, tcfg, tparams = _models("starcoder2-7b", "strategy2")
+    attn, mlp = tparams["blocks"]["attn"], tparams["blocks"]["mlp"]
+    assert (tcfg.activation, tcfg.norm) == ("gelu", "layernorm")
+    assert "gate" not in mlp
+    assert isinstance(attn["wo"], tsparsity.SparseQuantizedTensor)
+    assert isinstance(mlp["up"], tsparsity.SparseQuantizedTensor)
+    assert mlp["down"].tile_uniform
+    assert float(mlp["up_bias"].abs().max()) > 0
+    one = {k: v[0] for k, v in mlp.items()}
+    assert ffn_fused.fused_variant(None, one["up"], one["down"],
+                                   "gelu") == "sparse"
+    np.testing.assert_array_equal(
+        mlp["down_bias"].numpy(),
+        np.asarray(jparams["blocks"]["mlp"]["down_bias"]))
+
+
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_mixed_and_decode_steps_match_reference(case):
+    arch, strategy = MODEL_CASES[case]
+    jcfg, jparams, tcfg, tparams = _models(arch, strategy)
     down = tparams["blocks"]["mlp"]["down"]
     assert isinstance(down, tsparsity.SparseQuantizedTensor
                       if strategy == "strategy2" else QuantizedTensor)
@@ -303,13 +463,13 @@ def test_mixed_and_decode_steps_match_reference(dense_params, strategy):
                                    **MODEL_TOL)
 
 
-@pytest.mark.parametrize("strategy", ["strategy2", "strategy3"])
-def test_mixed_step_equals_sequential_decode(dense_params, strategy):
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_mixed_step_equals_sequential_decode(case):
     """Chunked admission reproduces sequential decode.  On the card this is
     bitwise (``chip_smoke.py`` phase 4, 32 layers); on the CPU the plain
     versions' matmuls change shape with the chunk, so it holds within 1e-5
     and the greedy token is equal, as for the dense model."""
-    _, _, tcfg, tparams = _models(dense_params, strategy)
+    _, _, tcfg, tparams = _models(*MODEL_CASES[case])
     prompt = np.random.default_rng(1).integers(0, tcfg.vocab_size, 13)
     seq = api.init_cache(tcfg, 1, 32, "cpu")
     for t, tok in enumerate(prompt):
@@ -339,8 +499,9 @@ def _workload(vocab):
             for i in range(5)]
 
 
-def test_engine_streams_equal_jax_engine(dense_params):
-    jcfg, jparams, tcfg, tparams = _models(dense_params, "strategy2")
+@pytest.mark.parametrize("arch", ["qwen-7b", "starcoder2-7b"])
+def test_engine_streams_equal_jax_engine(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch, "strategy2")
     kw = dict(batch_size=2, max_len=64, chunk_size=16)
     jengine = JaxEngine(jcfg, jparams, **kw)
     engine = Engine(tcfg, tparams, device="cpu", **kw)
@@ -356,10 +517,10 @@ def test_engine_streams_equal_jax_engine(dense_params):
                                             device="cpu"), r.rid
 
 
-def test_sparse_leaf_is_not_read_as_dense(dense_params):
+def test_sparse_leaf_is_not_read_as_dense():
     """The interop fault PR 11 had: a sparse leaf carries the dense leaf's
     four attributes too, and must come across as sparse."""
-    _, jparams, _, tparams = _models(dense_params, "strategy2")
+    _, jparams, _, tparams = _models("qwen-7b", "strategy2")
     wo = tparams["blocks"]["attn"]["wo"]
     assert isinstance(wo, tsparsity.SparseQuantizedTensor)
     assert (wo.shape, wo.density, wo.group_size, wo.tile_uniform) == (
