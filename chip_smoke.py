@@ -48,11 +48,15 @@ Phases (any failure ends the run with a nonzero exit code):
                  (bf16 at d=128 and 64, f32), the last 300 of 1024 queries
                  bitwise equal alone (bf16); kernel 8 (the sLSTM scan) at
                  xlstm-1.3b's 4 heads of 512 with bf16 R over B=2 x L=512,
-                 a ragged L=300 and a B=4 decode step from a state, and the
-                 mLSTM decode cell at B=4, 4 heads of 1024, each against
-                 its plain version (the scan also against ``_slstm_step``'s
-                 loop), a row bitwise equal alone, an inactive row's state
-                 kept; the 16-bit path: ``dense_matmul`` at T=4, 256 and
+                 a ragged L=300 and a B=4 decode step from a state, on its
+                 cluster kernel in each (16 CTAs a head, R in shared
+                 memory), the 512 steps bitwise equal to 512 one-step calls
+                 with the state carried, the chain floor timed beside it,
+                 and the mLSTM decode cell at B=4, 4 heads of 1024, each
+                 against its plain version (the scan also against
+                 ``_slstm_step``'s loop), a row bitwise equal alone, an
+                 inactive row's state kept, each with its ``-Xptxas -v``
+                 lines; the 16-bit path: ``dense_matmul`` at T=4, 256 and
                  1024 x 4096^2 and at qwen-7b's 16-bit lm_head and wk/wv
                  (T=4), kernel 6 (the fused FFN with 16-bit weights) gated
                  at qwen-7b's widths (T=4, 256, 1024) and ungated gelu
@@ -371,7 +375,8 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
     line.update(check_attention_variants(torch, timer, randn, tol, rows))
     line.update(check_flash_attention(torch, timer, randn, tol, rows))
-    line.update(check_xlstm_kernels(torch, timer, randn, tol, rows))
+    line.update(check_xlstm_kernels(torch, timer, randn, tol, rows,
+                                    results.get("ptxas", {})))
     line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
 
     # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
@@ -1177,21 +1182,41 @@ SCAN_TOL = 2e-4
 XLSTM_H, XLSTM_SLSTM_DH, XLSTM_MLSTM_DH = 4, 512, 1024   # xlstm-1.3b
 
 
-def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
+def ptxas_lines(report: str) -> list:
+    """The ``-Xptxas -v`` lines of one kernel library: entries, registers,
+    shared memory, spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if any(w in ln for w in ("Compiling entry", "registers", "spill",
+                                     "smem"))]
+
+
+def check_xlstm_kernels(torch, timer, randn, tol, rows, ptxas) -> dict:
     """Kernel 8 (``slstm_scan``) and the mLSTM decode cell at xlstm-1.3b's
     widths: the scan over a forward's B=2 x L=512 and a ragged L=300, and
     one decode step of B=4 from a lived-in state (an inactive row keeps
     its state); the cell at B=4, 4 heads of 1024.  Each against its plain
-    version, rows bitwise equal alone; times after an L2 flush.  No single
-    PyTorch call computes either, so neither has a library time."""
+    version, rows bitwise equal alone; the scan on its cluster kernel
+    (``scan_plan``) in every case, L steps bitwise equal to L one-step
+    calls with the state carried, and the chain floor (one dh-long fmaf
+    chain and one cluster barrier a step) timed beside it; times after an
+    L2 flush.  No single PyTorch call computes either, so neither has a
+    library time."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import slstm_scan as scan
     from repro_torch.kernels.slstm_scan import slstm_scan_torch
-    from repro_torch.kernels.mlstm_cell import mlstm_cell_torch
+    from repro_torch.kernels.mlstm_cell import cell_plan, mlstm_cell_torch
 
     line = {}
     h, dh = XLSTM_H, XLSTM_SLSTM_DH
     r = (randn(h, dh, 4 * dh, dtype=torch.float32) * 0.02).to(torch.bfloat16)
     bias = randn(h, 4 * dh, dtype=torch.float32) * 0.1
+    plan = scan.scan_plan(h, dh, r.dtype)
+    need(plan.kernel == "cluster", f"slstm_scan: scan_plan({h}, {dh}, "
+         f"bfloat16) chose {plan.kernel}, not the cluster kernel")
+    capacity = scan.cluster_capacity(dh)
+    need(capacity >= h, f"slstm_scan: the card holds {capacity} clusters of "
+         f"{plan.cluster} CTAs at once, xlstm-1.3b's {h} heads need {h}")
+    log(f"  slstm_scan plan: {plan}; {capacity} clusters fit at once")
 
     def state(b):
         c, hid, m = (randn(b, h, dh, dtype=torch.float32) for _ in range(3))
@@ -1207,7 +1232,10 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
         def copy():
             return None if st0 is None else tuple(t.clone() for t in st0)
         kst, pst = copy(), copy()
+        before = scan.routes["cluster"]
         got = ops.slstm_scan(gx, r, bias, kst, active=active)
+        need(scan.routes["cluster"] == before + 1,
+             f"slstm_scan {what}: the cluster kernel did not run")
         want = slstm_scan_torch(gx, r, bias, pst, active)
         oracle = ops.slstm_scan(gx, r, bias, copy(), impl="ref")
         err, rel = max_errs(got, want)
@@ -1228,8 +1256,19 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
         need(torch.equal(alone[0], got[1]),
              f"slstm_scan {what}: row 1 alone differs from row 1 of B={b}")
         row = {"kernel": "slstm_scan", "case": what, "B": b, "L": L, "h": h,
-               "dh": dh, "r_dtype": "bfloat16", "max_abs_err": err,
+               "dh": dh, "r_dtype": "bfloat16", "route": plan.kernel,
+               "cluster": plan.cluster, "max_abs_err": err,
                "max_rel_err": rel, "tol_abs_rel": SCAN_TOL}
+        if what == "forward":
+            # L steps in one call are L one-step calls, state carried
+            carried = scan.fresh_state(b, h, dh, DEVICE)
+            steps = torch.cat([ops.slstm_scan(gx[:, t:t + 1].contiguous(), r,
+                                              bias, carried)
+                               for t in range(L)], dim=1)
+            need(torch.equal(steps, got), f"slstm_scan {what}: {L} one-step "
+                 "calls with the state carried differ from one call")
+            row["chain_floor_ms"] = timer.ms(
+                lambda: scan.chain_floor_cuda(L, dh, DEVICE), 10)
         if what != "ragged":
             scratch = copy()      # the timed calls advance it in place
             row["ms"] = timer.ms(lambda: ops.slstm_scan(
@@ -1243,14 +1282,19 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes, 2 * b * L * h * dh * 4 * dh, "float32")
         rows.append(row)
-        log(f"  slstm_scan {what} B={b} L={L} h={h} dh={dh}: max_abs "
-            f"{err:.3g} rel {rel:.3g} (rtol = atol = {SCAN_TOL}, plain and "
-            "oracle); row 1 alone bitwise"
+        log(f"  slstm_scan {what} B={b} L={L} h={h} dh={dh}: {plan.kernel} "
+            f"kernel; max_abs {err:.3g} rel {rel:.3g} (rtol = atol = "
+            f"{SCAN_TOL}, plain and oracle); row 1 alone bitwise"
+            + ("; L one-step calls bitwise" if what == "forward" else "")
             + (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; a chain "
                f"of {L} dependent steps); library: none"
-               if "ms" in row else ""))
+               if "ms" in row else "")
+            + (f"; chain floor {row['chain_floor_ms']:.4f} ms ({L} steps of "
+               f"a {dh}-long fmaf chain + a cluster barrier)"
+               if "chain_floor_ms" in row else ""))
         if what == "decode":
+            row["ptxas"] = ptxas_lines(ptxas.get("slstm_scan", ""))
             line["slstm_scan"] = row
 
     # -- the mLSTM decode cell: B=4, 4 heads of 1024, bf16 activations
@@ -1287,12 +1331,18 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
          and torch.equal(nr[0], got[1][2]) and torch.equal(mr[0], got[2][2]),
          "mlstm_cell: row 2 alone differs from row 2 of B=4")
     row = {"kernel": "mlstm_cell", "B": b, "h": h, "dh": dh,
-           "dtype": "bfloat16", "max_abs_err": err, "max_rel_err": rel,
+           "dtype": "bfloat16", "plan": dataclasses.asdict(
+               cell_plan(h, dh, torch.bfloat16)),
+           "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": tol["bfloat16"],
+           "ptxas": ptxas_lines(ptxas.get("mlstm_cell", "")),
            "ms": timer.ms(lambda: ops.mlstm_cell(*args, Ck, n0, m0), 10),
            "plain_ms": timer.ms(lambda: mlstm_cell_torch(*args, Cp, n0, m0),
                                 3),
-           "library_ms": None}
+           "library_ms": None,
+           # yardstick, not the cell: PyTorch's in-place elementwise pass
+           # reads and writes the same C once
+           "stream_ms": timer.ms(lambda: Cp.mul_(0.5), 10)}
     nbytes = (2 * C0.numel() * 4 + 2 * (n0.numel() + m0.numel()) * 4
               + sum(t.numel() * 2 for t in args[:6]) + b * h * dh * 4)
     row["bound_ms"], row["bound_by"] = bound(nbytes, 5 * C0.numel()
@@ -1301,7 +1351,8 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows) -> dict:
     log(f"  mlstm_cell B={b} h={h} dh={dh}: max_abs {err:.3g} rel {rel:.3g} "
         f"(tol {tol['bfloat16']}); inactive row kept; row 2 alone bitwise"
         f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); library: none")
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); library: none; "
+        f"C.mul_ over the same C {row['stream_ms']:.4f} ms")
     line["mlstm_cell"] = row
     return line
 
@@ -2388,11 +2439,8 @@ def main() -> int:
         t0 = time.perf_counter()
         reports = _build.build()
         for k, rep in reports.items():
-            keep = [ln.strip() for ln in rep.splitlines()
-                    if any(w in ln for w in ("Compiling entry", "registers",
-                                             "spill", "smem"))]
             log(f"  {k}:")
-            for ln in keep:
+            for ln in ptxas_lines(rep):
                 log(f"    {ln}")
         log(f"  built in {time.perf_counter() - t0:.1f} s")
         results["ptxas"] = reports

@@ -14,11 +14,16 @@ weights ``w_i``/``w_f (2d, h)`` in the model dtype, the biases ``b_i``/``b_f
 h)`` f32.  ``C`` is updated in place; the call returns ``(y, n', m')``
 with ``y (B, h, dh)`` f32, the normalized readout.  Rows where ``active``
 is False keep ``C`` and get ``n' = n``, ``m' = m``.
+
+The kernel's geometry is ``cell_plan``'s, from the shape alone: a cluster
+of 4 CTAs (one per quarter of C's rows) per (row, head, 1024-column tile),
+256 threads of 4 adjacent columns each, 16-byte rows of C when dh % 4 == 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -29,8 +34,35 @@ from repro_torch.kernels.w4a16_matmul import DTYPE_CODES
 
 NAME = "mlstm_cell"
 MAX_DH = 4096                       # q and k / sqrt(dh) in shared memory
+CELL_THREADS = 256
+CELL_COLS = 4                       # adjacent columns of C a thread owns
+CELL_QUARTERS = 4                   # CTAs of a cluster: quarters of C's rows
+CELL_TILE = CELL_THREADS * CELL_COLS
+STATIC_SMEM = (3 * 8 + CELL_TILE) * 4   # the reductions' and the fold's sums
 _ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float]
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class CellPlan:
+    grid_x: int            # column tiles x quarters
+    cluster: int           # CTAs of a cluster
+    threads: int
+    vec: bool              # 16-byte loads and stores of C's rows
+    smem_bytes: int        # dynamic (q, k / sqrt(dh)) plus static
+
+
+def cell_plan(heads: int, dh: int, dtype: torch.dtype) -> CellPlan:
+    """The cell kernel's geometry for ``heads`` heads of width ``dh`` with
+    activations in ``dtype``; raises on shapes the kernel does not take."""
+    if heads < 1 or not 1 <= dh <= MAX_DH:
+        raise ValueError(f"{NAME}: heads = {heads}, head width {dh}: need "
+                         f"heads >= 1 and dh in 1..{MAX_DH}")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{NAME}: activations must be float32 or bfloat16")
+    tiles = -(-dh // CELL_TILE)
+    return CellPlan(tiles * CELL_QUARTERS, CELL_QUARTERS, CELL_THREADS,
+                    dh % CELL_COLS == 0, 2 * dh * 4 + STATIC_SMEM)
 
 
 def mlstm_cell_torch(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m,
@@ -66,11 +98,8 @@ def _check(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active):
     if not q.is_cuda:
         raise ValueError(f"{NAME}: the CUDA kernel takes CUDA tensors, got "
                          f"{q.device}")
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"{NAME}: activations must be float32 or bfloat16")
     bsz, heads, dh = q.shape
-    if not 1 <= dh <= MAX_DH:
-        raise ValueError(f"{NAME}: head width {dh} not in 1..{MAX_DH}")
+    plan = cell_plan(max(heads, 1), dh, q.dtype)
     want = {"xp": (xp, (bsz, heads * dh), q.dtype),
             "k": (k, (bsz, heads, dh), q.dtype),
             "v": (v, (bsz, heads, dh), q.dtype),
@@ -90,13 +119,16 @@ def _check(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{NAME}: {name} must be contiguous on "
                              f"{q.device}")
+    if plan.vec and C.data_ptr() % 16:
+        raise ValueError(f"{NAME}: C must start on a 16-byte boundary")
+    return plan
 
 
 def mlstm_cell_cuda(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m,
                     active: torch.Tensor | None = None):
     """Launch ``csrc/mlstm_cell.cu`` on the current stream."""
     xp, q, k, v = (t.contiguous() for t in (xp, q, k, v))
-    _check(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
+    plan = _check(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
     bsz, heads, dh = q.shape
     y = torch.empty((bsz, heads, dh), dtype=torch.float32, device=q.device)
     n_new, m_new = torch.empty_like(n), torch.empty_like(m)
@@ -107,7 +139,7 @@ def mlstm_cell_cuda(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m,
                 b_f.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
                 y.data_ptr(), n_new.data_ptr(), m_new.data_ptr(),
                 None if active is None else active.data_ptr(), bsz, heads,
-                dh, math.sqrt(dh), DTYPE_CODES[q.dtype],
+                dh, math.sqrt(dh), DTYPE_CODES[q.dtype], int(plan.vec),
                 _build.stream_ptr(q.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1

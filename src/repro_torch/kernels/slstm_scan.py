@@ -1,18 +1,28 @@
 """sLSTM recurrence: CUDA kernel wrapper and its plain version.
 
-Port of ``repro/kernels/slstm_scan.py::slstm_scan_pallas``; the kernel is
-``csrc/slstm_scan.cu`` (its note says what bounds it on the card).
+Port of ``repro/kernels/slstm_scan.py::slstm_scan_pallas``; the kernels are
+in ``csrc/slstm_scan.cu`` (its note says what bounds them on the card).
 ``gates_x (B, L, h, 4dh)`` f32, the recurrent weights ``r (h, dh, 4dh)``
 (f32 or bf16, widened to f32 exactly) and the bias ``b (h, 4dh)`` f32 give
 the hidden states ``hs (B, L, h, dh)`` f32.  Beyond the reference: any L,
 and an optional state ``(c, n, h, m)``, each ``(B, h, dh)`` f32, that the
 scan starts from and writes back in place (rows where ``active`` is False
 keep theirs); without one the scan starts from zeros with ``m = -1e30``.
+
+Two kernels compute it, chosen by ``scan_plan`` from the head count, the
+head width and R's dtype alone, never from the batch: the cluster kernel
+(bf16 R, dh a multiple of 32 up to 512: a cluster of dh / 32 CTAs per head
+keeps R in shared memory) and the CUDA-core kernel (every other shape:
+f32 R, whose slice at dh = 512 would not fit, and other widths).  Both
+give every output one fmaf chain over d in order, so they agree
+bitwise.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 
 import torch
 
@@ -20,8 +30,74 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.w4a16_matmul import DTYPE_CODES
 
 NAME = "slstm_scan"
-MAX_DH = 1024                       # one thread per hidden unit
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+MAX_DH = 1024                       # the CUDA-core kernel: a thread a unit
+CLUSTER_UNITS = 32                  # hidden units a CTA of a cluster owns
+CLUSTER_ROWS = 4                    # batch rows one cluster serves
+MAX_CLUSTER = 16                    # CTAs a cluster may have on Hopper
+SMEM_PER_BLOCK = 232_448            # shared memory a block may opt in to
+KERNEL_CODES = {"cuda_core": 0, "cluster": 1}
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
+
+# launches by kernel ("cluster" or "cuda_core"), beside _build.launches
+routes: "collections.Counter[str]" = collections.Counter()
+_capacity: dict[int, int] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    kernel: str            # "cluster" or "cuda_core"
+    cluster: int           # CTAs a head takes at once (1: no cluster)
+    threads: int           # threads a CTA
+    smem_bytes: int        # dynamic shared memory a CTA asks for
+
+
+def scan_plan(heads: int, dh: int, r_dtype: torch.dtype) -> ScanPlan:
+    """The kernel for ``heads`` heads of width ``dh`` with R in
+    ``r_dtype``.  The cluster kernel holds a CTA's R slice (dh x 128
+    bf16) and a double-buffered h for ``CLUSTER_ROWS`` rows in shared
+    memory; shapes it cannot take run the CUDA-core kernel; shapes neither
+    takes raise."""
+    if heads < 1 or not 1 <= dh <= MAX_DH:
+        raise ValueError(f"{NAME}: heads = {heads}, dh = {dh}: need heads "
+                         f">= 1 and dh in 1..{MAX_DH}")
+    if r_dtype not in DTYPE_CODES:
+        raise ValueError(f"{NAME}: R must be float32 or bfloat16, got "
+                         f"{r_dtype}")
+    if (r_dtype == torch.bfloat16 and dh % CLUSTER_UNITS == 0
+            and dh // CLUSTER_UNITS <= MAX_CLUSTER):
+        threads = 4 * CLUSTER_UNITS
+        smem = dh * threads * 2 + 2 * CLUSTER_ROWS * dh * 4
+        return ScanPlan("cluster", dh // CLUSTER_UNITS, threads, smem)
+    return ScanPlan("cuda_core", 1, dh, dh * 4)
+
+
+def cluster_capacity(dh: int) -> int:
+    """Clusters of the cluster kernel at width ``dh`` the card holds at
+    once (``cudaOccupancyMaxActiveClusters``).  Clusters beyond it wait
+    for a free one: each serves its own (head, rows) and none waits on
+    another."""
+    if dh not in _capacity:
+        count = ctypes.c_int(0)
+        fn = _build.function(NAME, "slstm_scan_cluster_capacity",
+                             [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        _build.check(NAME, fn(dh, ctypes.byref(count)))
+        _capacity[dh] = count.value
+    return _capacity[dh]
+
+
+def chain_floor_cuda(steps: int, dh: int, device) -> torch.Tensor:
+    """Launch the chain-floor probe: ``steps`` steps of one dh-long
+    dependent fmaf chain over shared memory and one cluster barrier, on one
+    cluster of dh / 32 CTAs: the least time the cluster kernel's steps can
+    take with their order kept.  Not a scan; not counted in ``launches``."""
+    out = torch.empty(4 * dh, dtype=torch.float32, device=device)
+    fn = _build.function(NAME, "slstm_chain_floor_launch",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    _build.check(NAME, fn(out.data_ptr(), steps, dh,
+                          _build.stream_ptr(out.device)))
+    return out
 
 
 def fresh_state(batch: int, heads: int, dh: int, device) -> tuple:
@@ -115,12 +191,18 @@ def slstm_scan_cuda(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     hs = torch.empty((bsz, seq, heads, dh), dtype=torch.float32,
                      device=gates_x.device)
     if bsz and seq and heads:
+        plan = scan_plan(heads, dh, r.dtype)
+        if plan.kernel == "cluster" and cluster_capacity(dh) < 1:
+            raise RuntimeError(
+                f"{NAME}: the card holds no cluster of {plan.cluster} CTAs "
+                f"with {plan.smem_bytes} bytes of shared memory each")
         fn = _build.function(NAME, "slstm_scan_launch", _ARGTYPES)
         rc = fn(gates_x.data_ptr(), r.data_ptr(), b.data_ptr(),
                 hs.data_ptr(), *(t.data_ptr() for t in state),
                 None if active is None else active.data_ptr(),
                 bsz, seq, heads, dh, DTYPE_CODES[r.dtype],
-                _build.stream_ptr(gates_x.device))
+                KERNEL_CODES[plan.kernel], _build.stream_ptr(gates_x.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1
+        routes[plan.kernel] += 1
     return hs

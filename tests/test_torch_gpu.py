@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.quant import quantize  # noqa: E402
 from repro_torch.core.sparsity import block_sparsify_quantize  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, ops, slstm_scan  # noqa: E402
 from repro_torch.kernels.ffn_fused import (  # noqa: E402
     ffn_gate_up_sparse_cuda, ffn_gate_up_sparse_torch, kept_f_tiles)
 from repro_torch.kernels.decode_flash import VARIANTS as VARIANTS_NAMES  # noqa: E402,E501
@@ -514,15 +514,23 @@ def _lived_in_state(gen, b, h, dh):
     (2, 512, 4, 512, torch.bfloat16),       # xlstm-1.3b's sLSTM, forward
     (2, 300, 4, 512, torch.bfloat16),       # ragged: no time chunk
     (3, 96, 2, 64, torch.float32),
+    (5, 33, 1, 256, torch.bfloat16),        # two row groups, 8 CTAs a head
+    (2, 17, 2, 96, torch.bfloat16),         # a cluster of 3
+    (1, 9, 3, 32, torch.bfloat16),          # a cluster of 1
+    (2, 9, 1, 1000, torch.bfloat16),        # no cluster: CUDA-core kernel
 ])
 def test_slstm_scan_kernel_matches_plain(cuda, b, L, h, dh, r_dtype):
     """Within the reference's own kernel tolerance (2e-4) of the plain
-    scan and the ``_slstm_step`` oracle, all in f32."""
+    scan and the ``_slstm_step`` oracle, all in f32, on the kernel
+    ``scan_plan`` names (one launch, one route)."""
     gen = torch.Generator(device="cuda").manual_seed(L)
     gx, r, bias = _scan_operands(gen, b, L, h, dh, r_dtype)
+    kernel = slstm_scan.scan_plan(h, dh, r_dtype).kernel
     before = _build.launches["slstm_scan"]
+    routed = slstm_scan.routes[kernel]
     got = ops.slstm_scan(gx, r, bias)
     assert _build.launches["slstm_scan"] == before + 1
+    assert slstm_scan.routes[kernel] == routed + 1
     for want in (ops.slstm_scan(gx, r, bias, impl="torch"),
                  ops.slstm_scan(gx, r, bias, impl="ref")):
         assert float((got - want).abs().max()) <= 2e-4 * (
@@ -562,6 +570,72 @@ def test_slstm_scan_kernel_rows_batch_invariant(cuda):
         assert torch.equal(alone[0], got[row])
 
 
+def test_slstm_scan_plan_takes_the_cluster_kernel_at_xlstm_widths(cuda):
+    """xlstm-1.3b in bf16 (4 heads of 512) runs the cluster kernel: 16 CTAs
+    a head, and the card holds its 4 clusters at once."""
+    plan = slstm_scan.scan_plan(4, 512, torch.bfloat16)
+    assert plan.kernel == "cluster" and plan.cluster == 16
+    assert slstm_scan.cluster_capacity(512) >= 4
+
+
+@pytest.mark.parametrize("b,h,dh", [(3, 4, 512), (2, 2, 64)])
+def test_slstm_scan_cluster_steps_equal_one_call(cuda, b, h, dh):
+    """L steps in one call are bitwise L one-step calls with the state
+    carried: what the engine's mixed ≡ sequential rests on."""
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    L = 40
+    gx, r, bias = _scan_operands(gen, b, L, h, dh, torch.bfloat16)
+    state = _lived_in_state(gen, b, h, dh)
+    whole = tuple(t.clone() for t in state)
+    got = ops.slstm_scan(gx, r, bias, whole)
+    stepped = tuple(t.clone() for t in state)
+    steps = torch.cat([ops.slstm_scan(gx[:, t:t + 1].contiguous(), r, bias,
+                                      stepped) for t in range(L)], dim=1)
+    assert torch.equal(steps, got)
+    assert all(torch.equal(a, c) for a, c in zip(stepped, whole))
+
+
+def test_slstm_scan_cluster_rows_alone_at_every_batch(cuda):
+    """Each row alone equals the same row inside B = 1 .. 8 (one or two
+    row groups of a cluster), bitwise, hidden states and state."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, dh, L = 4, 512, 12
+    gx, r, bias = _scan_operands(gen, 8, L, h, dh, torch.bfloat16)
+    state = _lived_in_state(gen, 8, h, dh)
+    alone = []
+    for row in range(8):
+        st = tuple(t[row:row + 1].clone() for t in state)
+        alone.append((ops.slstm_scan(gx[row:row + 1].contiguous(), r, bias,
+                                     st), st))
+    for b in range(1, 9):
+        st = tuple(t[:b].clone() for t in state)
+        got = ops.slstm_scan(gx[:b].contiguous(), r, bias, st)
+        for row in range(b):
+            hs, st1 = alone[row]
+            assert torch.equal(got[row], hs[0])
+            assert all(torch.equal(a[row], c[0]) for a, c in zip(st, st1))
+
+
+def test_slstm_scan_cluster_active_mask_keeps_state(cuda):
+    """Over L = 7 steps at B = 6 (two row groups): masked rows keep their
+    state exactly, the others match a run without the masked rows."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    h, dh = 4, 512
+    gx, r, bias = _scan_operands(gen, 6, 7, h, dh, torch.bfloat16)
+    state = _lived_in_state(gen, 6, h, dh)
+    active = torch.tensor([True, False, True, True, False, True],
+                          device="cuda")
+    st = tuple(t.clone() for t in state)
+    hs = ops.slstm_scan(gx, r, bias, st, active=active)
+    keep = active.nonzero().flatten()
+    sub = tuple(t[keep].clone() for t in state)
+    want = ops.slstm_scan(gx[keep].contiguous(), r, bias, sub)
+    assert torch.equal(hs[keep], want)
+    for a, s0, w in zip(st, state, sub):
+        assert torch.equal(a[~active], s0[~active])
+        assert torch.equal(a[keep], w)
+
+
 def _cell_operands(gen, b, h, dh, dtype):
     di = h * dh
     xp = _rand(gen, b, di, dtype=dtype)
@@ -576,7 +650,8 @@ def _cell_operands(gen, b, h, dh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,dh", [(4, 4, 1024), (3, 2, 96)])
+@pytest.mark.parametrize("b,h,dh", [(4, 4, 1024), (3, 2, 96), (2, 3, 98),
+                                    (3, 2, 600), (2, 2, 3), (2, 1, 4096)])
 def test_mlstm_cell_kernel_matches_plain(cuda, dtype, b, h, dh):
     """Readout, C', n' and m' against the reference's algebra, relative to
     the largest value (the gates round to the model dtype: a bf16 gate one
@@ -607,6 +682,24 @@ def test_mlstm_cell_kernel_rows_batch_invariant(cuda):
     Cb = C.clone()
     y, n2, m2 = ops.mlstm_cell(*head, Cb, n, m)
     for row in range(4):
+        sl = [t[row:row + 1].contiguous() for t in head[:4]]
+        Cr = C[row:row + 1].clone()
+        yr, nr, mr = ops.mlstm_cell(*sl, *head[4:], Cr, n[row:row + 1]
+                                    .contiguous(), m[row:row + 1]
+                                    .contiguous())
+        assert torch.equal(yr[0], y[row]) and torch.equal(Cr[0], Cb[row])
+        assert torch.equal(nr[0], n2[row]) and torch.equal(mr[0], m2[row])
+
+
+@pytest.mark.parametrize("dh", [98, 600])
+def test_mlstm_cell_kernel_rows_invariant_at_ragged_widths(cuda, dh):
+    """Scalar rows of C (dh % 4 != 0) and a ragged last column tile: each
+    row alone is bitwise the row inside B = 3."""
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    *head, C, n, m = _cell_operands(gen, 3, 2, dh, torch.bfloat16)
+    Cb = C.clone()
+    y, n2, m2 = ops.mlstm_cell(*head, Cb, n, m)
+    for row in range(3):
         sl = [t[row:row + 1].contiguous() for t in head[:4]]
         Cr = C[row:row + 1].clone()
         yr, nr, mr = ops.mlstm_cell(*sl, *head[4:], Cr, n[row:row + 1]

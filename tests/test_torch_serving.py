@@ -202,6 +202,7 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.extend(sorted((ROOT / "tools").glob("*.py")))   # run on the card
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

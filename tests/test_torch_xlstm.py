@@ -17,6 +17,7 @@
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -40,7 +41,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
     quantize_model, quantized_bytes)
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import mlstm_cell, ops, slstm_scan  # noqa: E402
 from repro_torch.kernels.slstm_scan import fresh_state  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api, xlstm, xlstm_stack  # noqa: E402
@@ -176,6 +177,98 @@ def test_slstm_scan_active_mask_keeps_masked_rows_state():
     _close(hs[1], alone[0], F32_TOL)             # outputs still computed
     for s, s0 in zip(state, before):
         assert torch.equal(s[1], s0[1]) and not torch.equal(s[0], s0[0])
+
+
+# -- the kernels' geometry: chosen by shape alone ------------------------------
+
+def test_kernel_choice_depends_on_heads_width_and_dtype_only():
+    """``scan_plan`` and ``cell_plan`` take (heads, dh, dtype) and nothing
+    else, so no batch size, sequence length or tensor can move a row to
+    another kernel; the choice does not follow the head count either."""
+    assert list(inspect.signature(slstm_scan.scan_plan).parameters) == [
+        "heads", "dh", "r_dtype"]
+    assert list(inspect.signature(mlstm_cell.cell_plan).parameters) == [
+        "heads", "dh", "dtype"]
+    for dh in (32, 64, 96, 512, 544, 1000):
+        for dtype in (torch.bfloat16, torch.float32):
+            plans = {slstm_scan.scan_plan(h, dh, dtype) for h in (1, 4, 16)}
+            assert len(plans) == 1
+            cells = {mlstm_cell.cell_plan(h, dh, dtype) for h in (1, 4, 16)}
+            assert len(cells) == 1
+    served = slstm_scan.scan_plan(4, 512, torch.bfloat16)   # xlstm-1.3b
+    assert served.kernel == "cluster" and served.cluster == 16
+
+
+@pytest.mark.parametrize("dh", [1, 31, 32, 64, 96, 256, 480, 512, 544, 640,
+                                1000, 1024])
+@pytest.mark.parametrize("r_dtype", [torch.bfloat16, torch.float32])
+def test_scan_plan_fits_what_it_asks_for(dh, r_dtype):
+    """The cluster kernel: bf16 R, dh a multiple of 32, at most 16 CTAs a
+    cluster; its shared memory holds the CTA's R slice (dh x 128 bf16) and
+    two h buffers of ``CLUSTER_ROWS`` rows, within a block's limit.  Every
+    other shape runs the CUDA-core kernel, one thread a unit."""
+    plan = slstm_scan.scan_plan(4, dh, r_dtype)
+    if r_dtype == torch.bfloat16 and dh % 32 == 0 and dh <= 512:
+        assert plan.kernel == "cluster"
+        assert plan.cluster == dh // slstm_scan.CLUSTER_UNITS
+        assert 1 <= plan.cluster <= slstm_scan.MAX_CLUSTER == 16
+        assert plan.threads == 4 * slstm_scan.CLUSTER_UNITS
+        r_slice = dh * plan.threads * 2
+        h_bufs = 2 * slstm_scan.CLUSTER_ROWS * dh * 4
+        assert plan.smem_bytes == r_slice + h_bufs
+        assert plan.smem_bytes <= slstm_scan.SMEM_PER_BLOCK
+    else:
+        assert plan.kernel == "cuda_core"
+        assert plan.cluster == 1 and plan.threads == dh <= 1024
+        assert plan.smem_bytes == dh * 4 <= 48 * 1024
+
+
+def test_cluster_r_layout_is_a_conflict_free_permutation():
+    """The cluster kernel's R slot (``r_slot`` in csrc/slstm_scan.cu,
+    mirrored here): a permutation of a d-block's 128 columns; 8 lanes
+    reading 8 consecutive columns, and 8 lanes writing column cc of
+    segments s = 0..7 or 8..15 while copying, each hit 8 different
+    16-byte bank groups."""
+    def r_slot(c):
+        return (c & ~7) | ((c & 7) ^ ((c >> 3) & 7))
+    assert sorted(r_slot(c) for c in range(128)) == list(range(128))
+    for base in range(0, 128, 8):
+        assert len({r_slot(base + i) % 8 for i in range(8)}) == 8
+    for cc in range(8):
+        for half in (0, 8):
+            assert len({r_slot(8 * s + cc) % 8
+                        for s in range(half, half + 8)}) == 8
+
+
+@pytest.mark.parametrize("dh", [1, 3, 96, 98, 512, 600, 1024, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cell_plan_fits_what_it_asks_for(dh, dtype):
+    """4 CTAs a cluster (a portable size), one per quarter of C's rows;
+    1024-column tiles; 16-byte rows exactly when dh % 4 == 0; q and
+    k / sqrt(dh) plus the static sums stay under 48 KB, so no opt-in."""
+    plan = mlstm_cell.cell_plan(4, dh, dtype)
+    assert plan.cluster == mlstm_cell.CELL_QUARTERS == 4
+    assert plan.grid_x == -(-dh // mlstm_cell.CELL_TILE) * 4
+    assert plan.threads * mlstm_cell.CELL_COLS == mlstm_cell.CELL_TILE
+    assert plan.vec == (dh % 4 == 0)
+    assert plan.smem_bytes == 2 * dh * 4 + mlstm_cell.STATIC_SMEM
+    assert plan.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("call", [
+    lambda: slstm_scan.scan_plan(4, 0, torch.bfloat16),
+    lambda: slstm_scan.scan_plan(4, 1025, torch.bfloat16),
+    lambda: slstm_scan.scan_plan(0, 512, torch.bfloat16),
+    lambda: slstm_scan.scan_plan(4, 512, torch.float16),
+    lambda: mlstm_cell.cell_plan(4, 0, torch.bfloat16),
+    lambda: mlstm_cell.cell_plan(4, 4097, torch.float32),
+    lambda: mlstm_cell.cell_plan(0, 64, torch.float32),
+    lambda: mlstm_cell.cell_plan(4, 64, torch.float16),
+])
+def test_plans_refuse_shapes_no_kernel_takes(call):
+    """A shape neither kernel takes raises; it is never changed to fit."""
+    with pytest.raises((ValueError, TypeError)):
+        call()
 
 
 # -- the mLSTM's sequence forms ---------------------------------------------
