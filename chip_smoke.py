@@ -69,7 +69,15 @@ Phases (any failure ends the run with a nonzero exit code):
                  row 299 in a ragged last tile) for ``dense_matmul`` with
                  and without its bias and for kernel 6 gated and gelu;
                  whether ``torch.matmul``'s rows are bitwise the same at
-                 T=1, 4 and 256 as at T=64 is recorded;
+                 T=1, 4 and 256 as at T=64 is recorded; kernel 1 and kernel
+                 2's whole FFN with their library chains (kernel 2 gelu:
+                 the chain on weights dequantized once too); the KV write
+                 (``kv_write``) bitwise equal to its plain version at
+                 qwen-7b's per-layer K/V shape, slot and paged, bf16 and
+                 int8, decode (a masked row, a rolling window's index) and
+                 a 64-wide chunk (a dead row), the null block and dead
+                 rows untouched, timed beside its byte bound and
+                 ``index_put_`` on gathered rows;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
                  and "strategy3" (log-scale sparse), chatglm-6b (the
@@ -84,11 +92,26 @@ Phases (any failure ends the run with a nonzero exit code):
                  bitwise equal to 13 sequential decode steps (logits and
                  every cache leaf of all layers, or every state leaf of
                  all blocks); strategy2 also with int8 K/V, a paged pool
-                 and a paged int8 pool;
+                 and a paged int8 pool; on every path a mixed step and a
+                 decode step under ``torch.cuda.set_sync_debug_mode(
+                 "error")`` (no host read); after phase 5 on dense,
+                 strategy2-paged-int8 and xlstm-dense, every captured
+                 key's graph replayed once against its function run
+                 eagerly on a copy of the cache, logits and every leaf
+                 bitwise equal;
   5. serving  — with each of the nine weight sets, the engine serves 9
-                 requests; every token stream equals ``reference_decode``
-                 and the kernel launch counts (reset before each path's
-                 run, read just after it) equal layers x calls x ticks as
+                 requests twice, every tick one replay of a CUDA graph
+                 captured per compile key: misses within
+                 ``compile_budget``, the second run capturing nothing and
+                 giving the first run's streams; capture seconds per key,
+                 tokens/s, TTFT, ITL and peak memory of each run; on
+                 dense, strategy2-paged and xlstm-dense a
+                 ``torch.profiler`` trace of one decode and one mixed tick,
+                 eager and replayed (host ms, device-busy ms, device
+                 operations); every token stream equals ``reference_decode``
+                 and the kernel launch counts (reset before each run,
+                 read just after it; a replay adds its capture's counts)
+                 equal layers x calls x ticks as
                  the weights' types and the cache route them (the xLSTM:
                  per-step counts x the token columns the ticks dispatched,
                  since a mixed tick steps its chunk width).  Strategy2
@@ -343,6 +366,16 @@ def check_kernels(torch, timer, results: dict) -> dict:
                     lambda: ops.ffn_w4a16(x, gate, up, down), 20)
                 row["ffn_plain_ms"] = timer.ms(
                     lambda: ops.ffn_w4a16(x, gate, up, down, impl="torch"), 3)
+                # the whole FFN as library calls: dequantize + the chain on
+                # every call, and the chain on weights dequantized once
+                row["ffn_library_ms"] = timer.ms(lambda: ffn_chain(
+                    torch, x, *(dequantize(w, torch.bfloat16)
+                                for w in (gate, up, down)), "swiglu", None,
+                    None), 5)
+                w16 = [dequantize(w, torch.bfloat16) for w in (gate, up, down)]
+                row["ffn_library_bf16_ms"] = timer.ms(lambda: ffn_chain(
+                    torch, x, *w16, "swiglu", None, None), 10)
+                del w16
                 nbytes = (x.numel() * 2 + gate.nbytes_model + up.nbytes_model
                           + t * f * 2)
                 row["bound_ms"], row["bound_by"] = bound(
@@ -360,7 +393,9 @@ def check_kernels(torch, timer, results: dict) -> dict:
                    f"bf16 matmuls {row['library_bf16_ms']:.4f} ms (kernel / "
                    f"matmuls {row['library_bf16_factor']:.2f}) bound "
                    f"{row['bound_ms']:.4f} ms; whole ffn {row['ffn_ms']:.4f}"
-                   f" ms (bound {row['ffn_bound_ms']:.4f})"
+                   f" ms (bound {row['ffn_bound_ms']:.4f}; library "
+                   f"{row['ffn_library_ms']:.4f} ms, on weights dequantized "
+                   f"once {row['ffn_library_bf16_ms']:.4f} ms)"
                    if "ms" in row else ""))
             if (t, dname) == (4, "bfloat16"):
                 line["ffn_fused_w4a16"] = row
@@ -471,7 +506,131 @@ def check_kernels(torch, timer, results: dict) -> dict:
     need(torch.equal(rmsnorm_cuda(x[:4], gamma), rmsnorm_cuda(x, gamma)[:4]),
          "rmsnorm: rows differ between 4 and 256 rows (batch invariance)")
     log("  rmsnorm: 4 rows bitwise equal inside 256")
+    line.update(check_kv_write(torch, timer, rows))
     results["kernel_checks"] = rows
+    return line
+
+
+def kv_write_case(torch, g, layout, kind, chunk, b=4, hkv=4, hd=128,
+                  span=512, bs=16):
+    """Operands of one ``kv_write`` call at qwen-7b's per-layer K/V shape:
+    the cache (slot (B, hkv, 512, 128), or a pool of 16-token pages under a
+    scrambled table), this step's rows (k contiguous, v a transposed view
+    as the model makes them), ``starts`` and ``q_lens`` with a dead row.
+    ``chunk`` 1 is a decode write: ``q_lens`` the write mask, ``starts``
+    the write index, a rolling window's when ``kind`` ends in "-roll"."""
+    import numpy as np
+    rng = np.random.default_rng(chunk)
+    quant = kind.startswith("int8")
+
+    def rand(*shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def leaves(*lead):
+        if quant:
+            return {"k": rand(*lead, hd, dtype=torch.int8),
+                    "v": rand(*lead, hd, dtype=torch.int8),
+                    "k_scale": rand(*lead, 1, dtype=torch.float32),
+                    "v_scale": rand(*lead, 1, dtype=torch.float32)}
+        return {"k": rand(*lead, hd, dtype=torch.bfloat16),
+                "v": rand(*lead, hd, dtype=torch.bfloat16)}
+    if chunk == 1:
+        lengths = rng.integers(1, (2 if kind.endswith("-roll") else 1) * span
+                               + 1, b)
+        starts = (lengths - 1) % span
+        q_lens = np.array([1, 1, 0, 1])
+    else:
+        q_lens = np.array([chunk, 0, 1, chunk * 3 // 5])
+        starts = np.array([rng.integers(0, span - q + 1) for q in q_lens])
+    table = None
+    if layout == "paged":
+        n_pages = span // bs
+        perm = rng.permutation(b * n_pages + 5)[:b * n_pages]
+        table = torch.tensor(perm.reshape(b, n_pages), dtype=torch.int32,
+                             device="cuda")
+        cache = leaves(b * n_pages + 6, hkv, bs)
+    else:
+        cache = leaves(b, hkv, span)
+    rows = leaves(b, chunk, hkv)
+    new = {n: t.transpose(1, 2) if n.startswith("v") else
+           t.transpose(1, 2).contiguous() for n, t in rows.items()}
+    return (cache, new, torch.tensor(starts, dtype=torch.int32,
+                                     device="cuda"),
+            torch.tensor(q_lens, dtype=torch.int32, device="cuda"), table)
+
+
+def check_kv_write(torch, timer, rows) -> dict:
+    """The KV write kernel bitwise against its plain version (slot and
+    paged, fp and int8, decode with a masked row and a rolling window's
+    index, a 64-wide chunk with a dead row and ragged rows), the null
+    block and dead rows untouched; kernel and plain times beside the byte
+    bound, and ``index_put_`` per leaf on indices and rows gathered
+    beforehand as a yardstick (no single PyTorch call takes ``q_lens``)."""
+    from repro_torch.kernels.kv_write import kv_write_cuda, kv_write_torch
+    g = torch.Generator(device="cuda").manual_seed(22)
+    line = {}
+    for layout in ("slot", "paged"):
+        for kind in ("bf16", "bf16-roll", "int8"):
+            for chunk in ((1,) if kind.endswith("-roll") else (1, 64)):
+                cache, new, starts, q_lens, table = kv_write_case(
+                    torch, g, layout, kind, chunk)
+                orig = {n: t.clone() for n, t in cache.items()}
+                want = {n: t.clone() for n, t in cache.items()}
+                kv_write_torch(want, new, starts, q_lens, table)
+                kv_write_cuda(cache, new, starts, q_lens, table)
+                torch.cuda.synchronize()
+                what = f"kv_write {layout} {kind} C={chunk}"
+                for n in cache:
+                    need(torch.equal(cache[n].view(torch.uint8),
+                                     want[n].view(torch.uint8)),
+                         f"{what}: leaf {n} is not bitwise the plain "
+                         "version's")
+                    untouched = (cache[n][-1], orig[n][-1]) if table is not \
+                        None else (cache[n][2 if chunk == 1 else 1],
+                                   orig[n][2 if chunk == 1 else 1])
+                    need(torch.equal(*untouched),
+                         f"{what}: the null block or a dead row changed")
+                live = int(q_lens.sum())
+                width = sum(t.shape[-1] * t.element_size()
+                            for t in cache.values())
+                nbytes = (2 * live * cache["k"].shape[1] * width
+                          + 2 * 4 * q_lens.numel()
+                          + (live * 4 if table is not None else 0))
+                row = {"kernel": "kv_write", "layout": layout, "kind": kind,
+                       "C": chunk, "live_positions": live, "max_abs_err": 0.0,
+                       "bitwise": True,
+                       "ms": timer.ms(lambda: kv_write_cuda(
+                           cache, new, starts, q_lens, table), 20),
+                       "plain_ms": timer.ms(lambda: kv_write_torch(
+                           cache, new, starts, q_lens, table), 3),
+                       "library_ms": None}
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 0,
+                                                         "bfloat16")
+                # the yardstick: index_put_ of the gathered live rows
+                j = torch.arange(chunk, device="cuda")
+                r, c = (j[None, :] < q_lens[:, None]).nonzero(as_tuple=True)
+                pos = starts.long()[r] + c
+                if table is not None:
+                    bsz = cache["k"].shape[2]
+                    idx = (table.long()[r, pos // bsz], slice(None),
+                           pos % bsz)
+                else:
+                    idx = (r, slice(None), pos)
+                vals = {n: t[r, :, c] for n, t in new.items()}
+                row["index_put_ms"] = timer.ms(
+                    lambda: [cache[n].__setitem__(idx, vals[n])
+                             for n in cache], 10)
+                rows.append(row)
+                log(f"  {what}: bitwise = plain, dead rows and null block "
+                    f"untouched; kernel {row['ms']:.4f} ms plain "
+                    f"{row['plain_ms']:.4f} ms index_put_ "
+                    f"{row['index_put_ms']:.4f} ms bound "
+                    f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+                if (layout, kind, chunk) == ("slot", "bf16", 1):
+                    line["kv_write"] = row
     return line
 
 
@@ -1637,6 +1796,13 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
                                             **kw),
                       lib(False), row["ffn_bytes"], 2 * 2 * t * d * f, dname,
                       prefix="ffn_")
+                u16, d16 = (dequantize(w, bf16) for w in (up, down))
+                row["ffn_library_bf16_ms"] = timer.ms(lambda: ffn_chain(
+                    torch, x, None, u16, d16, "gelu", ub, db), 10)
+                del u16, d16
+                log(f"  ffn_fused_w4a16_gelu T={t}: whole-FFN chain on "
+                    f"weights dequantized once "
+                    f"{row['ffn_library_bf16_ms']:.4f} ms")
             rows.append(row)
             log(f"  ffn_fused_w4a16_gelu {dname} T={t:3d}: hidden max_abs "
                 f"{herr:.3g} rel {hrel:.3g}; ffn max_abs {err:.3g} rel "
@@ -1832,7 +1998,7 @@ def expected_launches(cfg, params, ticks):
     L = cfg.n_layers
     attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
     norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
-    per_tick = {attention: L, norm: 2 * L + 1}
+    per_tick = {attention: L, norm: 2 * L + 1, "kv_write": L}
 
     def add(kernel, n):
         per_tick[kernel] = per_tick.get(kernel, 0) + n
@@ -1913,10 +2079,15 @@ def workload(cfg):
 
 
 def serve(torch, cfg, params, results, path, slot_streams=None):
-    """Serve the 9-request workload; returns (launch counts, streams).
-    Every engine audits every tick; a paged one must stall admissions and
-    end with its pool whole; ``slot_streams`` (the slot run's) are compared as
-    information only (tiles of 16 against 128 keys can flip bf16 ties)."""
+    """Serve the 9-request workload twice on one engine; returns (the first
+    run's launch counts, its streams).  Every tick replays a captured CUDA
+    graph: misses stay within ``compile_budget`` and the second run makes
+    none, with the first run's streams.  Every engine audits every tick; a
+    paged one must stall admissions and end with its pool whole;
+    ``slot_streams`` (the slot run's) are compared as information only
+    (tiles of 16 against 128 keys can flip bf16 ties).  On the paths of
+    ``REPLAY_PATHS`` and ``TRACE_PATHS`` the engine's graphs are then held
+    against eager steps and traced."""
     import numpy as np
     from repro_torch.kernels._build import launches
     from repro_torch.serving.engine import Engine, Request, reference_decode
@@ -1924,86 +2095,334 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
     prompts = workload(cfg)
     engine = Engine(cfg, params, batch_size=4, max_len=max_len,
                     chunk_size=64, audit_every=1, device=DEVICE)
-    reqs = [Request(rid=i, prompt=p.astype(np.int32), max_new_tokens=max_new)
-            for i, p in enumerate(prompts)]
-    # a paged run submits the 200-token request first: its 14-block
-    # reservation then holds the pool while the short ones queue behind it
-    # (in rid order the short ones leave in two whole waves and the long
-    # one runs alone, and the pool never stalls)
-    for r in (reqs[-1:] + reqs[:-1] if engine.paged else reqs):
-        engine.submit(r)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    launches.clear()
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(launches)
-    peak = torch.cuda.max_memory_allocated()   # the engine's, not the oracle's
-    need(done.drained and len(done) == len(reqs) and all(r.done for r in reqs),
-         f"engine did not finish every request ({len(done)}/{len(reqs)})")
-    summary = Engine.summarize(done)
-    n_tok = sum(len(r.output) for r in reqs)
-    ticks = engine.steps
-    expect = (expected_launches_ssm(cfg, params, engine.dispatched_columns)
-              if cfg.family == "ssm" else
-              expected_launches(cfg, params, ticks))
-    log(f"  engine: {ticks} ticks ({engine.mixed_ticks} mixed, "
-        f"{engine.dispatched_columns} token columns), {n_tok} "
-        f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
-        f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, ITL p50 "
-        f"{summary.get('itl_p50_s', float('nan')) * 1e3:.1f} ms, peak "
-        f"memory {peak / 2**30:.2f} GiB, "
-        f"{engine.audits} audits, peak resident "
-        f"{engine.peak_resident_tokens} tokens")
-    pool = None
-    if engine.paged:
-        pool = engine.pool_stats()
-        log(f"  paged KV: {engine.pool_blocks} blocks x {engine.block_size} "
-            f"tokens, {engine.admission_stalls} admission stalls, pool "
-            f"{pool}")
-        need(engine.admission_stalls > 0, f"{path}: the pool never stalled "
-             "an admission")
-        need(pool["free"] == pool["total"] and not pool["leased"],
-             f"{path}: the pool is not whole after the drain: {pool}")
-    log(f"  launches: {counts}  expected: {expect}")
-    need(counts == expect, "kernel launch counts do not match layers x calls"
-         " x ticks: the serving path did not run through every kernel")
-    mismatches = []
-    for r in reqs:
-        ref = reference_decode(cfg, params, r.prompt, r.max_new_tokens,
-                               max_len=max_len, device=DEVICE)
-        if r.output != ref:
-            step, margin = first_divergence(torch, cfg, params, r.prompt,
-                                            r.output, max_len)
-            mismatches.append({"rid": r.rid, "step": step,
-                               "oracle_top2_margin": margin})
-    log(f"  token streams equal to reference_decode: "
-        f"{len(reqs) - len(mismatches)}/{len(reqs)} {mismatches or ''}")
-    streams = [r.output for r in reqs]
+    runs, first = [], None
+    for run in range(2):
+        reqs = [Request(rid=100 * run + i, prompt=p.astype(np.int32),
+                        max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+        # a paged run submits the 200-token request first: its 14-block
+        # reservation then holds the pool while the short ones queue
+        # behind it (in rid order the short ones leave in two whole waves
+        # and the long one runs alone, and the pool never stalls)
+        for r in (reqs[-1:] + reqs[:-1] if engine.paged else reqs):
+            engine.submit(r)
+        ticks0, cols0 = engine.steps, engine.dispatched_columns
+        mixed0, stalls0 = engine.mixed_ticks, engine.admission_stalls
+        misses0 = engine.cache_compiles.misses
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        launches.clear()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()  # the engine's alone
+        need(done.drained and len(done) == len(reqs)
+             and all(r.done for r in reqs),
+             f"{path} run {run}: engine did not finish every request "
+             f"({len(done)}/{len(reqs)})")
+        summary = Engine.summarize(done)
+        n_tok = sum(len(r.output) for r in reqs)
+        ticks = engine.steps - ticks0
+        cols = engine.dispatched_columns - cols0
+        stalls = engine.admission_stalls - stalls0
+        expect = (expected_launches_ssm(cfg, params, cols)
+                  if cfg.family == "ssm" else
+                  expected_launches(cfg, params, ticks))
+        new_misses = engine.cache_compiles.misses - misses0
+        log(f"  run {run}: {ticks} ticks ({engine.mixed_ticks - mixed0} "
+            f"mixed, {cols} token columns), {n_tok} tokens in {wall:.2f} s "
+            f"= {n_tok / wall:.1f} tokens/s, TTFT p50 "
+            f"{summary.get('ttft_p50_s', float('nan')) * 1e3:.1f} ms, ITL "
+            f"p50 {summary.get('itl_p50_s', float('nan')) * 1e3:.1f} ms, "
+            f"peak memory {peak / 2**30:.2f} GiB, {new_misses} new misses, "
+            f"{engine.audits} audits, peak resident "
+            f"{engine.peak_resident_tokens} tokens")
+        pool = None
+        if engine.paged:
+            pool = engine.pool_stats()
+            log(f"  paged KV: {engine.pool_blocks} blocks x "
+                f"{engine.block_size} tokens, {stalls} admission stalls, "
+                f"pool {pool}")
+            need(stalls > 0, f"{path} run {run}: the pool never stalled an "
+                 "admission")
+            need(pool["free"] == pool["total"] and not pool["leased"],
+                 f"{path} run {run}: the pool is not whole after the drain:"
+                 f" {pool}")
+        log(f"  launches: {counts}  expected: {expect}")
+        need(counts == expect, f"{path} run {run}: kernel launch counts do "
+             "not match layers x calls x ticks: the serving path did not run"
+             " through every kernel")
+        streams = [r.output for r in reqs]
+        runs.append({
+            "requests": len(reqs), "ticks": ticks,
+            "mixed_ticks": engine.mixed_ticks - mixed0,
+            "dispatched_columns": cols, "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": summary.get("ttft_p50_s"),
+            "itl_p50_s": summary.get("itl_p50_s"),
+            "max_memory_allocated": peak, "new_misses": new_misses,
+            "admission_stalls": stalls, "pool": pool, "launches": counts,
+            "expected_launches": expect})
+        if run == 0:
+            first = streams
+            mismatches = []
+            for r in reqs:
+                ref = reference_decode(cfg, params, r.prompt,
+                                       r.max_new_tokens, max_len=max_len,
+                                       device=DEVICE)
+                if r.output != ref:
+                    step, margin = first_divergence(
+                        torch, cfg, params, r.prompt, r.output, max_len)
+                    mismatches.append({"rid": r.rid, "step": step,
+                                       "oracle_top2_margin": margin})
+            log(f"  token streams equal to reference_decode: "
+                f"{len(reqs) - len(mismatches)}/{len(reqs)} "
+                f"{mismatches or ''}")
+            runs[-1]["mismatches"] = mismatches
+            need(not mismatches, f"{path}: engine token streams differ from "
+                 "reference_decode")
+        else:
+            log(f"  run 1 streams equal to run 0's (so to "
+                f"reference_decode): {streams == first}")
+            need(new_misses == 0, f"{path}: the second run captured "
+                 f"{new_misses} more graphs")
+            need(streams == first, f"{path}: the second run's streams "
+                 "differ from the first's")
+    cc = engine.cache_compiles
+    graphs = {f"{k[0]}-{k[1]}": t for k, t in engine.capture_seconds.items()}
+    ticked = [k for k in cc.keys() if k[0] != "insert"]
+    log(f"  compile cache: {sorted(cc.keys())} ({cc.hits} hits, misses by "
+        f"kind {cc.misses_by_name}); budget {engine.compile_budget}; "
+        f"graphs captured {len(graphs)}, capture s {graphs}")
+    need(cc.misses <= engine.compile_budget,
+         f"{path}: {cc.misses} misses > compile_budget "
+         f"{engine.compile_budget}")
+    need(sorted(engine.capture_seconds) == sorted(ticked),
+         f"{path}: the mixed and decode keys {ticked} are not each one "
+         f"captured graph ({sorted(engine.capture_seconds)})")
     same_as_slot = (None if slot_streams is None else
-                    sum(a == b for a, b in zip(streams, slot_streams)))
+                    sum(a == b for a, b in zip(first, slot_streams)))
     if same_as_slot is not None:
         log(f"  streams equal to the slot fp run's (information only): "
-            f"{same_as_slot}/{len(reqs)}")
+            f"{same_as_slot}/{len(prompts)}")
     results.setdefault("serving", {})[path] = {
-        "requests": len(reqs), "ticks": ticks,
-        "mixed_ticks": engine.mixed_ticks,
-        "dispatched_columns": engine.dispatched_columns, "tokens": n_tok,
-        "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "ttft_p50_s": summary.get("ttft_p50_s"),
-        "itl_p50_s": summary.get("itl_p50_s"),
-        "max_memory_allocated": peak,
+        "runs": runs, "compile_keys": [list(k) for k in sorted(cc.keys())],
+        "misses_by_name": cc.misses_by_name, "hits": cc.hits,
+        "compile_budget": engine.compile_budget, "capture_s": graphs,
         "audits": engine.audits,
-        "admission_stalls": engine.admission_stalls,
-        "peak_resident_tokens": engine.peak_resident_tokens, "pool": pool,
-        "streams_equal_slot_run": same_as_slot,
-        "launches": counts, "expected_launches": expect,
-        "mismatches": mismatches}
-    need(not mismatches, f"{path}: engine token streams differ from "
-         "reference_decode")
-    return counts, streams
+        "peak_resident_tokens": engine.peak_resident_tokens,
+        "streams_equal_slot_run": same_as_slot}
+    if path in REPLAY_PATHS:
+        log(f"phase 4 [{path}]: graph replay vs eager, every key")
+        check_graph_replay(torch, engine, params, results, path)
+    if path in TRACE_PATHS:
+        log(f"phase 5 [{path}]: profiler traces of one tick, eager and "
+            "replayed")
+        trace_ticks(torch, engine, params, results, path)
+    return runs[0]["launches"], first
+
+
+# the paths whose graphs are held against eager steps, and traced
+REPLAY_PATHS = ("dense", "strategy2-paged-int8", "xlstm-dense")
+TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense")
+
+
+def live_inputs(engine, name, width, rng):
+    """Host inputs of a tick with live rows: a dead row, a decode row and
+    prompt chunks (mixed), or a masked row (decode); paged rows take
+    distinct pool blocks in a scrambled order (the pool is whole after a
+    drain)."""
+    import numpy as np
+    b = engine.batch
+    per_row = (engine.pool_blocks // b * engine.block_size if engine.paged
+               else engine.max_len)
+    if name == "mixed":
+        q_lens = rng.integers(1, width + 1, b).astype(np.int32)
+        q_lens[0], q_lens[1] = 0, 1
+        lengths = rng.integers(0, per_row - width + 1, b).astype(np.int32)
+        host = {"tokens": rng.integers(0, engine.cfg.vocab_size,
+                                       (b, width)).astype(np.int64),
+                "lengths": lengths, "q_lens": q_lens}
+        reach = lengths + q_lens
+    else:
+        mask = np.ones(b, bool)
+        mask[0] = False
+        lengths = rng.integers(1, per_row + 1, b).astype(np.int32)
+        host = {"tokens": rng.integers(0, engine.cfg.vocab_size,
+                                       (b, 1)).astype(np.int64),
+                "lengths": lengths, "write_mask": mask}
+        reach = lengths
+    if engine.paged:
+        table = np.full((b, engine.n_pages), engine._null_block, np.int32)
+        free = rng.permutation(engine.pool_blocks)
+        k = 0
+        for i in range(b):
+            n = -(-int(reach[i]) // engine.block_size)
+            table[i, :n] = free[k:k + n]
+            k += n
+        host["page_table"] = table
+    return host
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def tick_keys(engine):
+    """The (name, width) of every mixed and decode key, width None for
+    decode."""
+    return [(n, None if n == "decode" else b)
+            for n, b in sorted(engine.cache_compiles.keys()) if n != "insert"]
+
+
+def check_graph_replay(torch, engine, params, results, path):
+    """Each key's graph replayed once on the engine's cache against its
+    function run eagerly on a copy, from the same live inputs: logits,
+    tokens and every cache or state leaf bitwise equal."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    out = {}
+    for name, width in tick_keys(engine):
+        tick = engine._executable(name, width)
+        host = live_inputs(engine, name, width or engine.batch, rng)
+        copy = clone_tree(engine.cache)
+        tok_e, logits_e = tick.fn(params, copy, **{
+            k: torch.from_numpy(a).to(DEVICE) for k, a in host.items()})
+        tok_g, logits_g = tick(params, engine.cache, **host)
+        torch.cuda.synchronize()
+        diff = differing_slices(torch, copy, engine.cache)
+        same = torch.equal(logits_e, logits_g) and torch.equal(tok_e, tok_g)
+        key = f"{name}-{width or engine.batch}"
+        out[key] = {"logits_equal": same, "cache_slices_differing": diff}
+        log(f"  {key}: replay vs eager logits bitwise {same}; cache slices "
+            f"differing {diff}")
+        need(same and not diff, f"{path} {key}: the graph replay is not "
+             "bitwise the eager step")
+        del copy
+    results.setdefault("graph_replay", {})[path] = out
+
+
+def device_activity(torch, prof):
+    """(device-busy ms, device operations, the hand kernels' share of the
+    device time, the 8 longest operations by name as (name, ms, count)) of
+    a profiled window: the union of the card's kernel, copy and set
+    intervals and their count; a hand kernel is one of the ``repro``
+    namespace.  (None, 0, None, []) when the profiler saw no device
+    activity."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    hand = sum(ms for name, (ms, _) in by_name.items() if "repro" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return ((busy / 1e3 if spans else None), len(spans),
+            (hand / total if total else None),
+            [(name[:90], ms, n) for name, (ms, n) in top])
+
+
+def trace_ticks(torch, engine, params, results, path):
+    """One decode tick and one mixed tick (the widest captured) run eagerly
+    on a copy of the cache and replayed, from the same live inputs: host
+    ms (the call's return, so the host's own time), wall ms (to the end of
+    the device's work; medians of 3, no profiler), and under
+    ``torch.profiler`` the device-busy ms and the device operations (for a
+    replay: the graph's kernel, copy and set nodes)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(10)
+    keys = tick_keys(engine)
+    mixed = [k for k in keys if k[0] == "mixed"]
+    out = {}
+    for name, width in [k for k in keys if k[0] == "decode"] + mixed[-1:]:
+        tick = engine._executable(name, width)
+        host = live_inputs(engine, name, width or engine.batch, rng)
+        dev = {k: torch.from_numpy(a).to(DEVICE) for k, a in host.items()}
+        copy = clone_tree(engine.cache)
+        calls = {"eager": lambda: tick.fn(params, copy, **dev),
+                 "replay": lambda: tick(params, engine.cache, **host)}
+        key = f"{name}-{width or engine.batch}"
+        for mode, call in calls.items():
+            host_ms, wall_ms = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                host_ms.append((t1 - t0) * 1e3)
+                wall_ms.append((t2 - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            busy, n_ops, hand, top = device_activity(torch, prof)
+            row = {"host_ms": float(np.median(host_ms)),
+                   "wall_ms": float(np.median(wall_ms)),
+                   "device_busy_ms": busy, "device_ops": n_ops,
+                   "hand_kernel_share": hand, "top": top}
+            out[f"{key}-{mode}"] = row
+            log(f"  {key} {mode}: host {row['host_ms']:.3f} ms, wall "
+                f"{row['wall_ms']:.3f} ms, device busy "
+                + (f"{busy:.3f} ms" if busy is not None else "not seen by "
+                   "the profiler") + f", {n_ops} device operations"
+                + (f", hand kernels {hand:.1%} of the device time"
+                   if hand is not None else ""))
+            if mode == "replay":
+                for name, ms, n in top:
+                    log(f"    {ms:8.3f} ms {n:6d}x {name}")
+        del copy
+    results.setdefault("traces", {})[path] = out
+
+
+def check_no_sync(torch, cfg, params, results, path):
+    """A mixed step (ragged q_lens, a dead row) and a decode step (a masked
+    row) on device inputs under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host read raises, so none happens and each step can be captured."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    b, c = 4, 16
+    cache = api.init_cache(cfg, b, 64, DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, c), generator=g,
+                           device=DEVICE)
+    lengths = torch.tensor([3, 0, 9, 20], dtype=torch.int32, device=DEVICE)
+    q_lens = torch.tensor([5, 0, 16, 1], dtype=torch.int32, device=DEVICE)
+    kw = {}
+    if api.has_paged_kv(cfg):
+        kw["page_table"] = torch.arange(b * 4, dtype=torch.int32,
+                                        device=DEVICE).reshape(b, 4)
+    write_mask = q_lens > 0
+    decode_lengths = lengths + q_lens + 1
+    _build.prepare()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        api.mixed_step(cfg, params, cache, tokens, lengths, q_lens, **kw)
+        api.decode_step(cfg, params, cache, tokens[:, :1], decode_lengths,
+                        write_mask=write_mask, **kw)
+    except RuntimeError as e:
+        raise SmokeFailure(f"{path}: a step synchronised with the host: "
+                           f"{e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    results.setdefault("no_sync", {})[path] = True
+    log("  a mixed step and a decode step under set_sync_debug_mode"
+        "(\"error\"): no host synchronisation")
 
 
 # -- phase 6: whole-prompt prefill and full-sequence forward ---------------
@@ -2017,10 +2436,12 @@ PREFILL_TOL = 5e-2
 def expected_full_launches(cfg, params, calls):
     """Launches of ``calls`` forward or slot-prefill calls: a serving
     tick's kernels per layer and the lm_head once, with kernel 7 in place
-    of the mixed attention kernel."""
+    of the mixed attention kernel and no ``kv_write`` (the slot prefill
+    assigns whole cache slices)."""
     from repro_torch.kernels.decode_flash import VARIANTS
     per = expected_launches(cfg, params, 1)
     per.pop(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")])
+    per.pop("kv_write")          # the slot prefill writes its cache slices
     per["flash_attention"] = cfg.n_layers
     return {k: calls * n for k, n in per.items()}
 
@@ -2305,19 +2726,22 @@ def check_prefill_caches(torch, cfg, params, results, streams):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = dict(launches)
-        flash, paged = got.get("flash_attention", 0), got.get(
-            "mixed_flash_attention_paged", 0)
-        want = ((cfg.n_layers, 0) if kv == "int8" else (0, cfg.n_layers))
+        flash, paged, kvw = (got.get(k, 0) for k in (
+            "flash_attention", "mixed_flash_attention_paged", "kv_write"))
+        # the paged prefill is one mixed step: kernel 3 and kv_write a layer
+        want = ((cfg.n_layers, 0, 0) if kv == "int8"
+                else (0, cfg.n_layers, cfg.n_layers))
         bl, _ = api._bulk_prefill(pcfg, params, toks, SERVE_MAX_LEN)
         diff = max_errs(logits, bl)
         stream = greedy_after_prefill(torch, pcfg, params, prompt,
                                       SERVE_NEW_TOKENS, SERVE_MAX_LEN)
         log(f"  (e) strategy2-{kv} prefill of {len(prompt)} tokens: "
             f"{seconds:.4f} s; launches flash_attention {flash},"
-            f" mixed_flash_attention_paged {paged} (expected {want}); vs "
-            f"the mixed-step route: logits max_abs {diff[0]:.4g}")
-        need((flash, paged) == want, f"(e) strategy2-{kv}: launches "
-             f"{(flash, paged)} != {want}")
+            f" mixed_flash_attention_paged {paged}, kv_write {kvw} (expected "
+            f"{want}); vs the mixed-step route: logits max_abs "
+            f"{diff[0]:.4g}")
+        need((flash, paged, kvw) == want, f"(e) strategy2-{kv}: launches "
+             f"{(flash, paged, kvw)} != {want}")
         res[f"e-{kv}"] = {"launches": got, "seconds": seconds,
                           "bulk_logits_max_abs": diff[0],
                           "stream": check_stream(
@@ -2386,6 +2810,9 @@ KERNEL_META = {
                               "src/repro/kernels/ffn_fused.py:455 (the "
                               "ungated gelu variant with biases)",
                               "starcoder2-strategy2"),
+    "kv_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
+                 "src/repro/models/attention.py:139, :153, :269 (XLA in the "
+                 "reference, no Pallas kernel)", "dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -2462,6 +2889,7 @@ def main() -> int:
                     "decode_step")
                 check_mixed_equals_sequential(torch, pcfg, params, results,
                                               path)
+                check_no_sync(torch, pcfg, params, results, path)
             streams: dict = {}
             for path, pcfg in paths:
                 log(f"phase 5 [{path}]: serving")

@@ -11,13 +11,14 @@ dense quantization works per 128-row group, so a stack goes whole; a pruned
 stack goes matrix by matrix.
 
 ``TokenBuckets`` keeps the engine's chunk widths on a bounded power-of-two
-set, so a later slice can capture one CUDA graph per width.
+set, and ``CompileCache`` memoizes the engine's executables per key, so the
+card captures one CUDA graph per chunk width.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -146,3 +147,49 @@ class TokenBuckets:
             b *= 2
         out.append(self.max_tokens)
         return out
+
+
+class CompileCache:
+    """Memoized serving executables per (name, key): on the card each entry
+    is one captured CUDA graph, on the CPU the same function run eagerly.
+
+    Serving uses three key families (the paper's pre-compiled executable
+    set from Fig. 9, restated for captured graphs, which fix every shape):
+
+    * ``("mixed", W)`` — the mixed prefill/decode tick at chunk-width
+      bucket W (``TokenBuckets`` over the engine's chunk size): prompts
+      admit through the SAME dispatch that advances decode rows, so there
+      is no per-prompt-length prefill family at all;
+    * ``("decode", B)`` — the pure-decode tick: one graph per resident
+      slot-batch size, shared by every request at every step;
+    * ``("insert", B)`` — the slot copy behind ``insert_request`` (the
+      slot index is an operand, so one entry covers all B slots).
+
+    Total serving executables are therefore bounded by
+    ``n_chunk_buckets + 2`` per engine regardless of traffic — the paper's
+    "17 operators x B buckets" instruction-stream budget, restated as
+    graphs: a tick replays one graph, and no traffic captures another
+    beyond the budget.
+    """
+
+    def __init__(self):
+        self._cache: dict[tuple, Any] = {}
+        self.hits = 0
+        self.misses = 0
+        self.misses_by_name: dict[str, int] = {}
+
+    def get(self, name: str, bucket: int, build: Callable[[], Any]):
+        key = (name, bucket)
+        if key not in self._cache:
+            self._cache[key] = build()
+            self.misses += 1
+            self.misses_by_name[name] = self.misses_by_name.get(name, 0) + 1
+        else:
+            self.hits += 1
+        return self._cache[key]
+
+    def keys(self) -> list[tuple]:
+        return list(self._cache)
+
+    def __len__(self):
+        return len(self._cache)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("w4a16_matmul", "ffn_fused", "decode_flash", "rmsnorm",
                   "sparse_w4a16", "ffn_fused_sparse", "flash_attention",
                   "slstm_scan", "mlstm_cell", "dense_matmul",
-                  "ffn_fused_dense", "layernorm")
+                  "ffn_fused_dense", "layernorm", "kv_write")
 
 launches: "collections.Counter[str]" = collections.Counter()
 
@@ -107,6 +107,22 @@ def library(name: str) -> ctypes.CDLL:
             lib.repro_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def prepare(names=KERNEL_SOURCES) -> None:
+    """Build and load the named libraries and run their one-time host
+    calls (kernel 8's cluster attributes and occupancy query), so that a
+    CUDA graph capture that follows starts no ``nvcc``, loads no library
+    and makes no such call: inside a capture each wrapper only launches."""
+    build(names)
+    for name in names:
+        library(name)
+    if "slstm_scan" in names:
+        from repro_torch.kernels import slstm_scan
+        for dh in range(slstm_scan.CLUSTER_UNITS,
+                        slstm_scan.MAX_CLUSTER * slstm_scan.CLUSTER_UNITS + 1,
+                        slstm_scan.CLUSTER_UNITS):
+            slstm_scan.cluster_capacity(dh)
 
 
 def function(name: str, symbol: str, argtypes: list):

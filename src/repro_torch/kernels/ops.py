@@ -24,6 +24,7 @@ from repro_torch.kernels.dense_matmul import (
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_torch)
+from repro_torch.kernels.kv_write import kv_write_cuda, kv_write_torch
 from repro_torch.kernels.layernorm import layernorm_cuda, layernorm_torch
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
@@ -34,7 +35,7 @@ from repro_torch.kernels.w4a16_matmul import (
 
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "ffn_w4a16", "layernorm", "attention", "decode_attention",
-           "mixed_attention", "gather_paged_cache", "slstm_scan",
+           "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
            "mlstm_cell"]
 
 
@@ -148,6 +149,19 @@ def mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, *, active=None,
     impl = _resolve(impl, q)
     fn = mlstm_cell_cuda if impl == "cuda" else mlstm_cell_torch
     return fn(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
+
+
+def kv_write(cache: dict, new: dict, starts: torch.Tensor,
+             q_lens: torch.Tensor, *, page_table: torch.Tensor | None = None,
+             impl: str = "auto") -> None:
+    """Write one layer's new K/V rows ``new[name]`` (B, hkv, C, w) into
+    ``cache[name]`` in place: row ``b``'s positions ``j < q_lens[b]`` at
+    ``starts[b] + j``, through ``page_table`` for a paged pool
+    (``kernels/kv_write.py``).  Dead positions write nothing.  A write is a
+    copy, so the plain version is also the oracle: ``"ref"`` takes it."""
+    impl = _resolve(impl, next(iter(new.values())))
+    fn = kv_write_cuda if impl == "cuda" else kv_write_torch
+    fn(cache, new, starts, q_lens, page_table)
 
 
 def gather_paged_cache(pool: torch.Tensor,

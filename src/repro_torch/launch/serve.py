@@ -14,8 +14,10 @@ request workload (prompts of 4–32 tokens from
 ``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu``
 is given; without ``--full`` it serves the reduced ``-smoke``
 configuration.
-Prints the summary, the scheduler line, the pool line of a paged run and
-each kernel's launch count.
+Prints the summary, the scheduler line, the compile-cache line (keys,
+hits and misses by kind: on the card each mixed or decode key is one
+captured CUDA graph), the pool line of a paged run and each kernel's launch
+count.
 """
 
 from __future__ import annotations
@@ -87,6 +89,9 @@ def main(argv=None) -> None:
     print(f"scheduler: {engine.steps} ticks, {engine.dispatches} dispatches "
           f"(1 per tick, {engine.mixed_ticks} mixed), slot occupancy "
           f"{engine.slot_occupancy:.2f}")
+    print(f"compile cache: {sorted(engine.cache_compiles.keys())} "
+          f"({engine.cache_compiles.hits} hits, "
+          f"misses by kind {engine.cache_compiles.misses_by_name})")
     if engine.paged:
         print(f"paged KV: {engine.pool_blocks} blocks x "
               f"{engine.block_size} tokens, peak resident "

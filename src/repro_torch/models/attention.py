@@ -4,16 +4,18 @@ the dense path of ``repro/models/attention.py``).  The full-sequence path
 steps (``attn_mixed``, ``attn_decode``) run ``ops.mixed_attention``
 against the cache.
 
-The cache is updated IN PLACE, which JAX could not do: the chunk and token
-writers assign into the cache tensors the caller passes, and ``attn_mixed``
-/ ``attn_decode`` return that same dict.  A cache row is written only at the
-positions its request really occupies, so a ``q_lens == 0`` row (or a
-decode row outside ``write_mask``) is untouched, the property the reference
-gets from its read-modify-write and select.  Paged: the reference routes
-dead positions and masked rows to the null block; here they are skipped,
-so no write ever lands in a block the row has not leased and the null
-block is never written (nor read: the kernels address only a row's live
-pages).
+The cache is updated IN PLACE, which JAX could not do: ``ops.kv_write``
+writes one layer's K/V leaves into the cache tensors the caller passes (one
+kernel launch a layer on the card, reading ``q_lens`` / the write mask on
+the device, so no step reads a device value on the host), and
+``attn_mixed`` / ``attn_decode`` return that same dict.  A cache row is
+written only at the positions its request really occupies, so a ``q_lens
+== 0`` row (or a decode row outside ``write_mask``) is untouched, the
+property the reference gets from its read-modify-write and select.
+Paged: the reference routes dead positions and masked rows to the null
+block; here they are skipped, so no write ever lands in a block the row
+has not leased and the null block is never written (nor read: the
+kernels address only a row's live pages).
 
 Paged layout.  Per layer the pool leaf is ``(n_blocks + 1, hkv, bs, hd)``;
 the LAST block is the null block, and page-table entries of pages a slot
@@ -240,48 +242,6 @@ def _scales(cache: Params) -> dict:
     return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
-def _chunk_write(cache_leaf: torch.Tensor, new: torch.Tensor,
-                 starts: torch.Tensor, q_lens: torch.Tensor) -> None:
-    """In place: row ``b`` writes ``new[b, :, :q_lens[b]]`` at positions
-    ``starts[b] ..``; every other position keeps its value.  Callers
-    guarantee ``starts + q_lens <= L``."""
-    c = new.shape[2]
-    j = torch.arange(c, device=new.device)
-    rows, cols = (j[None, :] < q_lens[:, None]).nonzero(as_tuple=True)
-    cache_leaf[rows, :, starts.long()[rows] + cols] = \
-        new[rows, :, cols].to(cache_leaf.dtype)
-
-
-def _paged_chunk_write(pool: torch.Tensor, new: torch.Tensor,
-                       page_table: torch.Tensor, starts: torch.Tensor,
-                       q_lens: torch.Tensor) -> None:
-    """In place, through the page table: row ``b`` writes its first
-    ``q_lens[b]`` chunk tokens ``new[b, :, j]`` at logical positions
-    ``starts[b] + j``.  Dead chunk positions write nothing (the reference
-    routes them to the null block), so a ``q_lens == 0`` row is a no-op."""
-    c = new.shape[2]
-    bs = pool.shape[2]
-    j = torch.arange(c, device=new.device)
-    rows, cols = (j[None, :] < q_lens[:, None]).nonzero(as_tuple=True)
-    pos = starts.long()[rows] + cols
-    blk = page_table.long()[rows, pos // bs]
-    pool[blk, :, pos % bs] = new[rows, :, cols].to(pool.dtype)
-
-
-def _paged_token_write(pool: torch.Tensor, new: torch.Tensor,
-                       page_table: torch.Tensor, pos: torch.Tensor,
-                       mask: torch.Tensor | None) -> None:
-    """In place: one token per row, ``new`` (b, hkv, w) at logical
-    positions ``pos`` (b,).  Rows with ``mask == False`` write nothing."""
-    rows = torch.arange(new.shape[0], device=new.device)
-    if mask is not None:
-        rows = rows[mask]
-    pos = pos.long()[rows]
-    bs = pool.shape[2]
-    blk = page_table.long()[rows, pos // bs]
-    pool[blk, :, pos % bs] = new[rows].to(pool.dtype)
-
-
 def attn_mixed(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
                lengths: torch.Tensor, q_lens: torch.Tensor, *,
                page_table: torch.Tensor | None = None):
@@ -296,11 +256,8 @@ def attn_mixed(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cfg.kv_layout == "paged" and page_table is None:
         page_table = default_page_table(b, cache["k"].shape[0], x.device)
-    for name, new in _new_kv(cfg, k, v).items():
-        if cfg.kv_layout == "paged":
-            _paged_chunk_write(cache[name], new, page_table, lengths, q_lens)
-        else:
-            _chunk_write(cache[name], new, lengths, q_lens)
+    ops.kv_write(cache, _new_kv(cfg, k, v), lengths, q_lens,
+                 page_table=page_table)
     o = ops.mixed_attention(q, cache["k"], cache["v"], lengths + q_lens,
                             q_lens, window=cfg.window, page_table=page_table,
                             **_scales(cache))
@@ -338,16 +295,10 @@ def attn_decode(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
         write_idx = torch.clamp(lengths - 1, 0, span - 1)
         attn_len = lengths
         attn_window = cfg.window
-    rows = torch.arange(b, device=x.device)
-    if write_mask is not None:
-        rows = rows[write_mask]
-    for name, new in _new_kv(cfg, k, v).items():
-        if paged:
-            _paged_token_write(cache[name], new[:, :, 0], page_table,
-                               write_idx, write_mask)
-        else:
-            idx = write_idx.long()[rows]
-            cache[name][rows, :, idx] = new[rows, :, 0].to(cache[name].dtype)
+    live = (torch.ones(b, dtype=torch.int32, device=x.device)
+            if write_mask is None else write_mask.to(torch.int32))
+    ops.kv_write(cache, _new_kv(cfg, k, v), write_idx, live,
+                 page_table=page_table)
     o = ops.decode_attention(q, cache["k"], cache["v"], attn_len,
                              window=attn_window, page_table=page_table,
                              **_scales(cache))

@@ -12,7 +12,23 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
   chunk width for a row mid-prefill); a tick with no prompt chunk in flight
   runs ``api.decode_step``.  Prompts stream in chunk-width pieces
   (Sarathi-style) beside the decode rows, so admission costs no extra
-  dispatch.  Chunk widths are bucketed by ``TokenBuckets``.
+  dispatch.  Chunk widths are bucketed by ``TokenBuckets``; which rows
+  advance is ``_schedule_chunks``'s choice (``prefill_token_budget``,
+  ``prefill_policy``), as in the reference.
+* **Bounded executables.**  Each tick runs the executable of its key,
+  ``("mixed", W)`` or ``("decode", B)``, memoized in a ``CompileCache``
+  (``cache_compiles``); ``("insert", B)`` is the admission copy.  Misses
+  are bounded by ``compile_budget`` = chunk buckets + 2, whatever the
+  traffic.  On the card a mixed or decode key is ONE captured CUDA graph
+  (``_CapturedTick``): captured on its first miss, after a warm-up dispatch
+  in which every row is dead (so it writes no cache leaf), and replayed on
+  every hit.  A tick copies its host arrays into pinned staging buffers
+  and from there, without blocking, into the graph's static inputs; the
+  only copy back is the token ids (and the logits for a ``sample`` hook).
+  An engine's graphs share one memory pool.  A capture that fails raises:
+  the engine never serves a tick eagerly on the card.  On the CPU the same
+  functions run eagerly, memoized under the same keys, so keys, hits,
+  misses and the budget mean the same on both devices.
 * **True-length accounting.**  Slots track the request's real token count;
   K/V land at real positions and a prompt is admissible whenever
   ``len(prompt) <= max_len``.
@@ -21,8 +37,9 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
 * **Recurrent families** (``api.needs_admission_insert``: the xLSTM's
   ``ssm``) get a fresh ``api.request_cache`` row copied into the slot at
   admission, so the previous occupant's state (the mLSTM stabilizer ``m``)
-  never leaks into the next request; a pure-decode tick's dead rows may
-  mutate their state meanwhile.  Their mixed tick steps the chunk one
+  never leaks into the next request.  A decode tick's ``write_mask`` keeps
+  the rows that do not advance (dead ones) untouched, on every family and
+  layout.  Their mixed tick steps the chunk one
   position at a time (``api.mixed_step``), so ``dispatched_columns``
   counts the token columns each tick dispatched: the chunk bucket of a
   mixed tick, one for a decode tick.
@@ -55,8 +72,9 @@ Paged KV bookkeeping (host only; the device sees a page table):
 
 One card means one block home: the reference's per-home reservation split
 is the total check here.  Left for later slices, and not accepted as
-arguments: speculation, prefix sharing and copy-on-write, the request
-lifecycle and preemption, quarantine, chaos and snapshots.
+arguments: speculation, prefix sharing and copy-on-write (the ``("cow",
+0)`` key), the request lifecycle and preemption, quarantine, chaos and
+snapshots.
 """
 
 from __future__ import annotations
@@ -69,7 +87,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.compiler import TokenBuckets
+from repro_torch.core.compiler import CompileCache, TokenBuckets
+from repro_torch.kernels import _build
 from repro_torch.models import api
 from repro_torch.models.attention import (
     check_supported, paged_geometry, paged_pool_blocks)
@@ -120,13 +139,105 @@ class _Slot:
         return self.req is not None and self.pos < len(self.req.prompt)
 
 
+def _mixed_executable(cfg):
+    # page_table: the paged layout's operand, absent for the slot cache
+    def fn(p, c, tokens, lengths, q_lens, page_table=None):
+        logits, _ = api.mixed_step(cfg, p, c, tokens, lengths, q_lens,
+                                   page_table=page_table)
+        return torch.argmax(logits, dim=-1), logits
+    return fn
+
+
+def _decode_executable(cfg):
+    # write_mask keeps the rows that do not advance untouched, so a tick
+    # with every row dead writes nothing (the warm-up before a capture)
+    def fn(p, c, tokens, lengths, write_mask, page_table=None):
+        logits, _ = api.decode_step(cfg, p, c, tokens, lengths,
+                                    page_table=page_table,
+                                    write_mask=write_mask)
+        return torch.argmax(logits, dim=-1), logits
+    return fn
+
+
+def _insert_executable(cfg):
+    def fn(c, row, slot):
+        return api.insert_request(cfg, c, row, slot)
+    return fn
+
+
+class _EagerTick:
+    """A key's executable run eagerly (the CPU): host arrays in, device
+    tensors ``(next_tok, logits)`` out, the cache updated in place."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = device
+
+    def __call__(self, params, cache, **host):
+        args = {k: torch.from_numpy(a).to(self.device)
+                for k, a in host.items()}
+        return self.fn(params, cache, **args)
+
+
+class _CapturedTick:
+    """A key's executable as one captured CUDA graph.
+
+    ``inputs`` are the static device buffers the graph reads (their
+    values: a dispatch with every row dead); ``pinned`` the host staging
+    buffers a tick writes first.  Before the capture the graph's function
+    runs once on those dead inputs (lazy initialisation stays out of the
+    graph; no cache leaf changes).  The capture records each kernel
+    wrapper's launch; that count (``launches``) is added to
+    ``_build.launches`` on every replay instead, so the counts read as if
+    every tick had run eagerly (the warm-up serves no tick and is not
+    counted).  The graph belongs to the params and cache it was captured
+    with."""
+
+    def __init__(self, fn, params, cache, inputs: dict, pool):
+        self.fn, self.params, self.cache = fn, params, cache
+        self.inputs = inputs
+        self.pinned = {k: torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                       for k, t in inputs.items()}
+        before = collections.Counter(_build.launches)
+        side = torch.cuda.Stream(inputs["tokens"].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(params, cache, **inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = collections.Counter(_build.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.outputs = fn(params, cache, **inputs)
+        self.capture_s = time.perf_counter() - t0
+        self.launches = collections.Counter(_build.launches) - warm
+        _build.launches.clear()
+        _build.launches.update(before)
+
+    def __call__(self, params, cache, **host):
+        if params is not self.params or cache is not self.cache:
+            raise ValueError("a captured tick replays only on the params "
+                             "and cache it was captured with")
+        for k, a in host.items():
+            self.pinned[k].numpy()[...] = a
+            self.inputs[k].copy_(self.pinned[k], non_blocking=True)
+        self.graph.replay()
+        _build.launches.update(self.launches)
+        return self.outputs
+
+
 class Engine:
     """Continuous-batching engine: one mixed-batch dispatch per tick."""
 
     def __init__(self, cfg, params: Any, *, batch_size: int = 4,
                  max_len: int = 512, eos_id: int | None = None,
-                 chunk_size: int = 64, audit_every: int = 0,
-                 device="cuda"):
+                 chunk_size: int = 64,
+                 prefill_token_budget: int | None = None,
+                 prefill_policy: str = "mixed", audit_every: int = 0,
+                 compile_cache: CompileCache | None = None, device="cuda"):
+        if prefill_policy not in ("mixed", "stall"):
+            raise ValueError(f"unknown prefill_policy {prefill_policy!r}")
         self.device = torch.device(device)
         check_supported(cfg, self.device)
         self.cfg = cfg
@@ -136,8 +247,19 @@ class Engine:
         self.eos_id = eos_id
         # >= 2 so a mixed tick never takes mixed_step's C == 1 delegation
         self.chunk_size = max(2, min(chunk_size, max_len))
+        self.prefill_token_budget = prefill_token_budget
+        self.prefill_policy = prefill_policy
         self.chunk_buckets = TokenBuckets(
             max_tokens=self.chunk_size, min_bucket=min(16, self.chunk_size))
+        # `is not None`, not `or`: an EMPTY CompileCache is falsy (__len__).
+        # On the card an entry is a graph bound to this engine's params and
+        # cache, so a cache shared with another engine fails at its replay;
+        # on the CPU a shared cache serves engines of the same (cfg,
+        # max_len, batch, chunk_size), as in the reference
+        self.cache_compiles = (compile_cache if compile_cache is not None
+                               else CompileCache())
+        self.capture_seconds: dict[tuple, float] = {}   # key -> capture
+        self._graph_pool = None
         self._queue: "collections.deque[Request]" = collections.deque()
         self.cache = api.init_cache(cfg, batch_size, max_len, self.device)
         self._slots = [_Slot() for _ in range(batch_size)]
@@ -210,8 +332,9 @@ class Engine:
                 return False
             self._slot_reserve[idx] = self._worst_case_blocks(head)
         if self._fresh_row is not None:
-            self.cache = api.insert_request(self.cfg, self.cache,
-                                            self._fresh_row, idx)
+            insert = self.cache_compiles.get(
+                "insert", self.batch, lambda: _insert_executable(self.cfg))
+            self.cache = insert(self.cache, self._fresh_row, idx)
         self._slots[idx] = _Slot(req=self._queue.popleft())
         return True
 
@@ -272,6 +395,59 @@ class Engine:
             if s.req is not None:
                 assert s.length <= self.max_len, f"slot {i} overran max_len"
 
+    @property
+    def compile_budget(self) -> int:
+        """Upper bound on compile-cache misses (captured graphs and the
+        insert entry) this engine can cause: n_chunk_buckets (mixed
+        widths) + decode + insert."""
+        return len(self.chunk_buckets.all_buckets()) + 2
+
+    # -- executables (memoized: misses bounded by compile_budget) -----------
+
+    def _dead_inputs(self, width: int | None) -> dict[str, np.ndarray]:
+        """Inputs of a dispatch in which every row is dead: a mixed tick of
+        ``width`` columns with ``q_lens == 0``, or (``width`` None) a
+        decode tick with an all-False ``write_mask`` (lengths as the
+        engine gives a dead row)."""
+        b = self.batch
+        if width is None:
+            dead = {"tokens": np.zeros((b, 1), np.int64),
+                    "lengths": np.full(b, 0 if self.paged else 1, np.int32),
+                    "write_mask": np.zeros(b, bool)}
+        else:
+            dead = {"tokens": np.zeros((b, width), np.int64),
+                    "lengths": np.zeros(b, np.int32),
+                    "q_lens": np.zeros(b, np.int32)}
+        if self.paged:
+            dead["page_table"] = np.full((b, self.n_pages), self._null_block,
+                                         np.int32)
+        return dead
+
+    def _executable(self, name: str, width: int | None):
+        """The memoized entry of a ``("mixed", width)`` or (``width``
+        None) ``("decode", B)`` tick."""
+        bucket = self.batch if width is None else width
+        return self.cache_compiles.get(
+            name, bucket, lambda: self._build_tick(name, bucket, width))
+
+    def _build_tick(self, name: str, bucket: int, width: int | None):
+        """On the card the key's function captured as a graph over static
+        inputs holding a dispatch with every row dead; on the CPU the
+        function run eagerly."""
+        fn = (_mixed_executable if name == "mixed"
+              else _decode_executable)(self.cfg)
+        if self.device.type != "cuda":
+            return _EagerTick(fn, self.device)
+        if self._graph_pool is None:
+            _build.prepare()
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        inputs = {k: torch.from_numpy(a).to(self.device)
+                  for k, a in self._dead_inputs(width).items()}
+        tick = _CapturedTick(fn, self.params, self.cache, inputs,
+                             self._graph_pool)
+        self.capture_seconds[(name, bucket)] = tick.capture_s
+        return tick
+
     # -- internals -----------------------------------------------------------
 
     def _free_slot(self, idx: int) -> None:
@@ -292,10 +468,33 @@ class Engine:
         self._slots[idx] = _Slot()
 
     def _schedule_chunks(self) -> list[int]:
-        """This tick's per-slot prompt-chunk sizes (0 for non-prefill rows):
-        every mid-prefill row advances by up to one chunk width."""
-        return [min(self.chunk_size, len(s.req.prompt) - s.pos)
-                if s.prefilling else 0 for s in self._slots]
+        """Pick this tick's per-slot prompt-chunk sizes (Sarathi-style).
+
+        Returns q_lens for mid-prefill rows only (0 elsewhere).  The
+        "mixed" policy advances every mid-prefill row, subject to the
+        token budget (FIFO by slot, at least one row always advances);
+        the "stall" policy advances only the oldest mid-prefill row —
+        head-of-line-blocking admission, the reference's serving_bench
+        baseline (its decode rows wait that tick).
+        """
+        chunks = [0] * self.batch
+        budget = self.prefill_token_budget
+        picked = 0
+        for i, s in enumerate(self._slots):
+            if not s.prefilling:
+                continue
+            want = min(self.chunk_size, len(s.req.prompt) - s.pos)
+            if picked and budget is not None:
+                want = min(want, max(budget, 0))
+            if picked and self.prefill_policy == "stall":
+                want = 0
+            if want <= 0:
+                continue
+            chunks[i] = want
+            picked += 1
+            if budget is not None:
+                budget -= want
+        return chunks
 
     def _emit(self, idx: int, token: int, completed: list[Request],
               first: bool) -> None:
@@ -316,9 +515,6 @@ class Engine:
             completed.append(req)
             self._free_slot(idx)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def run(self, *, max_steps: int = 10_000,
             sample: Callable | None = None) -> RunResult:
         """Drain the queue; returns the requests finished during the call.
@@ -326,9 +522,10 @@ class Engine:
         Each tick: (1) refill free slots from the queue (a host-side lease;
         paged: strict FIFO behind the block reservation), (2) co-schedule
         prompt chunks with decode rows and, paged, lease the blocks they
-        grow into, (3) advance ALL slots with exactly one call —
-        ``mixed_step`` when any prompt chunk is in flight, ``decode_step``
-        otherwise — and consume the tokens.
+        grow into, (3) advance ALL slots with exactly one call — the
+        ``("mixed", W)`` executable when any prompt chunk is in flight, the
+        ``("decode", B)`` one otherwise (a graph replay on the card) — and
+        consume the tokens.
         ``sample`` maps a logits row (V,) to a token id; greedy argmax on
         the device when None."""
         completed: list[Request] = []
@@ -342,20 +539,22 @@ class Engine:
             if not live:
                 break
             chunks = self._schedule_chunks()
-            decoding = [i for i in live if not self._slots[i].prefilling]
-            paged_kw = {}
+            stall = self.prefill_policy == "stall" and any(chunks)
+            decoding = [i for i in live
+                        if not self._slots[i].prefilling and not stall]
+            host = {}
             if self.paged:
                 for i, s in enumerate(self._slots):
                     if chunks[i]:
                         self._lease_to(i, s.length + chunks[i])
                     elif i in decoding:
                         self._lease_to(i, s.length + 1)
-                paged_kw["page_table"] = self._tensor(self._page_table)
+                host["page_table"] = self._page_table
 
             if any(chunks):
                 # mixed tick: prompt chunks + decode rows, one dispatch
                 w = self.chunk_buckets.bucket(max(max(chunks), 2))
-                tokens = np.zeros((self.batch, w), np.int32)
+                tokens = np.zeros((self.batch, w), np.int64)
                 lengths = np.zeros(self.batch, np.int32)
                 q_lens = np.zeros(self.batch, np.int32)
                 for i, s in enumerate(self._slots):
@@ -367,16 +566,15 @@ class Engine:
                     elif i in decoding:
                         q_lens[i] = 1
                         tokens[i, 0] = s.last_token
-                logits, self.cache = api.mixed_step(
-                    self.cfg, self.params, self.cache,
-                    self._tensor(tokens).long(), self._tensor(lengths),
-                    self._tensor(q_lens), **paged_kw)
+                fn = self._executable("mixed", w)
+                next_tok, logits = fn(self.params, self.cache, tokens=tokens,
+                                      lengths=lengths, q_lens=q_lens, **host)
                 self.mixed_ticks += 1
                 self.dispatched_columns += w
             else:
-                # pure-decode tick (dead rows ride along, output ignored;
-                # paged: at length 0 and masked, so they neither read nor
-                # write any block of the pool, the null block included)
+                # pure-decode tick: rows outside write_mask (dead ones) ride
+                # along, their output ignored and their cache untouched
+                # (paged: at length 0 they read no block of the pool)
                 tokens = np.fromiter((s.last_token for s in self._slots),
                                      np.int64, self.batch).reshape(-1, 1)
                 lengths = np.fromiter(
@@ -384,15 +582,14 @@ class Engine:
                      0 if self.paged else max(s.length, 1)
                      for i, s in enumerate(self._slots)),
                     np.int32, self.batch)
-                if self.paged:
-                    adv = np.zeros(self.batch, bool)
-                    adv[decoding] = True
-                    paged_kw["write_mask"] = self._tensor(adv)
-                logits, self.cache = api.decode_step(
-                    self.cfg, self.params, self.cache, self._tensor(tokens),
-                    self._tensor(lengths), **paged_kw)
+                adv = np.zeros(self.batch, bool)
+                adv[decoding] = True
+                fn = self._executable("decode", None)
+                next_tok, logits = fn(self.params, self.cache, tokens=tokens,
+                                      lengths=lengths, write_mask=adv,
+                                      **host)
                 self.dispatched_columns += 1
-            next_np = torch.argmax(logits, dim=-1).cpu().numpy()
+            next_np = next_tok.cpu().numpy()
             logits_np = (logits.float().cpu().numpy() if sample is not None
                          else None)
             self.steps += 1

@@ -1467,3 +1467,249 @@ def test_sparse_mma_unaligned_operands_bitwise(cuda, tokens):
             x, odd_gate, up, act, None, bias), want), act
         assert torch.equal(ffn_gate_up_sparse_cuda(
             x_odd, gate, _odd_sparse(up), act, None, bias), want), act
+
+
+# -- the KV write kernel and the engine's captured ticks ----------------------
+
+def _kv_leaves(gen, lead, hd, kind):
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen,
+                                 device="cuda", dtype=torch.int8)
+        return _rand(gen, *shape, dtype=dtype)
+    if kind == "int8":
+        return {"k": rand((*lead, hd), torch.int8),
+                "v": rand((*lead, hd), torch.int8),
+                "k_scale": rand((*lead, 1), torch.float32),
+                "v_scale": rand((*lead, 1), torch.float32)}
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return {"k": rand((*lead, hd), dtype), "v": rand((*lead, hd), dtype)}
+
+
+@pytest.mark.parametrize("hd", [128, 3])
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_kv_write_kernel_matches_plain(cuda, paged, kind, chunk, hd):
+    """Bitwise the plain version's index writes: ragged ``q_lens`` with a
+    dead row (a decode write: a write mask and a rolling window's index),
+    scrambled page tables, k contiguous and v a transposed view; the null
+    block and every dead position keep their bits; one launch a call."""
+    from repro_torch.kernels.kv_write import kv_write_torch
+    gen = torch.Generator(device="cuda").manual_seed(chunk + hd)
+    b, hkv, span, bs = 5, 4, 96, 16
+    rng = np.random.default_rng(chunk)
+    if chunk == 1:
+        lengths = torch.from_numpy(rng.integers(1, 2 * span, b)).to(
+            torch.int32)
+        starts = ((lengths - 1) % span).cuda()            # rolling window
+        q_lens = torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32,
+                              device="cuda")
+    else:
+        q = rng.integers(0, chunk + 1, b)
+        q[1] = 0
+        starts = torch.tensor([rng.integers(0, span - x + 1) for x in q],
+                              dtype=torch.int32, device="cuda")
+        q_lens = torch.from_numpy(q).to(torch.int32).cuda()
+    table = None
+    if paged:
+        n_pages = span // bs
+        perm = rng.permutation(b * n_pages + 7)[:b * n_pages]
+        table = torch.from_numpy(perm.reshape(b, n_pages)).to(
+            torch.int32).cuda()
+        cache = _kv_leaves(gen, (b * n_pages + 8, hkv, bs), hd, kind)
+    else:
+        cache = _kv_leaves(gen, (b, hkv, span), hd, kind)
+    rows = _kv_leaves(gen, (b, chunk, hkv), hd, kind)
+    new = {n: t.transpose(1, 2) if n.startswith("v") else
+           t.transpose(1, 2).contiguous() for n, t in rows.items()}
+    want = {n: t.clone() for n, t in cache.items()}
+    kv_write_torch(want, new, starts, q_lens, table)
+    before = _build.launches["kv_write"]
+    ops.kv_write(cache, new, starts, q_lens, page_table=table)
+    torch.cuda.synchronize()
+    assert _build.launches["kv_write"] == before + 1
+    for n in cache:
+        assert torch.equal(cache[n].view(torch.uint8),
+                           want[n].view(torch.uint8)), n
+
+
+GRAPH_CASES = {
+    "dense": ("qwen-7b", "dense", dict(head_dim=128, n_heads=2,
+                                        n_kv_heads=1, d_model=256)),
+    "paged-int8": ("qwen-7b", "dense", dict(
+        head_dim=128, n_heads=2, n_kv_heads=1, d_model=256,
+        kv_layout="paged", kv_block_size=16, kv_pool_blocks=10,
+        kv_quant="int8")),
+    "xlstm": ("xlstm-1.3b", "dense", dict(d_model=256)),
+}
+
+
+def _graph_engine(case):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine
+    arch, strategy, over = GRAPH_CASES[case]
+    cfg = get_smoke_config(arch, dtype=torch.bfloat16, **over)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), strategy)
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=32,
+                    audit_every=1, device="cuda")
+    return cfg, params, engine
+
+
+def _graph_workload(cfg, seed=2):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+
+
+def _live_inputs(engine, name, width, rng):
+    """Host inputs of a tick with live rows: a dead row, a decode row and
+    prompt chunks (mixed), or a masked row (decode); paged rows lease
+    distinct pool blocks in a scrambled order."""
+    b = engine.batch
+    per_row = (engine.pool_blocks // b * engine.block_size if engine.paged
+               else engine.max_len)
+    if name == "mixed":
+        q_lens = rng.integers(1, width + 1, b).astype(np.int32)
+        q_lens[0], q_lens[1] = 0, 1
+        lengths = rng.integers(0, per_row - width + 1, b).astype(np.int32)
+        host = {"tokens": rng.integers(0, engine.cfg.vocab_size,
+                                       (b, width)).astype(np.int64),
+                "lengths": lengths, "q_lens": q_lens}
+        need = lengths + q_lens
+    else:
+        mask = np.ones(b, bool)
+        mask[0] = False
+        lengths = rng.integers(1, per_row + 1, b).astype(np.int32)
+        host = {"tokens": rng.integers(0, engine.cfg.vocab_size,
+                                       (b, 1)).astype(np.int64),
+                "lengths": lengths, "write_mask": mask}
+        need = lengths
+    if engine.paged:
+        table = np.full((b, engine.n_pages), engine._null_block, np.int32)
+        free = rng.permutation(engine.pool_blocks)
+        k = 0
+        for i in range(b):
+            n = -(-int(need[i]) // engine.block_size)
+            table[i, :n] = free[k:k + n]
+            k += n
+        host["page_table"] = table
+    return host
+
+
+def _cache_leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _cache_leaves(tree[k])
+        else:
+            yield tree[k]
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_replay_equals_eager_for_every_key(cuda, case):
+    """Every key the engine captured: one replay on the engine's cache and
+    the same function run eagerly on a copy give bitwise the same logits,
+    tokens and cache or state leaves."""
+    cfg, params, engine = _graph_engine(case)
+    for r in _graph_workload(cfg):
+        engine.submit(r)
+    engine.run()
+    keys = [k for k in engine.cache_compiles.keys() if k[0] != "insert"]
+    assert {k[0] for k in keys} == {"mixed", "decode"}
+    assert sorted(engine.capture_seconds) == sorted(keys)
+    rng = np.random.default_rng(7)
+    for name, bucket in keys:
+        tick = engine._executable(name, None if name == "decode" else bucket)
+        host = _live_inputs(engine, name, bucket, rng)
+        copy = _clone_tree(engine.cache)
+        tok_e, logits_e = tick.fn(params, copy, **{
+            k: torch.from_numpy(a).cuda() for k, a in host.items()})
+        tok_g, logits_g = tick(params, engine.cache, **host)
+        torch.cuda.synchronize()
+        assert torch.equal(logits_e, logits_g), (name, bucket)
+        assert torch.equal(tok_e, tok_g)
+        for a, g in zip(_cache_leaves(copy), _cache_leaves(engine.cache)):
+            assert torch.equal(a, g), (name, bucket)
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_second_run_makes_no_new_capture(cuda, case):
+    """The same workload served again on the same engine: no new miss or
+    capture, the same streams, and launch counts that follow the ticks."""
+    from repro_torch.kernels.decode_flash import VARIANTS
+    cfg, params, engine = _graph_engine(case)
+    streams, counts = [], []
+    for _ in range(2):
+        reqs = _graph_workload(cfg)
+        for r in reqs:
+            engine.submit(r)
+        _build.launches.clear()
+        steps, cols = engine.steps, engine.dispatched_columns
+        assert len(engine.run()) == len(reqs)
+        streams.append([r.output for r in reqs])
+        counts.append(dict(_build.launches))
+        if cfg.family == "ssm":
+            assert counts[-1]["slstm_scan"] == (
+                engine.dispatched_columns - cols) * 2
+        else:
+            ticks = engine.steps - steps
+            attention = VARIANTS[(cfg.kv_layout == "paged",
+                                  cfg.kv_quant == "int8")]
+            assert counts[-1][attention] == ticks * cfg.n_layers
+            assert counts[-1]["kv_write"] == ticks * cfg.n_layers
+        if len(streams) == 1:
+            misses = engine.cache_compiles.misses
+            captured = dict(engine.capture_seconds)
+    assert engine.cache_compiles.misses == misses <= engine.compile_budget
+    assert engine.capture_seconds == captured
+    assert streams[0] == streams[1] and counts[0] == counts[1]
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES) + ["slot-int8", "paged"])
+def test_steps_never_sync_the_host(cuda, case):
+    """A mixed step and a decode step on device inputs raise nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read, so each
+    can be captured."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    extra = {"slot-int8": dict(kv_quant="int8"),
+             "paged": dict(kv_layout="paged", kv_block_size=16)}
+    arch, strategy, over = GRAPH_CASES.get(case, GRAPH_CASES["dense"])
+    cfg = get_smoke_config(arch, dtype=torch.bfloat16, **over,
+                           **extra.get(case, {}))
+    params = quantize_model(api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)), strategy)
+    b, c = 3, 16
+    cache = api.init_cache(cfg, b, 64, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (b, c), device="cuda")
+    lengths = torch.tensor([3, 0, 9], dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor([5, 0, 16], dtype=torch.int32, device="cuda")
+    kw = {}
+    if api.has_paged_kv(cfg):
+        kw["page_table"] = torch.arange(
+            b * 4, dtype=torch.int32, device="cuda").reshape(b, 4)
+    write_mask = q_lens > 0
+    decode_lengths = lengths + q_lens + 1
+    _build.prepare()
+    api.mixed_step(cfg, params, cache, tokens, lengths, q_lens, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        api.mixed_step(cfg, params, cache, tokens, lengths, q_lens, **kw)
+        api.decode_step(cfg, params, cache, tokens[:, :1], decode_lengths,
+                        write_mask=write_mask, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
