@@ -92,13 +92,22 @@ Phases (any failure ends the run with a nonzero exit code):
                  bitwise equal to 13 sequential decode steps (logits and
                  every cache leaf of all layers, or every state leaf of
                  all blocks); strategy2 also with int8 K/V, a paged pool
-                 and a paged int8 pool; on every path a mixed step and a
-                 decode step under ``torch.cuda.set_sync_debug_mode(
+                 and a paged int8 pool; (b) on every transformer path,
+                 four rows at lengths 0, 5, 13 and 29 through
+                 ``mixed_step(all_logits=True)`` at W = 4 and then 8
+                 (ragged q_lens, a dead row; paged: a scrambled page
+                 table): every live position's logits and every cache
+                 leaf bitwise equal to sequential decode_steps (the
+                 speculating engine's verify surface: the lm_head at
+                 T = 16 and 32 rows, kernel 3 and ``kv_write`` at C = 4
+                 and 8); on every path a mixed step, a decode step, a
+                 verify tick (transformers) and a copy-on-write of a pool
+                 block (paged) under ``torch.cuda.set_sync_debug_mode(
                  "error")`` (no host read); after phase 5 on dense,
-                 strategy2-paged-int8 and xlstm-dense, every captured
-                 key's graph replayed once against its function run
-                 eagerly on a copy of the cache, logits and every leaf
-                 bitwise equal;
+                 dense-spec, strategy2-paged-int8 and xlstm-dense, every
+                 captured key's graph replayed once against its function
+                 run eagerly on a copy of the cache, logits and every
+                 leaf bitwise equal;
   5. serving  — with each of the nine weight sets, the engine serves 9
                  requests twice, every tick one replay of a CUDA graph
                  captured per compile key: misses within
@@ -119,7 +128,21 @@ Phases (any failure ends the run with a nonzero exit code):
                  16-token pages (the 200-token request needs 14, so
                  admissions stall) and from the same pool in int8, with
                  ``audit()`` on every tick and the pool whole after the
-                 drain;
+                 drain.  Three engines more, twice each: ``dense-spec``
+                 (dense weights, ``spec_k=4``, 8 prompts of a 2-5 token
+                 pattern tiled 3 times and the 200-token prompt; drafts
+                 scored) and ``strategy2-paged-prefix`` /
+                 ``strategy2-paged-int8-prefix`` (the 20-block pool,
+                 ``prefix_cache=True`` and ``spec_k=4``, 8 prompts of one
+                 40-token system prompt, one of them repeated whole, and
+                 the 200-token prompt; every run hits the cache and
+                 copies on write, run 1 hits what run 0 left, only cache
+                 references are live after run 0 and the pool is whole
+                 after ``drop_prefix_cache()``), with acceptance rate,
+                 accepted tokens per verify dispatch, prefix hit tokens
+                 and evictions recorded; every key's graph of every path
+                 replayed on dead inputs under ``set_sync_debug_mode(
+                 "error")``;
   6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
                  bitwise equal to prefill's logits, launch counts exact
                  (the path ``<model>-prefill``); the slot prefill against
@@ -1940,6 +1963,62 @@ def check_mixed_equals_sequential(torch, cfg, params, results, path):
          f"decode_step (first differing cache slice: {diff[:1]})")
 
 
+def check_all_logits(torch, cfg, params, results, path):
+    """(b) The verify surface: B = 4 rows at lengths 0, 5, 13 and 29
+    (paged: a scrambled page table) take ``mixed_step(all_logits=True)``
+    at W = 4 and then W = 8 with ragged ``q_lens`` and a dead row; every
+    live position's logits are bitwise those of the sequential
+    ``decode_step`` at that position (rows advancing under a write mask),
+    and every cache leaf of all layers is bitwise the sequential cache's.
+    This holds kernel 1 (lm_head at T = B·W = 16 and 32 rows and the
+    projections), the FFN kernels and kernel 3 / ``kv_write`` at C = 4
+    and 8 to a row's fixed reduction order."""
+    import numpy as np
+    from repro_torch.models import api
+    b, max_len = 4, 64
+    rng = np.random.default_rng(5)
+    lens = np.asarray([0, 5, 13, 29], np.int32)
+    kw = {}
+    if api.has_paged_kv(cfg):
+        pool = api.init_cache(cfg, b, max_len, DEVICE)["k"].shape[1] - 1
+        pages = -(-max_len // cfg.kv_block_size)
+        kw["page_table"] = torch.tensor(
+            rng.permutation(pool)[:b * pages].reshape(b, pages),
+            dtype=torch.int32, device=DEVICE)
+    mix = api.init_cache(cfg, b, max_len, DEVICE)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, 32)),
+                        device=DEVICE)
+    api.mixed_step(cfg, params, mix, toks, [0] * b, lens, **kw)
+    seq = clone_tree(mix)
+    out = {}
+    for w, q_lens in ((4, [4, 0, 3, 4]), (8, [8, 5, 0, 8])):
+        q_lens = np.asarray(q_lens, np.int32)
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, w)),
+                            device=DEVICE)
+        logits, _ = api.mixed_step(cfg, params, mix, toks, lens, q_lens,
+                                   all_logits=True, **kw)
+        differ = []
+        for j in range(w):
+            step, _ = api.decode_step(
+                cfg, params, seq, toks[:, j:j + 1],
+                lens + np.minimum(j, q_lens - 1) + 1,
+                write_mask=torch.tensor(j < q_lens, device=DEVICE), **kw)
+            differ += [(int(r), j) for r in np.flatnonzero(j < q_lens)
+                       if not torch.equal(logits[r, j], step[r])]
+        diff = differing_slices(torch, seq, mix)
+        out[f"W={w}"] = {"positions_differing": differ,
+                         "cache_slices_differing": diff}
+        log(f"  (b) all_logits W={w} (T={b * w} lm_head rows), q_lens "
+            f"{q_lens.tolist()} at lengths {lens.tolist()}: positions "
+            f"differing from sequential decode {differ}; cache slices "
+            f"differing {diff}")
+        need(not differ and not diff,
+             f"{path}: mixed_step(all_logits=True) at W={w} is not bitwise "
+             f"sequential decode (positions {differ[:3]}, cache {diff[:1]})")
+        lens = lens + q_lens
+    results.setdefault("all_logits_vs_sequential", {})[path] = out
+
+
 def first_divergence(torch, cfg, params, prompt, got, max_len):
     """Step where the engine left the oracle, and the oracle's top-2 logit
     margin there."""
@@ -2068,33 +2147,61 @@ def expected_launches_ssm(cfg, params, steps, full_sequence=False):
 SERVE_MAX_LEN, SERVE_NEW_TOKENS = 512, 16
 
 
-def workload(cfg):
-    """Phase 5's prompts: 8 of 4-31 tokens and one of 200."""
+def workload(cfg, engine_kw=None):
+    """Phase 5's prompts: 8 of 4-31 tokens and one of 200.  A speculating
+    engine's: 8 patterns of 2-5 tokens tiled 3 times (the shape of
+    ``tests/test_spec.py``'s ``_rep_reqs``), so prompt lookup drafts from
+    the first decode tick.  A prefix-sharing engine's: 8 prompts of one
+    40-token system prompt (two whole 16-token pages and half of a third,
+    so a hit copies the third on write) and a 4-31 token suffix, the
+    first of them (48 tokens, three whole pages) repeated whole as the
+    9th (the prompt cached whole: its last page is copied on write).
+    Both end with the 200-token prompt."""
     import numpy as np
+    engine_kw = engine_kw or {}
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
+    v = cfg.vocab_size
+    long_prompt = workload(cfg)[-1] if engine_kw else None
+    if engine_kw.get("prefix_cache"):
+        system = rng.integers(0, v, 40)
+        prompts = [np.concatenate([system, rng.integers(
+            0, v, 8 if i == 0 else int(rng.integers(4, 32)))])
+            for i in range(8)]
+        return prompts + [prompts[0], long_prompt]
+    if engine_kw.get("spec_k"):
+        return [np.tile(rng.integers(0, v, int(rng.integers(2, 6))), 3)
+                for _ in range(8)] + [long_prompt]
+    prompts = [rng.integers(0, v, int(rng.integers(4, 32)))
                for _ in range(8)]
-    prompts.append(rng.integers(0, cfg.vocab_size, 200))
+    prompts.append(rng.integers(0, v, 200))
     return prompts
 
 
-def serve(torch, cfg, params, results, path, slot_streams=None):
-    """Serve the 9-request workload twice on one engine; returns (the first
-    run's launch counts, its streams).  Every tick replays a captured CUDA
-    graph: misses stay within ``compile_budget`` and the second run makes
-    none, with the first run's streams.  Every engine audits every tick; a
-    paged one must stall admissions and end with its pool whole;
-    ``slot_streams`` (the slot run's) are compared as information only
-    (tiles of 16 against 128 keys can flip bf16 ties).  On the paths of
-    ``REPLAY_PATHS`` and ``TRACE_PATHS`` the engine's graphs are then held
-    against eager steps and traced."""
+def serve(torch, cfg, params, results, path, slot_streams=None,
+          engine_kw=None):
+    """Serve the workload twice on one engine (``engine_kw``: speculation
+    and prefix sharing); returns (the first run's launch counts, its
+    streams).  Every tick replays a captured CUDA graph: misses stay within
+    ``compile_budget`` and the second run makes none, with the first run's
+    streams (on a prefix-sharing engine, although it hits the cache the
+    first run left).  Every engine audits every tick; a paged one without
+    sharing must stall admissions and end with its pool whole, a sharing
+    one must hit its cache and copy on write, hold only cache references
+    after run 0 and be whole after ``drop_prefix_cache()``; a speculating
+    one must score drafts.  Every key's graph is replayed on its dead
+    inputs under ``set_sync_debug_mode("error")``.  ``slot_streams`` (the
+    slot run's) are compared as information only (tiles of 16 against 128
+    keys can flip bf16 ties).  On the paths of ``REPLAY_PATHS`` and
+    ``TRACE_PATHS`` the engine's graphs are then held against eager steps
+    and traced."""
     import numpy as np
     from repro_torch.kernels._build import launches
     from repro_torch.serving.engine import Engine, Request, reference_decode
     max_len, max_new = SERVE_MAX_LEN, SERVE_NEW_TOKENS
-    prompts = workload(cfg)
+    engine_kw = engine_kw or {}
+    prompts = workload(cfg, engine_kw)
     engine = Engine(cfg, params, batch_size=4, max_len=max_len,
-                    chunk_size=64, audit_every=1, device=DEVICE)
+                    chunk_size=64, audit_every=1, device=DEVICE, **engine_kw)
     runs, first = [], None
     for run in range(2):
         reqs = [Request(rid=100 * run + i, prompt=p.astype(np.int32),
@@ -2109,6 +2216,7 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
         ticks0, cols0 = engine.steps, engine.dispatched_columns
         mixed0, stalls0 = engine.mixed_ticks, engine.admission_stalls
         misses0 = engine.cache_compiles.misses
+        spec0, prefix0 = engine.spec_stats(), engine.prefix_stats()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         launches.clear()
@@ -2139,17 +2247,46 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
             f"peak memory {peak / 2**30:.2f} GiB, {new_misses} new misses, "
             f"{engine.audits} audits, peak resident "
             f"{engine.peak_resident_tokens} tokens")
+        spec = {k: v - spec0[k] for k, v in engine.spec_stats().items()
+                if k in ("spec_ticks", "verify_rows", "draft_tokens",
+                         "accepted_tokens", "rewinds")}
+        spec["acceptance_rate"] = (spec["accepted_tokens"] /
+                                   max(spec["draft_tokens"], 1))
+        spec["accepted_per_dispatch"] = (spec["accepted_tokens"] /
+                                         max(spec["spec_ticks"], 1))
+        prefix = {k: v - prefix0[k] for k, v in engine.prefix_stats().items()
+                  if k in ("hits", "hit_tokens", "cow_copies", "evictions")}
+        if engine.spec_k:
+            log(f"  speculation: {spec}")
+            need(spec["draft_tokens"] > 0,
+                 f"{path} run {run}: no draft was scored")
         pool = None
         if engine.paged:
             pool = engine.pool_stats()
             log(f"  paged KV: {engine.pool_blocks} blocks x "
                 f"{engine.block_size} tokens, {stalls} admission stalls, "
                 f"pool {pool}")
-            need(stalls > 0, f"{path} run {run}: the pool never stalled an "
-                 "admission")
-            need(pool["free"] == pool["total"] and not pool["leased"],
-                 f"{path} run {run}: the pool is not whole after the drain:"
-                 f" {pool}")
+            if engine.prefix_sharing:
+                log(f"  prefix cache: {prefix}")
+                need(prefix["hits"] > 0 and prefix["cow_copies"] > 0,
+                     f"{path} run {run}: no prefix hit or no copy-on-write "
+                     f"({prefix})")
+                need(pool["leased"] == pool["cached_blocks"]
+                     and not pool["reserved_outstanding"],
+                     f"{path} run {run}: blocks other than the cache's are "
+                     f"live after the drain: {pool}")
+                if run == 1:
+                    dropped = engine.drop_prefix_cache()
+                    pool = engine.pool_stats()
+                    log(f"  drop_prefix_cache(): {dropped} nodes; pool "
+                        f"{pool}")
+            else:
+                need(stalls > 0, f"{path} run {run}: the pool never stalled "
+                     "an admission")
+            if run == 1 or not engine.prefix_sharing:
+                need(pool["free"] == pool["total"] and not pool["leased"],
+                     f"{path} run {run}: the pool is not whole after the "
+                     f"drain: {pool}")
         log(f"  launches: {counts}  expected: {expect}")
         need(counts == expect, f"{path} run {run}: kernel launch counts do "
              "not match layers x calls x ticks: the serving path did not run"
@@ -2164,7 +2301,9 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
             "itl_p50_s": summary.get("itl_p50_s"),
             "max_memory_allocated": peak, "new_misses": new_misses,
             "admission_stalls": stalls, "pool": pool, "launches": counts,
-            "expected_launches": expect})
+            "expected_launches": expect,
+            "speculation": spec if engine.spec_k else None,
+            "prefix": prefix if engine.prefix_sharing else None})
         if run == 0:
             first = streams
             mismatches = []
@@ -2200,7 +2339,7 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
          f"{path}: {cc.misses} misses > compile_budget "
          f"{engine.compile_budget}")
     need(sorted(engine.capture_seconds) == sorted(ticked),
-         f"{path}: the mixed and decode keys {ticked} are not each one "
+         f"{path}: the mixed, decode and cow keys {ticked} are not each one "
          f"captured graph ({sorted(engine.capture_seconds)})")
     same_as_slot = (None if slot_streams is None else
                     sum(a == b for a, b in zip(first, slot_streams)))
@@ -2213,7 +2352,8 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
         "compile_budget": engine.compile_budget, "capture_s": graphs,
         "audits": engine.audits,
         "peak_resident_tokens": engine.peak_resident_tokens,
-        "streams_equal_slot_run": same_as_slot}
+        "streams_equal_slot_run": same_as_slot, "engine_kw": engine_kw}
+    replay_without_sync(torch, engine, path)
     if path in REPLAY_PATHS:
         log(f"phase 4 [{path}]: graph replay vs eager, every key")
         check_graph_replay(torch, engine, params, results, path)
@@ -2224,8 +2364,37 @@ def serve(torch, cfg, params, results, path, slot_streams=None):
     return runs[0]["launches"], first
 
 
+def replay_without_sync(torch, engine, path):
+    """Every captured key replayed once on its dead inputs (no live row;
+    ``cow``: the null block onto itself), staging copies included, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a tick and a
+    copy-on-write read nothing back to the host."""
+    import numpy as np
+    keys = sorted(k for k in engine.cache_compiles.keys()
+                  if k[0] != "insert")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, bucket in keys:
+            tick = engine.cache_compiles.get(name, bucket, None)
+            if name == "cow":
+                null = np.array([engine._null_block], np.int64)
+                tick(engine.params, engine.cache, src=null, dst=null)
+            else:
+                tick(engine.params, engine.cache, **engine._dead_inputs(
+                    None if name == "decode" else bucket))
+    except RuntimeError as e:
+        raise SmokeFailure(f"{path}: a graph replay synchronised with the "
+                           f"host: {e}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"  replays of {[f'{n}-{b}' for n, b in keys]} on dead inputs under "
+        "set_sync_debug_mode(\"error\"): no host synchronisation")
+
+
 # the paths whose graphs are held against eager steps, and traced
-REPLAY_PATHS = ("dense", "strategy2-paged-int8", "xlstm-dense")
+REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense")
 TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense")
 
 
@@ -2275,7 +2444,8 @@ def tick_keys(engine):
     """The (name, width) of every mixed and decode key, width None for
     decode."""
     return [(n, None if n == "decode" else b)
-            for n, b in sorted(engine.cache_compiles.keys()) if n != "insert"]
+            for n, b in sorted(engine.cache_compiles.keys())
+            if n in ("mixed", "decode")]
 
 
 def check_graph_replay(torch, engine, params, results, path):
@@ -2389,11 +2559,15 @@ def trace_ticks(torch, engine, params, results, path):
 
 
 def check_no_sync(torch, cfg, params, results, path):
-    """A mixed step (ragged q_lens, a dead row) and a decode step (a masked
-    row) on device inputs under ``torch.cuda.set_sync_debug_mode("error")``:
-    any host read raises, so none happens and each step can be captured."""
+    """A mixed step (ragged q_lens, a dead row), a decode step (a masked
+    row), a speculating engine's verify tick (``all_logits``, the greedy
+    tokens and the last live logits) and, where the config shares blocks,
+    a copy-on-write of one pool block, on device inputs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host read raises, so
+    none happens and each step can be captured."""
     from repro_torch.kernels import _build
     from repro_torch.models import api
+    from repro_torch.serving.engine import _mixed_executable_spec
     b, c = 4, 16
     cache = api.init_cache(cfg, b, 64, DEVICE)
     g = torch.Generator(device=DEVICE).manual_seed(3)
@@ -2407,6 +2581,9 @@ def check_no_sync(torch, cfg, params, results, path):
                                         device=DEVICE).reshape(b, 4)
     write_mask = q_lens > 0
     decode_lengths = lengths + q_lens + 1
+    verify = _mixed_executable_spec(cfg)
+    share = api.supports_prefix_cache(cfg)
+    blocks = torch.tensor([[2], [5]], device=DEVICE)
     _build.prepare()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2414,6 +2591,11 @@ def check_no_sync(torch, cfg, params, results, path):
         api.mixed_step(cfg, params, cache, tokens, lengths, q_lens, **kw)
         api.decode_step(cfg, params, cache, tokens[:, :1], decode_lengths,
                         write_mask=write_mask, **kw)
+        if api.supports_speculation(cfg):
+            verify(params, cache, tokens[:, :8], lengths,
+                   q_lens.clamp(max=8), **kw)
+        if share:
+            api.copy_pool_block(cfg, cache, blocks[0], blocks[1])
     except RuntimeError as e:
         raise SmokeFailure(f"{path}: a step synchronised with the host: "
                            f"{e}") from None
@@ -2421,8 +2603,10 @@ def check_no_sync(torch, cfg, params, results, path):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     results.setdefault("no_sync", {})[path] = True
-    log("  a mixed step and a decode step under set_sync_debug_mode"
-        "(\"error\"): no host synchronisation")
+    log("  a mixed step, a decode step"
+        + (", a verify tick" if api.supports_speculation(cfg) else "")
+        + (" and a copy-on-write" if share else "")
+        + " under set_sync_debug_mode(\"error\"): no host synchronisation")
 
 
 # -- phase 6: whole-prompt prefill and full-sequence forward ---------------
@@ -2832,6 +3016,13 @@ KV_PATHS = {"strategy2": (
     ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),
     ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
                         kv_pool_blocks=20, kv_quant="int8")))}
+# engines served with a model's weights after its cache paths, with their
+# own workload: (path suffix, config overrides, engine arguments)
+ENGINE_PATHS = {
+    "dense": (("spec", {}, dict(spec_k=4)),),
+    "strategy2": tuple(
+        (f"{kv}-prefix", over, dict(prefix_cache=True, spec_k=4))
+        for kv, over in KV_PATHS["strategy2"] if kv.startswith("paged"))}
 
 
 def main() -> int:
@@ -2889,12 +3080,20 @@ def main() -> int:
                     "decode_step")
                 check_mixed_equals_sequential(torch, pcfg, params, results,
                                               path)
+                if pcfg.family != "ssm":
+                    check_all_logits(torch, pcfg, params, results, path)
                 check_no_sync(torch, pcfg, params, results, path)
             streams: dict = {}
             for path, pcfg in paths:
                 log(f"phase 5 [{path}]: serving")
                 counts[path], streams[path] = serve(
                     torch, pcfg, params, results, path, streams.get(model))
+            for suffix, over, engine_kw in ENGINE_PATHS.get(model, ()):
+                path = f"{model}-{suffix}"
+                log(f"phase 5 [{path}]: serving with {engine_kw}")
+                counts[path], _ = serve(
+                    torch, dataclasses.replace(cfg, **over), params, results,
+                    path, engine_kw=engine_kw)
             if model in PREFILL_PATHS:
                 log(f"phase 6 [{model}]: {arch}, prefill and forward")
                 check = (check_xlstm_prefill if cfg.family == "ssm" else

@@ -163,10 +163,13 @@ class CompileCache:
     * ``("decode", B)`` — the pure-decode tick: one graph per resident
       slot-batch size, shared by every request at every step;
     * ``("insert", B)`` — the slot copy behind ``insert_request`` (the
-      slot index is an operand, so one entry covers all B slots).
+      slot index is an operand, so one entry covers all B slots);
+    * ``("cow", 0)`` — prefix sharing's copy-on-write of one pool block
+      (the block ids are device inputs, so one entry covers every copy).
 
     Total serving executables are therefore bounded by
-    ``n_chunk_buckets + 2`` per engine regardless of traffic — the paper's
+    ``n_chunk_buckets + 2`` per engine (+ 1 when sharing prefixes)
+    regardless of traffic — the paper's
     "17 operators x B buckets" instruction-stream budget, restated as
     graphs: a tick replays one graph, and no traffic captures another
     beyond the budget.

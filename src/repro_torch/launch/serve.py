@@ -11,13 +11,17 @@ II; the xLSTM takes ``none`` and ``dense``), starts the continuous-batching
 engine over a slot cache or, with ``--kv-layout paged``, a shared block
 pool (refused for the xLSTM, which has no KV cache), and runs a synthetic
 request workload (prompts of 4–32 tokens from
-``numpy.random.default_rng(0)``).  Runs on ``cuda`` unless ``--device cpu``
-is given; without ``--full`` it serves the reduced ``-smoke``
-configuration.
-Prints the summary, the scheduler line, the compile-cache line (keys,
-hits and misses by kind: on the card each mixed or decode key is one
-captured CUDA graph), the pool line of a paged run and each kernel's launch
-count.
+``numpy.random.default_rng(0)``; with ``--prefix-cache`` each is prefixed
+by a shared ``--system-prompt-len``-token system prompt).  ``--spec``
+turns on speculative decoding (``--spec-k`` drafts a row from the
+``--drafter``), ``--prefix-cache`` prefix sharing on a paged pool; a
+family or layout that cannot take one says so and runs without it.  Runs
+on ``cuda`` unless ``--device cpu`` is given; without ``--full`` it serves
+the reduced ``-smoke`` configuration.
+Prints the summary, the scheduler line, the speculation line, the
+compile-cache line (keys, hits and misses by kind: on the card each mixed,
+decode or copy-on-write key is one captured CUDA graph), the pool and
+prefix-cache lines of a paged run and each kernel's launch count.
 """
 
 from __future__ import annotations
@@ -49,6 +53,20 @@ def main(argv=None) -> None:
                     help="tokens per KV page (paged layout)")
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
                     help="shared-pool blocks (0 = batch * pages per slot)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding: prompt-lookup drafts "
+                         "verified through the mixed dispatch")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per verify row (with --spec)")
+    ap.add_argument("--drafter", default="plookup",
+                    help="draft proposer registry name (serving/draft.py)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="share cached prompt-prefix KV blocks across "
+                         "requests (paged transformer families)")
+    ap.add_argument("--system-prompt-len", type=int, default=24,
+                    help="shared synthetic system-prompt tokens prepended "
+                         "to every request (exercises --prefix-cache)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true")
@@ -74,12 +92,23 @@ def main(argv=None) -> None:
           f"strategy={args.strategy} device={args.device}")
 
     engine = Engine(cfg, params, batch_size=args.batch, max_len=args.max_len,
+                    spec_k=args.spec_k if args.spec else 0,
+                    drafter=args.drafter, prefix_cache=args.prefix_cache,
                     device=args.device)
+    if args.spec and not engine.spec_k:
+        print(f"speculation requested but family {cfg.family!r} has no "
+              "rewindable sequence dimension — plain decode fallback")
+    if args.prefix_cache and not engine.prefix_sharing:
+        print(f"prefix cache requested but family {cfg.family!r} / layout "
+              f"{cfg.kv_layout!r} cannot share KV blocks — running without")
     rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size,
+                          args.system_prompt_len if args.prefix_cache else 0)
     for rid in range(args.requests):
-        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
-        engine.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
-                              max_new_tokens=args.max_new_tokens))
+        user = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
+        engine.submit(Request(
+            rid=rid, prompt=np.concatenate([system, user]).astype(np.int32),
+            max_new_tokens=args.max_new_tokens))
     launches.clear()
     done = engine.run()
     if not done.drained:
@@ -89,6 +118,14 @@ def main(argv=None) -> None:
     print(f"scheduler: {engine.steps} ticks, {engine.dispatches} dispatches "
           f"(1 per tick, {engine.mixed_ticks} mixed), slot occupancy "
           f"{engine.slot_occupancy:.2f}")
+    if engine.spec_k:
+        s = engine.spec_stats()
+        print(f"speculation: K={s['spec_k']} drafter={args.drafter} — "
+              f"{s['accepted_tokens']}/{s['draft_tokens']} drafts accepted "
+              f"({s['acceptance_rate']:.2f}), "
+              f"{s['accepted_per_dispatch']:.2f} accepted tokens/dispatch "
+              f"over {s['spec_ticks']} verify ticks, "
+              f"{s['rewinds']} rewinds")
     print(f"compile cache: {sorted(engine.cache_compiles.keys())} "
           f"({engine.cache_compiles.hits} hits, "
           f"misses by kind {engine.cache_compiles.misses_by_name})")
@@ -98,6 +135,13 @@ def main(argv=None) -> None:
               f"{engine.peak_resident_tokens} tokens, "
               f"{engine.admission_stalls} admission stalls, "
               f"pool {engine.pool_stats()}")
+    if engine.prefix_sharing:
+        p = engine.prefix_stats()
+        print(f"prefix cache: {p['hits']} hits "
+              f"({p['hit_tokens']} prompt tokens reused), "
+              f"{p['shared_blocks']} shared blocks, "
+              f"{p['cow_copies']} CoW copies, "
+              f"{p['cached_blocks']} cached, {p['evictions']} evicted")
     print(f"kernel launches: {dict(sorted(launches.items()))}")
 
 

@@ -11,9 +11,12 @@
     evict_slot(cfg, cache, slot, max_len)     -> cache with slot reset
     request_cache(cfg, params, batch, max_len, device) -> admission row
     needs_admission_insert(cfg)               -> reset a slot at admission?
-    mixed_step(cfg, params, cache, tokens, lengths, q_lens, page_table=)
+    mixed_step(cfg, params, cache, tokens, lengths, q_lens, page_table=,
+               all_logits=)
     decode_step(cfg, params, cache, tokens, lengths, page_table=,
                 write_mask=)
+    supports_speculation(cfg) / supports_prefix_cache(cfg) -> serving gates
+    copy_pool_block(cfg, cache, src, dst)    -> cache with block src at dst
 
 ``batch`` is a dict ``{"tokens": (B, S)}``.  Dense family: ``forward`` and
 the slot layout's ``prefill`` run the whole sequence through the
@@ -36,8 +39,11 @@ time (``_mixed_step_scan``), each row advancing only while the position is
 below its ``q_lens``, so the state is bitwise that of sequential decode.
 
 ``mixed_step`` advances row ``b`` by ``q_lens[b]`` tokens (1 = decoding
-row, up to C = mid-prefill row, 0 = idle) in one call.  Speculation and
-prefix sharing are later slices: their gates answer False here.
+row, up to C = mid-prefill row, 0 = idle) in one call; ``all_logits``
+returns every chunk position's logits, the surface a speculating engine
+verifies its drafts on.  The serving gates answer as the reference's:
+speculation for the transformer families, prefix sharing for paged
+transformer families.
 """
 
 from __future__ import annotations
@@ -49,6 +55,10 @@ import torch
 from repro_torch.models import attention, transformer, xlstm_stack
 
 Params = dict[str, Any]
+
+
+# the reference's transformer families (the port serves "dense" of them)
+_TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _ssm(cfg) -> bool:
@@ -192,13 +202,14 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
 
 
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
-               lengths, q_lens, *, page_table=None):
+               lengths, q_lens, *, page_table=None, all_logits: bool = False):
     """Advance every row by its own token count in one call.
 
     tokens (B, C); ``lengths`` (B,) = valid cache tokens BEFORE this step;
     ``q_lens`` (B,) = live tokens per row; ``page_table`` (B, pages) routes
     paged K/V placement.  Returns (logits (B, V) of each row's last live
-    token, cache).  ``C == 1`` delegates to ``decode_step``
+    token, cache), or with ``all_logits`` the logits (B, C, V) of every
+    chunk position.  ``C == 1`` delegates to ``decode_step``
     (bit-identical to the classic decode tick), with ``q_lens == 0`` rows
     left exactly untouched and given zero logits."""
     b, c = tokens.shape
@@ -210,17 +221,19 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
         logits, cache = decode_step(
             cfg, params, cache, tokens, lengths + torch.clamp(q_lens, min=1),
             page_table=page_table, write_mask=active)
-        return torch.where(active[:, None], logits,
-                           torch.zeros_like(logits)), cache
+        out = torch.where(active[:, None], logits, torch.zeros_like(logits))
+        return (out[:, None] if all_logits else out), cache
     if _ssm(cfg):
-        return _mixed_step_scan(cfg, params, cache, tokens, lengths, q_lens)
+        return _mixed_step_scan(cfg, params, cache, tokens, lengths, q_lens,
+                                all_logits=all_logits)
     return transformer.mixed_step(cfg, params, cache, tokens, lengths, q_lens,
-                                  page_table=page_table)
+                                  page_table=page_table,
+                                  all_logits=all_logits)
 
 
 def _mixed_step_scan(cfg, params: Params, cache: Params,
                      tokens: torch.Tensor, lengths: torch.Tensor,
-                     q_lens: torch.Tensor):
+                     q_lens: torch.Tensor, all_logits: bool = False):
     """Mixed step of a recurrent family: the chunk's positions one
     ``decode_step`` at a time, every position of the chunk (C steps, as
     the reference's scan), row ``b`` advancing only while ``j <
@@ -228,24 +241,60 @@ def _mixed_step_scan(cfg, params: Params, cache: Params,
     reference's per-row select).  Recurrences are order-exact, so the
     state is bitwise that of feeding the tokens one ``decode_step`` at a
     time; the logits are each row's at position ``q_lens - 1`` (zeros for
-    an idle row)."""
+    an idle row), or with ``all_logits`` every position's (B, C, V), zeros
+    past a row's ``q_lens``."""
     b, c = tokens.shape
-    logits = torch.zeros((b, cfg.vocab_size), dtype=cfg.dtype,
-                         device=tokens.device)
+    shape = (b, c, cfg.vocab_size) if all_logits else (b, cfg.vocab_size)
+    logits = torch.zeros(shape, dtype=cfg.dtype, device=tokens.device)
     for j in range(c):
         active = j < q_lens
         lg, cache = decode_step(
             cfg, params, cache, tokens[:, j:j + 1],
             lengths + torch.clamp(q_lens, min=1).clamp(max=j + 1),
             write_mask=active)
-        logits = torch.where((q_lens - 1 == j)[:, None], lg.to(cfg.dtype),
-                             logits)
+        lg = lg.to(cfg.dtype)
+        if all_logits:
+            logits[:, j] = torch.where(active[:, None], lg,
+                                       torch.zeros_like(lg))
+        else:
+            logits = torch.where((q_lens - 1 == j)[:, None], lg, logits)
     return logits, cache
 
 
 def supports_speculation(cfg) -> bool:
-    return False        # draft-then-verify is a later slice of the port
+    """Whether draft-then-verify serving can run on this config: it needs a
+    rewindable sequence dimension.  K/V past a row's length hides behind
+    true-length masking, so a transformer (or audio) row rewinds by
+    shrinking its length on the host; a recurrent state folds every token
+    in irreversibly, so ssm and hybrid fall back to plain decode."""
+    return cfg.family in _TRANSFORMER_FAMILIES + ("audio",)
 
 
 def supports_prefix_cache(cfg) -> bool:
-    return False        # the radix cache and copy-on-write: a later slice
+    """Whether cross-request prefix sharing can run on this config: the
+    paged layout (one block maps into many page tables) and K/V that is a
+    pure function of the token prefix, which holds for the transformer
+    families (audio's K/V folds in the request's encoder output; recurrent
+    families carry per-slot state)."""
+    return cfg.kv_layout == "paged" and cfg.family in _TRANSFORMER_FAMILIES
+
+
+def copy_pool_block(cfg, cache: Params, src, dst) -> Params:
+    """Copy physical KV block ``src`` to ``dst`` on every paged pool leaf of
+    all layers (int8 scales included), in place: the device half of
+    copy-on-write.  ``src`` / ``dst`` are int64 device tensors of shape
+    (1,) (or ints), so the copy reads nothing back to the host and one
+    captured graph serves every pair of blocks.  Pool leaves are
+    ``(n_layers, P+1, hkv, bs, hd)``: the block axis is 1."""
+    if not supports_prefix_cache(cfg):
+        raise ValueError(
+            f"copy_pool_block needs a prefix-shareable config, got "
+            f"family={cfg.family!r} kv_layout={cfg.kv_layout!r}")
+    pools = [leaf for leaf, axis in _leaves(cache, cache_slot_axes(cfg))
+             if axis == -1]     # per-slot leaves have nothing pooled to copy
+    s, d = (torch.as_tensor(i, dtype=torch.int64,
+                            device=pools[0].device).reshape(1)
+            for i in (src, dst))
+    for leaf in pools:
+        leaf.index_copy_(1, d, leaf.index_select(1, s))
+    return cache

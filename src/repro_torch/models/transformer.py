@@ -228,11 +228,15 @@ def _prefill_chunked(cfg, params: Params, tokens: torch.Tensor,
 
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
                lengths: torch.Tensor, q_lens: torch.Tensor, *,
-               page_table: torch.Tensor | None = None):
+               page_table: torch.Tensor | None = None,
+               all_logits: bool = False):
     """Mixed prefill/decode step: tokens (B, C); ``lengths`` (B,) = valid
     cache tokens BEFORE this step; ``q_lens`` (B,) = live tokens per row;
     ``page_table`` (B, pages) routes paged K/V placement.  Returns (logits
-    (B, V) of each row's LAST live token, cache)."""
+    (B, V) of each row's LAST live token, cache), or with ``all_logits``
+    the logits (B, C, V) of EVERY chunk position (the draft-verify
+    surface: position j scores the token after ``tokens[b, j]``; positions
+    past ``q_lens[b] - 1`` are padding)."""
     b, c = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     pos = lengths[:, None] + torch.arange(c, dtype=lengths.dtype,
@@ -244,6 +248,10 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
             cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
             lc, lengths, q_lens, page_table=page_table)
         x = _mlp_residual(cfg, bp, x + h)
+    if all_logits:
+        # the verify surface: every chunk position reaches the LM head
+        return unembed(cfg, params, layers.apply_norm(cfg, params["ln_f"],
+                                                      x)), cache
     # only each row's last live position reaches the LM head
     idx = torch.clamp(q_lens - 1, 0, c - 1).long()
     x_last = x[torch.arange(b, device=x.device), idx][:, None]

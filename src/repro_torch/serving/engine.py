@@ -17,8 +17,9 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
   ``prefill_policy``), as in the reference.
 * **Bounded executables.**  Each tick runs the executable of its key,
   ``("mixed", W)`` or ``("decode", B)``, memoized in a ``CompileCache``
-  (``cache_compiles``); ``("insert", B)`` is the admission copy.  Misses
-  are bounded by ``compile_budget`` = chunk buckets + 2, whatever the
+  (``cache_compiles``); ``("insert", B)`` is the admission copy and
+  ``("cow", 0)`` prefix sharing's block copy.  Misses are bounded by
+  ``compile_budget`` = chunk buckets + 2 (+ 1 when sharing), whatever the
   traffic.  On the card a mixed or decode key is ONE captured CUDA graph
   (``_CapturedTick``): captured on its first miss, after a warm-up dispatch
   in which every row is dead (so it writes no cache leaf), and replayed on
@@ -29,6 +30,32 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
   the engine never serves a tick eagerly on the card.  On the CPU the same
   functions run eagerly, memoized under the same keys, so keys, hits,
   misses and the budget mean the same on both devices.
+* **Speculative decoding (``spec_k > 0``).**  A prompt-lookup drafter
+  (``serving/draft.py``) proposes up to K continuation tokens per decode
+  row from the row's own history; the row rides the SAME ``("mixed", W)``
+  dispatch as a ``1 + len(draft)``-token chunk, and the speculating
+  engine's mixed executable (``_mixed_executable_spec``) runs
+  ``mixed_step(all_logits=True)`` and returns every position's greedy
+  token (B, W), the only copy back of the tick.  Acceptance is the longest
+  draft prefix equal to the model's greedy tokens; the row emits ``a + 1``
+  tokens and ``_rewind_slot`` rolls the rejected tail back on the host
+  (its K/V hides past the row's length; paged, wholly dead tail blocks go
+  back to the pool and into the row's reservation).  Outputs stay the
+  oracle's token for token.  Chunk buckets go down to 4 so a verify tick
+  is narrow; a slot whose drafts keep missing backs off exponentially.
+  Families that cannot rewind (``api.supports_speculation``: the xLSTM)
+  fall back to plain decode, and a ``sample`` hook disables drafting.
+* **Prefix sharing (``prefix_cache=True``, paged transformer families).**
+  A ``RadixPrefixCache`` maps block-aligned prompt prefixes to the blocks
+  holding their K/V.  Admission of a prompt that walks a cached path maps
+  the shared blocks into its page table (one reference each) and streams
+  only the suffix; when the suffix starts mid-block, a fresh block is
+  leased and the cached one copied into it on the device (the ``("cow",
+  0)`` key: one captured graph whose block ids are device inputs) before
+  the chunk writer overwrites its tail.  A finished prompt donates its
+  full blocks to the cache; under pool pressure admission evicts cold
+  cache leaves LRU-first (only blocks the cache alone holds).  Sharing is
+  exact because ``mixed_step`` is bitwise sequential decode.
 * **True-length accounting.**  Slots track the request's real token count;
   K/V land at real positions and a prompt is admissible whenever
   ``len(prompt) <= max_len``.
@@ -67,14 +94,19 @@ Paged KV bookkeeping (host only; the device sees a page table):
   the blocks its new length crosses into (``BlockAllocator``, LIFO).
 * **Release.**  Retirement drops the row's block references and points its
   page-table row back at the null block.
+* **Sharing.**  Blocks are refcounted; a prefix hit's shared blocks
+  shrink the request's reservation, and the copy-on-write block leases
+  inside it.
 * ``pool_stats``, ``peak_resident_tokens`` and ``audit`` (every
-  ``audit_every`` ticks) expose and check these invariants.
+  ``audit_every`` ticks) expose and check these invariants; ``audit``
+  also counts every block a slot or the radix cache holds against the
+  allocator's refcounts.
 
 One card means one block home: the reference's per-home reservation split
-is the total check here.  Left for later slices, and not accepted as
-arguments: speculation, prefix sharing and copy-on-write (the ``("cow",
-0)`` key), the request lifecycle and preemption, quarantine, chaos and
-snapshots.
+is the total check here.  A rid already queued or running is refused at
+``submit``.  Left for later slices, and not accepted as arguments: the
+rest of the request lifecycle (priority, deadlines, ``cancel``) with
+preemption and quarantine, chaos and snapshots.
 """
 
 from __future__ import annotations
@@ -91,8 +123,22 @@ from repro_torch.core.compiler import CompileCache, TokenBuckets
 from repro_torch.kernels import _build
 from repro_torch.models import api
 from repro_torch.models.attention import (
-    check_supported, paged_geometry, paged_pool_blocks)
-from repro_torch.serving.prefix import BlockAllocator
+    check_supported, paged_blocks_for, paged_geometry, paged_pool_blocks)
+from repro_torch.serving.draft import make_drafter
+from repro_torch.serving.prefix import BlockAllocator, RadixPrefixCache
+
+
+@dataclasses.dataclass
+class _PrefixPlan:
+    """Host-side admission plan from a radix-cache hit: ``shared`` blocks
+    map read-only into the slot's page table (one incref each); ``cow`` is
+    the cached block whose matched head is reused through copy-on-write
+    (None when the suffix starts block-aligned); ``consumed`` prompt tokens
+    are covered without recompute, always < len(prompt), so the last
+    prompt token runs and gives the first token's logits."""
+    shared: list[int]
+    cow: int | None
+    consumed: int
 
 
 @dataclasses.dataclass
@@ -148,6 +194,27 @@ def _mixed_executable(cfg):
     return fn
 
 
+# adaptive speculation: a slot whose drafts keep fully rejecting sits out
+# 1, 2, 4, ... up to this many ticks before drafting again
+_DRAFT_BACKOFF_MAX = 8
+
+
+def _mixed_executable_spec(cfg):
+    """The speculating engine's mixed tick (all of its mixed ticks, so the
+    keys stay ``("mixed", W)``): ``all_logits=True`` scores every chunk
+    position; returns the per-position greedy tokens (B, W), for draft
+    acceptance and, at ``q_lens - 1``, each row's next token, and the
+    last live position's logits (B, V) for a ``sample`` hook."""
+    def fn(p, c, tokens, lengths, q_lens, page_table=None):
+        logits, _ = api.mixed_step(cfg, p, c, tokens, lengths, q_lens,
+                                   page_table=page_table, all_logits=True)
+        idx = torch.clamp(q_lens.long() - 1, 0, tokens.shape[1] - 1)
+        last = torch.gather(logits, 1, idx[:, None, None].expand(
+            -1, 1, logits.shape[-1]))[:, 0]
+        return torch.argmax(logits, dim=-1), last
+    return fn
+
+
 def _decode_executable(cfg):
     # write_mask keeps the rows that do not advance untouched, so a tick
     # with every row dead writes nothing (the warm-up before a capture)
@@ -165,9 +232,18 @@ def _insert_executable(cfg):
     return fn
 
 
+def _cow_executable(cfg):
+    # one function for every copy-on-write: block ids are device tensors
+    def fn(p, c, src, dst):
+        api.copy_pool_block(cfg, c, src, dst)
+        return ()
+    return fn
+
+
 class _EagerTick:
     """A key's executable run eagerly (the CPU): host arrays in, device
-    tensors ``(next_tok, logits)`` out, the cache updated in place."""
+    tensors out (``(ids, logits)`` for a tick), the cache updated in
+    place."""
 
     def __init__(self, fn, device):
         self.fn = fn
@@ -183,24 +259,24 @@ class _CapturedTick:
     """A key's executable as one captured CUDA graph.
 
     ``inputs`` are the static device buffers the graph reads (their
-    values: a dispatch with every row dead); ``pinned`` the host staging
-    buffers a tick writes first.  Before the capture the graph's function
-    runs once on those dead inputs (lazy initialisation stays out of the
-    graph; no cache leaf changes).  The capture records each kernel
-    wrapper's launch; that count (``launches``) is added to
-    ``_build.launches`` on every replay instead, so the counts read as if
-    every tick had run eagerly (the warm-up serves no tick and is not
-    counted).  The graph belongs to the params and cache it was captured
-    with."""
+    values: a dispatch with every row dead, or a copy of the null block
+    onto itself).  Before the capture the graph's function runs once on
+    those dead inputs (lazy initialisation stays out of the graph; no live
+    cache leaf changes).  A replay stages its host arrays in pinned
+    buffers from PyTorch's caching host allocator, which recycles a buffer
+    only after its copy to the device has run, so replays may follow each
+    other without a host wait (two copy-on-writes in one admission pass).
+    The capture records each kernel wrapper's launch; that count
+    (``launches``) is added to ``_build.launches`` on every replay instead,
+    so the counts read as if every tick had run eagerly (the warm-up serves
+    no tick and is not counted).  The graph belongs to the params and cache
+    it was captured with."""
 
     def __init__(self, fn, params, cache, inputs: dict, pool):
         self.fn, self.params, self.cache = fn, params, cache
         self.inputs = inputs
-        self.pinned = {k: torch.empty(t.shape, dtype=t.dtype,
-                                      pin_memory=True)
-                       for k, t in inputs.items()}
         before = collections.Counter(_build.launches)
-        side = torch.cuda.Stream(inputs["tokens"].device)
+        side = torch.cuda.Stream(next(iter(inputs.values())).device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn(params, cache, **inputs)
@@ -220,8 +296,10 @@ class _CapturedTick:
             raise ValueError("a captured tick replays only on the params "
                              "and cache it was captured with")
         for k, a in host.items():
-            self.pinned[k].numpy()[...] = a
-            self.inputs[k].copy_(self.pinned[k], non_blocking=True)
+            staged = torch.empty(self.inputs[k].shape,
+                                 dtype=self.inputs[k].dtype, pin_memory=True)
+            staged.numpy()[...] = a
+            self.inputs[k].copy_(staged, non_blocking=True)
         self.graph.replay()
         _build.launches.update(self.launches)
         return self.outputs
@@ -234,10 +312,14 @@ class Engine:
                  max_len: int = 512, eos_id: int | None = None,
                  chunk_size: int = 64,
                  prefill_token_budget: int | None = None,
-                 prefill_policy: str = "mixed", audit_every: int = 0,
+                 prefill_policy: str = "mixed",
+                 spec_k: int = 0, drafter: Any = "plookup",
+                 prefix_cache: bool = False, audit_every: int = 0,
                  compile_cache: CompileCache | None = None, device="cuda"):
         if prefill_policy not in ("mixed", "stall"):
             raise ValueError(f"unknown prefill_policy {prefill_policy!r}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.device = torch.device(device)
         check_supported(cfg, self.device)
         self.cfg = cfg
@@ -249,13 +331,32 @@ class Engine:
         self.chunk_size = max(2, min(chunk_size, max_len))
         self.prefill_token_budget = prefill_token_budget
         self.prefill_policy = prefill_policy
+        # drafts ride the mixed dispatch as K+1-token chunks, so K is capped
+        # by the chunk width; a family that cannot rewind falls back to
+        # plain decode (spec_requested / spec_supported record the gate)
+        self.spec_requested = spec_k
+        self.spec_supported = api.supports_speculation(cfg)
+        self.spec_k = (min(spec_k, self.chunk_size - 1)
+                       if spec_k and self.spec_supported else 0)
+        # a speculating engine keeps finer buckets: a verify tick is only
+        # K+1 wide (compile_budget counts all_buckets())
         self.chunk_buckets = TokenBuckets(
-            max_tokens=self.chunk_size, min_bucket=min(16, self.chunk_size))
+            max_tokens=self.chunk_size,
+            min_bucket=min(4 if self.spec_k else 16, self.chunk_size))
+        self.drafter = ((make_drafter(drafter) if isinstance(drafter, str)
+                         else drafter) if self.spec_k else None)
+        self.spec_ticks = 0        # dispatches carrying >= 1 verify row
+        self.spec_rows = 0         # verify rows dispatched
+        self.spec_drafted = 0      # draft tokens scored
+        self.spec_accepted = 0     # draft tokens accepted
+        self.spec_rewinds = 0      # partial/full rejections rolled back
+        self._draft_wait = [0] * batch_size      # ticks left to sit out
+        self._draft_penalty = [0] * batch_size   # current backoff length
         # `is not None`, not `or`: an EMPTY CompileCache is falsy (__len__).
         # On the card an entry is a graph bound to this engine's params and
         # cache, so a cache shared with another engine fails at its replay;
         # on the CPU a shared cache serves engines of the same (cfg,
-        # max_len, batch, chunk_size), as in the reference
+        # max_len, batch, chunk_size, spec on/off), as in the reference
         self.cache_compiles = (compile_cache if compile_cache is not None
                                else CompileCache())
         self.capture_seconds: dict[tuple, float] = {}   # key -> capture
@@ -278,6 +379,18 @@ class Engine:
             self._slot_blocks: list[list[int]] = [[] for _ in
                                                   range(batch_size)]
             self._slot_reserve = [0] * batch_size    # worst-case not-yet-leased
+        # prefix sharing: paged transformer families only (a recurrent
+        # state has no per-token block chain)
+        self.prefix_requested = prefix_cache
+        self.prefix_sharing = bool(prefix_cache and self.paged and
+                                   api.supports_prefix_cache(cfg))
+        self.prefix = (RadixPrefixCache(self.block_size)
+                       if self.prefix_sharing else None)
+        self.prefix_hits = 0         # admissions that reused >= 1 block
+        self.prefix_hit_tokens = 0   # prompt tokens covered without recompute
+        self.cow_copies = 0          # copy-on-write block duplications
+        self.prefix_evictions = 0    # cache leaves dropped under pool pressure
+        self._live_rids: set = set()  # queued + running rids (duplicate gate)
         self.admission_stalls = 0    # admissions held back by the block pool
         self.peak_resident_tokens = 0
         self.audit_every = audit_every
@@ -305,6 +418,11 @@ class Engine:
                 f"request {req.rid}: worst case needs "
                 f"{self._worst_case_blocks(req)} KV blocks but the pool has "
                 f"{self.pool_blocks} — raise kv_pool_blocks")
+        if req.rid in self._live_rids:
+            raise ValueError(
+                f"request {req.rid}: rid already queued or in flight — "
+                "rids must be unique among live requests")
+        self._live_rids.add(req.rid)
         req.submitted_at = time.monotonic()
         self._queue.append(req)
 
@@ -316,59 +434,217 @@ class Engine:
         toks = min(len(req.prompt) + req.max_new_tokens, self.max_len)
         return -(-toks // self.block_size)
 
-    def _can_reserve(self, req: Request) -> bool:
+    def _prefix_plan(self, req: Request) -> _PrefixPlan | None:
+        """Match the prompt against the radix cache and plan the admission.
+        ``consumed`` stops at ``len(prompt) - 1``: the last prompt token
+        runs through a chunk to give the first token's logits.  When the
+        cache covers the WHOLE prompt, the last matched block is demoted
+        from shared to copy-on-write source so that token has a writable
+        page."""
+        if self.prefix is None or len(req.prompt) < 2:
+            return None
+        full, partial = self.prefix.match(req.prompt)
+        consumed = len(full) * self.block_size
+        cow = None
+        if partial is not None:
+            blk, n = partial
+            n = min(n, len(req.prompt) - 1 - consumed)
+            if n > 0:
+                cow = blk
+                consumed += n
+        elif consumed >= len(req.prompt):
+            cow = full.pop()
+            consumed = len(req.prompt) - 1
+        if not full and cow is None:
+            return None
+        return _PrefixPlan(shared=full, cow=cow, consumed=consumed)
+
+    def _evict_for(self, n: int, plan: _PrefixPlan | None) -> int:
+        """Free up to ``n`` blocks by dropping cold radix-cache leaves,
+        LRU-first.  Only blocks the cache alone holds free: shared ones
+        (refcount >= 2) and the plan's blocks are skipped, so eviction never
+        invalidates a live mapping or the admission just planned.  Returns
+        the blocks freed."""
+        protect = set()
+        if plan is not None:
+            protect.update(plan.shared)
+            if plan.cow is not None:
+                protect.add(plan.cow)
+        freed = 0
+        while freed < n:
+            blk = self.prefix.evict_lru(
+                keep=lambda b: b in protect or self.alloc.ref(b) > 1)
+            if blk is None:
+                break                       # nothing evictable left
+            self.prefix_evictions += 1
+            if not self.alloc.decref(blk):  # cache was sole holder: frees
+                raise RuntimeError(
+                    f"evicted cache block {blk} still live — keep() gate "
+                    "is wrong")
+            freed += 1
+        return freed
+
+    def _can_reserve(self, req: Request,
+                     plan: _PrefixPlan | None = None) -> bool:
         """Admission gate: the free blocks nobody has reserved yet must
-        cover the request's worst case."""
-        return (self.alloc.n_free - sum(self._slot_reserve)
-                >= self._worst_case_blocks(req))
+        cover the request's worst case, less a prefix hit's shared blocks
+        (the copy-on-write block leases inside the reservation).  On a
+        shortfall, cold cache leaves are evicted one at a time until it
+        closes or nothing is evictable."""
+        need = self._worst_case_blocks(req)
+        if plan is not None:
+            need -= len(plan.shared)
+        while self.alloc.n_free - sum(self._slot_reserve) < need:
+            if self.prefix is None or self._evict_for(1, plan) == 0:
+                return False
+        return True
 
     def _admit_head(self, idx: int) -> bool:
         """Admit the queue head into free slot ``idx``, or count an
         admission stall when the pool cannot cover its reservation."""
         head = self._queue[0]
+        plan = self._prefix_plan(head)
+        if self.paged and not self._can_reserve(head, plan):
+            self.admission_stalls += 1
+            return False
+        self._admit(self._queue.popleft(), idx, plan)
+        return True
+
+    def _admit(self, req: Request, idx: int,
+               plan: _PrefixPlan | None) -> None:
+        """Lease slot ``idx`` to ``req`` (no dispatch: the prompt streams
+        through the next mixed ticks).  Recurrent families copy a fresh row
+        into the slot first.  A prefix ``plan`` maps the shared blocks into
+        the page table (one incref each), copies the one partial block on
+        write, and starts the chunk cursor at the first uncovered token."""
         if self.paged:
-            if not self._can_reserve(head):
-                self.admission_stalls += 1
-                return False
-            self._slot_reserve[idx] = self._worst_case_blocks(head)
+            shared = list(plan.shared) if plan is not None else []
+            self._slot_reserve[idx] = (self._worst_case_blocks(req)
+                                       - len(shared))
+            for page, blk in enumerate(shared):
+                self.alloc.incref(blk)
+                self._page_table[idx, page] = blk
+            self._slot_blocks[idx] = shared
         if self._fresh_row is not None:
             insert = self.cache_compiles.get(
                 "insert", self.batch, lambda: _insert_executable(self.cfg))
             self.cache = insert(self.cache, self._fresh_row, idx)
-        self._slots[idx] = _Slot(req=self._queue.popleft())
-        return True
+        self._slots[idx] = _Slot(req=req)
+        if plan is not None:
+            if plan.cow is not None:
+                self._cow_block(idx, plan.cow)
+            s = self._slots[idx]
+            s.length = s.pos = plan.consumed
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += plan.consumed
+        self._draft_wait[idx] = self._draft_penalty[idx] = 0
+        if self.drafter is not None:
+            # prompt lookup proper: drafts may copy prompt spans before the
+            # prompt has streamed through the cache (acceptance keeps it
+            # lossless)
+            self.drafter.reset(idx)
+            self.drafter.observe(idx, req.prompt)
+
+    def _lease_one(self, idx: int) -> int:
+        """Lease one block against slot ``idx``'s reservation."""
+        if self._slot_reserve[idx] <= 0:
+            raise RuntimeError(
+                f"slot {idx} leased past its reservation — worst-case "
+                "accounting is wrong")
+        self._slot_reserve[idx] -= 1
+        return self.alloc.lease()
 
     def _lease_to(self, idx: int, new_len: int) -> None:
         """Grow slot ``idx`` to cover ``new_len`` tokens, leasing blocks as
         the length crosses page boundaries, against its reservation."""
         owned = self._slot_blocks[idx]
         while len(owned) < -(-new_len // self.block_size):
-            if self._slot_reserve[idx] <= 0:
-                raise RuntimeError(
-                    f"slot {idx} leased past its reservation — worst-case "
-                    "accounting is wrong")
-            blk = self.alloc.lease()
-            self._slot_reserve[idx] -= 1
+            blk = self._lease_one(idx)
             self._page_table[idx, len(owned)] = blk
             owned.append(blk)
 
+    def _cow_block(self, idx: int, src: int) -> None:
+        """Copy-on-write: lease a private block for slot ``idx``'s next page
+        and copy shared block ``src`` into it on the device (the ``("cow",
+        0)`` executable).  The copy's matched head is live; its tail sits
+        past the slot's length until the chunk writer overwrites it."""
+        dst = self._lease_one(idx)
+        self._page_table[idx, len(self._slot_blocks[idx])] = dst
+        self._slot_blocks[idx].append(dst)
+        fn = self.cache_compiles.get("cow", 0,
+                                     lambda: self._build_tick("cow", 0, None))
+        fn(self.params, self.cache, src=np.array([src], np.int64),
+           dst=np.array([dst], np.int64))
+        self.cow_copies += 1
+
+    def _cache_prompt(self, idx: int) -> None:
+        """Prefill just finished for slot ``idx``: donate the prompt's fully
+        written blocks to the radix cache, which holds ONE reference per
+        node it newly created (a duplicate prompt keeps the first author's
+        block; the duplicate stays private)."""
+        prompt = self._slots[idx].req.prompt
+        nfull = len(prompt) // self.block_size
+        if nfull == 0:
+            return
+        fresh = self.prefix.insert(
+            np.asarray(prompt)[:nfull * self.block_size],
+            self._slot_blocks[idx][:nfull])
+        for blk in fresh:
+            self.alloc.incref(blk)
+
     def pool_stats(self) -> dict[str, int]:
         """Free-list invariants, exposed for leak/double-free checks:
-        ``free + leased == total`` always."""
+        ``free + leased == total`` always (``leased`` counts live blocks, so
+        a block mapped by three slots and the cache is one block)."""
         return {
             "total": self.pool_blocks,
             "free": self.alloc.n_free,
             "leased": self.alloc.n_live,
             "n_homes": self.alloc.n_homes,
             "reserved_outstanding": sum(self._slot_reserve),
+            "shared_blocks": self.alloc.n_shared(),
+            "cached_blocks": (len(self.prefix)
+                              if self.prefix is not None else 0),
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "cow_copies": self.cow_copies,
+            "prefix_evictions": self.prefix_evictions,
         }
+
+    def prefix_stats(self) -> dict[str, int]:
+        """Prefix-cache counters (a subset of ``pool_stats`` plus the
+        gate)."""
+        return {
+            "enabled": self.prefix_sharing,
+            "requested": self.prefix_requested,
+            "hits": self.prefix_hits,
+            "hit_tokens": self.prefix_hit_tokens,
+            "cow_copies": self.cow_copies,
+            "evictions": self.prefix_evictions,
+            "cached_blocks": (len(self.prefix)
+                              if self.prefix is not None else 0),
+            "shared_blocks": self.alloc.n_shared() if self.paged else 0,
+        }
+
+    def drop_prefix_cache(self) -> int:
+        """Flush the radix cache, dropping every cache-held block reference
+        (so a drained engine's pool is whole again).  Returns the nodes
+        dropped."""
+        if self.prefix is None:
+            return 0
+        blocks = self.prefix.clear()
+        for blk in blocks:
+            self.alloc.decref(blk)
+        return len(blocks)
 
     def audit(self) -> None:
         """One-shot invariant audit (``audit_every`` runs it each N ticks).
         Raises AssertionError on the first violation: the allocator's
         partition, deadlock freedom (``sum(reserve) <= free``), page-table
         rows mirroring exactly the blocks each slot owns with a null tail,
-        dead slots owning nothing, and no slot past ``max_len``."""
+        dead slots owning nothing, every block's refcount equal to the
+        slots and the radix cache that hold it, and no slot past
+        ``max_len``."""
         self.audits += 1
         if self.paged:
             self.alloc.check()
@@ -376,6 +652,8 @@ class Engine:
             assert reserved <= self.alloc.n_free, (
                 f"reservation invariant broken: {reserved} reserved > "
                 f"{self.alloc.n_free} free")
+            holders = collections.Counter(
+                self.prefix.blocks() if self.prefix is not None else ())
             for i, s in enumerate(self._slots):
                 owned = self._slot_blocks[i]
                 if s.req is None:
@@ -391,6 +669,11 @@ class Engine:
                         f"slot {i} maps out-of-pool block {blk}")
                     assert self.alloc.ref(blk) >= 1, (
                         f"slot {i} maps freed block {blk}")
+                holders.update(owned)
+            for blk in range(self.pool_blocks):
+                assert self.alloc.ref(blk) == holders[blk], (
+                    f"block {blk}: refcount {self.alloc.ref(blk)} but "
+                    f"{holders[blk]} holders (slots and the radix cache)")
         for i, s in enumerate(self._slots):
             if s.req is not None:
                 assert s.length <= self.max_len, f"slot {i} overran max_len"
@@ -399,8 +682,10 @@ class Engine:
     def compile_budget(self) -> int:
         """Upper bound on compile-cache misses (captured graphs and the
         insert entry) this engine can cause: n_chunk_buckets (mixed
-        widths) + decode + insert."""
-        return len(self.chunk_buckets.all_buckets()) + 2
+        widths) + decode + insert, + the ``("cow", 0)`` copy when
+        sharing."""
+        return (len(self.chunk_buckets.all_buckets()) + 2 +
+                (1 if self.prefix_sharing else 0))
 
     # -- executables (memoized: misses bounded by compile_budget) -----------
 
@@ -432,17 +717,25 @@ class Engine:
 
     def _build_tick(self, name: str, bucket: int, width: int | None):
         """On the card the key's function captured as a graph over static
-        inputs holding a dispatch with every row dead; on the CPU the
+        inputs that write nothing live (a dispatch with every row dead;
+        for ``cow`` the null block copied onto itself); on the CPU the
         function run eagerly."""
-        fn = (_mixed_executable if name == "mixed"
-              else _decode_executable)(self.cfg)
+        if name == "cow":
+            fn = _cow_executable(self.cfg)
+            null = np.array([self._null_block], np.int64)
+            dead = {"src": null, "dst": null}
+        else:
+            fn = (_decode_executable(self.cfg) if name == "decode" else
+                  _mixed_executable_spec(self.cfg) if self.spec_k else
+                  _mixed_executable(self.cfg))
+            dead = self._dead_inputs(width)
         if self.device.type != "cuda":
             return _EagerTick(fn, self.device)
         if self._graph_pool is None:
             _build.prepare()
             self._graph_pool = torch.cuda.graph_pool_handle()
         inputs = {k: torch.from_numpy(a).to(self.device)
-                  for k, a in self._dead_inputs(width).items()}
+                  for k, a in dead.items()}
         tick = _CapturedTick(fn, self.params, self.cache, inputs,
                              self._graph_pool)
         self.capture_seconds[(name, bucket)] = tick.capture_s
@@ -465,7 +758,68 @@ class Engine:
             self._slot_blocks[idx] = []
             self._slot_reserve[idx] = 0
             self._page_table[idx, :] = self._null_block
+        if self.drafter is not None:
+            self.drafter.reset(idx)
         self._slots[idx] = _Slot()
+
+    def _rewind_slot(self, idx: int, new_len: int) -> None:
+        """Rollback of rejected draft tokens: shrink slot ``idx``'s length
+        to ``new_len``, on the host only (stale K/V past it hides behind
+        true-length masking until the next writes land over it).  Paged:
+        tail blocks wholly past the new length are re-nulled in the page
+        table, dropped (a rewound tail block is private: shared blocks
+        cover at most ``len(prompt) - 1`` tokens and speculation rewinds
+        only past the prompt) and put back into the slot's reservation,
+        which may lease them again."""
+        slot = self._slots[idx]
+        if new_len > self.max_len:
+            raise ValueError(f"rewind to {new_len} exceeds max_len")
+        slot.length = new_len
+        if self.paged:
+            keep = paged_blocks_for(new_len, self.block_size)
+            owned = self._slot_blocks[idx]
+            while len(owned) > keep:
+                blk = owned.pop()
+                self._page_table[idx, len(owned)] = self._null_block
+                try:
+                    self.alloc.decref(blk)
+                except RuntimeError as e:
+                    raise RuntimeError(f"{e} (rewind slot {idx})") from None
+                self._slot_reserve[idx] += 1
+
+    def _schedule_drafts(self, chunks: list[int], decoding: list[int],
+                         sample) -> dict[int, list[int]]:
+        """Pick this tick's verify rows: up to ``spec_k`` draft tokens per
+        decode row from the drafter, each capped by (1) the cache room past
+        the row's own next token, (2) the request's remaining need minus
+        one (which keeps the tick's writes inside the paged worst-case
+        reservation) and (3) what the prefill token budget leaves after
+        the chunks.  A ``sample`` hook disables drafting (acceptance is
+        defined against the model's greedy tokens)."""
+        if not self.spec_k or sample is not None:
+            return {}
+        left = None
+        if self.prefill_token_budget is not None:
+            left = max(self.prefill_token_budget - sum(chunks), 0)
+        drafts: dict[int, list[int]] = {}
+        for i in decoding:
+            if self._draft_wait[i] > 0:          # backing off after misses
+                self._draft_wait[i] -= 1
+                continue
+            s = self._slots[i]
+            k = min(self.spec_k,
+                    self.max_len - s.length - 1,
+                    s.req.max_new_tokens - len(s.req.output) - 1)
+            if left is not None:
+                k = min(k, left)
+            if k <= 0:
+                continue
+            d = self.drafter.draft(i, k)
+            if d:
+                drafts[i] = d
+                if left is not None:
+                    left -= len(d)
+        return drafts
 
     def _schedule_chunks(self) -> list[int]:
         """Pick this tick's per-slot prompt-chunk sizes (Sarathi-style).
@@ -507,12 +861,15 @@ class Engine:
         req.output.append(token)
         req.token_times.append(now)
         slot.last_token = token
+        if self.drafter is not None:
+            self.drafter.observe(idx, (token,))
         if (len(req.output) >= req.max_new_tokens or
                 slot.length >= self.max_len or   # no cache room to decode into
                 (self.eos_id is not None and token == self.eos_id)):
             req.done = True
             req.finished_at = now
             completed.append(req)
+            self._live_rids.discard(req.rid)
             self._free_slot(idx)
 
     def run(self, *, max_steps: int = 10_000,
@@ -520,14 +877,15 @@ class Engine:
         """Drain the queue; returns the requests finished during the call.
 
         Each tick: (1) refill free slots from the queue (a host-side lease;
-        paged: strict FIFO behind the block reservation), (2) co-schedule
-        prompt chunks with decode rows and, paged, lease the blocks they
-        grow into, (3) advance ALL slots with exactly one call — the
-        ``("mixed", W)`` executable when any prompt chunk is in flight, the
-        ``("decode", B)`` one otherwise (a graph replay on the card) — and
-        consume the tokens.
-        ``sample`` maps a logits row (V,) to a token id; greedy argmax on
-        the device when None."""
+        paged: strict FIFO behind the block reservation, a prefix hit
+        mapping cached blocks), (2) co-schedule prompt chunks, decode rows
+        and verify rows (a decode row with a draft) and, paged, lease the
+        blocks they grow into, (3) advance ALL slots with exactly one call
+        — the ``("mixed", W)`` executable when any prompt chunk or draft is
+        in flight, the ``("decode", B)`` one otherwise (a graph replay on
+        the card) — and consume the tokens, accepting and rolling back
+        drafts.  ``sample`` maps a logits row (V,) to a token id; greedy
+        argmax on the device when None."""
         completed: list[Request] = []
         start_steps = self.steps
         while self.steps - start_steps < max_steps:
@@ -542,18 +900,23 @@ class Engine:
             stall = self.prefill_policy == "stall" and any(chunks)
             decoding = [i for i in live
                         if not self._slots[i].prefilling and not stall]
+            drafts = self._schedule_drafts(chunks, decoding, sample)
             host = {}
             if self.paged:
                 for i, s in enumerate(self._slots):
                     if chunks[i]:
                         self._lease_to(i, s.length + chunks[i])
                     elif i in decoding:
-                        self._lease_to(i, s.length + 1)
+                        self._lease_to(
+                            i, s.length + 1 + len(drafts.get(i, ())))
                 host["page_table"] = self._page_table
 
-            if any(chunks):
-                # mixed tick: prompt chunks + decode rows, one dispatch
-                w = self.chunk_buckets.bucket(max(max(chunks), 2))
+            greedy_np = None
+            if any(chunks) or drafts:
+                # mixed tick: prompt chunks + decode and verify rows, one
+                # dispatch
+                w = self.chunk_buckets.bucket(max(
+                    [max(chunks), 2] + [1 + len(d) for d in drafts.values()]))
                 tokens = np.zeros((self.batch, w), np.int64)
                 lengths = np.zeros(self.batch, np.int32)
                 q_lens = np.zeros(self.batch, np.int32)
@@ -564,11 +927,26 @@ class Engine:
                         tokens[i, :chunks[i]] = \
                             s.req.prompt[s.pos:s.pos + chunks[i]]
                     elif i in decoding:
-                        q_lens[i] = 1
+                        d = drafts.get(i, ())
+                        q_lens[i] = 1 + len(d)
                         tokens[i, 0] = s.last_token
+                        tokens[i, 1:1 + len(d)] = d
                 fn = self._executable("mixed", w)
-                next_tok, logits = fn(self.params, self.cache, tokens=tokens,
-                                      lengths=lengths, q_lens=q_lens, **host)
+                ids, logits = fn(self.params, self.cache, tokens=tokens,
+                                 lengths=lengths, q_lens=q_lens, **host)
+                ids_np = ids.cpu().numpy()
+                if self.spec_k:
+                    # (B, W) greedy tokens: a row's next token sits at its
+                    # last live position
+                    greedy_np = ids_np
+                    next_np = greedy_np[np.arange(self.batch),
+                                        np.clip(q_lens - 1, 0, w - 1)]
+                else:
+                    next_np = ids_np
+                if drafts:
+                    self.spec_ticks += 1
+                    self.spec_rows += len(drafts)
+                    self.spec_drafted += sum(len(d) for d in drafts.values())
                 self.mixed_ticks += 1
                 self.dispatched_columns += w
             else:
@@ -585,11 +963,10 @@ class Engine:
                 adv = np.zeros(self.batch, bool)
                 adv[decoding] = True
                 fn = self._executable("decode", None)
-                next_tok, logits = fn(self.params, self.cache, tokens=tokens,
-                                      lengths=lengths, write_mask=adv,
-                                      **host)
+                ids, logits = fn(self.params, self.cache, tokens=tokens,
+                                 lengths=lengths, write_mask=adv, **host)
+                next_np = ids.cpu().numpy()
                 self.dispatched_columns += 1
-            next_np = next_tok.cpu().numpy()
             logits_np = (logits.float().cpu().numpy() if sample is not None
                          else None)
             self.steps += 1
@@ -597,8 +974,8 @@ class Engine:
             self._occupancy_sum += len(live) / self.batch
             self.peak_resident_tokens = max(
                 self.peak_resident_tokens,
-                sum(self._slots[i].length + chunks[i] + (i in decoding)
-                    for i in live))
+                sum(self._slots[i].length + chunks[i] + (i in decoding) +
+                    len(drafts.get(i, ())) for i in live))
 
             for i in live:
                 slot = self._slots[i]
@@ -606,10 +983,15 @@ class Engine:
                     slot.pos += chunks[i]
                     slot.length += chunks[i]
                     if slot.pos == len(slot.req.prompt):
+                        if self.prefix is not None:
+                            # the prompt's full blocks join the cache
+                            self._cache_prompt(i)
                         # final chunk: this row's logits are its first token
                         tok = (int(next_np[i]) if sample is None
                                else int(sample(logits_np[i])))
                         self._emit(i, tok, completed, first=True)
+                elif i in drafts:
+                    self._verify(i, drafts[i], greedy_np[i], completed)
                 elif i in decoding:
                     slot.length += 1
                     tok = (int(next_np[i]) if sample is None
@@ -623,12 +1005,60 @@ class Engine:
         return RunResult(completed, truncated=truncated,
                          in_flight=in_flight, queued=len(self._queue))
 
+    def _verify(self, idx: int, draft: list[int], greedy: np.ndarray,
+                completed: list[Request]) -> None:
+        """Score verify row ``idx``: accept the longest draft prefix equal
+        to the model's greedy tokens, emit the model's token at each
+        accepted position plus the first disagreement (a verify row never
+        emits less than a decode row), then roll back the rejected tail.
+        Token j is emitted at cache length ``base + 1 + j``, so the stop
+        rules fire at exactly the oracle's token."""
+        slot = self._slots[idx]
+        a = 0
+        while a < len(draft) and draft[a] == int(greedy[a]):
+            a += 1
+        self.spec_accepted += a
+        if a:                   # productive row: speculate freely
+            self._draft_wait[idx] = self._draft_penalty[idx] = 0
+        else:                   # full miss: back off exponentially
+            self._draft_penalty[idx] = min(
+                max(self._draft_penalty[idx] * 2, 1), _DRAFT_BACKOFF_MAX)
+            self._draft_wait[idx] = self._draft_penalty[idx]
+        base = slot.length
+        for j in range(a + 1):
+            slot.length = base + 1 + j
+            self._emit(idx, int(greedy[j]), completed, first=False)
+            if self._slots[idx].req is None:
+                return          # finished: _free_slot released the row
+        if a < len(draft):
+            self.spec_rewinds += 1
+            self._rewind_slot(idx, base + 1 + a)
+
     # -- metrics ---------------------------------------------------------------
 
     @property
     def slot_occupancy(self) -> float:
         """Mean fraction of slots live per tick (1.0 = saturated)."""
         return self._occupancy_sum / self.steps if self.steps else 0.0
+
+    def spec_stats(self) -> dict[str, float]:
+        """Speculation counters.  ``accepted_per_dispatch`` is the extra
+        tokens a verify dispatch gave beyond the one plain decode would
+        have."""
+        return {
+            "spec_k": self.spec_k,
+            "spec_requested": self.spec_requested,
+            "spec_supported": self.spec_supported,
+            "spec_ticks": self.spec_ticks,
+            "verify_rows": self.spec_rows,
+            "draft_tokens": self.spec_drafted,
+            "accepted_tokens": self.spec_accepted,
+            "rewinds": self.spec_rewinds,
+            "acceptance_rate": (self.spec_accepted /
+                                max(self.spec_drafted, 1)),
+            "accepted_per_dispatch": (self.spec_accepted /
+                                      max(self.spec_ticks, 1)),
+        }
 
     @staticmethod
     def summarize(reqs: list[Request]) -> dict[str, float]:

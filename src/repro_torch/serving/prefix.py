@@ -1,23 +1,32 @@
-"""Block allocator of the paged KV pool (port of ``BlockAllocator`` in
-``repro/serving/prefix.py``; the radix prefix cache is a later slice).
+"""Block allocator and radix prefix cache of the paged KV pool (port of
+``BlockAllocator``, ``_Node`` and ``RadixPrefixCache`` in
+``repro/serving/prefix.py``; the cache's snapshot ``dump``/``load`` pair
+comes with the engine's snapshots).
 
-Pure host bookkeeping, no device state: the engine's free list with
-per-block refcounts.  A freshly leased block has refcount 1 (its slot);
-mapping it into another holder ``incref``s it; retiring a slot ``decref``s,
-and a block returns to the free list only at refcount 0.  Every block is
-either free with refcount 0 or live with refcount >= 1: a decref at 0 is a
-double free, and ``check()`` asserts the partition.  The free list is LIFO,
-so lease order (and the block recycling that scrambles page tables) is the
-reference's.
+Pure host bookkeeping, no device state.  ``BlockAllocator`` is the free
+list with per-block refcounts.  A freshly leased block has refcount 1
+(its slot); mapping it into another holder ``incref``s it; retiring a slot
+``decref``s, and a block returns to the free list only at refcount 0.
+Every block is either free with refcount 0 or live with refcount >= 1: a
+decref at 0 is a double free, and ``check()`` asserts the partition.  The
+free list is LIFO, so lease order (and the block recycling that scrambles
+page tables) is the reference's.
 
 Topology (``n_homes > 1``, the reference's sharded paged path): the pool's
 ``n_blocks + 1`` rows (the null row last) split into ``n_homes`` contiguous
 runs; block ``b`` is home to shard ``b // rows_per_home``.  ``lease(home=h)``
 takes from home ``h``; ``lease()`` rotates over non-empty homes.  The port
 serves one card, so its engine uses ``n_homes = 1``.
+
+``RadixPrefixCache`` maps block-aligned prompt prefixes to the physical
+blocks that hold their K/V, so a request whose prompt walks a cached path
+maps those blocks into its page table instead of recomputing them (the
+engine's prefix sharing with copy-on-write).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Iterable
 
 
 class BlockAllocator:
@@ -108,6 +117,10 @@ class BlockAllocator:
             return True
         return False
 
+    def n_shared(self) -> int:
+        """Blocks currently mapped by more than one holder."""
+        return sum(1 for r in self.refs if r >= 2)
+
     def check(self) -> None:
         """The partition invariant: every block is either on the free list
         with refcount 0, or off it with refcount >= 1; homes tile the pool
@@ -131,3 +144,146 @@ class BlockAllocator:
         if sum(self.free_by_home()) != self.n_free:
             raise AssertionError("per-home free counts do not partition "
                                  "the free list")
+
+
+class _Node:
+    """One radix edge: ``tokens`` (exactly ``block_size`` ids) labels the
+    edge from ``parent``; ``block`` is the physical block whose K/V was
+    written from those tokens at this tree depth."""
+
+    __slots__ = ("tokens", "block", "children", "parent", "last_used")
+
+    def __init__(self, tokens: tuple, block: int, parent):
+        self.tokens = tokens
+        self.block = block
+        self.children: dict[tuple, _Node] = {}
+        self.parent = parent
+        self.last_used = 0
+
+
+class RadixPrefixCache:
+    """Radix tree over prompt tokens at KV-block granularity.
+
+    Edges are ``block_size``-token runs; a node maps its root-to-node token
+    path to the physical block holding that run's K/V.  Matching returns the
+    longest fully-cached block chain plus, at the divergence point, the
+    longest PARTIAL head of any next cached block (the engine turns that
+    into a copy-on-write admission).  Eviction removes least-recently-used
+    LEAF nodes only, so every surviving node's path stays walkable.
+    """
+
+    def __init__(self, block_size: int):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.block_size = block_size
+        self.root: dict[tuple, _Node] = {}
+        self._nodes: list[_Node] = []
+        self._clock = 0          # LRU timestamps without wall-clock time
+
+    def __len__(self) -> int:
+        return len(self._nodes)
+
+    def blocks(self) -> list[int]:
+        """Every block the cache currently holds a reference on."""
+        return [n.block for n in self._nodes]
+
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def match(self, tokens) -> tuple[list[int], tuple[int, int] | None]:
+        """Longest cached prefix of ``tokens``.
+
+        Returns ``(full_blocks, partial)``: ``full_blocks`` is the chain of
+        physical blocks covering ``len(full_blocks) * block_size`` leading
+        tokens exactly; ``partial`` is ``(block, n)`` when the next cached
+        edge agrees with the following ``n`` (``0 < n < block_size``) tokens
+        — reusable only via copy-on-write, since its tail differs.  Every
+        node on the walk (and the partial node) is LRU-touched.
+        """
+        toks = [int(t) for t in tokens]
+        bs = self.block_size
+        now = self._tick()
+        level, full, i = self.root, [], 0
+        while True:
+            chunk = tuple(toks[i:i + bs])
+            if len(chunk) == bs and chunk in level:
+                node = level[chunk]
+                node.last_used = now
+                full.append(node.block)
+                i += bs
+                level = node.children
+                continue
+            best: tuple[_Node, int] | None = None
+            rest = toks[i:]
+            for key, child in level.items():
+                n = 0
+                for a, b in zip(key, rest):
+                    if a != b:
+                        break
+                    n += 1
+                if n and (best is None or n > best[1]):
+                    best = (child, n)
+            if best is None:
+                return full, None
+            best[0].last_used = now
+            return full, (best[0].block, best[1])
+
+    def insert(self, tokens, blocks: Iterable[int]) -> list[int]:
+        """Register ``blocks`` as the fully-written chain for ``tokens``
+        (``len(tokens) == len(blocks) * block_size``).  Existing nodes win —
+        concurrent identical prompts keep the FIRST author's block, and the
+        duplicate block stays private to its slot.  Returns the blocks of
+        newly created nodes; the caller holds the cache's reference on
+        exactly those (one incref each).
+        """
+        toks = [int(t) for t in tokens]
+        blocks = list(blocks)
+        bs = self.block_size
+        if len(toks) != len(blocks) * bs:
+            raise ValueError(
+                f"{len(toks)} tokens cannot map {len(blocks)} blocks of "
+                f"{bs} — only whole fully-written blocks are cacheable")
+        now = self._tick()
+        level, parent, fresh = self.root, None, []
+        for j, blk in enumerate(blocks):
+            chunk = tuple(toks[j * bs:(j + 1) * bs])
+            node = level.get(chunk)
+            if node is None:
+                node = _Node(chunk, int(blk), parent)
+                level[chunk] = node
+                self._nodes.append(node)
+                fresh.append(int(blk))
+            node.last_used = now
+            parent, level = node, node.children
+        return fresh
+
+    def evict_lru(self, keep: Callable[[int], bool] | None = None
+                  ) -> int | None:
+        """Remove the least-recently-used LEAF node (skipping blocks for
+        which ``keep(block)`` is True) and return its block — the caller
+        drops the cache's reference on it.  Returns None when nothing is
+        evictable.  Leaf-only eviction keeps every cached path reachable;
+        repeated calls peel a cold chain back from its tip.
+        """
+        victim = None
+        for node in self._nodes:
+            if node.children:
+                continue
+            if keep is not None and keep(node.block):
+                continue
+            if victim is None or node.last_used < victim.last_used:
+                victim = node
+        if victim is None:
+            return None
+        level = victim.parent.children if victim.parent else self.root
+        del level[victim.tokens]
+        self._nodes.remove(victim)
+        return victim.block
+
+    def clear(self) -> list[int]:
+        """Drop every node; returns their blocks for the caller to decref."""
+        blocks = [n.block for n in self._nodes]
+        self.root = {}
+        self._nodes = []
+        return blocks

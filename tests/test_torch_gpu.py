@@ -1713,3 +1713,145 @@ def test_steps_never_sync_the_host(cuda, case):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _case_model(case):
+    """A GRAPH_CASES model, or ``paged``: the dense case on a paged pool of
+    16-token pages."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    extra = {"paged": dict(kv_layout="paged", kv_block_size=16,
+                           kv_pool_blocks=10)}
+    arch, strategy, over = GRAPH_CASES.get(case, GRAPH_CASES["dense"])
+    cfg = get_smoke_config(arch, dtype=torch.bfloat16, **over,
+                           **extra.get(case, {}))
+    params = quantize_model(api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)), strategy)
+    return cfg, params
+
+
+@pytest.mark.parametrize("case", ["dense", "paged", "paged-int8"])
+def test_all_logits_positions_equal_sequential_decode(cuda, case):
+    """``mixed_step(all_logits=True)`` at W = 4 and then 8 (rows at lengths
+    0, 5, 13 and 29, ragged ``q_lens``, a dead row; paged: a scrambled
+    page table): every live position's logits and every cache leaf
+    bitwise the sequential ``decode_step``'s."""
+    import dataclasses
+    from repro_torch.models import api
+    cfg, params = _case_model(case)
+    cfg = dataclasses.replace(cfg, kv_pool_blocks=0)   # 4 x 4 pages
+    b, max_len = 4, 64
+    rng = np.random.default_rng(5)
+    lens = np.asarray([0, 5, 13, 29], np.int32)
+    kw = {}
+    if api.has_paged_kv(cfg):
+        kw["page_table"] = torch.tensor(
+            rng.permutation(b * 4).reshape(b, 4), dtype=torch.int32,
+            device="cuda")
+    mix = api.init_cache(cfg, b, max_len, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, 32), device="cuda")
+    api.mixed_step(cfg, params, mix, toks, [0] * b, lens, **kw)
+    seq = _clone_tree(mix)
+    for w, q_lens in ((4, [4, 0, 3, 4]), (8, [8, 5, 0, 8])):
+        q_lens = np.asarray(q_lens, np.int32)
+        toks = torch.randint(0, cfg.vocab_size, (b, w), device="cuda")
+        logits, _ = api.mixed_step(cfg, params, mix, toks, lens, q_lens,
+                                   all_logits=True, **kw)
+        assert logits.shape == (b, w, cfg.vocab_size)
+        for j in range(w):
+            step, _ = api.decode_step(
+                cfg, params, seq, toks[:, j:j + 1],
+                lens + np.minimum(j, q_lens - 1) + 1,
+                write_mask=torch.tensor(j < q_lens, device="cuda"), **kw)
+            for r in np.flatnonzero(j < q_lens):
+                assert torch.equal(logits[r, j], step[r]), (w, r, j)
+        for a, g in zip(_cache_leaves(seq), _cache_leaves(mix)):
+            assert torch.equal(a, g), w
+        lens = lens + q_lens
+
+
+def _rep_requests(cfg, n=6, seed=2, system=()):
+    """Prompts of a 2-5 token pattern tiled 3 times (``tests/test_spec.py``
+    ``_rep_reqs``), each after ``system``."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=np.concatenate([
+        np.asarray(system, np.int64),
+        np.tile(rng.integers(0, cfg.vocab_size, int(rng.integers(2, 6))),
+                3)]), max_new_tokens=int(rng.integers(4, 10)))
+        for i in range(n)]
+
+
+@pytest.mark.parametrize("case", ["dense", "paged-int8"])
+def test_speculating_and_sharing_engines_equal_the_oracle(cuda, case):
+    """A speculating engine (and, paged, one that also shares prefixes)
+    served twice: every stream equal to ``reference_decode``, drafts
+    scored, prefix hits and copies on write, misses within the budget and
+    none in the second run, the pool whole after ``drop_prefix_cache``."""
+    from repro_torch.serving.engine import Engine, reference_decode
+    cfg, params = _case_model(case)
+    share = cfg.kv_layout == "paged"
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=32,
+                    spec_k=4, prefix_cache=share, audit_every=1,
+                    device="cuda")
+    system = np.random.default_rng(1).integers(0, cfg.vocab_size, 20)
+    outs = []
+    for run in range(2):
+        reqs = _rep_requests(cfg, system=system if share else ())
+        for r in reqs:
+            engine.submit(r)
+        assert len(engine.run()) == len(reqs)
+        outs.append([r.output for r in reqs])
+        if run == 0:
+            misses = engine.cache_compiles.misses
+    assert engine.cache_compiles.misses == misses <= engine.compile_budget
+    assert outs[0] == outs[1]
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda"), r.rid
+    assert engine.spec_drafted > 0
+    assert sorted(engine.capture_seconds) == sorted(
+        k for k in engine.cache_compiles.keys() if k[0] != "insert")
+    if share:
+        assert engine.prefix_hits > 0 and engine.cow_copies > 0
+        assert ("cow", 0) in engine.capture_seconds
+        engine.drop_prefix_cache()
+        stats = engine.pool_stats()
+        assert stats["free"] == stats["total"] and not stats["leased"]
+
+
+def test_cow_graph_replays_equal_the_eager_copy(cuda):
+    """The ``("cow", 0)`` graph replayed twice (two copies of an int8
+    pool's block, scales included) leaves every leaf bitwise what the
+    eager ``copy_pool_block`` gives on a copy of the cache."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine
+    cfg, params = _case_model("paged-int8")
+    engine = Engine(cfg, params, batch_size=2, max_len=64, chunk_size=32,
+                    prefix_cache=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for leaf in _cache_leaves(engine.cache):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=gen,
+                                  device="cuda").to(leaf.dtype))
+    copy = _clone_tree(engine.cache)
+    tick = engine.cache_compiles.get(
+        "cow", 0, lambda: engine._build_tick("cow", 0, None))
+    assert ("cow", 0) in engine.capture_seconds
+    for leaf_g, leaf_c in zip(_cache_leaves(engine.cache),
+                              _cache_leaves(copy)):
+        assert torch.equal(leaf_g, leaf_c)    # the capture wrote nothing
+    for src, dst in ((3, 7), (7, 1)):
+        tick(params, engine.cache, src=np.array([src], np.int64),
+             dst=np.array([dst], np.int64))
+        api.copy_pool_block(cfg, copy, torch.tensor([src], device="cuda"),
+                            torch.tensor([dst], device="cuda"))
+    torch.cuda.synchronize()
+    for leaf_g, leaf_c in zip(_cache_leaves(engine.cache),
+                              _cache_leaves(copy)):
+        assert torch.equal(leaf_g, leaf_c)

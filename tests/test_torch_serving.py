@@ -8,6 +8,7 @@ requests of 3-19 prompt tokens and 2-7 new tokens from
 
 import ast
 import pathlib
+import warnings
 
 import numpy as np
 import pytest
@@ -173,6 +174,35 @@ def test_engine_refuses_unported_configs(setup):
            tparams, device="cpu")
 
 
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_duplicate_live_rid_is_refused(setup, package):
+    """A rid already queued or running is refused at ``submit`` by both
+    engines; once its request has finished the rid is accepted again."""
+    jcfg, jparams, tcfg, tparams = setup
+    if package == "port":
+        engine = Engine(tcfg, tparams, batch_size=2, max_len=64,
+                        chunk_size=16, device="cpu")
+        make = Request
+    else:
+        engine = JaxEngine(jcfg, jparams, batch_size=2, max_len=64,
+                           chunk_size=16)
+        make = JaxRequest
+    _, prompt, _ = _workload()[0]
+    engine.submit(make(rid=7, prompt=prompt, max_new_tokens=3))
+    with pytest.raises(ValueError, match="already queued or in flight"):
+        engine.submit(make(rid=7, prompt=prompt, max_new_tokens=3))
+    with warnings.catch_warnings():          # the JAX engine warns
+        warnings.simplefilter("ignore", RuntimeWarning)
+        engine.run(max_steps=1)              # rid 7 is running now
+    with pytest.raises(ValueError, match="already queued or in flight"):
+        engine.submit(make(rid=7, prompt=prompt, max_new_tokens=3))
+    first = engine.run()
+    assert [r.rid for r in first] == [7]
+    again = make(rid=7, prompt=prompt, max_new_tokens=3)
+    engine.submit(again)
+    assert engine.run()[0] is again and again.output == first[0].output
+
+
 def test_launcher_runs_on_cpu(capsys):
     serve.main(["--device", "cpu", "--requests", "3",
                 "--max-new-tokens", "3", "--batch", "2"])
@@ -188,6 +218,34 @@ def test_launcher_serves_a_sparse_strategy_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "strategy=strategy2 device=cpu" in out
     assert "'completed': 2" in out
+
+
+def test_launcher_speculates_and_shares_on_cpu(capsys):
+    """``--spec --prefix-cache --kv-layout paged``: the speculation and
+    prefix-cache lines, with drafts scored and the system prompt hit."""
+    serve.main(["--device", "cpu", "--spec", "--prefix-cache",
+                "--kv-layout", "paged", "--requests", "6",
+                "--max-new-tokens", "6", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "'completed': 6" in out and "NOT drained" not in out
+    spec = next(ln for ln in out.splitlines()
+                if ln.startswith("speculation: K=4 drafter=plookup"))
+    assert "drafts accepted" in spec and "verify ticks" in spec
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("prefix cache:"))
+    assert not line.startswith("prefix cache: 0 hits")
+
+
+def test_launcher_reports_the_fallbacks_on_the_xlstm(capsys):
+    serve.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--strategy",
+                "none", "--spec", "--prefix-cache", "--requests", "2",
+                "--max-new-tokens", "2", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert ("speculation requested but family 'ssm' has no rewindable "
+            "sequence dimension — plain decode fallback") in out
+    assert ("prefix cache requested but family 'ssm' / layout 'slot' "
+            "cannot share KV blocks — running without") in out
+    assert "'completed': 2" in out and "speculation: K=" not in out
 
 
 def _imports(path: pathlib.Path):
