@@ -77,7 +77,22 @@ Phases (any failure ends the run with a nonzero exit code):
                  int8, decode (a masked row, a rolling window's index) and
                  a 64-wide chunk (a dead row), the null block and dead
                  rows untouched, timed beside its byte bound and
-                 ``index_put_`` on gathered rows;
+                 ``index_put_`` on gathered rows; ``add_rmsnorm`` (the
+                 residual add fused into the norm) bitwise equal to ``x +
+                 h`` then the rmsnorm kernel, both outputs, bf16 and f32,
+                 at 4, 64, 256 and 300 rows x 4096 and n alone, and its
+                 wrapper refusing a row too wide to stage and a misaligned
+                 operand; the q/k/v epilogue
+                 (``qkv_rope_write``: bias, RoPE, int8 quantizing, the
+                 cache write and q's layout in one launch) bitwise equal to
+                 the chain it replaced (bias adds, ``apply_rope``,
+                 ``quantize_kv``, ``kv_write``), q at every live position
+                 and every leaf, slot and paged, bf16 and int8, decode (a
+                 masked row, a row at the span's last position) and a
+                 64-wide chunk (a dead row), at
+                 qwen-7b's, chatglm-6b's and starcoder2-7b's heads, the
+                 null block and dead rows untouched; each timed beside its
+                 byte bound and the chain;
   4. model    — qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
                  and "strategy3" (log-scale sparse), chatglm-6b (the
@@ -100,7 +115,13 @@ Phases (any failure ends the run with a nonzero exit code):
                  leaf bitwise equal to sequential decode_steps (the
                  speculating engine's verify surface: the lm_head at
                  T = 16 and 32 rows, kernel 3 and ``kv_write`` at C = 4
-                 and 8); on every path a mixed step, a decode step, a
+                 and 8); (c) on every transformer path a mixed step (W =
+                 64) and a decode step through ``add_rmsnorm`` and
+                 ``qkv_rope_write`` bitwise equal, logits and every cache
+                 leaf, to the same steps with the two ops' plain chains,
+                 and 20 decode steps through a 16-token span under a
+                 16-token window (a rolling buffer, positions past the
+                 span) likewise; on every path a mixed step, a decode step, a
                  verify tick (transformers) and a copy-on-write of a pool
                  block (paged) under ``torch.cuda.set_sync_debug_mode(
                  "error")`` (no host read); after phase 5 on dense,
@@ -117,7 +138,9 @@ Phases (any failure ends the run with a nonzero exit code):
                  dense, strategy2-paged and xlstm-dense a
                  ``torch.profiler`` trace of one decode and one mixed tick,
                  eager and replayed (host ms, device-busy ms, device
-                 operations); every token stream equals ``reference_decode``
+                 operations, and none of RoPE's cos, sin or cat and no
+                 bf16 add in a replayed transformer tick); every token
+                 stream equals ``reference_decode``
                  and the kernel launch counts (reset before each run,
                  read just after it; a replay adds its capture's counts)
                  equal layers x calls x ticks as
@@ -169,6 +192,7 @@ The script imports nothing of JAX.  Details go to
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -529,8 +553,99 @@ def check_kernels(torch, timer, results: dict) -> dict:
     need(torch.equal(rmsnorm_cuda(x[:4], gamma), rmsnorm_cuda(x, gamma)[:4]),
          "rmsnorm: rows differ between 4 and 256 rows (batch invariance)")
     log("  rmsnorm: 4 rows bitwise equal inside 256")
+    line.update(check_add_rmsnorm(torch, timer, rows))
     line.update(check_kv_write(torch, timer, rows))
+    line.update(check_qkv_epilogue(torch, timer, rows))
     results["kernel_checks"] = rows
+    return line
+
+
+def bitwise(torch, a, b) -> bool:
+    """Same shape and the same bits (so -0.0 differs from 0.0, and a NaN
+    equals itself)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+# (rows, d, keep_sum, what): a decode tick's 4 rows, prefill chunks (300 a
+# ragged count) and the last layer's add into ln_f (s not kept)
+ADD_RMSNORM_CASES = ((4, 4096, True, "qwen-7b / chatglm-6b decode"),
+                     (64, 4096, True, "64 rows"), (256, 4096, True, "256"),
+                     (300, 4096, True, "300, ragged"),
+                     (4, 4096, False, "ln_f: n alone"))
+
+
+def check_add_rmsnorm(torch, timer, rows) -> dict:
+    """``add_rmsnorm`` (the residual add fused into the norm) against its
+    plain version, ``x + h`` then the rmsnorm kernel: s and n bitwise, bf16
+    and f32, at every case of ``ADD_RMSNORM_CASES``; n also within the
+    tolerance of ``rmsnorm_torch``.  Kernel and plain times beside the
+    byte bound, and ``x + h`` then ``F.rms_norm`` as a yardstick (no single
+    PyTorch call adds and norms)."""
+    from repro_torch.kernels.rmsnorm import (
+        add_rmsnorm_cuda, add_rmsnorm_torch, rmsnorm_torch)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    tol = {"bfloat16": 2e-2, "float32": 1e-5}
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    line = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        elt = torch.finfo(dtype).bits // 8
+        for t, d, keep, what in ADD_RMSNORM_CASES:
+            gamma = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+                     ).to(dtype)
+            x = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+            h = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+            s, n = add_rmsnorm_cuda(x, h, gamma, keep_sum=keep)
+            ps, pn = add_rmsnorm_torch(x, h, gamma)
+            torch.cuda.synchronize()
+            case = f"add_rmsnorm {dname} {t}x{d} ({what})"
+            need(bitwise(torch, n, pn), f"{case}: n is not bitwise the "
+                 "plain version's")
+            need((s is None) != keep and (s is None or bitwise(torch, s, ps)),
+                 f"{case}: s is not bitwise x + h (or written unasked)")
+            err, rel = max_errs(n, rmsnorm_torch(x + h, gamma))
+            need(rel <= tol[dname], f"{case}: rel {rel:.3g} against "
+                 "rmsnorm_torch")
+            row = {"kernel": "add_rmsnorm", "dtype": dname, "rows": t,
+                   "d": d, "keep_sum": keep, "case": what, "bitwise": True,
+                   "max_abs_err": 0.0, "rmsnorm_torch_rel": rel,
+                   "library_ms": None}
+            if what in ("qwen-7b / chatglm-6b decode", "256"):
+                row["ms"] = timer.ms(lambda: add_rmsnorm_cuda(x, h, gamma),
+                                     20)
+                row["plain_ms"] = timer.ms(
+                    lambda: add_rmsnorm_torch(x, h, gamma), 10)
+                row["yardstick_ms"] = (timer.ms(
+                    lambda: lib(x + h, (d,), gamma, 1e-6), 10)
+                    if lib is not None else None)
+                row["bound_ms"], row["bound_by"] = bound(
+                    4 * t * d * elt + d * elt, 5 * t * d, dname)
+                log(f"  {case}: s, n bitwise = plain; rel {rel:.3g} vs "
+                    f"rmsnorm_torch; kernel {row['ms']:.4f} ms plain "
+                    f"{row['plain_ms']:.4f} ms x + h, F.rms_norm "
+                    f"{row['yardstick_ms']} ms bound {row['bound_ms']:.5f}"
+                    f" ms ({row['bound_by']})")
+            else:
+                log(f"  {case}: s, n bitwise = plain; rel {rel:.3g} vs "
+                    "rmsnorm_torch")
+            rows.append(row)
+            if dtype == torch.bfloat16 and what.startswith("qwen"):
+                line["add_rmsnorm"] = row
+    # the one staged body takes rows of at most 23.5 KB on 16-byte aligned
+    # operands; the wrapper refuses the rest before any launch
+    x = torch.randn(4, 6144, generator=g, device="cuda")
+    odd = torch.randn(4 * 4096 + 1, device="cuda")[1:]
+    for what, args in (("an f32 row of 6144", (x, x, x[0])),
+                       ("h off a 16-byte boundary",
+                        (x[:, :4096].contiguous(), odd.view(4, 4096),
+                         x[0, :4096].contiguous()))):
+        try:
+            add_rmsnorm_cuda(*args)
+        except ValueError as e:
+            log(f"  add_rmsnorm refuses {what}: {e}")
+        else:
+            need(False, f"add_rmsnorm took {what}")
     return line
 
 
@@ -654,6 +769,145 @@ def check_kv_write(torch, timer, rows) -> dict:
                     f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
                 if (layout, kind, chunk) == ("slot", "bf16", 1):
                     line["kv_write"] = row
+    return line
+
+
+# (model, hq, hkv, RoPE theta) of the epilogue's cases
+EPILOGUE_HEADS = (("qwen-7b", 32, 4, 1e4), ("chatglm-6b", 32, 2, 1e4),
+                  ("starcoder2-7b", 36, 4, 1e5))
+
+
+def epilogue_case(torch, g, layout, quant, chunk, hq, hkv, hd=128, b=4,
+                  span=512, bs=16):
+    """Operands of one layer's q/k/v epilogue at a model's head counts:
+    the raw projections and biases (bf16), the cache (random, so a stray
+    write shows: slot (B, hkv, 512, 128), or a pool of 16-token pages under
+    a scrambled table with spare blocks and the null block last), and the
+    step's index tensors.  ``chunk`` 1 is a decode step: positions
+    ``lengths - 1``, one masked row, one row at the span's last position
+    (the RoPE table's last row); 64 a mixed step with a dead row and ragged
+    rows.  Returns (cache, q, k, v, bias, rope_base, starts, q_lens,
+    page_table)."""
+    import numpy as np
+    rng = np.random.default_rng(chunk + hq + hkv)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def leaves(*lead):
+        kv = torch.int8 if quant else torch.bfloat16
+        out = {"k": rand(*lead, hd, dtype=kv), "v": rand(*lead, hd, dtype=kv)}
+        if quant:
+            out.update(k_scale=rand(*lead, 1, dtype=torch.float32),
+                       v_scale=rand(*lead, 1, dtype=torch.float32))
+        return out
+    if chunk == 1:
+        pos = np.array([rng.integers(0, span), span - 1, 7, 300])
+        rope_base, starts = pos, pos
+        q_lens = np.array([1, 1, 0, 1])
+    else:
+        q_lens = np.array([chunk, 0, 1, chunk * 3 // 5])
+        starts = np.array([rng.integers(0, span - q + 1) for q in q_lens])
+        rope_base = starts
+    table = None
+    if layout == "paged":
+        n_pages = span // bs
+        perm = rng.permutation(b * n_pages + 5)[:b * n_pages]
+        table = torch.tensor(perm.reshape(b, n_pages), dtype=torch.int32,
+                             device="cuda")
+        cache = leaves(b * n_pages + 6, hkv, bs)
+    else:
+        cache = leaves(b, hkv, span)
+    q = rand(b, chunk, hq * hd)
+    k, v = rand(b, chunk, hkv * hd), rand(b, chunk, hkv * hd)
+    bias = (rand(hq * hd), rand(hkv * hd), rand(hkv * hd))
+    ints = (torch.tensor(a, dtype=torch.int32, device="cuda")
+            for a in (rope_base, starts, q_lens))
+    return (cache, q, k, v, bias, *ints, table)
+
+
+def check_qkv_epilogue(torch, timer, rows) -> dict:
+    """The q/k/v epilogue (``qkv_rope_write``: bias, RoPE, int8 quantizing,
+    the cache write and q's layout in one launch) bitwise against its plain
+    version, the chain the serving steps ran before (bias adds,
+    ``apply_rope``, ``quantize_kv``, the ``kv_write`` kernel,
+    ``q.contiguous()``): every cache leaf and q at every live position (a
+    dead one's is free: the attention kernel zeroes dead rows); the null
+    block and dead or masked rows untouched.  Slot and paged, bf16
+    and int8, decode and a 64-wide chunk, at qwen-7b's, chatglm-6b's and
+    starcoder2-7b's heads.  Kernel and chain times (qwen-7b) beside the
+    byte bound; the chain (the plain time) is also the yardstick: no
+    PyTorch call takes ``q_lens``."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(24)
+    line = {}
+    for model, hq, hkv, theta in EPILOGUE_HEADS:
+        for layout in ("slot", "paged"):
+            for quant in (False, True):
+                for chunk in (1, 64):
+                    (cache, q, k, v, bias, rope_base, starts, q_lens,
+                     table) = epilogue_case(torch, g, layout, quant, chunk,
+                                            hq, hkv)
+                    want = {n: t.clone() for n, t in cache.items()}
+                    orig = {n: t.clone() for n, t in cache.items()}
+
+                    def call(c, impl):
+                        return ops.qkv_rope_write(
+                            c, q, k, v, bias, n_heads=hq, theta=theta,
+                            rope_base=rope_base,
+                            starts=starts, q_lens=q_lens, page_table=table,
+                            impl=impl)
+                    got_q = call(cache, "cuda")
+                    want_q = call(want, "torch")
+                    torch.cuda.synchronize()
+                    what = (f"qkv_rope_write {model} {layout} "
+                            f"{'int8' if quant else 'bf16'} C={chunk}")
+                    need(all(bitwise(torch, got_q[r, :, :n], want_q[r, :, :n])
+                             for r, n in enumerate(q_lens.tolist())),
+                         f"{what}: q is not bitwise the chain's")
+                    for n in cache:
+                        need(bitwise(torch, cache[n], want[n]),
+                             f"{what}: leaf {n} is not bitwise the chain's")
+                        dead = -1 if table is not None else (
+                            2 if chunk == 1 else 1)
+                        need(torch.equal(cache[n][dead], orig[n][dead]),
+                             f"{what}: the null block or a dead row changed")
+                    row = {"kernel": "qkv_rope_write", "model": model,
+                           "layout": layout, "kind": "int8" if quant
+                           else "bf16", "C": chunk, "bitwise": True,
+                           "max_abs_err": 0.0, "library_ms": None}
+                    if model == "qwen-7b":
+                        b, hd = q.shape[0], cache["k"].shape[-1]
+                        live = int(q_lens.sum())
+                        per_kv = 2 * hd * (1 if quant else 2) + (
+                            8 if quant else 0)
+                        nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2
+                                  + sum(t.numel() * 2 for t in bias)
+                                  + b * chunk * hd * 4     # cos, sin rows
+                                  + live * hkv * per_kv + 3 * 4 * b
+                                  + (live * 4 if table is not None else 0))
+                        flops = b * chunk * ((hq + hkv) * hd * 3
+                                             + (hq + 2 * hkv) * hd)
+                        row["ms"] = timer.ms(lambda: call(cache, "cuda"), 20)
+                        row["plain_ms"] = timer.ms(
+                            lambda: call(want, "torch"), 10)
+                        row["bound_ms"], row["bound_by"] = bound(
+                            nbytes, flops, "bfloat16")
+                        log(f"  {what}: q and every leaf bitwise = chain, "
+                            f"null block and dead rows untouched; kernel "
+                            f"{row['ms']:.4f} ms chain {row['plain_ms']:.4f}"
+                            f" ms bound {row['bound_ms']:.5f} ms "
+                            f"({row['bound_by']})")
+                    else:
+                        log(f"  {what}: q and every leaf bitwise = chain, "
+                            "null block and dead rows untouched")
+                    rows.append(row)
+                    if (model, layout, quant, chunk) == (
+                            "qwen-7b", "slot", False, 1):
+                        line["qkv_rope_write"] = row
     return line
 
 
@@ -2019,6 +2273,97 @@ def check_all_logits(torch, cfg, params, results, path):
     results.setdefault("all_logits_vs_sequential", {})[path] = out
 
 
+FUSED_OPS = ("add_rmsnorm", "qkv_rope_write")
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """Inside the block the two fused ops (``FUSED_OPS``) run their plain
+    chains on the card, the chains the serving steps ran before them (whose
+    norm and write are the rmsnorm and ``kv_write`` kernels); every other
+    op keeps its kernel."""
+    import functools
+    from repro_torch.kernels import kv_write as kvw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
+    saved = ops.add_rmsnorm_cuda, ops.qkv_rope_write_cuda
+    ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
+    ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
+                                                write=ops.kv_write)
+    try:
+        yield
+    finally:
+        ops.add_rmsnorm_cuda, ops.qkv_rope_write_cuda = saved
+
+
+def check_fused_equals_plain(torch, cfg, params, results, path):
+    """One mixed step (W = 64: a 64-token chunk, a dead row, a decode row,
+    a ragged row; paged: a scrambled page table) and then one decode step
+    (a masked row) through the fused kernels (``FUSED_OPS``) against the
+    same steps through those two ops' plain chains (``plain_glue``), from
+    the same cache: logits and every cache leaf of all layers bitwise
+    equal.  Then 20 decode steps of one row through a 16-token span under
+    a window as long (a rolling buffer: positions run past the span, and
+    past the epilogue's RoPE table, so the step keeps the unfused chain
+    for q/k/v), logits at every step and every leaf bitwise equal."""
+    import numpy as np
+    from repro_torch.models import api
+    b, w, max_len = 4, 64, 80           # paged: 5 pages a row, 20 blocks
+    rng = np.random.default_rng(24)
+    lengths = np.asarray([0, 3, 40, 60], np.int32)
+    q_lens = np.asarray([64, 0, 17, 1], np.int32)
+    kw = {}
+    if api.has_paged_kv(cfg):
+        pool = api.init_cache(cfg, b, max_len, DEVICE)["k"].shape[1] - 1
+        pages = -(-max_len // cfg.kv_block_size)
+        kw["page_table"] = torch.tensor(
+            rng.permutation(pool)[:b * pages].reshape(b, pages),
+            dtype=torch.int32, device=DEVICE)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, w)),
+                        device=DEVICE)
+    fused = api.init_cache(cfg, b, max_len, DEVICE)
+    plain = clone_tree(fused)
+    mask = torch.tensor([True, False, True, True], device=DEVICE)
+    out = {}
+    for name, step in (
+            ("mixed-64", lambda c: api.mixed_step(
+                cfg, params, c, toks, lengths, q_lens, **kw)[0]),
+            ("decode", lambda c: api.decode_step(
+                cfg, params, c, toks[:, :1], lengths + q_lens + 1,
+                write_mask=mask, **kw)[0])):
+        got = step(fused)
+        with plain_glue():
+            want = step(plain)
+        torch.cuda.synchronize()
+        same = bitwise(torch, got, want)
+        diff = differing_slices(torch, fused, plain)
+        out[name] = {"logits_bitwise": same, "cache_slices_differing": diff}
+        log(f"  fused {'/'.join(FUSED_OPS)} vs their plain chains, {name}: "
+            f"logits bitwise {same}; cache slices differing {diff}")
+        need(same and not diff, f"{path} {name}: the fused step is not "
+             f"bitwise the step through the plain chains (cache {diff[:1]})")
+    span = 16
+    rolling = dataclasses.replace(cfg, window=span, kv_pool_blocks=0)
+    fused = api.init_cache(rolling, 1, span, DEVICE)
+    plain = clone_tree(fused)
+    steps = []
+    for n in range(1, 21):
+        tok = toks[:1, n - 1:n]
+        got, _ = api.decode_step(rolling, params, fused, tok, [n])
+        with plain_glue():
+            want, _ = api.decode_step(rolling, params, plain, tok, [n])
+        if not bitwise(torch, got, want):
+            steps.append(n)
+    diff = differing_slices(torch, fused, plain)
+    out["rolling-20"] = {"steps_differing": steps,
+                         "cache_slices_differing": diff}
+    log(f"  rolling window, 20 decode steps through a {span}-token span: "
+        f"steps differing {steps}; cache slices differing {diff}")
+    need(not steps and not diff, f"{path}: a rolling window's decode is not "
+         f"bitwise the plain chains' (steps {steps[:3]}, cache {diff[:1]})")
+    results.setdefault("fused_vs_plain", {})[path] = out
+
+
 def first_divergence(torch, cfg, params, prompt, got, max_len):
     """Step where the engine left the oracle, and the oracle's top-2 logit
     margin there."""
@@ -2070,14 +2415,21 @@ def expected_launches(cfg, params, ticks):
     ticks, read from the weights' leaf types.  Each projection goes to the
     W4A16, the sparse or the 16-bit kernel by its type; the FFN's gate/up
     to the kernel ``fused_variant`` picks, its down to the kernel of down's
-    type; the norms to rmsnorm or layernorm by the config."""
+    type; the norms by the config: on RMSNorm configs the first layer's
+    ``ln_attn`` alone (``rmsnorm``) and every other norm with the residual
+    add before it (``add_rmsnorm``), on LayerNorm ones ``layernorm`` with
+    the adds apart; the q/k/v epilogue (``qkv_rope_write``) once a
+    layer."""
     from repro_torch.kernels.decode_flash import VARIANTS
     from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
     from repro_torch.models.transformer import layer_params
     L = cfg.n_layers
     attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
-    norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
-    per_tick = {attention: L, norm: 2 * L + 1, "kv_write": L}
+    per_tick = {attention: L, "qkv_rope_write": L}
+    if cfg.norm == "layernorm":
+        per_tick["layernorm"] = 2 * L + 1
+    else:
+        per_tick.update(rmsnorm=1, add_rmsnorm=2 * L)
 
     def add(kernel, n):
         per_tick[kernel] = per_tick.get(kernel, 0) + n
@@ -2503,6 +2855,21 @@ def device_activity(torch, prof):
             [(name[:90], ms, n) for name, (ms, n) in top])
 
 
+# device operations of the glue the fused kernels replaced, by a piece of
+# their kernel names: RoPE's cos, sin and cat, and bf16 adds (the q/k/v
+# bias and residual adds)
+GLUE_OPS = {"cos": "cos_kernel", "sin": "sin_kernel",
+            "cat": "CatArrayBatchedCopy",
+            "bf16_add": "CUDAFunctor_add<c10::BFloat16>"}
+
+
+def glue_census(torch, prof) -> dict:
+    """How many device operations of a profiled window are ``GLUE_OPS``."""
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(pat in n for n in names) for k, pat in GLUE_OPS.items()}
+
+
 def trace_ticks(torch, engine, params, results, path):
     """One decode tick and one mixed tick (the widest captured) run eagerly
     on a copy of the cache and replayed, from the same live inputs: host
@@ -2540,10 +2907,11 @@ def trace_ticks(torch, engine, params, results, path):
                 call()
                 torch.cuda.synchronize()
             busy, n_ops, hand, top = device_activity(torch, prof)
+            glue = glue_census(torch, prof)
             row = {"host_ms": float(np.median(host_ms)),
                    "wall_ms": float(np.median(wall_ms)),
                    "device_busy_ms": busy, "device_ops": n_ops,
-                   "hand_kernel_share": hand, "top": top}
+                   "hand_kernel_share": hand, "glue_ops": glue, "top": top}
             out[f"{key}-{mode}"] = row
             log(f"  {key} {mode}: host {row['host_ms']:.3f} ms, wall "
                 f"{row['wall_ms']:.3f} ms, device busy "
@@ -2554,6 +2922,10 @@ def trace_ticks(torch, engine, params, results, path):
             if mode == "replay":
                 for name, ms, n in top:
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
+                log(f"    glue operations {glue}")
+                need(engine.cfg.family == "ssm" or not any(glue.values()),
+                     f"{path} {key}: the replayed tick still runs RoPE, "
+                     f"cat or bf16 add operations {glue}")
         del copy
     results.setdefault("traces", {})[path] = out
 
@@ -2617,17 +2989,25 @@ def check_no_sync(torch, cfg, params, results, path):
 PREFILL_TOL = 5e-2
 
 
-def expected_full_launches(cfg, params, calls):
-    """Launches of ``calls`` forward or slot-prefill calls: a serving
-    tick's kernels per layer and the lm_head once, with kernel 7 in place
-    of the mixed attention kernel and no ``kv_write`` (the slot prefill
-    assigns whole cache slices)."""
+def expected_full_launches(cfg, params, calls, prefills=0):
+    """Launches of ``calls`` forward or slot-prefill calls, ``prefills`` of
+    them prefills: a serving tick's projection and FFN kernels per layer
+    and the lm_head once, kernel 7 in place of the mixed attention kernel,
+    the 2L + 1 norms alone (the full-sequence routes keep the residual
+    adds and RoPE apart) and, in a prefill, ``kv_write`` once a layer (the
+    whole prompt's K/V into the slot cache)."""
     from repro_torch.kernels.decode_flash import VARIANTS
+    L = cfg.n_layers
     per = expected_launches(cfg, params, 1)
     per.pop(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")])
-    per.pop("kv_write")          # the slot prefill writes its cache slices
-    per["flash_attention"] = cfg.n_layers
-    return {k: calls * n for k, n in per.items()}
+    per.pop("qkv_rope_write")
+    per.pop("add_rmsnorm", None)
+    per["layernorm" if cfg.norm == "layernorm" else "rmsnorm"] = 2 * L + 1
+    per["flash_attention"] = L
+    out = {k: calls * n for k, n in per.items()}
+    if prefills:
+        out["kv_write"] = prefills * L
+    return out
 
 
 def greedy_after_prefill(torch, cfg, params, prompt, n_new, max_len):
@@ -2702,7 +3082,7 @@ def check_prefill_forward(torch, cfg, params, results, path, counts,
     t_pre = time.perf_counter() - t0
     got = dict(launches)
     counts[f"{path}-prefill"] = got
-    expect = expected_full_launches(cfg, params, 2)
+    expect = expected_full_launches(cfg, params, 2, prefills=1)
     same = torch.equal(logits[:, -1], last)
     log(f"  (a) forward B=2 S=512 {t_fwd * 1e3:.1f} ms, prefill "
         f"{t_pre * 1e3:.1f} ms; logits {tuple(logits.shape)} finite "
@@ -2910,22 +3290,24 @@ def check_prefill_caches(torch, cfg, params, results, streams):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = dict(launches)
-        flash, paged, kvw = (got.get(k, 0) for k in (
-            "flash_attention", "mixed_flash_attention_paged", "kv_write"))
-        # the paged prefill is one mixed step: kernel 3 and kv_write a layer
-        want = ((cfg.n_layers, 0, 0) if kv == "int8"
-                else (0, cfg.n_layers, cfg.n_layers))
+        flash, paged, kvw, epi = (got.get(k, 0) for k in (
+            "flash_attention", "mixed_flash_attention_paged", "kv_write",
+            "qkv_rope_write"))
+        # the int8 slot prefill: kernel 7 and kv_write a layer; the paged
+        # prefill is one mixed step: kernel 3 and the epilogue a layer
+        L = cfg.n_layers
+        want = (L, 0, L, 0) if kv == "int8" else (0, L, 0, L)
         bl, _ = api._bulk_prefill(pcfg, params, toks, SERVE_MAX_LEN)
         diff = max_errs(logits, bl)
         stream = greedy_after_prefill(torch, pcfg, params, prompt,
                                       SERVE_NEW_TOKENS, SERVE_MAX_LEN)
         log(f"  (e) strategy2-{kv} prefill of {len(prompt)} tokens: "
             f"{seconds:.4f} s; launches flash_attention {flash},"
-            f" mixed_flash_attention_paged {paged}, kv_write {kvw} (expected "
-            f"{want}); vs the mixed-step route: logits max_abs "
-            f"{diff[0]:.4g}")
-        need((flash, paged, kvw) == want, f"(e) strategy2-{kv}: launches "
-             f"{(flash, paged, kvw)} != {want}")
+            f" mixed_flash_attention_paged {paged}, kv_write {kvw}, "
+            f"qkv_rope_write {epi} (expected {want}); vs the mixed-step "
+            f"route: logits max_abs {diff[0]:.4g}")
+        need((flash, paged, kvw, epi) == want, f"(e) strategy2-{kv}: "
+             f"launches {(flash, paged, kvw, epi)} != {want}")
         res[f"e-{kv}"] = {"launches": got, "seconds": seconds,
                           "bulk_logits_max_abs": diff[0],
                           "stream": check_stream(
@@ -2952,6 +3334,15 @@ KERNEL_META = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/models/layers.py:65 (XLA in the reference, no "
                 "Pallas kernel)", "dense"),
+    "add_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/models/layers.py:65 and the residual adds of "
+                    "src/repro/models/transformer.py:66 (XLA in the "
+                    "reference, no Pallas kernel)", "dense"),
+    "qkv_rope_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
+                       "src/repro/models/attention.py:38-55, :215-220, "
+                       ":139, :153, :269 and src/repro/models/layers.py:"
+                       "99-111 (XLA in the reference, no Pallas kernel)",
+                       "dense"),
     "sparse_w4a16_matmul": ("src/repro_torch/kernels/csrc/sparse_w4a16.cu",
                             "src/repro/kernels/sparse_w4a16.py:74",
                             "strategy2"),
@@ -2996,7 +3387,7 @@ KERNEL_META = {
                               "starcoder2-strategy2"),
     "kv_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
                  "src/repro/models/attention.py:139, :153, :269 (XLA in the "
-                 "reference, no Pallas kernel)", "dense"),
+                 "reference, no Pallas kernel)", "dense-prefill"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -3082,6 +3473,8 @@ def main() -> int:
                                               path)
                 if pcfg.family != "ssm":
                     check_all_logits(torch, pcfg, params, results, path)
+                    check_fused_equals_plain(torch, pcfg, params, results,
+                                             path)
                 check_no_sync(torch, pcfg, params, results, path)
             streams: dict = {}
             for path, pcfg in paths:

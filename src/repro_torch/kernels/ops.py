@@ -8,6 +8,10 @@ Each op picks its implementation by the tensors' device (``impl="auto"``):
   (the role ``impl="xla"`` plays in the reference).  Taken for CPU tensors,
   and on the card only when asked for, to compare a kernel with it.
 * ``"ref"``   — the dense oracle of ``kernels/ref.py``.
+
+``add_rmsnorm`` and ``qkv_rope_write`` fuse the PyTorch glue of a serving
+step into a kernel; their plain versions are the former chains, whose inner
+ops dispatch by device as before.
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ from repro_torch.kernels.dense_matmul import (
 from repro_torch.kernels.ffn_fused import ffn_w4a16_cuda, ffn_w4a16_torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_torch)
-from repro_torch.kernels.kv_write import kv_write_cuda, kv_write_torch
+from repro_torch.kernels.kv_write import (
+    dequantize_kv, kv_write_cuda, kv_write_torch, qkv_rope_write_cuda,
+    qkv_rope_write_torch)
 from repro_torch.kernels.layernorm import layernorm_cuda, layernorm_torch
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
+from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, add_rmsnorm_torch
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -36,7 +43,7 @@ from repro_torch.kernels.w4a16_matmul import (
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "ffn_w4a16", "layernorm", "attention", "decode_attention",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
-           "mlstm_cell"]
+           "mlstm_cell", "add_rmsnorm", "qkv_rope_write"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -151,6 +158,41 @@ def mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, *, active=None,
     return fn(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
 
 
+def add_rmsnorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
+                eps: float = 1e-6, *, keep_sum: bool = True,
+                impl: str = "auto"):
+    """The residual add and the RMSNorm after it: ``(s, n)`` with ``s = x +
+    h`` rounded to x's dtype (None unless ``keep_sum``) and ``n =
+    rmsnorm(s)`` bitwise.  One launch on the card."""
+    impl = _resolve(impl, x)
+    fn = add_rmsnorm_cuda if impl == "cuda" else add_rmsnorm_torch
+    return fn(x, h, gamma, eps, keep_sum)
+
+
+def qkv_rope_write(cache: dict, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: tuple = (None, None, None), *,
+                   n_heads: int, theta: float | None,
+                   rope_base: torch.Tensor, starts: torch.Tensor,
+                   q_lens: torch.Tensor,
+                   page_table: torch.Tensor | None = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """A serving step's q/k/v epilogue for one layer: the raw projections
+    ``q`` (B, C, hq*hd), ``k``/``v`` (B, C, hkv*hd) get their ``bias``, q
+    and k RoPE at positions ``rope_base[b] + j`` (``theta`` None: none),
+    K/V are quantized for an int8 cache and row ``b``'s positions ``j <
+    q_lens[b]`` written at ``starts[b] + j`` (through ``page_table`` for a
+    paged pool), in place.  Returns q as (B, hq, C, hd).  Live positions
+    must lie in the cache's logical span, the kernel's RoPE table
+    (``kv_write.rope_rows``).  One launch on the card; the plain version is
+    the former chain, whose write is ``kv_write``."""
+    impl = _resolve(impl, q)
+    kw = dict(n_heads=n_heads, theta=theta, rope_base=rope_base,
+              starts=starts, q_lens=q_lens, page_table=page_table)
+    if impl == "cuda":
+        return qkv_rope_write_cuda(cache, q, k, v, bias, **kw)
+    return qkv_rope_write_torch(cache, q, k, v, bias, write=kv_write, **kw)
+
+
 def kv_write(cache: dict, new: dict, starts: torch.Tensor,
              q_lens: torch.Tensor, *, page_table: torch.Tensor | None = None,
              impl: str = "auto") -> None:
@@ -187,7 +229,6 @@ def _materialize_ref_cache(q, k_cache, v_cache, k_scale, v_scale,
             k_scale = gather_paged_cache(k_scale, page_table)
             v_scale = gather_paged_cache(v_scale, page_table)
     if k_scale is not None:
-        from repro_torch.models.attention import dequantize_kv
         k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     return k_cache, v_cache
@@ -221,14 +262,16 @@ def mixed_attention(q, k_cache, v_cache, lengths, q_lens, *, window=None,
 
 def decode_attention(q, k_cache, v_cache, length, *, window=None,
                      scale=None, k_scale=None, v_scale=None, page_table=None,
-                     block_kv: int = DEFAULT_BLOCK_KV,
+                     block_kv: int = DEFAULT_BLOCK_KV, ones=None,
                      impl: str = "auto") -> torch.Tensor:
     """One-token decode attention: ``mixed_attention`` with ``q_lens = 1``
-    (the same kernel, as in the reference)."""
+    (the same kernel, as in the reference); ``ones`` is that (B,) int32
+    tensor when the caller already has it."""
     if q.shape[2] != 1:
         raise ValueError(f"decode attention is single-token (sq="
                          f"{q.shape[2]}); use mixed_attention")
-    ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+    if ones is None:
+        ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
     return mixed_attention(q, k_cache, v_cache, length, ones, window=window,
                            scale=scale, k_scale=k_scale, v_scale=v_scale,
                            page_table=page_table, block_kv=block_kv,

@@ -4,14 +4,18 @@ the dense path of ``repro/models/attention.py``).  The full-sequence path
 steps (``attn_mixed``, ``attn_decode``) run ``ops.mixed_attention``
 against the cache.
 
-The cache is updated IN PLACE, which JAX could not do: ``ops.kv_write``
-writes one layer's K/V leaves into the cache tensors the caller passes (one
-kernel launch a layer on the card, reading ``q_lens`` / the write mask on
-the device, so no step reads a device value on the host), and
-``attn_mixed`` / ``attn_decode`` return that same dict.  A cache row is
-written only at the positions its request really occupies, so a ``q_lens
-== 0`` row (or a decode row outside ``write_mask``) is untouched, the
-property the reference gets from its read-modify-write and select.
+The cache is updated IN PLACE, which JAX could not do: in the serving steps
+``ops.qkv_rope_write`` takes a layer's raw q/k/v projections, adds their
+biases, applies RoPE, quantizes K/V for an int8 cache and writes them into
+the cache tensors the caller passes (one kernel launch a layer on the card,
+reading ``q_lens`` / the write mask on the device, so no step reads a
+device value on the host), and ``attn_mixed`` / ``attn_decode`` return
+that same dict.  The step's index tensors (``StepIndex``: write positions,
+attention lengths, the write mask) are computed once a step, not once a
+layer.  A cache row is written only at the positions its request really
+occupies, so a ``q_lens == 0`` row (or a decode row outside
+``write_mask``) is untouched, the property the reference gets from its
+read-modify-write and select.
 Paged: the reference routes dead positions and masked rows to the null
 block; here they are skipped, so no write ever lands in a block the row
 has not leased and the null block is never written (nor read: the
@@ -28,10 +32,14 @@ tensor: logical position ``p`` of slot ``b`` lives at
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_flash import PAGE_SIZES
+from repro_torch.kernels.kv_write import (  # noqa: F401 (this module's too)
+    dequantize_kv, quantize_kv)
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dense_init, linear
 
@@ -133,8 +141,9 @@ def attn_prefill(cfg, p: Params, x: torch.Tensor, positions, cache: Params):
     cache_len = cache["k"].shape[2]
     if cache_len < k.shape[2]:
         k, v = k[:, :, -cache_len:], v[:, :, -cache_len:]
-    for name, new in _new_kv(cfg, k, v).items():
-        cache[name][:, :, :new.shape[2]] = new.to(cache[name].dtype)
+    b, n = k.shape[0], k.shape[2]
+    zeros = torch.zeros(b, dtype=torch.int32, device=k.device)
+    ops.kv_write(cache, _new_kv(cfg, k, v), zeros, zeros + n)
     return out, cache
 
 
@@ -214,21 +223,6 @@ def kv_cache_slot_axes(cfg, axis: int = 1) -> Params:
     return axes
 
 
-def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(…, hd) -> int8 values + per-vector absmax scale (round half to
-    even, as ``jnp.round``)."""
-    tf = t.to(torch.float32)
-    a = tf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(a / 127.0, min=1e-10)
-    q = torch.clamp(torch.round(tf / scale), -127, 127)
-    return q.to(torch.int8), scale
-
-
-def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
-                  dtype) -> torch.Tensor:
-    return (q.to(torch.float32) * scale).to(dtype)
-
-
 def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> Params:
     """This step's K/V (b, hkv, s, hd) as the cache stores them."""
     if cfg.kv_quant != "int8":
@@ -242,64 +236,134 @@ def _scales(cache: Params) -> dict:
     return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
-def attn_mixed(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
-               lengths: torch.Tensor, q_lens: torch.Tensor, *,
-               page_table: torch.Tensor | None = None):
-    """Mixed prefill/decode step.  x (b, C, d); ``lengths`` (b,) = valid
-    cache tokens BEFORE this step; ``q_lens`` (b,) = live new tokens per
-    row.  Writes each row's live K/V at its true positions (through
-    ``page_table`` for a paged pool: None = the linear default table of a
-    default-sized pool), then attends with intra-chunk causal masking.
-    Requires ``lengths + q_lens <= cache span``, so a rolling window never
-    wraps here and ``cfg.window`` masks directly.  Returns (out, cache)."""
-    b, c, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    if cfg.kv_layout == "paged" and page_table is None:
-        page_table = default_page_table(b, cache["k"].shape[0], x.device)
-    ops.kv_write(cache, _new_kv(cfg, k, v), lengths, q_lens,
-                 page_table=page_table)
-    o = ops.mixed_attention(q, cache["k"], cache["v"], lengths + q_lens,
-                            q_lens, window=cfg.window, page_table=page_table,
-                            **_scales(cache))
-    return linear(_merge_heads(cfg, o), p["wo"]), cache
+@dataclasses.dataclass
+class StepIndex:
+    """A serving step's index tensors, shared by every layer: RoPE at
+    positions ``rope_base[b] + j``, K/V written at ``starts[b] + j`` for
+    ``j < q_lens[b]``, attention over ``attn_len`` with ``attn_q_lens``
+    live queries, ``window`` (None after a rolling window's wrap) and
+    ``page_table`` (None: the slot layout).  ``rolling``: a rolling
+    window's decode, whose RoPE positions run past the cache span and so
+    past the fused epilogue's table (``kv_write.rope_rows``)."""
+    rope_base: torch.Tensor
+    starts: torch.Tensor
+    q_lens: torch.Tensor
+    attn_len: torch.Tensor
+    attn_q_lens: torch.Tensor
+    window: int | None
+    page_table: torch.Tensor | None
+    rolling: bool = False
 
 
-def attn_decode(cfg, p: Params, x: torch.Tensor, positions, cache: Params,
-                lengths: torch.Tensor, *,
-                page_table: torch.Tensor | None = None,
-                write_mask: torch.Tensor | None = None):
-    """One-token decode.  x (b, 1, d); ``lengths`` (b,) = context length
-    INCLUDING the new token.  ``write_mask`` (b,) bool keeps masked rows'
-    caches untouched (the reference writes them and selects the old rows
-    back, or routes a paged write to the null block; in place the write is
-    simply skipped).  A window no longer than the cache span makes it a
+def _span(cfg, cache: Params, b: int, page_table, device):
+    """(page_table, logical span a row addresses) of one layer's cache; a
+    paged pool without a table takes the default table."""
+    if cfg.kv_layout != "paged":
+        return None, cache["k"].shape[2]
+    if page_table is None:
+        page_table = default_page_table(b, cache["k"].shape[0], device)
+    return page_table, page_table.shape[1] * cache["k"].shape[2]
+
+
+def mixed_index(cfg, cache: Params, b: int, lengths: torch.Tensor,
+                q_lens: torch.Tensor, page_table=None) -> StepIndex:
+    """The index tensors of a mixed step (``cache``: any one layer's
+    leaves)."""
+    page_table, _ = _span(cfg, cache, b, page_table, lengths.device)
+    return StepIndex(rope_base=lengths, starts=lengths, q_lens=q_lens,
+                     attn_len=lengths + q_lens, attn_q_lens=q_lens,
+                     window=cfg.window, page_table=page_table)
+
+
+def decode_index(cfg, cache: Params, b: int, lengths: torch.Tensor,
+                 page_table=None, write_mask=None) -> StepIndex:
+    """The index tensors of a decode step (``lengths`` include the new
+    token).  A window no longer than the cache span makes the cache a
     rolling buffer (slot = position mod span), on a paged pool as on the
-    slot cache.  Returns (out, cache)."""
-    b = x.shape[0]
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    paged = cfg.kv_layout == "paged"
-    if paged:
-        if page_table is None:
-            page_table = default_page_table(b, cache["k"].shape[0], x.device)
-        span = page_table.shape[1] * cache["k"].shape[2]
-    else:
-        span = cache["k"].shape[2]
+    slot cache."""
+    page_table, span = _span(cfg, cache, b, page_table, lengths.device)
     rolling = cfg.window is not None and span <= cfg.window
     if rolling:
         # rolling SWA buffer: slot = pos mod span; RoPE is applied before
         # caching and softmax is permutation-invariant
         write_idx = (lengths - 1) % span
         attn_len = torch.clamp(lengths, max=span)
-        attn_window = None
+        window = None
     else:
         write_idx = torch.clamp(lengths - 1, 0, span - 1)
         attn_len = lengths
-        attn_window = cfg.window
-    live = (torch.ones(b, dtype=torch.int32, device=x.device)
-            if write_mask is None else write_mask.to(torch.int32))
-    ops.kv_write(cache, _new_kv(cfg, k, v), write_idx, live,
-                 page_table=page_table)
-    o = ops.decode_attention(q, cache["k"], cache["v"], attn_len,
-                             window=attn_window, page_table=page_table,
-                             **_scales(cache))
+        window = cfg.window
+    ones = torch.ones(b, dtype=torch.int32, device=lengths.device)
+    live = ones if write_mask is None else write_mask.to(torch.int32)
+    return StepIndex(rope_base=lengths - 1, starts=write_idx, q_lens=live,
+                     attn_len=attn_len, attn_q_lens=ones, window=window,
+                     page_table=page_table, rolling=rolling)
+
+
+def _qkv_into_cache(cfg, p: Params, x: torch.Tensor, cache: Params,
+                    index: StepIndex) -> torch.Tensor:
+    """Project q/k/v, write this step's K/V into ``cache`` and return q
+    (b, h, s, d): the fused epilogue (``ops.qkv_rope_write``) after the
+    bias-free projections.  Two cases keep the unfused chain: a ``qk_norm``
+    config (none is served yet), whose norm sits between the bias and RoPE,
+    and a rolling window's decode, whose positions the epilogue's RoPE
+    table (the cache span) does not hold."""
+    if cfg.qk_norm or index.rolling:
+        c = x.shape[1]
+        positions = index.rope_base[:, None] + torch.arange(
+            c, dtype=index.rope_base.dtype, device=x.device)[None, :]
+        q, k, v = _project_qkv(cfg, p, x, positions)
+        ops.kv_write(cache, _new_kv(cfg, k, v), index.starts, index.q_lens,
+                     page_table=index.page_table)
+        return q
+    theta = cfg.rope_theta if cfg.rope_type == "standard" else None
+    return ops.qkv_rope_write(
+        cache, linear(x, p["wq"]), linear(x, p["wk"]), linear(x, p["wv"]),
+        (p.get("bq"), p.get("bk"), p.get("bv")), n_heads=cfg.n_heads,
+        theta=theta, rope_base=index.rope_base,
+        starts=index.starts, q_lens=index.q_lens,
+        page_table=index.page_table)
+
+
+def attn_mixed(cfg, p: Params, x: torch.Tensor, cache: Params,
+               lengths: torch.Tensor, q_lens: torch.Tensor, *,
+               page_table: torch.Tensor | None = None,
+               index: StepIndex | None = None):
+    """Mixed prefill/decode step.  x (b, C, d); ``lengths`` (b,) = valid
+    cache tokens BEFORE this step; ``q_lens`` (b,) = live new tokens per
+    row.  Writes each row's live K/V at its true positions (through
+    ``page_table`` for a paged pool: None = the linear default table of a
+    default-sized pool), then attends with intra-chunk causal masking.
+    Requires ``lengths + q_lens <= cache span``, so a rolling window never
+    wraps here and ``cfg.window`` masks directly.  ``index``: the step's
+    ``mixed_index``, computed here when not given.  Returns (out, cache)."""
+    if index is None:
+        index = mixed_index(cfg, cache, x.shape[0], lengths, q_lens,
+                            page_table)
+    q = _qkv_into_cache(cfg, p, x, cache, index)
+    o = ops.mixed_attention(q, cache["k"], cache["v"], index.attn_len,
+                            index.attn_q_lens, window=index.window,
+                            page_table=index.page_table, **_scales(cache))
+    return linear(_merge_heads(cfg, o), p["wo"]), cache
+
+
+def attn_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
+                lengths: torch.Tensor, *,
+                page_table: torch.Tensor | None = None,
+                write_mask: torch.Tensor | None = None,
+                index: StepIndex | None = None):
+    """One-token decode.  x (b, 1, d); ``lengths`` (b,) = context length
+    INCLUDING the new token.  ``write_mask`` (b,) bool keeps masked rows'
+    caches untouched (the reference writes them and selects the old rows
+    back, or routes a paged write to the null block; in place the write is
+    simply skipped).  A window no longer than the cache span makes it a
+    rolling buffer (``decode_index``).  ``index``: the step's
+    ``decode_index``, computed here when not given.  Returns (out, cache)."""
+    if index is None:
+        index = decode_index(cfg, cache, x.shape[0], lengths, page_table,
+                             write_mask)
+    q = _qkv_into_cache(cfg, p, x, cache, index)
+    o = ops.decode_attention(q, cache["k"], cache["v"], index.attn_len,
+                             window=index.window, page_table=index.page_table,
+                             ones=index.attn_q_lens, **_scales(cache))
     return linear(_merge_heads(cfg, o), p["wo"]), cache

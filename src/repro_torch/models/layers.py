@@ -23,6 +23,7 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.rope import apply_rope, rope_freqs  # noqa: F401
 
 Params = dict[str, Any]
 
@@ -86,25 +87,22 @@ def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(x, p["gamma"])
 
 
+def add_norm(cfg, p: Params, x: torch.Tensor, h: torch.Tensor, *,
+             keep_sum: bool = True):
+    """The residual add and the norm after it: ``(x + h, norm(x + h))``.
+    RMSNorm takes one fused launch (``ops.add_rmsnorm``, the sum written
+    only with ``keep_sum``, else None); LayerNorm keeps the add and its own
+    kernel."""
+    if "beta" in p:
+        s = x + h
+        return s, layernorm(s, p["gamma"], p["beta"])
+    return ops.add_rmsnorm(x, h, p["gamma"], keep_sum=keep_sum)
+
+
 # -- rotary embeddings -----------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (b, h, s, d); positions (b, s) int.  Angles in f32 from the int
-    positions, as the reference computes them."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)
-    angles = positions[:, None, :, None].to(torch.float32) * freqs
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+# ``rope_freqs`` and ``apply_rope`` live in ``kernels/rope.py`` beside the
+# table the fused q/k/v epilogue reads, and are this module's names too.
 
 
 def positions_for(cfg, batch: int, seq: int, offset: int = 0,

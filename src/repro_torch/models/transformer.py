@@ -226,6 +226,27 @@ def _prefill_chunked(cfg, params: Params, tokens: torch.Tensor,
     return logits, cache
 
 
+def _serve_layers(cfg, params: Params, cache: Params, x: torch.Tensor,
+                  attend):
+    """The layer walk of a serving step: ``attend(bp, n, lc)`` is the
+    attention sublayer on the normed ``n``.  Each residual add goes into the
+    norm after it (``layers.add_norm``: on RMSNorm configs one launch for
+    ``x + h`` -> ``ln_mlp`` and one for ``x + m`` -> the next layer's
+    ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.  Returns the last
+    layer's (x, m): its residual and MLP output, not yet added, for the
+    caller's final add + ``ln_f``."""
+    blocks = [layer_params(params["blocks"], i) for i in range(cfg.n_layers)]
+    n = layers.apply_norm(cfg, blocks[0]["ln_attn"], x)
+    m = None
+    for i, bp in enumerate(blocks):
+        if i:
+            x, n = layers.add_norm(cfg, bp["ln_attn"], x, m)
+        h, _ = attend(bp, n, _layer_cache(cache, i))
+        x, n = layers.add_norm(cfg, bp["ln_mlp"], x, h)
+        m = layers.mlp_apply(cfg, bp["mlp"], n)
+    return x, m
+
+
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
                lengths: torch.Tensor, q_lens: torch.Tensor, *,
                page_table: torch.Tensor | None = None,
@@ -239,23 +260,20 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     past ``q_lens[b] - 1`` are padding)."""
     b, c = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    pos = lengths[:, None] + torch.arange(c, dtype=lengths.dtype,
-                                          device=tokens.device)[None, :]
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
-        lc = _layer_cache(cache, i)
-        h, _ = attention.attn_mixed(
-            cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
-            lc, lengths, q_lens, page_table=page_table)
-        x = _mlp_residual(cfg, bp, x + h)
-    if all_logits:
-        # the verify surface: every chunk position reaches the LM head
-        return unembed(cfg, params, layers.apply_norm(cfg, params["ln_f"],
-                                                      x)), cache
-    # only each row's last live position reaches the LM head
-    idx = torch.clamp(q_lens - 1, 0, c - 1).long()
-    x_last = x[torch.arange(b, device=x.device), idx][:, None]
-    return _last_logits(cfg, params, x_last), cache
+    index = attention.mixed_index(cfg, _layer_cache(cache, 0), b, lengths,
+                                  q_lens, page_table)
+    x, m = _serve_layers(cfg, params, cache, x, lambda bp, n, lc:
+                         attention.attn_mixed(cfg, bp["attn"], n, lc, lengths,
+                                              q_lens, index=index))
+    if not all_logits:
+        # only each row's last live position reaches the LM head
+        rows = torch.arange(b, device=x.device)
+        idx = torch.clamp(q_lens - 1, 0, c - 1).long()
+        x, m = x[rows, idx][:, None], m[rows, idx][:, None]
+    _, n = layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)
+    logits = unembed(cfg, params, n)
+    # the verify surface: every chunk position reaches the LM head
+    return (logits if all_logits else logits[:, 0]), cache
 
 
 def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
@@ -267,13 +285,11 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     ``write_mask`` (B,) bool leaves masked rows' caches untouched.  Returns
     (logits (B, V), cache)."""
     x = embed_tokens(cfg, params, tokens)
-    pos = (lengths - 1)[:, None]
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
-        lc = _layer_cache(cache, i)
-        h, _ = attention.attn_decode(
-            cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x), pos,
-            lc, lengths, page_table=page_table, write_mask=write_mask)
-        x = _mlp_residual(cfg, bp, x + h)
-    x = layers.apply_norm(cfg, params["ln_f"], x)
-    return unembed(cfg, params, x)[:, 0], cache
+    index = attention.decode_index(cfg, _layer_cache(cache, 0),
+                                   tokens.shape[0], lengths, page_table,
+                                   write_mask)
+    x, m = _serve_layers(cfg, params, cache, x, lambda bp, n, lc:
+                         attention.attn_decode(cfg, bp["attn"], n, lc,
+                                               lengths, index=index))
+    _, n = layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)
+    return unembed(cfg, params, n)[:, 0], cache

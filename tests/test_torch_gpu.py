@@ -1019,7 +1019,8 @@ def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
         engine.submit(r)
     assert len(engine.run()) == 6
     L, ticks = cfg.n_layers, engine.steps
-    norm = "layernorm" if cfg.norm == "layernorm" else "rmsnorm"
+    norms = ({"layernorm": 2 * L + 1} if cfg.norm == "layernorm" else
+             {"rmsnorm": 1, "add_rmsnorm": 2 * L})   # the adds fused
     ffn = {"none": "ffn_fused_dense", "dense": (
         "ffn_fused_w4a16_gelu" if cfg.activation == "gelu"
         else "ffn_fused_w4a16"), "strategy2": "ffn_fused_sparse_gelu"}[
@@ -1027,7 +1028,9 @@ def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
     matmul = "dense_matmul" if strategy == "none" else "w4a16_matmul"
     sparse = 2 * L if strategy == "strategy2" else 0     # wo and down
     assert _build.launches["mixed_flash_attention"] == ticks * L
-    assert _build.launches[norm] == ticks * (2 * L + 1)
+    for norm, n in norms.items():
+        assert _build.launches[norm] == ticks * n
+    assert _build.launches["qkv_rope_write"] == ticks * L
     assert _build.launches[ffn] == ticks * L
     assert _build.launches[matmul] == ticks * (5 * L + 1) - ticks * sparse
     assert _build.launches["sparse_w4a16_matmul"] == ticks * sparse
@@ -1667,7 +1670,7 @@ def test_second_run_makes_no_new_capture(cuda, case):
             attention = VARIANTS[(cfg.kv_layout == "paged",
                                   cfg.kv_quant == "int8")]
             assert counts[-1][attention] == ticks * cfg.n_layers
-            assert counts[-1]["kv_write"] == ticks * cfg.n_layers
+            assert counts[-1]["qkv_rope_write"] == ticks * cfg.n_layers
         if len(streams) == 1:
             misses = engine.cache_compiles.misses
             captured = dict(engine.capture_seconds)
@@ -1855,3 +1858,236 @@ def test_cow_graph_replays_equal_the_eager_copy(cuda):
     for leaf_g, leaf_c in zip(_cache_leaves(engine.cache),
                               _cache_leaves(copy)):
         assert torch.equal(leaf_g, leaf_c)
+
+
+# -- the fused glue: add_rmsnorm and the q/k/v epilogue -----------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,keep", [(4, 4096, True), (300, 4096, True),
+                                         (3, 4608, False), (5, 128, True),
+                                         (2, 6016, True)])
+def test_add_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d, keep):
+    """Bitwise ``x + h`` then the rmsnorm kernel, s and n (s only when
+    kept), up to the widest row the kernel stages in f32; one launch a
+    call."""
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_torch
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x, h = _rand(gen, rows, d, dtype=dtype), _rand(gen, rows, d, dtype=dtype)
+    gamma = (1 + 0.1 * _rand(gen, d)).to(dtype)
+    before = _build.launches["add_rmsnorm"]
+    s, n = ops.add_rmsnorm(x, h, gamma, keep_sum=keep)
+    torch.cuda.synchronize()
+    assert _build.launches["add_rmsnorm"] == before + 1
+    ps, pn = add_rmsnorm_torch(x, h, gamma)
+    assert torch.equal(n.view(torch.uint8), pn.view(torch.uint8))
+    assert (s is None) if not keep else torch.equal(s.view(torch.uint8),
+                                                    ps.view(torch.uint8))
+    assert torch.equal(ops.add_rmsnorm(x[:1], h[:1], gamma)[1], n[:1])
+
+
+@pytest.mark.parametrize("hd", [36, 128])
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qkv_rope_write_kernel_matches_plain(cuda, dtype, paged, quant,
+                                             chunk, hd):
+    """Bitwise the chain it replaced (bias adds, ``apply_rope``,
+    ``quantize_kv``, the ``kv_write`` kernel, ``q.contiguous()``): q at
+    every live position and every cache leaf; a dead row, a masked row and
+    a row at the span's last position; the null block keeps its bits; one
+    launch a call."""
+    b, hq, hkv, span, bs = 4, 6, 2, 64, 16
+    gen = torch.Generator(device="cuda").manual_seed(chunk + hd)
+    rng = np.random.default_rng(chunk + hd)
+    if chunk == 1:
+        rope_base = np.array([3, span - 1, 20, 63])
+        starts, q_lens = rope_base, np.array([1, 1, 0, 1])
+    else:
+        q_lens = np.array([chunk, 0, 5, 1])
+        starts = np.array([rng.integers(0, span - q + 1) for q in q_lens])
+        rope_base = starts
+    lead = (b * span // bs + 3, hkv, bs) if paged else (b, hkv, span)
+    kv = torch.int8 if quant else dtype
+    cache = {n: (torch.randint(-127, 128, (*lead, hd), generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 if kv == torch.int8 else _rand(gen, *lead, hd, dtype=kv))
+             for n in ("k", "v")}
+    if quant:
+        cache.update({n: _rand(gen, *lead, 1) for n in ("k_scale",
+                                                        "v_scale")})
+    table = None
+    if paged:
+        table = torch.from_numpy(rng.permutation(b * span // bs + 2)[
+            :b * span // bs].reshape(b, span // bs).astype(np.int32)).cuda()
+    q = _rand(gen, b, chunk, hq * hd, dtype=dtype)
+    k = _rand(gen, b, chunk, hkv * hd, dtype=dtype)
+    v = _rand(gen, b, chunk, hkv * hd, dtype=dtype)
+    bias = tuple(_rand(gen, h * hd, dtype=dtype) for h in (hq, hkv, hkv))
+    ints = {n: torch.tensor(a, dtype=torch.int32, device="cuda") for n, a in
+            (("rope_base", rope_base), ("starts", starts),
+             ("q_lens", q_lens))}
+    want = {n: t.clone() for n, t in cache.items()}
+    kw = dict(n_heads=hq, theta=1e4, page_table=table, **ints)
+    before = _build.launches["qkv_rope_write"]
+    got_q = ops.qkv_rope_write(cache, q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["qkv_rope_write"] == before + 1
+    want_q = ops.qkv_rope_write(want, q, k, v, bias, impl="torch", **kw)
+    for r, ql in enumerate(q_lens):       # a dead position's q is free
+        assert torch.equal(got_q[r, :, :ql].view(torch.uint8),
+                           want_q[r, :, :ql].view(torch.uint8))
+    for n in cache:
+        assert torch.equal(cache[n].view(torch.uint8),
+                           want[n].view(torch.uint8)), n
+
+
+def test_fused_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    """The norm kernel stages a row and gamma of at most 47 KB, 16-byte
+    aligned: a wider row (f32 6144 just past it), a width off 16 bytes and
+    a misaligned operand raise before any launch."""
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, rmsnorm_cuda
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    before = dict(_build.launches)
+    for d, dtype in ((12040, torch.bfloat16), (6144, torch.float32),
+                     (100, torch.bfloat16)):
+        x = _rand(gen, 2, d, dtype=dtype)
+        g = _rand(gen, d, dtype=dtype)
+        with pytest.raises(ValueError, match="bytes"):
+            add_rmsnorm_cuda(x, x, g)
+        with pytest.raises(ValueError, match="bytes"):
+            rmsnorm_cuda(x, g)
+    x = _rand(gen, 2, 4096, dtype=torch.bfloat16)
+    g = _rand(gen, 4096, dtype=torch.bfloat16)
+    h = _rand(gen, 2 * 4096 + 1, dtype=torch.bfloat16)[1:].view(2, 4096)
+    with pytest.raises(ValueError, match="16-byte"):
+        add_rmsnorm_cuda(x, h, g)
+    assert dict(_build.launches) == before
+
+
+_EPILOGUE_AT = """
+import sys
+import torch
+from repro_torch.kernels import ops
+span, hd = 16, 64
+cache = {n: torch.zeros(1, 1, span, hd, dtype=torch.bfloat16, device="cuda")
+         for n in ("k", "v")}
+q = torch.ones(1, 1, 2 * hd, dtype=torch.bfloat16, device="cuda")
+k = v = torch.ones(1, 1, hd, dtype=torch.bfloat16, device="cuda")
+pos = torch.tensor([int(sys.argv[1])], dtype=torch.int32, device="cuda")
+ops.qkv_rope_write(cache, q, k, v, n_heads=2, theta=1e4, rope_base=pos,
+                   starts=torch.zeros_like(pos), q_lens=torch.ones_like(pos))
+torch.cuda.synchronize()
+print("accepted")
+"""
+
+
+def test_epilogue_refuses_a_live_position_outside_its_table(cuda):
+    """The epilogue's RoPE table holds the cache's span; a live position
+    past it fails the launch (a device-side assert, so in a process of
+    its own) instead of taking the last row's angle.  The span's last
+    position is taken."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import repro_torch
+    env = dict(os.environ, PYTHONPATH=str(
+        pathlib.Path(repro_torch.__file__).parents[1]))
+    runs = {pos: subprocess.run([sys.executable, "-c", _EPILOGUE_AT, pos],
+                                capture_output=True, text=True, env=env,
+                                timeout=600)
+            for pos in ("15", "16")}
+    ok, bad = runs["15"], runs["16"]
+    assert ok.returncode == 0 and "accepted" in ok.stdout, ok.stderr[-2000:]
+    assert bad.returncode != 0 and "accepted" not in bad.stdout
+    assert "outside the RoPE table" in bad.stdout + bad.stderr, \
+        (bad.stdout + bad.stderr)[-2000:]
+
+
+def _plain_glue(m):
+    """Inside the ``monkeypatch`` context ``m``, the two fused ops run
+    their plain chains on the card (every other op keeps its kernel)."""
+    import functools
+    from repro_torch.kernels import kv_write as kvw
+    from repro_torch.kernels import rmsnorm as rms
+    m.setattr(ops, "add_rmsnorm_cuda", rms.add_rmsnorm_torch)
+    m.setattr(ops, "qkv_rope_write_cuda", functools.partial(
+        kvw.qkv_rope_write_torch, write=ops.kv_write))
+
+
+FUSED_CASES = {"slot": {}, "int8": dict(kv_quant="int8"),
+               "paged-int8": dict(kv_layout="paged", kv_block_size=16,
+                                  kv_pool_blocks=64, kv_quant="int8")}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_steps_equal_plain_chains_on_card(cuda, case, monkeypatch):
+    """A mixed and a decode step through ``add_rmsnorm`` and the epilogue
+    are bitwise the same steps with the two ops' plain chains: logits and
+    every cache leaf."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, head_dim=128,
+                           n_heads=4, n_kv_heads=2, d_model=256,
+                           **FUSED_CASES[case])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init_params(cfg, gen)
+    b = 4
+    toks = torch.randint(0, cfg.vocab_size, (b, 16), generator=gen,
+                         device="cuda")
+    lengths = torch.tensor([0, 3, 20, 40], dtype=torch.int32, device="cuda")
+    q_lens = torch.tensor([16, 0, 5, 1], dtype=torch.int32, device="cuda")
+    fused = api.init_cache(cfg, b, 64, "cuda")
+    plain = {n: t.clone() for n, t in fused.items()}
+    outs = []
+    for cache in (fused, plain):
+        with monkeypatch.context() as m:
+            if cache is plain:
+                _plain_glue(m)
+            outs.append((
+                api.mixed_step(cfg, params, cache, toks, lengths, q_lens)[0],
+                api.decode_step(cfg, params, cache, toks[:, :1],
+                                lengths + q_lens + 1,
+                                write_mask=q_lens > 0)[0]))
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    for n in fused:
+        assert torch.equal(fused[n].view(torch.uint8),
+                           plain[n].view(torch.uint8)), n
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_rolling_window_decode_past_the_span_on_card(cuda, layout,
+                                                     monkeypatch):
+    """24 decode steps through a 16-token span under a 16-token window (a
+    rolling buffer: positions run past the span and the epilogue's table)
+    are bitwise the same steps through the two ops' plain chains: logits
+    at every step and every cache leaf."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    over = dict(kv_layout="paged", kv_block_size=8) if layout == "paged" \
+        else {}
+    cfg = dataclasses.replace(get_smoke_config(
+        "qwen-7b", dtype=torch.bfloat16, **over), window=16)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = api.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (24,), generator=gen,
+                         device="cuda")
+    caches = {"fused": api.init_cache(cfg, 1, 16, "cuda")}
+    caches["plain"] = {n: t.clone() for n, t in caches["fused"].items()}
+    for n in range(1, 25):
+        logits = {}
+        for name, cache in caches.items():
+            with monkeypatch.context() as m:
+                if name == "plain":
+                    _plain_glue(m)
+                logits[name], _ = api.decode_step(
+                    cfg, params, cache, toks[n - 1].view(1, 1), [n])
+        assert torch.equal(logits["fused"].view(torch.uint8),
+                           logits["plain"].view(torch.uint8)), n
+    for leaf in caches["fused"]:
+        assert torch.equal(caches["fused"][leaf].view(torch.uint8),
+                           caches["plain"][leaf].view(torch.uint8)), leaf

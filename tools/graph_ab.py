@@ -6,23 +6,24 @@
     python3 tools/graph_ab.py --tag change
     python3 tools/graph_ab.py --summary
 
-Run the trees in turns (parent, change, change, parent) in one command on
-one card, then ``--summary``.  Paths: qwen-7b "dense" (slot cache),
-qwen-7b "strategy2" from a 20-block pool of 16-token pages, and
-xlstm-1.3b "dense", at full width and depth with random weights from seed
-0.  Each path's engine (``batch_size=4, max_len=512, chunk_size=64``, no
-audit) serves the 9 requests (8 prompts of 4-31 tokens and one of 200, 16
-new tokens each; the paged run submits the long one first) ``RUNS`` times
-in a row: run 0 pays for whatever the tree builds on first use (on a tree
-with CUDA graphs, their captures), the later runs are steady.  Each run
-records tokens/s (tokens over the run's wall time, host clock ending in a
-synchronize), TTFT p50, ITL p50 and the peak ``max_memory_allocated``
-(reset before the run), the compile-cache misses and a digest of the
-token streams.  One JSON line per (tree run, path) goes to
-``chiprun_out/graph_ab.jsonl``; ``--summary`` prints, per path and tree,
-the median and the spread (max - min) of each metric over the steady runs
-and over run 0, and whether every run's streams were the same.  Needs one
-card; imports nothing of JAX.
+Run the trees in turns (parent, change, change, parent) in one command
+on one card, then ``--summary``. Paths: qwen-7b "dense" (slot cache),
+qwen-7b "strategy2" from a 20-block pool of 16-token pages, in bf16 and
+in int8 K/V, and xlstm-1.3b "dense", at full width and depth with random
+weights from seed 0. Each path's engine (``batch_size=4, max_len=512,
+chunk_size=64``, no audit) serves the 9 requests (8 prompts of 4-31
+tokens and one of 200, 16 new tokens each; the paged run submits the
+long one first) ``RUNS`` times in a row: run 0 pays for whatever the
+tree builds on first use (on a tree with CUDA graphs, their captures),
+the later runs are steady. Each run records tokens/s (tokens over the
+run's wall time, host clock ending in a synchronize), TTFT p50, ITL p50
+and the peak ``max_memory_allocated`` (reset before the run), the
+compile-cache misses and a digest of the token streams. One JSON line
+per (tree run, path) goes to ``chiprun_out/graph_ab.jsonl``;
+``--summary`` prints, per path and tree, the median and the spread
+(max - min) of each metric over the steady runs and over run 0, and
+whether every run's streams were the same. Needs one card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ RUNS = 3
 PATHS = (("dense", "qwen-7b", "dense", {}),
          ("strategy2-paged", "qwen-7b", "strategy2",
           dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),
+         ("strategy2-paged-int8", "qwen-7b", "strategy2",
+          dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20,
+               kv_quant="int8")),
          ("xlstm-dense", "xlstm-1.3b", "dense", {}))
 METRICS = ("tokens_per_s", "ttft_p50_s", "itl_p50_s", "max_memory_allocated")
 
@@ -133,8 +137,14 @@ def main() -> int:
     _build.build()
     smi = cs.nvidia_smi("name,power.limit")
     os.makedirs(OUT, exist_ok=True)
+    built = (None, None, None)          # paths in a row share weights
     for path, arch, strategy, kv in PATHS:
-        cfg, params = cs.build_model(torch, arch, strategy)
+        if built[0] != (arch, strategy):
+            built = (None, None, None)
+            torch.cuda.empty_cache()
+            built = ((arch, strategy),
+                     *cs.build_model(torch, arch, strategy))
+        _, cfg, params = built
         cfg = dataclasses.replace(cfg, **kv)
         runs = serve_runs(torch, cs, cfg, params)
         for x in runs:
@@ -149,7 +159,6 @@ def main() -> int:
                                  "src": os.path.abspath(args.src),
                                  "nvidia_smi": smi, "runs": runs}) + "\n")
         del params
-        torch.cuda.empty_cache()
     return 0
 
 
