@@ -82,6 +82,12 @@ Phases (any failure ends the run with a nonzero exit code):
                  h`` then the rmsnorm kernel, both outputs, bf16 and f32,
                  at 4, 64, 256 and 300 rows x 4096 and n alone, and its
                  wrapper refusing a row too wide to stage and a misaligned
+                 operand; ``add_layernorm`` likewise against ``x + h``
+                 then the layernorm kernel at 4, 64, 256 and 300 rows x
+                 4608 (f32 stages 55 KB, past the 48 KB a block takes
+                 without an opt-in), timed beside ``x + h`` then
+                 ``F.layer_norm``, both layernorm wrappers refusing a row
+                 past 64 KB, a width off 16 bytes and a misaligned
                  operand; the q/k/v epilogue
                  (``qkv_rope_write``: bias, RoPE, int8 quantizing, the
                  cache write and q's layout in one launch) bitwise equal to
@@ -116,16 +122,18 @@ Phases (any failure ends the run with a nonzero exit code):
                  speculating engine's verify surface: the lm_head at
                  T = 16 and 32 rows, kernel 3 and ``kv_write`` at C = 4
                  and 8); (c) on every transformer path a mixed step (W =
-                 64) and a decode step through ``add_rmsnorm`` and
-                 ``qkv_rope_write`` bitwise equal, logits and every cache
-                 leaf, to the same steps with the two ops' plain chains,
+                 64) and a decode step through ``add_rmsnorm`` (or
+                 ``add_layernorm``) and ``qkv_rope_write`` bitwise equal,
+                 logits and every cache leaf, to the same steps with the
+                 ops' plain chains,
                  and 20 decode steps through a 16-token span under a
                  16-token window (a rolling buffer, positions past the
                  span) likewise; on every path a mixed step, a decode step, a
                  verify tick (transformers) and a copy-on-write of a pool
                  block (paged) under ``torch.cuda.set_sync_debug_mode(
                  "error")`` (no host read); after phase 5 on dense,
-                 dense-spec, strategy2-paged-int8 and xlstm-dense, every
+                 dense-spec, strategy2-paged-int8, xlstm-dense and
+                 starcoder2-dense, every
                  captured key's graph replayed once against its function
                  run eagerly on a copy of the cache, logits and every
                  leaf bitwise equal;
@@ -135,7 +143,7 @@ Phases (any failure ends the run with a nonzero exit code):
                  ``compile_budget``, the second run capturing nothing and
                  giving the first run's streams; capture seconds per key,
                  tokens/s, TTFT, ITL and peak memory of each run; on
-                 dense, strategy2-paged and xlstm-dense a
+                 dense, strategy2-paged, xlstm-dense and starcoder2-dense a
                  ``torch.profiler`` trace of one decode and one mixed tick,
                  eager and replayed (host ms, device-busy ms, device
                  operations, and none of RoPE's cos, sin or cat and no
@@ -168,7 +176,9 @@ Phases (any failure ends the run with a nonzero exit code):
                  "error")``;
   6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
                  bitwise equal to prefill's logits, launch counts exact
-                 (the path ``<model>-prefill``); the slot prefill against
+                 (the path ``<model>-prefill``: every residual add in the
+                 launch of the norm after it, ``add_rmsnorm`` 2L times a
+                 call); the slot prefill against
                  the one-mixed_step route; greedy prefill + decode against
                  the engine's stream; qwen-7b: 8192 tokens in two chunks
                  against one shot.  On strategy2: the int8 slot prefill
@@ -554,6 +564,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
          "rmsnorm: rows differ between 4 and 256 rows (batch invariance)")
     log("  rmsnorm: 4 rows bitwise equal inside 256")
     line.update(check_add_rmsnorm(torch, timer, rows))
+    line.update(check_add_layernorm(torch, timer, rows))
     line.update(check_kv_write(torch, timer, rows))
     line.update(check_qkv_epilogue(torch, timer, rows))
     results["kernel_checks"] = rows
@@ -646,6 +657,102 @@ def check_add_rmsnorm(torch, timer, rows) -> dict:
             log(f"  add_rmsnorm refuses {what}: {e}")
         else:
             need(False, f"add_rmsnorm took {what}")
+    return line
+
+
+# (rows, d, keep_sum, what) at starcoder2-7b's width, as ADD_RMSNORM_CASES
+ADD_LAYERNORM_CASES = ((4, 4608, True, "starcoder2-7b decode"),
+                       (64, 4608, True, "64 rows"), (256, 4608, True, "256"),
+                       (300, 4608, True, "300, ragged"),
+                       (4, 4608, False, "ln_f: n alone"))
+
+
+def check_add_layernorm(torch, timer, rows) -> dict:
+    """``add_layernorm`` (the residual add fused into the LayerNorm)
+    against its plain version, ``x + h`` then the layernorm kernel: s and n
+    bitwise, bf16 and f32, at every case of ``ADD_LAYERNORM_CASES`` (f32 at
+    4608 stages 55 KB, past the 48 KB a block takes without an opt-in); n
+    also within the tolerance of ``layernorm_torch``.  Kernel and plain
+    times beside the byte bound, and ``x + h`` then ``F.layer_norm`` as a
+    yardstick (no single PyTorch call adds and norms).  The wrappers refuse
+    a row too wide to stage, a width off 16 bytes and a misaligned operand
+    before any launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.layernorm import (
+        add_layernorm_cuda, add_layernorm_torch, layernorm_cuda,
+        layernorm_torch)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    tol = {"bfloat16": 2e-2, "float32": 1e-4}
+    F = torch.nn.functional
+    line = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        elt = torch.finfo(dtype).bits // 8
+        for t, d, keep, what in ADD_LAYERNORM_CASES:
+            gamma = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+                     ).to(dtype)
+            beta = (0.1 * torch.randn(d, generator=g, device="cuda")
+                    ).to(dtype)
+            x = (3 * torch.randn(t, d, generator=g, device="cuda") + 1
+                 ).to(dtype)
+            h = torch.randn(t, d, generator=g, device="cuda").to(dtype)
+            s, n = add_layernorm_cuda(x, h, gamma, beta, keep_sum=keep)
+            ps, pn = add_layernorm_torch(x, h, gamma, beta)
+            torch.cuda.synchronize()
+            case = f"add_layernorm {dname} {t}x{d} ({what})"
+            need(bitwise(torch, n, pn), f"{case}: n is not bitwise the "
+                 "plain version's")
+            need((s is None) != keep and (s is None or bitwise(torch, s, ps)),
+                 f"{case}: s is not bitwise x + h (or written unasked)")
+            err, rel = max_errs(n, layernorm_torch(x + h, gamma, beta))
+            need(rel <= tol[dname], f"{case}: rel {rel:.3g} against "
+                 "layernorm_torch")
+            row = {"kernel": "add_layernorm", "dtype": dname, "rows": t,
+                   "d": d, "keep_sum": keep, "case": what, "bitwise": True,
+                   "max_abs_err": 0.0, "layernorm_torch_rel": rel,
+                   "library_ms": None}
+            if what in ("starcoder2-7b decode", "256"):
+                row["ms"] = timer.ms(
+                    lambda: add_layernorm_cuda(x, h, gamma, beta), 20)
+                row["plain_ms"] = timer.ms(
+                    lambda: add_layernorm_torch(x, h, gamma, beta), 10)
+                row["yardstick_ms"] = timer.ms(
+                    lambda: F.layer_norm(x + h, (d,), gamma, beta, 1e-5), 10)
+                row["bound_ms"], row["bound_by"] = bound(
+                    4 * t * d * elt + 2 * d * elt, 9 * t * d, dname)
+                log(f"  {case}: s, n bitwise = plain; rel {rel:.3g} vs "
+                    f"layernorm_torch; kernel {row['ms']:.4f} ms plain "
+                    f"{row['plain_ms']:.4f} ms x + h, F.layer_norm "
+                    f"{row['yardstick_ms']:.4f} ms bound "
+                    f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+            else:
+                log(f"  {case}: s, n bitwise = plain; rel {rel:.3g} vs "
+                    "layernorm_torch")
+            rows.append(row)
+            if dtype == torch.bfloat16 and what.startswith("starcoder2"):
+                line["add_layernorm"] = row
+    # one staged body takes rows of at most 64 KB, a multiple of 16 bytes,
+    # on 16-byte aligned operands; the wrappers refuse the rest unlaunched
+    before = dict(_build.launches)
+    x = torch.randn(2, 16400, generator=g, device="cuda")
+    y = torch.randn(2, 100, generator=g, device="cuda").to(torch.bfloat16)
+    a = torch.randn(2, 4608, generator=g, device="cuda")
+    odd = torch.randn(2 * 4608 + 1, device="cuda")[1:].view(2, 4608)
+    for what, args in (("an f32 row of 16400 (65,600 bytes)",
+                        (x, x, x[0], x[0])),
+                       ("a bf16 row of 100 (200 bytes)", (y, y, y[0], y[0])),
+                       ("h off a 16-byte boundary",
+                        (a, odd, a[0].contiguous(), a[1].contiguous()))):
+        # layernorm alone takes h as its x
+        for name, fn, fargs in (("add_layernorm", add_layernorm_cuda, args),
+                                ("layernorm", layernorm_cuda, args[1:])):
+            try:
+                fn(*fargs)
+            except ValueError as e:
+                log(f"  {name} refuses {what}: {e}")
+            else:
+                need(False, f"{name} took {what}")
+    need(dict(_build.launches) == before, "a refused norm launched")
     return line
 
 
@@ -2273,34 +2380,38 @@ def check_all_logits(torch, cfg, params, results, path):
     results.setdefault("all_logits_vs_sequential", {})[path] = out
 
 
-FUSED_OPS = ("add_rmsnorm", "qkv_rope_write")
+FUSED_OPS = ("add_rmsnorm", "add_layernorm", "qkv_rope_write")
 
 
 @contextlib.contextmanager
 def plain_glue():
-    """Inside the block the two fused ops (``FUSED_OPS``) run their plain
+    """Inside the block the fused ops (``FUSED_OPS``) run their plain
     chains on the card, the chains the serving steps ran before them (whose
-    norm and write are the rmsnorm and ``kv_write`` kernels); every other
-    op keeps its kernel."""
+    norm and write are the rmsnorm, layernorm and ``kv_write`` kernels);
+    every other op keeps its kernel."""
     import functools
     from repro_torch.kernels import kv_write as kvw
+    from repro_torch.kernels import layernorm as ln
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms
-    saved = ops.add_rmsnorm_cuda, ops.qkv_rope_write_cuda
+    saved = (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
+             ops.qkv_rope_write_cuda)
     ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
+    ops.add_layernorm_cuda = ln.add_layernorm_torch
     ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
                                                 write=ops.kv_write)
     try:
         yield
     finally:
-        ops.add_rmsnorm_cuda, ops.qkv_rope_write_cuda = saved
+        (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
+         ops.qkv_rope_write_cuda) = saved
 
 
 def check_fused_equals_plain(torch, cfg, params, results, path):
     """One mixed step (W = 64: a 64-token chunk, a dead row, a decode row,
     a ragged row; paged: a scrambled page table) and then one decode step
     (a masked row) through the fused kernels (``FUSED_OPS``) against the
-    same steps through those two ops' plain chains (``plain_glue``), from
+    same steps through those ops' plain chains (``plain_glue``), from
     the same cache: logits and every cache leaf of all layers bitwise
     equal.  Then 20 decode steps of one row through a 16-token span under
     a window as long (a rolling buffer: positions run past the span, and
@@ -2415,11 +2526,10 @@ def expected_launches(cfg, params, ticks):
     ticks, read from the weights' leaf types.  Each projection goes to the
     W4A16, the sparse or the 16-bit kernel by its type; the FFN's gate/up
     to the kernel ``fused_variant`` picks, its down to the kernel of down's
-    type; the norms by the config: on RMSNorm configs the first layer's
-    ``ln_attn`` alone (``rmsnorm``) and every other norm with the residual
-    add before it (``add_rmsnorm``), on LayerNorm ones ``layernorm`` with
-    the adds apart; the q/k/v epilogue (``qkv_rope_write``) once a
-    layer."""
+    type; the norms by the config: the first layer's ``ln_attn`` alone
+    (``rmsnorm`` or ``layernorm``) and every other norm with the residual
+    add before it (``add_rmsnorm`` or ``add_layernorm``); the q/k/v
+    epilogue (``qkv_rope_write``) once a layer."""
     from repro_torch.kernels.decode_flash import VARIANTS
     from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
     from repro_torch.models.transformer import layer_params
@@ -2427,7 +2537,7 @@ def expected_launches(cfg, params, ticks):
     attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
     per_tick = {attention: L, "qkv_rope_write": L}
     if cfg.norm == "layernorm":
-        per_tick["layernorm"] = 2 * L + 1
+        per_tick.update(layernorm=1, add_layernorm=2 * L)
     else:
         per_tick.update(rmsnorm=1, add_rmsnorm=2 * L)
 
@@ -2746,8 +2856,9 @@ def replay_without_sync(torch, engine, path):
 
 
 # the paths whose graphs are held against eager steps, and traced
-REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense")
-TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense")
+REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
+                "starcoder2-dense")
+TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense")
 
 
 def live_inputs(engine, name, width, rng):
@@ -2870,13 +2981,15 @@ def glue_census(torch, prof) -> dict:
     return {k: sum(pat in n for n in names) for k, pat in GLUE_OPS.items()}
 
 
-def trace_ticks(torch, engine, params, results, path):
+def trace_ticks(torch, engine, params, results, path, strict=True):
     """One decode tick and one mixed tick (the widest captured) run eagerly
     on a copy of the cache and replayed, from the same live inputs: host
     ms (the call's return, so the host's own time), wall ms (to the end of
     the device's work; medians of 3, no profiler), and under
     ``torch.profiler`` the device-busy ms and the device operations (for a
-    replay: the graph's kernel, copy and set nodes)."""
+    replay: the graph's kernel, copy and set nodes).  ``strict``: a
+    replayed transformer tick must run none of ``GLUE_OPS`` (off: recorded
+    only, to trace a tree that still runs them)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(10)
@@ -2923,7 +3036,8 @@ def trace_ticks(torch, engine, params, results, path):
                 for name, ms, n in top:
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
                 log(f"    glue operations {glue}")
-                need(engine.cfg.family == "ssm" or not any(glue.values()),
+                need(not strict or engine.cfg.family == "ssm"
+                     or not any(glue.values()),
                      f"{path} {key}: the replayed tick still runs RoPE, "
                      f"cat or bf16 add operations {glue}")
         del copy
@@ -2992,17 +3106,17 @@ PREFILL_TOL = 5e-2
 def expected_full_launches(cfg, params, calls, prefills=0):
     """Launches of ``calls`` forward or slot-prefill calls, ``prefills`` of
     them prefills: a serving tick's projection and FFN kernels per layer
-    and the lm_head once, kernel 7 in place of the mixed attention kernel,
-    the 2L + 1 norms alone (the full-sequence routes keep the residual
-    adds and RoPE apart) and, in a prefill, ``kv_write`` once a layer (the
-    whole prompt's K/V into the slot cache)."""
+    and the lm_head once, and its norms: every residual add in the launch
+    of the norm after it (``add_rmsnorm`` or ``add_layernorm`` 2L times,
+    the last layer's into ``ln_f``) and layer 0's ``ln_attn`` alone; kernel
+    7 in place of the mixed attention kernel; no epilogue (these routes
+    keep the q/k/v bias and RoPE apart) and, in a prefill, ``kv_write``
+    once a layer (the whole prompt's K/V into the slot cache)."""
     from repro_torch.kernels.decode_flash import VARIANTS
     L = cfg.n_layers
     per = expected_launches(cfg, params, 1)
     per.pop(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")])
     per.pop("qkv_rope_write")
-    per.pop("add_rmsnorm", None)
-    per["layernorm" if cfg.norm == "layernorm" else "rmsnorm"] = 2 * L + 1
     per["flash_attention"] = L
     out = {k: calls * n for k, n in per.items()}
     if prefills:
@@ -3376,6 +3490,10 @@ KERNEL_META = {
     "layernorm": ("src/repro_torch/kernels/csrc/layernorm.cu",
                   "src/repro/models/layers.py:72 (XLA in the reference, no "
                   "Pallas kernel)", "starcoder2-none"),
+    "add_layernorm": ("src/repro_torch/kernels/csrc/layernorm.cu",
+                      "src/repro/models/layers.py:72 and the residual adds "
+                      "of src/repro/models/transformer.py:62-71 (XLA in the "
+                      "reference, no Pallas kernel)", "starcoder2-dense"),
     "ffn_fused_w4a16_gelu": ("src/repro_torch/kernels/csrc/ffn_fused.cu",
                              "src/repro/kernels/ffn_fused.py:215 (the "
                              "ungated gelu variant with biases)",

@@ -111,7 +111,8 @@ def library(name: str) -> ctypes.CDLL:
 
 def prepare(names=KERNEL_SOURCES) -> None:
     """Build and load the named libraries and run their one-time host
-    calls (kernel 8's cluster attributes and occupancy query), so that a
+    calls (kernel 8's cluster attributes and occupancy query, the
+    layernorm bodies' shared-memory opt-in), so that a
     CUDA graph capture that follows starts no ``nvcc``, loads no library
     and makes no such call: inside a capture each wrapper only launches."""
     build(names)
@@ -123,6 +124,9 @@ def prepare(names=KERNEL_SOURCES) -> None:
                         slstm_scan.MAX_CLUSTER * slstm_scan.CLUSTER_UNITS + 1,
                         slstm_scan.CLUSTER_UNITS):
             slstm_scan.cluster_capacity(dh)
+    if "layernorm" in names:
+        from repro_torch.kernels import layernorm
+        layernorm.prepare()
 
 
 def function(name: str, symbol: str, argtypes: list):

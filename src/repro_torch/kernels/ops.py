@@ -9,9 +9,9 @@ Each op picks its implementation by the tensors' device (``impl="auto"``):
   and on the card only when asked for, to compare a kernel with it.
 * ``"ref"``   — the dense oracle of ``kernels/ref.py``.
 
-``add_rmsnorm`` and ``qkv_rope_write`` fuse the PyTorch glue of a serving
-step into a kernel; their plain versions are the former chains, whose inner
-ops dispatch by device as before.
+``add_rmsnorm``, ``add_layernorm`` and ``qkv_rope_write`` fuse the PyTorch
+glue of a step into a kernel; their plain versions are the former chains,
+whose inner ops dispatch by device as before.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.kv_write import (
     dequantize_kv, kv_write_cuda, kv_write_torch, qkv_rope_write_cuda,
     qkv_rope_write_torch)
-from repro_torch.kernels.layernorm import layernorm_cuda, layernorm_torch
+from repro_torch.kernels.layernorm import (
+    add_layernorm_cuda, add_layernorm_torch, layernorm_cuda, layernorm_torch)
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, add_rmsnorm_torch
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
@@ -43,7 +44,7 @@ from repro_torch.kernels.w4a16_matmul import (
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "ffn_w4a16", "layernorm", "attention", "decode_attention",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
-           "mlstm_cell", "add_rmsnorm", "qkv_rope_write"]
+           "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -167,6 +168,17 @@ def add_rmsnorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
     impl = _resolve(impl, x)
     fn = add_rmsnorm_cuda if impl == "cuda" else add_rmsnorm_torch
     return fn(x, h, gamma, eps, keep_sum)
+
+
+def add_layernorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
+                  beta: torch.Tensor, eps: float = 1e-5, *,
+                  keep_sum: bool = True, impl: str = "auto"):
+    """The residual add and the LayerNorm after it: ``(s, n)`` with ``s = x
+    + h`` rounded to x's dtype (None unless ``keep_sum``) and ``n =
+    layernorm(s)`` bitwise.  One launch on the card."""
+    impl = _resolve(impl, x)
+    fn = add_layernorm_cuda if impl == "cuda" else add_layernorm_torch
+    return fn(x, h, gamma, beta, eps, keep_sum)
 
 
 def qkv_rope_write(cache: dict, q: torch.Tensor, k: torch.Tensor,

@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.w4a16_matmul import DTYPE_CODES, check_activation
+from repro_torch.kernels.w4a16_matmul import (
+    DTYPE_CODES, check_activation, check_aligned)
 
 NAME = "rmsnorm"
 ADD_NAME = "add_rmsnorm"
@@ -54,12 +55,6 @@ def _check_gamma(x: torch.Tensor, gamma: torch.Tensor, what: str) -> None:
                          f"multiple of 16 bytes up to {STAGE_BYTES // 2}")
 
 
-def _check_aligned(what: str, *tensors) -> None:
-    if any(t is not None and t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: operands must start on a 16-byte "
-                         "boundary")
-
-
 def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """Launch ``csrc/rmsnorm.cu`` on the current stream."""
@@ -68,7 +63,7 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor,
     x2 = x.reshape(-1, d).contiguous()
     gamma = gamma.contiguous()
     out = torch.empty_like(x2)
-    _check_aligned(NAME, x2, gamma)
+    check_aligned(NAME, x2, gamma)
     if x2.shape[0]:
         fn = _build.function(NAME, "rmsnorm_launch", _ARGTYPES)
         rc = fn(x2.data_ptr(), gamma.data_ptr(), out.data_ptr(), x2.shape[0],
@@ -115,7 +110,7 @@ def add_rmsnorm_cuda(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
     gamma = gamma.contiguous()
     out = torch.empty_like(x2)
     s = torch.empty_like(x2) if keep_sum else None
-    _check_aligned(ADD_NAME, x2, h2, gamma)
+    check_aligned(ADD_NAME, x2, h2, gamma)
     if x2.shape[0]:
         fn = _build.function(NAME, "add_rmsnorm_launch", _ADD_ARGTYPES)
         rc = fn(x2.data_ptr(), h2.data_ptr(), gamma.data_ptr(),

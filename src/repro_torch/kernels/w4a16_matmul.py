@@ -76,6 +76,14 @@ def check_activation(x: torch.Tensor, what: str) -> None:
                         f"got {x.dtype}")
 
 
+def check_aligned(what: str, *tensors) -> None:
+    """Raise unless every operand (None skipped) starts on a 16-byte
+    boundary, as the kernels' 16-byte loads and stores need."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: operands must start on a 16-byte "
+                         "boundary")
+
+
 def bias_f32(bias: torch.Tensor | None, n: int, device,
              what: str) -> torch.Tensor | None:
     """A bias as the kernels' epilogues read it: contiguous f32 ``(n,)``."""

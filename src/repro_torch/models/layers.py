@@ -89,13 +89,13 @@ def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def add_norm(cfg, p: Params, x: torch.Tensor, h: torch.Tensor, *,
              keep_sum: bool = True):
-    """The residual add and the norm after it: ``(x + h, norm(x + h))``.
-    RMSNorm takes one fused launch (``ops.add_rmsnorm``, the sum written
-    only with ``keep_sum``, else None); LayerNorm keeps the add and its own
-    kernel."""
+    """The residual add and the norm after it: ``(x + h, norm(x + h))``,
+    one fused launch on the card (``ops.add_layernorm`` or
+    ``ops.add_rmsnorm``); the sum is written only with ``keep_sum``, else
+    None."""
     if "beta" in p:
-        s = x + h
-        return s, layernorm(s, p["gamma"], p["beta"])
+        return ops.add_layernorm(x, h, p["gamma"], p["beta"],
+                                 keep_sum=keep_sum)
     return ops.add_rmsnorm(x, h, p["gamma"], keep_sum=keep_sum)
 
 

@@ -104,49 +104,55 @@ def _layer_cache(cache: Params, i: int) -> Params:
     return {k: v[i] for k, v in cache.items()}
 
 
-def _mlp_residual(cfg, bp: Params, x: torch.Tensor) -> torch.Tensor:
-    return x + layers.mlp_apply(cfg, bp["mlp"],
-                                layers.apply_norm(cfg, bp["ln_mlp"], x))
+def _walk_layers(cfg, params: Params, x: torch.Tensor, attend):
+    """The layer walk of every route: ``attend(i, bp, n)`` is layer ``i``'s
+    attention sublayer on the normed ``n``, returning its output.  Each
+    residual add goes into the norm after it (``layers.add_norm``: on the
+    card one launch for ``x + h`` -> ``ln_mlp`` and one for ``x + m`` -> the
+    next layer's ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.
+    Returns the last layer's (x, m): its residual and MLP output, not yet
+    added, for the caller's final add + ``ln_f`` (``_final_norm``)."""
+    blocks = [layer_params(params["blocks"], i) for i in range(cfg.n_layers)]
+    n = layers.apply_norm(cfg, blocks[0]["ln_attn"], x)
+    m = None
+    for i, bp in enumerate(blocks):
+        if i:
+            x, n = layers.add_norm(cfg, bp["ln_attn"], x, m)
+        h = attend(i, bp, n)
+        x, n = layers.add_norm(cfg, bp["ln_mlp"], x, h)
+        m = layers.mlp_apply(cfg, bp["mlp"], n)
+    return x, m
+
+
+def _final_norm(cfg, params: Params, x: torch.Tensor,
+                m: torch.Tensor) -> torch.Tensor:
+    """``ln_f(x + m)``, the sum not kept."""
+    return layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)[1]
 
 
 # -- full sequence ------------------------------------------------------------
 
-def block_apply(cfg, p: Params, x: torch.Tensor, positions) -> tuple:
-    """One block over the whole sequence; returns (x, aux = 0): the dense
-    family has no auxiliary loss."""
-    h = attention.attn_apply(cfg, p["attn"],
-                             layers.apply_norm(cfg, p["ln_attn"], x),
-                             positions)
-    return _mlp_residual(cfg, p, x + h), torch.zeros((), device=x.device)
-
-
-def _scan_blocks(cfg, blocks: Params, x: torch.Tensor, positions):
-    """The layer loop of ``forward`` (a Python loop over the stacked
-    blocks: remat and scan have no meaning for inference here)."""
-    aux_total = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux = block_apply(cfg, layer_params(blocks, i), x, positions)
-        aux_total = aux_total + aux
-    return x, aux_total
-
-
 def forward(cfg, params: Params, tokens: torch.Tensor, positions=None):
-    """tokens (B, S) -> (logits (B, S, V), aux loss)."""
+    """tokens (B, S) -> (logits (B, S, V), aux loss = 0: the dense family
+    has no auxiliary loss)."""
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = layers.positions_for(cfg, b, s, device=tokens.device)
-    x, aux = _scan_blocks(cfg, params["blocks"], x, positions)
-    x = layers.apply_norm(cfg, params["ln_f"], x)
-    return unembed(cfg, params, x), aux
+    x, m = _walk_layers(cfg, params, x, lambda i, bp, n:
+                        attention.attn_apply(cfg, bp["attn"], n, positions))
+    return (unembed(cfg, params, _final_norm(cfg, params, x, m)),
+            torch.zeros((), device=x.device))
 
 
 PREFILL_CHUNK = 4096
 
 
-def _last_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = layers.apply_norm(cfg, params["ln_f"], x[:, -1:])
-    return unembed(cfg, params, x)[:, 0]
+def _last_logits(cfg, params: Params, x: torch.Tensor,
+                 m: torch.Tensor) -> torch.Tensor:
+    """The last position's logits from the last layer's (x, m)."""
+    n = _final_norm(cfg, params, x[:, -1:], m[:, -1:])
+    return unembed(cfg, params, n)[:, 0]
 
 
 def prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):
@@ -160,13 +166,10 @@ def prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):
     x = embed_tokens(cfg, params, tokens)
     positions = layers.positions_for(cfg, b, s, device=tokens.device)
     cache = init_cache(cfg, b, max_len, tokens.device)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
-        h, _ = attention.attn_prefill(
-            cfg, bp["attn"], layers.apply_norm(cfg, bp["ln_attn"], x),
-            positions, _layer_cache(cache, i))
-        x = _mlp_residual(cfg, bp, x + h)
-    return _last_logits(cfg, params, x), cache
+    x, m = _walk_layers(cfg, params, x, lambda i, bp, n:
+                        attention.attn_prefill(cfg, bp["attn"], n, positions,
+                                               _layer_cache(cache, i))[0])
+    return _last_logits(cfg, params, x, m), cache
 
 
 def _prefill_chunked(cfg, params: Params, tokens: torch.Tensor,
@@ -200,10 +203,9 @@ def _prefill_chunked(cfg, params: Params, tokens: torch.Tensor,
                                          device=tokens.device)
         w_off = min(o % cache_len, cache_len - cq)    # the update's clamp
         hi = min(o + cq, cache_len)
-        for i in range(cfg.n_layers):
-            bp = layer_params(params["blocks"], i)
+
+        def attend(i, bp, xin):
             lc = _layer_cache(cache, i)
-            xin = layers.apply_norm(cfg, bp["ln_attn"], x)
             q, k, v = attention._project_qkv(cfg, bp["attn"], xin, positions)
             lc["k"][:, :, w_off:w_off + cq] = k.to(lc["k"].dtype)
             lc["v"][:, :, w_off:w_off + cq] = v.to(lc["v"].dtype)
@@ -218,33 +220,12 @@ def _prefill_chunked(cfg, params: Params, tokens: torch.Tensor,
             else:
                 k_ctx, v_ctx = lc["k"][:, :, :hi], lc["v"][:, :, :hi]
             h = ops.attention(q, k_ctx, v_ctx, causal=True, window=cfg.window)
-            h = layers.linear(attention._merge_heads(cfg, h),
-                              bp["attn"]["wo"])
-            x = _mlp_residual(cfg, bp, x + h)
+            return layers.linear(attention._merge_heads(cfg, h),
+                                 bp["attn"]["wo"])
+        x, m = _walk_layers(cfg, params, x, attend)
         if o + cq >= s:
-            logits = _last_logits(cfg, params, x)
+            logits = _last_logits(cfg, params, x, m)
     return logits, cache
-
-
-def _serve_layers(cfg, params: Params, cache: Params, x: torch.Tensor,
-                  attend):
-    """The layer walk of a serving step: ``attend(bp, n, lc)`` is the
-    attention sublayer on the normed ``n``.  Each residual add goes into the
-    norm after it (``layers.add_norm``: on RMSNorm configs one launch for
-    ``x + h`` -> ``ln_mlp`` and one for ``x + m`` -> the next layer's
-    ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.  Returns the last
-    layer's (x, m): its residual and MLP output, not yet added, for the
-    caller's final add + ``ln_f``."""
-    blocks = [layer_params(params["blocks"], i) for i in range(cfg.n_layers)]
-    n = layers.apply_norm(cfg, blocks[0]["ln_attn"], x)
-    m = None
-    for i, bp in enumerate(blocks):
-        if i:
-            x, n = layers.add_norm(cfg, bp["ln_attn"], x, m)
-        h, _ = attend(bp, n, _layer_cache(cache, i))
-        x, n = layers.add_norm(cfg, bp["ln_mlp"], x, h)
-        m = layers.mlp_apply(cfg, bp["mlp"], n)
-    return x, m
 
 
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
@@ -262,16 +243,15 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     x = embed_tokens(cfg, params, tokens)
     index = attention.mixed_index(cfg, _layer_cache(cache, 0), b, lengths,
                                   q_lens, page_table)
-    x, m = _serve_layers(cfg, params, cache, x, lambda bp, n, lc:
-                         attention.attn_mixed(cfg, bp["attn"], n, lc, lengths,
-                                              q_lens, index=index))
+    x, m = _walk_layers(cfg, params, x, lambda i, bp, n: attention.attn_mixed(
+        cfg, bp["attn"], n, _layer_cache(cache, i), lengths, q_lens,
+        index=index)[0])
     if not all_logits:
         # only each row's last live position reaches the LM head
         rows = torch.arange(b, device=x.device)
         idx = torch.clamp(q_lens - 1, 0, c - 1).long()
         x, m = x[rows, idx][:, None], m[rows, idx][:, None]
-    _, n = layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)
-    logits = unembed(cfg, params, n)
+    logits = unembed(cfg, params, _final_norm(cfg, params, x, m))
     # the verify surface: every chunk position reaches the LM head
     return (logits if all_logits else logits[:, 0]), cache
 
@@ -288,8 +268,6 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     index = attention.decode_index(cfg, _layer_cache(cache, 0),
                                    tokens.shape[0], lengths, page_table,
                                    write_mask)
-    x, m = _serve_layers(cfg, params, cache, x, lambda bp, n, lc:
-                         attention.attn_decode(cfg, bp["attn"], n, lc,
-                                               lengths, index=index))
-    _, n = layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)
-    return unembed(cfg, params, n)[:, 0], cache
+    x, m = _walk_layers(cfg, params, x, lambda i, bp, n: attention.attn_decode(
+        cfg, bp["attn"], n, _layer_cache(cache, i), lengths, index=index)[0])
+    return unembed(cfg, params, _final_norm(cfg, params, x, m))[:, 0], cache

@@ -1,9 +1,10 @@
 """The fused glue of the port's serving steps, on the CPU.
 
-* ``ops.add_rmsnorm`` (the residual add fused into the RMSNorm after it):
-  its plain version against the reference's ``x + h`` then
-  ``repro.models.layers.rmsnorm``, and bitwise the port's former
-  composition.
+* ``ops.add_rmsnorm`` and ``ops.add_layernorm`` (the residual add fused
+  into the norm after it): their plain versions against the reference's
+  ``x + h`` then ``repro.models.layers.rmsnorm`` / ``layernorm``, and
+  bitwise the port's former composition; ``layers.add_norm`` takes them
+  on both norms.
 * ``ops.qkv_rope_write`` (the q/k/v epilogue: bias, RoPE, int8 quantizing,
   the cache write and q's layout): its plain version against the
   reference's ``_project_qkv`` tail, ``quantize_kv`` and its cache writers
@@ -13,11 +14,15 @@
 * The RoPE table the epilogue's kernel reads: rows bitwise ``apply_rope``'s
   cos / sin, sized from host integers (the cache's logical span).
 * On the card's dispatch (``ops._resolve`` answering "cuda") a mixed and a
-  decode step reach the two fused kernels, ``2L`` ``add_rmsnorm``, one
-  ``rmsnorm`` and ``L`` epilogues a step, and run no ``torch.cos``,
-  ``torch.sin``, ``torch.cat`` and no residual or bias add; a rolling
-  window's decode, whose positions run past that table, keeps the unfused
-  chain.
+  decode step reach the fused kernels, ``2L`` ``add_rmsnorm`` and one
+  ``rmsnorm`` (on starcoder2-7b ``add_layernorm`` and ``layernorm``) and
+  ``L`` epilogues a step, and run no ``torch.cos``, ``torch.sin``,
+  ``torch.cat`` and no residual or bias add; a rolling window's decode,
+  whose positions run past that table, keeps the unfused chain.
+  ``forward``, ``prefill`` and the chunked prefill put every residual add
+  into a norm's launch on both norms (RoPE and the q/k/v bias stay apart
+  there), and their logits and caches stay within 1e-4 of the
+  reference's.
 
 Tolerances: float32 values through two libraries' cos / sin / rsqrt,
 1e-5 relative; int8 values may differ by one step where a value rounds
@@ -33,13 +38,20 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import jax  # noqa: E402
+
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.models import api as japi  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro_torch import interop  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import kv_write as kvw  # noqa: E402
+from repro_torch.kernels import layernorm as ln  # noqa: E402
 from repro_torch.kernels import ops, rope  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.models import api, attention, layers  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 F32_TOL = 1e-5
 
@@ -88,18 +100,46 @@ def test_add_rmsnorm_plain_matches_reference(rows, d, dtype):
                                    atol=F32_TOL)
 
 
-def test_add_norm_keeps_layernorm_apart():
-    """A LayerNorm config keeps ``x + h`` and its own norm (the fusion of
-    that pair is for a later slice)."""
-    cfg = get_smoke_config("starcoder2-7b")
+# -- add_layernorm ------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 64), (4, 144), (7, 200), (3, 4608)])
+def test_add_layernorm_plain_matches_reference(rows, d, dtype):
+    """``(s, n)``: s bitwise ``x + h``, n bitwise the port's former
+    ``layernorm(x + h)`` and, in float32, within 1e-5 of the reference's
+    (rows of mean 1 and spread 3, so the two passes matter)."""
+    rng = np.random.default_rng(rows * d + 1)
+    x, h = 3 * _normal(rng, rows, d) + 1, _normal(rng, rows, d)
+    g, b = 1 + 0.1 * _normal(rng, d), 0.1 * _normal(rng, d)
+    tx, th, tg, tb = (torch.from_numpy(a).to(dtype) for a in (x, h, g, b))
+    s, n = ops.add_layernorm(tx, th, tg, tb)
+    assert _equal(s, tx + th)
+    assert _equal(n, layers.layernorm(tx + th, tg, tb))
+    none, n2 = ops.add_layernorm(tx, th, tg, tb, keep_sum=False)
+    assert none is None and _equal(n2, n)
+    if dtype == torch.float32:
+        want = np.asarray(jlayers.layernorm(
+            jnp.asarray(x) + jnp.asarray(h), jnp.asarray(g), jnp.asarray(b)))
+        np.testing.assert_allclose(n.numpy(), want, rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen-7b", "starcoder2-7b"])
+def test_add_norm_takes_the_fused_op_on_both_norms(arch):
+    """``layers.add_norm`` is ``(x + h, norm(x + h))`` bitwise on RMSNorm
+    and LayerNorm configs, the sum None unless kept."""
+    cfg = get_smoke_config(arch)
     rng = np.random.default_rng(3)
     x, h = (torch.from_numpy(_normal(rng, 2, 3, cfg.d_model))
             for _ in range(2))
-    p = {"gamma": torch.from_numpy(1 + _normal(rng, cfg.d_model)),
-         "beta": torch.from_numpy(_normal(rng, cfg.d_model))}
-    s, n = layers.add_norm(cfg, p, x, h, keep_sum=False)
-    assert _equal(s, x + h)
-    assert _equal(n, layers.layernorm(x + h, p["gamma"], p["beta"]))
+    p = {"gamma": torch.from_numpy(1 + _normal(rng, cfg.d_model))}
+    if cfg.norm == "layernorm":
+        p["beta"] = torch.from_numpy(_normal(rng, cfg.d_model))
+    want = layers.apply_norm(cfg, p, x + h)
+    s, n = layers.add_norm(cfg, p, x, h)
+    assert _equal(s, x + h) and _equal(n, want)
+    none, n = layers.add_norm(cfg, p, x, h, keep_sum=False)
+    assert none is None and _equal(n, want)
 
 
 # -- the q/k/v epilogue -------------------------------------------------------
@@ -335,8 +375,25 @@ def test_the_table_covers_the_span_from_host_integers(layout):
 
 # -- the card's dispatch ------------------------------------------------------
 
-FAMILIES = {"slot": {}, "paged-int8": dict(kv_layout="paged",
-                                           kv_block_size=8, kv_quant="int8")}
+# name: (arch, overrides of its smoke config)
+FAMILIES = {"slot": ("qwen-7b", {}),
+            "paged-int8": ("qwen-7b", dict(kv_layout="paged",
+                                           kv_block_size=8, kv_quant="int8")),
+            "starcoder2": ("starcoder2-7b", {})}
+
+
+def _family(name):
+    arch, over = FAMILIES[name]
+    return get_smoke_config(arch, **over)
+
+
+def _norms(cfg, alone=1, fused=None):
+    """The norm launches of a walk over ``cfg``'s layers: ``alone`` norms
+    alone and ``fused`` (default 2L) with the residual add before them."""
+    fused = 2 * cfg.n_layers if fused is None else fused
+    if cfg.norm == "layernorm":
+        return {"layernorm": alone, "add_layernorm": fused}
+    return {"rmsnorm": alone, "add_rmsnorm": fused}
 
 
 def _stub_card(monkeypatch, cfg, kv_write):
@@ -370,6 +427,13 @@ def _stub_card(monkeypatch, cfg, kv_write):
             q.shape[0], kw["n_heads"], q.shape[1], cfg.head_dim)))
     monkeypatch.setattr(layers, "_rmsnorm", record(
         "rmsnorm", lambda x, g, eps: torch.zeros_like(x)))
+    monkeypatch.setattr(ops, "add_layernorm_cuda", record(
+        "add_layernorm", lambda x, h, g, b, eps, keep: (
+            torch.zeros_like(x) if keep else None, torch.zeros_like(x))))
+    monkeypatch.setattr(ops, "layernorm_cuda", record(
+        "layernorm", lambda x, g, b, eps: torch.zeros_like(x)))
+    monkeypatch.setattr(ops, "flash_attention_cuda", record(
+        "flash_attention", lambda q, *a, **kw: torch.zeros_like(q)))
     return calls
 
 
@@ -380,11 +444,12 @@ def _count(calls):
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_card_dispatch_reaches_the_fused_kernels(name, monkeypatch):
     """With ``_resolve`` answering "cuda" (every kernel stubbed), a mixed
-    and a decode step launch ``add_rmsnorm`` 2L times, ``rmsnorm`` once
-    and the epilogue L times, and ``kv_write`` never; ``torch.cos``,
-    ``torch.sin``, ``torch.cat`` and a tensor add of an activation (a
-    residual or a bias add) raise if anything calls them."""
-    cfg = get_smoke_config("qwen-7b", **FAMILIES[name])
+    and a decode step launch ``add_rmsnorm`` 2L times and ``rmsnorm`` once
+    (LayerNorm: ``add_layernorm`` and ``layernorm``), the epilogue L times,
+    and ``kv_write`` never; ``torch.cos``, ``torch.sin``, ``torch.cat`` and
+    a tensor add of an activation (a residual or a bias add) raise if
+    anything calls them."""
+    cfg = _family(name)
     params = api.init_params(cfg, torch.Generator().manual_seed(0))
 
     def refuse(*a, **kw):
@@ -417,9 +482,9 @@ def test_card_dispatch_reaches_the_fused_kernels(name, monkeypatch):
             logits, _ = api.decode_step(cfg, params, cache, tokens[:, :1],
                                         lengths + 1, write_mask=q_lens > 0)
         assert logits.shape == (b, cfg.vocab_size)
-        assert _count(calls) == {"rmsnorm": 1, "add_rmsnorm": 2 * L,
-                                 "qkv_rope_write": L, "attention": L,
-                                 "ffn": L, "dense_matmul": 4 * L + 1}, (
+        assert _count(calls) == {**_norms(cfg), "qkv_rope_write": L,
+                                 "attention": L, "ffn": L,
+                                 "dense_matmul": 4 * L + 1}, (
             step, _count(calls))
 
 
@@ -433,8 +498,7 @@ def test_rolling_window_decode_keeps_the_unfused_chain(name, window, rolling,
     times, the epilogue never), as its positions lie outside the
     epilogue's table; a window shorter than the span keeps the epilogue.
     The residual adds stay fused either way."""
-    cfg = dataclasses.replace(get_smoke_config("qwen-7b", **FAMILIES[name]),
-                              window=window)
+    cfg = dataclasses.replace(_family(name), window=window)
     params = api.init_params(cfg, torch.Generator().manual_seed(0))
     calls = _stub_card(monkeypatch, cfg, lambda *a, **kw: None)
     cache = api.init_cache(cfg, 2, 16, "cpu")
@@ -444,15 +508,98 @@ def test_rolling_window_decode_keeps_the_unfused_chain(name, window, rolling,
     assert logits.shape == (2, cfg.vocab_size)
     L = cfg.n_layers
     write = {"kv_write": L} if rolling else {"qkv_rope_write": L}
-    assert _count(calls) == {"rmsnorm": 1, "add_rmsnorm": 2 * L,
-                             "attention": L, "ffn": L,
+    assert _count(calls) == {**_norms(cfg), "attention": L, "ffn": L,
                              "dense_matmul": 4 * L + 1, **write}
+
+
+def _refuse_residual_adds(monkeypatch):
+    """``Tensor.__add__`` of two activations of one shape (a residual add)
+    raises; a bias add, RoPE's sums (4-D) and index arithmetic pass."""
+    real_add = torch.Tensor.__add__
+
+    def add(self, other):
+        if isinstance(other, torch.Tensor) and self.dim() == 3 and \
+                other.shape == self.shape and self.is_floating_point():
+            raise AssertionError("a residual add ran outside the norms")
+        return real_add(self, other)
+    monkeypatch.setattr(torch.Tensor, "__add__", add)
+
+
+@pytest.mark.parametrize("route", ["forward", "prefill", "prefill-chunked"])
+@pytest.mark.parametrize("arch", ["qwen-7b", "starcoder2-7b"])
+def test_full_sequence_routes_fuse_the_residual_adds(arch, route,
+                                                     monkeypatch):
+    """On the card's dispatch ``forward`` and ``prefill`` launch the fused
+    add + norm 2L times and the norm alone once a call, and run no
+    residual add of their own; the chunked prefill (two 8-token chunks)
+    does so a chunk, the last chunk's ``x + m`` into ``ln_f`` only once.
+    Each layer launches the flash kernel and the FFN once; a prefill
+    writes its cache with ``kv_write`` once a layer, the chunked route by
+    slices."""
+    cfg = get_smoke_config(arch)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    calls = _stub_card(monkeypatch, cfg, lambda *a, **kw: None)
+    _refuse_residual_adds(monkeypatch)
+    monkeypatch.setattr(transformer, "PREFILL_CHUNK", 8)
+    L, b = cfg.n_layers, 2
+    s = 16 if route == "prefill-chunked" else 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(1))
+    if route == "forward":
+        logits, _ = api.forward(cfg, params, {"tokens": tokens})
+        assert logits.shape == (b, s, cfg.vocab_size)
+    else:
+        logits, _ = api.prefill(cfg, params, {"tokens": tokens}, 24)
+        assert logits.shape == (b, cfg.vocab_size)
+    chunks = s // 8 if route == "prefill-chunked" else 1
+    want = {**_norms(cfg, chunks, 2 * L * chunks - chunks + 1),
+            "flash_attention": L * chunks, "ffn": L * chunks,
+            "dense_matmul": 4 * L * chunks + 1}
+    if route == "prefill":
+        want["kv_write"] = L
+    assert _count(calls) == want
+
+
+@pytest.mark.parametrize("arch", ["qwen-7b", "starcoder2-7b"])
+def test_full_sequence_routes_match_reference(arch):
+    """Float32 smoke weights carried from the reference: ``forward``'s
+    logits, ``prefill``'s last logits and every cache leaf within 1e-4 of
+    the reference's, and ``forward``'s last position within 1e-5 of
+    ``prefill``'s (bitwise on the card)."""
+    jcfg = jax_smoke_config(arch)
+    jparams = japi.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_smoke_config(arch)
+    params = interop.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       "cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                             (2, 13)).astype(np.int32)
+    tt = torch.from_numpy(toks).long()
+    jl, _ = japi.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    tl, aux = api.forward(cfg, params, {"tokens": tt})
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    jp, jcache = japi.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                              16)
+    tp, tcache = api.prefill(cfg, params, {"tokens": tt}, 16)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(tp.numpy(), tl[:, -1].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert sorted(tcache) == sorted(jcache)
+    for n, leaf in tcache.items():
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(jcache[n]),
+                                   rtol=1e-4, atol=1e-4, err_msg=n)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.ones(2, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         rms.add_rmsnorm_cuda(x, x, torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ln.add_layernorm_cuda(x, x, torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ln.layernorm_cuda(x, torch.ones(8), torch.zeros(8))
     case = _epilogue_case(0, C, False, False)
     cache, q, k, v, bias, kw = _torch_args(case)
     with pytest.raises(ValueError, match="CUDA tensors"):

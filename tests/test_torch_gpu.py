@@ -1019,8 +1019,9 @@ def test_16bit_and_starcoder2_engine_matches_oracle_on_card(cuda, case):
         engine.submit(r)
     assert len(engine.run()) == 6
     L, ticks = cfg.n_layers, engine.steps
-    norms = ({"layernorm": 2 * L + 1} if cfg.norm == "layernorm" else
-             {"rmsnorm": 1, "add_rmsnorm": 2 * L})   # the adds fused
+    norms = ({"layernorm": 1, "add_layernorm": 2 * L}   # the adds fused
+             if cfg.norm == "layernorm" else
+             {"rmsnorm": 1, "add_rmsnorm": 2 * L})
     ffn = {"none": "ffn_fused_dense", "dense": (
         "ffn_fused_w4a16_gelu" if cfg.activation == "gelu"
         else "ffn_fused_w4a16"), "strategy2": "ffn_fused_sparse_gelu"}[
@@ -1860,7 +1861,7 @@ def test_cow_graph_replays_equal_the_eager_copy(cuda):
         assert torch.equal(leaf_g, leaf_c)
 
 
-# -- the fused glue: add_rmsnorm and the q/k/v epilogue -----------------------
+# -- the fused glue: add_rmsnorm, add_layernorm and the q/k/v epilogue --------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d,keep", [(4, 4096, True), (300, 4096, True),
@@ -1883,6 +1884,100 @@ def test_add_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d, keep):
     assert (s is None) if not keep else torch.equal(s.view(torch.uint8),
                                                     ps.view(torch.uint8))
     assert torch.equal(ops.add_rmsnorm(x[:1], h[:1], gamma)[1], n[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,keep", [(4, 4608, True), (300, 4608, True),
+                                         (3, 4608, False), (5, 144, True),
+                                         (2, 16384, True)])
+def test_add_layernorm_kernel_matches_plain(cuda, dtype, rows, d, keep):
+    """Bitwise ``x + h`` then the layernorm kernel, s and n (s only when
+    kept), at starcoder2-7b's width (55 KB staged in f32, past the 48 KB a
+    block takes without an opt-in) up to the widest row the kernel takes
+    in f32 (64 KB); one launch a call; a row alone bitwise inside the
+    call."""
+    from repro_torch.kernels.layernorm import add_layernorm_torch
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    x = _rand(gen, rows, d, dtype=dtype) * 3 + 1
+    h = _rand(gen, rows, d, dtype=dtype)
+    gamma = (1 + 0.1 * _rand(gen, d)).to(dtype)
+    beta = (0.1 * _rand(gen, d)).to(dtype)
+    before = _build.launches["add_layernorm"]
+    s, n = ops.add_layernorm(x, h, gamma, beta, keep_sum=keep)
+    torch.cuda.synchronize()
+    assert _build.launches["add_layernorm"] == before + 1
+    ps, pn = add_layernorm_torch(x, h, gamma, beta)
+    assert torch.equal(n.view(torch.uint8), pn.view(torch.uint8))
+    assert (s is None) if not keep else torch.equal(s.view(torch.uint8),
+                                                    ps.view(torch.uint8))
+    assert torch.equal(ops.add_layernorm(x[:1], h[:1], gamma, beta)[1],
+                       n[:1])
+    _close(n, ops.layernorm(x + h, gamma, beta, impl="torch"), dtype)
+
+
+def test_layernorm_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """The layernorm body stages a row of at most 64 KB with gamma and
+    beta, 16-byte aligned: a wider row (f32 16400), a width off 16 bytes
+    and a misaligned h or x raise before any launch."""
+    from repro_torch.kernels.layernorm import (
+        add_layernorm_cuda, layernorm_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    before = dict(_build.launches)
+    for d, dtype in ((16400, torch.float32), (32776, torch.bfloat16),
+                     (100, torch.bfloat16), (6, torch.float32)):
+        x = _rand(gen, 2, d, dtype=dtype)
+        g = _rand(gen, d, dtype=dtype)
+        with pytest.raises(ValueError, match="bytes"):
+            add_layernorm_cuda(x, x, g, g)
+        with pytest.raises(ValueError, match="bytes"):
+            layernorm_cuda(x, g, g)
+    x = _rand(gen, 2, 4608, dtype=torch.bfloat16)
+    g = _rand(gen, 4608, dtype=torch.bfloat16)
+    h = _rand(gen, 2 * 4608 + 1, dtype=torch.bfloat16)[1:].view(2, 4608)
+    with pytest.raises(ValueError, match="16-byte"):
+        add_layernorm_cuda(x, h, g, g)
+    with pytest.raises(ValueError, match="16-byte"):
+        layernorm_cuda(h, g, g)
+    assert dict(_build.launches) == before
+
+
+@pytest.mark.parametrize("route", ["forward", "prefill"])
+def test_starcoder2_full_sequence_fused_equals_plain_on_card(cuda, route,
+                                                             monkeypatch):
+    """starcoder2-7b at full width, 2 layers, 16-bit weights: ``forward``
+    (B = 2, S = 64) and ``prefill`` launch ``add_layernorm`` 2L times and
+    ``layernorm`` once, and their logits (and the prefill's cache) are
+    bitwise the same calls with ``add_layernorm`` swapped for its plain
+    chain (``x + h`` then the layernorm kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("starcoder2-7b", n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    params = api.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device="cuda")
+    L = cfg.n_layers
+
+    def run():
+        if route == "forward":
+            return api.forward(cfg, params, {"tokens": toks})[0], {}
+        return api.prefill(cfg, params, {"tokens": toks}, 80)
+
+    _build.launches.clear()
+    got, got_cache = run()
+    torch.cuda.synchronize()
+    assert _build.launches["add_layernorm"] == 2 * L
+    assert _build.launches["layernorm"] == 1
+    assert _build.launches["flash_attention"] == L
+    with monkeypatch.context() as m:
+        _plain_glue(m)
+        want, want_cache = run()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    for n in got_cache:
+        assert torch.equal(got_cache[n].view(torch.uint8),
+                           want_cache[n].view(torch.uint8)), n
 
 
 @pytest.mark.parametrize("hd", [36, 128])
@@ -2006,12 +2101,14 @@ def test_epilogue_refuses_a_live_position_outside_its_table(cuda):
 
 
 def _plain_glue(m):
-    """Inside the ``monkeypatch`` context ``m``, the two fused ops run
-    their plain chains on the card (every other op keeps its kernel)."""
+    """Inside the ``monkeypatch`` context ``m``, the fused ops run their
+    plain chains on the card (every other op keeps its kernel)."""
     import functools
     from repro_torch.kernels import kv_write as kvw
+    from repro_torch.kernels import layernorm as ln
     from repro_torch.kernels import rmsnorm as rms
     m.setattr(ops, "add_rmsnorm_cuda", rms.add_rmsnorm_torch)
+    m.setattr(ops, "add_layernorm_cuda", ln.add_layernorm_torch)
     m.setattr(ops, "qkv_rope_write_cuda", functools.partial(
         kvw.qkv_rope_write_torch, write=ops.kv_write))
 

@@ -9,8 +9,8 @@
 Run the trees in turns (parent, change, change, parent) in one command
 on one card, then ``--summary``. Paths: qwen-7b "dense" (slot cache),
 qwen-7b "strategy2" from a 20-block pool of 16-token pages, in bf16 and
-in int8 K/V, and xlstm-1.3b "dense", at full width and depth with random
-weights from seed 0. Each path's engine (``batch_size=4, max_len=512,
+in int8 K/V, xlstm-1.3b "dense" and starcoder2-7b "dense" (LayerNorm),
+at full width and depth with random weights from seed 0. Each path's engine (``batch_size=4, max_len=512,
 chunk_size=64``, no audit) serves the 9 requests (8 prompts of 4-31
 tokens and one of 200, 16 new tokens each; the paged run submits the
 long one first) ``RUNS`` times in a row: run 0 pays for whatever the
@@ -22,7 +22,11 @@ compile-cache misses and a digest of the token streams. One JSON line
 per (tree run, path) goes to ``chiprun_out/graph_ab.jsonl``;
 ``--summary`` prints, per path and tree, the median and the spread
 (max - min) of each metric over the steady runs and over run 0, and
-whether every run's streams were the same. Needs one card; imports
+whether every run's streams were the same. On the paths of ``TRACED``
+the last run is followed by ``chip_smoke.trace_ticks`` (one decode and
+the widest mixed tick, eager and replayed, under ``torch.profiler``;
+recorded, not held, so a tree that still runs glue is traced too), whose
+rows join the path's line and ``--summary``. Needs one card; imports
 nothing of JAX.
 """
 
@@ -46,7 +50,9 @@ PATHS = (("dense", "qwen-7b", "dense", {}),
          ("strategy2-paged-int8", "qwen-7b", "strategy2",
           dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20,
                kv_quant="int8")),
-         ("xlstm-dense", "xlstm-1.3b", "dense", {}))
+         ("xlstm-dense", "xlstm-1.3b", "dense", {}),
+         ("starcoder2-dense", "starcoder2-7b", "dense", {}))
+TRACED = ("dense", "starcoder2-dense")
 METRICS = ("tokens_per_s", "ttft_p50_s", "itl_p50_s", "max_memory_allocated")
 
 
@@ -86,7 +92,7 @@ def serve_runs(torch, cs, cfg, params) -> list[dict]:
             "new_misses": (None if misses0 is None
                            else compiles.misses - misses0),
             "streams_sha1": hashlib.sha1(streams).hexdigest()})
-    return out
+    return out, engine
 
 
 def summary() -> int:
@@ -111,6 +117,13 @@ def summary() -> int:
                                  f"{max(v) - min(v):.6g}, n={len(v)})")
                 print(f"{path} {tag} {label}: " + "; ".join(parts))
         print(f"{path}: every run's streams equal: {len(digests) == 1}")
+        for r in rows:
+            for key, t in (r["path"] == path and r.get("traces") or
+                           {}).items():
+                print(f"{path} {r['tag']} {key}: busy "
+                      f"{t['device_busy_ms']} ms, {t['device_ops']} device "
+                      f"operations, wall {t['wall_ms']:.3f} ms, host "
+                      f"{t['host_ms']:.3f} ms, glue {t['glue_ops']}")
     return 0
 
 
@@ -146,7 +159,16 @@ def main() -> int:
                      *cs.build_model(torch, arch, strategy))
         _, cfg, params = built
         cfg = dataclasses.replace(cfg, **kv)
-        runs = serve_runs(torch, cs, cfg, params)
+        runs, engine = serve_runs(torch, cs, cfg, params)
+        traces = {}
+        if path in TRACED:
+            found = {}
+            cs.trace_ticks(torch, engine, params, found, path, strict=False)
+            traces = {k: {m: v[m] for m in ("host_ms", "wall_ms",
+                                            "device_busy_ms", "device_ops",
+                                            "glue_ops")}
+                      for k, v in found["traces"][path].items()}
+        del engine
         for x in runs:
             print(f"[{args.tag}] {path} run {x['run']}: "
                   f"{x['tokens_per_s']:.1f} tokens/s, TTFT p50 "
@@ -157,7 +179,8 @@ def main() -> int:
         with open(LOG, "a") as fh:
             fh.write(json.dumps({"tag": args.tag, "path": path,
                                  "src": os.path.abspath(args.src),
-                                 "nvidia_smi": smi, "runs": runs}) + "\n")
+                                 "nvidia_smi": smi, "runs": runs,
+                                 "traces": traces}) + "\n")
         del params
     return 0
 
