@@ -173,7 +173,26 @@ Phases (any failure ends the run with a nonzero exit code):
                  accepted tokens per verify dispatch, prefix hit tokens
                  and evictions recorded; every key's graph of every path
                  replayed on dead inputs under ``set_sync_debug_mode(
-                 "error")``;
+                 "error")``.  Two lifecycle engines on strategy2 (each
+                 tick still one replay, run 1 of the engine capturing
+                 nothing): ``strategy2-paged-lifecycle`` (the 20-block
+                 pool, ``prefix_cache``, ``max_preemptions=2``, a clock one
+                 unit a tick, driven one ``run(max_steps=1)`` at a time:
+                 a shortfall preempts the 200-token request, a priority-2
+                 request preempts its way into a full batch, a deadline
+                 expires mid-decode, a cancel lands between two runs, and
+                 a prompt holding a token whose ``embed`` row is NaN on
+                 the card is quarantined alone by the finiteness that
+                 comes back with the ids, its slot and blocks reused by
+                 later requests; every done stream equals
+                 ``reference_decode``, every cut one is a prefix of it)
+                 and ``strategy2-paged-int8-chaos`` (the int8 pool,
+                 sharing, ``spec_k=4`` and the reference soak's chaos
+                 rates at seed 1: every request terminal, done streams
+                 bitwise the oracle's, faulted ones a prefix of it, no
+                 block leaked); the traced replayed ticks make one
+                 device-to-host copy with the engine's fetch, and a dense
+                 decode tick at most ``DENSE_DECODE_OPS`` operations;
   6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
                  bitwise equal to prefill's logits, launch counts exact
                  (the path ``<model>-prefill``: every residual add in the
@@ -2855,6 +2874,296 @@ def replay_without_sync(torch, engine, path):
         "set_sync_debug_mode(\"error\"): no host synchronisation")
 
 
+class StepClock:
+    """An engine clock that ``tick_by_tick`` advances by one unit a tick."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+# roles of phase 5's prompts on the lifecycle path (indices of
+# ``workload(cfg)``): 8 is the 200-token prompt, at priority 0, 7 is at
+# priority 2, the others at 1
+LONG, DEADLINE, POISONED, CANCELLED, PRIORITY2 = 8, 1, 3, 5, 7
+WAVE_A, WAVE_B = (0, 2, POISONED), (DEADLINE, 4, CANCELLED, 6)
+DEADLINE_TICKS, CANCEL_AFTER = 6, 3
+
+
+def tick_by_tick(engine, clock, events, max_ticks=400):
+    """Drive ``engine`` one ``run(max_steps=1)`` at a time, the clock one
+    unit ahead after each.  ``events`` is a list of (condition, action):
+    before each tick, each event whose condition holds runs its action,
+    once.  Returns the requests that reached a terminal state, for each
+    tick the slot and the blocks of every running rid (after the tick's
+    consume), each quarantine as (tick, rid, slot, blocks), each
+    preemption as (tick, victim rid, queue head rid, whether every slot
+    was busy), and the tick at which each event fired."""
+    import warnings
+    done, seen, faults, preempts = [], [], [], []
+    fired: dict = {}
+    fault, preempt = engine._fault_row, engine._preempt
+
+    def spy_fault(idx, msg, completed):
+        faults.append((engine.steps - 1, engine._slots[idx].req.rid, idx,
+                       list(engine._slot_blocks[idx])))
+        fault(idx, msg, completed)
+
+    def spy_preempt(idx, **kw):
+        preempts.append((engine.steps, engine._slots[idx].req.rid,
+                         engine._queue[0].rid if engine._queue else None,
+                         all(s.req is not None for s in engine._slots)))
+        preempt(idx, **kw)
+
+    engine._fault_row, engine._preempt = spy_fault, spy_preempt
+    try:
+        for t in range(max_ticks):
+            for k, (when, action) in enumerate(events):
+                if k not in fired and when():
+                    fired[k] = t
+                    action()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                res = engine.run(max_steps=1)
+            done.extend(res)
+            seen.append({s.req.rid: (i, list(engine._slot_blocks[i]))
+                         for i, s in enumerate(engine._slots)
+                         if s.req is not None})
+            clock.t += 1.0
+            if res.drained and len(fired) == len(events):
+                break
+    finally:
+        del engine._fault_row, engine._preempt
+    return done, seen, faults, preempts, fired
+
+
+def serve_lifecycle(torch, cfg, params, results, path, oracle):
+    """The request lifecycle on captured graphs (the paged pool of
+    ``strategy2-paged``, ``prefix_cache=True``, ``max_preemptions=2``,
+    ``audit_every=1``, a clock one unit a tick): phase 5's prompts with
+    roles, driven one tick at a time — the 200-token one first at
+    priority 0, then three short ones at priority 1 (``WAVE_A``: a
+    shortfall preempts the long one after its first token, its blocks
+    donated), one of them holding a token whose ``embed`` row is NaN on
+    the card (in place, restored after; an id no other prompt and no
+    oracle stream holds), so the device flag must quarantine exactly that
+    row, whose slot and blocks later requests take; once the long one is
+    done four more (``WAVE_B``), one with a deadline that expires
+    mid-decode and one cancelled between two ``run`` calls; when they
+    fill the batch, one at priority 2, which preempts its way in.  ``oracle``: the
+    streams of ``strategy2-paged`` (equal to ``reference_decode``).
+    Then the unpoisoned prompts again on the same engine: no capture,
+    the oracle's streams.  Returns (the first run's launch counts, its
+    streams)."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.serving.engine import Engine, Request
+    prompts = workload(cfg)
+    used = {int(x) for i, p in enumerate(prompts) if i != POISONED
+            for x in p}
+    used.update(int(x) for i, s in enumerate(oracle) if i != POISONED
+                for x in s)
+    poison = next(x for x in range(cfg.vocab_size) if x not in used)
+    bad = prompts[POISONED].copy()
+    bad[len(bad) // 2] = poison
+    clock = StepClock()
+    engine = Engine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
+                    chunk_size=64, prefix_cache=True, max_preemptions=2,
+                    audit_every=1, clock=clock, device=DEVICE)
+    reqs = [Request(rid=i, prompt=(bad if i == POISONED else p).astype(
+        np.int32), max_new_tokens=SERVE_NEW_TOKENS,
+        priority=0 if i == LONG else 2 if i == PRIORITY2 else 1,
+        deadline_s=DEADLINE_TICKS if i == DEADLINE else None)
+        for i, p in enumerate(prompts)]
+
+    def submit(*rids):
+        return lambda: [engine.submit(reqs[i]) for i in rids]
+
+    slots = engine._slots
+    events = [
+        # the long request first; three short ones once it has emitted
+        # a token: the third one's reservation preempts it
+        (lambda: True, submit(LONG)),
+        (lambda: len(reqs[LONG].output) >= 1, submit(*WAVE_A)),
+        # four more once it is done; the priority-2 one when they fill
+        # the batch and the queue is empty
+        (lambda: reqs[LONG].done, submit(*WAVE_B)),
+        (lambda: all(s.req is not None for s in slots) and not
+         engine._queue and reqs[WAVE_B[-1]].status == "running",
+         submit(PRIORITY2)),
+        (lambda: len(reqs[CANCELLED].output) >= CANCEL_AFTER,
+         lambda: need(engine.cancel(CANCELLED),
+                      f"{path}: cancel found no request"))]
+    embed = params["embed"]
+    saved = embed[poison].clone()
+    embed[poison] = float("nan")
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    try:
+        done, seen, faults, preempts, fired = tick_by_tick(
+            engine, clock, events)
+    finally:
+        embed[poison] = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    ticks = engine.steps
+    stats = engine.resilience_stats()
+    expect = {"done": [i for i in range(len(reqs))
+                       if i not in (DEADLINE, POISONED, CANCELLED)],
+              "deadline_missed": [DEADLINE], "error": [POISONED],
+              "cancelled": [CANCELLED]}
+    status = {r.rid: r.status for r in reqs}
+    log(f"  {ticks} ticks in {wall:.2f} s, poisoned token {poison}; "
+        f"statuses {status}; preemptions by rid "
+        f"{ {r.rid: r.preemptions for r in reqs} }; {stats}")
+    for want, rids in expect.items():
+        need(all(status[i] == want for i in rids),
+             f"{path}: statuses {status}, expected {expect}")
+    need(stats["preemptions"] >= 1 and stats["row_faults"] == 1
+         and stats["deadline_misses"] == 1 and stats["cancels"] == 1,
+         f"{path}: resilience counters {stats}")
+    log(f"  events fired before ticks {sorted(fired.values())}; "
+        f"preemptions (tick, victim, queue head, batch full): {preempts}")
+    need(any(h == PRIORITY2 and full for _, _, h, full in preempts)
+         and any(h != PRIORITY2 and v == LONG for _, v, h, _ in preempts),
+         f"{path}: no shortfall preempted the long request, or the "
+         "priority-2 request did not preempt its way into a full batch")
+    need(0 < len(reqs[DEADLINE].output) < SERVE_NEW_TOKENS,
+         f"{path}: the deadline did not expire mid-decode "
+         f"({len(reqs[DEADLINE].output)} tokens)")
+    need(reqs[POISONED].error == "non-finite logits",
+         f"{path}: the poisoned row ended {reqs[POISONED].error!r}")
+    for r in reqs:
+        ref = oracle[r.rid]
+        if r.status == "done":
+            need(r.output == ref, f"{path}: rid {r.rid} (preempted "
+                 f"{r.preemptions}x) differs from reference_decode")
+        elif r.rid != POISONED:
+            need(r.output == ref[:len(r.output)],
+                 f"{path}: rid {r.rid}'s partial stream is not a prefix of "
+                 "its oracle's")
+    # who took the quarantined row's slot or blocks after it
+    (f_tick, f_rid, f_slot, f_blocks), = faults
+    heirs = {}
+    for live in seen[f_tick + 1:]:
+        for rid, (slot, blocks) in live.items():
+            if rid != f_rid and (slot == f_slot or set(blocks) & set(f_blocks)):
+                heirs.setdefault(rid, set()).update(
+                    (["slot"] if slot == f_slot else []) +
+                    (["blocks"] if set(blocks) & set(f_blocks) else []))
+    log(f"  quarantined rid {f_rid} at tick {f_tick} in slot {f_slot} with "
+        f"blocks {f_blocks}; later holders of its slot or blocks "
+        f"{ {k: sorted(v) for k, v in heirs.items()} }")
+    need(any("slot" in v for v in heirs.values())
+         and any("blocks" in v for v in heirs.values())
+         and all(status[r] in ("done", "cancelled", "deadline_missed")
+                 for r in heirs),
+         f"{path}: no later request reused the quarantined row's slot and "
+         "blocks, or one of them faulted")
+    expect_launches = expected_launches(cfg, params, ticks)
+    need(counts == expect_launches, f"{path}: kernel launch counts do not "
+         "match layers x calls x ticks")
+    # again, unpoisoned: every key captured already, the oracle's streams
+    misses0 = engine.cache_compiles.misses
+    again = [Request(rid=100 + i, prompt=p.astype(np.int32),
+                     max_new_tokens=SERVE_NEW_TOKENS)
+             for i, p in enumerate(prompts) if i != POISONED]
+    for r in again:
+        engine.submit(r)
+    res = engine.run()
+    need(res.drained and all(
+        r.output == oracle[r.rid - 100] for r in again),
+        f"{path}: the second run's streams differ from reference_decode")
+    cc = engine.cache_compiles
+    new_misses = cc.misses - misses0
+    dropped = engine.drop_prefix_cache()
+    pool = engine.pool_stats()
+    log(f"  second run: {engine.steps - ticks} ticks, {new_misses} new "
+        f"misses; compile cache "
+        f"{sorted(cc.keys())} ({cc.misses} misses, budget "
+        f"{engine.compile_budget}); drop_prefix_cache(): {dropped} nodes; "
+        f"pool {pool}; {engine.audits} audits")
+    need(cc.misses <= engine.compile_budget and not new_misses,
+         f"{path}: {cc.misses} misses (budget {engine.compile_budget})")
+    need(pool["free"] == pool["total"] and not pool["leased"],
+         f"{path}: the pool is not whole: {pool}")
+    need(engine.audits == engine.steps, f"{path}: not one audit a tick")
+    results.setdefault("serving", {})[path] = {
+        "ticks": ticks, "wall_s": wall, "poisoned_token": poison,
+        "statuses": status, "resilience": stats,
+        "preemptions_by_rid": {r.rid: r.preemptions for r in reqs},
+        "quarantine": {"tick": f_tick, "rid": f_rid, "slot": f_slot,
+                       "blocks": f_blocks},
+        "heirs": {k: sorted(v) for k, v in heirs.items()},
+        "launches": counts, "compile_keys": [list(k) for k in cc.keys()],
+        "misses": cc.misses, "compile_budget": engine.compile_budget,
+        "pool_after_drop": pool}
+    replay_without_sync(torch, engine, path)
+    return counts, [r.output for r in reqs]
+
+
+def serve_chaos(torch, cfg, params, results, path, oracle):
+    """The chaos soak on captured graphs: the int8 paged pool of
+    ``strategy2-paged-int8``, ``prefix_cache=True``, ``spec_k=4``,
+    ``max_preemptions=2``, ``audit_every=1`` and the reference soak's
+    ``ChaosMonkey`` rates at seed 1, serving phase 5's prefix workload.
+    ``oracle``: the streams of ``strategy2-paged-int8-prefix`` (equal to
+    ``reference_decode``).  Holds the soak's contract (``check_soak``):
+    every request terminal, every done stream bitwise its oracle, every
+    faulted one a prefix of it, the audit green every tick, no leaked
+    block; misses within the budget."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey, check_soak
+    from repro_torch.serving.engine import Engine, Request
+    prompts = workload(cfg, {"prefix_cache": True})
+    engine = Engine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
+                    chunk_size=64, prefix_cache=True, spec_k=4,
+                    max_preemptions=2, audit_every=1, device=DEVICE,
+                    chaos=ChaosMonkey(ChaosConfig(
+                        seed=1, deny_rate=0.10, preempt_rate=0.15,
+                        nan_rate=0.02, garbage_draft_rate=0.5)))
+    reqs = [Request(rid=i, prompt=p.astype(np.int32),
+                    max_new_tokens=SERVE_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    done = engine.run(max_steps=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    need(engine.audits == engine.steps, f"{path}: not one audit a tick")
+    try:
+        outcomes = check_soak(path, reqs, dict(enumerate(oracle)), engine,
+                              done)
+    except AssertionError as e:
+        raise SmokeFailure(str(e)) from None
+    stats = engine.resilience_stats()
+    cc = engine.cache_compiles
+    log(f"  {engine.steps} ticks in {wall:.2f} s; outcomes {outcomes}; "
+        f"preemptions by rid { {r.rid: r.preemptions for r in reqs} }; "
+        f"resilience {stats}; speculation {engine.spec_stats()}; prefix "
+        f"{engine.prefix_stats()}; compile cache {sorted(cc.keys())} "
+        f"({cc.misses} misses, budget {engine.compile_budget})")
+    need(cc.misses <= engine.compile_budget,
+         f"{path}: {cc.misses} misses > budget {engine.compile_budget}")
+    need(counts == expected_launches(cfg, params, engine.steps),
+         f"{path}: kernel launch counts do not match layers x calls x ticks")
+    results.setdefault("serving", {})[path] = {
+        "ticks": engine.steps, "wall_s": wall, "outcomes": outcomes,
+        "resilience": stats, "speculation": engine.spec_stats(),
+        "prefix": engine.prefix_stats(), "launches": counts,
+        "misses": cc.misses, "compile_budget": engine.compile_budget}
+    replay_without_sync(torch, engine, path)
+    return counts, [r.output for r in reqs]
+
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
                 "starcoder2-dense")
@@ -2981,6 +3290,38 @@ def glue_census(torch, prof) -> dict:
     return {k: sum(pat in n for n in names) for k, pat in GLUE_OPS.items()}
 
 
+def host_copies(torch, fn) -> int:
+    """How many copies from the card to the host ``fn`` asks for, counted
+    at PyTorch's dispatcher (``_to_copy`` / ``copy_`` from a card tensor
+    into a host one).  Deterministic where the profiler is not: its
+    records of one unchanged xlstm-dense replay vary by tens to thousands
+    of device operations and can lose the tick's copy back
+    (``tools/trace_repeat.py`` profiles one tick many times)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    found = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = func.overloadpacket.__name__
+            if name in ("_to_copy", "copy_"):
+                src, dst = ((args[1], args[0]) if name == "copy_"
+                            else (args[0], out))
+                if src.device.type != "cpu" and dst.device.type == "cpu":
+                    found.append(name)
+            return out
+
+    with Count():
+        fn()
+    return len(found)
+
+
+# device operations of a replayed dense decode-4 tick: 365 without the
+# finiteness reduction, and its two (``torch.aminmax``)
+DENSE_DECODE_OPS = 367
+
+
 def trace_ticks(torch, engine, params, results, path, strict=True):
     """One decode tick and one mixed tick (the widest captured) run eagerly
     on a copy of the cache and replayed, from the same live inputs: host
@@ -3032,7 +3373,37 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                    "the profiler") + f", {n_ops} device operations"
                 + (f", hand kernels {hand:.1%} of the device time"
                    if hand is not None else ""))
+            if mode == "replay" and hasattr(engine, "_fetch"):
+                # the tick as the engine serves it: the replay and its
+                # one copy back (ids and finiteness); a parent tree
+                # without ``_fetch`` is traced without it.  The copies it
+                # asks for are counted at the dispatcher on every path;
+                # the profiler's count is held on the dense decode tick,
+                # where its records are stable (``host_copies``)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    engine._fetch(*call(), False)
+                    torch.cuda.synchronize()
+                row["dtoh_copies"] = sum(
+                    "DtoH" in e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                row["dtoh_requested"] = host_copies(
+                    torch, lambda: engine._fetch(*call(), False))
+                log(f"    with the engine's fetch: "
+                    f"{row['dtoh_copies']} device-to-host copies traced, "
+                    f"{row['dtoh_requested']} asked for")
+                need(not strict or row["dtoh_requested"] == 1,
+                     f"{path} {key}: a served tick asks for "
+                     f"{row['dtoh_requested']} device-to-host copies, not "
+                     "one")
+                need(not strict or path != "dense" or name != "decode"
+                     or row["dtoh_copies"] == 1,
+                     f"{path} {key}: a served tick makes "
+                     f"{row['dtoh_copies']} device-to-host copies, not one")
             if mode == "replay":
+                need(not strict or path != "dense" or name != "decode"
+                     or n_ops <= DENSE_DECODE_OPS, f"{path} {key}: "
+                     f"{n_ops} device operations > {DENSE_DECODE_OPS}")
                 for name, ms, n in top:
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
                 log(f"    glue operations {glue}")
@@ -3532,6 +3903,13 @@ ENGINE_PATHS = {
     "strategy2": tuple(
         (f"{kv}-prefix", over, dict(prefix_cache=True, spec_k=4))
         for kv, over in KV_PATHS["strategy2"] if kv.startswith("paged"))}
+# the lifecycle's engines, served after a model's engine paths: (path
+# suffix, the cache path whose config they take, the path whose streams
+# are their oracle, the function that serves them)
+LIFECYCLE_PATHS = {"strategy2": (
+    ("paged-lifecycle", "paged", "strategy2-paged", serve_lifecycle),
+    ("paged-int8-chaos", "paged-int8", "strategy2-paged-int8-prefix",
+     serve_chaos))}
 
 
 def main() -> int:
@@ -3602,9 +3980,17 @@ def main() -> int:
             for suffix, over, engine_kw in ENGINE_PATHS.get(model, ()):
                 path = f"{model}-{suffix}"
                 log(f"phase 5 [{path}]: serving with {engine_kw}")
-                counts[path], _ = serve(
+                counts[path], streams[path] = serve(
                     torch, dataclasses.replace(cfg, **over), params, results,
                     path, engine_kw=engine_kw)
+            for suffix, kv, oracle, fn in LIFECYCLE_PATHS.get(model, ()):
+                path = f"{model}-{suffix}"
+                log(f"phase 5 [{path}]: lifecycle, preemption, quarantine"
+                    + (" under chaos" if fn is serve_chaos else ""))
+                over = dict(KV_PATHS[model])[kv]
+                counts[path], _ = fn(
+                    torch, dataclasses.replace(cfg, **over), params, results,
+                    path, streams[oracle])
             if model in PREFILL_PATHS:
                 log(f"phase 6 [{model}]: {arch}, prefill and forward")
                 check = (check_xlstm_prefill if cfg.family == "ssm" else

@@ -15,11 +15,16 @@ request workload (prompts of 4–32 tokens from
 by a shared ``--system-prompt-len``-token system prompt).  ``--spec``
 turns on speculative decoding (``--spec-k`` drafts a row from the
 ``--drafter``), ``--prefix-cache`` prefix sharing on a paged pool; a
-family or layout that cannot take one says so and runs without it.  Runs
+family or layout that cannot take one says so and runs without it.  The
+lifecycle knobs: ``--deadline-s`` and ``--priority`` for every request,
+``--max-preemptions`` (bounded, lossless preemption), ``--audit-every``,
+and ``--chaos`` with its seed and rates (``serving/chaos.py``).  Runs
 on ``cuda`` unless ``--device cpu`` is given; without ``--full`` it serves
 the reduced ``-smoke`` configuration.
 Prints the summary, the scheduler line, the speculation line, the
-compile-cache line (keys, hits and misses by kind: on the card each mixed,
+resilience line (preemptions, deadline misses, quarantined rows, audits,
+the chaos counters), the compile-cache line (keys, hits and misses by
+kind: on the card each mixed,
 decode or copy-on-write key is one captured CUDA graph), the pool and
 prefix-cache lines of a paged run and each kernel's launch count.
 """
@@ -36,6 +41,7 @@ from repro_torch.core.compiler import (
     STRATEGIES, quantize_model, quantized_bytes)
 from repro_torch.kernels._build import launches
 from repro_torch.models import api
+from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -67,6 +73,35 @@ def main(argv=None) -> None:
     ap.add_argument("--system-prompt-len", type=int, default=24,
                     help="shared synthetic system-prompt tokens prepended "
                          "to every request (exercises --prefix-cache)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline in seconds after submit; "
+                         "expired requests finish status=deadline_missed "
+                         "(queued or mid-flight)")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="priority of every synthetic request (higher "
+                         "admits and keeps first under preemption)")
+    ap.add_argument("--max-preemptions", type=int, default=0,
+                    help="evict-and-requeue bound per request; 0 disables "
+                         "preemption (stall-only admission).  Preemption "
+                         "is lossless: the output folds into the prompt "
+                         "and, with --prefix-cache, the victim's KV blocks "
+                         "are donated so re-admission is a page-table copy")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run Engine.audit() (allocator partition, "
+                         "reservation, page-table coherence) every N "
+                         "ticks; 0 disables")
+    ap.add_argument("--chaos", action="store_true",
+                    help="attach a seeded ChaosMonkey (serving/chaos.py): "
+                         "deterministic fault injection into this run")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--chaos-deny-rate", type=float, default=0.05,
+                    help="P(reservation denied) per admission attempt")
+    ap.add_argument("--chaos-preempt-rate", type=float, default=0.05,
+                    help="P(forced preemption) per tick (needs "
+                         "--max-preemptions > 0)")
+    ap.add_argument("--chaos-nan-rate", type=float, default=0.01,
+                    help="P(logits row -> NaN) per advancing row; faulted "
+                         "rows quarantine with status=error")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true")
@@ -91,9 +126,15 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} packed={quantized_bytes(params) / 1e6:.1f} MB "
           f"strategy={args.strategy} device={args.device}")
 
+    chaos = (ChaosMonkey(ChaosConfig(
+        seed=args.chaos_seed, deny_rate=args.chaos_deny_rate,
+        preempt_rate=args.chaos_preempt_rate,
+        nan_rate=args.chaos_nan_rate)) if args.chaos else None)
     engine = Engine(cfg, params, batch_size=args.batch, max_len=args.max_len,
                     spec_k=args.spec_k if args.spec else 0,
                     drafter=args.drafter, prefix_cache=args.prefix_cache,
+                    max_preemptions=args.max_preemptions,
+                    audit_every=args.audit_every, chaos=chaos,
                     device=args.device)
     if args.spec and not engine.spec_k:
         print(f"speculation requested but family {cfg.family!r} has no "
@@ -108,13 +149,21 @@ def main(argv=None) -> None:
         user = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
         engine.submit(Request(
             rid=rid, prompt=np.concatenate([system, user]).astype(np.int32),
-            max_new_tokens=args.max_new_tokens))
+            max_new_tokens=args.max_new_tokens, priority=args.priority,
+            deadline_s=args.deadline_s))
     launches.clear()
     done = engine.run()
     if not done.drained:
         print(f"NOT drained: truncated={done.truncated} "
-              f"in_flight={done.in_flight} queued={done.queued}")
+              f"stalled={done.stalled} in_flight={done.in_flight} "
+              f"queued={done.queued}")
     print("summary:", Engine.summarize(done))
+    r = engine.resilience_stats()
+    print(f"resilience: {r['preemptions']} preemptions "
+          f"(bound {r['max_preemptions']}/req), "
+          f"{r['deadline_misses']} deadline misses, "
+          f"{r['row_faults']} quarantined rows, {r['audits']} audits"
+          + (f", chaos={r['chaos']}" if chaos is not None else ""))
     print(f"scheduler: {engine.steps} ticks, {engine.dispatches} dispatches "
           f"(1 per tick, {engine.mixed_ticks} mixed), slot occupancy "
           f"{engine.slot_occupancy:.2f}")

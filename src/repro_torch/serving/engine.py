@@ -102,18 +102,52 @@ Paged KV bookkeeping (host only; the device sees a page table):
   also counts every block a slot or the radix cache holds against the
   allocator's refcounts.
 
+Resilience (the reference's lifecycle, preemption and quarantine, all on
+the host; the compile keys do not change):
+
+* **Lifecycle.**  A request walks ``queued -> running -> {done, error,
+  cancelled, deadline_missed}`` (``TERMINAL_STATES``); preemption loops a
+  running request back to ``queued``.  ``_terminal`` is the one exit:
+  it stamps ``finished_at`` from the engine's ``clock`` (injectable, as
+  every timestamp) and frees the rid.  ``cancel(rid)`` retires a request
+  wherever it is, a ``sample`` hook's own row included; ``deadline_s``
+  requests are swept at the top of every tick (``enforce_deadlines``).
+* **Bounded preemption (``max_preemptions > 0``).**  A queue head whose
+  reservation falls short after LRU eviction preempts the lowest-priority,
+  youngest running row that does not outrank it, and a head that outranks
+  a running row preempts it when the batch is full.  ``_fold_slot``
+  donates the victim's full blocks (prompt and accepted output) to the
+  radix cache when sharing, and folds its output into its prompt; it
+  requeues behind the head and re-admits through the ordinary chunk path
+  (a hit on its own blocks copies on write through ``("cow", 0)``; the
+  xLSTM re-admits through its ``("insert", B)`` fresh row).  A request at
+  its bound is immune, so progress is guaranteed.
+* **Quarantine (``check_finite``).**  Every tick executable also reduces
+  each row's logits (the last live position's) to their least and
+  greatest value (``torch.aminmax``: NaN propagates into both, an
+  infinity into one), inside the same captured graph, packed into the one
+  int64 tensor that carries the token ids back (``_pack_tick``).  A row
+  whose two are not both finite, or whose ``sample`` hook raises, ends
+  ``status="error"`` alone: its slot and blocks are freed and never
+  donated to the radix cache.  ``serving/chaos.py``'s faults (reservation
+  denials, forced preemptions, NaN rows, garbage drafts) act at the
+  reference's seams and draw from its generator in the reference's order;
+  a chaos NaN row clears the row's flag on the host (and, for a hook, its
+  host logits).
+
 One card means one block home: the reference's per-home reservation split
 is the total check here.  A rid already queued or running is refused at
-``submit``.  Left for later slices, and not accepted as arguments: the
-rest of the request lifecycle (priority, deadlines, ``cancel``) with
-preemption and quarantine, chaos and snapshots.
+``submit``.  Left for a later slice: snapshots, the journal and
+``restore``.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -141,14 +175,27 @@ class _PrefixPlan:
     consumed: int
 
 
+# request lifecycle: queued -> running -> one terminal state (preemption
+# loops running back to queued; ``done`` is True exactly on terminals)
+TERMINAL_STATES = ("done", "error", "cancelled", "deadline_missed")
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
     prompt: np.ndarray               # (len,) int32
     max_new_tokens: int = 32
+    priority: int = 0                # higher = admitted/kept first
+    deadline_s: float | None = None  # seconds after submit; None = none
     # filled by the engine:
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
+    status: str = "queued"           # queued|running|done|error|cancelled|
+    #                                  deadline_missed
+    error: str | None = None         # quarantine reason when status=="error"
+    preemptions: int = 0             # times evicted and requeued (bounded)
+    folded: int = 0                  # output tokens already folded into the
+    #                                  prompt by earlier preemptions
     submitted_at: float = 0.0
     first_token_at: float | None = None
     finished_at: float | None = None
@@ -156,20 +203,23 @@ class Request:
 
 
 class RunResult(list):
-    """``Engine.run``'s return value: the requests finished during the call,
-    plus ``truncated`` (``max_steps`` ran out with work left) and the
-    ``in_flight`` / ``queued`` counts at return."""
+    """``Engine.run``'s return value: the requests that reached a terminal
+    state during the call, plus ``truncated`` (``max_steps`` ran out with
+    work left), ``stalled`` (work queued, nothing admissible and no row
+    live) and the ``in_flight`` / ``queued`` counts at return."""
 
     def __init__(self, reqs=(), *, truncated: bool = False,
-                 in_flight: int = 0, queued: int = 0):
+                 in_flight: int = 0, queued: int = 0, stalled: bool = False):
         super().__init__(reqs)
         self.truncated = truncated
         self.in_flight = in_flight
         self.queued = queued
+        self.stalled = stalled
 
     @property
     def drained(self) -> bool:
-        return not (self.truncated or self.in_flight or self.queued)
+        return not (self.truncated or self.stalled or
+                    self.in_flight or self.queued)
 
 
 @dataclasses.dataclass
@@ -179,10 +229,46 @@ class _Slot:
     length: int = 0                  # TRUE tokens resident in this row
     pos: int = 0                     # prompt tokens consumed (chunk cursor)
     last_token: int = 0              # input token for the next decode step
+    seq: int = 0                     # admission order (preemption picks the
+    #                                  youngest = largest seq first)
 
     @property
     def prefilling(self) -> bool:
         return self.req is not None and self.pos < len(self.req.prompt)
+
+
+def _pack_tick(logits, last):
+    """The greedy ids of ``logits`` (argmax over its last axis) and each
+    row's least and greatest logit of ``last`` (B, V), in ONE int64 tensor,
+    so that one copy brings both to the host: the ids first, then the
+    minima and the maxima in ``last``'s dtype.  Two reductions write
+    straight into it (no copy); ``torch.aminmax`` propagates NaN into
+    both, so a row is finite exactly when its two are."""
+    lead = logits.shape[:-1]
+    n, b = math.prod(lead), last.shape[0]
+    out = torch.empty(n + -(-2 * b * last.element_size() // 8),
+                      dtype=torch.int64, device=last.device)
+    torch.argmax(logits, dim=-1, out=out[:n].view(lead))
+    span = out[n:].view(last.dtype)
+    torch.aminmax(last, dim=-1, out=(span[:b], span[b:2 * b]))
+    return out
+
+
+_HOST_FLOAT = {torch.float32: np.float32, torch.float16: np.float16}
+
+
+def _unpack_tick(host: np.ndarray, rows: int, dtype):
+    """``_pack_tick``'s tensor, on the host: (ids, finite), the ids flat
+    (B or B * W) and ``finite[b]`` True when row b's logits are."""
+    nbytes = 2 * rows * dtype.itemsize
+    n = host.size - -(-nbytes // 8)
+    raw = host[n:].view(np.uint8)[:nbytes]
+    if dtype == torch.bfloat16:     # numpy has no bf16: widen the bits
+        vals = (raw.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    else:
+        vals = raw.view(_HOST_FLOAT[dtype])
+    finite = np.isfinite(vals[:rows]) & np.isfinite(vals[rows:])
+    return host[:n], finite
 
 
 def _mixed_executable(cfg):
@@ -190,7 +276,7 @@ def _mixed_executable(cfg):
     def fn(p, c, tokens, lengths, q_lens, page_table=None):
         logits, _ = api.mixed_step(cfg, p, c, tokens, lengths, q_lens,
                                    page_table=page_table)
-        return torch.argmax(logits, dim=-1), logits
+        return _pack_tick(logits, logits), logits
     return fn
 
 
@@ -203,15 +289,16 @@ def _mixed_executable_spec(cfg):
     """The speculating engine's mixed tick (all of its mixed ticks, so the
     keys stay ``("mixed", W)``): ``all_logits=True`` scores every chunk
     position; returns the per-position greedy tokens (B, W), for draft
-    acceptance and, at ``q_lens - 1``, each row's next token, and the
-    last live position's logits (B, V) for a ``sample`` hook."""
+    acceptance and, at ``q_lens - 1``, each row's next token, with the
+    finiteness of the last live position's logits (B, V), which it also
+    returns for a ``sample`` hook."""
     def fn(p, c, tokens, lengths, q_lens, page_table=None):
         logits, _ = api.mixed_step(cfg, p, c, tokens, lengths, q_lens,
                                    page_table=page_table, all_logits=True)
         idx = torch.clamp(q_lens.long() - 1, 0, tokens.shape[1] - 1)
         last = torch.gather(logits, 1, idx[:, None, None].expand(
             -1, 1, logits.shape[-1]))[:, 0]
-        return torch.argmax(logits, dim=-1), last
+        return _pack_tick(logits, last), last
     return fn
 
 
@@ -222,7 +309,7 @@ def _decode_executable(cfg):
         logits, _ = api.decode_step(cfg, p, c, tokens, lengths,
                                     page_table=page_table,
                                     write_mask=write_mask)
-        return torch.argmax(logits, dim=-1), logits
+        return _pack_tick(logits, logits), logits
     return fn
 
 
@@ -242,8 +329,8 @@ def _cow_executable(cfg):
 
 class _EagerTick:
     """A key's executable run eagerly (the CPU): host arrays in, device
-    tensors out (``(ids, logits)`` for a tick), the cache updated in
-    place."""
+    tensors out (``(_pack_tick(...), logits)`` for a tick), the cache
+    updated in place."""
 
     def __init__(self, fn, device):
         self.fn = fn
@@ -314,12 +401,22 @@ class Engine:
                  prefill_token_budget: int | None = None,
                  prefill_policy: str = "mixed",
                  spec_k: int = 0, drafter: Any = "plookup",
-                 prefix_cache: bool = False, audit_every: int = 0,
-                 compile_cache: CompileCache | None = None, device="cuda"):
+                 prefix_cache: bool = False,
+                 max_preemptions: int = 0,
+                 enforce_deadlines: bool = True,
+                 check_finite: bool = True,
+                 audit_every: int = 0,
+                 chaos: Any = None,
+                 compile_cache: CompileCache | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 device="cuda"):
         if prefill_policy not in ("mixed", "stall"):
             raise ValueError(f"unknown prefill_policy {prefill_policy!r}")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if max_preemptions < 0:
+            raise ValueError(
+                f"max_preemptions must be >= 0, got {max_preemptions}")
         self.device = torch.device(device)
         check_supported(cfg, self.device)
         self.cfg = cfg
@@ -393,13 +490,29 @@ class Engine:
         self._live_rids: set = set()  # queued + running rids (duplicate gate)
         self.admission_stalls = 0    # admissions held back by the block pool
         self.peak_resident_tokens = 0
-        self.audit_every = audit_every
-        self.audits = 0              # audit() passes run (all green)
         self.steps = 0
         self.dispatches = 0          # must equal steps: one dispatch per tick
         self.mixed_ticks = 0
         self.dispatched_columns = 0  # chunk width of each tick, summed
         self._occupancy_sum = 0.0
+        # resilience: max_preemptions bounds how often ONE request may be
+        # evicted and requeued (0: stall-only admission); enforce_deadlines
+        # sweeps deadline_s requests every tick; check_finite quarantines a
+        # row whose logits are not finite; audit_every=N self-checks the
+        # pool every N ticks; chaos (serving/chaos.py's ChaosMonkey)
+        # injects faults at these seams
+        self.max_preemptions = max_preemptions
+        self.enforce_deadlines = enforce_deadlines
+        self.check_finite = check_finite
+        self.audit_every = audit_every
+        self.chaos = chaos
+        self.clock = clock
+        self.preemptions = 0         # total preempt-and-requeue events
+        self.deadline_misses = 0     # requests retired past their deadline
+        self.row_faults = 0          # rows quarantined (non-finite / hook)
+        self.cancels = 0             # cancel() calls that found their target
+        self.audits = 0              # audit() passes run (all green)
+        self._admit_seq = 0          # admission counter (a slot's age)
 
     # -- client API ----------------------------------------------------------
 
@@ -422,16 +535,40 @@ class Engine:
             raise ValueError(
                 f"request {req.rid}: rid already queued or in flight — "
                 "rids must be unique among live requests")
+        req.status = "queued"
         self._live_rids.add(req.rid)
-        req.submitted_at = time.monotonic()
+        req.submitted_at = self.clock()
         self._queue.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Retire request ``rid`` wherever it is: dequeued if waiting, or
+        freed mid-flight (slot and blocks released, the partial output
+        kept).  Its status becomes ``"cancelled"`` and it is retired HERE,
+        not echoed through a later ``run()`` result.  False when no live
+        request has that rid (cancel is idempotent)."""
+        for r in self._queue:
+            if r.rid == rid:
+                self._queue.remove(r)
+                self.cancels += 1
+                self._terminal(r, "cancelled")
+                return True
+        for i, s in enumerate(self._slots):
+            if s.req is not None and s.req.rid == rid:
+                self.cancels += 1
+                self._terminal(s.req, "cancelled")
+                self._free_slot(i)
+                return True
+        return False
 
     # -- paged-KV block accounting -------------------------------------------
 
     def _worst_case_blocks(self, req: Request) -> int:
-        """Blocks the request can ever hold: its prompt plus its generation,
-        capped by the cache's addressable span (the ``_emit`` stop rules)."""
-        toks = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        """Blocks the request can ever hold: its prompt plus its REMAINING
+        generation (a preempted request's output is folded into its prompt,
+        so ``max_new_tokens - len(output)`` are owed, at least one), capped
+        by the cache's addressable span (the ``_emit`` stop rules)."""
+        owed = max(req.max_new_tokens - len(req.output), 1)
+        toks = min(len(req.prompt) + owed, self.max_len)
         return -(-toks // self.block_size)
 
     def _prefix_plan(self, req: Request) -> _PrefixPlan | None:
@@ -500,13 +637,25 @@ class Engine:
         return True
 
     def _admit_head(self, idx: int) -> bool:
-        """Admit the queue head into free slot ``idx``, or count an
-        admission stall when the pool cannot cover its reservation."""
+        """Admit the queue head into free slot ``idx``.  On a paged
+        reservation shortfall (after ``_can_reserve``'s LRU eviction),
+        preempt victims one at a time (lowest priority, youngest, never
+        outranking the head), planning again after each, until the head
+        fits; with no victim left, count an admission stall.  A chaos
+        denial is a shortfall with no victim."""
         head = self._queue[0]
         plan = self._prefix_plan(head)
-        if self.paged and not self._can_reserve(head, plan):
-            self.admission_stalls += 1
-            return False
+        if self.paged:
+            if self.chaos is not None and self.chaos.deny_reservation():
+                self.admission_stalls += 1
+                return False
+            while not self._can_reserve(head, plan):
+                v = self._pick_victim(head.priority, strict=False)
+                if v is None:
+                    self.admission_stalls += 1
+                    return False
+                self._preempt(v)
+                plan = self._prefix_plan(head)
         self._admit(self._queue.popleft(), idx, plan)
         return True
 
@@ -529,7 +678,9 @@ class Engine:
             insert = self.cache_compiles.get(
                 "insert", self.batch, lambda: _insert_executable(self.cfg))
             self.cache = insert(self.cache, self._fresh_row, idx)
-        self._slots[idx] = _Slot(req=req)
+        self._admit_seq += 1
+        req.status = "running"
+        self._slots[idx] = _Slot(req=req, seq=self._admit_seq)
         if plan is not None:
             if plan.cow is not None:
                 self._cow_block(idx, plan.cow)
@@ -677,6 +828,25 @@ class Engine:
         for i, s in enumerate(self._slots):
             if s.req is not None:
                 assert s.length <= self.max_len, f"slot {i} overran max_len"
+                assert s.req.rid in self._live_rids, (
+                    f"running rid {s.req.rid} untracked")
+
+    def resilience_stats(self) -> dict[str, Any]:
+        """Lifecycle and fault counters (with the chaos monkey's injection
+        counts when one is attached)."""
+        out: dict[str, Any] = {
+            "preemptions": self.preemptions,
+            "max_preemptions": self.max_preemptions,
+            "deadline_misses": self.deadline_misses,
+            "row_faults": self.row_faults,
+            "cancels": self.cancels,
+            "audits": self.audits,
+            "enforce_deadlines": self.enforce_deadlines,
+            "check_finite": self.check_finite,
+        }
+        if self.chaos is not None:
+            out["chaos"] = self.chaos.stats()
+        return out
 
     @property
     def compile_budget(self) -> int:
@@ -787,6 +957,140 @@ class Engine:
                     raise RuntimeError(f"{e} (rewind slot {idx})") from None
                 self._slot_reserve[idx] += 1
 
+    # -- resilience: lifecycle, quarantine, deadlines, preemption -----------
+
+    def _terminal(self, req: Request, status: str,
+                  completed: list[Request] | None = None) -> None:
+        """Move ``req`` into terminal state ``status``: the one exit of the
+        lifecycle, so every path stamps ``finished_at`` and frees the rid
+        exactly once."""
+        assert status in TERMINAL_STATES, status
+        req.status = status
+        req.done = True
+        req.finished_at = self.clock()
+        self._live_rids.discard(req.rid)
+        if completed is not None:
+            completed.append(req)
+
+    def _fault_row(self, idx: int, msg: str,
+                   completed: list[Request]) -> None:
+        """Quarantine exactly one row: its request ends ``status="error"``
+        (partial output kept, ``error`` says why), its slot and blocks are
+        freed through ``_free_slot`` (never donated), and every other row
+        of the tick proceeds untouched."""
+        req = self._slots[idx].req
+        req.error = msg
+        self.row_faults += 1
+        self._terminal(req, "error", completed)
+        self._free_slot(idx)
+
+    def _safe_sample(self, idx: int, sample: Callable,
+                     logits_np: np.ndarray,
+                     completed: list[Request]) -> int | None:
+        """Run the ``sample`` hook for one row, quarantining the row (not
+        the tick) if it raises.  None when the row faulted."""
+        try:
+            return int(sample(logits_np[idx]))
+        except Exception as e:  # noqa: BLE001 — hook code is untrusted
+            self._fault_row(idx, f"sample hook raised: {e!r}", completed)
+            return None
+
+    def _sweep_deadlines(self, completed: list[Request]) -> None:
+        """Retire every live request whose deadline has passed, queued or
+        mid-flight (slot freed, partial output kept).  ``deadline_s`` runs
+        from ``submitted_at``; ``>=`` makes ``deadline_s=0.0`` miss at the
+        first sweep."""
+        if not self.enforce_deadlines:
+            return
+        now = self.clock()
+
+        def missed(r: Request) -> bool:
+            return (r.deadline_s is not None and
+                    now - r.submitted_at >= r.deadline_s)
+
+        for i, s in enumerate(self._slots):
+            if s.req is not None and missed(s.req):
+                self.deadline_misses += 1
+                self._terminal(s.req, "deadline_missed", completed)
+                self._free_slot(i)
+        if any(missed(r) for r in self._queue):
+            keep: collections.deque = collections.deque()
+            for r in self._queue:
+                if missed(r):
+                    self.deadline_misses += 1
+                    self._terminal(r, "deadline_missed", completed)
+                else:
+                    keep.append(r)
+            self._queue = keep
+
+    def _pick_victim(self, max_priority: int | None = None, *,
+                     strict: bool = False) -> int | None:
+        """The slot to preempt: lowest priority first, youngest (largest
+        ``seq``) within a priority; a request at its preemption bound is
+        immune.  ``strict``: the victim must rank BELOW ``max_priority``
+        (priority preemption of a full batch); otherwise it may equal it
+        (a shortfall: the head outranks a peer that has had its turn)."""
+        best: int | None = None
+        best_key: tuple[int, int] | None = None
+        for i, s in enumerate(self._slots):
+            r = s.req
+            if r is None or r.preemptions >= self.max_preemptions:
+                continue
+            if max_priority is not None:
+                if strict and r.priority >= max_priority:
+                    continue
+                if not strict and r.priority > max_priority:
+                    continue
+            key = (r.priority, -s.seq)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _fold_slot(self, idx: int) -> None:
+        """The lossless fold preemption rests on: donate the slot's fully
+        written blocks to the radix cache (prompt AND accepted output, so
+        re-admission is mostly a page-table copy), then fold the output
+        not folded yet into the prompt.  The folded stream is bitwise the
+        unfolded one: emit-time lengths line up exactly."""
+        slot = self._slots[idx]
+        req = slot.req
+        if self.prefix is not None and slot.length >= self.block_size:
+            # the prompt already holds output[:folded]: the resident tokens
+            # are the prompt and the output emitted since
+            resident = np.concatenate([
+                np.asarray(req.prompt, np.int64),
+                np.asarray(req.output[req.folded:], np.int64)])[:slot.length]
+            nfull = slot.length // self.block_size
+            fresh = self.prefix.insert(resident[:nfull * self.block_size],
+                                       self._slot_blocks[idx][:nfull])
+            for blk in fresh:
+                self.alloc.incref(blk)
+        if len(req.output) > req.folded:
+            req.prompt = np.concatenate([
+                np.asarray(req.prompt, np.int64),
+                np.asarray(req.output[req.folded:], np.int64)])
+            req.folded = len(req.output)
+
+    def _preempt(self, idx: int, *, requeue_front: bool = False) -> None:
+        """Evict a running request, keeping its work (``_fold_slot``), and
+        requeue it behind the head that evicted it and every waiter that
+        outranks it, or at the front for a forced (chaos) preemption or
+        an empty queue."""
+        req = self._slots[idx].req
+        self._fold_slot(idx)
+        req.preemptions += 1
+        req.status = "queued"
+        self.preemptions += 1
+        self._free_slot(idx)
+        if requeue_front or not self._queue:
+            self._queue.appendleft(req)
+        else:
+            pos = 1
+            while (pos < len(self._queue) and
+                   self._queue[pos].priority > req.priority):
+                pos += 1
+            self._queue.insert(pos, req)
+
     def _schedule_drafts(self, chunks: list[int], decoding: list[int],
                          sample) -> dict[int, list[int]]:
         """Pick this tick's verify rows: up to ``spec_k`` draft tokens per
@@ -855,8 +1159,10 @@ class Engine:
         """Record one generated token; finish and free the slot when done."""
         slot = self._slots[idx]
         req = slot.req
-        now = time.monotonic()
-        if first:
+        now = self.clock()
+        if first and req.first_token_at is None:
+            # a preempted request keeps its first token's time: its
+            # re-prefill's "first" token is a later output token
             req.first_token_at = now
         req.output.append(token)
         req.token_times.append(now)
@@ -866,41 +1172,96 @@ class Engine:
         if (len(req.output) >= req.max_new_tokens or
                 slot.length >= self.max_len or   # no cache room to decode into
                 (self.eos_id is not None and token == self.eos_id)):
-            req.done = True
-            req.finished_at = now
-            completed.append(req)
-            self._live_rids.discard(req.rid)
+            self._terminal(req, "done", completed)
             self._free_slot(idx)
+
+    def _fetch(self, out, logits, want_logits: bool):
+        """A tick's outputs on the host, through ONE copy of ``out``
+        (``_pack_tick``'s): (ids, finite, the logits as float32 or None);
+        the logits come back only when ``want_logits`` (a ``sample``
+        hook)."""
+        ids, finite = _unpack_tick(out.cpu().numpy(), self.batch,
+                                   logits.dtype)
+        logits_np = (logits.float().cpu().numpy().copy() if want_logits
+                     else None)
+        return ids, finite, logits_np
 
     def run(self, *, max_steps: int = 10_000,
             sample: Callable | None = None) -> RunResult:
-        """Drain the queue; returns the requests finished during the call.
+        """Drain the queue; returns a ``RunResult``: the requests that
+        reached a terminal state during the call (done, error, cancelled,
+        deadline_missed) and the truncation and stall flags.
 
-        Each tick: (1) refill free slots from the queue (a host-side lease;
-        paged: strict FIFO behind the block reservation, a prefix hit
-        mapping cached blocks), (2) co-schedule prompt chunks, decode rows
-        and verify rows (a decode row with a draft) and, paged, lease the
-        blocks they grow into, (3) advance ALL slots with exactly one call
-        — the ``("mixed", W)`` executable when any prompt chunk or draft is
-        in flight, the ``("decode", B)`` one otherwise (a graph replay on
-        the card) — and consume the tokens, accepting and rolling back
-        drafts.  ``sample`` maps a logits row (V,) to a token id; greedy
-        argmax on the device when None."""
+        Each tick: (0) chaos's kill seam, expired deadlines retire, chaos
+        may force a preemption; (1) refill free slots from the queue (a
+        host-side lease; paged: strict FIFO behind the block reservation,
+        a prefix hit mapping cached blocks, a shortfall preempting a
+        bounded victim) and let a head that outranks a running row preempt
+        it when the batch is full; (2) co-schedule prompt chunks, decode
+        rows and verify rows (a decode row with a draft) and, paged, lease
+        the blocks they grow into; (3) advance ALL slots with exactly one
+        call — the ``("mixed", W)`` executable when any prompt chunk or
+        draft is in flight, the ``("decode", B)`` one otherwise (a graph
+        replay on the card) — whose ids and finiteness come back in one
+        copy; quarantine every advancing row whose logits are not finite,
+        then consume the rest, accepting and rolling back drafts.
+        ``sample`` maps a logits row (V,) to a token id; greedy argmax on
+        the device when None.  With work queued and nothing live the run
+        ends ``stalled``, unless chaos made the denial transient (then it
+        idles, at most ``max_steps`` ticks)."""
         completed: list[Request] = []
         start_steps = self.steps
+        stalled = False
+        idle = 0                   # consecutive no-row no-admission ticks
         while self.steps - start_steps < max_steps:
+            if self.chaos is not None:
+                # process death fires at the top of the tick (a kill only
+                # raises until snapshots land)
+                self.chaos.maybe_kill()
+            self._sweep_deadlines(completed)
+            if self.chaos is not None and self.max_preemptions:
+                eligible = [i for i, s in enumerate(self._slots)
+                            if s.req is not None and
+                            s.req.preemptions < self.max_preemptions]
+                v = self.chaos.forced_preempt(eligible)
+                if v is not None:
+                    self._preempt(v, requeue_front=True)
             for i in range(self.batch):
                 if self._slots[i].req is None and self._queue:
                     if not self._admit_head(i):
                         break
+            # priority preemption: a head that OUTRANKS a running request
+            # does not wait behind it because the batch is full
+            while (self._queue and self.max_preemptions and
+                   all(s.req is not None for s in self._slots)):
+                v = self._pick_victim(self._queue[0].priority, strict=True)
+                if v is None:
+                    break
+                self._preempt(v)
+                if not self._admit_head(v):
+                    break
             live = [i for i, s in enumerate(self._slots) if s.req is not None]
             if not live:
-                break
+                stalled = bool(self._queue)
+                if not stalled:
+                    break          # queue drained and no row in flight
+                # queued work and nothing runs: permanent without chaos,
+                # transient under an injected denial
+                idle += 1
+                if self.chaos is None or idle >= max_steps:
+                    break
+                continue
+            idle = 0
             chunks = self._schedule_chunks()
             stall = self.prefill_policy == "stall" and any(chunks)
             decoding = [i for i in live
                         if not self._slots[i].prefilling and not stall]
             drafts = self._schedule_drafts(chunks, decoding, sample)
+            if self.chaos is not None and drafts:
+                # same length (the leases are sized by it), maybe junk:
+                # verification must reject it losslessly
+                drafts = {i: self.chaos.garble_draft(d, self.cfg.vocab_size)
+                          for i, d in drafts.items()}
             host = {}
             if self.paged:
                 for i, s in enumerate(self._slots):
@@ -932,17 +1293,18 @@ class Engine:
                         tokens[i, 0] = s.last_token
                         tokens[i, 1:1 + len(d)] = d
                 fn = self._executable("mixed", w)
-                ids, logits = fn(self.params, self.cache, tokens=tokens,
+                out, logits = fn(self.params, self.cache, tokens=tokens,
                                  lengths=lengths, q_lens=q_lens, **host)
-                ids_np = ids.cpu().numpy()
+                ids, finite, logits_np = self._fetch(out, logits,
+                                                     sample is not None)
                 if self.spec_k:
                     # (B, W) greedy tokens: a row's next token sits at its
                     # last live position
-                    greedy_np = ids_np
+                    greedy_np = ids.reshape(self.batch, w)
                     next_np = greedy_np[np.arange(self.batch),
                                         np.clip(q_lens - 1, 0, w - 1)]
                 else:
-                    next_np = ids_np
+                    next_np = ids
                 if drafts:
                     self.spec_ticks += 1
                     self.spec_rows += len(drafts)
@@ -963,12 +1325,11 @@ class Engine:
                 adv = np.zeros(self.batch, bool)
                 adv[decoding] = True
                 fn = self._executable("decode", None)
-                ids, logits = fn(self.params, self.cache, tokens=tokens,
+                out, logits = fn(self.params, self.cache, tokens=tokens,
                                  lengths=lengths, write_mask=adv, **host)
-                next_np = ids.cpu().numpy()
+                next_np, finite, logits_np = self._fetch(out, logits,
+                                                         sample is not None)
                 self.dispatched_columns += 1
-            logits_np = (logits.float().cpu().numpy() if sample is not None
-                         else None)
             self.steps += 1
             self.dispatches += 1
             self._occupancy_sum += len(live) / self.batch
@@ -976,9 +1337,26 @@ class Engine:
                 self.peak_resident_tokens,
                 sum(self._slots[i].length + chunks[i] + (i in decoding) +
                     len(drafts.get(i, ())) for i in live))
+            advancing = [i for i in live if chunks[i] or i in decoding]
+            if self.chaos is not None:
+                # a chaos NaN row, where the reference overwrites its host
+                # logits: the flag cleared, the hook's row NaN
+                for i in self.chaos.corrupt_rows(advancing):
+                    finite[i] = False
+                    if logits_np is not None:
+                        logits_np[i] = np.nan
+            bad = ({i for i in advancing if not finite[i]}
+                   if self.check_finite else set())
 
+            # consume: advance cursors, emit tokens, retire finished rows;
+            # a faulted row quarantines here, the rest are untouched
             for i in live:
                 slot = self._slots[i]
+                if slot.req is None:
+                    continue        # freed earlier this tick
+                if i in bad:
+                    self._fault_row(i, "non-finite logits", completed)
+                    continue
                 if chunks[i]:
                     slot.pos += chunks[i]
                     slot.length += chunks[i]
@@ -987,23 +1365,42 @@ class Engine:
                             # the prompt's full blocks join the cache
                             self._cache_prompt(i)
                         # final chunk: this row's logits are its first token
-                        tok = (int(next_np[i]) if sample is None
-                               else int(sample(logits_np[i])))
+                        if sample is None:
+                            tok = int(next_np[i])
+                        else:
+                            tok = self._safe_sample(i, sample, logits_np,
+                                                    completed)
+                            if tok is None or self._slots[i].req is None:
+                                # the hook raised (row quarantined) or
+                                # cancelled this very row
+                                continue
                         self._emit(i, tok, completed, first=True)
                 elif i in drafts:
                     self._verify(i, drafts[i], greedy_np[i], completed)
                 elif i in decoding:
                     slot.length += 1
-                    tok = (int(next_np[i]) if sample is None
-                           else int(sample(logits_np[i])))
+                    if sample is None:
+                        tok = int(next_np[i])
+                    else:
+                        tok = self._safe_sample(i, sample, logits_np,
+                                                completed)
+                        if tok is None or self._slots[i].req is None:
+                            continue
                     self._emit(i, tok, completed, first=False)
             if self.audit_every and self.steps % self.audit_every == 0:
                 self.audit()
         in_flight = sum(s.req is not None for s in self._slots)
         truncated = (self.steps - start_steps >= max_steps and
                      bool(in_flight or self._queue))
+        if truncated:
+            warnings.warn(
+                f"Engine.run hit max_steps={max_steps} with {in_flight} "
+                f"request(s) in flight and {len(self._queue)} queued — "
+                "work is NOT drained; call run() again to continue",
+                RuntimeWarning, stacklevel=2)
         return RunResult(completed, truncated=truncated,
-                         in_flight=in_flight, queued=len(self._queue))
+                         in_flight=in_flight, queued=len(self._queue),
+                         stalled=stalled)
 
     def _verify(self, idx: int, draft: list[int], greedy: np.ndarray,
                 completed: list[Request]) -> None:
@@ -1071,9 +1468,16 @@ class Engine:
                for r in reqs
                if r.finished_at and r.first_token_at and len(r.output) > 1]
         itl = [dt for r in reqs for dt in np.diff(r.token_times).tolist()]
+        # outcome counts; an empty timing bucket omits its keys (no nan)
         out = {"n": len(reqs),
                "total_tokens": float(sum(len(r.output) for r in reqs)),
-               "completed": sum(r.done for r in reqs)}
+               "completed": sum(r.status == "done" for r in reqs),
+               "errors": sum(r.status == "error" for r in reqs),
+               "cancelled": sum(r.status == "cancelled" for r in reqs),
+               "deadline_missed": sum(r.status == "deadline_missed"
+                                      for r in reqs),
+               "preempted": sum(r.preemptions > 0 for r in reqs),
+               "preemptions": sum(r.preemptions for r in reqs)}
         if ttft:
             out["mean_ttft_s"] = float(np.mean(ttft))
             out["ttft_p50_s"] = float(np.percentile(ttft, 50))

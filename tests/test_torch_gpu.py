@@ -10,6 +10,8 @@ machine with the card:
 On a machine without a card every test skips (decided inside the
 ``cuda`` fixture, never at import time)."""
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.decode_flash import VARIANTS as VARIANTS_NAMES  # noqa:
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BLOCK_KV, BLOCK_Q, flash_attention_torch)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
+from repro_torch.serving.engine import _unpack_tick  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1642,7 +1645,12 @@ def test_graph_replay_equals_eager_for_every_key(cuda, case):
         tok_g, logits_g = tick(params, engine.cache, **host)
         torch.cuda.synchronize()
         assert torch.equal(logits_e, logits_g), (name, bucket)
-        assert torch.equal(tok_e, tok_g)
+        # ids and finiteness, as the engine reads them (past them the
+        # packed tensor may hold padding that nothing reads)
+        got, want = (_unpack_tick(t.cpu().numpy(), engine.batch,
+                                  logits_e.dtype) for t in (tok_g, tok_e))
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
         for a, g in zip(_cache_leaves(copy), _cache_leaves(engine.cache)):
             assert torch.equal(a, g), (name, bucket)
 
@@ -2188,3 +2196,96 @@ def test_rolling_window_decode_past_the_span_on_card(cuda, layout,
     for leaf in caches["fused"]:
         assert torch.equal(caches["fused"][leaf].view(torch.uint8),
                            caches["plain"][leaf].view(torch.uint8)), leaf
+
+
+# -- the lifecycle on captured graphs ------------------------------------------
+
+def _lifecycle_model(layout, pool_blocks=24):
+    """GRAPH_CASES' dense model (bf16, head dim 128, W4A16), on a slot
+    cache or a pool of 16-token pages."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    over = (dict(kv_layout="paged", kv_block_size=16,
+                 kv_pool_blocks=pool_blocks) if layout == "paged" else {})
+    cfg = get_smoke_config("qwen-7b", dtype=torch.bfloat16, head_dim=128,
+                           n_heads=2, n_kv_heads=1, d_model=256, **over)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, quantize_model(api.init_params(cfg, gen), "dense")
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_finite_flag_quarantines_a_nan_row_on_card(cuda, layout):
+    """One ``embed`` row set to NaN on the card, its id in one prompt only
+    (no other prompt and no oracle stream holds it): through captured
+    graphs, the flag that comes back with the ids quarantines exactly that
+    row; every other stream equals ``reference_decode``, later requests
+    take its slot and blocks, the null block stays finite and the pool is
+    whole."""
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    cfg, params = _lifecycle_model(layout)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in (12, 9, 20, 7, 10, 11)]
+    oracle = [reference_decode(cfg, params, p, 6, max_len=64)
+              for p in prompts]
+    used = {int(x) for p in prompts for x in p} | \
+        {x for s in oracle for x in s}
+    poison = next(x for x in range(cfg.vocab_size) if x not in used)
+    prompts[0][5] = poison
+    params["embed"][poison] = float("nan")
+    engine = Engine(cfg, params, batch_size=2, max_len=64, chunk_size=16,
+                    audit_every=1, device="cuda")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    assert engine.run().drained
+    assert engine.capture_seconds, "no tick was captured"
+    assert [r.status for r in reqs] == ["error"] + ["done"] * 5
+    assert reqs[0].error == "non-finite logits" and engine.row_faults == 1
+    for r in reqs[1:]:
+        assert r.output == oracle[r.rid], r.rid
+    if layout == "paged":
+        assert engine.alloc.n_free == engine.pool_blocks
+        for leaf in engine.cache.values():
+            assert torch.isfinite(
+                leaf[:, engine._null_block].float()).all()
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_preemption_on_captured_graphs_equals_the_oracle(cuda, prefix_cache):
+    """A pool of 6 16-token pages (short of two requests' worst cases):
+    the head preempts the running hog (its blocks donated when sharing),
+    which re-admits through the same captured graphs; both streams equal
+    ``reference_decode``, misses stay within the budget and a second run
+    captures nothing."""
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    cfg, params = _lifecycle_model("paged", pool_blocks=6)
+    rng = np.random.default_rng(8)
+    hog_p, head_p = (rng.integers(0, cfg.vocab_size, n) for n in (20, 30))
+    oracle = [reference_decode(cfg, params, hog_p, 40, max_len=96),
+              reference_decode(cfg, params, head_p, 30, max_len=96)]
+    engine = Engine(cfg, params, batch_size=2, max_len=96, chunk_size=16,
+                    prefix_cache=prefix_cache, max_preemptions=2,
+                    audit_every=1, device="cuda")
+    for run in range(2):
+        hog = Request(rid=2 * run, prompt=hog_p, max_new_tokens=40)
+        head = Request(rid=2 * run + 1, prompt=head_p, max_new_tokens=30)
+        engine.submit(hog)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            engine.run(max_steps=6)
+        assert 0 < len(hog.output) < 40
+        engine.submit(head)
+        misses = engine.cache_compiles.misses
+        assert engine.run().drained
+        assert hog.preemptions >= 1 and hog.status == head.status == "done"
+        assert [hog.output, head.output] == oracle
+        if run:
+            assert engine.cache_compiles.misses == misses
+    assert engine.cache_compiles.misses <= engine.compile_budget
+    assert sorted(engine.capture_seconds) == sorted(
+        k for k in engine.cache_compiles.keys() if k[0] != "insert")
+    engine.drop_prefix_cache()
+    assert engine.alloc.n_free == engine.pool_blocks

@@ -28,7 +28,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import kv_write as kvw  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
-from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.engine import Engine, _unpack_tick  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -330,8 +330,10 @@ def test_dead_dispatch_writes_no_leaf(name):
     before = [t.clone() for t in _tree_leaves(engine.cache)]
     for width in (16, None):
         fn = engine._executable("mixed" if width else "decode", width)
-        tok, logits = fn(params, engine.cache, **engine._dead_inputs(width))
-        assert tok.shape == (3,) and logits.shape == (3, cfg.vocab_size)
+        out, logits = fn(params, engine.cache, **engine._dead_inputs(width))
+        tok, finite = _unpack_tick(out.numpy(), 3, logits.dtype)
+        assert tok.shape == (3,) and finite.shape == (3,)
+        assert logits.shape == (3, cfg.vocab_size)
         for got, want in zip(_tree_leaves(engine.cache), before):
             assert _equal(got, want), width
 

@@ -585,6 +585,7 @@ def test_double_free_detected():
 def test_lease_respects_page_table():
     engine = _alloc_engine(kv_pool_blocks=0)
     engine._slots[0].req = Request(rid=0, prompt=np.arange(4, dtype=np.int32))
+    engine._live_rids.add(0)           # a running rid is live: audit() asks
     engine._slot_reserve[0] = 3
     engine._lease_to(0, 17)                         # 3 blocks (bs=8)
     owned = engine._slot_blocks[0]

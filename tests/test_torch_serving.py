@@ -236,6 +236,31 @@ def test_launcher_speculates_and_shares_on_cpu(capsys):
     assert not line.startswith("prefix cache: 0 hits")
 
 
+def test_launcher_takes_the_lifecycle_and_chaos_flags(capsys):
+    """``--max-preemptions --audit-every --priority --deadline-s --chaos``
+    with its seed and rates on a small paged pool: every request ends in a
+    terminal state, the resilience line counts the preemptions, the
+    quarantined rows and one audit a tick, and the chaos counters ride
+    along."""
+    serve.main(["--device", "cpu", "--kv-layout", "paged",
+                "--kv-block-size", "8", "--kv-pool-blocks", "12",
+                "--requests", "6", "--max-new-tokens", "6", "--batch", "3",
+                "--max-preemptions", "2", "--audit-every", "1",
+                "--priority", "1", "--deadline-s", "3600", "--chaos",
+                "--chaos-seed", "3", "--chaos-deny-rate", "0.2",
+                "--chaos-preempt-rate", "0.3", "--chaos-nan-rate", "0.05"])
+    out = capsys.readouterr().out
+    assert "NOT drained" not in out
+    summary = next(ln for ln in out.splitlines() if ln.startswith("summary:"))
+    assert "'n': 6" in summary and "'deadline_missed': 0" in summary
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("resilience:"))
+    assert "(bound 2/req)" in line and "'seed': 3" in line
+    assert "'nan_rate': 0.05" in line and "'preempt_rate': 0.3" in line
+    ticks = int(out.split("scheduler: ")[1].split()[0])
+    assert f"{ticks} audits" in line
+
+
 def test_launcher_reports_the_fallbacks_on_the_xlstm(capsys):
     serve.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--strategy",
                 "none", "--spec", "--prefix-cache", "--requests", "2",

@@ -379,6 +379,7 @@ def test_rewind_returns_whole_tail_blocks(models):
     whole."""
     engine = _paged_engine(models)
     engine._slots[0].req = Request(rid=0, prompt=np.arange(4, dtype=np.int32))
+    engine._live_rids.add(0)           # a running rid is live: audit() asks
     engine._slot_reserve[0] = 3
     engine._lease_to(0, 17)                  # 3 blocks at block_size 8
     engine._slots[0].length = 17
