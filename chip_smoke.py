@@ -190,7 +190,20 @@ Phases (any failure ends the run with a nonzero exit code):
                  sharing, ``spec_k=4`` and the reference soak's chaos
                  rates at seed 1: every request terminal, done streams
                  bitwise the oracle's, faulted ones a prefix of it, no
-                 block leaked); the traced replayed ticks make one
+                 block leaked), and ``strategy2-paged-int8-restart``
+                 (that engine without faults, ``snapshot_dir`` in a fresh
+                 temporary directory, a snapshot every 6 ticks and the
+                 journal: life 0 killed at the top of its tick 7, life 1,
+                 restored, at its 5th tick, life 2 restored and drained;
+                 the durable streams equal ``strategy2-paged-int8-
+                 prefix``'s, each rid terminal once, each life's misses
+                 within the budget and none after a restore's captures,
+                 the audit green every tick, the pool whole after
+                 ``drop_prefix_cache()``, life 2's peak memory within 5 %
+                 of life 0's (the dead engines freed), the restored
+                 engine's replays free of host reads; snapshot bytes and
+                 seconds, restore seconds by phase and the journal's fsync
+                 seconds recorded); the traced replayed ticks make one
                  device-to-host copy with the engine's fetch, and a dense
                  decode tick at most ``DENSE_DECODE_OPS`` operations;
   6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
@@ -3164,6 +3177,196 @@ def serve_chaos(torch, cfg, params, results, path, oracle):
     replay_without_sync(torch, engine, path)
     return counts, [r.output for r in reqs]
 
+RESTART_KILLS = (7, 5)      # life 0 dies at its tick 7, life 1 at its 5th
+RESTART_SNAPSHOT_EVERY = 6
+MEMORY_SPREAD = 0.05        # life 2's peak memory against life 0's
+
+
+def serve_restart(torch, cfg, params, results, path, oracle):
+    """Durable serving on captured graphs: ``serve_chaos``'s engine (the
+    int8 paged pool, sharing, ``spec_k=4``, ``audit_every=1``) without
+    faults but kills, with ``snapshot_dir`` in a fresh temporary directory
+    and a snapshot every ``RESTART_SNAPSHOT_EVERY`` ticks, serving phase
+    5's prefix workload.  Life 0 is killed at the top of its tick 7, one
+    tick past its first periodic snapshot; life 1 is ``Engine.restore``
+    (which captures the saved keys and the rest of the engine's key set,
+    then loads the snapshot in place) and is killed at its 5th tick; life
+    2 is restored again and drains.  A dead engine is dropped and freed
+    before the next restore.  ``oracle``: the streams of
+    ``strategy2-paged-int8-prefix`` (equal to ``reference_decode``).
+    Holds: the durable streams (every journal epoch) equal the oracle's,
+    every rid terminal once, two kills and three lives, each life's
+    misses within the budget and none on any tick after a restore, the
+    audit every tick, the pool whole after ``drop_prefix_cache()``, life
+    2's peak memory within ``MEMORY_SPREAD`` of life 0's, each dead
+    engine's release freeing at least its cache's bytes, the launch
+    counts of all ticks of all lives, and the restored engine's replays
+    free of host reads.  Records snapshot bytes and seconds, restore
+    seconds by phase, the journal's fsync seconds a tick, and life 2's
+    tokens/s and ITL p50."""
+    import shutil
+    import tempfile
+    import warnings
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.serving import snapshot as snaplib
+    from repro_torch.serving.chaos import (
+        ChaosMonkey, EngineKilled, check_durable, release)
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.train.checkpoint import tree_paths
+    prompts = workload(cfg, {"prefix_cache": True})
+    kw = dict(batch_size=4, max_len=SERVE_MAX_LEN, chunk_size=64,
+              prefix_cache=True, spec_k=4, audit_every=1, device=DEVICE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    lives, engine, ticks = [], None, 0
+    torch.cuda.synchronize()
+    launches.clear()
+    try:
+        for life in range(3):
+            chaos = (ChaosMonkey(kill_after=RESTART_KILLS[life])
+                     if life < len(RESTART_KILLS) else None)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if life == 0:
+                engine = Engine(cfg, params, snapshot_dir=root,
+                                snapshot_every=RESTART_SNAPSHOT_EVERY,
+                                chaos=chaos, **kw)
+                for i, p in enumerate(prompts):
+                    engine.submit(Request(rid=i, prompt=p.astype(np.int32),
+                                          max_new_tokens=SERVE_NEW_TOKENS))
+            else:
+                engine = Engine.restore(root, params, chaos=chaos,
+                                        device=DEVICE)
+            torch.cuda.synchronize()
+            t_ready = time.perf_counter()
+            cc = engine.cache_compiles
+            steps0, audits0, misses0 = (engine.steps, engine.audits,
+                                        cc.misses)
+            had = {r.rid: len(r.output) for r in
+                   [s.req for s in engine._slots if s.req is not None]
+                   + list(engine._queue)}
+            killed, first, done = False, None, []
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)
+                    done = list(engine.run(max_steps=1))
+                first = cc.misses - misses0
+                done += engine.run()
+            except EngineKilled:
+                killed = True
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_ready
+            ticks += engine.steps - steps0
+            d = engine.durability_stats()
+            emitted = sum(len(r.output) - had.get(r.rid, 0) for r in done)
+            itl = [dt for r in done for dt in
+                   np.diff(r.token_times[had.get(r.rid, 0):]).tolist()]
+            rec = {
+                "life": life, "killed": killed,
+                "ticks": engine.steps - steps0, "steps": engine.steps,
+                "setup_s": t_ready - t0, "wall_s": wall,
+                "misses": cc.misses, "misses_after_setup":
+                    cc.misses - misses0, "first_tick_misses": first,
+                "compile_keys": [list(k) for k in cc.keys()],
+                "compile_budget": engine.compile_budget,
+                "audits": engine.audits - audits0,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_allocated": torch.cuda.memory_allocated(),
+                "snapshots": d["snapshot_log"],
+                "journal_commits": d["journal_commits"],
+                "journal_fsync_s": d["journal_fsync_s"],
+                "restore_s": d["restore_seconds"],
+                "restored_terminal": d["restored_terminal"],
+                "finished": len(done), "tokens_emitted": emitted,
+                "tokens_per_s": emitted / wall if wall else None,
+                "itl_p50_s": (float(np.percentile(itl, 50)) if itl
+                              else None)}
+            lives.append(rec)
+            snaps = [(x["step"], x["bytes"], round(x["export_s"] * 1e3, 2),
+                      round(x["write_s"] * 1e3, 2))
+                     for x in rec["snapshots"]]
+            log(f"  life {life}: {rec['ticks']} ticks to step "
+                f"{engine.steps} in {wall:.2f} s "
+                f"({'killed' if killed else 'drained'}), set-up "
+                f"{rec['setup_s']:.2f} s (restore phases s "
+                f"{rec['restore_s']}), misses {cc.misses} (first tick "
+                f"{first}, after set-up {rec['misses_after_setup']}), keys "
+                f"{sorted(cc.keys())}, peak memory "
+                f"{rec['max_memory_allocated']:,} B; snapshots (step, B, "
+                f"export ms, write ms) {snaps}; journal "
+                f"{rec['journal_commits']} fsyncs in "
+                f"{rec['journal_fsync_s'] * 1e3:.2f} ms")
+            need(cc.misses <= engine.compile_budget,
+                 f"{path} life {life}: {cc.misses} misses > budget "
+                 f"{engine.compile_budget}")
+            need(rec["audits"] == rec["ticks"],
+                 f"{path} life {life}: not one audit a tick")
+            if life:
+                need(first == 0 and not rec["misses_after_setup"],
+                     f"{path} life {life}: a tick after the restore "
+                     f"captured ({first} on the first, "
+                     f"{rec['misses_after_setup']} in all)")
+            if not killed:
+                break
+            # the dead engine is abandoned whole: its graphs, graph pool
+            # and pinned buffers go before the next restore
+            cache_bytes = sum(t.numel() * t.element_size()
+                              for _, t in tree_paths(engine.cache))
+            held = torch.cuda.memory_allocated()
+            # (``cc`` too: its graphs hold the dead engine's cache)
+            engine = chaos = done = cc = None
+            release(DEVICE)
+            rec["freed"] = held - torch.cuda.memory_allocated()
+            log(f"  released: {rec['freed']:,} B freed (its cache "
+                f"{cache_bytes:,} B)")
+            need(rec["freed"] >= cache_bytes,
+                 f"{path} life {life}: the dead engine's release freed "
+                 f"{rec['freed']} B, less than its cache's {cache_bytes}")
+        need([r["killed"] for r in lives] == [True, True, False],
+             f"{path}: lives {[r['killed'] for r in lives]}, expected two "
+             "kills and a drain")
+        try:
+            outcomes = check_durable(path, root, dict(enumerate(oracle)),
+                                     len(prompts))
+        except AssertionError as e:
+            raise SmokeFailure(str(e)) from None
+        need(outcomes == {"done": len(prompts)},
+             f"{path}: durable outcomes {outcomes}, expected all done")
+        streams, _ = snaplib.journaled_streams(root)
+        counts = dict(launches)
+        need(counts == expected_launches(cfg, params, ticks),
+             f"{path}: kernel launch counts do not match layers x calls x "
+             "ticks over the lives")
+        spread = (lives[-1]["max_memory_allocated"] /
+                  lives[0]["max_memory_allocated"] - 1)
+        need(abs(spread) <= MEMORY_SPREAD,
+             f"{path}: life 2's peak memory is {spread:+.1%} of life 0's")
+        dropped = engine.drop_prefix_cache()
+        pool = engine.pool_stats()
+        need(pool["free"] == pool["total"] and not pool["leased"],
+             f"{path}: the pool is not whole: {pool}")
+        ref = results["serving"]["strategy2-paged-int8-prefix"]["runs"][1]
+        last = lives[-1]
+        log(f"  durable outcomes {outcomes}, every stream the oracle's, "
+            f"each rid terminal once; {ticks} ticks over 3 "
+            f"lives; drop_prefix_cache() {dropped} nodes, pool {pool}; "
+            f"peak memory life 2 / life 0 {spread:+.2%}; life 2 "
+            f"{last['tokens_per_s']:.1f} tokens/s, ITL p50 "
+            f"{last['itl_p50_s'] * 1e3:.2f} ms (prefix run 1: "
+            f"{ref['tokens_per_s']:.1f} tokens/s, "
+            f"{ref['itl_p50_s'] * 1e3:.2f} ms)")
+        results.setdefault("serving", {})[path] = {
+            "lives": lives, "ticks": ticks, "launches": counts,
+            "memory_spread": spread,
+            "pool_after_drop": pool,
+            "prefix_run1": {"tokens_per_s": ref["tokens_per_s"],
+                            "itl_p50_s": ref["itl_p50_s"]}}
+        replay_without_sync(torch, engine, path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, [streams[i] for i in range(len(prompts))]
+
+
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
                 "starcoder2-dense")
@@ -3905,11 +4108,14 @@ ENGINE_PATHS = {
         for kv, over in KV_PATHS["strategy2"] if kv.startswith("paged"))}
 # the lifecycle's engines, served after a model's engine paths: (path
 # suffix, the cache path whose config they take, the path whose streams
-# are their oracle, the function that serves them)
+# are their oracle, the function that serves them, what it serves)
 LIFECYCLE_PATHS = {"strategy2": (
-    ("paged-lifecycle", "paged", "strategy2-paged", serve_lifecycle),
+    ("paged-lifecycle", "paged", "strategy2-paged", serve_lifecycle,
+     "lifecycle, preemption, quarantine"),
     ("paged-int8-chaos", "paged-int8", "strategy2-paged-int8-prefix",
-     serve_chaos))}
+     serve_chaos, "lifecycle, preemption, quarantine under chaos"),
+    ("paged-int8-restart", "paged-int8", "strategy2-paged-int8-prefix",
+     serve_restart, "snapshots, kills and restores"))}
 
 
 def main() -> int:
@@ -3983,10 +4189,10 @@ def main() -> int:
                 counts[path], streams[path] = serve(
                     torch, dataclasses.replace(cfg, **over), params, results,
                     path, engine_kw=engine_kw)
-            for suffix, kv, oracle, fn in LIFECYCLE_PATHS.get(model, ()):
+            for suffix, kv, oracle, fn, what in LIFECYCLE_PATHS.get(model,
+                                                                    ()):
                 path = f"{model}-{suffix}"
-                log(f"phase 5 [{path}]: lifecycle, preemption, quarantine"
-                    + (" under chaos" if fn is serve_chaos else ""))
+                log(f"phase 5 [{path}]: {what}")
                 over = dict(KV_PATHS[model])[kv]
                 counts[path], _ = fn(
                     torch, dataclasses.replace(cfg, **over), params, results,

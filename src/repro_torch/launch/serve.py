@@ -18,13 +18,17 @@ turns on speculative decoding (``--spec-k`` drafts a row from the
 family or layout that cannot take one says so and runs without it.  The
 lifecycle knobs: ``--deadline-s`` and ``--priority`` for every request,
 ``--max-preemptions`` (bounded, lossless preemption), ``--audit-every``,
-and ``--chaos`` with its seed and rates (``serving/chaos.py``).  Runs
+and ``--chaos`` with its seed and rates (``serving/chaos.py``;
+``--chaos-kill-after N`` kills the engine at the top of its Nth tick).
+Durability: ``--snapshot-dir`` keeps atomic snapshots (``--snapshot-every``
+ticks) and a write-ahead journal there, and ``--restore`` resumes a killed
+run from it (in-flight requests resume, no new ones are submitted).  Runs
 on ``cuda`` unless ``--device cpu`` is given; without ``--full`` it serves
 the reduced ``-smoke`` configuration.
 Prints the summary, the scheduler line, the speculation line, the
 resilience line (preemptions, deadline misses, quarantined rows, audits,
-the chaos counters), the compile-cache line (keys, hits and misses by
-kind: on the card each mixed,
+the chaos counters), the durability line, the compile-cache line (keys,
+hits and misses by kind: on the card each mixed,
 decode or copy-on-write key is one captured CUDA graph), the pool and
 prefix-cache lines of a paged run and each kernel's launch count.
 """
@@ -41,7 +45,7 @@ from repro_torch.core.compiler import (
     STRATEGIES, quantize_model, quantized_bytes)
 from repro_torch.kernels._build import launches
 from repro_torch.models import api
-from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey
+from repro_torch.serving.chaos import ChaosConfig, ChaosMonkey, EngineKilled
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -102,10 +106,27 @@ def main(argv=None) -> None:
     ap.add_argument("--chaos-nan-rate", type=float, default=0.01,
                     help="P(logits row -> NaN) per advancing row; faulted "
                          "rows quarantine with status=error")
+    ap.add_argument("--chaos-kill-after", type=int, default=None,
+                    help="simulated process death at the top of the Nth "
+                         "tick (recover with --restore)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="durable state root: atomic point-in-time engine "
+                         "snapshots plus a write-ahead request journal, "
+                         "fsync'd once per tick")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot every N ticks (0 = only the baseline "
+                         "snapshot at startup; needs --snapshot-dir)")
+    ap.add_argument("--restore", action="store_true",
+                    help="recover the engine from --snapshot-dir (latest "
+                         "complete snapshot + journal replay) instead of "
+                         "starting fresh; in-flight requests resume and no "
+                         "new synthetic requests are submitted")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true")
     args = ap.parse_args(argv)
+    if args.restore and not args.snapshot_dir:
+        ap.error("--restore requires --snapshot-dir")
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
@@ -129,30 +150,53 @@ def main(argv=None) -> None:
     chaos = (ChaosMonkey(ChaosConfig(
         seed=args.chaos_seed, deny_rate=args.chaos_deny_rate,
         preempt_rate=args.chaos_preempt_rate,
-        nan_rate=args.chaos_nan_rate)) if args.chaos else None)
-    engine = Engine(cfg, params, batch_size=args.batch, max_len=args.max_len,
-                    spec_k=args.spec_k if args.spec else 0,
-                    drafter=args.drafter, prefix_cache=args.prefix_cache,
-                    max_preemptions=args.max_preemptions,
-                    audit_every=args.audit_every, chaos=chaos,
-                    device=args.device)
+        nan_rate=args.chaos_nan_rate, kill_after=args.chaos_kill_after))
+        if args.chaos else None)
+    if args.restore:
+        engine = Engine.restore(args.snapshot_dir, params, chaos=chaos,
+                                device=args.device)
+        d = engine.durability_stats()
+        live = len(engine._queue) + sum(s.req is not None
+                                        for s in engine._slots)
+        print(f"restored from {args.snapshot_dir} (epoch {d['epoch']}): "
+              f"{live} live requests resume, {d['restored_terminal']} "
+              f"already terminal replayed from the journal")
+    else:
+        engine = Engine(cfg, params, batch_size=args.batch,
+                        max_len=args.max_len,
+                        spec_k=args.spec_k if args.spec else 0,
+                        drafter=args.drafter, prefix_cache=args.prefix_cache,
+                        max_preemptions=args.max_preemptions,
+                        audit_every=args.audit_every, chaos=chaos,
+                        snapshot_dir=args.snapshot_dir,
+                        snapshot_every=args.snapshot_every,
+                        device=args.device)
     if args.spec and not engine.spec_k:
         print(f"speculation requested but family {cfg.family!r} has no "
               "rewindable sequence dimension — plain decode fallback")
     if args.prefix_cache and not engine.prefix_sharing:
         print(f"prefix cache requested but family {cfg.family!r} / layout "
               f"{cfg.kv_layout!r} cannot share KV blocks — running without")
-    rng = np.random.default_rng(0)
-    system = rng.integers(0, cfg.vocab_size,
-                          args.system_prompt_len if args.prefix_cache else 0)
-    for rid in range(args.requests):
-        user = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
-        engine.submit(Request(
-            rid=rid, prompt=np.concatenate([system, user]).astype(np.int32),
-            max_new_tokens=args.max_new_tokens, priority=args.priority,
-            deadline_s=args.deadline_s))
+    if not args.restore:
+        rng = np.random.default_rng(0)
+        system = rng.integers(
+            0, cfg.vocab_size,
+            args.system_prompt_len if args.prefix_cache else 0)
+        for rid in range(args.requests):
+            user = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 32)))
+            engine.submit(Request(
+                rid=rid,
+                prompt=np.concatenate([system, user]).astype(np.int32),
+                max_new_tokens=args.max_new_tokens, priority=args.priority,
+                deadline_s=args.deadline_s))
     launches.clear()
-    done = engine.run()
+    try:
+        done = engine.run()
+    except EngineKilled as e:
+        print(f"killed at tick {engine.steps + 1}: {e}"
+              + (f" — recover with --restore --snapshot-dir "
+                 f"{args.snapshot_dir}" if args.snapshot_dir else ""))
+        return
     if not done.drained:
         print(f"NOT drained: truncated={done.truncated} "
               f"stalled={done.stalled} in_flight={done.in_flight} "
@@ -164,6 +208,13 @@ def main(argv=None) -> None:
           f"{r['deadline_misses']} deadline misses, "
           f"{r['row_faults']} quarantined rows, {r['audits']} audits"
           + (f", chaos={r['chaos']}" if chaos is not None else ""))
+    if args.snapshot_dir:
+        d = engine.durability_stats()
+        print(f"durability: {d['snapshots_taken']} snapshots under "
+              f"{d['snapshot_dir']} (epoch {d['epoch']}, every "
+              f"{d['snapshot_every'] or 'startup-only'} ticks), "
+              f"journal={'on' if d['journal'] else 'off'} — recover with "
+              f"--restore --snapshot-dir {d['snapshot_dir']}")
     print(f"scheduler: {engine.steps} ticks, {engine.dispatches} dispatches "
           f"(1 per tick, {engine.mixed_ticks} mixed), slot occupancy "
           f"{engine.slot_occupancy:.2f}")
@@ -181,7 +232,8 @@ def main(argv=None) -> None:
     if engine.paged:
         print(f"paged KV: {engine.pool_blocks} blocks x "
               f"{engine.block_size} tokens, peak resident "
-              f"{engine.peak_resident_tokens} tokens, "
+              f"{engine.peak_resident_tokens} tokens, peak "
+              f"{engine.peak_pool_blocks} blocks in use, "
               f"{engine.admission_stalls} admission stalls, "
               f"pool {engine.pool_stats()}")
     if engine.prefix_sharing:

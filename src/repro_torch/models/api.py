@@ -17,6 +17,8 @@
                 write_mask=)
     supports_speculation(cfg) / supports_prefix_cache(cfg) -> serving gates
     copy_pool_block(cfg, cache, src, dst)    -> cache with block src at dst
+    export_cache(cfg, cache)                  -> host copy of every leaf
+    load_cache_(cfg, cache, arrays)           -> cache, leaves loaded in place
 
 ``batch`` is a dict ``{"tokens": (B, S)}``.  Dense family: ``forward`` and
 the slot layout's ``prefill`` run the whole sequence through the
@@ -50,9 +52,11 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.models import attention, transformer, xlstm_stack
+from repro_torch.train.checkpoint import VIEW_DTYPES, dtype_name, tree_paths
 
 Params = dict[str, Any]
 
@@ -297,4 +301,45 @@ def copy_pool_block(cfg, cache: Params, src, dst) -> Params:
             for i in (src, dst))
     for leaf in pools:
         leaf.index_copy_(1, d, leaf.index_select(1, s))
+    return cache
+
+
+def export_cache(cfg, cache: Params) -> Params:
+    """Device->host capture of every cache leaf, bitwise: a tree of CPU
+    tensors shaped like ``cache`` (a copy even on the CPU).  Serving
+    snapshots persist it through the checkpoint leaf codec, which keeps
+    bfloat16 as its bit pattern.  Call it after the stream's work is done
+    (the engine calls it after a tick's fetch) and never inside a
+    capture."""
+    return {k: export_cache(cfg, v) if isinstance(v, dict)
+            else v.detach().to("cpu", copy=True) for k, v in cache.items()}
+
+
+def load_cache_(cfg, cache: Params, arrays: dict) -> Params:
+    """Inverse of :func:`export_cache`: copy each saved leaf IN PLACE into
+    the existing tensor (``leaf.copy_``).  ``arrays`` maps each leaf's
+    path (dict keys joined by ``/``) to a numpy array in the codec's
+    stored dtype (a bfloat16 leaf as its ``uint16`` bit pattern).  Shapes
+    and dtypes are checked for every leaf before any is written; nothing
+    is cast.  ``cache`` is never rebound or rebuilt, so a graph captured
+    on it before the load replays on the loaded state."""
+    leaves = list(tree_paths(cache))
+    if {p for p, _ in leaves} != set(arrays):
+        raise KeyError(f"saved leaves {sorted(arrays)} are not the cache's "
+                       f"{sorted(p for p, _ in leaves)}")
+    srcs = []
+    for path, leaf in leaves:
+        arr = np.ascontiguousarray(arrays[path])
+        name = dtype_name(leaf.dtype)
+        bits, stored = VIEW_DTYPES.get(name, (None, None))
+        want = np.dtype(stored).name if stored is not None else name
+        if arr.dtype.name != want or tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(
+                f"leaf {path!r}: saved {arr.dtype.name}{tuple(arr.shape)}, "
+                f"the cache holds {want}{tuple(leaf.shape)}")
+        src = (torch.from_numpy(arr) if bits is None else
+               torch.from_numpy(arr.view(dtype_name(bits))).view(leaf.dtype))
+        srcs.append((leaf, src))
+    for leaf, src in srcs:
+        leaf.copy_(src)
     return cache

@@ -18,7 +18,8 @@ host seams the engine defends:
   replaced by random ids of the same length, which greedy verification
   must reject losslessly;
 * **process death** (``kill_rate``, ``kill_after``): ``EngineKilled`` at
-  the top of a tick.  Until the engine has snapshots it only raises.
+  the top of a tick, after the previous tick's journal fsync; the engine
+  is abandoned and ``Engine.restore`` picks up from its snapshot store.
 
 Every fault stream draws from one seeded ``numpy.random.default_rng``, at
 the same seams and in the same order as the reference's monkey, so one
@@ -29,23 +30,32 @@ be held against a run of the reference event by event.
 ``SOAK_CELLS`` (slot and paged, int8 K/V, speculation, prefix sharing)
 runs a faulted engine with ``audit_every=1`` and asserts each surviving
 request's stream is bitwise ``reference_decode`` on its ORIGINAL prompt:
-faults may cut a row short, never corrupt a neighbour.  Runnable directly
-(on the card unless ``--device cpu``):
+faults may cut a row short, never corrupt a neighbour.  ``run_restart_soak``
+(``--restart``) adds seeded process kills to the same mixtures: each kill
+abandons the engine, a fresh ``Engine.restore`` resumes from disk, and the
+durable record (every journal epoch) must hold the same contract.
+Runnable directly (on the card unless ``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.serving.chaos --seed 0
+    PYTHONPATH=src python -m repro_torch.serving.chaos --restart
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
+import os
+import shutil
+import tempfile
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.compiler import CompileCache
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine, Request, reference_decode
 
@@ -64,7 +74,9 @@ class ChaosConfig:
 
 class EngineKilled(RuntimeError):
     """Simulated process death, raised by ``ChaosMonkey.maybe_kill`` at the
-    top of a tick."""
+    top of a tick.  What the engine had not journaled or snapshotted dies
+    with it; ``Engine.restore`` recovers the rest, and the kill/restore
+    soak holds the recovered streams bitwise against the oracle."""
 
 
 class ChaosMonkey:
@@ -266,26 +278,169 @@ def run_soak(seed: int = 0, n_requests: int = 10,
             for cell in SOAK_CELLS]
 
 
+# -- kill/restore soak ------------------------------------------------------
+
+def restart_monkey(seed: int, spec_k: int, life: int,
+                   max_lives: int) -> ChaosMonkey:
+    """The kill/restore soak's monkey of one life, the reference's: life 0
+    dies at tick 7, one tick past the first periodic snapshot (every 6),
+    so recovery always replays a journal tail; later lives die at
+    ``kill_rate=0.08`` until ``max_lives``, so the soak always drains."""
+    return ChaosMonkey(ChaosConfig(
+        seed=seed + 100 + life, deny_rate=0.05, preempt_rate=0.10,
+        nan_rate=0.02, garbage_draft_rate=0.5 if spec_k else 0.0,
+        kill_after=7 if life == 0 else None,
+        kill_rate=0.08 if 0 < life < max_lives else 0.0))
+
+
+def release(device) -> None:
+    """After a kill: the abandoned engine's graphs, graph pool and pinned
+    buffers belong to it alone, so they go before the next restore."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_durable(label: str, root: str, oracle: dict,
+                  n_requests: int) -> dict[str, int]:
+    """The durable record's contract (``snapshot.journaled_streams``
+    across every journal epoch): each rid terminal exactly once, a
+    ``done`` stream bitwise its oracle, a faulted one a prefix of it.
+    Returns the outcome counts."""
+    from repro_torch.serving import snapshot as snaplib
+    streams, status = snaplib.journaled_streams(root)
+    terminals: dict[int, int] = {}
+    for path in sorted(os.path.join(root, d) for d in os.listdir(root)
+                       if d.startswith("journal_")):
+        for ev in snaplib.read_journal(path):
+            if ev["ev"] == "terminal":
+                terminals[ev["rid"]] = terminals.get(ev["rid"], 0) + 1
+    outcomes: dict[str, int] = {}
+    for rid in range(n_requests):
+        st = status.get(rid)
+        assert st in ("done", "error"), (
+            f"{label}: rid {rid} durable status {st!r} not terminal")
+        assert terminals.get(rid) == 1, (
+            f"{label}: rid {rid} journaled {terminals.get(rid)} terminals")
+        outcomes[st] = outcomes.get(st, 0) + 1
+        ref, got = oracle[rid], streams.get(rid, [])
+        if st == "done":
+            assert got == ref, (
+                f"{label}: rid {rid} durable stream diverged:\n  got {got}"
+                f"\n  ref {ref}")
+        else:
+            assert got == ref[:len(got)], (
+                f"{label}: faulted rid {rid} corrupted before its fault")
+    return outcomes
+
+
+def run_restart_cell(label: str, kv_layout: str, kv_quant: str,
+                     spec_k: int, prefix_cache: bool, *, seed: int = 0,
+                     n_requests: int = 10, max_lives: int = 12,
+                     params: Any = None, device="cuda") -> dict[str, Any]:
+    """One kill/restore cell: the soak's fault mix plus seeded process
+    kills (``restart_monkey``), on an engine with snapshots every 6 ticks
+    and the journal.  Each ``EngineKilled`` abandons the engine (and, on
+    the card, frees it) and ``Engine.restore`` resumes from disk.  Asserts
+    ``check_durable``'s contract, ``audit()`` green on every tick and on
+    the last engine, and no block leaked across any restart.  On the CPU
+    the lives share one compile cache, as in the reference; on the card
+    each life captures its own graphs."""
+    cfg = soak_config(kv_layout, kv_quant, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = api.init_params(cfg, gen)
+    oracle = {rid: reference_decode(cfg, params, prompt, n,
+                                    max_len=SOAK_MAX_LEN, device=device)
+              for rid, prompt, n in soak_requests(
+                  cfg.vocab_size, prefix_cache, seed=seed,
+                  n_requests=n_requests)}
+    on_card = torch.device(device).type == "cuda"
+    cc = None if on_card else CompileCache()
+    workdir = tempfile.mkdtemp(prefix=f"restart_{label}_")
+    try:
+        engine = Engine(cfg, params, batch_size=4, max_len=SOAK_MAX_LEN,
+                        chunk_size=16, prefill_token_budget=32,
+                        spec_k=spec_k, prefix_cache=prefix_cache,
+                        max_preemptions=2, audit_every=1,
+                        chaos=restart_monkey(seed, spec_k, 0, max_lives),
+                        compile_cache=cc, snapshot_dir=workdir,
+                        snapshot_every=6, device=device)
+        for rid, prompt, n in soak_requests(cfg.vocab_size, prefix_cache,
+                                            seed=seed,
+                                            n_requests=n_requests):
+            engine.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n))
+        lives = 1
+        while True:
+            killed = False
+            try:
+                res = engine.run(max_steps=4000)
+            except EngineKilled:
+                killed = True
+            if not killed:
+                break
+            # outside the handler: its traceback holds the dead engine
+            engine = None
+            release(device)
+            engine = Engine.restore(
+                workdir, params, compile_cache=cc, device=device,
+                chaos=restart_monkey(seed, spec_k, lives, max_lives))
+            lives += 1
+        assert res.drained, (
+            f"{label}: restart soak did not drain (truncated="
+            f"{res.truncated} stalled={res.stalled} "
+            f"in_flight={res.in_flight})")
+        engine.audit()
+        kills = lives - 1
+        assert kills >= 1, f"{label}: no kill fired"
+        outcomes = check_durable(label, workdir, oracle, n_requests)
+        if engine.paged:
+            assert engine.alloc.n_free == engine.pool_blocks - (
+                len(engine.prefix.blocks())
+                if engine.prefix is not None else 0), (
+                f"{label}: leaked blocks across the restart boundary")
+        return {"cell": label, "lives": lives, "kills": kills,
+                "snapshots_taken": engine.snapshots_taken,
+                "outcomes": outcomes, "n_homes": 1,
+                **engine.resilience_stats()}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run_restart_soak(seed: int = 0, n_requests: int = 10,
+                     device="cuda") -> list[dict[str, Any]]:
+    """The kill/restore soak over every cell of ``SOAK_CELLS``."""
+    return [run_restart_cell(*cell, seed=seed, n_requests=n_requests,
+                             device=device)
+            for cell in SOAK_CELLS]
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-requests", type=int, default=10)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--restart", action="store_true",
+                   help="run the kill/restore soak (snapshots, journal and "
+                        "seeded process kills) instead of the in-process "
+                        "one")
     p.add_argument("--out", default=None,
                    help="write per-cell stats JSON here")
     args = p.parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "PyTorch path")
-    stats = run_soak(seed=args.seed, n_requests=args.n_requests,
-                     device=args.device)
+    soak = run_restart_soak if args.restart else run_soak
+    stats = soak(seed=args.seed, n_requests=args.n_requests,
+                 device=args.device)
     for s in stats:
         print(json.dumps(s))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"seed": args.seed, "cells": stats}, f, indent=2)
         print(f"wrote {args.out}")
-    print(f"chaos soak OK: {len(stats)} cells green")
+    kind = "kill/restore" if args.restart else "chaos"
+    print(f"{kind} soak OK: {len(stats)} cells green")
 
 
 if __name__ == "__main__":

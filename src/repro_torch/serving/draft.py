@@ -1,6 +1,6 @@
 """Model-free draft-token proposers for speculative decoding (port of
-``repro/serving/draft.py``, host-only; the snapshot ``dump``/``load`` pair
-comes with the engine's snapshots).
+``repro/serving/draft.py``, host-only, with its snapshot ``dump``/``load``
+pair).
 
 Decode is bandwidth-bound: every tick streams the full weight set (and the
 live KV) to advance each row by ONE token.  ``api.mixed_step`` already
@@ -104,6 +104,21 @@ class PromptLookupDrafter:
 
     def history_len(self, slot: int) -> int:
         return len(self._history.get(slot, ()))
+
+    def dump(self) -> dict:
+        """JSON-safe capture: histories only; the suffix index is a pure
+        function of the history and ``load`` rebuilds it."""
+        return {"ngram_max": self.ngram_max, "ngram_min": self.ngram_min,
+                "history": {str(s): list(h)
+                            for s, h in self._history.items()}}
+
+    def load(self, state: dict) -> None:
+        """Rebuild per-slot histories (and their indexes, through
+        ``observe``) from ``dump()``."""
+        self._history = {}
+        self._index = {}
+        for s, hist in state.get("history", {}).items():
+            self.observe(int(s), hist)
 
 
 DRAFTERS = {

@@ -137,8 +137,23 @@ the host; the compile keys do not change):
 
 One card means one block home: the reference's per-home reservation split
 is the total check here.  A rid already queued or running is refused at
-``submit``.  Left for a later slice: snapshots, the journal and
-``restore``.
+``submit``.
+
+Durability (``snapshot_dir=``, ``serving/snapshot.py``): an edge device
+loses power and has its process killed as a matter of course, so serving
+state persists.  Atomic point-in-time snapshots hold the device cache
+(bitwise) and the whole host control plane (slots, page tables, allocator
+refcounts, radix cache, each live request's lifecycle fields with its
+deadline as REMAINING budget, drafter histories, counters, compile keys);
+a write-ahead journal of submit / emit / terminal events is fsync'd once a
+tick.  ``Engine.restore(dir, params)`` captures its graphs (the saved
+keys; on the card the rest of the key set too), loads the latest
+complete snapshot IN PLACE into the tensors those graphs read,
+replays the journal (output grown past the snapshot folds into its prompt
+through ``_fold_slot``) and resumes with streams BITWISE equal to the
+never-killed engine's.  An emitted token is never lost and never
+journaled twice; a snapshot cut short is never seen.  Without
+``snapshot_dir`` the engine opens no file and does no fsync.
 """
 
 from __future__ import annotations
@@ -409,6 +424,10 @@ class Engine:
                  chaos: Any = None,
                  compile_cache: CompileCache | None = None,
                  clock: Callable[[], float] = time.monotonic,
+                 snapshot_dir: str | None = None,
+                 snapshot_every: int = 0,
+                 snapshot_keep: int = 2,
+                 journal: bool = True,
                  device="cuda"):
         if prefill_policy not in ("mixed", "stall"):
             raise ValueError(f"unknown prefill_policy {prefill_policy!r}")
@@ -487,6 +506,7 @@ class Engine:
         self.prefix_hit_tokens = 0   # prompt tokens covered without recompute
         self.cow_copies = 0          # copy-on-write block duplications
         self.prefix_evictions = 0    # cache leaves dropped under pool pressure
+        self.peak_pool_blocks = 0    # high-water physical blocks in use
         self._live_rids: set = set()  # queued + running rids (duplicate gate)
         self.admission_stalls = 0    # admissions held back by the block pool
         self.peak_resident_tokens = 0
@@ -513,6 +533,31 @@ class Engine:
         self.cancels = 0             # cancel() calls that found their target
         self.audits = 0              # audit() passes run (all green)
         self._admit_seq = 0          # admission counter (a slot's age)
+        # durability: snapshots every snapshot_every ticks (0: the baseline
+        # one only) under snapshot_dir, the newest snapshot_keep kept, and a
+        # journal (journal=False: snapshots alone)
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = snapshot_every
+        self.snapshot_keep = snapshot_keep
+        self.journal_enabled = journal
+        self.snapshots_taken = 0
+        # terminal events replayed from the journal at restore (requests
+        # that finished after the last snapshot in the killed process,
+        # whose request objects are gone)
+        self.restored_terminal: list[Request] = []
+        self._journal: Any = None
+        self._snap_epoch = -1
+        # what durability costs: per snapshot its bytes and seconds, the
+        # journal's fsyncs, the phases of the restore that built this engine
+        self.snapshot_log: list[dict] = []
+        self.journal_commits = 0
+        self.journal_fsync_s = 0.0
+        self.restore_seconds: dict[str, float] = {}
+        if snapshot_dir is not None:
+            # the baseline snapshot: restore always has a complete one to
+            # start from, and its epoch's journal records what follows
+            from repro_torch.serving import snapshot as _snaplib
+            _snaplib.attach(self, snapshot_dir)
 
     # -- client API ----------------------------------------------------------
 
@@ -539,6 +584,15 @@ class Engine:
         self._live_rids.add(req.rid)
         req.submitted_at = self.clock()
         self._queue.append(req)
+        if self._journal is not None:
+            self._journal.append({
+                "ev": "submit", "rid": req.rid,
+                "prompt": np.asarray(req.prompt).tolist(),
+                "max_new": req.max_new_tokens, "priority": req.priority,
+                "deadline": req.deadline_s, "frames": None})
+            # durable at once: a submit outside run() must survive a kill
+            # before the next tick's fsync
+            self._commit()
 
     def cancel(self, rid: int) -> bool:
         """Retire request ``rid`` wherever it is: dequeued if waiting, or
@@ -551,14 +605,66 @@ class Engine:
                 self._queue.remove(r)
                 self.cancels += 1
                 self._terminal(r, "cancelled")
+                self._commit()
                 return True
         for i, s in enumerate(self._slots):
             if s.req is not None and s.req.rid == rid:
                 self.cancels += 1
                 self._terminal(s.req, "cancelled")
                 self._free_slot(i)
+                self._commit()
                 return True
         return False
+
+    def snapshot(self) -> str:
+        """Write a point-in-time snapshot to ``snapshot_dir`` (atomic: a
+        temp dir and ``os.replace``) and rotate the journal to a fresh
+        epoch.  Returns the snapshot's directory.  ``serving/snapshot.py``
+        states the contract."""
+        if self.snapshot_dir is None:
+            raise RuntimeError("engine has no snapshot_dir")
+        from repro_torch.serving import snapshot as _snaplib
+        return _snaplib.save(self)
+
+    @classmethod
+    def restore(cls, snapshot_dir: str, params: Any,
+                **overrides) -> "Engine":
+        """Rebuild a process-equivalent engine from the latest complete
+        snapshot under ``snapshot_dir``, replaying the journal of what
+        happened after it; restored streams are bitwise the never-killed
+        engine's.  ``overrides`` replace constructor arguments: a fresh
+        ``chaos`` monkey, a ``compile_cache`` (on the card never one of
+        another engine: its graphs are bound to that engine's cache), a
+        ``clock``, the ``device`` (the card by default)."""
+        from repro_torch.serving import snapshot as _snaplib
+        return _snaplib.restore_engine(snapshot_dir, params, **overrides)
+
+    def durability_stats(self) -> dict[str, Any]:
+        """Snapshot and journal counters (the reference's), with the
+        bytes and seconds of each snapshot, the journal's fsync count and
+        seconds, and the phases of the restore that built this engine."""
+        return {
+            "snapshot_dir": self.snapshot_dir,
+            "snapshot_every": self.snapshot_every,
+            "snapshots_taken": self.snapshots_taken,
+            "epoch": self._snap_epoch,
+            "journal": self._journal is not None,
+            "restored_terminal": len(self.restored_terminal),
+            "snapshot_log": list(self.snapshot_log),
+            "journal_commits": self.journal_commits,
+            "journal_fsync_s": self.journal_fsync_s,
+            "restore_seconds": dict(self.restore_seconds),
+        }
+
+    def _commit(self) -> None:
+        """The journal's durability point (flush + fsync), timed; nothing
+        without a journal."""
+        if self._journal is None:
+            return
+        t0 = time.perf_counter()
+        self._journal.commit()
+        self.journal_fsync_s += time.perf_counter() - t0
+        self.journal_commits += 1
 
     # -- paged-KV block accounting -------------------------------------------
 
@@ -675,8 +781,7 @@ class Engine:
                 self._page_table[idx, page] = blk
             self._slot_blocks[idx] = shared
         if self._fresh_row is not None:
-            insert = self.cache_compiles.get(
-                "insert", self.batch, lambda: _insert_executable(self.cfg))
+            insert = self._entry("insert", self.batch)
             self.cache = insert(self.cache, self._fresh_row, idx)
         self._admit_seq += 1
         req.status = "running"
@@ -722,8 +827,7 @@ class Engine:
         dst = self._lease_one(idx)
         self._page_table[idx, len(self._slot_blocks[idx])] = dst
         self._slot_blocks[idx].append(dst)
-        fn = self.cache_compiles.get("cow", 0,
-                                     lambda: self._build_tick("cow", 0, None))
+        fn = self._entry("cow", 0)
         fn(self.params, self.cache, src=np.array([src], np.int64),
            dst=np.array([dst], np.int64))
         self.cow_copies += 1
@@ -885,6 +989,35 @@ class Engine:
         return self.cache_compiles.get(
             name, bucket, lambda: self._build_tick(name, bucket, width))
 
+    def _entry(self, name: str, bucket: int):
+        """The memoized entry of any key: ``("mixed", W)``, ``("decode",
+        B)``, ``("insert", B)`` or ``("cow", 0)`` (a restore builds the
+        saved keys through it)."""
+        if name == "insert":
+            return self.cache_compiles.get(
+                "insert", bucket, lambda: _insert_executable(self.cfg))
+        if name == "cow":
+            return self.cache_compiles.get(
+                "cow", bucket, lambda: self._build_tick("cow", bucket, None))
+        if name == "decode":
+            if bucket != self.batch:
+                raise ValueError(f"decode key ({name!r}, {bucket}) of "
+                                 f"another batch than {self.batch}")
+            return self._executable(name, None)
+        return self._executable(name, bucket)
+
+    def _key_space(self) -> list[tuple[str, int]]:
+        """Every key this engine can build (``compile_budget`` bounds
+        them): each chunk bucket's mixed tick, the decode tick, and the
+        copy-on-write and fresh-row inserts where the engine has them."""
+        keys = [("mixed", w) for w in self.chunk_buckets.all_buckets()]
+        keys.append(("decode", self.batch))
+        if self.prefix_sharing:
+            keys.append(("cow", 0))
+        if self._fresh_row is not None:
+            keys.append(("insert", self.batch))
+        return keys
+
     def _build_tick(self, name: str, bucket: int, width: int | None):
         """On the card the key's function captured as a graph over static
         inputs that write nothing live (a dispatch with every row dead;
@@ -969,6 +1102,9 @@ class Engine:
         req.done = True
         req.finished_at = self.clock()
         self._live_rids.discard(req.rid)
+        if self._journal is not None:
+            self._journal.append({"ev": "terminal", "rid": req.rid,
+                                  "status": status, "error": req.error})
         if completed is not None:
             completed.append(req)
 
@@ -1166,6 +1302,9 @@ class Engine:
             req.first_token_at = now
         req.output.append(token)
         req.token_times.append(now)
+        if self._journal is not None:
+            self._journal.append({"ev": "emit", "rid": req.rid,
+                                  "tok": int(token)})
         slot.last_token = token
         if self.drafter is not None:
             self.drafter.observe(idx, (token,))
@@ -1215,8 +1354,9 @@ class Engine:
         idle = 0                   # consecutive no-row no-admission ticks
         while self.steps - start_steps < max_steps:
             if self.chaos is not None:
-                # process death fires at the top of the tick (a kill only
-                # raises until snapshots land)
+                # process death fires at the top of the tick, after the
+                # previous tick's journal fsync: a kill can lose work not
+                # dispatched yet, never an emitted token
                 self.chaos.maybe_kill()
             self._sweep_deadlines(completed)
             if self.chaos is not None and self.max_preemptions:
@@ -1333,6 +1473,10 @@ class Engine:
             self.steps += 1
             self.dispatches += 1
             self._occupancy_sum += len(live) / self.batch
+            if self.paged:
+                self.peak_pool_blocks = max(
+                    self.peak_pool_blocks,
+                    self.pool_blocks - self.alloc.n_free)
             self.peak_resident_tokens = max(
                 self.peak_resident_tokens,
                 sum(self._slots[i].length + chunks[i] + (i in decoding) +
@@ -1389,6 +1533,13 @@ class Engine:
                     self._emit(i, tok, completed, first=False)
             if self.audit_every and self.steps % self.audit_every == 0:
                 self.audit()
+            # durability: one fsync a tick, then maybe a snapshot, which
+            # sees every event the journal committed
+            self._commit()
+            if (self.snapshot_dir is not None and self.snapshot_every and
+                    self.steps % self.snapshot_every == 0):
+                self.snapshot()
+        self._commit()
         in_flight = sum(s.req is not None for s in self._slots)
         truncated = (self.steps - start_steps >= max_steps and
                      bool(in_flight or self._queue))

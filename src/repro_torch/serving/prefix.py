@@ -1,7 +1,7 @@
 """Block allocator and radix prefix cache of the paged KV pool (port of
 ``BlockAllocator``, ``_Node`` and ``RadixPrefixCache`` in
-``repro/serving/prefix.py``; the cache's snapshot ``dump``/``load`` pair
-comes with the engine's snapshots).
+``repro/serving/prefix.py``, the cache's snapshot ``dump``/``load`` pair
+included).
 
 Pure host bookkeeping, no device state.  ``BlockAllocator`` is the free
 list with per-block refcounts.  A freshly leased block has refcount 1
@@ -287,3 +287,46 @@ class RadixPrefixCache:
         self.root = {}
         self._nodes = []
         return blocks
+
+    def dump(self) -> dict:
+        """JSON-safe capture for serving snapshots.  Each node goes out
+        with its FULL root-to-node token path (not just its edge), so
+        ``load`` rebuilds the tree by inserting paths in depth order; the
+        LRU timestamps and the clock survive, so eviction order after a
+        restore is the never-killed engine's."""
+        entries = []
+        for n in self._nodes:
+            path, cur = [], n
+            while cur is not None:
+                path.append(cur.tokens)
+                cur = cur.parent
+            toks = [int(t) for chunk in reversed(path) for t in chunk]
+            entries.append({"tokens": toks, "block": int(n.block),
+                            "last_used": int(n.last_used)})
+        return {"block_size": self.block_size, "clock": self._clock,
+                "nodes": entries}
+
+    def load(self, state: dict) -> None:
+        """Rebuild from a ``dump()`` capture into an EMPTY cache, parents
+        before children.  Structure only: the cache's block references are
+        already counted in the restored allocator's refcounts, so nothing
+        is incref'd here."""
+        if self._nodes:
+            raise RuntimeError("load() requires an empty prefix cache")
+        if state["block_size"] != self.block_size:
+            raise ValueError(
+                f"snapshot block_size {state['block_size']} != engine "
+                f"block_size {self.block_size}")
+        bs = self.block_size
+        for e in sorted(state["nodes"], key=lambda e: len(e["tokens"])):
+            toks = e["tokens"]
+            level, parent = self.root, None
+            for j in range(0, len(toks) - bs, bs):
+                parent = level[tuple(toks[j:j + bs])]
+                level = parent.children
+            chunk = tuple(toks[-bs:])
+            node = _Node(chunk, int(e["block"]), parent)
+            node.last_used = int(e["last_used"])
+            level[chunk] = node
+            self._nodes.append(node)
+        self._clock = int(state["clock"])

@@ -10,6 +10,7 @@ machine with the card:
 On a machine without a card every test skips (decided inside the
 ``cuda`` fixture, never at import time)."""
 
+import os
 import warnings
 
 import numpy as np
@@ -2289,3 +2290,80 @@ def test_preemption_on_captured_graphs_equals_the_oracle(cuda, prefix_cache):
         k for k in engine.cache_compiles.keys() if k[0] != "insert")
     engine.drop_prefix_cache()
     assert engine.alloc.n_free == engine.pool_blocks
+
+
+# -- durable serving: snapshot, kill, restore on captured graphs ------------
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_restore_on_card_equals_the_never_killed_engine(cuda, layout,
+                                                       tmp_path):
+    """A mid-flight ``snapshot()``, three more ticks into the journal only,
+    the engine dropped, then ``Engine.restore`` on the card: the restore
+    captures its graphs over the in-place-loaded cache (each graph holds
+    the restored engine's cache tensor for tensor, loaded bitwise from the
+    snapshot), no tick after it captures, a deliberate rebind of the cache
+    raises at the replay, and the durable streams equal the never-killed
+    engine's (so ``reference_decode``'s)."""
+    import gc
+
+    from repro_torch.models import api
+    from repro_torch.serving import snapshot as snaplib
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    from repro_torch.train import checkpoint
+    cfg, params = _lifecycle_model(layout)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 9, 33, 14,
+                                                           27)]
+    kw = dict(batch_size=2, max_len=96, chunk_size=16, audit_every=1,
+              device="cuda")
+    whole = Engine(cfg, params, **kw)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=12)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        whole.submit(r)
+    assert whole.run().drained
+    want = {r.rid: r.output for r in reqs}
+    assert want == {i: reference_decode(cfg, params, p, 12, max_len=96)
+                    for i, p in enumerate(prompts)}
+    del whole
+    wd = str(tmp_path / "store")
+    eng = Engine(cfg, params, snapshot_dir=wd, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng.run(max_steps=5)
+        eng.snapshot()
+        eng.run(max_steps=3)
+    snap = snaplib.latest_snapshot(wd)[1]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    restored = Engine.restore(wd, params)
+    assert restored.device.type == "cuda"
+    arrays, _ = checkpoint.read_state(os.path.join(snap, "device"),
+                                      {"cache": restored.cache})
+    host = api.export_cache(cfg, restored.cache)
+    for path, leaf in checkpoint.tree_paths(host):
+        got = (leaf.view(torch.int16).numpy().view(np.uint16)
+               if leaf.dtype == torch.bfloat16 else leaf.numpy())
+        assert np.array_equal(got, arrays["cache/" + path]), path
+    cc = restored.cache_compiles
+    ticks = {k: cc.get(*k, None) for k in cc.keys() if k[0] != "insert"}
+    assert sorted(ticks) == sorted(restored._key_space())
+    assert all(t.cache is restored.cache and t.params is params
+               for t in ticks.values())
+    misses = cc.misses
+    assert misses <= restored.compile_budget
+    assert restored.run().drained
+    assert cc.misses == misses
+    restored.audit()
+    streams, status = snaplib.journaled_streams(wd)
+    assert status == {i: "done" for i in want}
+    assert streams == want
+    if layout == "paged":
+        assert restored.alloc.n_free == restored.pool_blocks
+    rebound = {k: v.clone() for k, v in restored.cache.items()}
+    with pytest.raises(ValueError, match="captured with"):
+        ticks[("decode", 2)](params, rebound,
+                             **restored._dead_inputs(None))

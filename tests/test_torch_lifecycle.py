@@ -465,6 +465,34 @@ def test_preemption_lossless_paged(paged_setup, prefix_cache):
     assert (eng.prefix is not None) == prefix_cache
 
 
+@pytest.mark.parametrize("prefix_cache", [True, False],
+                         ids=["prefix-donation", "plain-recompute"])
+def test_peak_pool_blocks_equals_the_reference(paged_setup, prefix_cache):
+    """``peak_pool_blocks`` (the high-water count of blocks in use, taken
+    after each dispatch) after the preemption workload above equals the
+    JAX engine's, before, during and after the preemption."""
+    setup = paged_setup
+
+    def scenario(pkg):
+        eng = setup.engine(pkg, batch_size=2, max_len=48, chunk_size=16,
+                           prefix_cache=prefix_cache, max_preemptions=2,
+                           audit_every=1)
+        rng = np.random.default_rng(8)
+        eng.submit(setup.request(pkg, rid=0, prompt=_prompt(rng, 8, 256),
+                                 max_new_tokens=24))
+        peaks = [eng.peak_pool_blocks]
+        _run_some(eng, 6)
+        peaks.append(eng.peak_pool_blocks)
+        eng.submit(setup.request(pkg, rid=1, prompt=_prompt(rng, 16, 256),
+                                 max_new_tokens=16))
+        assert eng.run().drained
+        peaks.append(eng.peak_pool_blocks)
+        return peaks, eng
+
+    eng = _both(scenario)
+    assert 0 < eng.peak_pool_blocks <= eng.pool_blocks
+
+
 def test_preemption_disabled_by_default(paged_setup):
     """max_preemptions=0 (the default) keeps stall-only admission: pool
     pressure stalls the head, nothing is evicted."""
