@@ -98,8 +98,26 @@ Phases (any failure ends the run with a nonzero exit code):
                  64-wide chunk (a dead row), at
                  qwen-7b's, chatglm-6b's and starcoder2-7b's heads, the
                  null block and dead rows untouched; each timed beside its
-                 byte bound and the chain;
-  4. model    — qwen-7b at full width and depth, random weights from a
+                 byte bound and the chain; the MoE kernels
+                 (``check_moe_kernels``) at granite-moe-3b-a800m's widths
+                 (d 1536, d_ff 512, 40 experts, top-8, 32-row groups: a
+                 decode tick T=4 and a 4 x 64 chunk at the dropless
+                 capacity and at the published factor's, which drops) and
+                 mixtral-8x22b's (d 6144, d_ff 16384, 8 experts, top-2,
+                 128-row groups, T=4): ``moe_route`` bitwise (weights
+                 within 2 ulp), the grouped gate/up and down within the
+                 W4A16 tolerance, ``moe_combine`` bitwise, each beside its
+                 bound, plain version and yardstick; a token's layer
+                 output alone bitwise inside the chunk; kernels 1 and 2
+                 at 32- and 64-row groups with their tile invariance; the
+                 tied LM head (the 49155 x 1536 embedding read in place)
+                 against its plain version and the copied weight;
+  4. model    — granite-moe-3b-a800m at full width and depth
+                 (``granite-moe-dense``) and mixtral-8x22b at full width,
+                 4 of its 56 layers (``mixtral-dense``), both "dense" at
+                 the dropless capacity factor (``MODEL_OVERRIDES``),
+                 through (a)-(c) and phase 5 as every transformer path;
+                 qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
                  and "strategy3" (log-scale sparse), chatglm-6b (the
                  paper's ChatGLM2-6B, "dense"), xlstm-1.3b ("dense", 48
@@ -131,23 +149,28 @@ Phases (any failure ends the run with a nonzero exit code):
                  span) likewise; on every path a mixed step, a decode step, a
                  verify tick (transformers) and a copy-on-write of a pool
                  block (paged) under ``torch.cuda.set_sync_debug_mode(
-                 "error")`` (no host read); after phase 5 on dense,
-                 dense-spec, strategy2-paged-int8, xlstm-dense and
-                 starcoder2-dense, every
+                 "error")`` (no host read); (d) on granite-moe-dense at
+                 the published capacity factor 1.25, a W = 64 mixed step
+                 through the MoE kernels and their plain versions: the
+                 assignments each layer drops recorded, one layer's the
+                 same in both and > 0; after phase 5 on dense,
+                 dense-spec, strategy2-paged-int8, xlstm-dense,
+                 starcoder2-dense and granite-moe-dense, every
                  captured key's graph replayed once against its function
                  run eagerly on a copy of the cache, logits and every
                  leaf bitwise equal;
-  5. serving  — with each of the nine weight sets, the engine serves 9
+  5. serving  — with each of the eleven weight sets, the engine serves 9
                  requests twice, every tick one replay of a CUDA graph
                  captured per compile key: misses within
                  ``compile_budget``, the second run capturing nothing and
                  giving the first run's streams; capture seconds per key,
                  tokens/s, TTFT, ITL and peak memory of each run; on
-                 dense, strategy2-paged, xlstm-dense and starcoder2-dense a
-                 ``torch.profiler`` trace of one decode and one mixed tick,
-                 eager and replayed (host ms, device-busy ms, device
-                 operations, and none of RoPE's cos, sin or cat and no
-                 bf16 add in a replayed transformer tick); every token
+                 dense, strategy2-paged, xlstm-dense, starcoder2-dense and
+                 granite-moe-dense a ``torch.profiler`` trace of one
+                 decode and one mixed tick, eager and replayed (host ms,
+                 device-busy ms, device operations, and none of RoPE's
+                 cos, sin or cat, no bf16 add and no copy of 100 MiB or
+                 more in a replayed transformer tick); every token
                  stream equals ``reference_decode``
                  and the kernel launch counts (reset before each run,
                  read just after it; a replay adds its capture's counts)
@@ -502,6 +525,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_xlstm_kernels(torch, timer, randn, tol, rows,
                                     results.get("ptxas", {})))
     line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
+    line.update(check_moe_kernels(torch, timer, randn, tol, rows))
 
     # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
     # only, hkv=2 (chatglm-6b's rep 16)
@@ -1932,6 +1956,291 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows, ptxas) -> dict:
     return line
 
 
+# -- the MoE family: routing, the grouped experts, the combine ---------------
+
+# (name, d, f, experts, top_k, group) of the served MoE configurations
+MOE_SHAPES = {"granite": (1536, 512, 40, 8, 32),
+              "mixtral": (6144, 16384, 8, 2, 128)}
+GRANITE_VOCAB = 49155
+
+
+def ulps(torch, got, want) -> float:
+    """The largest distance between two f32 tensors in units of the last
+    place of ``want``."""
+    inf = torch.full_like(want, float("inf"))
+    step = (torch.nextafter(want, inf) - want).abs()
+    return float(((got - want).abs() / step).max())
+
+
+def moe_weights(torch, randn, d, f, e, group):
+    """Random experts quantized by ``quantize`` at ``group`` rows: gate and
+    up (E, d, f), down (E, f, d), and an f32 router (d, E)."""
+    from repro_torch.core.quant import quantize
+    gate, up = (quantize(randn(e, d, f, dtype=torch.float32) * 0.03,
+                         group_size=group) for _ in range(2))
+    down = quantize(randn(e, f, d, dtype=torch.float32) * 0.03,
+                    group_size=group)
+    return randn(d, e, dtype=torch.float32) * 0.05, gate, up, down
+
+
+def moe_layer(torch, x, router, gate, up, down, k, cap, group_len,
+              impl="auto"):
+    """One MoE layer on (T, d) rows in groups of ``group_len``: the router
+    product, the route, the experts and the combine, each through ``impl``
+    (the router's ``dense_matmul`` always on its kernel)."""
+    from repro_torch.kernels import ops
+    logits = ops.dense_matmul(x, router.to(x.dtype))
+    r = ops.moe_route(logits, group=group_len, top_k=k, capacity=cap,
+                      impl=impl)
+    y = ops.moe_ffn_w4a16(x, r, gate, up, down, impl=impl)
+    return ops.moe_combine(y, r.slot, r.topw, impl=impl), r
+
+
+def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
+    """The MoE kernels against their plain versions at the served widths:
+    granite-moe-3b-a800m (d 1536, d_ff 512, 40 experts, top-8, 32-row
+    groups) at a decode tick (T = 4, four groups of one) and a 4 x 64
+    chunk (at the dropless capacity 64 and the published factor's 16,
+    which drops), and mixtral-8x22b (d 6144, d_ff 16384, 8 experts,
+    top-2, 128-row groups) at T = 4.  ``moe_route``: indices, slots,
+    counts, offsets and rows bitwise, weights within 2 ulp; the grouped
+    gate/up and down: the W4A16 tolerance on every kept row; ``moe_combine``
+    bitwise.  Each timed beside its byte bound, its plain version and a
+    yardstick (``torch.topk`` + ``scatter_add_`` for the route; per-expert
+    dequantize + ``torch.matmul`` chains for the experts).  A token's layer
+    output is bitwise the same alone (T = 4) and inside the 64-wide
+    chunk.  Kernels 1 and 2 alone at 32- and 64-row groups (granite's
+    widths, T = 4 and 256) against their plain versions, and rows 100-103
+    bitwise across their tile configurations.  The tied LM head
+    (``dense_matmul`` reading the (49155, 1536) embedding in place) against
+    its plain version, bitwise against the same weight copied, and row
+    invariant."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    from repro_torch.kernels.moe_route import (
+        moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch)
+    from repro_torch.kernels.w4a16_matmul import (
+        w4a16_matmul_cuda, w4a16_matmul_torch)
+    bf16 = torch.bfloat16
+    line = {}
+
+    def record(row, kernel, plain, library, nbytes, flops, iters=20):
+        row["ms"] = timer.ms(kernel, iters)
+        row["plain_ms"] = timer.ms(plain, 2)
+        row["library_ms"] = (timer.ms(library, 3) if library is not None
+                             else None)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+        rows.append(row)
+        log(f"  {row['kernel']} {row['case']}: max_abs "
+            f"{row['max_abs_err']:.3g}  kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms library "
+            + (f"{row['library_ms']:.4f} ms" if library is not None else
+               "none") + f" bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+
+    cases = (("granite", "decode T=4", 4, 1, None),
+             ("granite", "chunk 4x64", 4, 64, None),
+             ("granite", "chunk 4x64 factor 1.25", 4, 64, 16),
+             ("mixtral", "decode T=4", 4, 1, None))
+    weights = {}
+    for model, case, b, s, cap in cases:
+        d, f, e, k, group = MOE_SHAPES[model]
+        if model not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[model] = moe_weights(torch, randn, d, f, e, group)
+        router, gate, up, down = weights[model]
+        cap = s if cap is None else cap          # dropless: the group's length
+        cap = max(k, min(cap, s))
+        t = b * s
+        x = randn(t, d)
+        logits = ops.dense_matmul(x, router.to(bf16))
+        what = f"{model} {case}"
+
+        # -- the route
+        got = moe_route_cuda(logits, s, k, cap)
+        want = moe_route_torch(logits, s, k, cap)
+        torch.cuda.synchronize()
+        kept = int(got.counts.sum())
+        for name in ("topi", "slot", "counts", "offsets"):
+            need(torch.equal(getattr(got, name), getattr(want, name)),
+                 f"moe_route {what}: {name} differs from the plain version")
+        need(torch.equal(got.rows[:kept], want.rows[:kept]),
+             f"moe_route {what}: rows differ from the plain version")
+        u = ulps(torch, got.topw, want.topw)
+        need(u <= 2, f"moe_route {what}: weights {u:.1f} ulp from plain")
+        dropped = t * k - kept
+        active = int((got.counts > 0).sum())
+        row = {"kernel": "moe_route", "case": what, "T": t, "group": s,
+               "experts": e, "top_k": k, "capacity": cap,
+               "max_abs_err": float((got.topw - want.topw).abs().max()),
+               "max_ulps": u, "dropped": dropped, "active_experts": active,
+               "kept": kept}
+
+        def topk_scatter():
+            w, i = torch.topk(torch.softmax(logits.float(), -1), k)
+            c = torch.zeros(e, dtype=torch.int64, device=logits.device)
+            return w / w.sum(-1, keepdim=True), c.scatter_add_(
+                0, i.reshape(-1), torch.ones_like(i.reshape(-1)))
+        ints = t * k * 4 * 4 + e * 8 + b * e * 4
+        record(row, lambda: moe_route_cuda(logits, s, k, cap),
+               lambda: moe_route_torch(logits, s, k, cap), topk_scatter,
+               logits.numel() * 2 + ints, 0)
+        log(f"    indices, slots, counts, offsets, rows bitwise; weights "
+            f"within {u:.1f} ulp; {kept} kept, {dropped} dropped, {active} "
+            f"of {e} experts with rows")
+        if (model, case) == ("granite", "decode T=4"):
+            line["moe_route"] = row
+        r = got
+
+        # -- the grouped experts, on the kernel's route
+        h_got = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu")
+        h_want = mx.moe_gate_up_torch(x, r, gate, up, "swiglu")
+        herr, hrel = max_errs(h_got[:kept], h_want[:kept])
+        need(hrel <= tol["bfloat16"], f"moe_gate_up {what}: rel {hrel:.3g}")
+        w_bytes = active * (gate.nbytes_model + up.nbytes_model) / e
+        counts = r.counts.tolist()
+
+        def library_gate_up():
+            for ex, (o, n) in enumerate(zip(r.offsets.tolist(), counts)):
+                if n:
+                    xe = x[r.rows[o:o + n].long()]
+                    torch.nn.functional.silu(
+                        xe @ dequantize(gate[ex], bf16)) * (
+                        xe @ dequantize(up[ex], bf16))
+        row = {"kernel": "moe_gate_up_w4a16", "case": what, "T": t,
+               "kept": kept, "active_experts": active, "group": group,
+               "max_abs_err": herr, "max_rel_err": hrel,
+               "tol_rel": tol["bfloat16"]}
+        record(row, lambda: mx.moe_gate_up_cuda(x, r, gate, up, "swiglu"),
+               lambda: mx.moe_gate_up_torch(x, r, gate, up, "swiglu"),
+               library_gate_up,
+               x.numel() * 2 + w_bytes + kept * f * 2 + kept * 4,
+               2 * 2 * kept * d * f)
+        if (model, case) == ("granite", "decode T=4"):
+            line["moe_gate_up_w4a16"] = row
+        y_got = mx.moe_down_cuda(h_got, r, down)
+        y_want = mx.moe_down_torch(h_got, r, down)
+        yerr, yrel = max_errs(y_got[:kept], y_want[:kept])
+        need(yrel <= tol["bfloat16"], f"moe_down {what}: rel {yrel:.3g}")
+
+        def library_down():
+            for ex, (o, n) in enumerate(zip(r.offsets.tolist(), counts)):
+                if n:
+                    h_got[o:o + n] @ dequantize(down[ex], bf16)
+        row = {"kernel": "moe_down_w4a16", "case": what, "T": t,
+               "kept": kept, "active_experts": active, "group": group,
+               "max_abs_err": yerr, "max_rel_err": yrel,
+               "tol_rel": tol["bfloat16"]}
+        record(row, lambda: mx.moe_down_cuda(h_got, r, down),
+               lambda: mx.moe_down_torch(h_got, r, down), library_down,
+               kept * f * 2 + active * down.nbytes_model / e + kept * d * 2,
+               2 * kept * f * d)
+        if (model, case) == ("granite", "decode T=4"):
+            line["moe_down_w4a16"] = row
+
+        # -- the combine, on the kernel's y
+        c_got = moe_combine_cuda(y_got, r.slot, r.topw)
+        c_want = moe_combine_torch(y_got, r.slot, r.topw)
+        need(torch.equal(c_got, c_want),
+             f"moe_combine {what}: not bitwise the plain version")
+        row = {"kernel": "moe_combine", "case": what, "T": t, "kept": kept,
+               "max_abs_err": float((c_got.float() - c_want.float()).abs()
+                                    .max())}
+        record(row, lambda: moe_combine_cuda(y_got, r.slot, r.topw),
+               lambda: moe_combine_torch(y_got, r.slot, r.topw), None,
+               kept * d * 2 + t * k * 8 + t * d * 2, 2 * kept * d)
+        if (model, case) == ("granite", "decode T=4"):
+            line["moe_combine"] = row
+        del h_got, h_want, y_got, y_want
+
+        # -- a token's output alone and inside the chunk
+        if case == "chunk 4x64":
+            out, _ = moe_layer(torch, x, router, gate, up, down, k, cap, s)
+            xd = x.reshape(b, s, d)[:, 5].contiguous()
+            alone, _ = moe_layer(torch, xd, router, gate, up, down, k, k, 1)
+            need(torch.equal(alone, out.reshape(b, s, d)[:, 5]),
+                 f"moe {what}: a token's output alone (T=4) differs from "
+                 "the same token inside the 4 x 64 chunk")
+            log("    a token's layer output alone (T=4, four groups of one) "
+                "bitwise equal inside the 4 x 64 chunk")
+    weights.clear()
+    torch.cuda.empty_cache()
+
+    # -- kernels 1 and 2 alone at 32- and 64-row groups, granite's widths
+    d, f = MOE_SHAPES["granite"][:2]
+    for group in (32, 64):
+        w1 = quantize(randn(f, d, dtype=torch.float32) * 0.03,
+                      group_size=group)
+        g2, u2 = (quantize(randn(d, f, dtype=torch.float32) * 0.03,
+                           group_size=group) for _ in range(2))
+        for t in (4, 256):
+            x1, x2 = randn(t, f), randn(t, d)
+            got, want = w4a16_matmul_cuda(x1, w1), w4a16_matmul_torch(x1, w1)
+            err, rel = max_errs(got, want)
+            need(rel <= tol["bfloat16"], f"w4a16 g={group} T={t}: rel {rel}")
+            row = {"kernel": "w4a16_matmul", "case": f"g={group} T={t} "
+                   f"{f}->{d}", "T": t, "group": group, "max_abs_err": err,
+                   "max_rel_err": rel}
+            record(row, lambda: w4a16_matmul_cuda(x1, w1),
+                   lambda: w4a16_matmul_torch(x1, w1),
+                   lambda: x1 @ dequantize(w1, bf16),
+                   x1.numel() * 2 + w1.nbytes_model + t * d * 2,
+                   2 * t * f * d)
+            got = ffn_gate_up_cuda(x2, g2, u2, "swiglu")
+            want = ffn_gate_up_torch(x2, g2, u2, "swiglu")
+            err, rel = max_errs(got, want)
+            need(rel <= tol["bfloat16"], f"ffn g={group} T={t}: rel {rel}")
+            row = {"kernel": "ffn_fused_w4a16", "case": f"g={group} T={t} "
+                   f"{d}->2x{f}", "T": t, "group": group, "max_abs_err": err,
+                   "max_rel_err": rel}
+            record(row, lambda: ffn_gate_up_cuda(x2, g2, u2, "swiglu"),
+                   lambda: ffn_gate_up_torch(x2, g2, u2, "swiglu"),
+                   lambda: torch.nn.functional.silu(
+                       x2 @ dequantize(g2, bf16)) * (x2 @ dequantize(u2,
+                                                                     bf16)),
+                   x2.numel() * 2 + g2.nbytes_model + u2.nbytes_model
+                   + t * f * 2, 2 * 2 * t * d * f)
+        check_tile_invariance(torch, lambda v: w4a16_matmul_cuda(v, w1),
+                              randn(INVARIANCE_ROWS, f),
+                              f"w4a16_matmul g={group} {f}x{d}")
+        check_tile_invariance(
+            torch, lambda v: ffn_gate_up_cuda(v, g2, u2, "swiglu"),
+            randn(INVARIANCE_ROWS, d), f"ffn_fused_w4a16 g={group} gate/up")
+        del w1, g2, u2
+
+    # -- the tied LM head: the (V, d) embedding read in place
+    emb = randn(GRANITE_VOCAB, d) * 0.02
+    for t in (4, 256):
+        x = randn(t, d)
+        got = ops.dense_matmul(x, emb.T)
+        want = ops.dense_matmul(x, emb.T, impl="torch")
+        err, rel = max_errs(got, want)
+        need(rel <= tol["bfloat16"], f"tied head T={t}: rel {rel:.3g}")
+        row = {"kernel": "dense_matmul", "case": f"tied head T={t} "
+               f"{d}->{GRANITE_VOCAB}", "T": t, "max_abs_err": err,
+               "max_rel_err": rel}
+        record(row, lambda: ops.dense_matmul(x, emb.T),
+               lambda: ops.dense_matmul(x, emb.T, impl="torch"),
+               lambda: x @ emb.T, emb.numel() * 2 + x.numel() * 2
+               + t * GRANITE_VOCAB * 2, 2 * t * d * GRANITE_VOCAB)
+    # the same sums as the weight copied (in, out), at a width the copy
+    # takes (out % 4 == 0), and rows alone inside every tile configuration
+    w = emb[:GRANITE_VOCAB - 3]
+    x = randn(64, d)
+    need(torch.equal(ops.dense_matmul(x, w.T),
+                     ops.dense_matmul(x, w.T.contiguous())),
+         "tied head: the in-place read differs from the copied weight")
+    check_tile_invariance(torch, lambda v: ops.dense_matmul(v, emb.T),
+                          randn(INVARIANCE_ROWS, d), "tied head 1536x49155")
+    del emb
+    torch.cuda.empty_cache()
+    return line
+
+
 # -- the 16-bit path: dense_matmul, kernel 6, layernorm; kernel 2's gelu ------
 
 def ffn_chain(torch, x, gate, up, down, activation, ub, db, stage=False):
@@ -2276,11 +2585,11 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
 
 # -- phase 4 and 5: the model and the engine --------------------------------
 
-def build_model(torch, arch, strategy):
+def build_model(torch, arch, strategy, **overrides):
     from repro_torch.configs import get_config
     from repro_torch.core.compiler import quantize_model, quantized_bytes
     from repro_torch.models import api
-    cfg = get_config(arch)
+    cfg = get_config(arch, **overrides)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = quantize_model(api.init_params(cfg, gen), strategy)
@@ -2291,10 +2600,14 @@ def build_model(torch, arch, strategy):
                  if k in ("up_x", "wq", "w_i", "down", "w_gates", "r_gates")}
         shape = f"sLSTM every {cfg.slstm_every}"
     else:
-        kinds = {k: type(v).__name__ for k, v in {
-            **params["blocks"]["attn"], **params["blocks"]["mlp"]}.items()
-            if k in ("wq", "wo", "gate", "up", "down")}
-        shape = f"d_ff={cfg.d_ff}"
+        ffn = params["blocks"]["moe" if cfg.is_moe else "mlp"]
+        kinds = {k: type(v).__name__ + (f"(g={v.group_size})"
+                                        if hasattr(v, "group_size") else "")
+                 for k, v in {**params["blocks"]["attn"], **ffn}.items()
+                 if k in ("wq", "wo", "gate", "up", "down", "router")}
+        shape = f"d_ff={cfg.d_ff}" + (
+            f" experts={cfg.n_experts} top-{cfg.top_k} capacity factor "
+            f"{cfg.moe_capacity_factor}" if cfg.is_moe else "")
     log(f"  {arch} {strategy}: {cfg.n_layers} layers d={cfg.d_model} "
         f"heads={cfg.n_heads}/{cfg.n_kv_heads} {shape} "
         f"vocab={cfg.vocab_size}; {kinds}; packed params "
@@ -2507,6 +2820,98 @@ def check_fused_equals_plain(torch, cfg, params, results, path):
     results.setdefault("fused_vs_plain", {})[path] = out
 
 
+@contextlib.contextmanager
+def recorded_drops(dropped):
+    """Inside the block every ``ops.moe_route`` call appends the count of
+    live assignments it dropped to the list ``dropped`` (a device tensor:
+    no host read)."""
+    from repro_torch.kernels import ops
+    route = ops.moe_route
+
+    def recording(logits, *, group, top_k, capacity, q_lens=None, **kw):
+        r = route(logits, group=group, top_k=top_k, capacity=capacity,
+                  q_lens=q_lens, **kw)
+        live = logits.shape[0] if q_lens is None else q_lens.sum()
+        dropped.append(live * top_k - r.counts.sum())
+        return r
+    ops.moe_route = recording
+    try:
+        yield
+    finally:
+        ops.moe_route = route
+
+
+@contextlib.contextmanager
+def plain_moe():
+    """Inside the block the MoE ops (route, experts, combine) run their
+    plain versions on the card; the router's product and every other op
+    keep their kernels."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import moe_route as mr
+    from repro_torch.kernels import ops
+    saved = (ops.moe_route_cuda, ops.moe_ffn_cuda, ops.moe_combine_cuda)
+    ops.moe_route_cuda = mr.moe_route_torch
+    ops.moe_ffn_cuda = mx.moe_ffn_torch
+    ops.moe_combine_cuda = mr.moe_combine_torch
+    try:
+        yield
+    finally:
+        ops.moe_route_cuda, ops.moe_ffn_cuda, ops.moe_combine_cuda = saved
+
+
+def check_moe_drops(torch, cfg, params, results, path):
+    """(d) The published capacity factor 1.25, which the served paths lift:
+    one W = 64 mixed step (rows of 64, 1, 40 and 64 live tokens) through
+    the MoE kernels and through their plain versions (``plain_moe``), from
+    fresh caches.  The assignments each layer drops
+    (``recorded_drops``) are recorded for both; on one layer (the first
+    layer's weights alone) the two see the same router logits, so they
+    must drop the same assignments, at least one, and give logits within
+    the W4A16 tolerance.  Through every layer the logits' difference is
+    recorded (a near-tie in a later layer's router can send a token
+    elsewhere)."""
+    import numpy as np
+    from repro_torch.models import api
+    pcfg = dataclasses.replace(cfg, moe_capacity_factor=1.25)
+    b, w, max_len = 4, 64, 80
+    rng = np.random.default_rng(28)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, w)),
+                        device=DEVICE)
+    lengths = np.asarray([0, 3, 10, 0], np.int32)
+    q_lens = np.asarray([64, 1, 40, 64], np.int32)
+    out = {}
+    for depth in (1, cfg.n_layers):
+        dcfg = dataclasses.replace(pcfg, n_layers=depth)
+        got = {}
+        for mode in ("kernels", "plain"):
+            cache = api.init_cache(dcfg, b, max_len, DEVICE)
+            dropped = []
+            with recorded_drops(dropped), (
+                    plain_moe() if mode == "plain" else
+                    contextlib.nullcontext()):
+                logits, _ = api.mixed_step(dcfg, params, cache, toks,
+                                           lengths, q_lens)
+            torch.cuda.synchronize()
+            got[mode] = (logits, [int(d) for d in dropped])
+        err, rel = max_errs(got["kernels"][0], got["plain"][0])
+        drops = {m: got[m][1] for m in got}
+        out[f"layers={depth}"] = {"drops": drops, "max_abs_err": err,
+                                  "max_rel_err": rel}
+        log(f"  (d) factor 1.25, W=64 mixed step, {depth} layer(s): "
+            f"assignments dropped a layer, kernels {drops['kernels']} "
+            f"plain {drops['plain']}; logits max_abs {err:.3g} rel "
+            f"{rel:.3g}")
+        if depth == 1:
+            need(drops["kernels"] == drops["plain"]
+                 and drops["kernels"][0] > 0,
+                 f"{path}: at factor 1.25 the kernels drop "
+                 f"{drops['kernels']}, the plain versions {drops['plain']} "
+                 "(need the same, > 0)")
+            need(rel <= 1e-2, f"{path}: one layer at factor 1.25: logits "
+                 f"rel {rel:.3g} from the plain versions > 1e-2")
+    results.setdefault("moe_drops", {})[path] = out
+
+
 def first_divergence(torch, cfg, params, prompt, got, max_len):
     """Step where the engine left the oracle, and the oracle's top-2 logit
     margin there."""
@@ -2553,21 +2958,28 @@ FFN_KERNELS = {("quant", True): "ffn_fused_w4a16",
                ("fp", False): "ffn_fused_dense"}
 
 
-def expected_launches(cfg, params, ticks):
+def expected_launches(cfg, params, ticks, decode_ticks=0, span=None):
     """Launches per kernel for ``ticks`` engine ticks: layers x calls x
     ticks, read from the weights' leaf types.  Each projection goes to the
     W4A16, the sparse or the 16-bit kernel by its type; the FFN's gate/up
     to the kernel ``fused_variant`` picks, its down to the kernel of down's
-    type; the norms by the config: the first layer's ``ln_attn`` alone
-    (``rmsnorm`` or ``layernorm``) and every other norm with the residual
-    add before it (``add_rmsnorm`` or ``add_layernorm``); the q/k/v
-    epilogue (``qkv_rope_write``) once a layer."""
+    type (an MoE layer: the router's ``dense_matmul``, ``moe_route``, the
+    grouped gate/up and down and ``moe_combine``; a tied head
+    ``dense_matmul``); the norms by the config: the first layer's
+    ``ln_attn`` alone (``rmsnorm`` or ``layernorm``) and every other norm
+    with the residual add before it (``add_rmsnorm`` or
+    ``add_layernorm``); the q/k/v
+    epilogue (``qkv_rope_write``) once a layer, except on the
+    ``decode_ticks`` of a window no shorter than the cache's ``span`` (a
+    rolling buffer: the unfused chain, whose write is ``kv_write``)."""
     from repro_torch.kernels.decode_flash import VARIANTS
     from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
     from repro_torch.models.transformer import layer_params
     L = cfg.n_layers
     attention = VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")]
     per_tick = {attention: L, "qkv_rope_write": L}
+    rolling = (decode_ticks if cfg.window is not None and span is not None
+               and span <= cfg.window else 0)
     if cfg.norm == "layernorm":
         per_tick.update(layernorm=1, add_layernorm=2 * L)
     else:
@@ -2575,9 +2987,24 @@ def expected_launches(cfg, params, ticks):
 
     def add(kernel, n):
         per_tick[kernel] = per_tick.get(kernel, 0) + n
-    attn, mlp = params["blocks"]["attn"], params["blocks"]["mlp"]
+    attn = params["blocks"]["attn"]
     for name in ("wq", "wk", "wv", "wo"):
         add(matmul_kernel(attn[name], name), L)
+    head = params.get("lm_head")
+    add("dense_matmul" if head is None else matmul_kernel(head, "lm_head"), 1)
+    if cfg.is_moe:
+        # the router's product, the route, the two grouped expert kernels
+        # and the combine, once a layer each (W4A16 experts only: others
+        # have no CUDA path)
+        moe = params["blocks"]["moe"]
+        for name in ("gate", "up", "down"):
+            need(matmul_kernel(moe[name], name) == "w4a16_matmul",
+                 f"the experts' {name} is not W4A16: no CUDA path")
+        for kernel in ("dense_matmul", "moe_route", "moe_gate_up_w4a16",
+                       "moe_down_w4a16", "moe_combine"):
+            add(kernel, L)
+        return rolling_writes(per_tick, ticks, rolling, L)
+    mlp = params["blocks"]["mlp"]
     gated = cfg.activation in GATED_ACTIVATIONS
     one = layer_params(mlp, 0)             # one layer's leaves, as served
     variant = fused_variant(one.get("gate"), one["up"], one["down"],
@@ -2586,8 +3013,17 @@ def expected_launches(cfg, params, ticks):
          f"the FFN weights take no CUDA path ({variant}, {cfg.activation})")
     add(FFN_KERNELS[(variant, gated)], L)
     add(matmul_kernel(mlp["down"], "down"), L)
-    add(matmul_kernel(params["lm_head"], "lm_head"), 1)
-    return {k: ticks * n for k, n in per_tick.items()}
+    return rolling_writes(per_tick, ticks, rolling, L)
+
+
+def rolling_writes(per_tick, ticks, rolling, layers):
+    """``per_tick`` times ``ticks``, with ``rolling`` of them writing
+    through ``kv_write`` instead of ``qkv_rope_write``."""
+    out = {k: ticks * n for k, n in per_tick.items()}
+    if rolling:
+        out["qkv_rope_write"] -= rolling * layers
+        out["kv_write"] = rolling * layers
+    return {k: n for k, n in out.items() if n}
 
 
 def expected_launches_ssm(cfg, params, steps, full_sequence=False):
@@ -2729,9 +3165,13 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
         ticks = engine.steps - ticks0
         cols = engine.dispatched_columns - cols0
         stalls = engine.admission_stalls - stalls0
+        span = (engine.n_pages * engine.block_size if engine.paged
+                else max_len)
         expect = (expected_launches_ssm(cfg, params, cols)
                   if cfg.family == "ssm" else
-                  expected_launches(cfg, params, ticks))
+                  expected_launches(cfg, params, ticks,
+                                    ticks - (engine.mixed_ticks - mixed0),
+                                    span))
         new_misses = engine.cache_compiles.misses - misses0
         log(f"  run {run}: {ticks} ticks ({engine.mixed_ticks - mixed0} "
             f"mixed, {cols} token columns), {n_tok} tokens in {wall:.2f} s "
@@ -3369,8 +3809,12 @@ def serve_restart(torch, cfg, params, results, path, oracle):
 
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
-                "starcoder2-dense")
-TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense")
+                "starcoder2-dense", "granite-moe-dense")
+TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense",
+               "granite-moe-dense")
+# no served transformer tick copies a tensor this large (a tied LM head
+# read through a transposed copy would: 151 MB a tick on granite)
+LARGE_COPY_BYTES = 100 << 20
 
 
 def live_inputs(engine, name, width, rng):
@@ -3520,6 +3964,30 @@ def host_copies(torch, fn) -> int:
     return len(found)
 
 
+def large_copies(torch, fn, min_bytes=LARGE_COPY_BYTES) -> list:
+    """(op, bytes) of every copy ``fn`` asks for (``copy_``, ``_to_copy``,
+    ``clone``, counted at PyTorch's dispatcher) whose output holds at least
+    ``min_bytes``: what a captured graph of ``fn`` would copy every
+    replay."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    found = []
+
+    class Big(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ("copy_", "_to_copy", "clone"):
+                t = out if name != "copy_" else args[0]
+                n = t.numel() * t.element_size()
+                if n >= min_bytes:
+                    found.append((name, n))
+            return out
+
+    with Big():
+        fn()
+    return found
+
+
 # device operations of a replayed dense decode-4 tick: 365 without the
 # finiteness reduction, and its two (``torch.aminmax``)
 DENSE_DECODE_OPS = 367
@@ -3548,6 +4016,15 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
         calls = {"eager": lambda: tick.fn(params, copy, **dev),
                  "replay": lambda: tick(params, engine.cache, **host)}
         key = f"{name}-{width or engine.batch}"
+        # the function a graph captures, at the dispatcher: its large
+        # copies would be nodes of every replay
+        big = large_copies(torch, calls["eager"])
+        out[f"{key}-large-copies"] = big
+        log(f"  {key}: copies of >= {LARGE_COPY_BYTES >> 20} MiB in the "
+            f"captured step: {big or 'none'}")
+        need(not strict or engine.cfg.family == "ssm" or not big,
+             f"{path} {key}: the step copies {big} (a graph would copy it "
+             "every tick)")
         for mode, call in calls.items():
             host_ms, wall_ms = [], []
             for _ in range(3):
@@ -4080,6 +4557,20 @@ KERNEL_META = {
     "kv_write": ("src/repro_torch/kernels/csrc/kv_write.cu",
                  "src/repro/models/attention.py:139, :153, :269 (XLA in the "
                  "reference, no Pallas kernel)", "dense-prefill"),
+    "moe_route": ("src/repro_torch/kernels/csrc/moe_route.cu",
+                  "src/repro/models/moe.py:64-81 and :88-101 (XLA in the "
+                  "reference, no Pallas kernel)", "granite-moe-dense"),
+    "moe_gate_up_w4a16": ("src/repro_torch/kernels/csrc/moe_experts.cu",
+                          "src/repro/kernels/ffn_fused.py:215 (under "
+                          "src/repro/models/moe.py:129-145's vmap over "
+                          "experts)", "granite-moe-dense"),
+    "moe_down_w4a16": ("src/repro_torch/kernels/csrc/moe_experts.cu",
+                       "src/repro/kernels/w4a16_matmul.py:78 (the down of "
+                       "src/repro/models/moe.py:129-145's experts)",
+                       "granite-moe-dense"),
+    "moe_combine": ("src/repro_torch/kernels/csrc/moe_route.cu",
+                    "src/repro/models/moe.py:103-118 (XLA in the reference, "
+                    "no Pallas kernel)", "granite-moe-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -4090,7 +4581,19 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("none", "qwen-7b", "none"),
           ("starcoder2-none", "starcoder2-7b", "none"),
           ("starcoder2-dense", "starcoder2-7b", "dense"),
-          ("starcoder2-strategy2", "starcoder2-7b", "strategy2"))
+          ("starcoder2-strategy2", "starcoder2-7b", "strategy2"),
+          ("granite-moe-dense", "granite-moe-3b-a800m", "dense"),
+          ("mixtral-dense", "mixtral-8x22b", "dense"))
+# config overrides of a model's paths: the MoE paths serve at the dropless
+# capacity factor n_experts / top_k (a chunk then drops nothing, so mixed
+# and sequential steps agree; the published 1.25 stays in the configs and
+# is held in phase 4 (d)), and mixtral-8x22b runs 4 of its 56 layers (its
+# 141 B parameters are ~70.5 GB at int4 before scales, KV and workspace)
+MODEL_OVERRIDES = {
+    "granite-moe-dense": dict(moe_capacity_factor=40 / 8),
+    "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2)}
+# the paths whose MoE drops at the published factor phase 4 (d) records
+MOE_DROP_PATHS = ("granite-moe-dense",)
 PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
@@ -4164,7 +4667,8 @@ def main() -> int:
 
         counts: dict = {}       # path -> that path's own launch counts
         for model, arch, strategy in MODELS:
-            cfg, params = build_model(torch, arch, strategy)
+            cfg, params = build_model(torch, arch, strategy,
+                                      **MODEL_OVERRIDES.get(model, {}))
             paths = [(model, cfg)] + [
                 (f"{model}-{kv}", dataclasses.replace(cfg, **over))
                 for kv, over in KV_PATHS.get(model, ())]
@@ -4177,6 +4681,8 @@ def main() -> int:
                     check_all_logits(torch, pcfg, params, results, path)
                     check_fused_equals_plain(torch, pcfg, params, results,
                                              path)
+                if path in MOE_DROP_PATHS:
+                    check_moe_drops(torch, pcfg, params, results, path)
                 check_no_sync(torch, pcfg, params, results, path)
             streams: dict = {}
             for path, pcfg in paths:

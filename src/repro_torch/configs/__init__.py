@@ -1,6 +1,7 @@
 """Architecture config registry of the port: ``qwen-7b``, ``chatglm-6b``
 and ``starcoder2-7b`` (family ``dense``; starcoder2 brings LayerNorm and the
-ungated gelu FFN with biases) and ``xlstm-1.3b`` (family ``ssm``).
+ungated gelu FFN with biases), ``granite-moe-3b-a800m`` and
+``mixtral-8x22b`` (family ``moe``) and ``xlstm-1.3b`` (family ``ssm``).
 
 ``get_config(name)`` gives the full-size configuration and
 ``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
@@ -11,10 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import chatglm_6b, qwen_7b, starcoder2_7b, xlstm_1_3b
+from repro_torch.configs import (
+    chatglm_6b, granite_moe_3b_a800m, mixtral_8x22b, qwen_7b, starcoder2_7b,
+    xlstm_1_3b)
 
 _MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b,
-            "starcoder2-7b": starcoder2_7b, "xlstm-1.3b": xlstm_1_3b}
+            "starcoder2-7b": starcoder2_7b,
+            "granite-moe-3b-a800m": granite_moe_3b_a800m,
+            "mixtral-8x22b": mixtral_8x22b, "xlstm-1.3b": xlstm_1_3b}
 
 
 def _module(name: str):
@@ -22,8 +27,8 @@ def _module(name: str):
         return _MODULES[name]
     except KeyError:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (the port serves the dense "
-            f"and ssm families: {sorted(_MODULES)})") from None
+            f"arch {name!r} is not ported yet (the port serves the dense, "
+            f"moe and ssm families: {sorted(_MODULES)})") from None
 
 
 def get_config(name: str, **overrides):

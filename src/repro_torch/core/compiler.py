@@ -1,14 +1,16 @@
 """Offline model compiler (EdgeLLM §IV), the port's subset.
 
 ``quantize_model`` walks the parameter tree and replaces every static weight
-matrix of the dense family with its packed form per a *sparse strategy*
-(paper Table II: a density per layer kind), exactly as
+matrix of the dense and moe families with its packed form per a *sparse
+strategy* (paper Table II: a density per layer kind), exactly as
 ``repro/core/compiler.py`` does: a :class:`QuantizedTensor` at density 1.0,
 a log-scale block-sparse :class:`SparseQuantizedTensor` below it.  Stacked
 layers, one leading axis or two (the xLSTM's ``(segments, blocks, in,
 out)``), are quantized per matrix, as the reference's nested ``vmap`` does:
 dense quantization works per 128-row group, so a stack goes whole; a pruned
-stack goes matrix by matrix.
+stack goes matrix by matrix.  MoE experts ``(layers, experts, in, out)``
+take 128-, 64- or 32-row groups by the reference's rule (``_moe_group``);
+the f32 router is never quantized.
 
 ``TokenBuckets`` keeps the engine's chunk widths on a bounded power-of-two
 set, and ``CompileCache`` memoizes the engine's executables per key, so the
@@ -49,16 +51,36 @@ _KIND_BY_NAME = {"wq": "qkv", "wk": "qkv", "wv": "qkv", "wo": "o",
                  "up_x": "h_to_4h", "up_z": "h_to_4h", "w_gates": "other"}
 
 
-def _quantize_2d(w: torch.Tensor, density: float, tile_uniform: bool):
+def _moe_group(in_f: int, shard_groups: int | None) -> int:
+    """The quant group of an expert matrix, the reference's rule: the first
+    of 128, 64 and 32 rows that divides ``in_f`` into a multiple of
+    ``shard_groups`` groups (the experts' contraction is split 16 ways
+    under the reference's shard_map); 128 when none does or outside
+    ``moe``."""
+    if shard_groups:
+        for g in (128, 64, 32):
+            if in_f % g == 0 and (in_f // g) % shard_groups == 0:
+                return g
+    return GROUP_SIZE
+
+
+def _quantize_2d(w: torch.Tensor, density: float, tile_uniform: bool,
+                 shard_groups: int | None = None):
     """One (in, out) matrix, the reference's rules: 16-bit when it does not
     tile; dense-quantized at density 1.0 or when no group size ``m`` in
     (8, 4, 2) divides the block count with ``round(density * m) >= 1``.
-    Dense quantization takes a stack of matrices whole."""
+    Dense quantization takes a stack of matrices whole; an expert matrix
+    (``shard_groups``) takes its group from :func:`_moe_group`."""
     in_f, out_f = w.shape[-2:]
-    if in_f % GROUP_SIZE or (density < 1.0 and out_f % GROUP_SIZE):
+    group = _moe_group(in_f, shard_groups)
+    if in_f % group or (density < 1.0 and out_f % GROUP_SIZE):
         return w
     if density >= 1.0:
-        return quantize(w)
+        return quantize(w, group_size=group)
+    if shard_groups:
+        raise NotImplementedError(
+            "block-sparse experts are not ported: the moe family takes the "
+            "strategies 'none' and 'dense'")
     n_blocks = in_f // GROUP_SIZE
     for m in (BLOCKS_PER_GROUP, 4, 2):
         if n_blocks % m == 0 and round(density * m) >= 1:
@@ -78,12 +100,16 @@ def _stack(parts: list):
         if isinstance(getattr(first, f.name), torch.Tensor)})
 
 
-def _quantize_leaf(w: torch.Tensor, density: float, tile_uniform: bool):
+def _quantize_leaf(w: torch.Tensor, density: float, tile_uniform: bool,
+                   shard_groups: int | None = None):
     """A pruned stack is quantized layer by layer (the reference's vmap):
-    each matrix keeps its own blocks."""
-    if w.ndim == 2 or density >= 1.0:
-        return _quantize_2d(w, density, tile_uniform)
-    return _stack([_quantize_leaf(layer, density, tile_uniform)
+    each matrix keeps its own blocks.  A dense stack of one leading axis
+    goes whole; one of two (experts (layers, experts, in, out), the
+    xLSTM's (segments, blocks, in, out)) goes by its first axis, which
+    bounds the f32 working copy (the same bits)."""
+    if w.ndim == 2 or (density >= 1.0 and w.ndim <= 3):
+        return _quantize_2d(w, density, tile_uniform, shard_groups)
+    return _stack([_quantize_leaf(layer, density, tile_uniform, shard_groups)
                    for layer in w])
 
 
@@ -98,18 +124,22 @@ def quantize_model(params: dict, strategy: str = "dense") -> dict:
         return params
     dmap = SPARSE_STRATEGIES[strategy]
 
-    def walk(tree, name=""):
+    def walk(tree, name="", in_moe=False):
         if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
+            return {k: walk(v, k, in_moe or name == "moe")
+                    for k, v in tree.items()}
         kind = _KIND_BY_NAME.get(name)
         if (kind is None or not isinstance(tree, torch.Tensor)
                 or not tree.is_floating_point() or tree.ndim < 2):
             return tree
         # the down projection contracts over d_ff, the axis the fused FFN
         # walks: one kept set for all its output tiles lets it skip the
-        # hidden tiles down drops (and their gate/up blocks)
+        # hidden tiles down drops (and their gate/up blocks).  Expert
+        # matrices (under "moe", stacked (layers, experts, in, out)) keep
+        # their group count a multiple of 16, as the reference's do
         return _quantize_leaf(tree, dmap[kind],
-                              tile_uniform=(kind == "4h_to_h"))
+                              tile_uniform=(kind == "4h_to_h"),
+                              shard_groups=16 if in_moe else None)
 
     return walk(params)
 

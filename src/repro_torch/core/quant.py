@@ -1,10 +1,11 @@
 """Block-level INT4 weight quantization (EdgeLLM §III-B), in PyTorch.
 
 Bit-exact with ``repro/core/quant.py``: symmetric int4 along the
-contraction axis, one scale per 128 input channels and output column, and
-the *sublane-pair* nibble layout — within each 128-row group, byte ``r``
-holds row ``r`` in its low nibble and row ``r + 64`` in its high nibble.
-The CUDA kernels read that layout as it is (no repack at load time).
+contraction axis, one scale per ``group_size`` input channels (128; MoE
+experts 64 or 32, ``core/compiler._moe_group``) and output column, and the
+*sublane-pair* nibble layout — within each g-row group, byte ``r`` holds
+row ``r`` in its low nibble and row ``r + g/2`` in its high nibble.  The
+CUDA kernels read that layout as it is (no repack at load time).
 
 Weights are ``(in_features, out_features)``; a leading stack axis (layers)
 is allowed on every function here and on :class:`QuantizedTensor`.

@@ -11,7 +11,10 @@
 // added to the f32 sum before the cast, as the reference's fused kernel
 // does; `models/layers.linear` adds its bias after the cast instead (bias
 // null here).  Ragged token, contraction and output edges are masked in
-// the kernel, so qwen-7b's 151936-wide 16-bit lm_head runs here.
+// the kernel, so qwen-7b's 151936-wide 16-bit lm_head runs here.  A tied
+// LM head (x @ embed.T) reads the (V, d) embedding in place as the
+// transposed weight (w_trans), at any V (granite-moe-3b-a800m's 49155),
+// with the same sum order: no transposed copy of 151 MB a tick.
 //
 // bfloat16 runs on the tensor cores (dense_mma_tile.cuh): mma.sync
 // m16n8k16 with f32 accumulation, each output one warp's fragment summed
@@ -28,13 +31,21 @@
 
 REPRO_ERROR_STRING_FN
 
+// w_trans: w is (out_f, in_f) row-major, read as its transpose in place
+// (a tied embedding as the LM head; bf16, no bias: the wrapper checks),
+// any out_f.
 extern "C" int dense_matmul_launch(const void* x, const void* w,
                                    const void* bias, void* out, int n_tok,
                                    int in_f, int out_f, int dtype,
-                                   void* stream) {
+                                   int w_trans, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  if (w_trans) {
+    if (dtype != kBF16 || bias != nullptr) return (int)cudaErrorInvalidValue;
+    return launch_dense_mma<1, kEpiNone, true>(x, n_tok, in_f, out_f, w,
+                                               nullptr, nullptr, out, s);
+  }
   if (bias != nullptr) {
     if (dtype == kBF16)
       return launch_dense_mma<1, kEpiBias>(x, n_tok, in_f, out_f, w, nullptr,

@@ -2,7 +2,9 @@
 // dense_matmul.cu (one weight, optionally with an f32 bias) and
 // ffn_fused_dense.cu (gate and up together, or up alone with its bias for
 // the ungated gelu FFN, the activation in the epilogue).  Weights are plain
-// row-major (in, out) bf16 matrices; the epilogues are common.cuh's.
+// row-major (in, out) bf16 matrices, or, for dense_matmul (TW), an (out,
+// in) matrix read as its transpose in place: a tied embedding (V, d) as
+// the LM head, with no copy; the epilogues are common.cuh's.
 // float32 inputs keep the CUDA-core tile of dense_tile.cuh.
 //
 // The product: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, bf16
@@ -102,8 +104,11 @@ constexpr int kDenseMmaSms = 132;
 // and x 16-byte aligned, so each x chunk is one cp.async (else a masked
 // scalar path); vec_w: the same for out_f and the weights (else two 8-byte
 // copies, which out_f % 4 == 0 and the wrapper's 4-element alignment
-// allow).  Both paths fill the stage with the same bits.
-template <class C, int NW>
+// allow).  Both paths fill the stage with the same bits.  TW: the weight
+// is (out, in) row-major and its stage holds BN rows of n, BK of k each
+// (as x's stage: vec_w then means in_f % 8 == 0 and a 16-byte aligned
+// weight, else a masked scalar path), so any out_f is read.
+template <class C, int NW, bool TW = false>
 __device__ __forceinline__ void dense_mma_load(
     __nv_bfloat16* stage, const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
@@ -134,6 +139,36 @@ __device__ __forceinline__ void dense_mma_load(
       *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
+  if constexpr (TW) {
+    static_assert(NW == 1, "a transposed weight reads alone");
+    constexpr int kBt = C::BN * C::RA;
+    __nv_bfloat16* sb = stage + C::BM * C::BK;
+#pragma unroll
+    for (int j = 0; j < (kBt + C::kThreads - 1) / C::kThreads; ++j) {
+      const int i = threadIdx.x + j * C::kThreads;
+      if (kBt % C::kThreads != 0 && i >= kBt) break;
+      const int r = i / C::RA, c = i % C::RA;
+      __nv_bfloat16* dst = sb + r * C::BK + swz<C::RA>(r, c) * 8;
+      const int n = n0 + r, k = k0 + c * 8;
+      if (vec_w) {
+        const bool ok = n < out_f && k < in_f;
+        cp_async16(dst, ok ? w0 + (size_t)n * in_f + k : w0, ok ? 16 : 0);
+      } else {
+        const unsigned short* wr =
+            reinterpret_cast<const unsigned short*>(w0) + (size_t)n * in_f;
+        uint32_t v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ka = k + 2 * e;
+          const uint32_t lo = n < out_f && ka < in_f ? wr[ka] : 0u;
+          const uint32_t hi = n < out_f && ka + 1 < in_f ? wr[ka + 1] : 0u;
+          v[e] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     const __nv_bfloat16* wg = w == 0 ? w0 : w1;
@@ -160,7 +195,9 @@ __device__ __forceinline__ void dense_mma_load(
 }
 
 // The k16 steps of one stage, in increasing k, for this warp's fragments.
-template <class C, int NW>
+// TW: the weight's stage rows are n, so ldmatrix without .trans gives the
+// B fragments (the same values, so the same sums, as the (in, out) path).
+template <class C, int NW, bool TW = false>
 __device__ __forceinline__ void dense_mma_stage(
     const __nv_bfloat16* stage, int k0, int in_f, int wm, int wn, int lane,
     float (&acc)[NW][C::kFragM][C::kFragN][4]) {
@@ -181,7 +218,31 @@ __device__ __forceinline__ void dense_mma_stage(
     for (int w = 0; w < NW; ++w) {
       const __nv_bfloat16* sb = stage + C::BM * C::BK + w * C::BK * C::BN;
       uint32_t b[C::kFragN][2];
-      if constexpr (C::kFragN == 1) {
+      if constexpr (TW) {
+        // lanes 0-7 n rows 0-7 at k 0-7, 8-15 the same rows at k 8-15,
+        // 16-31 the same for the next 8 rows (x4)
+        if constexpr (C::kFragN == 1) {
+          const int n = wn * C::kWarpN + (lane & 7);
+          const int c = ks * 2 + ((lane >> 3) & 1);
+          uint32_t t2[2];
+          ldsm_x2(t2, sb + n * C::BK + swz<C::RA>(n, c) * 8);
+          b[0][0] = t2[0];
+          b[0][1] = t2[1];
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::kFragN / 2; ++j) {
+            const int n = wn * C::kWarpN + 16 * j + 8 * (lane >> 4) +
+                          (lane & 7);
+            const int c = ks * 2 + ((lane >> 3) & 1);
+            uint32_t t4[4];
+            ldsm_x4(t4, sb + n * C::BK + swz<C::RA>(n, c) * 8);
+            b[2 * j][0] = t4[0];
+            b[2 * j][1] = t4[1];
+            b[2 * j + 1][0] = t4[2];
+            b[2 * j + 1][1] = t4[3];
+          }
+        }
+      } else if constexpr (C::kFragN == 1) {
         uint32_t t2[2];
         ldsm_x2_trans(t2, sb + r * C::BN +
                               swz<C::RB>(r, wn * C::kWarpN / 8) * 8);
@@ -209,8 +270,8 @@ __device__ __forceinline__ void dense_mma_stage(
 }
 
 // NW = number of weights read against the same x (1, or 2 for the gated
-// FFN: w0 = gate, w1 = up).
-template <class C, int NW, int EPI>
+// FFN: w0 = gate, w1 = up); TW: w0 is (out, in).
+template <class C, int NW, int EPI, bool TW = false>
 __global__ void __launch_bounds__(C::kThreads)
     dense_mma_kernel(const __nv_bfloat16* __restrict__ x, int n_tok,
                      int in_f, int out_f,
@@ -239,8 +300,8 @@ __global__ void __launch_bounds__(C::kThreads)
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     if (s < n_kt)
-      dense_mma_load<C, NW>(ring + s * kStage, x, w0, w1, n_tok, in_f, out_f,
-                            t0, n0, s * C::BK, vec_x, vec_w);
+      dense_mma_load<C, NW, TW>(ring + s * kStage, x, w0, w1, n_tok, in_f,
+                                out_f, t0, n0, s * C::BK, vec_x, vec_w);
     cp_async_commit();
   }
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -249,18 +310,19 @@ __global__ void __launch_bounds__(C::kThreads)
                                        // kt - 1 is free again
     const int nk = kt + C::STAGES - 1;
     if (nk < n_kt)
-      dense_mma_load<C, NW>(ring + (nk % C::STAGES) * kStage, x, w0, w1,
-                            n_tok, in_f, out_f, t0, n0, nk * C::BK, vec_x,
-                            vec_w);
+      dense_mma_load<C, NW, TW>(ring + (nk % C::STAGES) * kStage, x, w0, w1,
+                                n_tok, in_f, out_f, t0, n0, nk * C::BK,
+                                vec_x, vec_w);
     cp_async_commit();
-    dense_mma_stage<C, NW>(ring + (kt % C::STAGES) * kStage, kt * C::BK,
-                           in_f, wm, wn, lane, acc);
+    dense_mma_stage<C, NW, TW>(ring + (kt % C::STAGES) * kStage, kt * C::BK,
+                               in_f, wm, wn, lane, acc);
   }
   cp_async_wait<0>();
 
   // epilogue: a lane holds rows g and g + 8 (g = lane / 4) of columns
   // 2 (lane % 4) and + 1 of each fragment; out_f % 4 == 0 keeps the pair
-  // inside the matrix and 4-byte aligned
+  // inside the matrix and 4-byte aligned; a transposed weight's ragged
+  // out_f (any) stores the pair's columns one by one inside the matrix
 #pragma unroll
   for (int i = 0; i < C::kFragM; ++i)
 #pragma unroll
@@ -278,19 +340,26 @@ __global__ void __launch_bounds__(C::kThreads)
         }
         __nv_bfloat162 v;
         v.x = from_f32<__nv_bfloat16>(epilogue<NW, EPI>(s0, bias, col));
+        __nv_bfloat16* dst = out + (size_t)row * out_f + col;
+        if (TW && ((out_f & 1) || col + 1 >= out_f)) {
+          *dst = v.x;
+          if (col + 1 < out_f)
+            dst[1] = from_f32<__nv_bfloat16>(
+                epilogue<NW, EPI>(s1, bias, col + 1));
+          continue;
+        }
         v.y = from_f32<__nv_bfloat16>(epilogue<NW, EPI>(s1, bias, col + 1));
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * out_f + col) =
-            v;
+        *reinterpret_cast<__nv_bfloat162*>(dst) = v;
       }
 }
 
-template <class C, int NW, int EPI>
+template <class C, int NW, int EPI, bool TW = false>
 int launch_dense_mma_cfg(const void* x, int n_tok, int in_f, int out_f,
                          const void* w0, const void* w1, const float* bias,
                          void* out, int vec_x, int vec_w,
                          cudaStream_t stream) {
   constexpr int smem = C::template smem_bytes<NW>();
-  auto kernel = dense_mma_kernel<C, NW, EPI>;
+  auto kernel = dense_mma_kernel<C, NW, EPI, TW>;
   REPRO_SMEM_OPT_IN(kernel, smem);
   // token tiles fastest, so the blocks that share a weight strip run
   // together and read it from device memory once
@@ -305,18 +374,19 @@ int launch_dense_mma_cfg(const void* x, int n_tok, int in_f, int out_f,
 
 // The tile configuration follows the token count (and the grid it gives)
 // here, and only here; the order of every sum does not (see the note at the
-// top).
-template <int NW, int EPI>
+// top).  TW: w0 is (out, in), read transposed in place.
+template <int NW, int EPI, bool TW = false>
 int launch_dense_mma(const void* x, int n_tok, int in_f, int out_f,
                      const void* w0, const void* w1, const float* bias,
                      void* out, cudaStream_t stream) {
   const int vec_x = in_f % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_w = out_f % 8 == 0 &&
+  const int vec_w = (TW ? in_f % 8 == 0 : out_f % 8 == 0) &&
                     reinterpret_cast<uintptr_t>(w0) % 16 == 0 &&
                     (NW == 1 || reinterpret_cast<uintptr_t>(w1) % 16 == 0);
-#define REPRO_DENSE_MMA(CFG)                                              \
-  return launch_dense_mma_cfg<CFG, NW, EPI>(x, n_tok, in_f, out_f, w0, w1, \
-                                            bias, out, vec_x, vec_w, stream)
+#define REPRO_DENSE_MMA(CFG)                                                \
+  return launch_dense_mma_cfg<CFG, NW, EPI, TW>(x, n_tok, in_f, out_f, w0,   \
+                                                w1, bias, out, vec_x, vec_w, \
+                                                stream)
   if (n_tok <= 16) REPRO_DENSE_MMA(DenseMmaDecode);
   if (n_tok <= 128) REPRO_DENSE_MMA(DenseMmaMid);
   if constexpr (NW == 2) {

@@ -52,17 +52,37 @@
 REPRO_ERROR_STRING_FN
 
 // gate_* are ignored for activation kEpiGeluBias (up alone); up_bias is
-// read by it only (f32, may be null).
+// read by it only (f32, may be null).  group: the quant group's rows; the
+// gated bf16 tile takes 32, 64 and 128 (the MoE experts' groups), the rest
+// 128 (the wrapper refuses the others).
 extern "C" int ffn_gate_up_launch(const void* x, const void* gate_packed,
                                   const void* gate_scales,
                                   const void* up_packed,
                                   const void* up_scales, const void* up_bias,
                                   void* hidden, int n_tok, int d, int f,
-                                  int activation, int dtype, void* stream) {
+                                  int group, int activation, int dtype,
+                                  void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ub = static_cast<const float*>(up_bias);
   const bool bf16 = dtype == kBF16;
+#define REPRO_FFN_GATED_GS(EPI, GS)                                          \
+  return launch_w4a16_mma_gated<EPI, GS>(x, n_tok, d, f, gate_packed,        \
+                                         gate_scales, up_packed, up_scales,  \
+                                         hidden, s)
+  if (bf16 && (group == 32 || group == 64)) {
+    if (activation == kEpiSwiglu) {
+      if (group == 32) REPRO_FFN_GATED_GS(kEpiSwiglu, 32);
+      REPRO_FFN_GATED_GS(kEpiSwiglu, 64);
+    }
+    if (activation == kEpiGeglu) {
+      if (group == 32) REPRO_FFN_GATED_GS(kEpiGeglu, 32);
+      REPRO_FFN_GATED_GS(kEpiGeglu, 64);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FFN_GATED_GS
+  if (group != kW4MmaGroup) return (int)cudaErrorInvalidValue;
 #define REPRO_FFN_GATED(EPI)                                                 \
   return bf16 ? launch_w4a16_mma_gated<EPI>(x, n_tok, d, f, gate_packed,     \
                                             gate_scales, up_packed,          \

@@ -3,8 +3,9 @@
 //
 // Replaces src/repro/kernels/w4a16_matmul.py::w4a16_matmul_pallas (the
 // paper's FP16 x INT4 MODE-1 unit).  Same contract: int4 values are exact,
-// each 128-row group's f32 partial sum is multiplied by that group's
-// per-column scale, the sum is cast to x's dtype.  Unlike the TPU kernel it
+// each quant group's f32 partial sum is multiplied by that group's
+// per-column scale, the sum is cast to x's dtype.  The TPU kernel takes
+// 128-row groups only; bf16 here also takes the MoE experts' 64 and 32.  Unlike the TPU kernel it
 // masks ragged token and output edges itself, so the 151936-wide lm_head of
 // qwen-7b runs here (the reference requires out % 512 == 0).  The bias is
 // the down projection's of the ungated gelu FFN, which the reference's
@@ -27,13 +28,25 @@
 
 REPRO_ERROR_STRING_FN
 
+// group: the quant group's rows.  The bf16 tile takes 32, 64 and 128
+// without the bias (the MoE experts' groups), 128 with it; float32 takes
+// 128 (the wrapper refuses the rest).
 extern "C" int w4a16_matmul_launch(const void* x, const void* packed,
                                    const void* scales, const void* bias,
                                    void* out, int n_tok, int in_f, int out_f,
-                                   int dtype, void* stream) {
+                                   int group, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  if (dtype == kBF16 && bias == nullptr) {
+    if (group == 32)
+      return launch_w4a16_mma<kEpiNone, 32>(x, n_tok, in_f, out_f, packed,
+                                            scales, nullptr, out, s);
+    if (group == 64)
+      return launch_w4a16_mma<kEpiNone, 64>(x, n_tok, in_f, out_f, packed,
+                                            scales, nullptr, out, s);
+  }
+  if (group != kW4MmaGroup) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16)
     return bias != nullptr
                ? launch_w4a16_mma<kEpiBias>(x, n_tok, in_f, out_f, packed,

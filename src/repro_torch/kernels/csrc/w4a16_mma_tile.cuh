@@ -6,9 +6,11 @@
 // (sparse_mma_tile.cuh).
 //
 // Layout read as the reference stores it (core/quant.py), with no repack:
-// packed uint8 (in/2, out), where byte r of each 128-row group holds row r
-// in its low nibble and row r + 64 in its high nibble; scales bf16
-// (in/128, out).
+// packed uint8 (in/2, out), where byte r of each g-row group holds row r
+// in its low nibble and row r + g/2 in its high nibble; scales bf16
+// (in/g, out).  The quant group g is a template parameter (GS): 128 rows,
+// or 64 and 32 for MoE experts (core/compiler._moe_group), whose groups
+// the reference keeps a multiple of 16 a matrix.
 //
 // The product: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with x
 // as the A operand (16 token rows a fragment, zero past the last token)
@@ -20,15 +22,17 @@
 // are exact in bf16 (the nibble XOR 8 becomes the mantissa of 128 + u,
 // and one bf16x2 fma subtracts 136).
 //
-// The order of each sum.  k16 step s (s = 0..7) of a group takes the
+// The order of each sum.  k16 step s (s = 0..g/16-1) of a group takes the
 // group's rows 8s..8s+7 (the low nibbles of packed rows 8s..8s+7) and
-// rows 64+8s..64+8s+7 (their high nibbles), so a lane's two B registers
+// rows g/2+8s..g/2+8s+7 (their high nibbles), so a lane's two B registers
 // come from the same two packed bytes, and x's A fragment is two 16-byte
-// chunks of the x row (columns 8s.. and 64+8s..) that ldmatrix reads in
-// place.  For each 128-row group, in increasing group order, one warp's
-// fragment sums the group's 8 steps from +0 in increasing s; the finished
-// f32 partial is multiplied by the group's scale and added to the running
-// f32 sum (one fmaf: the paper's scale-after-accumulate).  There is no
+// chunks of the x row (columns 8s.. and g/2+8s..) that ldmatrix reads in
+// place.  For each group, in increasing group order, one warp's fragment
+// sums the group's g/16 steps from +0 in increasing s; the finished f32
+// partial is multiplied by the group's scale and added to the running f32
+// sum (one fmaf: the paper's scale-after-accumulate).  A stage moves whole
+// 128-row chunks (one group of 128, or 128/g smaller ones); at g = 128
+// the order is that of every kernel before the group became a parameter.  There is no
 // split of the contraction across warps or blocks and no atomic, and the
 // epilogue (common.cuh's; kEpiBias adds the f32 bias) is the same in every
 // configuration.  So the order of every sum is fixed by in_f alone: the
@@ -77,15 +81,19 @@
 
 namespace repro {
 
-constexpr int kW4MmaGroup = 128;   // rows of a scale group, 64 packed rows
+// rows of a stage's chunk (64 packed rows): one 128-row scale group, or
+// 128 / GS groups of GS rows
+constexpr int kW4MmaGroup = 128;
 
 // BM x BN outputs a block, WM x WN warps of (BM / WM) x (BN / WN) outputs,
-// a ring of STAGES stages of G whole groups each, NW weights (1, or gate
-// and up) against the same x.
-template <int BM_, int BN_, int WM_, int WN_, int G_, int STAGES_, int NW_ = 1>
+// a ring of STAGES stages of G whole 128-row chunks each, NW weights (1, or
+// gate and up) against the same x, quant groups of GS rows.
+template <int BM_, int BN_, int WM_, int WN_, int G_, int STAGES_, int NW_ = 1,
+          int GS_ = kW4MmaGroup>
 struct W4MmaTile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, G = G_,
-                       STAGES = STAGES_, NW = NW_;
+                       STAGES = STAGES_, NW = NW_, GS = GS_;
+  static constexpr int kQ = kW4MmaGroup / GS;  // quant groups a chunk
   static constexpr int kThreads = 32 * WM * WN;
   static constexpr int kWarpM = BM / WM, kWarpN = BN / WN;
   static constexpr int kFragM = kWarpM / 16, kNT = kWarpN / 8;
@@ -93,7 +101,7 @@ struct W4MmaTile {
   static constexpr int KP = KX / 2;            // packed rows a stage
   static constexpr int RX = KX / 8, RP = BN / 16;   // 16-byte chunks a row
   static constexpr int kXBytes = BM * KX * 2, kPBytes = KP * BN,
-                       kSBytes = G * BN * 2;
+                       kSBytes = G * kQ * BN * 2;
   static constexpr int kWStage = kPBytes + kSBytes;   // one weight's part
   static constexpr int kStage = kXBytes + NW * kWStage;
   static constexpr int kSmem = STAGES * kStage;
@@ -101,6 +109,7 @@ struct W4MmaTile {
   static_assert(kNT == 1 || kNT == 2 || kNT == 4, "a lane's word is 1-4 B");
   static_assert(RP >= 2, "swizzle needs 32-byte packed rows");
   static_assert(NW == 1 || NW == 2, "one weight, or gate and up");
+  static_assert(GS == 32 || GS == 64 || GS == 128, "groups of 32-128 rows");
 };
 
 // The configurations the launcher picks from, each a compromise across the
@@ -109,18 +118,26 @@ struct W4MmaTile {
 // blocks, and a block's time is its walk over the groups, not its bytes;
 // the 151936-wide lm_head has blocks to spare and wider strips cost it
 // fewer instructions a weight.
-using W4MmaDecode = W4MmaTile<16, 32, 1, 4, 2, 4>;       // T <= 16
-using W4MmaDecodeWide = W4MmaTile<16, 128, 1, 8, 2, 4>;  // ... out_f > 33792
-using W4MmaMid = W4MmaTile<64, 64, 2, 4, 1, 4>;          // T <= 128
-using W4MmaWide = W4MmaTile<64, 128, 2, 4, 1, 3>;        // T > 128
-using W4MmaLarge = W4MmaTile<128, 128, 2, 4, 1, 4>;      // ... >= 132 tiles
+template <int GS = kW4MmaGroup>
+using W4MmaDecode = W4MmaTile<16, 32, 1, 4, 2, 4, 1, GS>;      // T <= 16
+template <int GS = kW4MmaGroup>                                // ... out_f
+using W4MmaDecodeWide = W4MmaTile<16, 128, 1, 8, 2, 4, 1, GS>;  // > 33792
+template <int GS = kW4MmaGroup>
+using W4MmaMid = W4MmaTile<64, 64, 2, 4, 1, 4, 1, GS>;         // T <= 128
+template <int GS = kW4MmaGroup>
+using W4MmaWide = W4MmaTile<64, 128, 2, 4, 1, 3, 1, GS>;       // T > 128
+template <int GS = kW4MmaGroup>                        // ... >= 132 tiles
+using W4MmaLarge = W4MmaTile<128, 128, 2, 4, 1, 4, 1, GS>;
 constexpr int kW4MmaSms = 132;
 // Kernel 2's gate/up stage: two weights double a warp's accumulators and
 // per-group partials, so the warp tiles stay at 32 x 16 (T <= 128) and
 // 32 x 32 (above); 16 x 32 blocks at decode as kernel 1's.
-using W4MmaGatedDecode = W4MmaTile<16, 32, 1, 4, 2, 4, 2>;   // T <= 16
-using W4MmaGatedMid = W4MmaTile<64, 64, 2, 4, 1, 4, 2>;      // T <= 128
-using W4MmaGatedWide = W4MmaTile<64, 128, 2, 4, 1, 3, 2>;    // T > 128
+template <int GS = kW4MmaGroup>
+using W4MmaGatedDecode = W4MmaTile<16, 32, 1, 4, 2, 4, 2, GS>;  // T <= 16
+template <int GS = kW4MmaGroup>
+using W4MmaGatedMid = W4MmaTile<64, 64, 2, 4, 1, 4, 2, GS>;     // T <= 128
+template <int GS = kW4MmaGroup>
+using W4MmaGatedWide = W4MmaTile<64, 128, 2, 4, 1, 3, 2, GS>;   // T > 128
 
 // One weight's part of a ring stage (see w4_mma_load below).
 template <class C>
@@ -128,7 +145,7 @@ __device__ __forceinline__ void w4_mma_load_w(
     unsigned char* ps, const uint8_t* __restrict__ pk,
     const __nv_bfloat16* __restrict__ sc, int in_f, int out_f, int n0,
     int g0, bool vec_w) {
-  const int n_groups = in_f / kW4MmaGroup;
+  const int n_groups = in_f / C::GS;
   constexpr int kB = C::KP * C::RP;
 #pragma unroll
   for (int j = 0; j < (kB + C::kThreads - 1) / C::kThreads; ++j) {
@@ -151,10 +168,10 @@ __device__ __forceinline__ void w4_mma_load_w(
     }
   }
   unsigned char* ss = ps + C::kPBytes;
-  constexpr int kS = C::G * (C::BN / 8);
+  constexpr int kS = C::G * C::kQ * (C::BN / 8);
   for (int i = threadIdx.x; i < kS; i += C::kThreads) {
     const int r = i / (C::BN / 8), c = i % (C::BN / 8);
-    const int g = g0 + r, n = n0 + c * 8;
+    const int g = g0 * C::kQ + r, n = n0 + c * 8;
     unsigned char* dst = ss + (r * C::BN + c * 8) * 2;
     const __nv_bfloat16* src = sc + (size_t)g * out_f + n;
     if (vec_w) {
@@ -170,8 +187,10 @@ __device__ __forceinline__ void w4_mma_load_w(
 }
 
 // One ring stage: x rows t0.. (BM) and columns 128 g0.. (KX), then for each
-// weight its packed rows 64 g0.. (KP) and scale rows g0.. (G) of columns
-// n0.. (BN); zeros past n_tok, in_f and out_f.  vec_w: out_f % 16 == 0 and
+// weight its packed rows 64 g0.. (KP) and scale rows kQ g0.. (G kQ) of
+// columns n0.. (BN); zeros past n_tok, in_f and out_f.  XR, when given,
+// maps a row of the tile to its x row (rows gathered by index: the MoE
+// experts' tokens).  vec_w: out_f % 16 == 0 and
 // 16-byte aligned weights, so each packed or scale chunk is one cp.async
 // (else 4-byte packed and 8-byte scale copies, which out_f % 4 == 0
 // allows); both paths fill the stage with the same bits.
@@ -180,7 +199,8 @@ __device__ __forceinline__ void w4_mma_load(
     unsigned char* stage, const __nv_bfloat16* __restrict__ x,
     const uint8_t* __restrict__ pk, const __nv_bfloat16* __restrict__ sc,
     const uint8_t* __restrict__ pk2, const __nv_bfloat16* __restrict__ sc2,
-    int n_tok, int in_f, int out_f, int t0, int n0, int g0, bool vec_w) {
+    int n_tok, int in_f, int out_f, int t0, int n0, int g0, bool vec_w,
+    const int* xr = nullptr) {
   constexpr int kA = C::BM * C::RX;
 #pragma unroll
   for (int j = 0; j < (kA + C::kThreads - 1) / C::kThreads; ++j) {
@@ -189,8 +209,9 @@ __device__ __forceinline__ void w4_mma_load(
     const int r = i / C::RX, c = i % C::RX;
     const int t = t0 + r, k = g0 * kW4MmaGroup + c * 8;
     const bool ok = t < n_tok && k < in_f;
+    const size_t row = xr != nullptr ? (size_t)xr[r] : (size_t)t;
     cp_async16(stage + (r * C::RX + swz<C::RX>(r, c)) * 16,
-               ok ? x + (size_t)t * in_f + k : x, ok ? 16 : 0);
+               ok ? x + row * in_f + k : x, ok ? 16 : 0);
   }
   w4_mma_load_w<C>(stage + C::kXBytes, pk, sc, in_f, out_f, n0, g0, vec_w);
   if constexpr (C::NW == 2)
@@ -222,9 +243,10 @@ __device__ __forceinline__ uint32_t w4_dequant_pair(uint32_t q) {
   return d;
 }
 
-// The groups of one stage, each weight's from +0 in increasing k16 steps,
-// scaled and added to that weight's acc in increasing group order (see the
-// note at the top); the weights share each step's A fragments.
+// The chunks of one stage, and in each its kQ quant groups, each weight's
+// from +0 in increasing k16 steps, scaled and added to that weight's acc in
+// increasing group order (see the note at the top); the weights share
+// each step's A fragments.  n_groups counts 128-row chunks.
 template <class C>
 __device__ __forceinline__ void w4_mma_stage(
     const unsigned char* stage, int g0, int n_groups, int wm, int wn,
@@ -232,74 +254,79 @@ __device__ __forceinline__ void w4_mma_stage(
   const unsigned char* xs = stage;
   const int t = lane & 3, col = wn * C::kWarpN + C::kNT * (lane >> 2);
   const int pcol = col & 15, pchunk = col >> 4;
+  constexpr int kSteps = C::GS / 16, kHalf = C::GS / 2;
 #pragma unroll
   for (int gi = 0; gi < C::G; ++gi) {
     if (g0 + gi >= n_groups) break;   // past in_f: in every configuration
-    float part[C::NW][C::kFragM][C::kNT][4];
 #pragma unroll
-    for (int wi = 0; wi < C::NW; ++wi)
+    for (int q = 0; q < C::kQ; ++q) {
+      float part[C::NW][C::kFragM][C::kNT][4];
 #pragma unroll
-      for (int i = 0; i < C::kFragM; ++i)
+      for (int wi = 0; wi < C::NW; ++wi)
 #pragma unroll
-        for (int j = 0; j < C::kNT; ++j)
+        for (int i = 0; i < C::kFragM; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) part[wi][i][j][e] = 0.0f;
+          for (int j = 0; j < C::kNT; ++j)
 #pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      uint32_t a[C::kFragM][4];
+            for (int e = 0; e < 4; ++e) part[wi][i][j][e] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < C::kFragM; ++i) {
-        const int r = wm * C::kWarpM + i * 16 + (lane & 15);
-        const int c = gi * 16 + ((lane >> 4) ? 8 + s : s);
-        ldsm_x4(a[i], xs + (r * C::RX + swz<C::RX>(r, c)) * 16);
+      for (int s = 0; s < kSteps; ++s) {
+        uint32_t a[C::kFragM][4];
+#pragma unroll
+        for (int i = 0; i < C::kFragM; ++i) {
+          const int r = wm * C::kWarpM + i * 16 + (lane & 15);
+          const int c = gi * 16 + q * (C::GS / 8) +
+                        ((lane >> 4) ? kSteps + s : s);
+          ldsm_x4(a[i], xs + (r * C::RX + swz<C::RX>(r, c)) * 16);
+        }
+        const int prow = gi * (kW4MmaGroup / 2) + q * kHalf + 8 * s + 2 * t;
+#pragma unroll
+        for (int wi = 0; wi < C::NW; ++wi) {
+          const unsigned char* ps = stage + C::kXBytes + wi * C::kWStage;
+          const uint32_t w0 = w4_lane_word<C::kNT>(
+              ps + prow * C::BN + swz<C::RP>(prow, pchunk) * 16 + pcol);
+          const uint32_t w1 = w4_lane_word<C::kNT>(
+              ps + (prow + 1) * C::BN + swz<C::RP>(prow + 1, pchunk) * 16 +
+              pcol);
+#pragma unroll
+          for (int j = 0; j < C::kNT; ++j) {
+            // bytes j of rows 2t and 2t + 1 at bits 0-7 and 16-23
+            const uint32_t qb = __byte_perm(
+                w0, w1, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
+            const uint32_t b0 = w4_dequant_pair(qb);       // rows 8s + 2t, +1
+            const uint32_t b1 = w4_dequant_pair(qb >> 4);  // the same + g/2
+#pragma unroll
+            for (int i = 0; i < C::kFragM; ++i)
+              mma_bf16(part[wi][i][j], a[i], b0, b1);
+          }
+        }
       }
-      const int prow = gi * (kW4MmaGroup / 2) + 8 * s + 2 * t;
+      // the lane's output columns: kNT from col 2 kNT t (fragment column
+      // 2t), then kNT more (2t + 1)
 #pragma unroll
       for (int wi = 0; wi < C::NW; ++wi) {
-        const unsigned char* ps = stage + C::kXBytes + wi * C::kWStage;
-        const uint32_t w0 = w4_lane_word<C::kNT>(
-            ps + prow * C::BN + swz<C::RP>(prow, pchunk) * 16 + pcol);
-        const uint32_t w1 = w4_lane_word<C::kNT>(
-            ps + (prow + 1) * C::BN + swz<C::RP>(prow + 1, pchunk) * 16 +
-            pcol);
+        const __nv_bfloat16* ss = reinterpret_cast<const __nv_bfloat16*>(
+            stage + C::kXBytes + wi * C::kWStage + C::kPBytes);
+        const __nv_bfloat16* sg = ss + (gi * C::kQ + q) * C::BN +
+                                  wn * C::kWarpN + 2 * C::kNT * t;
+        float s_lo[C::kNT], s_hi[C::kNT];
 #pragma unroll
         for (int j = 0; j < C::kNT; ++j) {
-          // bytes j of rows 2t and 2t + 1 at bits 0-7 and 16-23
-          const uint32_t q = __byte_perm(
-              w0, w1, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
-          const uint32_t b0 = w4_dequant_pair(q);        // rows 8s + 2t, +1
-          const uint32_t b1 = w4_dequant_pair(q >> 4);   // the same + 64
-#pragma unroll
-          for (int i = 0; i < C::kFragM; ++i)
-            mma_bf16(part[wi][i][j], a[i], b0, b1);
+          s_lo[j] = __bfloat162float(sg[j]);
+          s_hi[j] = __bfloat162float(sg[C::kNT + j]);
         }
+        float(&ac)[C::kFragM][C::kNT][4] = acc[wi];
+        float(&pa)[C::kFragM][C::kNT][4] = part[wi];
+#pragma unroll
+        for (int i = 0; i < C::kFragM; ++i)
+#pragma unroll
+          for (int j = 0; j < C::kNT; ++j) {
+            ac[i][j][0] = fmaf(pa[i][j][0], s_lo[j], ac[i][j][0]);
+            ac[i][j][1] = fmaf(pa[i][j][1], s_hi[j], ac[i][j][1]);
+            ac[i][j][2] = fmaf(pa[i][j][2], s_lo[j], ac[i][j][2]);
+            ac[i][j][3] = fmaf(pa[i][j][3], s_hi[j], ac[i][j][3]);
+          }
       }
-    }
-    // the lane's output columns: kNT from col 2 kNT t (fragment column 2t),
-    // then kNT more (2t + 1)
-#pragma unroll
-    for (int wi = 0; wi < C::NW; ++wi) {
-      const __nv_bfloat16* ss = reinterpret_cast<const __nv_bfloat16*>(
-          stage + C::kXBytes + wi * C::kWStage + C::kPBytes);
-      const __nv_bfloat16* sg =
-          ss + gi * C::BN + wn * C::kWarpN + 2 * C::kNT * t;
-      float s_lo[C::kNT], s_hi[C::kNT];
-#pragma unroll
-      for (int j = 0; j < C::kNT; ++j) {
-        s_lo[j] = __bfloat162float(sg[j]);
-        s_hi[j] = __bfloat162float(sg[C::kNT + j]);
-      }
-      float(&ac)[C::kFragM][C::kNT][4] = acc[wi];
-      float(&pa)[C::kFragM][C::kNT][4] = part[wi];
-#pragma unroll
-      for (int i = 0; i < C::kFragM; ++i)
-#pragma unroll
-        for (int j = 0; j < C::kNT; ++j) {
-          ac[i][j][0] = fmaf(pa[i][j][0], s_lo[j], ac[i][j][0]);
-          ac[i][j][1] = fmaf(pa[i][j][1], s_hi[j], ac[i][j][1]);
-          ac[i][j][2] = fmaf(pa[i][j][2], s_lo[j], ac[i][j][2]);
-          ac[i][j][3] = fmaf(pa[i][j][3], s_hi[j], ac[i][j][3]);
-        }
     }
   }
 }
@@ -347,6 +374,50 @@ __device__ __forceinline__ void w4_mma_store(
     }
 }
 
+// A block's walk over in_f: the ring filled by cp.async, each stage's
+// chunks summed into acc in order (w4_mma_stage).  xr: the tile's x rows
+// when gathered by index (w4_mma_load), else null.
+template <class C>
+__device__ __forceinline__ void w4_mma_mainloop(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ x, int n_tok,
+    int in_f, int out_f, const uint8_t* __restrict__ pk,
+    const __nv_bfloat16* __restrict__ sc, const uint8_t* __restrict__ pk2,
+    const __nv_bfloat16* __restrict__ sc2, int t0, int n0, bool vec_w,
+    const int* xr, int wm, int wn, int lane,
+    float (&acc)[C::NW][C::kFragM][C::kNT][4]) {
+  const int n_groups = in_f / kW4MmaGroup;
+  const int n_st = (n_groups + C::G - 1) / C::G;
+#pragma unroll
+  for (int wi = 0; wi < C::NW; ++wi)
+#pragma unroll
+    for (int i = 0; i < C::kFragM; ++i)
+#pragma unroll
+      for (int j = 0; j < C::kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[wi][i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_st)
+      w4_mma_load<C>(smem + s * C::kStage, x, pk, sc, pk2, sc2, n_tok, in_f,
+                     out_f, t0, n0, s * C::G, vec_w, xr);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_st; ++kt) {
+    cp_async_wait<C::STAGES - 2>();    // stage kt has landed
+    __syncthreads();                   // ... for every thread; and stage
+                                       // kt - 1 is free again
+    const int nk = kt + C::STAGES - 1;
+    if (nk < n_st)
+      w4_mma_load<C>(smem + (nk % C::STAGES) * C::kStage, x, pk, sc, pk2,
+                     sc2, n_tok, in_f, out_f, t0, n0, nk * C::G, vec_w, xr);
+    cp_async_commit();
+    w4_mma_stage<C>(smem + (kt % C::STAGES) * C::kStage, kt * C::G,
+                    n_groups, wm, wn, lane, acc);
+  }
+  cp_async_wait<0>();
+}
+
 template <class C, int EPI>
 __global__ void __launch_bounds__(C::kThreads)
     w4a16_mma_kernel(const __nv_bfloat16* __restrict__ x, int n_tok,
@@ -360,39 +431,10 @@ __global__ void __launch_bounds__(C::kThreads)
   const int t0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / C::WN, wn = warp % C::WN;
-  const int n_groups = in_f / kW4MmaGroup;
-  const int n_st = (n_groups + C::G - 1) / C::G;
 
   float acc[C::NW][C::kFragM][C::kNT][4];
-#pragma unroll
-  for (int wi = 0; wi < C::NW; ++wi)
-#pragma unroll
-    for (int i = 0; i < C::kFragM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[wi][i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < n_st)
-      w4_mma_load<C>(w4_mma_smem + s * C::kStage, x, pk, sc, pk2, sc2, n_tok,
-                     in_f, out_f, t0, n0, s * C::G, vec_w);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < n_st; ++kt) {
-    cp_async_wait<C::STAGES - 2>();    // stage kt has landed
-    __syncthreads();                   // ... for every thread; and stage
-                                       // kt - 1 is free again
-    const int nk = kt + C::STAGES - 1;
-    if (nk < n_st)
-      w4_mma_load<C>(w4_mma_smem + (nk % C::STAGES) * C::kStage, x, pk, sc,
-                     pk2, sc2, n_tok, in_f, out_f, t0, n0, nk * C::G, vec_w);
-    cp_async_commit();
-    w4_mma_stage<C>(w4_mma_smem + (kt % C::STAGES) * C::kStage, kt * C::G,
-                    n_groups, wm, wn, lane, acc);
-  }
-  cp_async_wait<0>();
+  w4_mma_mainloop<C>(w4_mma_smem, x, n_tok, in_f, out_f, pk, sc, pk2, sc2,
+                     t0, n0, vec_w, nullptr, wm, wn, lane, acc);
 
   w4_mma_store<C, C::NW, EPI>(
       [&](int wi, int i, int j, int e) { return acc[wi][i][j][e]; }, bias,
@@ -438,7 +480,7 @@ inline int w4_mma_alignment(const void* x, int out_f, const void* pk,
 // here, and only here; the order of every sum does not (see the note at
 // the top).  x must be 16-byte aligned; without vec_w the packed weight
 // must be 4-byte and the scales 8-byte aligned (the wrapper sees to both).
-template <int EPI>
+template <int EPI, int GS = kW4MmaGroup>
 int launch_w4a16_mma(const void* x, int n_tok, int in_f, int out_f,
                      const void* pk, const void* sc, const float* bias,
                      void* out, cudaStream_t stream) {
@@ -451,15 +493,16 @@ int launch_w4a16_mma(const void* x, int n_tok, int in_f, int out_f,
                                         stream)
   if (n_tok <= 16) {
     // at most 8 narrow strips an SM
-    if (out_f <= 8 * kW4MmaSms * W4MmaDecode::BN) REPRO_W4_MMA(W4MmaDecode);
-    REPRO_W4_MMA(W4MmaDecodeWide);
+    if (out_f <= 8 * kW4MmaSms * W4MmaDecode<GS>::BN)
+      REPRO_W4_MMA(W4MmaDecode<GS>);
+    REPRO_W4_MMA(W4MmaDecodeWide<GS>);
   }
-  if (n_tok <= 128) REPRO_W4_MMA(W4MmaMid);
+  if (n_tok <= 128) REPRO_W4_MMA(W4MmaMid<GS>);
   const long large_tiles =
-      (long)((n_tok + W4MmaLarge::BM - 1) / W4MmaLarge::BM) *
-      ((out_f + W4MmaLarge::BN - 1) / W4MmaLarge::BN);
-  if (large_tiles >= kW4MmaSms) REPRO_W4_MMA(W4MmaLarge);
-  REPRO_W4_MMA(W4MmaWide);
+      (long)((n_tok + W4MmaLarge<GS>::BM - 1) / W4MmaLarge<GS>::BM) *
+      ((out_f + W4MmaLarge<GS>::BN - 1) / W4MmaLarge<GS>::BN);
+  if (large_tiles >= kW4MmaSms) REPRO_W4_MMA(W4MmaLarge<GS>);
+  REPRO_W4_MMA(W4MmaWide<GS>);
 #undef REPRO_W4_MMA
 }
 
@@ -467,7 +510,7 @@ int launch_w4a16_mma(const void* x, int n_tok, int in_f, int out_f,
 // EPI (kEpiSwiglu, kEpiGeglu) on the two f32 sums of each output, both
 // weights streamed against one staged x tile; the configuration follows the
 // token count, every sum's order does not.
-template <int EPI>
+template <int EPI, int GS = kW4MmaGroup>
 int launch_w4a16_mma_gated(const void* x, int n_tok, int in_f, int out_f,
                            const void* gate_pk, const void* gate_sc,
                            const void* up_pk, const void* up_sc, void* out,
@@ -480,9 +523,9 @@ int launch_w4a16_mma_gated(const void* x, int n_tok, int in_f, int out_f,
   return launch_w4a16_mma_cfg<CFG, EPI>(x, n_tok, in_f, out_f, gate_pk,      \
                                         gate_sc, up_pk, up_sc, nullptr, out, \
                                         vec_w, stream)
-  if (n_tok <= 16) REPRO_W4_MMA(W4MmaGatedDecode);
-  if (n_tok <= 128) REPRO_W4_MMA(W4MmaGatedMid);
-  REPRO_W4_MMA(W4MmaGatedWide);
+  if (n_tok <= 16) REPRO_W4_MMA(W4MmaGatedDecode<GS>);
+  if (n_tok <= 128) REPRO_W4_MMA(W4MmaGatedMid<GS>);
+  REPRO_W4_MMA(W4MmaGatedWide<GS>);
 #undef REPRO_W4_MMA
 }
 

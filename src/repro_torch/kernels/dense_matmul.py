@@ -11,7 +11,9 @@ result depend on the batch: the engine's bitwise oracle parity needs every row t
 be reduced in one fixed order.  The optional ``bias`` is the f32 epilogue
 kernel 6's down stage uses (added to the f32 sum before the cast);
 ``models/layers.linear`` adds its bias after the cast, as the reference
-does.
+does.  A weight that is the transposed view of a contiguous ``(out, in)``
+bf16 matrix (the tied LM head, ``embed.T``) is read in place at any
+``out`` (granite-moe-3b-a800m's 49155), with the same sums: no copy.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.kernels.w4a16_matmul import (
     DTYPE_CODES, bias_f32, check_activation)
 
 NAME = "dense_matmul"
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def dense_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -62,11 +64,23 @@ def dense_weight(w: torch.Tensor, x: torch.Tensor, what: str) -> torch.Tensor:
     return w
 
 
+def transposed_view(w: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether ``w`` (in, out) is the transpose of a contiguous (out, in)
+    matrix of x's dtype the bf16 kernel reads in place."""
+    return (w.dim() == 2 and x.dtype == torch.bfloat16
+            and w.dtype == torch.bfloat16 and w.device == x.device
+            and w.shape[0] > 1 and w.stride() == (1, w.shape[0])
+            and w.data_ptr() % 16 == 0)
+
+
 def dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch ``csrc/dense_matmul.cu`` on the current stream."""
+    """Launch ``csrc/dense_matmul.cu`` on the current stream; a transposed
+    view (``transposed_view``) without a bias is read in place."""
     check_activation(x, NAME)
-    w = dense_weight(w, x, NAME)
+    trans = bias is None and transposed_view(w, x)
+    if not trans:
+        w = dense_weight(w, x, NAME)
     in_f, out_f = w.shape
     if x.shape[-1] != in_f:
         raise ValueError(f"contraction mismatch {x.shape[-1]} vs {in_f}")
@@ -78,7 +92,8 @@ def dense_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
         fn = _build.function(NAME, "dense_matmul_launch", _ARGTYPES)
         rc = fn(x2.data_ptr(), w.data_ptr(),
                 None if b is None else b.data_ptr(), out.data_ptr(), n, in_f,
-                out_f, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+                out_f, DTYPE_CODES[x.dtype], int(trans),
+                _build.stream_ptr(x.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1
     return out.reshape(*x.shape[:-1], out_f)

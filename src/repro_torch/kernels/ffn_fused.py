@@ -41,8 +41,8 @@ from repro_torch.kernels.dense_matmul import (
 from repro_torch.kernels.sparse_w4a16 import (
     check_sparse, sparse_matmul_f32, sparse_operands, sparse_w4a16_matmul_cuda)
 from repro_torch.kernels.w4a16_matmul import (
-    DTYPE_CODES, aligned, bias_f32, check_activation, check_quantized,
-    w4a16_matmul_cuda, w4a16_matmul_f32)
+    DTYPE_CODES, MMA_GROUP_SIZES, aligned, bias_f32, check_activation,
+    check_quantized, group_sizes, w4a16_matmul_cuda, w4a16_matmul_f32)
 
 NAME = "ffn_fused_w4a16"
 GELU_NAME = "ffn_fused_w4a16_gelu"        # the ungated variant's launches
@@ -52,7 +52,7 @@ GATED_ACTIVATIONS = ("swiglu", "geglu")
 _ACT_CODES = {"swiglu": 1, "geglu": 2, "gelu": 3}
 SPARSE_NAME = "ffn_fused_sparse"
 SPARSE_GELU_NAME = "ffn_fused_sparse_gelu"   # the ungated variant's launches
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_void_p])
 _DENSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
@@ -159,11 +159,14 @@ def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor | None,
     _check_activation_name(activation)
     gated = activation in GATED_ACTIVATIONS
     _check_gated_bias(activation, up_bias, None)
-    check_quantized(up, x.device, f"{NAME} up")
+    groups = group_sizes(x, not gated)
+    check_quantized(up, x.device, f"{NAME} up", groups)
     d, f = up.shape
     if gated:
-        check_quantized(gate, x.device, f"{NAME} gate")
-    if (gated and gate.shape != up.shape) or x.shape[-1] != d:
+        check_quantized(gate, x.device, f"{NAME} gate", groups)
+    if ((gated and (gate.shape != up.shape
+                    or gate.group_size != up.group_size))
+            or x.shape[-1] != d):
         raise ValueError(f"FFN shapes: x {tuple(x.shape)}, gate "
                          f"{gate.shape if gated else None}, up {up.shape}")
     ub = bias_f32(up_bias, f, x.device, f"{NAME} up_bias")
@@ -183,7 +186,7 @@ def ffn_gate_up_cuda(x: torch.Tensor, gate: QuantizedTensor | None,
         fn = _build.function("ffn_fused", "ffn_gate_up_launch", _ARGTYPES)
         rc = fn(x2.data_ptr(), ptr(pk[0]), ptr(sc[0]), ptr(pk[1]),
                 ptr(sc[1]), ptr(ub), hidden.data_ptr(), n, d, f,
-                _ACT_CODES[activation], DTYPE_CODES[x.dtype],
+                up.group_size, _ACT_CODES[activation], DTYPE_CODES[x.dtype],
                 _build.stream_ptr(x.device))
         _build.check("ffn_fused", rc)
         _build.launches[NAME if gated else GELU_NAME] += 1
@@ -332,7 +335,12 @@ def fused_variant(gate, up, down, activation: str) -> str | None:
     gated = activation in GATED_ACTIVATIONS
     ws = (gate, up, down) if gated else (up, down)
     if all(isinstance(w, QuantizedTensor) for w in ws):
-        return "quant"
+        # the bf16 tile takes 32-, 64- and 128-row groups (the MoE experts'
+        # groups); the launch refuses a group its dtype or epilogue does not
+        # take
+        if all(w.group_size in MMA_GROUP_SIZES for w in ws):
+            return "quant"
+        return None
     if all(isinstance(w, torch.Tensor) and w.is_floating_point()
            and w.dim() == 2 for w in ws):
         (d, f), out_f = up.shape, down.shape[1]

@@ -11,7 +11,9 @@ Each op picks its implementation by the tensors' device (``impl="auto"``):
 
 ``add_rmsnorm``, ``add_layernorm`` and ``qkv_rope_write`` fuse the PyTorch
 glue of a step into a kernel; their plain versions are the former chains,
-whose inner ops dispatch by device as before.
+whose inner ops dispatch by device as before.  ``moe_route``,
+``moe_ffn_w4a16`` and ``moe_combine`` are an MoE layer's routing, its
+experts (two grouped kernels) and the weighted sum of their outputs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ from repro_torch.kernels.kv_write import (
 from repro_torch.kernels.layernorm import (
     add_layernorm_cuda, add_layernorm_torch, layernorm_cuda, layernorm_torch)
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
+from repro_torch.kernels.moe_experts import moe_ffn_cuda, moe_ffn_torch
+from repro_torch.kernels.moe_route import (
+    moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch)
 from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, add_rmsnorm_torch
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
@@ -44,7 +49,8 @@ from repro_torch.kernels.w4a16_matmul import (
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "ffn_w4a16", "layernorm", "attention", "decode_attention",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
-           "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write"]
+           "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write",
+           "moe_route", "moe_ffn_w4a16", "moe_combine"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -203,6 +209,56 @@ def qkv_rope_write(cache: dict, q: torch.Tensor, k: torch.Tensor,
     if impl == "cuda":
         return qkv_rope_write_cuda(cache, q, k, v, bias, **kw)
     return qkv_rope_write_torch(cache, q, k, v, bias, write=kv_write, **kw)
+
+
+def moe_route(logits: torch.Tensor, *, group: int, top_k: int,
+              capacity: int, q_lens=None, impl: str = "auto"):
+    """An MoE layer's routing of ``T = B * group`` tokens from the router's
+    logits ``(T, E)`` (in x's dtype): the renormalised top-k, each kept
+    assignment's row in the expert-major compact layout and each expert's
+    rows (``kernels/moe_route.Route``).  ``q_lens`` (B,) int32: positions
+    ``s >= q_lens[b]`` of a group take no row.  One launch on the card.
+    The plain version is the reference's formula, so ``"ref"`` takes it
+    too."""
+    impl = _resolve(impl, logits)
+    fn = moe_route_cuda if impl == "cuda" else moe_route_torch
+    return fn(logits, group, top_k, capacity, q_lens)
+
+
+def moe_ffn_w4a16(x: torch.Tensor, route, gate, up, down, *,
+                  activation: str = "swiglu",
+                  impl: str = "auto") -> torch.Tensor:
+    """Every expert's FFN on the token rows ``x`` (T, d) its route keeps:
+    ``(T * k, d)``, row ``slot`` the output of that assignment.  The CUDA
+    path is two grouped kernels and takes W4A16 experts at 32-, 64- or
+    128-row groups (raises on others); the plain path takes any weight mix
+    through the reference's numerics (``ffn_w4a16_torch`` per expert), and
+    ``"ref"`` the dense oracle per expert."""
+    impl = _resolve(impl, x)
+    kw = dict(activation=activation)
+    if impl == "cuda":
+        return moe_ffn_cuda(x, route, gate, up, down, **kw)
+    if impl == "torch":
+        return moe_ffn_torch(x, route, gate, up, down, **kw)
+    y = torch.zeros((route.rows.numel(), x.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    for e, (n, o) in enumerate(zip(route.counts.tolist(),
+                                   route.offsets.tolist())):
+        if n:
+            y[o:o + n] = _ref.ffn_ref(x[route.rows[o:o + n].long()],
+                                      gate[e], up[e], down[e], **kw)
+    return y
+
+
+def moe_combine(y: torch.Tensor, slot: torch.Tensor, topw: torch.Tensor, *,
+                impl: str = "auto") -> torch.Tensor:
+    """Each token's ``sum_j y[slot[t, j]] * topw[t, j]`` in y's dtype, the
+    weight and each product rounded to it, the sum from zero in j order;
+    ``slot < 0`` adds nothing.  One launch on the card.  The plain version
+    is the reference's formula, so ``"ref"`` takes it too."""
+    impl = _resolve(impl, y)
+    fn = moe_combine_cuda if impl == "cuda" else moe_combine_torch
+    return fn(y, slot, topw)
 
 
 def kv_write(cache: dict, new: dict, starts: torch.Tensor,

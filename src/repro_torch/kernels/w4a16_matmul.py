@@ -3,9 +3,12 @@
 Port of ``repro/kernels/w4a16_matmul.py::w4a16_matmul_pallas``; the kernel
 is ``csrc/w4a16_matmul.cu`` (its note says what bounds it on the card).
 ``x (..., in) @ dequant(qt) -> (..., out)`` in x's dtype, with each
-128-row group's f32 partial sum multiplied by the group's scale; an optional
+quant group's f32 partial sum multiplied by the group's scale; an optional
 f32 bias is added to the f32 sum before the cast (the down projection of the
 ungated gelu FFN, as the reference's fused kernel adds its down bias).
+bfloat16 takes 32-, 64- and 128-row groups (the MoE experts' groups,
+``core/compiler._moe_group``; the reference's Pallas kernel takes 128
+only); float32 and the bias epilogue take 128.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from repro_torch.kernels import _build
 
 NAME = "w4a16_matmul"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the quant groups the bf16 tensor-core tile takes (csrc/w4a16_mma_tile.cuh)
+MMA_GROUP_SIZES = (32, 64, GROUP_SIZE)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def w4a16_matmul_f32(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
@@ -48,20 +53,30 @@ def w4a16_matmul_torch(x: torch.Tensor, qt: QuantizedTensor,
     return y.to(x.dtype)
 
 
-def check_quantized(qt: QuantizedTensor, device: torch.device,
-                    what: str) -> None:
+def group_sizes(x: torch.Tensor, epilogue: bool = False) -> tuple:
+    """The quant groups a launch takes: 32, 64 and 128 rows on the bf16
+    tile without an f32 bias or the gelu epilogue, else 128."""
+    if x.dtype == torch.bfloat16 and not epilogue:
+        return MMA_GROUP_SIZES
+    return (GROUP_SIZE,)
+
+
+def check_quantized(qt: QuantizedTensor, device: torch.device, what: str,
+                    groups: tuple = (GROUP_SIZE,)) -> None:
     in_f, out_f = qt.shape
-    if qt.group_size != GROUP_SIZE:
-        raise ValueError(f"{what}: the kernel needs {GROUP_SIZE}-row groups")
+    g = qt.group_size
+    if g not in groups:
+        raise ValueError(f"{what}: {g}-row groups; this launch takes "
+                         f"{groups} (the bf16 tile without a bias or gelu "
+                         "epilogue takes 32, 64 and 128)")
     if in_f % GROUP_SIZE or out_f % 4:
         raise ValueError(f"{what}: shape {qt.shape} needs in % 128 == 0 and "
                          "out % 4 == 0")
     if qt.packed.shape != (in_f // 2, out_f) or qt.packed.dtype != torch.uint8:
         raise ValueError(f"{what}: packed must be uint8 {(in_f // 2, out_f)}")
-    if (qt.scales.shape != (in_f // GROUP_SIZE, out_f)
+    if (qt.scales.shape != (in_f // g, out_f)
             or qt.scales.dtype != torch.bfloat16):
-        raise ValueError(f"{what}: scales must be bf16 "
-                         f"{(in_f // GROUP_SIZE, out_f)}")
+        raise ValueError(f"{what}: scales must be bf16 {(in_f // g, out_f)}")
     for t in (qt.packed, qt.scales):
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what}: weights must be contiguous on {device}")
@@ -105,7 +120,7 @@ def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor,
                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/w4a16_matmul.cu`` on the current stream."""
     check_activation(x, NAME)
-    check_quantized(qt, x.device, NAME)
+    check_quantized(qt, x.device, NAME, group_sizes(x, bias is not None))
     in_f, out_f = qt.shape
     if x.shape[-1] != in_f:
         raise ValueError(f"contraction mismatch {x.shape[-1]} vs {in_f}")
@@ -120,7 +135,8 @@ def w4a16_matmul_cuda(x: torch.Tensor, qt: QuantizedTensor,
         fn = _build.function(NAME, "w4a16_matmul_launch", _ARGTYPES)
         rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                 None if b is None else b.data_ptr(), out.data_ptr(), n, in_f,
-                out_f, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+                out_f, qt.group_size, DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1
     return out.reshape(*x.shape[:-1], out_f)

@@ -138,7 +138,8 @@ def main(argv=None) -> None:
     if cfg.family == "ssm" and args.kv_layout == "paged":
         raise SystemExit(f"{args.arch} keeps a recurrent state and no KV "
                          "cache: --kv-layout paged does not apply")
-    if cfg.family == "ssm" and args.strategy not in ("none", "dense"):
+    if cfg.family in ("ssm", "moe") and args.strategy not in ("none",
+                                                               "dense"):
         raise SystemExit(f"{args.arch} is served with --strategy none or "
                          "dense (the log-scale sparse strategies are ported "
                          "for the dense family only)")

@@ -1,4 +1,4 @@
-"""Model API of the port: the dense and ssm (xLSTM) families of
+"""Model API of the port: the dense, moe and ssm (xLSTM) families of
 ``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
@@ -20,7 +20,8 @@
     export_cache(cfg, cache)                  -> host copy of every leaf
     load_cache_(cfg, cache, arrays)           -> cache, leaves loaded in place
 
-``batch`` is a dict ``{"tokens": (B, S)}``.  Dense family: ``forward`` and
+``batch`` is a dict ``{"tokens": (B, S)}``.  Dense and moe families (the
+moe family swaps each block's MLP for ``models/moe.py``): ``forward`` and
 the slot layout's ``prefill`` run the whole sequence through the
 full-sequence flash attention (``ops.attention``); a prompt longer than
 ``transformer.PREFILL_CHUNK`` prefills chunk by chunk.  A paged cache has no
@@ -78,7 +79,8 @@ def init_params(cfg, gen: torch.Generator) -> Params:
 
 
 def forward(cfg, params: Params, batch: dict):
-    """tokens (B, S) -> (logits (B, S, V), aux loss = 0)."""
+    """tokens (B, S) -> (logits (B, S, V), aux loss: the MoE load-balance
+    loss summed over layers, 0 for the other families)."""
     attention.check_supported(cfg)
     if batch.get("vision_embeds") is not None:
         raise NotImplementedError("vision embeddings come with the vlm family")

@@ -48,10 +48,12 @@ def check_supported(cfg, device=None) -> None:
     """Raise for the configurations a later slice of the port brings, and
     for a page size the paged kernel does not take when ``device`` is a
     CUDA device (the CPU's plain version takes any).  The ssm family has no
-    KV cache and ignores the KV options, as in the reference."""
-    if cfg.family not in ("dense", "ssm"):
+    KV cache and ignores the KV options, as in the reference; a ``moe``
+    config with no experts is a dense model, as in the reference."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
+            "only)")
     if cfg.family == "ssm":
         return
     if cfg.kv_quant not in ("none", "int8"):

@@ -1,7 +1,7 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
-Mirrors ``repro/models/config.py`` for the fields the dense and xLSTM
-(``ssm``) serving paths read, the slot and paged KV layouts and the int8 KV
+Mirrors ``repro/models/config.py`` for the fields the dense, MoE and
+xLSTM (``ssm``) serving paths read, the slot and paged KV layouts and the int8 KV
 cache included (the ``ssm`` family has no KV cache and ignores them).  The
 ``family`` field is kept so a configuration can name a family the port does
 not serve yet; the model and engine raise ``NotImplementedError`` for it.
@@ -37,6 +37,13 @@ class ModelConfig:
     embed_scale: bool = False         # scale embeddings by sqrt(d)
     logit_softcap: float | None = None
 
+    # MoE: experts, experts a token takes, and the capacity factor of a
+    # routing group (capacity = S * top_k / n_experts * factor tokens a
+    # group an expert, at least top_k, at most S; the rest drop)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_capacity_factor: float = 1.25
+
     slstm_every: int = 0              # xLSTM: one sLSTM block in N (0: none)
 
     kv_quant: str = "none"            # none | int8 (per-token absmax scale)
@@ -55,3 +62,7 @@ class ModelConfig:
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}")
         if self.kv_layout == "paged" and self.kv_block_size < 1:
             raise ValueError("kv_block_size must be >= 1 for paged layout")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0

@@ -1,6 +1,9 @@
-"""Decoder-only transformer (port of the dense path of
+"""Decoder-only transformer (port of the dense and MoE paths of
 ``repro/models/transformer.py``): ``forward`` and whole-prompt ``prefill``
 over the full sequence, ``mixed_step`` and ``decode_step`` for serving.
+An MoE config (``cfg.is_moe``) has ``moe`` in place of ``mlp`` in every
+block (``models/moe.py``), and ``forward`` returns its summed
+load-balance loss.
 
 Block parameters are stacked along a leading layer axis, as in the
 reference; the layers run as a Python loop over views of the stacked
@@ -15,17 +18,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import Params
 
 
 def block_init(gen: torch.Generator, cfg) -> Params:
-    return {
+    p = {
         "ln_attn": layers.norm_init(cfg, gen.device),
         "attn": attention.attn_init(gen, cfg),
         "ln_mlp": layers.norm_init(cfg, gen.device),
-        "mlp": layers.mlp_init(gen, cfg),
     }
+    if cfg.is_moe:
+        p["moe"] = moe.moe_init(gen, cfg)
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg)
+    return p
 
 
 def _stack_into(dst, layer, i):
@@ -104,12 +111,16 @@ def _layer_cache(cache: Params, i: int) -> Params:
     return {k: v[i] for k, v in cache.items()}
 
 
-def _walk_layers(cfg, params: Params, x: torch.Tensor, attend):
+def _walk_layers(cfg, params: Params, x: torch.Tensor, attend, *,
+                 q_lens=None, aux=None):
     """The layer walk of every route: ``attend(i, bp, n)`` is layer ``i``'s
     attention sublayer on the normed ``n``, returning its output.  Each
     residual add goes into the norm after it (``layers.add_norm``: on the
     card one launch for ``x + h`` -> ``ln_mlp`` and one for ``x + m`` -> the
-    next layer's ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.
+    next layer's ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.  The
+    FFN sublayer is the MLP or, for an MoE config, ``moe.moe_apply``
+    (``q_lens``: a mixed chunk's live positions; each layer's load-balance
+    loss is appended to the list ``aux`` when one is given).
     Returns the last layer's (x, m): its residual and MLP output, not yet
     added, for the caller's final add + ``ln_f`` (``_final_norm``)."""
     blocks = [layer_params(params["blocks"], i) for i in range(cfg.n_layers)]
@@ -120,7 +131,13 @@ def _walk_layers(cfg, params: Params, x: torch.Tensor, attend):
             x, n = layers.add_norm(cfg, bp["ln_attn"], x, m)
         h = attend(i, bp, n)
         x, n = layers.add_norm(cfg, bp["ln_mlp"], x, h)
-        m = layers.mlp_apply(cfg, bp["mlp"], n)
+        if cfg.is_moe:
+            m, a = moe.moe_apply(cfg, bp["moe"], n, q_lens=q_lens,
+                                 with_aux=aux is not None)
+            if aux is not None:
+                aux.append(a)
+        else:
+            m = layers.mlp_apply(cfg, bp["mlp"], n)
     return x, m
 
 
@@ -133,16 +150,20 @@ def _final_norm(cfg, params: Params, x: torch.Tensor,
 # -- full sequence ------------------------------------------------------------
 
 def forward(cfg, params: Params, tokens: torch.Tensor, positions=None):
-    """tokens (B, S) -> (logits (B, S, V), aux loss = 0: the dense family
-    has no auxiliary loss)."""
+    """tokens (B, S) -> (logits (B, S, V), aux loss: the MoE layers'
+    load-balance losses summed, 0 for the dense family)."""
     x = embed_tokens(cfg, params, tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = layers.positions_for(cfg, b, s, device=tokens.device)
+    aux = [] if cfg.is_moe else None
     x, m = _walk_layers(cfg, params, x, lambda i, bp, n:
-                        attention.attn_apply(cfg, bp["attn"], n, positions))
-    return (unembed(cfg, params, _final_norm(cfg, params, x, m)),
-            torch.zeros((), device=x.device))
+                        attention.attn_apply(cfg, bp["attn"], n, positions),
+                        aux=aux)
+    total = torch.zeros((), device=x.device)
+    for a in aux or ():
+        total = total + a
+    return unembed(cfg, params, _final_norm(cfg, params, x, m)), total
 
 
 PREFILL_CHUNK = 4096
@@ -245,7 +266,7 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
                                   q_lens, page_table)
     x, m = _walk_layers(cfg, params, x, lambda i, bp, n: attention.attn_mixed(
         cfg, bp["attn"], n, _layer_cache(cache, i), lengths, q_lens,
-        index=index)[0])
+        index=index)[0], q_lens=q_lens)
     if not all_logits:
         # only each row's last live position reaches the LM head
         rows = torch.arange(b, device=x.device)

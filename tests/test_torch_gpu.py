@@ -1550,6 +1550,11 @@ GRAPH_CASES = {
         kv_layout="paged", kv_block_size=16, kv_pool_blocks=10,
         kv_quant="int8")),
     "xlstm": ("xlstm-1.3b", "dense", dict(d_model=256)),
+    # 8 experts top-2 at 32-row groups (d 512 / 16), a tied head of 251
+    # (odd) columns, the dropless capacity factor
+    "moe": ("granite-moe-3b-a800m", "dense", dict(
+        d_model=512, d_ff=512, n_heads=4, n_kv_heads=2, head_dim=128,
+        n_experts=8, top_k=2, moe_capacity_factor=4.0, vocab_size=251)),
 }
 
 
@@ -2367,3 +2372,195 @@ def test_restore_on_card_equals_the_never_killed_engine(cuda, layout,
     with pytest.raises(ValueError, match="captured with"):
         ticks[("decode", 2)](params, rebound,
                              **restored._dead_inputs(None))
+
+
+# -- the MoE family --------------------------------------------------------------
+
+def _ulps(got, want):
+    step = (torch.nextafter(want, torch.full_like(want, float("inf")))
+            - want).abs()
+    return float(((got - want).abs() / step).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,k,b,s,cap,q_lens", [
+    (40, 8, 4, 1, 8, None), (40, 8, 4, 64, 64, None),
+    (40, 8, 4, 64, 16, [64, 1, 40, 0]), (8, 2, 3, 33, 9, None),
+    (64, 4, 2, 300, 20, [300, 17]), (8, 2, 1, 4096, 1280, None)])
+def test_moe_route_kernel_matches_plain(cuda, dtype, e, k, b, s, cap,
+                                        q_lens):
+    """Indices, slots, counts, offsets and rows bitwise, weights within 2
+    ulp of the plain version, with drops and dead positions; the launch
+    counted once."""
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(e * s)
+    logits = _rand(gen, b * s, e, dtype=dtype)
+    logits[:, 0] += 1.0                      # a favourite, so groups drop
+    ql = (None if q_lens is None else
+          torch.tensor(q_lens, dtype=torch.int32, device="cuda"))
+    before = _build.launches["moe_route"]
+    got = mr.moe_route_cuda(logits, s, k, cap, ql)
+    assert _build.launches["moe_route"] == before + 1
+    want = mr.moe_route_torch(logits, s, k, cap, ql)
+    kept = int(got.counts.sum())
+    for name in ("topi", "slot", "counts", "offsets"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.rows[:kept], want.rows[:kept])
+    assert _ulps(got.topw, want.topw) <= 2
+    live = b * s if q_lens is None else sum(q_lens)
+    assert kept < live * k or cap >= s
+
+
+def test_moe_route_ties_go_to_the_lower_index(cuda):
+    from repro_torch.kernels import moe_route as mr
+    logits = torch.zeros(6, 40, device="cuda")
+    logits[:, [3, 7, 9]] = 1.0
+    r = mr.moe_route_cuda(logits, 6, 8, 48)
+    assert r.topi[:, :3].tolist() == [[3, 7, 9]] * 6
+    assert r.topi[:, 3:].tolist() == [[0, 1, 2, 4, 5]] * 6
+    assert torch.equal(r.topi, mr.moe_route_torch(logits, 6, 8, 48).topi)
+
+
+def _experts(gen, e, d, f, group):
+    gate, up = (quantize(_rand(gen, e, d, f) * 0.05, group_size=group)
+                for _ in range(2))
+    down = quantize(_rand(gen, e, f, d) * 0.05, group_size=group)
+    return gate, up, down
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64), (2, 300)])
+def test_moe_expert_kernels_match_plain(cuda, group, b, s):
+    """The grouped gate/up and down kernels against their plain versions on
+    every kept row (W4A16 tolerance), each tile configuration; a token's
+    rows are bitwise the same routed alone."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(group + s)
+    e, k, d, f = 8, 2, 512, 384
+    gate, up, down = _experts(gen, e, d, f, group)
+    x = _rand(gen, b * s, d, dtype=torch.bfloat16)
+    logits = _rand(gen, b * s, e, dtype=torch.bfloat16)
+    r = mr.moe_route_cuda(logits, s, k, s)
+    kept = int(r.counts.sum())
+    h = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu")
+    _close(h[:kept], mx.moe_gate_up_torch(x, r, gate, up, "swiglu")[:kept],
+           torch.bfloat16)
+    y = mx.moe_down_cuda(h, r, down)
+    _close(y[:kept], mx.moe_down_torch(h, r, down)[:kept], torch.bfloat16)
+    one = mr.moe_route_cuda(logits[:1], 1, k, k)
+    y1 = mx.moe_ffn_cuda(x[:1], one, gate, up, down)
+    for j in range(k):
+        assert torch.equal(y1[int(one.slot[0, j])], y[int(r.slot[0, j])])
+
+
+def test_moe_expert_kernels_skip_empty_experts_and_refuse(cuda):
+    """An expert with no rows writes nothing; 16-bit experts, float32
+    activations and a group the tile does not take raise."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gate, up, down = _experts(gen, 4, 256, 128, 32)
+    logits = torch.zeros(4, 4, device="cuda", dtype=torch.bfloat16)
+    logits[:, 2] = 5.0
+    logits[:, 1] = 4.0
+    r = mr.moe_route_cuda(logits, 1, 2, 2)
+    assert r.counts.tolist() == [0, 4, 4, 0]
+    x = _rand(gen, 4, 256, dtype=torch.bfloat16)
+    y = mx.moe_ffn_cuda(x, r, gate, up, down)
+    want = mx.moe_ffn_torch(x, r, gate, up, down)
+    _close(y, want, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        mx.moe_ffn_cuda(x.float(), r, gate, up, down)
+    with pytest.raises(NotImplementedError, match="W4A16 experts"):
+        mx.moe_ffn_cuda(x, r, gate, up,
+                        _rand(gen, 4, 128, 256, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_kernel_matches_plain_bitwise(cuda, dtype):
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t, k, d = 37, 8, 1536
+    r = mr.moe_route_cuda(_rand(gen, t, 40), t, k, 6)
+    y = _rand(gen, t * k, d, dtype=dtype)
+    assert bool((r.slot < 0).any())
+    got = mr.moe_combine_cuda(y, r.slot, r.topw)
+    assert torch.equal(got, mr.moe_combine_torch(y, r.slot, r.topw))
+
+
+@pytest.mark.parametrize("group", [32, 64])
+@pytest.mark.parametrize("tokens", [1, 4, 37, 300])
+def test_kernels_1_and_2_take_expert_groups(cuda, group, tokens):
+    """Kernel 1 and kernel 2's gate/up stage at 32- and 64-row groups
+    (bf16) against their plain versions, rows alone bitwise; float32 and
+    the bias epilogue refuse such groups."""
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    from repro_torch.kernels.w4a16_matmul import (
+        w4a16_matmul_cuda, w4a16_matmul_torch)
+    gen = torch.Generator(device="cuda").manual_seed(group + tokens)
+    w = quantize(_rand(gen, 512, 1536) * 0.05, group_size=group)
+    g, u = (quantize(_rand(gen, 1536, 512) * 0.05, group_size=group)
+            for _ in range(2))
+    x = _rand(gen, tokens, 512, dtype=torch.bfloat16)
+    got = w4a16_matmul_cuda(x, w)
+    _close(got, w4a16_matmul_torch(x, w), torch.bfloat16)
+    assert torch.equal(w4a16_matmul_cuda(x[-1:], w), got[-1:])
+    x2 = _rand(gen, tokens, 1536, dtype=torch.bfloat16)
+    h = ffn_gate_up_cuda(x2, g, u, "swiglu")
+    _close(h, ffn_gate_up_torch(x2, g, u, "swiglu"), torch.bfloat16)
+    assert torch.equal(ffn_gate_up_cuda(x2[:1], g, u, "swiglu"), h[:1])
+    with pytest.raises(ValueError, match="row groups"):
+        w4a16_matmul_cuda(x.float(), w)
+    with pytest.raises(ValueError, match="row groups"):
+        w4a16_matmul_cuda(x, w, torch.zeros(1536, device="cuda"))
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 64, 300])
+def test_tied_head_reads_the_embedding_in_place(cuda, tokens):
+    """``dense_matmul(x, embed.T)`` at granite-moe-3b-a800m's 49155 columns
+    against the plain version, with no copy of the weight; at a width the
+    copied weight takes, bitwise the copied weight's result."""
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    emb = _rand(gen, 49155, 1536, dtype=torch.bfloat16) * 0.02
+    x = _rand(gen, tokens, 1536, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = ops.dense_matmul(x, emb.T)
+    assert torch.cuda.memory_allocated() - before <= got.numel() * 2 + (1 << 20)
+    _close(got, ops.dense_matmul(x, emb.T, impl="torch"), torch.bfloat16)
+    assert torch.equal(ops.dense_matmul(x[-1:], emb.T), got[-1:])
+    w = emb[:49152]
+    assert torch.equal(ops.dense_matmul(x, w.T),
+                       ops.dense_matmul(x, w.T.contiguous()))
+
+
+def test_moe_mixed_step_equals_sequential_decode_on_card(cuda):
+    """The MoE graph case at the dropless factor: a 13-token prompt in
+    8-token chunks gives bitwise the logits and cache of 13 decode steps,
+    through the route, the grouped experts, the combine and the tied
+    head."""
+    from repro_torch.models import api
+    cfg, params, _ = _graph_engine("moe")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 13)
+    seq = api.init_cache(cfg, 1, 32, "cuda")
+    _build.launches.clear()
+    for t, tok in enumerate(prompt.tolist()):
+        want, seq = api.decode_step(cfg, params, seq,
+                                    torch.tensor([[tok]], device="cuda"),
+                                    [t + 1])
+    for name in ("moe_route", "moe_gate_up_w4a16", "moe_down_w4a16",
+                 "moe_combine"):
+        assert _build.launches[name] == 13 * cfg.n_layers, name
+    mix = api.init_cache(cfg, 1, 32, "cuda")
+    for o in (0, 8):
+        ql = min(8, 13 - o)
+        chunk = np.zeros(8, np.int64)
+        chunk[:ql] = prompt[o:o + ql]
+        got, mix = api.mixed_step(cfg, params, mix,
+                                  torch.tensor(chunk[None], device="cuda"),
+                                  [o], [ql])
+    assert torch.equal(got, want)
+    for a, b in zip(_cache_leaves(seq), _cache_leaves(mix)):
+        assert torch.equal(a, b)

@@ -137,7 +137,7 @@ def test_mixed_step_equals_sequential_decode(models):
 
 @pytest.mark.parametrize("override", [{"family": "hybrid"},
                                       {"rope_type": "mrope"},
-                                      {"family": "moe"}])
+                                      {"family": "audio"}])
 def test_unported_configs_raise(override):
     cfg = get_smoke_config("qwen-7b", **override)
     with pytest.raises(NotImplementedError, match="later slice|not ported"):
