@@ -106,7 +106,9 @@ Phases (any failure ends the run with a nonzero exit code):
                  mixtral-8x22b's (d 6144, d_ff 16384, 8 experts, top-2,
                  128-row groups, T=4): ``moe_route`` bitwise (weights
                  within 2 ulp), the grouped gate/up and down within the
-                 W4A16 tolerance, ``moe_combine`` bitwise, each beside its
+                 W4A16 tolerance (the two on their persistent ring,
+                 printed beside the grid-per-expert kernels' times,
+                 ``MOE_GRID_MS``), ``moe_combine`` bitwise, each beside its
                  bound, plain version and yardstick; a token's layer
                  output alone bitwise inside the chunk; kernels 1 and 2
                  at 32- and 64-row groups with their tile invariance; the
@@ -170,7 +172,8 @@ Phases (any failure ends the run with a nonzero exit code):
                  decode and one mixed tick, eager and replayed (host ms,
                  device-busy ms, device operations, and none of RoPE's
                  cos, sin or cat, no bf16 add and no copy of 100 MiB or
-                 more in a replayed transformer tick); every token
+                 more in a replayed transformer tick; on granite each
+                 MoE kernel's in-graph ms, ``moe_kernel_ms``); every token
                  stream equals ``reference_decode``
                  and the kernel launch counts (reset before each run,
                  read just after it; a replay adds its capture's counts)
@@ -1958,6 +1961,18 @@ def check_xlstm_kernels(torch, timer, randn, tol, rows, ptxas) -> dict:
 
 # -- the MoE family: routing, the grouped experts, the combine ---------------
 
+# the grid-per-expert kernels' times before the persistent ring (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed beside this
+# run's
+MOE_GRID_MS = {
+    ("moe_gate_up_w4a16", "granite decode T=4"): 0.0307,
+    ("moe_gate_up_w4a16", "granite chunk 4x64"): 0.0649,
+    ("moe_gate_up_w4a16", "granite chunk 4x64 factor 1.25"): 0.0630,
+    ("moe_gate_up_w4a16", "mixtral decode T=4"): 0.3187,
+    ("moe_down_w4a16", "granite decode T=4"): 0.0183,
+    ("moe_down_w4a16", "granite chunk 4x64"): 0.0415,
+    ("moe_down_w4a16", "granite chunk 4x64 factor 1.25"): 0.0397,
+    ("moe_down_w4a16", "mixtral decode T=4"): 0.2110}
 # (name, d, f, experts, top_k, group) of the served MoE configurations
 MOE_SHAPES = {"granite": (1536, 512, 40, 8, 32),
               "mixtral": (6144, 16384, 8, 2, 128)}
@@ -2033,9 +2048,15 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
         row["library_ms"] = (timer.ms(library, 3) if library is not None
                              else None)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+        before = MOE_GRID_MS.get((row["kernel"], row["case"]))
+        if before is not None:
+            row["grid_per_expert_ms"] = before
         rows.append(row)
         log(f"  {row['kernel']} {row['case']}: max_abs "
-            f"{row['max_abs_err']:.3g}  kernel {row['ms']:.4f} ms plain "
+            f"{row['max_abs_err']:.3g}  kernel {row['ms']:.4f} ms "
+            + (f"[grid per expert: {before:.4f} ms] " if before is not None
+               else "")
+            + "plain "
             f"{row['plain_ms']:.4f} ms library "
             + (f"{row['library_ms']:.4f} ms" if library is not None else
                "none") + f" bound {row['bound_ms']:.4f} ms "
@@ -3922,6 +3943,44 @@ def device_activity(torch, prof):
             [(name[:90], ms, n) for name, (ms, n) in top])
 
 
+# the MoE kernels by a piece of their names: the grouped experts by their
+# template's tail (EPI 1 and GATHER: gate/up; EPI 0: down), so the
+# grid-per-expert kernels of a parent tree are named as the ring's.  A
+# tick launches each once a layer (every layer of an MoE config is one):
+# a kernel the names miss, or a trace that lost launches, shows as fewer
+# (``moe_trace``)
+MOE_KERNELS = (("moe_route", "moe_route_kernel"),
+               ("moe_gate_up_w4a16", ", 1, true>"),
+               ("moe_down_w4a16", ", 0, false>"),
+               ("moe_combine", "moe_combine_kernel"))
+
+
+def moe_kernel_ms(torch, prof) -> dict:
+    """Device ms and launches of each MoE kernel in a profiled window."""
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kernel, piece in MOE_KERNELS:
+            if "moe_" in e.name and piece in e.name:
+                ms, n = out.get(kernel, (0.0, 0))
+                out[kernel] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+    return out
+
+
+def moe_trace(torch, prof, cfg):
+    """None for a config without experts; else the MoE kernels' (ms,
+    launches) in the window (``moe_kernel_ms``), the launches a tick makes
+    of each (one a layer) and whether the window saw all of them."""
+    if not cfg.is_moe:
+        return None
+    ms = moe_kernel_ms(torch, prof)
+    return {"ms": ms, "expected": cfg.n_layers,
+            "complete": all(ms.get(kernel, (0.0, 0))[1] == cfg.n_layers
+                            for kernel, _ in MOE_KERNELS)}
+
+
 # device operations of the glue the fused kernels replaced, by a piece of
 # their kernel names: RoPE's cos, sin and cat, and bf16 adds (the q/k/v
 # bias and residual adds)
@@ -4041,11 +4100,23 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                 call()
                 torch.cuda.synchronize()
             busy, n_ops, hand, top = device_activity(torch, prof)
+            # the profiler can lose a replay's events: an in-graph ms
+            # summed over fewer launches than the tick made is marked
+            moe = moe_trace(torch, prof, engine.cfg)
             glue = glue_census(torch, prof)
             row = {"host_ms": float(np.median(host_ms)),
                    "wall_ms": float(np.median(wall_ms)),
                    "device_busy_ms": busy, "device_ops": n_ops,
                    "hand_kernel_share": hand, "glue_ops": glue, "top": top}
+            if moe is not None:
+                row["moe_ms"] = moe["ms"]
+                row["moe_expected"] = moe["expected"]
+                row["moe_complete"] = moe["complete"]
+                # a kernel the names do not find at all is a renamed one
+                need(not strict or all(
+                    kernel in moe["ms"] for kernel, _ in MOE_KERNELS),
+                    f"{path} {key} {mode}: the trace names no launch of "
+                    f"{[k for k, _ in MOE_KERNELS if k not in moe['ms']]}")
             out[f"{key}-{mode}"] = row
             log(f"  {key} {mode}: host {row['host_ms']:.3f} ms, wall "
                 f"{row['wall_ms']:.3f} ms, device busy "
@@ -4086,6 +4157,11 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                      f"{n_ops} device operations > {DENSE_DECODE_OPS}")
                 for name, ms, n in top:
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
+                for kernel, (ms, n) in row.get("moe_ms", {}).items():
+                    log(f"    in the graph: {kernel} {ms:.4f} ms over {n} "
+                        f"of {row['moe_expected']} launches"
+                        + ("" if n == row["moe_expected"] else
+                           " (the trace lost some: an undercount)"))
                 log(f"    glue operations {glue}")
                 need(not strict or engine.cfg.family == "ssm"
                      or not any(glue.values()),

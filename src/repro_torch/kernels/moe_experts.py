@@ -7,7 +7,12 @@ The reference runs each expert's FFN as ``ops.ffn_w4a16`` under a
 rows leaves kernel 2 for the blocked XLA twin
 (``repro/kernels/ffn_fused.py:697-708``).  Here the experts of a layer are
 two hand kernels of ``csrc/moe_experts.cu``, kernel 2's and kernel 1's
-bf16 tensor-core tile (``csrc/w4a16_mma_tile.cuh``) with an expert axis:
+bf16 tensor-core tile (``csrc/w4a16_mma_tile.cuh``) run by a persistent
+ring (``csrc/moe_mma_ring.cuh``): each block builds the work items --
+(expert with rows, row tile, column strip), ``moe_items_torch`` -- from
+the route's counts on the device and strides over them, while a producer
+warp streams the weights through TMA into a ring of stages that does not
+drain between items:
 
 * ``moe_gate_up_w4a16``: ``act(x @ gate_e) * (x @ up_e)`` for the rows
   each expert keeps, gathered by index from the token rows (``Route.rows``)
@@ -20,9 +25,10 @@ bf16 tensor-core tile (``csrc/w4a16_mma_tile.cuh``) with an expert axis:
 Both take 32-, 64- and 128-row quant groups (the group is a template
 parameter); each row's sum order is fixed by ``(in_f, group)``, the
 order of kernels 1 and 2, so a row is bitwise the same whatever the other
-rows of its expert, the batch or the chunk width.  The plain version of
-the whole FFN, per expert, is the reference's (``ffn_w4a16_torch``: any
-weight mix, the unfused oracle for 16-bit experts).
+rows of its expert, the batch, the chunk width, the tile configuration or
+the grid's size.  The plain version of the whole FFN, per expert, is the
+reference's (``ffn_w4a16_torch``: any weight mix, the unfused oracle for
+16-bit experts).
 """
 
 from __future__ import annotations
@@ -42,10 +48,15 @@ from repro_torch.kernels.w4a16_matmul import (
 GATE_UP_NAME = "moe_gate_up_w4a16"
 DOWN_NAME = "moe_down_w4a16"
 _ACT_CODES = {"swiglu": 1, "geglu": 2}
-_GATE_UP_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_GATE_UP_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                      + [ctypes.c_void_p])
-_DOWN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_DOWN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p]
+# the C launchers' tile configurations by the ``tile`` codes they take
+# (rows, columns a work item); 0, the served path's, picks by the route's
+# mean rows an expert: up to 32 decode (1), above mid (2)
+GATE_UP_TILES = {1: (16, 32), 2: (64, 64)}
+DOWN_TILES = {1: (16, 32), 2: (32, 128)}
 
 
 def _expert_rows(route: Route):
@@ -53,6 +64,25 @@ def _expert_rows(route: Route):
     the plain versions only."""
     counts, offsets = route.counts.tolist(), route.offsets.tolist()
     return [(e, o, n) for e, (n, o) in enumerate(zip(counts, offsets)) if n]
+
+
+def moe_items_torch(counts: torch.Tensor, bm: int,
+                    strips: int) -> torch.Tensor:
+    """Plain version of the work list the grouped kernels' blocks build
+    from ``counts`` (``csrc/moe_mma_ring.cuh``, ``moe_items_prefix`` and
+    ``moe_item``): ``(n_items, 3)`` int32 rows (expert, first row, strip),
+    expert after expert; an expert's ``ceil(count / bm)`` row tiles times
+    ``strips`` column strips, the tile fastest.  Item ``i`` of a launch is
+    taken by block ``i % grid``."""
+    counts = counts.to(torch.int64)
+    tiles = (counts + bm - 1) // bm
+    per = tiles * strips
+    n = int(per.sum())
+    first = torch.cumsum(per, 0) - per
+    expert = torch.repeat_interleave(torch.arange(counts.numel()), per)
+    local = torch.arange(n) - first[expert]
+    tile, strip = local % tiles[expert], local // tiles[expert]
+    return torch.stack([expert, tile * bm, strip], 1).to(torch.int32)
 
 
 def moe_ffn_torch(x: torch.Tensor, route: Route, gate, up, down, *,
@@ -95,7 +125,7 @@ def moe_down_torch(hidden: torch.Tensor, route: Route,
 def check_experts(qt, n_experts: int, device, what: str) -> None:
     """Raise unless ``qt`` is a stack of ``n_experts`` W4A16 matrices the
     grouped tile takes: 32-, 64- or 128-row groups, in % 128 == 0, out % 16
-    == 0, bf16 scales, contiguous on ``device``."""
+    == 0, bf16 scales, contiguous and 16-byte aligned on ``device``."""
     if not isinstance(qt, QuantizedTensor):
         raise NotImplementedError(
             f"{what}: the grouped expert kernels take W4A16 experts "
@@ -120,11 +150,17 @@ def check_experts(qt, n_experts: int, device, what: str) -> None:
     for t in (qt.packed, qt.scales):
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what}: weights must be contiguous on {device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: weights must be 16-byte aligned (the "
+                             "kernels' TMA loads)")
 
 
 def moe_gate_up_cuda(x: torch.Tensor, route: Route, gate: QuantizedTensor,
-                     up: QuantizedTensor, activation: str) -> torch.Tensor:
-    """Launch ``csrc/moe_experts.cu``'s grouped gate/up kernel."""
+                     up: QuantizedTensor, activation: str, *, tile: int = 0,
+                     blocks: int = 0) -> torch.Tensor:
+    """Launch ``csrc/moe_experts.cu``'s grouped gate/up kernel.  ``tile``
+    (a ``GATE_UP_TILES`` code) and ``blocks`` (the grid's size) are for
+    tests and timing; 0, the served path's, lets the launcher choose."""
     check_activation(x, GATE_UP_NAME)
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(f"{GATE_UP_NAME}: the grouped tile takes "
@@ -150,16 +186,17 @@ def moe_gate_up_cuda(x: torch.Tensor, route: Route, gate: QuantizedTensor,
                 route.offsets.data_ptr(), gate.packed.data_ptr(),
                 gate.scales.data_ptr(), up.packed.data_ptr(),
                 up.scales.data_ptr(), hidden.data_ptr(), e, route.max_rows,
-                n, d, f, up.group_size, _ACT_CODES[activation],
-                _build.stream_ptr(x.device))
+                n, d, f, up.group_size, _ACT_CODES[activation], tile,
+                blocks, _build.stream_ptr(x.device))
         _build.check("moe_experts", rc)
         _build.launches[GATE_UP_NAME] += 1
     return hidden
 
 
-def moe_down_cuda(hidden: torch.Tensor, route: Route,
-                  down: QuantizedTensor) -> torch.Tensor:
-    """Launch ``csrc/moe_experts.cu``'s grouped down kernel."""
+def moe_down_cuda(hidden: torch.Tensor, route: Route, down: QuantizedTensor,
+                  *, tile: int = 0, blocks: int = 0) -> torch.Tensor:
+    """Launch ``csrc/moe_experts.cu``'s grouped down kernel (``tile``: a
+    ``DOWN_TILES`` code; ``blocks``: as ``moe_gate_up_cuda``'s)."""
     check_activation(hidden, DOWN_NAME)
     if hidden.dtype != torch.bfloat16:
         raise NotImplementedError(f"{DOWN_NAME}: the grouped tile takes "
@@ -178,7 +215,8 @@ def moe_down_cuda(hidden: torch.Tensor, route: Route,
         rc = fn(hidden.data_ptr(), route.counts.data_ptr(),
                 route.offsets.data_ptr(), down.packed.data_ptr(),
                 down.scales.data_ptr(), y.data_ptr(), e, route.max_rows, n,
-                f, d, down.group_size, _build.stream_ptr(hidden.device))
+                f, d, down.group_size, tile, blocks,
+                _build.stream_ptr(hidden.device))
         _build.check("moe_experts", rc)
         _build.launches[DOWN_NAME] += 1
     return y

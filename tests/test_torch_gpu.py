@@ -2477,6 +2477,112 @@ def test_moe_expert_kernels_skip_empty_experts_and_refuse(cuda):
                         _rand(gen, 4, 128, 256, dtype=torch.bfloat16))
 
 
+def _skewed_route(experts, b=4, s=64, e=40):
+    """A route of b x s tokens whose top-len(experts) all land on
+    ``experts`` (dropless), every other expert empty."""
+    from repro_torch.kernels import moe_route as mr
+    k = len(experts)
+    logits = torch.zeros(b * s, e, device="cuda", dtype=torch.bfloat16)
+    for j, ex in enumerate(experts):
+        logits[:, ex] = 8.0 - j
+    return mr.moe_route_cuda(logits, s, k, s)
+
+
+# granite-moe-3b-a800m's expert widths
+_GRANITE_D, _GRANITE_F = 1536, 512
+
+
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("experts", [(0,), (39,), (0, 5, 17, 39)])
+def test_moe_expert_kernels_take_skewed_routes(cuda, group, experts):
+    """All 256 rows of a 4 x 64 chunk on one expert (first or last), or on
+    four, every other expert empty: more work items than resident blocks
+    (decode tiles) and long runs of experts with nothing.  The launcher's
+    choice against the plain versions; every tile configuration bitwise
+    the same rows."""
+    from repro_torch.kernels import moe_experts as mx
+    gen = torch.Generator(device="cuda").manual_seed(group + experts[-1])
+    gate, up, down = _experts(gen, 40, _GRANITE_D, _GRANITE_F, group)
+    r = _skewed_route(experts)
+    kept = int(r.counts.sum())
+    assert kept == 256 * len(experts)
+    assert int((r.counts > 0).sum()) == len(experts)
+    x = _rand(gen, 256, _GRANITE_D, dtype=torch.bfloat16)
+    h_want = mx.moe_gate_up_torch(x, r, gate, up, "swiglu")
+    h0 = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu")
+    y0 = mx.moe_down_cuda(h0, r, down)
+    _close(h0[:kept], h_want[:kept], torch.bfloat16)
+    _close(y0[:kept], mx.moe_down_torch(h0, r, down)[:kept], torch.bfloat16)
+    for tile in mx.GATE_UP_TILES:
+        h = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu", tile=tile)
+        assert torch.equal(h[:kept], h0[:kept]), tile
+    for tile in mx.DOWN_TILES:
+        y = mx.moe_down_cuda(h0, r, down, tile=tile)
+        assert torch.equal(y[:kept], y0[:kept]), tile
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64)])
+def test_moe_expert_rows_do_not_depend_on_grid_or_tile(cuda, group, b, s):
+    """A row's bits do not depend on the persistent grid's size (one block,
+    seven, the full grid) or on the tile configuration (decode, mid)."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(7 * group + s)
+    gate, up, down = _experts(gen, 40, _GRANITE_D, _GRANITE_F, group)
+    x = _rand(gen, b * s, _GRANITE_D, dtype=torch.bfloat16)
+    r = mr.moe_route_cuda(_rand(gen, b * s, 40, dtype=torch.bfloat16), s, 8,
+                          s)
+    kept = int(r.counts.sum())
+    h0 = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu")
+    y0 = mx.moe_down_cuda(h0, r, down)
+    runs = [dict(blocks=n) for n in (1, 7)]
+    for kw in runs + [dict(tile=t) for t in mx.GATE_UP_TILES]:
+        h = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu", **kw)
+        assert torch.equal(h[:kept], h0[:kept]), kw
+    for kw in runs + [dict(tile=t) for t in mx.DOWN_TILES]:
+        assert torch.equal(mx.moe_down_cuda(h0, r, down, **kw)[:kept],
+                           y0[:kept]), kw
+
+
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64)])
+def test_moe_expert_graph_replays_a_new_route(cuda, b, s):
+    """A CUDA graph of the two grouped kernels, captured on one route and
+    replayed after another route (other counts, offsets and rows) is
+    copied into its tensors, equals the eager call on that route."""
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(11 + s)
+    gate, up, down = _experts(gen, 40, _GRANITE_D, _GRANITE_F, 32)
+    x_a, x_b = (_rand(gen, b * s, _GRANITE_D, dtype=torch.bfloat16)
+                for _ in range(2))
+    r_a, r_b = (mr.moe_route_cuda(_rand(gen, b * s, 40,
+                                        dtype=torch.bfloat16), s, 8, s)
+                for _ in range(2))
+    assert not torch.equal(r_a.counts, r_b.counts)
+    want = mx.moe_ffn_cuda(x_b, r_b, gate, up, down)
+    xs = x_a.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mx.moe_ffn_cuda(xs, r_a, gate, up, down)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = mx.moe_ffn_cuda(xs, r_a, gate, up, down)
+    graph.replay()
+    kept_a = int(r_a.counts.sum())
+    assert torch.equal(y[:kept_a],
+                       mx.moe_ffn_cuda(x_a, r_a, gate, up, down)[:kept_a])
+    for name in ("counts", "offsets", "rows"):
+        getattr(r_a, name).copy_(getattr(r_b, name))
+    xs.copy_(x_b)
+    graph.replay()
+    torch.cuda.synchronize()
+    kept = int(r_b.counts.sum())
+    assert torch.equal(y[:kept], want[:kept])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_combine_kernel_matches_plain_bitwise(cuda, dtype):
     from repro_torch.kernels import moe_route as mr
