@@ -104,12 +104,18 @@ Phases (any failure ends the run with a nonzero exit code):
                  decode tick T=4 and a 4 x 64 chunk at the dropless
                  capacity and at the published factor's, which drops) and
                  mixtral-8x22b's (d 6144, d_ff 16384, 8 experts, top-2,
-                 128-row groups, T=4): ``moe_route`` bitwise (weights
-                 within 2 ulp), the grouped gate/up and down within the
-                 W4A16 tolerance (the two on their persistent ring,
-                 printed beside the grid-per-expert kernels' times,
-                 ``MOE_GRID_MS``), ``moe_combine`` bitwise, each beside its
-                 bound, plain version and yardstick; a token's layer
+                 128-row groups, T=4): ``moe_route`` with the router's
+                 product inside it, its logits bitwise ``dense_matmul``'s
+                 and its route bitwise the same kernel's on those logits
+                 (the chain it replaced), and on given logits bitwise the
+                 plain version (weights within 2 ulp), the grouped gate/up
+                 and down within the W4A16 tolerance (the two on their
+                 persistent ring, printed beside the grid-per-expert
+                 kernels' times, ``MOE_GRID_MS``), ``moe_combine`` bitwise,
+                 ``combine_add_rmsnorm`` bitwise ``moe_combine`` then
+                 ``add_rmsnorm``, each beside its bound, plain version and
+                 yardstick (the fused two beside the chains they
+                 replaced, ``chain_ms``); a token's layer
                  output alone bitwise inside the chunk; kernels 1 and 2
                  at 32- and 64-row groups with their tile invariance; the
                  tied LM head (the 49155 x 1536 embedding read in place)
@@ -2001,14 +2007,25 @@ def moe_weights(torch, randn, d, f, e, group):
 def moe_layer(torch, x, router, gate, up, down, k, cap, group_len,
               impl="auto"):
     """One MoE layer on (T, d) rows in groups of ``group_len``: the router
-    product, the route, the experts and the combine, each through ``impl``
-    (the router's ``dense_matmul`` always on its kernel)."""
+    product with the route, the experts and the combine, each through
+    ``impl``."""
     from repro_torch.kernels import ops
-    logits = ops.dense_matmul(x, router.to(x.dtype))
-    r = ops.moe_route(logits, group=group_len, top_k=k, capacity=cap,
-                      impl=impl)
+    _, r = ops.moe_router_route(x, router.to(x.dtype), group=group_len,
+                                top_k=k, capacity=cap, impl=impl)
     y = ops.moe_ffn_w4a16(x, r, gate, up, down, impl=impl)
     return ops.moe_combine(y, r.slot, r.topw, impl=impl), r
+
+
+ROUTE_FIELDS = ("topw", "topi", "slot", "counts", "offsets")
+
+
+def same_route(torch, got, want) -> bool:
+    """Every field of two ``Route``s bitwise (rows up to the kept ones)."""
+    kept = int(want.counts.sum())
+    return (all(torch.equal(getattr(got, f), getattr(want, f))
+                for f in ROUTE_FIELDS)
+            and torch.equal(got.rows[:kept], want.rows[:kept])
+            and got.max_rows == want.max_rows)
 
 
 def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
@@ -2017,12 +2034,19 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
     groups) at a decode tick (T = 4, four groups of one) and a 4 x 64
     chunk (at the dropless capacity 64 and the published factor's 16,
     which drops), and mixtral-8x22b (d 6144, d_ff 16384, 8 experts,
-    top-2, 128-row groups) at T = 4.  ``moe_route``: indices, slots,
-    counts, offsets and rows bitwise, weights within 2 ulp; the grouped
-    gate/up and down: the W4A16 tolerance on every kept row; ``moe_combine``
-    bitwise.  Each timed beside its byte bound, its plain version and a
-    yardstick (``torch.topk`` + ``scatter_add_`` for the route; per-expert
-    dequantize + ``torch.matmul`` chains for the experts).  A token's layer
+    top-2, 128-row groups) at T = 4.  ``moe_route`` with the router's
+    product inside it (``moe_router_route_cuda``): logits bitwise
+    ``dense_matmul``'s and every ``Route`` field bitwise the route kernel's
+    on them (the chain it replaced, timed beside it); on given logits:
+    indices, slots, counts, offsets and rows bitwise the plain version,
+    weights within 2 ulp; the grouped gate/up and down: the W4A16
+    tolerance on every kept row; ``moe_combine`` bitwise;
+    ``combine_add_rmsnorm`` bitwise ``moe_combine`` then ``add_rmsnorm``
+    (timed beside that chain) and its plain version.  Each timed beside
+    its bound, its plain version and a yardstick (``torch.topk`` +
+    ``scatter_add_`` for the route, after ``x @ router`` for the fused
+    one; per-expert dequantize + ``torch.matmul`` chains for the
+    experts).  A token's layer
     output is bitwise the same alone (T = 4) and inside the 64-wide
     chunk.  Kernels 1 and 2 alone at 32- and 64-row groups (granite's
     widths, T = 4 and 256) against their plain versions, and rows 100-103
@@ -2036,14 +2060,20 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
     from repro_torch.kernels.ffn_fused import (
         ffn_gate_up_cuda, ffn_gate_up_torch)
     from repro_torch.kernels.moe_route import (
-        moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch)
+        moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch,
+        moe_router_route_cuda, moe_router_route_torch)
+    from repro_torch.kernels.rmsnorm import (
+        add_rmsnorm_cuda, combine_add_rmsnorm_cuda, combine_add_rmsnorm_torch)
     from repro_torch.kernels.w4a16_matmul import (
         w4a16_matmul_cuda, w4a16_matmul_torch)
     bf16 = torch.bfloat16
     line = {}
 
-    def record(row, kernel, plain, library, nbytes, flops, iters=20):
+    def record(row, kernel, plain, library, nbytes, flops, iters=20,
+               chain=None):
         row["ms"] = timer.ms(kernel, iters)
+        if chain is not None:
+            row["chain_ms"] = timer.ms(chain, iters)
         row["plain_ms"] = timer.ms(plain, 2)
         row["library_ms"] = (timer.ms(library, 3) if library is not None
                              else None)
@@ -2056,6 +2086,8 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
             f"{row['max_abs_err']:.3g}  kernel {row['ms']:.4f} ms "
             + (f"[grid per expert: {before:.4f} ms] " if before is not None
                else "")
+            + (f"[the chain it replaced: {row['chain_ms']:.4f} ms] "
+               if chain is not None else "")
             + "plain "
             f"{row['plain_ms']:.4f} ms library "
             + (f"{row['library_ms']:.4f} ms" if library is not None else
@@ -2078,8 +2110,53 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
         cap = max(k, min(cap, s))
         t = b * s
         x = randn(t, d)
-        logits = ops.dense_matmul(x, router.to(bf16))
+        router_b = router.to(bf16)
+        logits = ops.dense_matmul(x, router_b)
         what = f"{model} {case}"
+
+        # -- the route with the router's product inside it, against the
+        # chain it replaced: the dense_matmul kernel, then the route kernel
+        # on its logits (bitwise), and against its plain version
+        f_logits, f_route = moe_router_route_cuda(x, router_b, s, k, cap)
+        chain_route = moe_route_cuda(logits, s, k, cap)
+        torch.cuda.synchronize()
+        need(torch.equal(f_logits, logits),
+             f"moe_route {what}: the fused product's logits are not bitwise "
+             "dense_matmul's")
+        need(same_route(torch, f_route, chain_route),
+             f"moe_route {what}: the fused route is not bitwise the route "
+             "kernel's on dense_matmul's logits")
+        p_logits, p_route = moe_router_route_torch(x, router_b, s, k, cap)
+        fu = ulps(torch, f_route.topw, p_route.topw)
+        row = {"kernel": "moe_route", "case": f"{what} with the product",
+               "T": t, "group": s, "experts": e, "top_k": k, "capacity": cap,
+               "d": d, "logits_bitwise_dense_matmul": True,
+               "route_bitwise_chain": True,
+               "logits_max_abs_err_plain": float(
+                   (f_logits.float() - p_logits.float()).abs().max()),
+               "topi_equal_plain": bool(torch.equal(f_route.topi,
+                                                    p_route.topi)),
+               "max_ulps_plain": fu,
+               "max_abs_err": float((f_route.topw - chain_route.topw).abs()
+                                    .max())}
+
+        def topk_matmul():
+            w, i = torch.topk(torch.softmax((x @ router_b).float(), -1), k)
+            c = torch.zeros(e, dtype=torch.int64, device=x.device)
+            return w / w.sum(-1, keepdim=True), c.scatter_add_(
+                0, i.reshape(-1), torch.ones_like(i.reshape(-1)))
+        ints = t * k * 4 * 4 + e * 8 + b * e * 4
+        record(row, lambda: moe_router_route_cuda(x, router_b, s, k, cap),
+               lambda: moe_router_route_torch(x, router_b, s, k, cap),
+               topk_matmul, x.numel() * 2 + router_b.numel() * 2
+               + t * e * 2 + ints, 2 * t * d * e,
+               chain=lambda: moe_route_cuda(ops.dense_matmul(x, router_b),
+                                            s, k, cap))
+        log(f"    logits bitwise dense_matmul's; route bitwise the chain's; "
+            f"plain: logits max_abs {row['logits_max_abs_err_plain']:.3g}, "
+            f"indices equal {row['topi_equal_plain']}, weights {fu:.1f} ulp")
+        if (model, case) == ("granite", "decode T=4"):
+            line["moe_route"] = row
 
         # -- the route
         got = moe_route_cuda(logits, s, k, cap)
@@ -2106,15 +2183,12 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
             c = torch.zeros(e, dtype=torch.int64, device=logits.device)
             return w / w.sum(-1, keepdim=True), c.scatter_add_(
                 0, i.reshape(-1), torch.ones_like(i.reshape(-1)))
-        ints = t * k * 4 * 4 + e * 8 + b * e * 4
         record(row, lambda: moe_route_cuda(logits, s, k, cap),
                lambda: moe_route_torch(logits, s, k, cap), topk_scatter,
                logits.numel() * 2 + ints, 0)
         log(f"    indices, slots, counts, offsets, rows bitwise; weights "
             f"within {u:.1f} ulp; {kept} kept, {dropped} dropped, {active} "
             f"of {e} experts with rows")
-        if (model, case) == ("granite", "decode T=4"):
-            line["moe_route"] = row
         r = got
 
         # -- the grouped experts, on the kernel's route
@@ -2176,6 +2250,43 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
                kept * d * 2 + t * k * 8 + t * d * 2, 2 * kept * d)
         if (model, case) == ("granite", "decode T=4"):
             line["moe_combine"] = row
+
+        # -- the combine inside the next norm, against the chain it
+        # replaced (the combine kernel, then add_rmsnorm's) and its plain
+        # version, with and without the sum kept
+        xr = randn(t, d)
+        gamma = randn(d) * 0.1 + 1.0
+        got_s, got_n = combine_add_rmsnorm_cuda(xr, y_got, r.slot, r.topw,
+                                                gamma)
+        want_s, want_n = add_rmsnorm_cuda(
+            xr, moe_combine_cuda(y_got, r.slot, r.topw), gamma)
+        none_s, none_n = combine_add_rmsnorm_cuda(xr, y_got, r.slot, r.topw,
+                                                  gamma, keep_sum=False)
+        p_s, p_n = combine_add_rmsnorm_torch(xr, y_got, r.slot, r.topw,
+                                             gamma)
+        torch.cuda.synchronize()
+        need(torch.equal(got_s, want_s) and torch.equal(got_n, want_n)
+             and none_s is None and torch.equal(none_n, want_n),
+             f"combine_add_rmsnorm {what}: not bitwise moe_combine then "
+             "add_rmsnorm")
+        need(torch.equal(got_s, p_s) and torch.equal(got_n, p_n),
+             f"combine_add_rmsnorm {what}: not bitwise its plain version")
+        row = {"kernel": "combine_add_rmsnorm", "case": what, "T": t,
+               "kept": kept, "d": d, "bitwise_chain": True,
+               "bitwise_plain": True,
+               "max_abs_err": float((got_n.float() - p_n.float()).abs()
+                                    .max())}
+        record(row, lambda: combine_add_rmsnorm_cuda(xr, y_got, r.slot,
+                                                     r.topw, gamma),
+               lambda: combine_add_rmsnorm_torch(xr, y_got, r.slot, r.topw,
+                                                 gamma), None,
+               kept * d * 2 + t * k * 8 + t * d * 2 * 3 + d * 2, 0,
+               chain=lambda: add_rmsnorm_cuda(
+                   xr, moe_combine_cuda(y_got, r.slot, r.topw), gamma))
+        log("    bitwise moe_combine then add_rmsnorm (sum kept and not) "
+            "and its plain version")
+        if (model, case) == ("granite", "decode T=4"):
+            line["combine_add_rmsnorm"] = row
         del h_got, h_want, y_got, y_want
 
         # -- a token's output alone and inside the chunk
@@ -2746,31 +2857,57 @@ def check_all_logits(torch, cfg, params, results, path):
     results.setdefault("all_logits_vs_sequential", {})[path] = out
 
 
-FUSED_OPS = ("add_rmsnorm", "add_layernorm", "qkv_rope_write")
+FUSED_OPS = ("add_rmsnorm", "add_layernorm", "qkv_rope_write",
+             "moe_router_route", "combine_add_rmsnorm")
+
+
+def chain_router_route(x, router, group, top_k, capacity, q_lens=None):
+    """The chain the fused route replaced, on the card: the
+    ``dense_matmul`` kernel, then the route kernel on its logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    logits = ops.dense_matmul(x, router)
+    return logits, moe_route_cuda(logits, group, top_k, capacity, q_lens)
+
+
+def chain_combine_add_rmsnorm(x, y, slot, topw, gamma, eps=1e-6,
+                              keep_sum=True):
+    """The chain ``combine_add_rmsnorm`` replaced, on the card: the
+    combine kernel, then ``x + m`` and the rmsnorm kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_torch
+    k = slot.shape[-1]
+    m = ops.moe_combine(y, slot.reshape(-1, k), topw.reshape(-1, k))
+    return add_rmsnorm_torch(x, m.reshape(x.shape), gamma, eps, keep_sum)
 
 
 @contextlib.contextmanager
 def plain_glue():
     """Inside the block the fused ops (``FUSED_OPS``) run their plain
     chains on the card, the chains the serving steps ran before them (whose
-    norm and write are the rmsnorm, layernorm and ``kv_write`` kernels);
-    every other op keeps its kernel."""
+    norm and write are the rmsnorm, layernorm and ``kv_write`` kernels; an
+    MoE layer's router ``dense_matmul`` and route, and its combine, are
+    their kernels); every other op keeps its kernel."""
     import functools
     from repro_torch.kernels import kv_write as kvw
     from repro_torch.kernels import layernorm as ln
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms
     saved = (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
-             ops.qkv_rope_write_cuda)
+             ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
+             ops.combine_add_rmsnorm_cuda)
     ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
     ops.add_layernorm_cuda = ln.add_layernorm_torch
     ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
                                                 write=ops.kv_write)
+    ops.moe_router_route_cuda = chain_router_route
+    ops.combine_add_rmsnorm_cuda = chain_combine_add_rmsnorm
     try:
         yield
     finally:
         (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
-         ops.qkv_rope_write_cuda) = saved
+         ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
+         ops.combine_add_rmsnorm_cuda) = saved
 
 
 def check_fused_equals_plain(torch, cfg, params, results, path):
@@ -2843,41 +2980,53 @@ def check_fused_equals_plain(torch, cfg, params, results, path):
 
 @contextlib.contextmanager
 def recorded_drops(dropped):
-    """Inside the block every ``ops.moe_route`` call appends the count of
-    live assignments it dropped to the list ``dropped`` (a device tensor:
-    no host read)."""
+    """Inside the block every ``ops.moe_router_route`` call appends the
+    count of live assignments it dropped to the list ``dropped`` (a device
+    tensor: no host read)."""
     from repro_torch.kernels import ops
-    route = ops.moe_route
+    route = ops.moe_router_route
 
-    def recording(logits, *, group, top_k, capacity, q_lens=None, **kw):
-        r = route(logits, group=group, top_k=top_k, capacity=capacity,
-                  q_lens=q_lens, **kw)
-        live = logits.shape[0] if q_lens is None else q_lens.sum()
+    def recording(x, router, *, group, top_k, capacity, q_lens=None, **kw):
+        logits, r = route(x, router, group=group, top_k=top_k,
+                          capacity=capacity, q_lens=q_lens, **kw)
+        live = x.shape[0] if q_lens is None else q_lens.sum()
         dropped.append(live * top_k - r.counts.sum())
-        return r
-    ops.moe_route = recording
+        return logits, r
+    ops.moe_router_route = recording
     try:
         yield
     finally:
-        ops.moe_route = route
+        ops.moe_router_route = route
+
+
+def plain_router_route(x, router, group, top_k, capacity, q_lens=None):
+    """The fused route's plain half on the card: the router's product on
+    its ``dense_matmul`` kernel (the logits the kernels see), then the
+    plain route."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_route import moe_route_torch
+    logits = ops.dense_matmul(x, router)
+    return logits, moe_route_torch(logits, group, top_k, capacity, q_lens)
 
 
 @contextlib.contextmanager
 def plain_moe():
-    """Inside the block the MoE ops (route, experts, combine) run their
-    plain versions on the card; the router's product and every other op
-    keep their kernels."""
+    """Inside the block the MoE ops (route, experts, the combine in the
+    norm) run their plain versions on the card; the router's product, the
+    norm and every other op keep their kernels."""
     from repro_torch.kernels import moe_experts as mx
-    from repro_torch.kernels import moe_route as mr
     from repro_torch.kernels import ops
-    saved = (ops.moe_route_cuda, ops.moe_ffn_cuda, ops.moe_combine_cuda)
-    ops.moe_route_cuda = mr.moe_route_torch
+    from repro_torch.kernels import rmsnorm as rms
+    saved = (ops.moe_router_route_cuda, ops.moe_ffn_cuda,
+             ops.combine_add_rmsnorm_cuda)
+    ops.moe_router_route_cuda = plain_router_route
     ops.moe_ffn_cuda = mx.moe_ffn_torch
-    ops.moe_combine_cuda = mr.moe_combine_torch
+    ops.combine_add_rmsnorm_cuda = rms.combine_add_rmsnorm_torch
     try:
         yield
     finally:
-        ops.moe_route_cuda, ops.moe_ffn_cuda, ops.moe_combine_cuda = saved
+        (ops.moe_router_route_cuda, ops.moe_ffn_cuda,
+         ops.combine_add_rmsnorm_cuda) = saved
 
 
 def check_moe_drops(torch, cfg, params, results, path):
@@ -2984,12 +3133,13 @@ def expected_launches(cfg, params, ticks, decode_ticks=0, span=None):
     ticks, read from the weights' leaf types.  Each projection goes to the
     W4A16, the sparse or the 16-bit kernel by its type; the FFN's gate/up
     to the kernel ``fused_variant`` picks, its down to the kernel of down's
-    type (an MoE layer: the router's ``dense_matmul``, ``moe_route``, the
-    grouped gate/up and down and ``moe_combine``; a tied head
-    ``dense_matmul``); the norms by the config: the first layer's
-    ``ln_attn`` alone (``rmsnorm`` or ``layernorm``) and every other norm
-    with the residual add before it (``add_rmsnorm`` or
-    ``add_layernorm``); the q/k/v
+    type (an MoE layer: ``moe_route`` with the router's product inside
+    it, the grouped gate/up and down, and the next norm combining their
+    rows, ``combine_add_rmsnorm``; a tied head ``dense_matmul``); the
+    norms by the config: the first layer's ``ln_attn`` alone (``rmsnorm``
+    or ``layernorm``) and every other norm with the residual add before it
+    (``add_rmsnorm`` or ``add_layernorm``; on an MoE config the L norms
+    after the experts are ``combine_add_rmsnorm``); the q/k/v
     epilogue (``qkv_rope_write``) once a layer, except on the
     ``decode_ticks`` of a window no shorter than the cache's ``span`` (a
     rolling buffer: the unfused chain, whose write is ``kv_write``)."""
@@ -3014,16 +3164,21 @@ def expected_launches(cfg, params, ticks, decode_ticks=0, span=None):
     head = params.get("lm_head")
     add("dense_matmul" if head is None else matmul_kernel(head, "lm_head"), 1)
     if cfg.is_moe:
-        # the router's product, the route, the two grouped expert kernels
-        # and the combine, once a layer each (W4A16 experts only: others
-        # have no CUDA path)
+        # the route with the router's product, the two grouped expert
+        # kernels and the combine inside the next norm (ln_attn of the
+        # next layer, ln_f after the last), once a layer each; the add of
+        # the attention's output stays add_rmsnorm (W4A16 experts only:
+        # others have no CUDA path)
         moe = params["blocks"]["moe"]
         for name in ("gate", "up", "down"):
             need(matmul_kernel(moe[name], name) == "w4a16_matmul",
                  f"the experts' {name} is not W4A16: no CUDA path")
-        for kernel in ("dense_matmul", "moe_route", "moe_gate_up_w4a16",
-                       "moe_down_w4a16", "moe_combine"):
+        need(cfg.norm != "layernorm", "an MoE config with a LayerNorm has "
+             "no fused combine")
+        for kernel in ("moe_route", "moe_gate_up_w4a16", "moe_down_w4a16",
+                       "combine_add_rmsnorm"):
             add(kernel, L)
+        add("add_rmsnorm", -L)
         return rolling_writes(per_tick, ticks, rolling, L)
     mlp = params["blocks"]["mlp"]
     gated = cfg.activation in GATED_ACTIVATIONS
@@ -3943,29 +4098,42 @@ def device_activity(torch, prof):
             [(name[:90], ms, n) for name, (ms, n) in top])
 
 
-# the MoE kernels by a piece of their names: the grouped experts by their
-# template's tail (EPI 1 and GATHER: gate/up; EPI 0: down), so the
-# grid-per-expert kernels of a parent tree are named as the ring's.  A
-# tick launches each once a layer (every layer of an MoE config is one):
-# a kernel the names miss, or a trace that lost launches, shows as fewer
+# the MoE kernels by a pattern of their traced names: the grouped experts
+# by their template's tail (EPI 1 and GATHER: gate/up; EPI 0: down), so the
+# grid-per-expert kernels of a parent tree are named as the ring's; the
+# combine in the norm by rmsnorm.cu's template code 2.  A tick launches
+# each once a layer (every layer of an MoE config is one): a kernel the
+# names miss, or a trace that lost launches, shows as fewer
 # (``moe_trace``)
-MOE_KERNELS = (("moe_route", "moe_route_kernel"),
-               ("moe_gate_up_w4a16", ", 1, true>"),
-               ("moe_down_w4a16", ", 0, false>"),
-               ("moe_combine", "moe_combine_kernel"))
+MOE_KERNELS = (("moe_route", r"moe_route_kernel"),
+               ("moe_gate_up_w4a16", r"moe_.*, 1, true>"),
+               ("moe_down_w4a16", r"moe_.*, 0, false>"),
+               ("combine_add_rmsnorm", r"add_rmsnorm_kernel<[^>]*, 2>\("))
+# the chain those replaced, as a parent tree's trace names it
+# (``tools/moe_ab.py``): the routers' ``dense_matmul`` (the tied head reads
+# its weight transposed: ``true``), the combine, and the norm with a
+# residual add (2L a tick there, L here: the attention's adds)
+MOE_CHAIN_KERNELS = (
+    ("router dense_matmul", r"dense_mma_kernel<.*, false>\("),
+    ("moe_combine", r"moe_combine_kernel"),
+    ("add_rmsnorm", r"add_rmsnorm_kernel<[^>]*, (true|1)>\("))
 
 
 def moe_kernel_ms(torch, prof) -> dict:
-    """Device ms and launches of each MoE kernel in a profiled window."""
+    """Device ms and launches of each MoE kernel (``MOE_KERNELS``) and of
+    the chain they replaced (``MOE_CHAIN_KERNELS``) in a profiled
+    window."""
+    import re
     out = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for kernel, piece in MOE_KERNELS:
-            if "moe_" in e.name and piece in e.name:
+        for kernel, pattern in MOE_KERNELS + MOE_CHAIN_KERNELS:
+            if re.search(pattern, e.name):
                 ms, n = out.get(kernel, (0.0, 0))
                 out[kernel] = (ms + (e.time_range.end - e.time_range.start)
                                / 1e3, n + 1)
+                break
     return out
 
 
@@ -4159,8 +4327,8 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
                 for kernel, (ms, n) in row.get("moe_ms", {}).items():
                     log(f"    in the graph: {kernel} {ms:.4f} ms over {n} "
-                        f"of {row['moe_expected']} launches"
-                        + ("" if n == row["moe_expected"] else
+                        f"launches ({row['moe_expected']} layers)"
+                        + ("" if n >= row["moe_expected"] else
                            " (the trace lost some: an undercount)"))
                 log(f"    glue operations {glue}")
                 need(not strict or engine.cfg.family == "ssm"
@@ -4634,8 +4802,9 @@ KERNEL_META = {
                  "src/repro/models/attention.py:139, :153, :269 (XLA in the "
                  "reference, no Pallas kernel)", "dense-prefill"),
     "moe_route": ("src/repro_torch/kernels/csrc/moe_route.cu",
-                  "src/repro/models/moe.py:64-81 and :88-101 (XLA in the "
-                  "reference, no Pallas kernel)", "granite-moe-dense"),
+                  "src/repro/models/moe.py:64-81 (the router's product at "
+                  ":74) and :88-101 (XLA in the reference, no Pallas "
+                  "kernel)", "granite-moe-dense"),
     "moe_gate_up_w4a16": ("src/repro_torch/kernels/csrc/moe_experts.cu",
                           "src/repro/kernels/ffn_fused.py:215 (under "
                           "src/repro/models/moe.py:129-145's vmap over "
@@ -4646,7 +4815,13 @@ KERNEL_META = {
                        "granite-moe-dense"),
     "moe_combine": ("src/repro_torch/kernels/csrc/moe_route.cu",
                     "src/repro/models/moe.py:103-118 (XLA in the reference, "
-                    "no Pallas kernel)", "granite-moe-dense"),
+                    "no Pallas kernel)", None),
+    "combine_add_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                            "src/repro/models/moe.py:103-118, the residual "
+                            "add of src/repro/models/transformer.py:66 and "
+                            "src/repro/models/layers.py:65 rmsnorm (XLA in "
+                            "the reference, no Pallas kernel)",
+                            "granite-moe-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -4800,10 +4975,12 @@ def main() -> int:
 
     kernels = []
     for kname, (source, replaces, path) in KERNEL_META.items():
+        # path None: phase 3's yardstick, on no served path
         r = line[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[path].get(kname, 0),
+            "replaces": replaces,
+            "launches": counts[path].get(kname, 0) if path else 0,
             "launches_path": path,
             "launches_by_path": {p: c.get(kname, 0)
                                  for p, c in counts.items()},

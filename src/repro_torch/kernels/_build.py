@@ -113,7 +113,8 @@ def library(name: str) -> ctypes.CDLL:
 def prepare(names=KERNEL_SOURCES) -> None:
     """Build and load the named libraries and run their one-time host
     calls (kernel 8's cluster attributes and occupancy query, the
-    layernorm bodies' shared-memory opt-in), so that a
+    layernorm bodies' shared-memory opt-in, the route kernels' cluster and
+    shared-memory attributes), so that a
     CUDA graph capture that follows starts no ``nvcc``, loads no library
     and makes no such call: inside a capture each wrapper only launches."""
     build(names)
@@ -128,6 +129,9 @@ def prepare(names=KERNEL_SOURCES) -> None:
     if "layernorm" in names:
         from repro_torch.kernels import layernorm
         layernorm.prepare()
+    if "moe_route" in names:
+        from repro_torch.kernels import moe_route
+        moe_route.prepare()
 
 
 def function(name: str, symbol: str, argtypes: list):

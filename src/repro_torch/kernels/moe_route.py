@@ -6,21 +6,24 @@ for them.  Here they are two hand kernels of ``csrc/moe_route.cu``, so a
 serving tick routes on the device with no host read and stays one graph
 replay:
 
-* ``moe_route`` takes the router's logits ``(T, E)`` of ``T = B * S``
+* ``moe_router_route`` takes the tokens ``x (T, d)`` of ``T = B * S``
   tokens in ``B`` routing groups of ``S`` (a row's chunk, as the
-  reference's ``vmap`` over the batch): f32 softmax, top-k with ties to the
-  lower expert index (``jax.lax.top_k``'s rule), the weights renormalised
-  by ``max(sum, 1e-9)``, then each assignment's position among its
-  expert's in the group's flat ``(S, k)`` order and ``keep = pos <
-  capacity``.  It lays the kept assignments out compactly, expert after
-  expert and, within an expert, group by group in flat order: ``slot``
-  ``(T, k)`` is an assignment's row there (-1: dropped, or a dead token),
-  ``counts`` and ``offsets`` ``(E,)`` each expert's rows, ``rows``
-  ``(T * k,)`` the token each row reads.
+  reference's ``vmap`` over the batch) and the router ``(d, E)``: the
+  logits ``x @ router`` in x's dtype, bitwise ``dense_matmul``'s, then f32
+  softmax, top-k with ties to the lower expert index (``jax.lax.top_k``'s
+  rule), the weights renormalised by ``max(sum, 1e-9)``, then each
+  assignment's position among its expert's in the group's flat ``(S, k)``
+  order and ``keep = pos < capacity``.  It lays the kept assignments out
+  compactly, expert after expert and, within an expert, group by group in
+  flat order: ``slot`` ``(T, k)`` is an assignment's row there (-1:
+  dropped, or a dead token), ``counts`` and ``offsets`` ``(E,)`` each
+  expert's rows, ``rows`` ``(T * k,)`` the token each row reads.  One
+  launch; ``moe_route`` is the same kernel given the logits.
 * ``moe_combine`` gives each token ``sum_j y[slot[t, j]] * w[t, j]`` as the
   reference rounds it (``moe.py:110-117``): the weight and each product in
   y's dtype, the sum in that dtype from zero in j order, a dropped
-  assignment adding nothing.
+  assignment adding nothing.  Served steps take this sum inside the next
+  norm (``rmsnorm.combine_add_rmsnorm``); the kernel is its yardstick.
 
 A dead token (position ``s >= q_lens[b]`` of a mixed chunk) takes no row:
 dead positions come after a group's live ones, so they never take a live
@@ -35,13 +38,15 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.dense_matmul import dense_matmul_torch
 from repro_torch.kernels.w4a16_matmul import DTYPE_CODES, check_activation
 
 ROUTE_NAME = "moe_route"
 COMBINE_NAME = "moe_combine"
 MAX_EXPERTS = 64             # two a lane of csrc/moe_route.cu's warps
 MAX_TOP_K = 32               # one a lane
-_ROUTE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+MAX_CTAS = 16                # a thread-block cluster's, at most
+_ROUTE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
 _COMBINE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
@@ -64,6 +69,13 @@ class Route:
     offsets: torch.Tensor
     rows: torch.Tensor
     max_rows: int
+
+
+def prepare() -> None:
+    """Set the route kernels' cluster and shared-memory attributes once
+    (``_build.prepare`` calls it before any CUDA graph capture)."""
+    _build.check("moe_route",
+                 _build.function("moe_route", "moe_route_prepare", [])())
 
 
 def max_rows(tokens: int, group: int, capacity: int) -> int:
@@ -124,19 +136,25 @@ def moe_route_torch(logits: torch.Tensor, group: int, top_k: int,
                  rows[:n], max_rows(t, group, capacity))
 
 
-def moe_route_cuda(logits: torch.Tensor, group: int, top_k: int,
-                   capacity: int, q_lens=None) -> Route:
-    """Launch ``csrc/moe_route.cu``'s route kernel: one block a routing
-    group, the last block to finish lays out the rows."""
-    check_activation(logits, ROUTE_NAME)
+def moe_router_route_torch(x: torch.Tensor, router: torch.Tensor,
+                           group: int, top_k: int, capacity: int,
+                           q_lens=None):
+    """Plain version of the fused route: ``dense_matmul``'s plain version,
+    then ``moe_route_torch``.  Returns ``(logits, Route)``."""
+    logits = dense_matmul_torch(x, router)
+    return logits, moe_route_torch(logits, group, top_k, capacity, q_lens)
+
+
+def _route_launch(x, router, logits, group, top_k, capacity, q_lens, ctas):
     t, e = logits.shape
-    if (logits.dim() != 2 or t % group or e > MAX_EXPERTS
-            or not 1 <= top_k <= min(e, MAX_TOP_K)):
+    if (t % group or e > MAX_EXPERTS
+            or not 1 <= top_k <= min(e, MAX_TOP_K)
+            or not 0 <= ctas <= MAX_CTAS):
         raise ValueError(f"{ROUTE_NAME}: logits {tuple(logits.shape)} in "
                          f"groups of {group}, top {top_k} (at most "
-                         f"{MAX_TOP_K}) of at most {MAX_EXPERTS} experts")
+                         f"{MAX_TOP_K}) of at most {MAX_EXPERTS} experts, at "
+                         f"most {MAX_CTAS} CTAs")
     b, dev = t // group, logits.device
-    logits = logits.contiguous()
     ql = None
     if q_lens is not None:
         ql = torch.as_tensor(q_lens, device=dev)
@@ -150,18 +168,60 @@ def moe_route_cuda(logits: torch.Tensor, group: int, top_k: int,
     counts = torch.empty((e,), **i32)
     offsets = torch.empty((e,), **i32)
     rows = torch.empty((t * top_k,), **i32)
-    per_group = torch.empty((b, e), **i32)
     if t:
         fn = _build.function("moe_route", "moe_route_launch", _ROUTE_ARGTYPES)
-        rc = fn(logits.data_ptr(), None if ql is None else ql.data_ptr(),
+        rc = fn(None if x is None else x.data_ptr(),
+                None if router is None else router.data_ptr(),
+                logits.data_ptr(), None if ql is None else ql.data_ptr(),
                 topw.data_ptr(), topi.data_ptr(), slot.data_ptr(),
-                counts.data_ptr(), offsets.data_ptr(), rows.data_ptr(),
-                per_group.data_ptr(), b, group, e, top_k, capacity,
-                DTYPE_CODES[logits.dtype], _build.stream_ptr(dev))
+                counts.data_ptr(), offsets.data_ptr(), rows.data_ptr(), t,
+                0 if x is None else x.shape[1], group, e, top_k, capacity,
+                ctas, DTYPE_CODES[logits.dtype], _build.stream_ptr(dev))
         _build.check("moe_route", rc)
         _build.launches[ROUTE_NAME] += 1
     return Route(topw, topi, slot, counts, offsets, rows,
                  max_rows(t, group, capacity))
+
+
+def moe_route_cuda(logits: torch.Tensor, group: int, top_k: int,
+                   capacity: int, q_lens=None, *, ctas: int = 0) -> Route:
+    """Launch ``csrc/moe_route.cu``'s route kernel on given logits (the
+    product skipped).  ``ctas``: the cluster's CTAs (0: the launcher's
+    choice); every choice gives the same bits."""
+    check_activation(logits, ROUTE_NAME)
+    if logits.dim() != 2:
+        raise ValueError(f"{ROUTE_NAME}: logits must be (T, E)")
+    return _route_launch(None, None, logits.contiguous(), group, top_k,
+                         capacity, q_lens, ctas)
+
+
+def moe_router_route_cuda(x: torch.Tensor, router: torch.Tensor, group: int,
+                          top_k: int, capacity: int, q_lens=None, *,
+                          ctas: int = 0):
+    """Launch the route kernel with the router's product inside it:
+    ``(logits, Route)``, the logits in x's dtype, bitwise
+    ``dense_matmul(x, router)``'s.  ``router`` (d, E) is taken in x's dtype
+    (a float32 router is cast here; ``models/moe._router`` caches the
+    cast so that a served step makes none)."""
+    check_activation(x, ROUTE_NAME)
+    if x.dim() != 2 or router.dim() != 2 or router.shape[0] != x.shape[1]:
+        raise ValueError(f"{ROUTE_NAME}: x (T, d) {tuple(x.shape)} and "
+                         f"router (d, E) {tuple(router.shape)}")
+    if router.device != x.device:
+        raise ValueError(f"{ROUTE_NAME}: router on {router.device}, x on "
+                         f"{x.device}")
+    x = x.contiguous()
+    router = router.to(x.dtype).contiguous()
+    if x.dtype == torch.bfloat16 and (router.shape[1] % 4
+                                      or router.data_ptr() % 8):
+        raise ValueError(f"{ROUTE_NAME}: a bf16 router's experts must be a "
+                         "multiple of 4 on 4-element aligned memory, as "
+                         "dense_matmul takes its weights")
+    logits = torch.empty((x.shape[0], router.shape[1]), dtype=x.dtype,
+                         device=x.device)
+    route = _route_launch(x, router, logits, group, top_k, capacity, q_lens,
+                          ctas)
+    return logits, route
 
 
 def moe_combine_torch(y: torch.Tensor, slot: torch.Tensor,

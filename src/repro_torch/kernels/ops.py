@@ -11,9 +11,11 @@ Each op picks its implementation by the tensors' device (``impl="auto"``):
 
 ``add_rmsnorm``, ``add_layernorm`` and ``qkv_rope_write`` fuse the PyTorch
 glue of a step into a kernel; their plain versions are the former chains,
-whose inner ops dispatch by device as before.  ``moe_route``,
-``moe_ffn_w4a16`` and ``moe_combine`` are an MoE layer's routing, its
-experts (two grouped kernels) and the weighted sum of their outputs.
+whose inner ops dispatch by device as before.  ``moe_router_route``,
+``moe_ffn_w4a16`` and ``combine_add_rmsnorm`` are an MoE layer's router
+product with its routing, its experts (two grouped kernels), and the
+weighted sum of their outputs fused into the next norm; ``moe_route`` and
+``moe_combine`` are the routing on given logits and the sum alone.
 """
 
 from __future__ import annotations
@@ -38,8 +40,11 @@ from repro_torch.kernels.layernorm import (
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.moe_experts import moe_ffn_cuda, moe_ffn_torch
 from repro_torch.kernels.moe_route import (
-    moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch)
-from repro_torch.kernels.rmsnorm import add_rmsnorm_cuda, add_rmsnorm_torch
+    moe_combine_cuda, moe_combine_torch, moe_route_cuda, moe_route_torch,
+    moe_router_route_cuda)
+from repro_torch.kernels.rmsnorm import (
+    add_rmsnorm_cuda, add_rmsnorm_torch, combine_add_rmsnorm_cuda,
+    combine_add_rmsnorm_torch)
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -50,7 +55,8 @@ __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "ffn_w4a16", "layernorm", "attention", "decode_attention",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
            "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write",
-           "moe_route", "moe_ffn_w4a16", "moe_combine"]
+           "moe_route", "moe_router_route", "moe_ffn_w4a16", "moe_combine",
+           "combine_add_rmsnorm"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -225,6 +231,23 @@ def moe_route(logits: torch.Tensor, *, group: int, top_k: int,
     return fn(logits, group, top_k, capacity, q_lens)
 
 
+def moe_router_route(x: torch.Tensor, router: torch.Tensor, *, group: int,
+                     top_k: int, capacity: int, q_lens=None,
+                     impl: str = "auto"):
+    """The router's product ``x @ router`` (x (T, d), router (d, E) in x's
+    dtype; logits in x's dtype, bitwise ``dense_matmul``'s) and
+    ``moe_route`` on it: ``(logits, Route)``.  One launch on the card; the
+    plain path is ``dense_matmul`` then ``moe_route``, each of that
+    ``impl``."""
+    impl = _resolve(impl, x)
+    if impl == "cuda":
+        return moe_router_route_cuda(x, router, group, top_k, capacity,
+                                     q_lens)
+    logits = dense_matmul(x, router, impl=impl)
+    return logits, moe_route(logits, group=group, top_k=top_k,
+                             capacity=capacity, q_lens=q_lens, impl=impl)
+
+
 def moe_ffn_w4a16(x: torch.Tensor, route, gate, up, down, *,
                   activation: str = "swiglu",
                   impl: str = "auto") -> torch.Tensor:
@@ -259,6 +282,21 @@ def moe_combine(y: torch.Tensor, slot: torch.Tensor, topw: torch.Tensor, *,
     impl = _resolve(impl, y)
     fn = moe_combine_cuda if impl == "cuda" else moe_combine_torch
     return fn(y, slot, topw)
+
+
+def combine_add_rmsnorm(x: torch.Tensor, y: torch.Tensor, slot: torch.Tensor,
+                        topw: torch.Tensor, gamma: torch.Tensor,
+                        eps: float = 1e-6, *, keep_sum: bool = True,
+                        impl: str = "auto"):
+    """An MoE layer's output added to the residual and the RMSNorm after
+    it: ``(s, n)`` with ``s = x + moe_combine(y, slot, topw)`` (slot and
+    topw (..., k) of x's leading shape; s None unless ``keep_sum``) and ``n
+    = rmsnorm(s)``, bitwise ``moe_combine`` then ``add_rmsnorm``.  One
+    launch on the card, which never writes the combined output."""
+    impl = _resolve(impl, x)
+    fn = (combine_add_rmsnorm_cuda if impl == "cuda"
+          else combine_add_rmsnorm_torch)
+    return fn(x, y, slot, topw, gamma, eps, keep_sum)
 
 
 def kv_write(cache: dict, new: dict, starts: torch.Tensor,

@@ -10,9 +10,13 @@ depend on the batch and chunk width and break the engine's bitwise oracle
 parity; ``csrc/rmsnorm.cu`` reduces every row in one fixed order.
 ``add_rmsnorm`` adds the residual in the same launch (``s = x + h``
 rounded to x's dtype, as PyTorch's add rounds it), so its ``n`` is bitwise
-``rmsnorm(x + h)``.  The kernel stages a row and gamma in shared memory
-with 16-byte copies: the wrappers refuse a width above ``STAGE_BYTES`` or
-off a multiple of 16 bytes, and operands off a 16-byte boundary.
+``rmsnorm(x + h)``.  ``combine_add_rmsnorm`` adds an MoE layer's output
+without its own launch: the k expert rows of each token's route, summed
+with ``moe_combine``'s roundings as they fill the staged row, so its
+``(s, n)`` are bitwise ``moe_combine`` followed by ``add_rmsnorm``.  The
+kernel stages a row and gamma in shared memory with 16-byte copies: the
+wrappers refuse a width above ``STAGE_BYTES`` or off a multiple of 16
+bytes, and operands off a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -22,15 +26,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.moe_route import MAX_TOP_K, moe_combine_torch
 from repro_torch.kernels.w4a16_matmul import (
     DTYPE_CODES, check_activation, check_aligned)
 
 NAME = "rmsnorm"
 ADD_NAME = "add_rmsnorm"
+COMBINE_NAME = "combine_add_rmsnorm"
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
 _ADD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                  + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
+_COMBINE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                     + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
 STAGE_BYTES = 47 * 1024     # a row and gamma in shared memory (rmsnorm.cu)
 
 
@@ -119,4 +127,55 @@ def add_rmsnorm_cuda(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
                 _build.stream_ptr(x.device))
         _build.check(NAME, rc)
         _build.launches[ADD_NAME] += 1
+    return (s.reshape(x.shape) if keep_sum else None), out.reshape(x.shape)
+
+
+def combine_add_rmsnorm_torch(x: torch.Tensor, y: torch.Tensor,
+                              slot: torch.Tensor, topw: torch.Tensor,
+                              gamma: torch.Tensor, eps: float = 1e-6,
+                              keep_sum: bool = True):
+    """Plain version: ``moe_combine_torch`` then ``add_rmsnorm_torch``.
+    x (..., d), slot and topw (..., k) of the same leading shape, y
+    (rows, d).  Returns ``(s or None, n)``."""
+    k = slot.shape[-1]
+    m = moe_combine_torch(y, slot.reshape(-1, k), topw.reshape(-1, k))
+    return add_rmsnorm_torch(x, m.reshape(x.shape), gamma, eps, keep_sum)
+
+
+def combine_add_rmsnorm_cuda(x: torch.Tensor, y: torch.Tensor,
+                             slot: torch.Tensor, topw: torch.Tensor,
+                             gamma: torch.Tensor, eps: float = 1e-6,
+                             keep_sum: bool = True):
+    """Launch ``csrc/rmsnorm.cu``'s combine variant: ``(s, n)`` with ``s =
+    x + moe_combine(y, slot, topw)`` written only when ``keep_sum`` (else
+    None); the combined output is never written."""
+    _check_gamma(x, gamma, COMBINE_NAME)
+    d, k = x.shape[-1], slot.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    n = x2.shape[0]
+    if (y.dim() != 2 or y.shape[1] != d or y.dtype != x.dtype
+            or y.device != x.device or slot.dtype != torch.int32
+            or topw.dtype != torch.float32 or slot.numel() != n * k
+            or topw.shape != slot.shape or not 1 <= k <= MAX_TOP_K):
+        raise ValueError(f"{COMBINE_NAME}: y (rows, {d}) {x.dtype}, slot "
+                         f"int32 and topw f32 ({n}, k <= {MAX_TOP_K}); got y "
+                         f"{tuple(y.shape)} {y.dtype}, slot "
+                         f"{tuple(slot.shape)} {slot.dtype}, topw "
+                         f"{tuple(topw.shape)} {topw.dtype}")
+    y = y.contiguous()
+    slot2 = slot.reshape(n, k).contiguous()
+    topw2 = topw.reshape(n, k).contiguous()
+    gamma = gamma.contiguous()
+    out = torch.empty_like(x2)
+    s = torch.empty_like(x2) if keep_sum else None
+    check_aligned(COMBINE_NAME, x2, y, gamma)
+    if n:
+        fn = _build.function(NAME, "combine_add_rmsnorm_launch",
+                             _COMBINE_ARGTYPES)
+        rc = fn(x2.data_ptr(), y.data_ptr(), slot2.data_ptr(),
+                topw2.data_ptr(), gamma.data_ptr(),
+                s.data_ptr() if keep_sum else None, out.data_ptr(), n, d, k,
+                eps, DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+        _build.check(NAME, rc)
+        _build.launches[COMBINE_NAME] += 1
     return (s.reshape(x.shape) if keep_sum else None), out.reshape(x.shape)

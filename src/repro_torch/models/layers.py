@@ -87,12 +87,18 @@ def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(x, p["gamma"])
 
 
-def add_norm(cfg, p: Params, x: torch.Tensor, h: torch.Tensor, *,
-             keep_sum: bool = True):
+def add_norm(cfg, p: Params, x: torch.Tensor, h, *, keep_sum: bool = True):
     """The residual add and the norm after it: ``(x + h, norm(x + h))``,
     one fused launch on the card (``ops.add_layernorm`` or
     ``ops.add_rmsnorm``); the sum is written only with ``keep_sum``, else
-    None."""
+    None.  ``h`` may be an MoE layer's ``moe.Experts``: an RMSNorm then
+    combines them in the same launch (``ops.combine_add_rmsnorm``); a
+    LayerNorm takes them combined."""
+    if not isinstance(h, torch.Tensor):      # an MoE layer's Experts
+        if "beta" not in p:
+            return ops.combine_add_rmsnorm(x, h.y, h.slot, h.topw,
+                                           p["gamma"], keep_sum=keep_sum)
+        h = h.combined()
     if "beta" in p:
         return ops.add_layernorm(x, h, p["gamma"], p["beta"],
                                  keep_sum=keep_sum)

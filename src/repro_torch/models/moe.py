@@ -6,15 +6,21 @@ mixed chunk or one decode token) by capacity, as the reference's
 ``_route`` / ``_dispatch_compute`` / ``_moe_apply_local`` do:
 
 * the router ``(d, E)`` is float32 and never quantized; its product runs
-  in x's dtype (``ops.dense_matmul`` on the router cast once to x's dtype,
-  ``_router``), the softmax statistics in f32;
-* ``ops.moe_route``: top-k with ties to the lower expert index,
-  renormalised; an assignment keeps its place when fewer than
-  ``capacity(cfg, S)`` earlier assignments of its group chose its expert,
-  and is dropped otherwise;
+  in x's dtype (on the router cast once to x's dtype, ``_router``), the
+  softmax statistics in f32;
+* ``ops.moe_router_route``: the product and the routing in one launch:
+  top-k with ties to the lower expert index, renormalised; an assignment
+  keeps its place when fewer than ``capacity(cfg, S)`` earlier assignments
+  of its group chose its expert, and is dropped otherwise;
 * ``ops.moe_ffn_w4a16``: every expert's FFN on its kept rows;
-* ``ops.moe_combine``: each token's weighted sum of its kept outputs,
-  rounded as the reference rounds its gather and scatter-add.
+* the combine: each token's weighted sum of its kept outputs, rounded as
+  the reference rounds its gather and scatter-add.
+
+``moe_experts`` stops before the combine and returns the experts' rows
+with each token's route (``Experts``); the layer walk hands them to the
+next norm (``layers.add_norm``: ``ops.combine_add_rmsnorm``), so the
+combined output is never written.  ``moe_apply`` combines them
+(``ops.moe_combine``) for callers that want the layer's output.
 
 ``capacity`` depends on the group's length, so a chunk can drop
 assignments that one-token decode keeps (decode's capacity is ``top_k``):
@@ -27,6 +33,7 @@ The reference's shard_map paths (a mesh) are not ported.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -91,18 +98,52 @@ def aux_loss(cfg, logits: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
     return e * torch.sum(me * (ce / topi.numel()))
 
 
-def moe_apply(cfg, p: Params, x: torch.Tensor, *, q_lens=None,
-              with_aux: bool = False):
-    """x (B, S, d) -> (out (B, S, d), aux loss or None).  ``q_lens`` (B,)
-    int32: a mixed chunk's live positions a row (the rest take no expert
-    row and give zeros); ``with_aux`` computes the load-balance loss."""
+@dataclasses.dataclass(frozen=True)
+class Experts:
+    """An MoE layer's output before the combine: ``y`` (rows, d) the
+    experts' kept rows, ``slot`` (int32) and ``topw`` (f32) ``(B, S, k)``
+    each token's assignments.  Indexing selects tokens as it would select
+    them from the combined ``(B, S, d)`` output: it applies to ``slot``
+    and ``topw`` and leaves ``y`` whole."""
+
+    y: torch.Tensor
+    slot: torch.Tensor
+    topw: torch.Tensor
+
+    def __getitem__(self, key) -> "Experts":
+        return Experts(self.y, self.slot[key], self.topw[key])
+
+    def combined(self) -> torch.Tensor:
+        """The combined output ``(..., d)`` (``ops.moe_combine``)."""
+        k = self.slot.shape[-1]
+        out = ops.moe_combine(self.y, self.slot.reshape(-1, k),
+                              self.topw.reshape(-1, k))
+        return out.reshape(*self.slot.shape[:-1], self.y.shape[1])
+
+
+def moe_experts(cfg, p: Params, x: torch.Tensor, *, q_lens=None,
+                with_aux: bool = False):
+    """x (B, S, d) -> (``Experts``, aux loss or None): the router's product
+    and the route (one op), then every expert's FFN; the combine is left to
+    the caller.  ``q_lens`` (B,) int32: a mixed chunk's live positions a row
+    (the rest take no expert row and combine to zeros); ``with_aux``
+    computes the load-balance loss."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    logits = ops.dense_matmul(x2, _router(p["router"], x.dtype))
-    route = ops.moe_route(logits, group=s, top_k=cfg.top_k,
-                          capacity=capacity(cfg, s), q_lens=q_lens)
+    logits, route = ops.moe_router_route(
+        x2, _router(p["router"], x.dtype), group=s, top_k=cfg.top_k,
+        capacity=capacity(cfg, s), q_lens=q_lens)
     y = ops.moe_ffn_w4a16(x2, route, p["gate"], p["up"], p["down"],
                           activation=cfg.activation)
-    out = ops.moe_combine(y, route.slot, route.topw).reshape(b, s, d)
     aux = aux_loss(cfg, logits, route.topi) if with_aux else None
-    return out, aux
+    k = cfg.top_k
+    return Experts(y, route.slot.reshape(b, s, k),
+                   route.topw.reshape(b, s, k)), aux
+
+
+def moe_apply(cfg, p: Params, x: torch.Tensor, *, q_lens=None,
+              with_aux: bool = False):
+    """x (B, S, d) -> (out (B, S, d), aux loss or None): ``moe_experts``
+    combined."""
+    experts, aux = moe_experts(cfg, p, x, q_lens=q_lens, with_aux=with_aux)
+    return experts.combined(), aux

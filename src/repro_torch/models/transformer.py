@@ -118,11 +118,13 @@ def _walk_layers(cfg, params: Params, x: torch.Tensor, attend, *,
     residual add goes into the norm after it (``layers.add_norm``: on the
     card one launch for ``x + h`` -> ``ln_mlp`` and one for ``x + m`` -> the
     next layer's ``ln_attn``); layer 0's ``ln_attn`` is a norm alone.  The
-    FFN sublayer is the MLP or, for an MoE config, ``moe.moe_apply``
+    FFN sublayer is the MLP or, for an MoE config, ``moe.moe_experts``
     (``q_lens``: a mixed chunk's live positions; each layer's load-balance
-    loss is appended to the list ``aux`` when one is given).
-    Returns the last layer's (x, m): its residual and MLP output, not yet
-    added, for the caller's final add + ``ln_f`` (``_final_norm``)."""
+    loss is appended to the list ``aux`` when one is given), whose
+    ``Experts`` the next norm combines as it adds them (one launch).
+    Returns the last layer's (x, m): its residual and MLP output (or
+    ``Experts``; indexing either selects positions), not yet added, for
+    the caller's final add + ``ln_f`` (``_final_norm``)."""
     blocks = [layer_params(params["blocks"], i) for i in range(cfg.n_layers)]
     n = layers.apply_norm(cfg, blocks[0]["ln_attn"], x)
     m = None
@@ -132,8 +134,8 @@ def _walk_layers(cfg, params: Params, x: torch.Tensor, attend, *,
         h = attend(i, bp, n)
         x, n = layers.add_norm(cfg, bp["ln_mlp"], x, h)
         if cfg.is_moe:
-            m, a = moe.moe_apply(cfg, bp["moe"], n, q_lens=q_lens,
-                                 with_aux=aux is not None)
+            m, a = moe.moe_experts(cfg, bp["moe"], n, q_lens=q_lens,
+                                   with_aux=aux is not None)
             if aux is not None:
                 aux.append(a)
         else:
@@ -141,9 +143,9 @@ def _walk_layers(cfg, params: Params, x: torch.Tensor, attend, *,
     return x, m
 
 
-def _final_norm(cfg, params: Params, x: torch.Tensor,
-                m: torch.Tensor) -> torch.Tensor:
-    """``ln_f(x + m)``, the sum not kept."""
+def _final_norm(cfg, params: Params, x: torch.Tensor, m) -> torch.Tensor:
+    """``ln_f(x + m)``, the sum not kept (``m`` a tensor or an MoE layer's
+    ``Experts``)."""
     return layers.add_norm(cfg, params["ln_f"], x, m, keep_sum=False)[1]
 
 
@@ -169,8 +171,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, positions=None):
 PREFILL_CHUNK = 4096
 
 
-def _last_logits(cfg, params: Params, x: torch.Tensor,
-                 m: torch.Tensor) -> torch.Tensor:
+def _last_logits(cfg, params: Params, x: torch.Tensor, m) -> torch.Tensor:
     """The last position's logits from the last layer's (x, m)."""
     n = _final_norm(cfg, params, x[:, -1:], m[:, -1:])
     return unembed(cfg, params, n)[:, 0]

@@ -2125,6 +2125,8 @@ def _plain_glue(m):
     m.setattr(ops, "add_layernorm_cuda", ln.add_layernorm_torch)
     m.setattr(ops, "qkv_rope_write_cuda", functools.partial(
         kvw.qkv_rope_write_torch, write=ops.kv_write))
+    m.setattr(ops, "combine_add_rmsnorm_cuda",
+              rms.combine_add_rmsnorm_torch)
 
 
 FUSED_CASES = {"slot": {}, "int8": dict(kv_quant="int8"),
@@ -2421,6 +2423,141 @@ def test_moe_route_ties_go_to_the_lower_index(cuda):
     assert torch.equal(r.topi, mr.moe_route_torch(logits, 6, 8, 48).topi)
 
 
+def _bits(t):
+    """A tensor's bits, so that NaNs compare equal where their bits are."""
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _same_route(got, want):
+    for name in ("topw", "topi", "slot", "counts", "offsets"):
+        assert torch.equal(_bits(getattr(got, name)),
+                           _bits(getattr(want, name))), name
+    kept = int(want.counts.sum())
+    assert torch.equal(got.rows[:kept], want.rows[:kept])
+    assert got.max_rows == want.max_rows
+
+
+def _router_inputs(gen, b, s, d, e, dtype):
+    """x (b*s, d) and a router (d, e) in dtype: expert 0 a favourite (so
+    groups drop), the last two router columns equal (tied logits), and
+    row 1 NaN where there are two rows."""
+    router = _rand(gen, d, e) / d ** 0.5
+    router[:, -1] = router[:, -2]
+    r0 = router[:, 0]
+    x = _rand(gen, b * s, d) + 1.5 * r0 / (r0 @ r0)
+    if b * s > 1:
+        x[1] = float("nan")
+    return x.to(dtype), router.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,k,b,s,cap,q_lens,d", [
+    (40, 8, 4, 1, 8, None, 1536), (40, 8, 4, 64, 64, None, 1536),
+    (40, 8, 4, 64, 16, [64, 1, 40, 0], 1536), (8, 2, 3, 33, 9, None, 256),
+    (64, 4, 2, 300, 20, [300, 17], 200), (8, 2, 1, 4096, 1280, None, 128),
+    (8, 2, 4, 1, 2, None, 6144), (8, 2, 4, 64, 64, None, 6144),
+    (12, 3, 2, 5, 3, [5, 2], 100)])
+@pytest.mark.parametrize("ctas", [0, 1, 3, 16])
+def test_moe_router_route_kernel_matches_the_chain(cuda, dtype, e, k, b, s,
+                                                   cap, q_lens, d, ctas):
+    """The route with the router's product inside it: logits bitwise
+    ``ops.dense_matmul``'s, every ``Route`` field bitwise the route
+    kernel's on those logits, at every CTA count of the cluster (the
+    layout follows T freely), weights within 2 ulp of the plain version
+    away from the NaN row; drops, dead positions, tied logits; one launch
+    counted."""
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(e * s + d)
+    x, router = _router_inputs(gen, b, s, d, e, dtype)
+    ql = (None if q_lens is None else
+          torch.tensor(q_lens, dtype=torch.int32, device="cuda"))
+    before = _build.launches["moe_route"]
+    logits, got = mr.moe_router_route_cuda(x, router, s, k, cap, ql,
+                                           ctas=ctas)
+    assert _build.launches["moe_route"] == before + 1
+    want_logits = ops.dense_matmul(x, router)
+    assert torch.equal(_bits(logits), _bits(want_logits))
+    _same_route(got, mr.moe_route_cuda(want_logits, s, k, cap, ql))
+    _same_route(got, mr.moe_route_cuda(want_logits, s, k, cap, ql,
+                                       ctas=max(1, ctas // 2)))
+    plain = mr.moe_route_torch(want_logits, s, k, cap, ql)
+    fine = torch.isfinite(logits).all(1)
+    assert torch.equal(got.topi[fine], plain.topi[fine])
+    assert _ulps(got.topw[fine], plain.topw[fine]) <= 2
+    if b * s > 1:                        # the NaN row: the first k indices
+        assert got.topi[1].tolist() == list(range(k))
+    assert int(got.counts.sum()) <= (sum(q_lens) if q_lens else b * s) * k
+
+
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64)])
+def test_moe_router_route_graph_replays_a_new_route(cuda, b, s):
+    """A CUDA graph of the fused route captured on one x and replayed after
+    another x is copied in gives bitwise the eager launch's logits and
+    ``Route`` on that x (other counts, offsets and rows)."""
+    from repro_torch.kernels import moe_route as mr
+    gen = torch.Generator(device="cuda").manual_seed(30 + s)
+    x_a, router = _router_inputs(gen, b, s, _GRANITE_D, 40, torch.bfloat16)
+    x_b = _rand(gen, b * s, _GRANITE_D, dtype=torch.bfloat16)
+    want_logits, want = mr.moe_router_route_cuda(x_b, router, s, 8, s)
+    xs = x_a.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mr.moe_router_route_cuda(xs, router, s, 8, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, got = mr.moe_router_route_cuda(xs, router, s, 8, s)
+    xs.copy_(x_b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(want.counts, mr.moe_router_route_cuda(
+        x_a, router, s, 8, s)[1].counts)
+    assert torch.equal(logits, want_logits)
+    _same_route(got, want)
+
+
+@pytest.mark.parametrize("dtype,d,e,k", [
+    (torch.float32, 1536, 40, 8), (torch.bfloat16, 1536, 40, 8),
+    (torch.bfloat16, 6144, 8, 2)])
+@pytest.mark.parametrize("b,s", [(4, 1), (4, 64)])
+def test_combine_add_rmsnorm_kernel_is_the_chain(cuda, dtype, d, e, k, b, s):
+    """``combine_add_rmsnorm`` bitwise ``moe_combine`` then
+    ``add_rmsnorm`` (both kernels) and its plain version, the sum kept and
+    not, through ``ops`` with ``(B, S, k)`` routes too, at granite's and
+    mixtral's widths, with drops and a dead row; one launch a call."""
+    from repro_torch.kernels import moe_route as mr
+    from repro_torch.kernels import rmsnorm as rms
+    gen = torch.Generator(device="cuda").manual_seed(d + s)
+    t = b * s
+    logits = _rand(gen, t, e)
+    logits[:, 0] += 1.0
+    ql = (None if s == 1 else
+          torch.tensor([s, 1, 0, s // 2], dtype=torch.int32, device="cuda"))
+    r = mr.moe_route_cuda(logits, s, k, max(k, s // 4), ql)
+    assert s == 1 or bool((r.slot < 0).any())
+    y = _rand(gen, t * k, d, dtype=dtype)
+    x = _rand(gen, t, d, dtype=dtype)
+    gamma = (_rand(gen, d) * 0.1 + 1.0).to(dtype)
+    before = _build.launches["combine_add_rmsnorm"]
+    got_s, got_n = rms.combine_add_rmsnorm_cuda(x, y, r.slot, r.topw, gamma)
+    assert _build.launches["combine_add_rmsnorm"] == before + 1
+    m = mr.moe_combine_cuda(y, r.slot, r.topw)
+    want_s, want_n = rms.add_rmsnorm_cuda(x, m, gamma)
+    assert torch.equal(got_s, want_s) and torch.equal(got_n, want_n)
+    none_s, none_n = rms.combine_add_rmsnorm_cuda(x, y, r.slot, r.topw,
+                                                  gamma, keep_sum=False)
+    assert none_s is None and torch.equal(none_n, want_n)
+    p_s, p_n = rms.combine_add_rmsnorm_torch(x, y, r.slot, r.topw, gamma)
+    assert torch.equal(p_s, want_s) and torch.equal(p_n, want_n)
+    o_s, o_n = ops.combine_add_rmsnorm(
+        x.reshape(b, s, d), y, r.slot.reshape(b, s, k),
+        r.topw.reshape(b, s, k), gamma)
+    assert torch.equal(o_s.reshape(t, d), want_s)
+    assert torch.equal(o_n.reshape(t, d), want_n)
+
+
 def _experts(gen, e, d, f, group):
     gate, up = (quantize(_rand(gen, e, d, f) * 0.05, group_size=group)
                 for _ in range(2))
@@ -2645,8 +2782,9 @@ def test_tied_head_reads_the_embedding_in_place(cuda, tokens):
 def test_moe_mixed_step_equals_sequential_decode_on_card(cuda):
     """The MoE graph case at the dropless factor: a 13-token prompt in
     8-token chunks gives bitwise the logits and cache of 13 decode steps,
-    through the route, the grouped experts, the combine and the tied
-    head."""
+    through the route with the router's product, the grouped experts, the
+    combine inside the next norm and the tied head (the decode steps'
+    launches counted: no router ``dense_matmul``, no ``moe_combine``)."""
     from repro_torch.models import api
     cfg, params, _ = _graph_engine("moe")
     prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 13)
@@ -2657,8 +2795,10 @@ def test_moe_mixed_step_equals_sequential_decode_on_card(cuda):
                                     torch.tensor([[tok]], device="cuda"),
                                     [t + 1])
     for name in ("moe_route", "moe_gate_up_w4a16", "moe_down_w4a16",
-                 "moe_combine"):
+                 "combine_add_rmsnorm", "add_rmsnorm"):
         assert _build.launches[name] == 13 * cfg.n_layers, name
+    assert _build.launches["moe_combine"] == 0
+    assert _build.launches["dense_matmul"] == 13      # the tied head
     mix = api.init_cache(cfg, 1, 32, "cuda")
     for o in (0, 8):
         ql = min(8, 13 - o)

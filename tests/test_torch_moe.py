@@ -358,6 +358,112 @@ def test_router_cast_is_made_once():
     assert moe._router(r, torch.float32) is r
 
 
+# -- the fused route and the combine inside the next norm ----------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_router_route_plain_is_dense_matmul_then_route(arch):
+    """``ops.moe_router_route``'s plain version (and
+    ``moe_route.moe_router_route_torch``): the logits ``dense_matmul``'s
+    and every ``Route`` field ``moe_route``'s on them, with dead positions
+    and drops, in both dtypes."""
+    jcfg, tcfg = _cfgs(arch, 1.0)
+    rng = np.random.default_rng(11)
+    b, s, k = 3, 16, tcfg.top_k
+    x, router = _skewed(rng, b, s, jcfg.d_model, jcfg.n_experts)
+    q = torch.tensor([16, 5, 0], dtype=torch.int32)
+    cap = moe.capacity(tcfg, s)
+    for dtype in (torch.float32, torch.bfloat16):
+        x2 = _t(x).reshape(b * s, -1).to(dtype)
+        r = moe._router(_t(router), dtype)
+        want_logits = ops.dense_matmul(x2, r)
+        want = ops.moe_route(want_logits, group=s, top_k=k, capacity=cap,
+                             q_lens=q)
+        assert int(want.counts.sum()) < (16 + 5) * k      # some dropped
+        got = [ops.moe_router_route(x2, r, group=s, top_k=k, capacity=cap,
+                                    q_lens=q),
+               moe_route.moe_router_route_torch(x2, r, s, k, cap, q)]
+        for logits, route in got:
+            assert torch.equal(logits, want_logits)
+            for f in dataclasses.fields(route):
+                a, w = getattr(route, f.name), getattr(want, f.name)
+                assert (torch.equal(a, w) if isinstance(a, torch.Tensor)
+                        else a == w), f.name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("keep_sum", [True, False])
+def test_combine_add_rmsnorm_plain_is_the_chain(dtype, keep_sum):
+    """``ops.combine_add_rmsnorm``'s plain version bitwise ``moe_combine``
+    then ``add_rmsnorm`` (the chain it replaces) on a 4 x 8 chunk's
+    ``(B, S, k)`` route with drops and dead tokens; a dead token's sum is
+    its residual."""
+    rng = np.random.default_rng(12)
+    b, s, e, k, d = 4, 8, 8, 2, 64
+    logits = _t(rng.normal(size=(b * s, e))).to(dtype)
+    logits[:, 0] += 2.0
+    q = torch.tensor([8, 3, 0, 6], dtype=torch.int32)
+    r = moe_route.moe_route_torch(logits, s, k, 4, q)
+    assert int(r.counts.sum()) < 17 * k and bool((r.slot < 0).any())
+    y = _t(rng.normal(size=(b * s * k, d))).to(dtype)
+    x = _t(rng.normal(size=(b, s, d))).to(dtype)
+    gamma = _t(rng.normal(size=d)).to(dtype)
+    got_s, got_n = ops.combine_add_rmsnorm(
+        x, y, r.slot.reshape(b, s, k), r.topw.reshape(b, s, k), gamma,
+        keep_sum=keep_sum)
+    m = ops.moe_combine(y, r.slot, r.topw).reshape(b, s, d)
+    want_s, want_n = ops.add_rmsnorm(x, m, gamma, keep_sum=keep_sum)
+    assert got_n.dtype == dtype and torch.equal(got_n, want_n)
+    if keep_sum:
+        assert torch.equal(got_s, want_s)
+        dead = torch.arange(s)[None] >= q[:, None].long()
+        assert torch.equal(got_s[dead], x[dead])
+    else:
+        assert got_s is None and want_s is None
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_walk_with_the_combine_in_the_norm_equals_the_former_walk(
+        arch, monkeypatch):
+    """The layer walk that hands each MoE layer's ``Experts`` to the next
+    norm (``combine_add_rmsnorm``: L a call, the last into ``ln_f``, on the
+    last live positions' slots in a mixed step) gives bitwise the logits,
+    aux and cache of the former walk (``moe_apply``'s combined output into
+    ``add_rmsnorm``), for ``forward``, a mixed and a decode step."""
+    _, _, tcfg, tparams = _models(arch)
+    rng = np.random.default_rng(13)
+    toks = _t(rng.integers(0, tcfg.vocab_size, (2, 8))).long()
+    q_lens = np.asarray([8, 3], np.int32)
+    dec = _t(rng.integers(0, tcfg.vocab_size, (2, 1))).long()
+    fused = []
+    combine_norm = ops.combine_add_rmsnorm
+
+    def counted(*a, **kw):
+        fused.append(a[0].shape)
+        return combine_norm(*a, **kw)
+    monkeypatch.setattr(ops, "combine_add_rmsnorm", counted)
+
+    def run():
+        logits, aux = api.forward(tcfg, tparams, {"tokens": toks})
+        cache = api.init_cache(tcfg, 2, 32, "cpu")
+        mixed, cache = api.mixed_step(tcfg, tparams, cache, toks,
+                                      np.zeros(2, np.int32), q_lens)
+        step, cache = api.decode_step(tcfg, tparams, cache, dec, q_lens + 1)
+        return [logits, aux, mixed, step] + [cache[n] for n in sorted(cache)]
+    new = run()
+    L = tcfg.n_layers
+    assert len(fused) == 3 * L and fused[2 * L - 1][:2] == (2, 1)
+    experts = moe.moe_experts
+
+    def combined(*a, **kw):
+        e, aux = experts(*a, **kw)
+        return e.combined(), aux
+    monkeypatch.setattr(moe, "moe_experts", combined)
+    old = run()
+    assert len(fused) == 3 * L
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+
+
 # -- the model ----------------------------------------------------------------
 
 _MODELS = {}
@@ -511,10 +617,13 @@ def test_launcher_serves_granite_on_cpu(capsys):
 
 def test_card_dispatch_reaches_the_moe_kernels(monkeypatch):
     """On the card (``ops._resolve`` patched to "cuda") one MoE layer is
-    ``dense_matmul`` (the router, cast once to x's dtype), ``moe_route``
-    with the group's capacity and the live positions, the grouped gate/up
-    and down kernels on the W4A16 experts, and ``moe_combine``; no plain
-    version or oracle runs."""
+    ``moe_route`` with the router's product inside it (the router cast
+    once to x's dtype, the group's capacity and the live positions), the
+    grouped gate/up and down kernels on the W4A16 experts, and the next
+    norm combining their rows as it adds them (``combine_add_rmsnorm``);
+    no router ``dense_matmul``, no ``moe_combine``, no plain version or
+    oracle runs."""
+    from repro_torch.models import layers
     jcfg, tcfg = _cfgs("mixtral-8x22b")
     p = _port(jax_quantize({"moe": jmoe.moe_init(jax.random.PRNGKey(0),
                                                  jcfg)}, "dense")["moe"])
@@ -525,14 +634,12 @@ def test_card_dispatch_reaches_the_moe_kernels(monkeypatch):
         torch.zeros(b * s, k, dtype=torch.int32),
         torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
         torch.zeros(b * s * k, dtype=torch.int32), 16)
+    y = torch.zeros(b * s * k, d)
 
-    def dense(x, w, bias=None):
-        calls.append(("dense_matmul", w.dtype, w.shape))
-        return torch.zeros(x.shape[0], w.shape[1])
-
-    def route_cuda(logits, group, top_k, capacity, q_lens):
-        calls.append(("moe_route", group, top_k, capacity, q_lens))
-        return route
+    def router_route(x, router, group, top_k, capacity, q_lens):
+        calls.append(("moe_route", router.dtype, router.shape, group, top_k,
+                      capacity, q_lens))
+        return torch.zeros(x.shape[0], router.shape[1]), route
 
     def gate_up(x, r, gate, up, activation):
         calls.append(("moe_gate_up_w4a16", r is route, gate.group_size,
@@ -541,37 +648,41 @@ def test_card_dispatch_reaches_the_moe_kernels(monkeypatch):
 
     def down(hidden, r, dw):
         calls.append(("moe_down_w4a16", r is route, dw.group_size))
-        return torch.zeros(b * s * k, d)
+        return y
 
-    def combine(y, slot, topw):
-        calls.append(("moe_combine", slot is route.slot))
-        return torch.zeros(b * s, d)
+    def combine_norm(x, yy, slot, topw, gamma, eps, keep_sum):
+        calls.append(("combine_add_rmsnorm", yy is y, tuple(slot.shape),
+                      torch.equal(slot.reshape(-1, k), route.slot),
+                      keep_sum))
+        return x, torch.zeros_like(x)
 
     def refuse(*a, **kw):
-        raise AssertionError("a plain version or the oracle ran on the "
-                             "card's path")
+        raise AssertionError("a plain version, the oracle or an unfused "
+                             "kernel ran on the card's path")
     monkeypatch.setattr(ops, "_resolve",
                         lambda impl, x: "cuda" if impl == "auto" else impl)
-    monkeypatch.setattr(ops, "dense_matmul_cuda", dense)
-    monkeypatch.setattr(ops, "moe_route_cuda", route_cuda)
+    monkeypatch.setattr(ops, "moe_router_route_cuda", router_route)
     monkeypatch.setattr(moe_experts, "moe_gate_up_cuda", gate_up)
     monkeypatch.setattr(moe_experts, "moe_down_cuda", down)
-    monkeypatch.setattr(ops, "moe_combine_cuda", combine)
-    for name in ("moe_route_torch", "moe_ffn_torch", "moe_combine_torch"):
+    monkeypatch.setattr(ops, "combine_add_rmsnorm_cuda", combine_norm)
+    for name in ("moe_route_torch", "moe_ffn_torch", "moe_combine_torch",
+                 "combine_add_rmsnorm_torch", "moe_route_cuda",
+                 "moe_combine_cuda", "dense_matmul_cuda", "add_rmsnorm_cuda"):
         monkeypatch.setattr(ops, name, refuse)
     monkeypatch.setattr(ops._ref, "ffn_ref", refuse)
     x = torch.zeros(b, s, d)
     q = torch.tensor([8, 3], dtype=torch.int32)
-    out, aux = moe.moe_apply(tcfg, p, x, q_lens=q)
-    assert out.shape == x.shape and aux is None
-    assert [c[0] for c in calls] == ["dense_matmul", "moe_route",
-                                     "moe_gate_up_w4a16", "moe_down_w4a16",
-                                     "moe_combine"]
-    assert calls[0][1:] == (torch.float32, (d, 4))
-    assert calls[1][1:4] == (s, k, moe.capacity(tcfg, s))
-    assert calls[1][4] is q
-    assert calls[2][1:] == (True, 128, "swiglu")
-    assert calls[3][1:] == (True, 128) and calls[4][1]
+    experts, aux = moe.moe_experts(tcfg, p, x, q_lens=q)
+    _, n = layers.add_norm(tcfg, {"gamma": torch.ones(d)}, x, experts)
+    assert n.shape == x.shape and aux is None
+    assert [c[0] for c in calls] == ["moe_route", "moe_gate_up_w4a16",
+                                     "moe_down_w4a16", "combine_add_rmsnorm"]
+    assert calls[0][1:6] == (torch.float32, (d, 4), s, k,
+                             moe.capacity(tcfg, s))
+    assert calls[0][6] is q
+    assert calls[1][1:] == (True, 128, "swiglu")
+    assert calls[2][1:] == (True, 128)
+    assert calls[3][1:] == (True, (b, s, k), True, True)
 
 
 def test_card_refuses_experts_the_grouped_tile_does_not_take():

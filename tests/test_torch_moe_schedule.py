@@ -102,13 +102,30 @@ _RING_ARGS = ("(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "4, 1, 4, 1, 32>, 4, true, 3>, 0, false>" + _RING_ARGS,
      "moe_down_w4a16"),
     ("void repro::moe_route_kernel<float>(float const*, int)", "moe_route"),
+    ("void repro::moe_route_kernel<__nv_bfloat16, true>(repro::RouteArgs)",
+     "moe_route"),
     ("void repro::moe_combine_kernel<__nv_bfloat16>(int)", "moe_combine"),
+    ("void repro::add_rmsnorm_kernel<__nv_bfloat16, 2>(__nv_bfloat16 "
+     "const*, int const*)", "combine_add_rmsnorm"),
+    ("void repro::add_rmsnorm_kernel<__nv_bfloat16, 1>(__nv_bfloat16 "
+     "const*, int const*)", "add_rmsnorm"),
+    ("void repro::add_rmsnorm_kernel<__nv_bfloat16, true>(__nv_bfloat16 "
+     "const*, float)", "add_rmsnorm"),
+    ("void repro::add_rmsnorm_kernel<__nv_bfloat16, 0>(__nv_bfloat16 "
+     "const*, int const*)", None),
+    ("void repro::dense_mma_kernel<repro::MmaTile<16, 32, 1, 4, 128, 6>, 1, "
+     "0, false>(__nv_bfloat16 const*, int)", "router dense_matmul"),
+    ("void repro::dense_mma_kernel<repro::MmaTile<16, 32, 1, 4, 128, 6>, 1, "
+     "0, true>(__nv_bfloat16 const*, int)", None),
     ("void repro::w4a16_mma_kernel<repro::W4MmaTile<16, 32, 1, 4, 2, 4, 2, "
      "128>, 1>(__nv_bfloat16 const*)", None)])
 def test_trace_names_the_moe_kernels(name, kernel):
     """``chip_smoke.moe_kernel_ms`` files a traced kernel under its MoE
-    kernel by name, the grid-per-expert and the ring kernels alike, and
-    kernel 2's gate/up under none."""
+    kernel by name, the grid-per-expert and the ring kernels alike, the
+    combine in the norm by its template code, the chain it replaced (the
+    routers' ``dense_matmul``, ``moe_combine``, the norm with a residual
+    add) as a parent tree's trace names it, and kernel 2's gate/up, the
+    norm alone and the tied head under none."""
     import types
     import chip_smoke
     cuda = torch.autograd.DeviceType.CUDA
@@ -137,13 +154,14 @@ def test_moe_trace_counts_the_launches_a_tick_makes(case, complete):
     names = {"moe_route": "void repro::moe_route_kernel<float>(int)",
              "moe_gate_up_w4a16": "void repro::moe_ring_kernel<X, 1, true>()",
              "moe_down_w4a16": "void repro::moe_ring_kernel<X, 0, false>()",
-             "moe_combine": "void repro::moe_combine_kernel<float>(int)"}
+             "combine_add_rmsnorm":
+                 "void repro::add_rmsnorm_kernel<float, 2>(float const*)"}
     events = []
     for kernel, name in names.items():
         n = layers
         if kernel == "moe_down_w4a16" and case == "renamed":
             n = 0                        # matched by nothing
-        if kernel == "moe_combine" and case == "lost":
+        if kernel == "combine_add_rmsnorm" and case == "lost":
             n = layers - 1
         events += [types.SimpleNamespace(device_type=cuda, name=name,
                                          time_range=span)] * n

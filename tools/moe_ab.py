@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Times the grouped MoE expert kernels (``moe_gate_up_w4a16``,
-``moe_down_w4a16``) with the port found under ``--src``, and holds their
-outputs against another tree's run, so two trees can be compared on one
-card:
+"""Times an MoE layer's kernels with the port found under ``--src``: the
+route with the router's product (``moe_route``; on a tree without the
+fused route, the chain it replaced: ``dense_matmul`` then the route
+kernel), the grouped experts (``moe_gate_up_w4a16``, ``moe_down_w4a16``)
+and the combine inside the next norm (``combine_add_rmsnorm``; else
+``moe_combine`` then ``add_rmsnorm``), and holds their outputs against
+another tree's run, so two trees can be compared on one card:
 
     python3 tools/moe_ab.py --src checkout/parent/src --tag parent
     python3 tools/moe_ab.py --tag change --compare parent
@@ -20,13 +23,17 @@ a tree whose wrappers take ``tile`` and ``blocks``, the kernels are also
 timed in every tile configuration and on a grid of one block an SM, and
 their rows held bitwise against the launcher's choice.
 
-Each run writes a SHA-1 of every kept row of the hidden and of y per
-shape; with ``--compare TAG`` they are held bitwise against the last run
-tagged TAG.  ``--trace`` then serves granite-moe-dense (full width and
-depth, the dropless factor, random weights from seed 0) once on one
-engine and traces its replayed decode-4 and widest mixed tick
-(``chip_smoke.trace_ticks``), recording each MoE kernel's in-graph ms and
-whether the trace saw every launch.
+Each run writes a SHA-1 of the logits, of every ``Route`` field (rows up
+to the kept ones), of every kept row of the hidden and of y, and of the
+norm's sum and output per shape; with ``--compare TAG`` they are held
+bitwise against the last run tagged TAG.  ``--streams`` serves
+granite-moe-dense and mixtral-dense (``chip_smoke.py``'s configs) once
+each and adds a SHA-1 of their token streams.  ``--trace`` then serves
+granite-moe-dense (full width and depth, the dropless factor, random
+weights from seed 0) once on one engine and traces its replayed decode-4
+and widest mixed tick (``chip_smoke.trace_ticks``), recording the in-graph
+ms and launches of each MoE kernel and of the chain the fused ones
+replaced (``chip_smoke.MOE_KERNELS``, ``MOE_CHAIN_KERNELS``).
 One JSON line per run goes to ``chiprun_out/moe_ab.jsonl``.  Needs one
 card; imports nothing of JAX.
 """
@@ -45,6 +52,8 @@ OUT = os.path.join(ROOT, "chiprun_out")
 LOG = os.path.join(OUT, "moe_ab.jsonl")
 # (name, model, B, S): the MoE cases of chip_smoke.py phase 3, dropless,
 # and a 4 x 16 chunk (the served T = 64 mixed key: ~13 rows an expert)
+COMPARED = (" logits", " route", " hidden", " y", " sum", " norm",
+            " streams")
 SHAPES = (("granite T=4", "granite", 4, 1), ("granite 4x16", "granite", 4, 16),
           ("granite 4x64", "granite", 4, 64), ("mixtral T=4", "mixtral", 4, 1))
 
@@ -67,13 +76,17 @@ def last_run(tag: str) -> dict:
     return runs[-1]
 
 
-def trace_granite(torch, cs) -> dict:
-    """granite-moe-dense served once (captures), then its decode and widest
-    mixed tick traced; the replays' MoE kernel ms and busy ms."""
+MOE_PATHS = (("granite-moe-dense", "granite-moe-3b-a800m"),
+             ("mixtral-dense", "mixtral-8x22b"))
+
+
+def serve_once(torch, cs, path, arch):
+    """An MoE path of ``chip_smoke.py`` (its config overrides, random
+    weights from seed 0) served once on one engine: (engine, params, SHA-1
+    of its token streams)."""
     import numpy as np
     from repro_torch.serving.engine import Engine, Request
-    path = "granite-moe-dense"
-    cfg, params = cs.build_model(torch, "granite-moe-3b-a800m", "dense",
+    cfg, params = cs.build_model(torch, arch, "dense",
                                  **cs.MODEL_OVERRIDES[path])
     engine = Engine(cfg, params, batch_size=4, max_len=cs.SERVE_MAX_LEN,
                     chunk_size=64, device="cuda")
@@ -84,9 +97,17 @@ def trace_granite(torch, cs) -> dict:
         engine.submit(r)
     engine.run()
     streams = json.dumps([r.output for r in reqs]).encode()
+    return engine, params, hashlib.sha1(streams).hexdigest()
+
+
+def trace_granite(torch, cs) -> dict:
+    """granite-moe-dense served once (captures), then its decode and widest
+    mixed tick traced; the replays' MoE kernel ms and busy ms."""
+    path, arch = MOE_PATHS[0]
+    engine, params, streams = serve_once(torch, cs, path, arch)
     found = {}
     cs.trace_ticks(torch, engine, params, found, path, strict=False)
-    out = {"streams_sha1": hashlib.sha1(streams).hexdigest()}
+    out = {"streams_sha1": streams}
     for key, row in found["traces"][path].items():
         if key.endswith("-replay"):
             out[key] = {"device_busy_ms": row["device_busy_ms"],
@@ -105,6 +126,9 @@ def main() -> int:
                     help="tag of an earlier run to hold the outputs against")
     ap.add_argument("--trace", action="store_true",
                     help="also trace granite-moe-dense's replayed ticks")
+    ap.add_argument("--streams", action="store_true",
+                    help="also serve both MoE paths once and hash their "
+                    "token streams")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--sweep", action="store_true",
                     help="also time every tile configuration and a grid of "
@@ -120,18 +144,20 @@ def main() -> int:
     import repro_torch
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import moe_experts as mx
-    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels import moe_route as mr
+    from repro_torch.kernels import rmsnorm as rms
     print(f"[{args.tag}] repro_torch from {repro_torch.__file__}",
           flush=True)
     _build.build(("moe_experts", "moe_route", "dense_matmul", "w4a16_matmul",
                   "ffn_fused", "rmsnorm", "decode_flash", "kv_write"))
     sweeps = args.sweep and "blocks" in inspect.signature(
         mx.moe_gate_up_cuda).parameters
+    fused = hasattr(mr, "moe_router_route_cuda")
     timer = cs.Timer(torch)
     out = {"tag": args.tag, "src": os.path.abspath(args.src),
            "device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi("name,power.limit"), "ms": {},
-           "bound_ms": {}, "digest": {}, "rel_err": {}}
+           "bound_ms": {}, "digest": {}, "rel_err": {}, "fused": fused}
     weights = {}
     for name, model, b, s in SHAPES:
         d, f, e, k, group = cs.MOE_SHAPES[model]
@@ -148,15 +174,49 @@ def main() -> int:
         x = torch.randn(b * s, d, generator=gx,
                         device="cuda").to(torch.bfloat16)
         cap = max(k, s)
-        r = moe_route_cuda(ops.dense_matmul(x, router.to(torch.bfloat16)), s,
-                           k, cap)
+        router_b = router.to(torch.bfloat16)
+        xr = torch.randn(b * s, d, generator=gx,
+                         device="cuda").to(torch.bfloat16)
+        gamma = (torch.randn(d, generator=gx, device="cuda") * 0.1
+                 + 1.0).to(torch.bfloat16)
+        if fused:
+            def route_call():
+                return mr.moe_router_route_cuda(x, router_b, s, k, cap)
+        else:
+            def route_call():
+                logits = ops.dense_matmul(x, router_b)
+                return logits, mr.moe_route_cuda(logits, s, k, cap)
+        logits, r = route_call()
         kept = int(r.counts.sum())
         active = int((r.counts > 0).sum())
         h = mx.moe_gate_up_cuda(x, r, gate, up, "swiglu")
         y = mx.moe_down_cuda(h, r, down)
+        if fused:
+            def norm_call():
+                return rms.combine_add_rmsnorm_cuda(xr, y, r.slot, r.topw,
+                                                    gamma)
+        else:
+            def norm_call():
+                return rms.add_rmsnorm_cuda(
+                    xr, mr.moe_combine_cuda(y, r.slot, r.topw), gamma)
+        s_sum, s_norm = norm_call()
         torch.cuda.synchronize()
+        out["digest"][f"{name} logits"] = digest(logits)
+        out["digest"][f"{name} route"] = hashlib.sha1("".join(
+            digest(t) for t in (r.topw, r.topi, r.slot, r.counts, r.offsets,
+                                r.rows[:kept])).encode()).hexdigest()
         out["digest"][f"{name} hidden"] = digest(h[:kept])
         out["digest"][f"{name} y"] = digest(y[:kept])
+        out["digest"][f"{name} sum"] = digest(s_sum)
+        out["digest"][f"{name} norm"] = digest(s_norm)
+        out["ms"][f"{name} route"] = timer.ms(route_call, args.iters)
+        out["ms"][f"{name} combine+norm"] = timer.ms(norm_call, args.iters)
+        out["bound_ms"][f"{name} route"] = cs.bound(
+            x.numel() * 2 + router_b.numel() * 2 + b * s * e * 2
+            + b * s * k * 16 + e * 8, 2 * b * s * d * e, "bfloat16")[0]
+        out["bound_ms"][f"{name} combine+norm"] = cs.bound(
+            kept * d * 2 + b * s * k * 8 + 3 * b * s * d * 2 + d * 2, 0,
+            "bfloat16")[0]
         for what, got, want in (
                 ("hidden", h, mx.moe_gate_up_torch(x, r, gate, up, "swiglu")),
                 ("y", y, mx.moe_down_torch(h, r, down))):
@@ -191,7 +251,7 @@ def main() -> int:
               + ", ".join(f"{key[len(name) + 1:]} {v:.4f} ms"
                           for key, v in out["ms"].items()
                           if key.startswith(name)), flush=True)
-        del h, y, x, r
+        del h, y, x, r, logits, xr, s_sum, s_norm
     weights.clear()
     del timer
     torch.cuda.empty_cache()
@@ -204,11 +264,22 @@ def main() -> int:
                           f"{k} {ms:.4f} ms ({n} of {row['moe_expected']})"
                           for k, (ms, n) in row["moe_ms"].items())
                       + ("" if row["moe_complete"] else
-                         "; the trace lost launches: an undercount"),
+                         "; not every kernel of chip_smoke.MOE_KERNELS seen "
+                         "once a layer (a tree's chain, or lost launches)"),
                       flush=True)
 
+    if args.streams:
+        for path, arch in MOE_PATHS:
+            engine, params, sha = serve_once(torch, cs, path, arch)
+            out["digest"][f"{path} streams"] = sha
+            print(f"[{args.tag}] {path}: streams {sha}", flush=True)
+            del engine, params
+            torch.cuda.empty_cache()
+
     ok = all(v <= 1e-2 for v in out["rel_err"].values())
-    for key, d in out["digest"].items():
+    for key, d in out["digest"].items():    # each variant's rows: default's
+        if key.endswith(COMPARED):
+            continue
         name, what = key.split(" hidden" if " hidden" in key else " y")[0], (
             "hidden" if " hidden" in key else "y")
         ok = ok and d == out["digest"][f"{name} {what}"]
@@ -216,7 +287,7 @@ def main() -> int:
         other = last_run(args.compare)
         same = {key: other["digest"].get(key) == d
                 for key, d in out["digest"].items()
-                if key.endswith((" hidden", " y"))}
+                if key.endswith(COMPARED)}
         out["bitwise_equal_to"] = {"tag": args.compare, **same}
         ok = ok and all(same.values())
     out["ok"] = ok
