@@ -119,8 +119,29 @@ Phases (any failure ends the run with a nonzero exit code):
                  output alone bitwise inside the chunk; kernels 1 and 2
                  at 32- and 64-row groups with their tile invariance; the
                  tied LM head (the 49155 x 1536 embedding read in place)
-                 against its plain version and the copied weight;
-  4. model    — granite-moe-3b-a800m at full width and depth
+                 against its plain version and the copied weight; the
+                 dense family's rest: kernel 3's four variants at
+                 gemma-2b's heads (8 over one KV head of 256, bf16: B=4,
+                 MAX 512, C=1 and 64, the scrambled table, paged bitwise
+                 slot at block_kv 16, NaN in unleased blocks harmless),
+                 kernel 7 at d=256 (gemma-2b causal S=2048, ragged
+                 S=300, bf16 and f32; a row of B=3 and the last 64 and
+                 300 queries bitwise alone in bf16), the epilogue with
+                 qwen3-8b's per-head q/k RMSNorm (32/8 heads of 128)
+                 bitwise the chain through the rmsnorm kernel, and at
+                 gemma-2b's heads; kernel 2's geglu gate/up and whole FFN
+                 at gemma-2b's widths (2048 -> 2 x 16384, T=4 and 256)
+                 beside dequantize + the chain, its rows 100-103 bitwise
+                 across the tile configurations;
+  4. model    — qwen1.5-4b (MHA 20 x 128, d 2560, d_ff 6912),
+                 qwen3-8b (the q/k norm inside the epilogue) and
+                 gemma-2b (head dim 256, MQA, GeGLU, the scaled and tied
+                 embedding; also from a 20-block pool of 16-token pages
+                 in int8, ``gemma-2b-dense-paged-int8``), each "dense" at
+                 full width and depth, through (a)-(c) and phase 5 as
+                 every transformer path (qwen3-8b and gemma-2b also
+                 graph replay vs eager; gemma-2b traced and prefilled);
+                 granite-moe-3b-a800m at full width and depth
                  (``granite-moe-dense``) and mixtral-8x22b at full width,
                  4 of its 56 layers (``mixtral-dense``), both "dense" at
                  the dropless capacity factor (``MODEL_OVERRIDES``),
@@ -167,7 +188,7 @@ Phases (any failure ends the run with a nonzero exit code):
                  captured key's graph replayed once against its function
                  run eagerly on a copy of the cache, logits and every
                  leaf bitwise equal;
-  5. serving  — with each of the eleven weight sets, the engine serves 9
+  5. serving  — with each of the fourteen weight sets, the engine serves 9
                  requests twice, every tick one replay of a CUDA graph
                  captured per compile key: misses within
                  ``compile_budget``, the second run capturing nothing and
@@ -238,7 +259,9 @@ Phases (any failure ends the run with a nonzero exit code):
                  seconds recorded); the traced replayed ticks make one
                  device-to-host copy with the engine's fetch, and a dense
                  decode tick at most ``DENSE_DECODE_OPS`` operations;
-  6. prefill  — on qwen-7b and chatglm-6b "dense": forward's last position
+  6. prefill  — on qwen-7b, chatglm-6b and gemma-2b "dense" (gemma-2b:
+                 kernel 7 at head dim 256 inside the model): forward's
+                 last position
                  bitwise equal to prefill's logits, launch counts exact
                  (the path ``<model>-prefill``: every residual add in the
                  launch of the norm after it, ``add_rmsnorm`` 2L times a
@@ -528,8 +551,11 @@ def check_kernels(torch, timer, results: dict) -> dict:
     del gate, up, down, xi
     torch.cuda.empty_cache()
 
+    check_geglu_ffn(torch, timer, randn, tol, rows)
     line.update(check_sparse_kernels(torch, timer, randn, tol, rows))
-    line.update(check_attention_variants(torch, timer, randn, tol, rows))
+    for shape in ATTENTION_SHAPES:
+        line.update(check_attention_variants(torch, timer, randn, tol, rows,
+                                             **shape))
     line.update(check_flash_attention(torch, timer, randn, tol, rows))
     line.update(check_xlstm_kernels(torch, timer, randn, tol, rows,
                                     results.get("ptxas", {})))
@@ -634,6 +660,86 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_qkv_epilogue(torch, timer, rows))
     results["kernel_checks"] = rows
     return line
+
+
+# gemma-2b's FFN: d_model 2048, d_ff 16384, GeGLU
+GEMMA_D, GEMMA_F = 2048, 16384
+
+
+def check_geglu_ffn(torch, timer, randn, tol, rows) -> None:
+    """Kernel 2's geglu variant (``gelu_tanh(x @ gate) * (x @ up)``, the
+    epilogue no served path launched before gemma-2b) at gemma-2b's widths,
+    2048 -> 2 x 16384, T = 4 and 256: the gate/up stage and the whole FFN
+    (the stage, then kernel 1 on down) against their plain versions, each
+    timed beside its bound and its library chain (dequantize + matmuls +
+    the activation on every call, and the chain on weights dequantized
+    once); rows 100-103 bitwise across the stage's tile configurations."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    d, f, act = GEMMA_D, GEMMA_F, "geglu"
+    gate = quantize(randn(d, f, dtype=torch.float32) * 0.02)
+    up = quantize(randn(d, f, dtype=torch.float32) * 0.02)
+    down = quantize(randn(f, d, dtype=torch.float32) * 0.02)
+    dname = "bfloat16"
+    for t in (4, 256):
+        x = randn(t, d)
+        herr, hrel = max_errs(ffn_gate_up_cuda(x, gate, up, act),
+                              ffn_gate_up_torch(x, gate, up, act))
+        err, rel = max_errs(ops.ffn_w4a16(x, gate, up, down, activation=act),
+                            ops.ffn_w4a16(x, gate, up, down, activation=act,
+                                          impl="torch"))
+        need(hrel <= tol[dname] and rel <= tol[dname],
+             f"ffn geglu T={t}: hidden rel {hrel:.3g}, out rel {rel:.3g} > "
+             f"{tol[dname]}")
+        row = {"kernel": "ffn_fused_w4a16", "activation": act,
+               "model": "gemma-2b", "dtype": dname, "T": t, "d": d, "f": f,
+               "max_abs_err": herr, "max_rel_err": hrel,
+               "ffn_max_abs_err": err, "ffn_max_rel_err": rel,
+               "tol_rel": tol[dname]}
+        row["ms"] = timer.ms(lambda: ffn_gate_up_cuda(x, gate, up, act), 20)
+        row["plain_ms"] = timer.ms(
+            lambda: ffn_gate_up_torch(x, gate, up, act), 3)
+        row["library_ms"] = timer.ms(lambda: ffn_chain(
+            torch, x, dequantize(gate, torch.bfloat16),
+            dequantize(up, torch.bfloat16), None, act, None, None,
+            stage=True), 5)
+        w16 = [dequantize(w, torch.bfloat16) for w in (gate, up, down)]
+        row["library_bf16_ms"] = timer.ms(lambda: ffn_chain(
+            torch, x, w16[0], w16[1], None, act, None, None, stage=True), 10)
+        row["ffn_ms"] = timer.ms(
+            lambda: ops.ffn_w4a16(x, gate, up, down, activation=act), 20)
+        row["ffn_plain_ms"] = timer.ms(lambda: ops.ffn_w4a16(
+            x, gate, up, down, activation=act, impl="torch"), 3)
+        row["ffn_library_ms"] = timer.ms(lambda: ffn_chain(
+            torch, x, *(dequantize(w, torch.bfloat16)
+                        for w in (gate, up, down)), act, None, None), 5)
+        row["ffn_library_bf16_ms"] = timer.ms(
+            lambda: ffn_chain(torch, x, *w16, act, None, None), 10)
+        del w16
+        nbytes = (x.numel() * 2 + gate.nbytes_model + up.nbytes_model
+                  + t * f * 2)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * 2 * t * d * f,
+                                                 dname)
+        ffn_bytes = nbytes + down.nbytes_model + t * d * 2 - t * f * 2
+        row["ffn_bound_ms"], _ = bound(ffn_bytes, 3 * 2 * t * d * f, dname)
+        rows.append(row)
+        log(f"  ffn geglu (gemma-2b) T={t:3d}: hidden max_abs {herr:.3g} rel "
+            f"{hrel:.3g}; ffn max_abs {err:.3g} rel {rel:.3g} (tol "
+            f"{tol[dname]})  gate/up kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms library {row['library_ms']:.4f} ms, "
+            f"bf16 matmuls {row['library_bf16_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); whole ffn "
+            f"{row['ffn_ms']:.4f} ms (bound {row['ffn_bound_ms']:.4f}; "
+            f"plain {row['ffn_plain_ms']:.4f} ms; library "
+            f"{row['ffn_library_ms']:.4f} ms, on weights dequantized once "
+            f"{row['ffn_library_bf16_ms']:.4f} ms)")
+    check_tile_invariance(
+        torch, lambda v: ffn_gate_up_cuda(v, gate, up, act),
+        randn(INVARIANCE_ROWS, d), "ffn_fused_w4a16 geglu gate/up (gemma-2b)")
+    del gate, up, down
+    torch.cuda.empty_cache()
 
 
 def bitwise(torch, a, b) -> bool:
@@ -944,9 +1050,16 @@ def check_kv_write(torch, timer, rows) -> dict:
     return line
 
 
-# (model, hq, hkv, RoPE theta) of the epilogue's cases
-EPILOGUE_HEADS = (("qwen-7b", 32, 4, 1e4), ("chatglm-6b", 32, 2, 1e4),
-                  ("starcoder2-7b", 36, 4, 1e5))
+# (model, hq, hkv, head dim, RoPE theta, q/k norm) of the epilogue's cases:
+# q/k/v biases where the model has them (all but qwen3-8b and gemma-2b),
+# qwen3-8b's per-head q/k RMSNorm, gemma-2b's MQA at head dim 256; the
+# models whose cases are timed
+EPILOGUE_HEADS = (("qwen-7b", 32, 4, 128, 1e4, False),
+                  ("chatglm-6b", 32, 2, 128, 1e4, False),
+                  ("starcoder2-7b", 36, 4, 128, 1e5, False),
+                  ("qwen3-8b", 32, 8, 128, 1e6, True),
+                  ("gemma-2b", 8, 1, 256, 1e4, False))
+EPILOGUE_TIMED = ("qwen-7b", "qwen3-8b", "gemma-2b")
 
 
 def epilogue_case(torch, g, layout, quant, chunk, hq, hkv, hd=128, b=4,
@@ -1002,27 +1115,36 @@ def epilogue_case(torch, g, layout, quant, chunk, hq, hkv, hd=128, b=4,
 
 
 def check_qkv_epilogue(torch, timer, rows) -> dict:
-    """The q/k/v epilogue (``qkv_rope_write``: bias, RoPE, int8 quantizing,
-    the cache write and q's layout in one launch) bitwise against its plain
-    version, the chain the serving steps ran before (bias adds,
+    """The q/k/v epilogue (``qkv_rope_write``: bias, a ``qk_norm`` config's
+    per-head q/k RMSNorm, RoPE, int8 quantizing, the cache write and q's
+    layout in one launch) bitwise against its plain version, the chain the
+    serving steps ran before (bias adds, the rmsnorm kernel on q and k,
     ``apply_rope``, ``quantize_kv``, the ``kv_write`` kernel,
     ``q.contiguous()``): every cache leaf and q at every live position (a
     dead one's is free: the attention kernel zeroes dead rows); the null
     block and dead or masked rows untouched.  Slot and paged, bf16
-    and int8, decode and a 64-wide chunk, at qwen-7b's, chatglm-6b's and
-    starcoder2-7b's heads.  Kernel and chain times (qwen-7b) beside the
-    byte bound; the chain (the plain time) is also the yardstick: no
-    PyTorch call takes ``q_lens``."""
+    and int8, decode and a 64-wide chunk, at the heads of
+    ``EPILOGUE_HEADS`` (qwen3-8b's with its q/k norm, gemma-2b's at head
+    dim 256).  Kernel and chain times (``EPILOGUE_TIMED``) beside the byte
+    bound; the chain (the plain time) is also the yardstick: no PyTorch
+    call takes ``q_lens``."""
     from repro_torch.kernels import ops
     g = torch.Generator(device="cuda").manual_seed(24)
     line = {}
-    for model, hq, hkv, theta in EPILOGUE_HEADS:
+    for model, hq, hkv, hd, theta, qk_norm in EPILOGUE_HEADS:
         for layout in ("slot", "paged"):
             for quant in (False, True):
                 for chunk in (1, 64):
                     (cache, q, k, v, bias, rope_base, starts, q_lens,
                      table) = epilogue_case(torch, g, layout, quant, chunk,
-                                            hq, hkv)
+                                            hq, hkv, hd=hd)
+                    norms = {}
+                    if qk_norm:
+                        bias = (None, None, None)
+                        norms = {n: (1 + 0.2 * torch.randn(
+                            hd, generator=g, device="cuda")).to(
+                                torch.bfloat16)
+                            for n in ("q_norm", "k_norm")}
                     want = {n: t.clone() for n, t in cache.items()}
                     orig = {n: t.clone() for n, t in cache.items()}
 
@@ -1031,12 +1153,13 @@ def check_qkv_epilogue(torch, timer, rows) -> dict:
                             c, q, k, v, bias, n_heads=hq, theta=theta,
                             rope_base=rope_base,
                             starts=starts, q_lens=q_lens, page_table=table,
-                            impl=impl)
+                            impl=impl, **norms)
                     got_q = call(cache, "cuda")
                     want_q = call(want, "torch")
                     torch.cuda.synchronize()
                     what = (f"qkv_rope_write {model} {layout} "
-                            f"{'int8' if quant else 'bf16'} C={chunk}")
+                            f"{'int8' if quant else 'bf16'} C={chunk}"
+                            + (" qk_norm" if qk_norm else ""))
                     need(all(bitwise(torch, got_q[r, :, :n], want_q[r, :, :n])
                              for r, n in enumerate(q_lens.tolist())),
                          f"{what}: q is not bitwise the chain's")
@@ -1049,20 +1172,28 @@ def check_qkv_epilogue(torch, timer, rows) -> dict:
                              f"{what}: the null block or a dead row changed")
                     row = {"kernel": "qkv_rope_write", "model": model,
                            "layout": layout, "kind": "int8" if quant
-                           else "bf16", "C": chunk, "bitwise": True,
+                           else "bf16", "C": chunk, "hd": hd,
+                           "qk_norm": qk_norm, "bitwise": True,
                            "max_abs_err": 0.0, "library_ms": None}
-                    if model == "qwen-7b":
-                        b, hd = q.shape[0], cache["k"].shape[-1]
+                    if model in EPILOGUE_TIMED:
+                        b = q.shape[0]
                         live = int(q_lens.sum())
                         per_kv = 2 * hd * (1 if quant else 2) + (
                             8 if quant else 0)
                         nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2
-                                  + sum(t.numel() * 2 for t in bias)
+                                  + sum(t.numel() * 2 for t in bias
+                                        if t is not None)
+                                  + sum(t.numel() * 2
+                                        for t in norms.values())
                                   + b * chunk * hd * 4     # cos, sin rows
                                   + live * hkv * per_kv + 3 * 4 * b
                                   + (live * 4 if table is not None else 0))
+                        # bias adds, RoPE, q/v layout; the norm's square,
+                        # sum and two products an element of q and k
                         flops = b * chunk * ((hq + hkv) * hd * 3
-                                             + (hq + 2 * hkv) * hd)
+                                             + (hq + 2 * hkv) * hd
+                                             + (4 * (hq + hkv) * hd
+                                                if qk_norm else 0))
                         row["ms"] = timer.ms(lambda: call(cache, "cuda"), 20)
                         row["plain_ms"] = timer.ms(
                             lambda: call(want, "torch"), 10)
@@ -1517,17 +1648,34 @@ def cache_yardstick(torch, q, cache, lengths, q_lens, page_table):
     return sdpa_yardstick(torch, q, k, v, lengths, q_lens)
 
 
-def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
-    """The attention kernel's int8-KV and paged variants at qwen-7b's
-    shapes: B=4, hq 32, hkv 4, d 128, pages of 16 tokens, MAX 512, decode
-    (C=1) and a 64-wide chunk, on a scrambled page table (4 spare blocks,
-    the null block last)."""
+# the attention kernel's variants checked at a model's shapes: heads, head
+# dim, the (paged, int8) variants and dtypes; ``slot_yardstick``: the slot
+# fp kernel is timed beside them on the same data (qwen-7b's is phase 3's
+# main attention case, so not a variant here); ``in_line``: the decode
+# rows go into the kernels line
+ATTENTION_SHAPES = (
+    dict(model="qwen-7b", hq=32, hkv=4, hd=128,
+         variants=((False, True), (True, False), (True, True)),
+         dtypes=("bfloat16", "float32"), slot_yardstick=True, in_line=True),
+    dict(model="gemma-2b", hq=8, hkv=1, hd=256,
+         variants=((False, False), (False, True), (True, False),
+                   (True, True)),
+         dtypes=("bfloat16",), slot_yardstick=False, in_line=False))
+
+
+def check_attention_variants(torch, timer, randn, tol, rows, *, model, hq,
+                             hkv, hd, variants, dtypes, slot_yardstick,
+                             in_line) -> dict:
+    """The attention kernel's ``variants`` (paged, int8 K/V) at one of
+    ``ATTENTION_SHAPES``: B=4, pages of 16 tokens, MAX 512, decode (C=1)
+    and a 64-wide chunk, on a scrambled page table (4 spare blocks, the
+    null block last)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_flash import VARIANTS
     from repro_torch.models.attention import quantize_kv
 
     line = {}
-    b, hq, hkv, hd, max_len, bs = 4, 32, 4, 128, 512, 16
+    b, max_len, bs = 4, 512, 16
     n_pages = max_len // bs
     lengths = torch.tensor([37, 200, 5, 511], dtype=torch.int32,
                            device="cuda")
@@ -1547,7 +1695,7 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
             q, cache["k"], cache["v"], lengths, ql, k_scale=cache.get(
                 "k_scale"), v_scale=cache.get("v_scale"), impl=impl, **kw)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, n) for n in dtypes):
         dname = str(dtype).split(".")[1]
         k = randn(b, hkv, max_len, hd, dtype=torch.float32)
         v = randn(b, hkv, max_len, hd, dtype=torch.float32)
@@ -1560,7 +1708,7 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
         for c, q_lens in ((1, [1, 1, 1, 1]), (64, [1, 64, 5, 17])):
             ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
             q = q64[:, :, :c].contiguous()
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and slot_yardstick:
                 # the slot fp kernel on the same data: the yardstick of
                 # what int8 and 16-key pages cost (not a variant of its own)
                 ms = timer.ms(lambda: attend(q, slot[False], ql), 20)
@@ -1570,8 +1718,7 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
                              "ms": ms})
                 log(f"  {VARIANTS[(False, False)]} (slot fp, same inputs) "
                     f"{dname} C={c:2d}: kernel {ms:.4f} ms")
-            for is_paged, quant in ((False, True), (True, False),
-                                    (True, True)):
+            for is_paged, quant in variants:
                 name = VARIANTS[(is_paged, quant)]
                 cache = (paged if is_paged else slot)[quant]
                 kw = {"page_table": table} if is_paged else {}
@@ -1580,7 +1727,8 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
                 err, rel = max_errs(got, want)
                 need(rel <= tol[dname], f"{name} C={c} {dname}: rel err "
                      f"{rel:.3g} > {tol[dname]}")
-                row = {"kernel": name, "dtype": dname, "B": b, "hq": hq,
+                row = {"kernel": name, "model": model, "dtype": dname,
+                       "B": b, "hq": hq,
                        "hkv": hkv, "d": hd, "max_len": max_len, "C": c,
                        "page": bs if is_paged else None,
                        "lengths": lengths.tolist(), "q_lens": q_lens,
@@ -1609,15 +1757,15 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
                     row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                              dname)
                 rows.append(row)
-                log(f"  {name} {dname} C={c:2d}: max_abs {err:.3g} rel "
-                    f"{rel:.3g} (tol {tol[dname]})"
+                log(f"  {name} {model} d={hd} {dname} C={c:2d}: max_abs "
+                    f"{err:.3g} rel {rel:.3g} (tol {tol[dname]})"
                     + ("; bitwise = slot at block_kv 16" if is_paged else "")
                     + (f"  kernel {row['ms']:.4f} ms plain "
                        f"{row['plain_ms']:.4f} ms library "
                        f"{row['library_ms']:.4f} ms bound "
                        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
                        if "ms" in row else ""))
-                if (c, dname) == (1, "bfloat16"):
+                if in_line and (c, dname) == (1, "bfloat16"):
                     line[name] = row
         # the null block and every unleased block never reach a sum
         ql = torch.tensor([1, 64, 5, 17], dtype=torch.int32, device="cuda")
@@ -1637,8 +1785,8 @@ def check_attention_variants(torch, timer, randn, tol, rows) -> dict:
                  and torch.equal(poisoned, clean),
                  f"{VARIANTS[(True, quant)]} {dname}: NaN in the null or "
                  "an unleased block reached the output")
-        log(f"  paged {dname}: NaN in the null and unleased blocks changes "
-            "nothing (fp and int8)")
+        log(f"  paged {model} d={hd} {dname}: NaN in the null and "
+            "unleased blocks changes nothing (fp and int8)")
         del slot, paged
     return line
 
@@ -1683,6 +1831,8 @@ FLASH_CASES = {
     "window 256 S=1024": (1, 32, 4, 1024, 1024, 128, True, 256),
     "non-causal Sq=448 Skv=1500 d=64": (1, 12, 12, 448, 1500, 64, False,
                                         None),
+    "gemma-2b causal S=2048 d=256": (1, 8, 1, 2048, 2048, 256, True, None),
+    "gemma-2b ragged S=300 d=256": (1, 8, 1, 300, 300, 256, True, None),
 }
 
 
@@ -1758,7 +1908,7 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
     # last 300 queries of a 1024-query call (a ragged query tiling) are
     # those queries alone (bf16, d = 128 and 64)
     for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128),
-                     (torch.bfloat16, 64)):
+                     (torch.bfloat16, 64), (torch.bfloat16, 256)):
         q = randn(3, 32, 512, d, dtype=dtype)
         k = randn(3, 4, 512, d, dtype=dtype)
         v = randn(3, 4, 512, d, dtype=dtype)
@@ -1769,7 +1919,7 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
                                                          v)),
              f"flash_attention {dtype} d={d}: the last 64 queries differ "
              "alone")
-    for d in (128, 64):
+    for d in (128, 64, 256):
         q = randn(1, 32, 1024, d)
         k = randn(1, 4, 1024, d)
         v = randn(1, 4, 1024, d)
@@ -1778,8 +1928,9 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
              f"flash_attention bf16 d={d}: the last 300 of 1024 queries "
              "differ alone")
     log("  flash_attention: a row of B=3 bitwise equal to B=1; the last 64 "
-        "queries bitwise equal alone (bf16 d=128 and 64, f32 d=128); the "
-        "last 300 of 1024 queries bitwise equal alone (bf16 d=128 and 64)")
+        "queries bitwise equal alone (bf16 d=128, 64 and 256, f32 d=128); "
+        "the last 300 of 1024 queries bitwise equal alone (bf16 d=128, 64 "
+        "and 256)")
     return line
 
 
@@ -2885,7 +3036,8 @@ def chain_combine_add_rmsnorm(x, y, slot, topw, gamma, eps=1e-6,
 def plain_glue():
     """Inside the block the fused ops (``FUSED_OPS``) run their plain
     chains on the card, the chains the serving steps ran before them (whose
-    norm and write are the rmsnorm, layernorm and ``kv_write`` kernels; an
+    norm and write are the rmsnorm, layernorm and ``kv_write`` kernels, a
+    ``qk_norm`` config's q/k norms the rmsnorm kernel too; an
     MoE layer's router ``dense_matmul`` and route, and its combine, are
     their kernels); every other op keeps its kernel."""
     import functools
@@ -2899,7 +3051,8 @@ def plain_glue():
     ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
     ops.add_layernorm_cuda = ln.add_layernorm_torch
     ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
-                                                write=ops.kv_write)
+                                                write=ops.kv_write,
+                                                norm=rms.rmsnorm)
     ops.moe_router_route_cuda = chain_router_route
     ops.combine_add_rmsnorm_cuda = chain_combine_add_rmsnorm
     try:
@@ -3478,7 +3631,9 @@ def replay_without_sync(torch, engine, path):
     """Every captured key replayed once on its dead inputs (no live row;
     ``cow``: the null block onto itself), staging copies included, under
     ``torch.cuda.set_sync_debug_mode("error")``: a tick and a
-    copy-on-write read nothing back to the host."""
+    copy-on-write read nothing back to the host.  Then each mixed and
+    decode key's replay with the engine's fetch, as a tick is served, asks
+    for exactly one copy to the host (``host_copies``)."""
     import numpy as np
     keys = sorted(k for k in engine.cache_compiles.keys()
                   if k[0] != "insert")
@@ -3501,6 +3656,18 @@ def replay_without_sync(torch, engine, path):
     torch.cuda.synchronize()
     log(f"  replays of {[f'{n}-{b}' for n, b in keys]} on dead inputs under "
         "set_sync_debug_mode(\"error\"): no host synchronisation")
+    copies = {}
+    for name, bucket in keys:
+        if name == "cow":
+            continue
+        tick = engine.cache_compiles.get(name, bucket, None)
+        dead = engine._dead_inputs(None if name == "decode" else bucket)
+        copies[f"{name}-{bucket}"] = host_copies(torch, lambda: engine._fetch(
+            *tick(engine.params, engine.cache, **dead), False))
+    log(f"  copies to the host a served tick asks for (replay + fetch): "
+        f"{copies}")
+    need(all(n == 1 for n in copies.values()), f"{path}: a served tick asks "
+         f"for other than one copy to the host: {copies}")
 
 
 class StepClock:
@@ -3985,9 +4152,10 @@ def serve_restart(torch, cfg, params, results, path, oracle):
 
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
-                "starcoder2-dense", "granite-moe-dense")
+                "starcoder2-dense", "granite-moe-dense", "qwen3-8b-dense",
+                "gemma-2b-dense")
 TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense",
-               "granite-moe-dense")
+               "granite-moe-dense", "gemma-2b-dense")
 # no served transformer tick copies a tensor this large (a tied LM head
 # read through a transposed copy would: 151 MB a tick on granite)
 LARGE_COPY_BYTES = 100 << 20
@@ -4834,7 +5002,10 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("starcoder2-dense", "starcoder2-7b", "dense"),
           ("starcoder2-strategy2", "starcoder2-7b", "strategy2"),
           ("granite-moe-dense", "granite-moe-3b-a800m", "dense"),
-          ("mixtral-dense", "mixtral-8x22b", "dense"))
+          ("mixtral-dense", "mixtral-8x22b", "dense"),
+          ("qwen1.5-4b-dense", "qwen1.5-4b", "dense"),
+          ("qwen3-8b-dense", "qwen3-8b", "dense"),
+          ("gemma-2b-dense", "gemma-2b", "dense"))
 # config overrides of a model's paths: the MoE paths serve at the dropless
 # capacity factor n_experts / top_k (a chunk then drops nothing, so mixed
 # and sequential steps agree; the published 1.25 stays in the configs and
@@ -4845,14 +5016,18 @@ MODEL_OVERRIDES = {
     "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2)}
 # the paths whose MoE drops at the published factor phase 4 (d) records
 MOE_DROP_PATHS = ("granite-moe-dense",)
-PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense")
+PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense", "gemma-2b-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
     ("int8", dict(kv_quant="int8")),
     ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),
     ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
-                        kv_pool_blocks=20, kv_quant="int8")))}
+                        kv_pool_blocks=20, kv_quant="int8"))),
+    # kernel 3's int8 paged variant at head dim 256 on a served path
+    "gemma-2b-dense": (
+    ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
+                        kv_pool_blocks=20, kv_quant="int8")),)}
 # engines served with a model's weights after its cache paths, with their
 # own workload: (path suffix, config overrides, engine arguments)
 ENGINE_PATHS = {
@@ -4960,7 +5135,7 @@ def main() -> int:
                          check_prefill_forward)
                 check(torch, cfg, params, results, model, counts,
                       streams[model][-1])
-            if model in KV_PATHS:
+            if model == "strategy2":
                 log(f"phase 6 [{model}]: prefill into int8 and paged caches")
                 check_prefill_caches(torch, cfg, params, results, streams)
             del params
@@ -4971,6 +5146,8 @@ def main() -> int:
         write_details(results)
         return 1
     results["seconds"] = time.perf_counter() - t_start
+    log(f"all phases passed in {results['seconds']:.1f} s (the build "
+        "included)")
     write_details(results)
 
     kernels = []

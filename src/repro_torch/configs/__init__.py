@@ -1,6 +1,8 @@
-"""Architecture config registry of the port: ``qwen-7b``, ``chatglm-6b``
-and ``starcoder2-7b`` (family ``dense``; starcoder2 brings LayerNorm and the
-ungated gelu FFN with biases), ``granite-moe-3b-a800m`` and
+"""Architecture config registry of the port: ``qwen-7b``, ``chatglm-6b``,
+``starcoder2-7b``, ``qwen1.5-4b``, ``qwen3-8b`` and ``gemma-2b`` (family
+``dense``; starcoder2 brings LayerNorm and the ungated gelu FFN with
+biases, qwen3 the per-head q/k norm, gemma head dim 256, MQA, GeGLU and
+scaled, tied embeddings), ``granite-moe-3b-a800m`` and
 ``mixtral-8x22b`` (family ``moe``) and ``xlstm-1.3b`` (family ``ssm``).
 
 ``get_config(name)`` gives the full-size configuration and
@@ -13,11 +15,12 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (
-    chatglm_6b, granite_moe_3b_a800m, mixtral_8x22b, qwen_7b, starcoder2_7b,
-    xlstm_1_3b)
+    chatglm_6b, gemma_2b, granite_moe_3b_a800m, mixtral_8x22b, qwen1_5_4b,
+    qwen3_8b, qwen_7b, starcoder2_7b, xlstm_1_3b)
 
 _MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b,
-            "starcoder2-7b": starcoder2_7b,
+            "starcoder2-7b": starcoder2_7b, "qwen1.5-4b": qwen1_5_4b,
+            "qwen3-8b": qwen3_8b, "gemma-2b": gemma_2b,
             "granite-moe-3b-a800m": granite_moe_3b_a800m,
             "mixtral-8x22b": mixtral_8x22b, "xlstm-1.3b": xlstm_1_3b}
 

@@ -97,14 +97,28 @@
 //   arithmetic does not move).  The wrapper counts the two kernels as one
 //   launch.
 //
-//   -Xptxas -v (sm_90a), registers a thread at d = 32 / 64 / 128, one
-//   barrier, 128 bytes of static shared memory (the warps' key ranges and
-//   the split's pages), and the dynamic shared memory of a split:
-//     fp K/V:    96 / 128 / 168 registers; 20 / 40 / 80 KB (2 blocks an SM
-//                at 128)
-//     int8 K/V:  the same registers (slot int8 at d = 32: 4 bytes
-//                spilled); 29 / 57 / 113 KB
-//     fold:      32 / 40 / 40 registers, no shared memory, no spills.
+//   Head dim 256 (gemma-2b).  The output accumulator is ND x 4 = 128 f32
+//   registers a thread there; Q's KS = 16 A fragments held beside it (64
+//   more, and the score tile's 32) would spill under the 128-thread
+//   bound.  So at D > 128 each warp loads Q's A fragment of k16 step ks
+//   from Q's shared region with ldmatrix right before that step's
+//   products, every step of every live tile: the same operands and
+//   products in the same order, so no bit moves.  Shared memory at 256:
+//   fp 32 K (Q) + 2 x 64 K (a split's K and V) = 160 KB; int8 also 2 x 32
+//   K of int8 rows and 1 K of scales, 230,400 B, which with the 96 bytes of
+//   static arrays (warp_lo, warp_hi, pages) stays under the 232,448 B a
+//   block may opt into: one block an SM.  The fold kernel takes kDpl = 8.
+//   The float32 kernel would stage 2 x 128 x 260 x 4 B = 266 KB of K/V
+//   tiles at 256 and is not instantiated there; its wrapper refuses it.
+//
+//   -Xptxas -v (sm_90a), registers a thread at d = 32 / 64 / 128 / 256,
+//   one barrier, 128 bytes of static shared memory (the warps' key ranges
+//   and the split's pages), and the dynamic shared memory of a split:
+//     fp K/V:    96 / 128 / 168 / 255 registers, no spills at 256; 20 / 40
+//                / 80 / 160 KB (2 blocks an SM at 128, 1 at 256)
+//     int8 K/V:  the same registers to 128, 246 at 256 (slot int8 at d =
+//                32: 4 bytes spilled); 29 / 57 / 113 / 225 KB
+//     fold:      32 / 40 / 40 / 40 registers, no shared memory, no spills.
 //
 // float32: the CUDA-core kernel (mixed_flash_kernel): one block per (32
 // query rows, KV head, batch row) walks the row's live KV tiles in order
@@ -481,6 +495,8 @@ __global__ void __launch_bounds__(kMfThreads)
                            int chunk, int j0, int cs, int max_len, int bk,
                            int span, float scale_log2, int window) {
   using S = MfSmem<D, QUANT>;
+  static_assert(S::kBytes + 4 * (2 * kMfWarps + kMfSplit / 8) <= 232448,
+                "a split's staging and the static arrays past the opt-in");
   constexpr int R = D / 8;     // 16-byte bf16 chunks a row
   constexpr int KS = D / 16;   // k16 steps of Q.K^T over d
   constexpr int ND = D / 8;    // n8 fragments of the output
@@ -568,12 +584,19 @@ __global__ void __launch_bounds__(kMfThreads)
   }
   cp_async_wait<3>();   // Q and step 0's K
   __syncthreads();
-  uint32_t qf[KS][4];
-  if (warp_any) {
+  // this lane's address of Q's A fragment of k16 step ks (ldmatrix x4);
+  // above head dim 128 Q is read from there at each step (registers)
+  constexpr bool kQRegs = D <= 128;
+  const int q_row = warp * 16 + (lane & 15);
+  auto q_frag = [&](int ks) {
+    const int c = 2 * ks + (lane >> 4);
+    return qs + (q_row * R + swz<R>(q_row, c)) * 8;
+  };
+  uint32_t qf[kQRegs ? KS : 1][4];
+  if constexpr (kQRegs) {
+    if (warp_any) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int r = warp * 16 + (lane & 15), c = 2 * ks + (lane >> 4);
-      ldsm_x4(qf[ks], qs + (r * R + swz<R>(r, c)) * 8);
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], q_frag(ks));
     }
   }
 
@@ -608,16 +631,24 @@ __global__ void __launch_bounds__(kMfThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jn][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+        } else {
+          ldsm_x4(qa, q_frag(ks));
+        }
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
           const int key = r0 + 16 * p + (lane & 7) + ((lane >> 4) & 1) * 8;
           const int c = 2 * ks + ((lane >> 3) & 1);
           uint32_t kf[4];
           ldsm_x4(kf, ks_ + (key * R + swz<R>(key, c)) * 8);
-          mma_bf16(s[2 * p], qf[ks], kf[0], kf[1]);
-          mma_bf16(s[2 * p + 1], qf[ks], kf[2], kf[3]);
+          mma_bf16(s[2 * p], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * p + 1], qa, kf[2], kf[3]);
         }
+      }
       // scores to the log2 domain (int8: times k_scale first), masked to
       // each row's [lo, hi); the online softmax of the step
       float mx[2] = {kNegInf, kNegInf};
@@ -806,6 +837,8 @@ int dispatch_head_dim_mma(int d, const AttnArgs& a, cudaStream_t s) {
       return launch_mixed_mma<64, QUANT, PAGED>(a, s);
     case 128:
       return launch_mixed_mma<128, QUANT, PAGED>(a, s);
+    case 256:
+      return launch_mixed_mma<256, QUANT, PAGED>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

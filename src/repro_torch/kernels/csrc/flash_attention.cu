@@ -62,12 +62,31 @@
 // block sees in full skips the mask arithmetic; that changes no value.
 // Q is staged in the second ring stage before the first tile needs it.
 //
+// Head dim 256 (gemma-2b).  The output accumulator alone is ND x 4 = 128
+// f32 registers a thread there, and Q's KS = 16 A fragments would add 64
+// more on top of the score tile's 32: past what a thread of a 128-thread
+// block keeps.  So at D > 128 Q stays in shared memory, in a 32 KB region
+// of its own after the two K/V stages (160 KB in all, one block an SM),
+// and each warp loads its A fragment of k16 step ks with ldmatrix right
+// before that step's products.  Three more things keep the kernel out of
+// local memory there (ptxas reported 256, then 72 and 40 bytes of spill
+// stores before each): the k16 steps of Q.K^T run as a loop, not
+// unrolled, so no later step's K fragments are loaded early; the next
+// tile's copies are issued one at a time, so their addresses are not
+// hoisted out of the tile loop; and P.V addresses a V fragment as a row
+// base plus one of 4 swizzled offsets (the swizzle moves a chunk within
+// its 8 by the key's low 3 bits, the same at every k16 step).  The
+// operands, the products and their order are those of the register-
+// resident Q: each score sums its k16 steps over d in order and each
+// output its keys in tile order, so no result depends on the layout.
+//
 // -Xptxas -v (sm_90a), one barrier each; registers a thread and dynamic
-// shared memory at d = 32 / 64 / 128:
-//   bfloat16 (tensor cores): 113 / 163 / 228 registers, no spills;
-//                            16 / 32 / 64 KB (2 blocks an SM at 128)
-//   float32 (CUDA cores):    80 (56 bytes spilled) / 118 / 128 registers;
-//                            44 / 68 / 116 KB
+// shared memory at d = 32 / 64 / 128 / 256:
+//   bfloat16 (tensor cores): 113 / 163 / 228 / 248 registers, no spills;
+//                            16 / 32 / 64 / 160 KB (2 blocks an SM at 128,
+//                            1 at 256)
+//   float32 (CUDA cores):    80 (56 bytes spilled) / 118 / 128 / 218
+//                            registers; 44 / 68 / 116 / 212 KB
 #include "mma.cuh"
 
 REPRO_ERROR_STRING_FN
@@ -324,6 +343,9 @@ int dispatch_head_dim(int d, const void* q, const void* k, const void* v,
     case 128:
       return launch_flash<T, 128>(q, k, v, out, batch, hq, hkv, sq, skv,
                                   scale, causal, window, s);
+    case 256:
+      return launch_flash<T, 256>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                  scale, causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -336,10 +358,17 @@ constexpr int kFmThreads = 32 * kFmWarps;
 static_assert(kFaBq == 16 * kFmWarps && kFaBk == 64,
               "a warp per 16 query rows, 8 n8 score fragments a key tile");
 
-// Two stages of a K tile and a V tile, 64 rows of D bf16 each.
+// Q's fragments stay in registers up to head dim 128; above, in shared
+// memory (the register budget; see the note at the top).
+template <int D>
+constexpr bool kFaQInRegs = D <= 128;
+
+// Two stages of a K tile and a V tile, 64 rows of D bf16 each; above head
+// dim 128 also Q's own 64 rows.
 template <int D>
 constexpr int fa_mma_smem_bytes() {
-  return 2 * 2 * kFaBk * D * (int)sizeof(__nv_bfloat16);
+  return (2 * 2 * kFaBk + (kFaQInRegs<D> ? 0 : kFaBq)) * D *
+         (int)sizeof(__nv_bfloat16);
 }
 
 // cp.async rows row0 .. row0 + n_rows - 1 of a row-major (rows, D) bf16
@@ -350,13 +379,21 @@ __device__ __forceinline__ void fa_mma_load(__nv_bfloat16* dst,
                                             const __nv_bfloat16* src,
                                             int row0, int n_rows) {
   constexpr int R = D / 8;
-#pragma unroll
-  for (int j = 0; j < ROWS * R / kFmThreads; ++j) {
+  auto load = [&](int j) {
     const int i = threadIdx.x + j * kFmThreads;
     const int r = i / R, c = i % R;
     const bool ok = r < n_rows;
     cp_async16(dst + (r * R + swz<R>(r, c)) * 8,
                ok ? src + (size_t)(row0 + r) * D + c * 8 : src, ok ? 16 : 0);
+  };
+  if constexpr (kFaQInRegs<D>) {
+#pragma unroll
+    for (int j = 0; j < ROWS * R / kFmThreads; ++j) load(j);
+  } else {
+    // one copy at a time above head dim 128: unrolled, the copies'
+    // addresses are hoisted out of the tile loop and the registers spill
+#pragma unroll 1
+    for (int j = 0; j < ROWS * R / kFmThreads; ++j) load(j);
   }
 }
 
@@ -451,9 +488,11 @@ __global__ void __launch_bounds__(kFmThreads)
     if (floor_pos > 0) t_lo = floor_pos / kFaBk;
   }
 
-  // Q into stage 1 (free until the second live tile), the first live tile
-  // into stage 0
-  fa_mma_load<D, kFaBq>(ring + 2 * kTile, qb, q0, q_rows);
+  // Q into stage 1 (free until the second live tile) or, above head dim
+  // 128, into its own region; the first live tile into stage 0
+  constexpr bool kQRegs = kFaQInRegs<D>;
+  __nv_bfloat16* qs = ring + (kQRegs ? 2 : 4) * kTile;
+  fa_mma_load<D, kFaBq>(qs, qb, q0, q_rows);
   cp_async_commit();
   if (t_lo < t_hi) {
     const int k0 = t_lo * kFaBk;
@@ -463,11 +502,16 @@ __global__ void __launch_bounds__(kFmThreads)
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[KS][4];
+  // this lane's address of Q's A fragment of k16 step ks (ldmatrix x4)
+  const int q_row = warp * 16 + (lane & 15);
+  auto q_frag = [&](int ks) {
+    const int c = 2 * ks + (lane >> 4);
+    return qs + (q_row * R + swz<R>(q_row, c)) * 8;
+  };
+  uint32_t qf[kQRegs ? KS : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int r = warp * 16 + (lane & 15), c = 2 * ks + (lane >> 4);
-    ldsm_x4(qf[ks], ring + 2 * kTile + (r * R + swz<R>(r, c)) * 8);
+    for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], q_frag(ks));
   }
 
   float m[2] = {kFaNegInf, kFaNegInf}, l[2] = {0.0f, 0.0f}, acc[ND][4];
@@ -498,8 +542,7 @@ __global__ void __launch_bounds__(kFmThreads)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+    auto qk_step = [&](const uint32_t (&qa)[4], int ks) {
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         // keys 16p.. 16p + 15: lanes 0-7 / 16-23 the first / second 8
@@ -508,9 +551,23 @@ __global__ void __launch_bounds__(kFmThreads)
         const int c = 2 * ks + ((lane >> 3) & 1);
         uint32_t kf[4];
         ldsm_x4(kf, ks_ + (key * R + swz<R>(key, c)) * 8);
-        mma_bf16(s[2 * p], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * p + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[2 * p], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * p + 1], qa, kf[2], kf[3]);
       }
+    };
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) qk_step(qf[ks], ks);
+    } else {
+      // one k16 step at a time: unrolled, the K fragments of later steps
+      // are loaded early and the registers spill
+#pragma unroll 1
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        ldsm_x4(qa, q_frag(ks));
+        qk_step(qa, ks);
+      }
+    }
 
     const bool full = k0 + kFaBk <= skv &&
                       (!causal || k0 + kFaBk - 1 <= q_first) &&
@@ -523,7 +580,14 @@ __global__ void __launch_bounds__(kFmThreads)
                                causal, window, t);
 
     // acc += P.V: P's fragments 2 kk and 2 kk + 1 (keys 16 kk..) are the
-    // A operand of k16 step kk
+    // A operand of k16 step kk.  Above head dim 128 (R = 32) the chunk
+    // 2 dp + (lane >> 4) of a V row sits at 8 (dp / 4) + cx[dp % 4]: the
+    // swizzle only moves a chunk inside its 8, by the key's low 3 bits,
+    // which are lane & 7 at every kk, so the 4 x KS fragment addresses are
+    // 4 row bases and 4 offsets, not KS x 4 registers that spill
+    int cx[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cx[j] = swz<R>(lane & 7, 2 * j + (lane >> 4));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
@@ -535,7 +599,10 @@ __global__ void __launch_bounds__(kFmThreads)
       for (int dp = 0; dp < KS; ++dp) {
         const int c = 2 * dp + (lane >> 4);
         uint32_t vf[4];
-        ldsm_x4_trans(vf, vs_ + (key * R + swz<R>(key, c)) * 8);
+        if constexpr (kQRegs)
+          ldsm_x4_trans(vf, vs_ + (key * R + swz<R>(key, c)) * 8);
+        else
+          ldsm_x4_trans(vf, vs_ + (key * R + 8 * (dp >> 2) + cx[dp & 3]) * 8);
         mma_bf16(acc[2 * dp], a, vf[0], vf[1]);
         mma_bf16(acc[2 * dp + 1], a, vf[2], vf[3]);
       }
@@ -585,6 +652,9 @@ int dispatch_head_dim_mma(int d, const void* q, const void* k, const void* v,
                                   scale, causal, window, s);
     case 128:
       return launch_flash_mma<128>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                   scale, causal, window, s);
+    case 256:
+      return launch_flash_mma<256>(q, k, v, out, batch, hq, hkv, sq, skv,
                                    scale, causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -7,7 +7,8 @@
 //
 // qkv_rope_write_kernel: the serving steps' q/k/v epilogue.  From the raw
 // projections q (B, C, hq*hd), k and v (B, C, hkv*hd) it adds the biases,
-// applies RoPE to q and k, quantizes k and v for an int8 cache, writes the
+// applies the per-head RMSNorm to q and k where the config has one
+// (qk_norm), RoPE to q and k, quantizes k and v for an int8 cache, writes the
 // live K/V positions into the cache as kv_write_kernel does, and writes q
 // as the (B, hq, C, hd) the attention kernel reads: about 40 PyTorch
 // operations a layer in one launch.
@@ -110,6 +111,19 @@ __global__ void __launch_bounds__(kWriteThreads)
 // rounded where the PyTorch chain it replaces rounds it on the card, so the
 // results are bitwise that chain's (the plain version):
 //   bias:  t = round_T(t + b)                      (linear's bias add)
+//   norm:  t = round_T((t * r) * g), r = rsqrtf(ss / hd + 1e-6), on q and k
+//          heads (qk_norm): rmsnorm.cu's arithmetic on a row of hd.  That
+//          kernel gives a row one block of 256 threads, thread i the
+//          square of element i (one fmaf from zero, the product rounded
+//          once), a xor butterfly in each warp and the 8 warp sums added
+//          from zero in warp order.  With hd / 2 a multiple of 32 its warp
+//          w holds elements 32w .. 32w + 31, which are this warp's lo[w]
+//          (w < hd / 64) or hi[w - hd / 64] at the same lanes: each is
+//          squared and butterflied on its own, and the sums are added in
+//          that order (at hd 128: lo[0], lo[1], hi[0], hi[1]).  At hd <= 32
+//          rmsnorm's warp 0 holds the whole row, lane l element l: lanes
+//          below hd / 2 their lo[0], the next ones hi[0] from lane l - hd / 2.
+//          Other head dims are refused.
 //   RoPE:  o1 = round_T(x1*cos - x2*sin), o2 = round_T(x1*sin + x2*cos),
 //          each product and the sum rounded on their own (apply_rope's
 //          separate f32 operations; __fmul_rn/__fsub_rn keep nvcc from
@@ -133,12 +147,14 @@ __global__ void __launch_bounds__(kWriteThreads)
 
 constexpr int kEpiWarps = 4;
 constexpr int kMaxPairsPerLane = 4;     // head_dim <= 256
+constexpr float kQkNormEps = 1e-6f;     // layers.rmsnorm's
 
 struct QkvArgs {
   const void* src[3];           // raw q, k, v: (B, C, heads * hd)
   long long stride_b[3];        // element strides of row and position
   long long stride_j[3];
   const void* bias[3];          // (heads * hd,) or null
+  const void* norm[2];          // q's and k's (hd,) RMSNorm gammas, or null
   const float* cos_t;           // (rows, hd / 2), or null: no RoPE
   const float* sin_t;
   int rows;
@@ -156,6 +172,29 @@ template <typename T>
 __device__ __forceinline__ float with_bias(const T* __restrict__ b, int i,
                                            float t) {
   return b != nullptr ? to_f32(from_f32<T>(__fadd_rn(t, to_f32(b[i])))) : t;
+}
+
+// The sum of squares of a head vector, as rmsnorm.cu sums its row (see the
+// note above): lo[p] / hi[p] are elements lane + 32 p and hd/2 + lane + 32 p
+// (zeros past hd / 2).  Every lane ends with the same value.
+__device__ __forceinline__ float head_sum_squares(const float (&lo)[4],
+                                                  const float (&hi)[4],
+                                                  int half, int lane) {
+  float total = 0.0f;
+  if (half >= 32) {
+#pragma unroll
+    for (int p = 0; p < kMaxPairsPerLane; ++p)
+      if (32 * p < half) total += warp_sum(__fmul_rn(lo[p], lo[p]));
+#pragma unroll
+    for (int p = 0; p < kMaxPairsPerLane; ++p)
+      if (32 * p < half) total += warp_sum(__fmul_rn(hi[p], hi[p]));
+  } else {
+    const float h = __shfl_sync(0xffffffffu, __fmul_rn(hi[0], hi[0]),
+                                (lane - half) & 31);
+    total += warp_sum(lane < half ? __fmul_rn(lo[0], lo[0])
+                                  : (lane < 2 * half ? h : 0.0f));
+  }
+  return total;
 }
 
 template <typename T, bool QUANT>
@@ -198,18 +237,35 @@ __global__ void __launch_bounds__(kEpiWarps * 32)
 #pragma unroll
   for (int p = 0; p < kMaxPairsPerLane; ++p) {
     const int i = lane + 32 * p;
-    if (i < half) {
-      float x1 = with_bias(bias, i, to_f32(src[i]));
-      float x2 = with_bias(bias, i + half, to_f32(src[i + half]));
-      if (rope) {
-        const float c = cr[i], s = sr[i];
+    lo[p] = i < half ? with_bias(bias, i, to_f32(src[i])) : 0.0f;
+    hi[p] = i < half ? with_bias(bias, i + half, to_f32(src[i + half]))
+                     : 0.0f;
+  }
+  if (which < 2 && a.norm[which] != nullptr) {   // uniform over the warp
+    const T* g = static_cast<const T*>(a.norm[which]);
+    const float r = rsqrtf(head_sum_squares(lo, hi, half, lane) /
+                               (float)a.hd + kQkNormEps);
+#pragma unroll
+    for (int p = 0; p < kMaxPairsPerLane; ++p) {
+      const int i = lane + 32 * p;
+      if (i < half) {
+        lo[p] = round_to<T>(__fmul_rn(__fmul_rn(lo[p], r), to_f32(g[i])));
+        hi[p] = round_to<T>(
+            __fmul_rn(__fmul_rn(hi[p], r), to_f32(g[i + half])));
+      }
+    }
+  }
+  if (rope) {
+#pragma unroll
+    for (int p = 0; p < kMaxPairsPerLane; ++p) {
+      const int i = lane + 32 * p;
+      if (i < half) {
+        const float x1 = lo[p], x2 = hi[p], c = cr[i], s = sr[i];
         const float o1 = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
         const float o2 = __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
-        x1 = to_f32(from_f32<T>(o1));
-        x2 = to_f32(from_f32<T>(o2));
+        lo[p] = round_to<T>(o1);
+        hi[p] = round_to<T>(o2);
       }
-      lo[p] = x1;
-      hi[p] = x2;
     }
   }
   if (which == 0) {
@@ -304,22 +360,30 @@ extern "C" int kv_write_launch(void* const* dst, const void* const* src,
 }
 
 // src: raw q, k, v; strides: (row, position) element strides of each;
-// bias: three pointers, each null for no bias; cos_t/sin_t (rows, hd/2) f32,
+// bias: three pointers, each null for no bias; norm: q's and k's RMSNorm
+// gammas (hd,) in the activation type, both null for none (hd / 2 a
+// multiple of 32, or hd <= 32); cos_t/sin_t (rows, hd/2) f32,
 // null for no RoPE; rope_base, starts, q_lens (B,) int32 and page_table
 // (B, n_pages) int32 (null for the slot layout) on the device; cache: the k
 // and v leaves, scale their f32 scales (null unless quant); dtype: the
 // activation type (and the fp cache's).
 extern "C" int qkv_rope_write_launch(
     const void* const* src, const long long* strides, const void* const* bias,
-    const void* cos_t, const void* sin_t, int rows, const void* rope_base,
-    const void* starts, const void* q_lens, const void* page_table,
+    const void* const* norm, const void* cos_t, const void* sin_t, int rows,
+    const void* rope_base, const void* starts, const void* q_lens,
+    const void* page_table,
     void* q_out, void* const* cache, void* const* scale, int batch, int chunk,
     int hq, int hkv, int hd, int span, int n_pages, int quant, int dtype,
     void* stream) {
   using namespace repro;
   if (hd % 2 != 0 || hd / 2 > 32 * kMaxPairsPerLane)
     return (int)cudaErrorInvalidValue;
+  if ((norm[0] == nullptr) != (norm[1] == nullptr) ||
+      (norm[0] != nullptr && hd > 32 && (hd / 2) % 32 != 0))
+    return (int)cudaErrorInvalidValue;
   QkvArgs a = {};
+  a.norm[0] = norm[0];
+  a.norm[1] = norm[1];
   for (int l = 0; l < 3; ++l) {
     a.src[l] = src[l];
     a.stride_b[l] = strides[2 * l];

@@ -50,6 +50,12 @@ NAME = "mixed_flash_attention"
 VARIANTS = {(False, False): NAME, (False, True): NAME + "_int8",
             (True, False): NAME + "_paged", (True, True): NAME + "_paged_int8"}
 DEFAULT_BLOCK_KV = 128
+# the head dims the kernels are instantiated at: bfloat16 (the tensor-core
+# kernel) takes 256 too; float32's CUDA-core kernel would stage 266 KB of
+# K/V tiles there, past the 227 KB a block can hold.  Another head dim
+# (zamba2-7b's 112) would leave a 14-chunk row that the 8-row XOR swizzle
+# of csrc/mma.cuh does not tile.
+HEAD_DIMS = {torch.bfloat16: (32, 64, 128, 256), torch.float32: (32, 64, 128)}
 PAGE_SIZES = range(8, 129)       # the reference's kernel wants >= 8; the tile
 #                                  holds at most 128 keys
 # A split of the key axis: the most whole KV tiles within this many keys (at
@@ -216,9 +222,17 @@ def mixed_flash_attention_cuda(q, k_cache, v_cache, lengths, q_lens, *,
     the operands name (page table: paged; scales: int8 K/V).  Every shape,
     dtype and page size the kernel does not take raises here.  bfloat16
     runs two kernels (the splits, then their fold, into scratch allocated
-    here); the launch is counted once, as one call of the kernel."""
-    check_activation(q, NAME)
+    here); the launch is counted once, as one call of the kernel.  The
+    head dim is checked first, so its refusal shows on any device."""
     b, hq, c, d = q.shape
+    if q.dtype in HEAD_DIMS and d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(
+            f"head_dim {d} in {q.dtype}: the kernel takes "
+            + "; ".join(f"{str(t).split('.')[1]} {dims}"
+                        for t, dims in HEAD_DIMS.items())
+            + (" (float32's K/V tiles at 256 would need 266 KB of shared "
+               "memory)" if d == 256 else ""))
+    check_activation(q, NAME)
     paged, quant = page_table is not None, k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError("k_scale and v_scale come together (int8 K/V)")
@@ -229,8 +243,6 @@ def mixed_flash_attention_cuda(q, k_cache, v_cache, lengths, q_lens, *,
         raise ValueError(f"cache {tuple(k_cache.shape)} vs q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"hq={hq} not a multiple of hkv={hkv}")
-    if d not in (32, 64, 128):
-        raise ValueError(f"head_dim {d}: the kernel takes 32, 64 or 128")
     if paged:
         if page_table.dim() != 2 or page_table.shape[0] != b:
             raise ValueError(f"page_table {tuple(page_table.shape)} must be "

@@ -28,7 +28,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.w4a16_matmul import DTYPE_CODES, check_activation
 
 NAME = "flash_attention"
-HEAD_DIMS = (32, 64, 128)
+# the kernel's instantiations; another head dim (zamba2-7b's 112) would
+# leave a 14-chunk row that the 8-row XOR swizzle of csrc/mma.cuh does not
+# tile
+HEAD_DIMS = (32, 64, 128, 256)
 # the CUDA kernel's tiles: 64 query rows per block, 64-key K/V tiles
 BLOCK_Q = 64
 BLOCK_KV = 64
@@ -110,19 +113,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on the current stream.  Every
-    shape, dtype and device the kernel does not take raises here."""
-    check_activation(q, NAME)
+    shape, dtype and device the kernel does not take raises here (the head
+    dim first, so the refusal shows on any device)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: need 4-D q and k, v alike")
     b, hq, sq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    check_activation(q, NAME)
     bk_, hkv, skv, dk = k.shape
     if bk_ != b or dk != d:
         raise ValueError(f"k {tuple(k.shape)} vs q {tuple(q.shape)}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"hq={hq} not a multiple of hkv={hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
     if skv < 1:
         raise ValueError("no keys (Skv = 0)")
     if b > _GRID_LIMIT or hq > _GRID_LIMIT:

@@ -21,11 +21,15 @@ copy, so the two agree bitwise.
 
 The epilogue (``qkv_rope_write``) takes a layer's raw q/k/v projections and
 does, in one launch, what the serving steps did in about 40 PyTorch
-operations: the q/k/v bias adds, RoPE on q and k, quantizing K/V for an
-int8 cache (``quantize_kv``), the cache write above, and q's layout
-``(B, hq, C, hd)`` for the attention kernel.  Its plain version is that
-chain (``qkv_rope_write_torch``), and the kernel rounds where the chain
-rounds on the card, so the two agree bitwise (``csrc/kv_write.cu``).
+operations: the q/k/v bias adds, a ``qk_norm`` config's per-head RMSNorm
+of q and k (``q_norm`` / ``k_norm``, eps 1e-6, between the bias and RoPE
+as in ``repro/models/attention.py:48-50``), RoPE on q and k, quantizing
+K/V for an int8 cache (``quantize_kv``), the cache write above, and q's
+layout ``(B, hq, C, hd)`` for the attention kernel.  Its plain version is
+that chain (``qkv_rope_write_torch``, whose norm is the rmsnorm kernel on
+the card), and the kernel rounds where the chain rounds on the card and
+sums a head's squares in the rmsnorm kernel's order, so the two agree
+bitwise (``csrc/kv_write.cu``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.rmsnorm import rmsnorm_torch
 from repro_torch.kernels.rope import apply_rope, rope_table
 from repro_torch.kernels.w4a16_matmul import DTYPE_CODES, check_activation
 
@@ -48,12 +53,21 @@ _ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
                  ctypes.c_void_p]
 _EPI_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p),
                   ctypes.POINTER(ctypes.c_longlong),
+                  ctypes.POINTER(ctypes.c_void_p),
                   ctypes.POINTER(ctypes.c_void_p)]
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 5
                  + [ctypes.POINTER(ctypes.c_void_p)] * 2
                  + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 MAX_HEAD_DIM = 256      # 4 RoPE pairs a lane in the epilogue (kv_write.cu)
+QK_NORM_EPS = 1e-6      # layers.rmsnorm's
+
+
+def qk_norm_head_dim_ok(hd: int) -> bool:
+    """Whether the epilogue kernel takes the q/k norm at head dim ``hd``:
+    its lanes hold a head as the rmsnorm kernel's warps hold a row when hd
+    / 2 is a multiple of 32, or when the row is one warp (hd <= 32)."""
+    return hd % 2 == 0 and (hd <= 32 or (hd // 2) % 32 == 0)
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -197,14 +211,18 @@ def qkv_rope_write_torch(cache: dict, q: torch.Tensor, k: torch.Tensor,
                          theta: float | None, rope_base: torch.Tensor,
                          starts: torch.Tensor, q_lens: torch.Tensor,
                          page_table: torch.Tensor | None = None,
-                         write=kv_write_torch) -> torch.Tensor:
+                         q_norm: torch.Tensor | None = None,
+                         k_norm: torch.Tensor | None = None,
+                         write=kv_write_torch,
+                         norm=rmsnorm_torch) -> torch.Tensor:
     """Plain version: the serving steps' former chain.  ``q`` (B, C, hq*hd),
     ``k``/``v`` (B, C, hkv*hd) raw projections, ``bias`` their three biases
     (None each for none); each gets its bias (``linear``'s add), q and k
-    RoPE at positions ``rope_base[b] + j`` (``theta`` None: no RoPE), K/V
-    are quantized for an int8 cache and ``write`` puts row ``b``'s positions
-    ``j < q_lens[b]`` at ``starts[b] + j``.  Returns q as (B, hq, C, hd)
-    contiguous."""
+    their per-head ``norm`` with the gammas ``q_norm`` / ``k_norm`` (None:
+    no norm), then RoPE at positions ``rope_base[b] + j`` (``theta`` None:
+    no RoPE), K/V are quantized for an int8 cache and ``write`` puts row
+    ``b``'s positions ``j < q_lens[b]`` at ``starts[b] + j``.  Returns q as
+    (B, hq, C, hd) contiguous."""
     b, c, _ = q.shape
     hd = cache["k"].shape[-1]
     heads = (n_heads, cache["k"].shape[1], cache["k"].shape[1])
@@ -214,6 +232,11 @@ def qkv_rope_write_torch(cache: dict, q: torch.Tensor, k: torch.Tensor,
             t = t + bt.to(t.dtype)
         out.append(t.reshape(b, c, h, hd).transpose(1, 2))
     q, k, v = out
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError(f"{EPILOGUE}: q_norm and k_norm come together")
+    if q_norm is not None:
+        q = norm(q, q_norm, QK_NORM_EPS)
+        k = norm(k, k_norm, QK_NORM_EPS)
     if theta is not None:
         pos = rope_base[:, None] + torch.arange(c, dtype=rope_base.dtype,
                                                 device=q.device)[None, :]
@@ -247,14 +270,18 @@ def qkv_rope_write_cuda(cache: dict, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, bias: tuple, *, n_heads: int,
                         theta: float | None, rope_base: torch.Tensor,
                         starts: torch.Tensor, q_lens: torch.Tensor,
-                        page_table: torch.Tensor | None = None
+                        page_table: torch.Tensor | None = None,
+                        q_norm: torch.Tensor | None = None,
+                        k_norm: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Launch the epilogue of ``csrc/kv_write.cu`` on the current stream.
     Its RoPE table (``rope.rope_table``) has ``rope_rows`` rows; the kernel
     refuses a live position outside it with a device-side assert (a
     rolling window's positions run past the span, so its decode keeps the
-    unfused chain).  Shapes, devices and layouts the kernel does not take
-    raise here."""
+    unfused chain).  ``q_norm`` / ``k_norm``: the per-head RMSNorm gammas
+    (hd,) of a ``qk_norm`` config, both or neither, at a head dim
+    ``qk_norm_head_dim_ok`` takes.  Shapes, devices and layouts the kernel
+    does not take raise here."""
     check_activation(q, EPILOGUE)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"{EPILOGUE}: q, k, v must be (B, C, heads * hd)")
@@ -306,6 +333,20 @@ def qkv_rope_write_cuda(cache: dict, q: torch.Tensor, k: torch.Tensor,
                                  f"on {device}")
             bt = bt.to(dtype).contiguous()
         biases.append(bt)
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError(f"{EPILOGUE}: q_norm and k_norm come together")
+    norms = []
+    for gamma in (q_norm, k_norm):
+        if gamma is not None:
+            if not qk_norm_head_dim_ok(hd):
+                raise ValueError(f"{EPILOGUE}: the q/k norm takes head dims "
+                                 f"<= 32 or with hd / 2 a multiple of 32, "
+                                 f"not {hd}")
+            if gamma.shape != (hd,) or gamma.device != device:
+                raise ValueError(f"{EPILOGUE}: a q/k norm gamma must be "
+                                 f"({hd},) on {device}")
+            gamma = gamma.to(dtype).contiguous()
+        norms.append(gamma)
     cos_t = sin_t = None
     rows = rope_rows(leaf_k, page_table)
     if theta is not None:
@@ -318,6 +359,7 @@ def qkv_rope_write_cuda(cache: dict, q: torch.Tensor, k: torch.Tensor,
                                           for s in (t.stride(0),
                                                     t.stride(1))]),
                 (ctypes.c_void_p * 3)(*[_ptr(t) for t in biases]),
+                (ctypes.c_void_p * 2)(*[_ptr(t) for t in norms]),
                 _ptr(cos_t), _ptr(sin_t),
                 rows if cos_t is not None else 0,
                 *[t.data_ptr() for t in idx], _ptr(page_table),

@@ -44,7 +44,7 @@ from repro_torch.kernels.moe_route import (
     moe_router_route_cuda)
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm_cuda, add_rmsnorm_torch, combine_add_rmsnorm_cuda,
-    combine_add_rmsnorm_torch)
+    combine_add_rmsnorm_torch, rmsnorm)
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -199,22 +199,28 @@ def qkv_rope_write(cache: dict, q: torch.Tensor, k: torch.Tensor,
                    rope_base: torch.Tensor, starts: torch.Tensor,
                    q_lens: torch.Tensor,
                    page_table: torch.Tensor | None = None,
+                   q_norm: torch.Tensor | None = None,
+                   k_norm: torch.Tensor | None = None,
                    impl: str = "auto") -> torch.Tensor:
     """A serving step's q/k/v epilogue for one layer: the raw projections
     ``q`` (B, C, hq*hd), ``k``/``v`` (B, C, hkv*hd) get their ``bias``, q
-    and k RoPE at positions ``rope_base[b] + j`` (``theta`` None: none),
+    and k a per-head RMSNorm where ``q_norm`` / ``k_norm`` are given (a
+    ``qk_norm`` config), then RoPE at positions ``rope_base[b] + j``
+    (``theta`` None: none),
     K/V are quantized for an int8 cache and row ``b``'s positions ``j <
     q_lens[b]`` written at ``starts[b] + j`` (through ``page_table`` for a
     paged pool), in place.  Returns q as (B, hq, C, hd).  Live positions
     must lie in the cache's logical span, the kernel's RoPE table
     (``kv_write.rope_rows``).  One launch on the card; the plain version is
-    the former chain, whose write is ``kv_write``."""
+    the former chain, whose norm is ``rmsnorm`` and write ``kv_write``."""
     impl = _resolve(impl, q)
     kw = dict(n_heads=n_heads, theta=theta, rope_base=rope_base,
-              starts=starts, q_lens=q_lens, page_table=page_table)
+              starts=starts, q_lens=q_lens, page_table=page_table,
+              q_norm=q_norm, k_norm=k_norm)
     if impl == "cuda":
         return qkv_rope_write_cuda(cache, q, k, v, bias, **kw)
-    return qkv_rope_write_torch(cache, q, k, v, bias, write=kv_write, **kw)
+    return qkv_rope_write_torch(cache, q, k, v, bias, write=kv_write,
+                                norm=rmsnorm, **kw)
 
 
 def moe_route(logits: torch.Tensor, *, group: int, top_k: int,

@@ -1,8 +1,10 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --full --strategy strategy2``,
 ``--full --arch starcoder2-7b --strategy strategy2`` (LayerNorm and the
-ungated gelu FFN with biases), or ``--full --arch xlstm-1.3b`` for the
-xLSTM family.
+ungated gelu FFN with biases), ``--full --arch qwen1.5-4b``, ``qwen3-8b``
+(the per-head q/k norm) or ``gemma-2b`` (head dim 256, GeGLU, a tied
+head), ``--full --arch granite-moe-3b-a800m`` for the MoE family, or
+``--full --arch xlstm-1.3b`` for the xLSTM family.
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none`` (16-bit weights), ``dense``

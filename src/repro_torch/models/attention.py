@@ -6,7 +6,8 @@ against the cache.
 
 The cache is updated IN PLACE, which JAX could not do: in the serving steps
 ``ops.qkv_rope_write`` takes a layer's raw q/k/v projections, adds their
-biases, applies RoPE, quantizes K/V for an int8 cache and writes them into
+biases, applies a ``qk_norm`` config's per-head q/k RMSNorm and RoPE,
+quantizes K/V for an int8 cache and writes them into
 the cache tensors the caller passes (one kernel launch a layer on the card,
 reading ``q_lens`` / the write mask on the device, so no step reads a
 device value on the host), and ``attn_mixed`` / ``attn_decode`` return
@@ -306,11 +307,11 @@ def _qkv_into_cache(cfg, p: Params, x: torch.Tensor, cache: Params,
                     index: StepIndex) -> torch.Tensor:
     """Project q/k/v, write this step's K/V into ``cache`` and return q
     (b, h, s, d): the fused epilogue (``ops.qkv_rope_write``) after the
-    bias-free projections.  Two cases keep the unfused chain: a ``qk_norm``
-    config (none is served yet), whose norm sits between the bias and RoPE,
-    and a rolling window's decode, whose positions the epilogue's RoPE
-    table (the cache span) does not hold."""
-    if cfg.qk_norm or index.rolling:
+    bias-free projections, a ``qk_norm`` config's per-head q/k norm (between
+    the bias and RoPE) inside it.  A rolling window's decode keeps the
+    unfused chain: its positions run past the epilogue's RoPE table (the
+    cache span)."""
+    if index.rolling:
         c = x.shape[1]
         positions = index.rope_base[:, None] + torch.arange(
             c, dtype=index.rope_base.dtype, device=x.device)[None, :]
@@ -324,7 +325,8 @@ def _qkv_into_cache(cfg, p: Params, x: torch.Tensor, cache: Params,
         (p.get("bq"), p.get("bk"), p.get("bv")), n_heads=cfg.n_heads,
         theta=theta, rope_base=index.rope_base,
         starts=index.starts, q_lens=index.q_lens,
-        page_table=index.page_table)
+        page_table=index.page_table, q_norm=p.get("q_norm"),
+        k_norm=p.get("k_norm"))
 
 
 def attn_mixed(cfg, p: Params, x: torch.Tensor, cache: Params,

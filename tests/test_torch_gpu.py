@@ -1118,7 +1118,7 @@ MASKS = {"causal": (True, None), "window": (True, 40),
          "non-causal": (False, None)}
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
 @pytest.mark.parametrize("mask", list(MASKS))
 @pytest.mark.parametrize("sq,skv", [(70, 203), (150, 90)])
 def test_flash_mma_kernel_matches_plain(cuda, head_dim, mask, sq, skv):
@@ -1141,7 +1141,7 @@ def test_flash_mma_kernel_matches_plain(cuda, head_dim, mask, sq, skv):
         assert bool((got[:, :, :sq - skv] == 0).all())
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
 @pytest.mark.parametrize("mask", list(MASKS))
 def test_flash_mma_rows_invariant_across_query_tiling(cuda, head_dim, mask):
     """A query row's bits do not depend on where the query tiling puts it:
@@ -1167,7 +1167,7 @@ ATTN_IDS = ["slot", "slot-int8", "paged", "paged-int8"]
 
 
 @pytest.mark.parametrize("paged,quant", ATTN_VARIANTS, ids=ATTN_IDS)
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 256])
 @pytest.mark.parametrize("page", [8, 16, 32, 48, 96, 128])
 @pytest.mark.parametrize("chunk", [1, 16, 64])
 @pytest.mark.parametrize("window", [None, 24])
@@ -2810,3 +2810,205 @@ def test_moe_mixed_step_equals_sequential_decode_on_card(cuda):
     assert torch.equal(got, want)
     for a, b in zip(_cache_leaves(seq), _cache_leaves(mix)):
         assert torch.equal(a, b)
+
+
+# -- head dim 256 (gemma-2b), the q/k norm in the epilogue (qwen3-8b), GeGLU --
+
+@pytest.mark.parametrize("paged,quant", ATTN_VARIANTS, ids=ATTN_IDS)
+@pytest.mark.parametrize("window", [None, 40])
+def test_attention_mma_rows_bitwise_at_head_dim_256(cuda, paged, quant,
+                                                    window):
+    """Kernel 3 at gemma-2b's heads (8 over one KV head of 256, Q read from
+    shared memory at each k16 step): each query of a 64-wide chunk is its
+    own decode, and rows 0-1 alone are those rows of a batch of 4."""
+    gen = torch.Generator(device="cuda").manual_seed(40 + 2 * paged + quant)
+    b, hq, hkv, s, d, bs = 4, 8, 1, 512, 256, 16
+    leaves, pool, table = _attention_operands(gen, torch.bfloat16, b, hkv,
+                                              s, d, bs, quant)
+    cache, kw = (pool, {"page_table": table}) if paged else (leaves, {})
+
+    def rows(idx):
+        if paged:
+            return pool, {"page_table": table[idx]}
+        return {n: t[idx] for n, t in leaves.items()}, {}
+    q = _rand(gen, b, hq, 64, d, dtype=torch.bfloat16)
+    lengths = torch.tensor([300, 129, 512, 64], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([64, 1, 17, 0], dtype=torch.int32, device="cuda")
+    full = _attend(q, cache, lengths, q_lens, window=window, **kw)
+    _close(full, _attend(q, cache, lengths, q_lens, window=window,
+                         impl="torch", **kw), torch.bfloat16)
+    c0, k0 = rows(slice(0, 1))
+    for j in (0, 13, 63):
+        at = torch.tensor([300 - 64 + j + 1], dtype=torch.int32,
+                          device="cuda")
+        one = _attend(q[:1, :, j:j + 1].contiguous(), c0, at,
+                      torch.ones_like(at), window=window, **k0)
+        assert torch.equal(full[0, :, j], one[0, :, 0]), j
+    c2, k2 = rows(slice(0, 2))
+    assert torch.equal(_attend(q[:2], c2, lengths[:2], q_lens[:2],
+                               window=window, **k2), full[:2])
+
+
+def test_kernel3_refuses_float32_at_head_dim_256(cuda):
+    """The float32 CUDA-core kernel's K/V tiles would need 266 KB of shared
+    memory at head dim 256: its wrapper refuses before any launch; bf16
+    takes it."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    one = torch.ones(2, dtype=torch.int32, device="cuda")
+    kv = _rand(gen, 2, 1, 16, 256)
+    with pytest.raises(ValueError, match="266 KB"):
+        ops.mixed_attention(_rand(gen, 2, 4, 1, 256), kv, kv, one, one)
+    bf = torch.bfloat16
+    out = ops.mixed_attention(_rand(gen, 2, 4, 1, 256, dtype=bf), kv.to(bf),
+                              kv.to(bf), one, one)
+    assert out.shape == (2, 4, 1, 256) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qk_norm_epilogue_kernel_is_the_rmsnorm_chain(cuda, dtype, paged,
+                                                      quant, chunk, hd):
+    """The epilogue with a ``qk_norm`` config's q/k gammas bitwise the chain
+    it replaced on the card: the bias adds, the rmsnorm kernel on q and k,
+    ``apply_rope``, ``quantize_kv``, the ``kv_write`` kernel (q at every
+    live position and every cache leaf); one launch a call and no
+    ``rmsnorm`` launch of its own."""
+    b, hq, hkv, span, bs = 4, 8, 2, 64, 16
+    gen = torch.Generator(device="cuda").manual_seed(3 * chunk + hd)
+    rng = np.random.default_rng(chunk + hd)
+    if chunk == 1:
+        rope_base = np.array([3, span - 1, 20, 63])
+        starts, q_lens = rope_base, np.array([1, 1, 0, 1])
+    else:
+        q_lens = np.array([chunk, 0, 5, 1])
+        starts = np.array([rng.integers(0, span - q + 1) for q in q_lens])
+        rope_base = starts
+    lead = (b * span // bs + 3, hkv, bs) if paged else (b, hkv, span)
+    kv = torch.int8 if quant else dtype
+    cache = {n: (torch.randint(-127, 128, (*lead, hd), generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 if kv == torch.int8 else _rand(gen, *lead, hd, dtype=kv))
+             for n in ("k", "v")}
+    if quant:
+        cache.update({n: _rand(gen, *lead, 1) for n in ("k_scale",
+                                                        "v_scale")})
+    table = None
+    if paged:
+        table = torch.from_numpy(rng.permutation(b * span // bs + 2)[
+            :b * span // bs].reshape(b, span // bs).astype(np.int32)).cuda()
+    q = _rand(gen, b, chunk, hq * hd, dtype=dtype) * 3
+    k = _rand(gen, b, chunk, hkv * hd, dtype=dtype)
+    v = _rand(gen, b, chunk, hkv * hd, dtype=dtype)
+    bias = tuple(_rand(gen, h * hd, dtype=dtype) for h in (hq, hkv, hkv))
+    norms = {n: (1 + 0.2 * _rand(gen, hd)).to(dtype)
+             for n in ("q_norm", "k_norm")}
+    ints = {n: torch.tensor(a, dtype=torch.int32, device="cuda") for n, a in
+            (("rope_base", rope_base), ("starts", starts),
+             ("q_lens", q_lens))}
+    want = {n: t.clone() for n, t in cache.items()}
+    kw = dict(n_heads=hq, theta=1e6, page_table=table, **ints, **norms)
+    before = dict(_build.launches)
+    got_q = ops.qkv_rope_write(cache, q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["qkv_rope_write"] == before.get(
+        "qkv_rope_write", 0) + 1
+    assert _build.launches["rmsnorm"] == before.get("rmsnorm", 0)
+    want_q = ops.qkv_rope_write(want, q, k, v, bias, impl="torch", **kw)
+    assert _build.launches["rmsnorm"] == before.get("rmsnorm", 0) + 2
+    for r, ql in enumerate(q_lens):       # a dead position's q is free
+        assert torch.equal(got_q[r, :, :ql].contiguous().view(torch.uint8),
+                           want_q[r, :, :ql].contiguous().view(torch.uint8))
+    for n in cache:
+        assert torch.equal(cache[n].view(torch.uint8),
+                           want[n].view(torch.uint8)), n
+
+
+def test_qk_norm_epilogue_refuses_head_dims_it_cannot_hold(cuda):
+    """The lanes hold a head as the rmsnorm kernel's warps hold a row only
+    at hd <= 32 or hd / 2 a multiple of 32: another head dim with the q/k
+    norm raises; without it the epilogue takes any even head dim."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hd = 48
+    cache = {n: _rand(gen, 2, 1, 16, hd, dtype=torch.bfloat16)
+             for n in ("k", "v")}
+    q = _rand(gen, 2, 1, 2 * hd, dtype=torch.bfloat16)
+    k = _rand(gen, 2, 1, hd, dtype=torch.bfloat16)
+    ints = {n: torch.zeros(2, dtype=torch.int32, device="cuda")
+            for n in ("rope_base", "starts")}
+    kw = dict(n_heads=2, theta=1e4, q_lens=torch.ones(
+        2, dtype=torch.int32, device="cuda"), **ints)
+    gamma = torch.ones(hd, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="q/k norm"):
+        ops.qkv_rope_write(cache, q, k, k, q_norm=gamma, k_norm=gamma, **kw)
+    with pytest.raises(ValueError, match="come together"):
+        ops.qkv_rope_write(cache, q, k, k, q_norm=gamma, **kw)
+    assert ops.qkv_rope_write(cache, q, k, k, **kw).shape == (2, 2, 1, hd)
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 64, 300])
+def test_geglu_gate_up_kernel_matches_plain_at_gemma_widths(cuda, tokens):
+    """Kernel 2's geglu epilogue (gelu_tanh(x @ gate) * (x @ up)) at
+    gemma-2b's d_model 2048 over a 4096-wide slice of its d_ff, and the
+    whole FFN with down: within the bf16 tolerance of the plain versions;
+    a row alone bitwise inside the call."""
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    d, f = 2048, 4096
+    gate, up = (quantize(_rand(gen, d, f) * 0.02) for _ in range(2))
+    down = quantize(_rand(gen, f, d) * 0.02)
+    x = _rand(gen, tokens, d, dtype=torch.bfloat16)
+    before = _build.launches["ffn_fused_w4a16"]
+    h = ffn_gate_up_cuda(x, gate, up, "geglu")
+    assert _build.launches["ffn_fused_w4a16"] == before + 1
+    _close(h, ffn_gate_up_torch(x, gate, up, "geglu"), torch.bfloat16)
+    assert torch.equal(ffn_gate_up_cuda(x[-1:], gate, up, "geglu"), h[-1:])
+    _close(ops.ffn_w4a16(x, gate, up, down, activation="geglu"),
+           ops.ffn_w4a16(x, gate, up, down, activation="geglu",
+                         impl="torch"), torch.bfloat16)
+
+
+def _gemma_smoke(**over):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    cfg = get_smoke_config("gemma-2b", head_dim=256, dtype=torch.bfloat16,
+                           **over)
+    params = quantize_model(api.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)), "dense")
+    return cfg, params
+
+
+@pytest.mark.parametrize("kv", ["slot", "paged-int8"])
+def test_gemma_head_dim_256_mixed_equals_sequential_on_card(cuda, kv):
+    """gemma-2b-smoke at head dim 256 in bf16 (kernels 3 and the epilogue
+    at 256, GeGLU, the scaled and tied embedding): a 13-token prompt in
+    8-token mixed chunks is bitwise 13 decode steps, logits and every
+    cache leaf."""
+    from repro_torch.models import api
+    over = ({} if kv == "slot" else dict(kv_layout="paged", kv_block_size=16,
+                                         kv_quant="int8"))
+    cfg, params = _gemma_smoke(**over)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 13)
+    seq = api.init_cache(cfg, 1, 32, "cuda")
+    for t, tok in enumerate(prompt.tolist()):
+        want, seq = api.decode_step(cfg, params, seq,
+                                    torch.tensor([[tok]], device="cuda"),
+                                    [t + 1])
+    mix = api.init_cache(cfg, 1, 32, "cuda")
+    length = 0
+    while length < len(prompt):
+        ql = min(8, len(prompt) - length)
+        chunk = np.zeros(8, np.int64)
+        chunk[:ql] = prompt[length:length + ql]
+        got, mix = api.mixed_step(cfg, params, mix,
+                                  torch.tensor(chunk[None], device="cuda"),
+                                  [length], [ql])
+        length += ql
+    assert torch.equal(got, want)
+    for n in seq:
+        assert torch.equal(seq[n], mix[n]), n
