@@ -132,8 +132,35 @@ Phases (any failure ends the run with a nonzero exit code):
                  gemma-2b's heads; kernel 2's geglu gate/up and whole FFN
                  at gemma-2b's widths (2048 -> 2 x 16384, T=4 and 256)
                  beside dequantize + the chain, its rows 100-103 bitwise
-                 across the tile configurations;
-  4. model    — qwen1.5-4b (MHA 20 x 128, d 2560, d_ff 6912),
+                 across the tile configurations; whisper-small's
+                 (``check_whisper_kernels``, bf16): kernel 1 at 768 ->
+                 768 and the down 3072 -> 768 with its f32 bias, kernel
+                 2g's up 768 -> 3072 with its bias, each at T=4 and at
+                 the encoder's 1500 rows, and ``dense_matmul`` on the
+                 tied 51865 x 768 head read in place (T=4), each beside
+                 its library call (kernels 1 and 2g: also on weights
+                 dequantized once) and bound; the position table built
+                 on the card against the CPU's (1500 x 768, row p within
+                 1e-6 + 2 p 2^-23); kernel 3's slot and paged fp variants
+                 at whisper's heads (12 over 12 of 64, bf16, B=4, C=1 and
+                 64, the scrambled table) in ``ATTENTION_SHAPES``; kernel
+                 7 without a mask at the encoder's Sq = Skv = 1500 and the
+                 cross-attention's decode shape (B=4, Sq=1, Skv=1500), and
+                 causal at the decoder's prefill (B=2, S=256), d 64, in
+                 ``FLASH_CASES``;
+  4. model    — whisper-small (the audio family: 12 encoder and 12
+                 decoder layers, d 768, 1500 frames, "dense") on the slot
+                 cache and a 20-block pool of 16-token pages
+                 (``whisper-dense``, ``whisper-dense-paged``), its caches
+                 holding seeded frames' cross K/V (``fresh_cache``),
+                 through (a)-(c) and phase 5 as every transformer path
+                 (the cross leaves held bitwise too; no rolling window),
+                 an admission (encoder, cross K/V, insert) without a host
+                 read, graph replay vs eager with the ``("admit", 1500)``
+                 key held against its eager function (and timed); traced,
+                 no copy of 64 MiB or more in a captured step or
+                 admission (``LARGE_COPY_BYTES``); prefilled;
+                 qwen1.5-4b (MHA 20 x 128, d 2560, d_ff 6912),
                  qwen3-8b (the q/k norm inside the epilogue) and
                  gemma-2b (head dim 256, MQA, GeGLU, the scaled and tied
                  embedding; also from a 20-block pool of 16-token pages
@@ -188,8 +215,11 @@ Phases (any failure ends the run with a nonzero exit code):
                  captured key's graph replayed once against its function
                  run eagerly on a copy of the cache, logits and every
                  leaf bitwise equal;
-  5. serving  — with each of the fourteen weight sets, the engine serves 9
-                 requests twice, every tick one replay of a CUDA graph
+  5. serving  — with each of the fifteen weight sets, the engine serves 9
+                 requests twice (whisper's with seeded frames each,
+                 ``audio_frames``, the oracle ``reference_decode`` with
+                 them; launches ``expected_launches_audio``: per-step
+                 counts x token columns plus each admission's), every tick one replay of a CUDA graph
                  captured per compile key: misses within
                  ``compile_budget``, the second run capturing nothing and
                  giving the first run's streams; capture seconds per key,
@@ -198,7 +228,7 @@ Phases (any failure ends the run with a nonzero exit code):
                  granite-moe-dense a ``torch.profiler`` trace of one
                  decode and one mixed tick, eager and replayed (host ms,
                  device-busy ms, device operations, and none of RoPE's
-                 cos, sin or cat, no bf16 add and no copy of 100 MiB or
+                 cos, sin or cat, no bf16 add and no copy of 64 MiB or
                  more in a replayed transformer tick; on granite each
                  MoE kernel's in-graph ms, ``moe_kernel_ms``); every token
                  stream equals ``reference_decode``
@@ -277,7 +307,12 @@ Phases (any failure ends the run with a nonzero exit code):
                  recurrent steps); in float32, forward's last position
                  within ``XLSTM_PREFILL_TOL`` of prefill's (bf16's gap
                  recorded); greedy prefill + decode equal to the engine's
-                 stream;
+                 stream.  On whisper-small (``check_audio_prefill``):
+                 forward and the slot prefill at B=2, S=256 over seeded
+                 frames, the last position bitwise, launch counts exact
+                 (the encoder and the cross K/V once a call), greedy
+                 prefill + decode of the 200-token request equal to the
+                 engine's stream;
   then the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
@@ -561,6 +596,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
                                     results.get("ptxas", {})))
     line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
     line.update(check_moe_kernels(torch, timer, randn, tol, rows))
+    check_whisper_kernels(torch, timer, randn, tol, rows)
 
     # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
     # only, hkv=2 (chatglm-6b's rep 16)
@@ -1660,6 +1696,9 @@ ATTENTION_SHAPES = (
     dict(model="gemma-2b", hq=8, hkv=1, hd=256,
          variants=((False, False), (False, True), (True, False),
                    (True, True)),
+         dtypes=("bfloat16",), slot_yardstick=False, in_line=False),
+    dict(model="whisper-small", hq=12, hkv=12, hd=64,
+         variants=((False, False), (True, False)),
          dtypes=("bfloat16",), slot_yardstick=False, in_line=False))
 
 
@@ -1831,6 +1870,12 @@ FLASH_CASES = {
     "window 256 S=1024": (1, 32, 4, 1024, 1024, 128, True, 256),
     "non-causal Sq=448 Skv=1500 d=64": (1, 12, 12, 448, 1500, 64, False,
                                         None),
+    "whisper encoder Sq=Skv=1500 d=64": (1, 12, 12, 1500, 1500, 64, False,
+                                         None),
+    "whisper cross decode B=4 Sq=1 Skv=1500 d=64": (4, 12, 12, 1, 1500, 64,
+                                                    False, None),
+    "whisper decoder causal B=2 S=256 d=64": (2, 12, 12, 256, 256, 64, True,
+                                              None),
     "gemma-2b causal S=2048 d=256": (1, 8, 1, 2048, 2048, 256, True, None),
     "gemma-2b ragged S=300 d=256": (1, 8, 1, 300, 300, 256, True, None),
 }
@@ -2866,6 +2911,144 @@ def check_dense_kernels(torch, timer, randn, tol, rows, results) -> dict:
     return line
 
 
+# whisper-small's widths: d_model 768, d_ff 3072, vocab 51865; an audio
+# request's 1500 frames
+WHISPER_D, WHISPER_F, WHISPER_VOCAB, WHISPER_FRAMES = 768, 3072, 51865, 1500
+
+
+def check_sinusoid_table(torch, rows) -> None:
+    """whisper's position table built on the card (CUDA's ``exp``, ``sin``
+    and ``cos``) against the same table built on the CPU, at the
+    encoder's 1500 rows: row ``p`` within ``1e-6 + 2 p 2^-23`` (what a few
+    ulps of a frequency make of ``p`` times it; the CPU tests hold the CPU
+    table to the reference's by the same bound)."""
+    import numpy as np
+    from repro_torch.models.whisper import sinusoid_table
+    n, d = WHISPER_FRAMES, WHISPER_D
+    card = sinusoid_table(n, d, DEVICE).cpu().double()
+    host = sinusoid_table(n, d, "cpu").double()
+    err = (card - host).abs()
+    limit = 1e-6 + 2 * torch.arange(n, dtype=torch.float64)[:, None] \
+        * 2.0 ** -23
+    worst = err.amax(1)
+    row = {"kernel": "sinusoid_table", "model": "whisper-small",
+           "rows": n, "d": d, "max_abs_err": float(err.max()),
+           "worst_row": int(worst.argmax()),
+           "bitwise_equal_share": float((err == 0).double().mean()),
+           "rows_over_1e-6": int((worst > 1e-6).sum()),
+           "tol": "1e-6 + 2 p 2^-23"}
+    rows.append(row)
+    log(f"  whisper sinusoid table {n} x {d}, card vs CPU: max_abs "
+        f"{row['max_abs_err']:.3g} (row {row['worst_row']}), rows over 1e-6 "
+        f"{row['rows_over_1e-6']}, bitwise equal "
+        f"{row['bitwise_equal_share']:.4f} of entries (tol 1e-6 + 2 p "
+        "2^-23)")
+    need(bool((err <= limit).all()) and bool(np.isfinite(
+        row["max_abs_err"])), "whisper sinusoid table: the card's table is "
+         f"{row['max_abs_err']:.3g} from the CPU's, over 1e-6 + 2 p 2^-23")
+
+
+def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
+    """The audio path's GEMM kernels at whisper-small's widths, bf16,
+    against their plain versions, each timed beside its library call and
+    its bound: kernel 1 at 768 -> 768 (q/k/v/o, self and cross; the cross
+    K/V at the encoder's 1500 rows) and the down 3072 -> 768 with its f32
+    bias, kernel 2g (768 -> 3072, gelu with the up bias) at T = 4 and
+    1500, and ``dense_matmul`` on the tied head read in place (``embed.T``,
+    768 -> 51865) at T = 4."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    from repro_torch.kernels.w4a16_matmul import (
+        w4a16_matmul_cuda, w4a16_matmul_torch)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, f, v = WHISPER_D, WHISPER_F, WHISPER_VOCAB
+
+    def record(row, kernel, plain, library, nbytes, flops, what,
+               library_once=None):
+        # library_once: the library chain on weights dequantized once
+        # beforehand (no dequantization in the timed call)
+        row["ms"] = timer.ms(kernel, 20)
+        row["plain_ms"] = timer.ms(plain, 3)
+        row["library_ms"] = timer.ms(library, 10)
+        if library_once is not None:
+            row["library_once_ms"] = timer.ms(library_once, 10)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+        rows.append(row)
+        log(f"  whisper {what}: max_abs {row['max_abs_err']:.3g} rel "
+            f"{row['max_rel_err']:.3g} (tol {tol['bfloat16']})  kernel "
+            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+            f"{row['library_ms']:.4f} ms"
+            + (f" (on weights dequantized once {row['library_once_ms']:.4f}"
+               " ms)" if library_once is not None else "")
+            + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    check_sinusoid_table(torch, rows)
+
+    for (d_in, o), biased in (((d, d), False), ((f, d), True)):
+        w = quantize(randn(d_in, o, dtype=f32) * 0.02)
+        b = randn(o, dtype=f32) * 0.1 if biased else None
+        w16, b16 = dequantize(w, bf16).T, None if b is None else b.to(bf16)
+        for t in (4, WHISPER_FRAMES):
+            x = randn(t, d_in)
+            err, rel = max_errs(w4a16_matmul_cuda(x, w, b),
+                                w4a16_matmul_torch(x, w, b))
+            need(rel <= tol["bfloat16"], f"whisper w4a16 T={t} {d_in}->{o}: "
+                 f"rel err {rel:.3g}")
+            row = {"kernel": "w4a16_matmul", "model": "whisper-small",
+                   "dtype": "bfloat16", "T": t, "in": d_in, "out": o,
+                   "bias": biased, "max_abs_err": err, "max_rel_err": rel}
+            record(row, lambda: w4a16_matmul_cuda(x, w, b),
+                   lambda: w4a16_matmul_torch(x, w, b),
+                   lambda: F.linear(x, dequantize(w, bf16).T,
+                                    None if b is None else b.to(bf16)),
+                   x.numel() * 2 + w.nbytes_model + t * o * 2
+                   + (o * 4 if biased else 0), 2 * t * d_in * o,
+                   f"w4a16_matmul T={t} {d_in}->{o}"
+                   + (" with its bias" if biased else ""),
+                   lambda: F.linear(x, w16, b16))
+        del w, w16
+    up = quantize(randn(d, f, dtype=f32) * 0.02)
+    ub = (randn(f, dtype=f32) * 0.1).to(bf16)
+    up16 = dequantize(up, bf16).T
+    for t in (4, WHISPER_FRAMES):
+        x = randn(t, d)
+        err, rel = max_errs(ffn_gate_up_cuda(x, None, up, "gelu", ub),
+                            ffn_gate_up_torch(x, None, up, "gelu", ub))
+        need(rel <= tol["bfloat16"], f"whisper ffn_fused_w4a16_gelu T={t}: "
+             f"rel err {rel:.3g}")
+        row = {"kernel": "ffn_fused_w4a16_gelu", "model": "whisper-small",
+               "dtype": "bfloat16", "T": t, "d": d, "f": f,
+               "max_abs_err": err, "max_rel_err": rel}
+        record(row, lambda: ffn_gate_up_cuda(x, None, up, "gelu", ub),
+               lambda: ffn_gate_up_torch(x, None, up, "gelu", ub),
+               lambda: F.gelu(F.linear(x, dequantize(up, bf16).T, ub),
+                              approximate="tanh"),
+               x.numel() * 2 + up.nbytes_model + (t * f + f) * 2,
+               2 * t * d * f, f"ffn_fused_w4a16_gelu (up stage) T={t} "
+               f"{d}->{f}",
+               lambda: F.gelu(F.linear(x, up16, ub), approximate="tanh"))
+    del up, up16
+    embed = (randn(v, d, dtype=f32) * 0.02).to(bf16)
+    x = randn(4, d)
+    head = embed.T
+    err, rel = max_errs(ops.dense_matmul(x, head),
+                        ops.dense_matmul(x, head, impl="torch"))
+    need(rel <= tol["bfloat16"], f"whisper tied head: rel err {rel:.3g}")
+    row = {"kernel": "dense_matmul", "model": "whisper-small",
+           "dtype": "bfloat16", "T": 4, "in": d, "out": v,
+           "transposed_view": True, "max_abs_err": err, "max_rel_err": rel}
+    record(row, lambda: ops.dense_matmul(x, head),
+           lambda: ops.dense_matmul(x, head, impl="torch"),
+           lambda: torch.matmul(x, head),
+           x.numel() * 2 + embed.numel() * 2 + 4 * v * 2, 2 * 4 * d * v,
+           f"dense_matmul tied head T=4 {d}->{v} (embed.T in place)")
+    del embed, head
+    torch.cuda.empty_cache()
+
+
 # -- phase 4 and 5: the model and the engine --------------------------------
 
 def build_model(torch, arch, strategy, **overrides):
@@ -2882,6 +3065,15 @@ def build_model(torch, arch, strategy, **overrides):
                  for k, v in params[g].items()
                  if k in ("up_x", "wq", "w_i", "down", "w_gates", "r_gates")}
         shape = f"sLSTM every {cfg.slstm_every}"
+    elif cfg.family == "audio":
+        dec = params["dec_blocks"]
+        kinds = {f"{g}.{k}": type(v).__name__ for g in ("self_attn",
+                                                        "cross_attn", "mlp")
+                 for k, v in dec[g].items() if k in ("wq", "wk", "wo", "up",
+                                                     "down")}
+        kinds["embed"] = type(params["embed"]).__name__
+        shape = (f"d_ff={cfg.d_ff}, encoder {cfg.n_encoder_layers} layers "
+                 f"over {cfg.encoder_frames} frames")
     else:
         ffn = params["blocks"]["moe" if cfg.is_moe else "mlp"]
         kinds = {k: type(v).__name__ + (f"(g={v.group_size})"
@@ -2897,6 +3089,52 @@ def build_model(torch, arch, strategy, **overrides):
         f"{quantized_bytes(params) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+def audio_frames(cfg, n, seed=0):
+    """``n`` requests' audio frames, (F, d) float32 each, drawn in turn
+    from ``default_rng(seed)``'s normal."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(cfg.encoder_frames, cfg.d_model)).astype(
+        np.float32) for _ in range(n)]
+
+
+def fresh_cache(torch, cfg, params, b, max_len):
+    """``api.init_cache``; on an audio config its rows then hold the cross
+    K/V of seeded frames (``api.admit_into``), as admitted requests'
+    do."""
+    import numpy as np
+    from repro_torch.models import api
+    cache = api.init_cache(cfg, b, max_len, DEVICE)
+    if cfg.family == "audio":
+        frames = torch.from_numpy(np.stack(audio_frames(cfg, b, seed=7)))
+        api.admit_into(cfg, params, cache, {"frames": frames.to(DEVICE)})
+    return cache
+
+
+def start_cache(torch, cfg, params, max_len, frames=None):
+    """The batch-1 cache a request's sequential decode starts from:
+    ``api.request_cache`` of its audio ``frames`` (F, d), else a pristine
+    ``api.init_cache``."""
+    from repro_torch.models import api
+    if frames is None:
+        return api.init_cache(cfg, 1, max_len, DEVICE)
+    return api.request_cache(
+        cfg, params, {"frames": torch.from_numpy(frames[None]).to(DEVICE)},
+        max_len, DEVICE)
+
+
+def scrambled_table(torch, cfg, rng, b, max_len):
+    """A (B, pages) page table of distinct pool blocks in ``rng``'s
+    order, for a paged cache of ``max_len`` a row."""
+    from repro_torch.models import api
+    leaves = api.init_cache(cfg, b, max_len, DEVICE)
+    pool = leaves.get("self", leaves)["k"].shape[1] - 1
+    del leaves
+    pages = -(-max_len // cfg.kv_block_size)
+    return torch.tensor(rng.permutation(pool)[:b * pages].reshape(b, pages),
+                        dtype=torch.int32, device=DEVICE)
 
 
 def cache_leaves(cache, prefix=""):
@@ -2923,12 +3161,12 @@ def check_mixed_equals_sequential(torch, cfg, params, results, path):
     from repro_torch.models import api
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 13)
     dev = DEVICE
-    seq = api.init_cache(cfg, 1, 32, dev)
+    seq = fresh_cache(torch, cfg, params, 1, 32)
     logits_seq = None
     for t, tok in enumerate(prompt.tolist()):
         logits_seq, seq = api.decode_step(
             cfg, params, seq, torch.tensor([[tok]], device=dev), [t + 1])
-    mix = api.init_cache(cfg, 1, 32, dev)
+    mix = fresh_cache(torch, cfg, params, 1, 32)
     length = 0
     while length < len(prompt):
         ql = min(8, len(prompt) - length)
@@ -2969,12 +3207,8 @@ def check_all_logits(torch, cfg, params, results, path):
     lens = np.asarray([0, 5, 13, 29], np.int32)
     kw = {}
     if api.has_paged_kv(cfg):
-        pool = api.init_cache(cfg, b, max_len, DEVICE)["k"].shape[1] - 1
-        pages = -(-max_len // cfg.kv_block_size)
-        kw["page_table"] = torch.tensor(
-            rng.permutation(pool)[:b * pages].reshape(b, pages),
-            dtype=torch.int32, device=DEVICE)
-    mix = api.init_cache(cfg, b, max_len, DEVICE)
+        kw["page_table"] = scrambled_table(torch, cfg, rng, b, max_len)
+    mix = fresh_cache(torch, cfg, params, b, max_len)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, 32)),
                         device=DEVICE)
     api.mixed_step(cfg, params, mix, toks, [0] * b, lens, **kw)
@@ -3081,14 +3315,10 @@ def check_fused_equals_plain(torch, cfg, params, results, path):
     q_lens = np.asarray([64, 0, 17, 1], np.int32)
     kw = {}
     if api.has_paged_kv(cfg):
-        pool = api.init_cache(cfg, b, max_len, DEVICE)["k"].shape[1] - 1
-        pages = -(-max_len // cfg.kv_block_size)
-        kw["page_table"] = torch.tensor(
-            rng.permutation(pool)[:b * pages].reshape(b, pages),
-            dtype=torch.int32, device=DEVICE)
+        kw["page_table"] = scrambled_table(torch, cfg, rng, b, max_len)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, w)),
                         device=DEVICE)
-    fused = api.init_cache(cfg, b, max_len, DEVICE)
+    fused = fresh_cache(torch, cfg, params, b, max_len)
     plain = clone_tree(fused)
     mask = torch.tensor([True, False, True, True], device=DEVICE)
     out = {}
@@ -3109,6 +3339,10 @@ def check_fused_equals_plain(torch, cfg, params, results, path):
             f"logits bitwise {same}; cache slices differing {diff}")
         need(same and not diff, f"{path} {name}: the fused step is not "
              f"bitwise the step through the plain chains (cache {diff[:1]})")
+    if cfg.family == "audio":
+        log("  (no rolling window in the audio family)")
+        results.setdefault("fused_vs_plain", {})[path] = out
+        return
     span = 16
     rolling = dataclasses.replace(cfg, window=span, kv_pool_blocks=0)
     fused = api.init_cache(rolling, 1, span, DEVICE)
@@ -3235,12 +3469,12 @@ def check_moe_drops(torch, cfg, params, results, path):
     results.setdefault("moe_drops", {})[path] = out
 
 
-def first_divergence(torch, cfg, params, prompt, got, max_len):
+def first_divergence(torch, cfg, params, prompt, got, max_len, frames=None):
     """Step where the engine left the oracle, and the oracle's top-2 logit
     margin there."""
     from repro_torch.models import api
     dev = DEVICE
-    cache = api.init_cache(cfg, 1, max_len, dev)
+    cache = start_cache(torch, cfg, params, max_len, frames)
     n = 0
     for tok in prompt.tolist():
         n += 1
@@ -3343,6 +3577,66 @@ def expected_launches(cfg, params, ticks, decode_ticks=0, span=None):
     add(FFN_KERNELS[(variant, gated)], L)
     add(matmul_kernel(mlp["down"], "down"), L)
     return rolling_writes(per_tick, ticks, rolling, L)
+
+
+def expected_launches_audio(cfg, params, steps, admits, full_sequence=False):
+    """Launches per kernel of the audio family for ``steps`` decode steps
+    (a mixed tick steps its whole chunk width: the engine's
+    ``dispatched_columns``) and ``admits`` admissions, read from the
+    weights' leaf types.  A step: per decoder layer the self-attention's
+    q/k/v/o, the epilogue (``qkv_rope_write``) and kernel 3, the
+    cross-attention's q and o and kernel 7 over the request's K/V, the
+    gelu FFN (kernel 2g, its down by type) and three norms, each with the
+    add before it (``add_layernorm``: the first takes the embeddings'
+    sinusoids), then the add into ``ln_f`` and the tied head
+    (``dense_matmul``).  An admission: per encoder layer q/k/v/o, kernel 7
+    without a mask, the FFN and two fused norms, then ``enc_ln_f``; per
+    decoder layer the cross K and V.  ``full_sequence``: a ``forward`` or
+    slot ``prefill`` call instead of a step (``admits`` of them): kernel 7
+    causal in place of kernel 3 and no epilogue."""
+    from repro_torch.kernels.decode_flash import VARIANTS
+    from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
+    from repro_torch.models.transformer import layer_params
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    dec, enc = params["dec_blocks"], params["enc_blocks"]
+    step, admit = {}, {}
+
+    def add(d, kernel, n):
+        d[kernel] = d.get(kernel, 0) + n
+
+    def ffn(d, mlp, n):
+        one = layer_params(mlp, 0)
+        variant = fused_variant(one.get("gate"), one["up"], one["down"],
+                                cfg.activation)
+        key = (variant, cfg.activation in GATED_ACTIVATIONS)
+        need(key in FFN_KERNELS, f"the FFN weights take no CUDA path {key}")
+        add(d, FFN_KERNELS[key], n)
+        add(d, matmul_kernel(mlp["down"], "down"), n)
+    if full_sequence:
+        add(step, "flash_attention", L)
+    else:
+        add(step, VARIANTS[(cfg.kv_layout == "paged",
+                            cfg.kv_quant == "int8")], L)
+        add(step, "qkv_rope_write", L)
+    add(step, "flash_attention", L)
+    add(step, "add_layernorm", 3 * L + 1)
+    for name in ("wq", "wk", "wv", "wo"):
+        add(step, matmul_kernel(dec["self_attn"][name], name), L)
+    for name in ("wq", "wo"):
+        add(step, matmul_kernel(dec["cross_attn"][name], name), L)
+    ffn(step, dec["mlp"], L)
+    add(step, matmul_kernel(params["embed"], "embed"), 1)   # the tied head
+    add(admit, "flash_attention", Le)
+    add(admit, "add_layernorm", 2 * Le + 1)
+    for name in ("wq", "wk", "wv", "wo"):
+        add(admit, matmul_kernel(enc["attn"][name], name), Le)
+    ffn(admit, enc["mlp"], Le)
+    for name in ("wk", "wv"):
+        add(admit, matmul_kernel(dec["cross_attn"][name], name), L)
+    out = {k: steps * n for k, n in step.items()}
+    for k, n in admit.items():
+        out[k] = out.get(k, 0) + admits * n
+    return out
 
 
 def rolling_writes(per_tick, ticks, rolling, layers):
@@ -3461,10 +3755,13 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
     prompts = workload(cfg, engine_kw)
     engine = Engine(cfg, params, batch_size=4, max_len=max_len,
                     chunk_size=64, audit_every=1, device=DEVICE, **engine_kw)
+    audio = cfg.family == "audio"
+    frames = (audio_frames(cfg, len(prompts)) if audio
+              else [None] * len(prompts))
     runs, first = [], None
     for run in range(2):
         reqs = [Request(rid=100 * run + i, prompt=p.astype(np.int32),
-                        max_new_tokens=max_new)
+                        max_new_tokens=max_new, frames=frames[i])
                 for i, p in enumerate(prompts)]
         # a paged run submits the 200-token request first: its 14-block
         # reservation then holds the pool while the short ones queue
@@ -3498,6 +3795,8 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
                 else max_len)
         expect = (expected_launches_ssm(cfg, params, cols)
                   if cfg.family == "ssm" else
+                  expected_launches_audio(cfg, params, cols, len(reqs))
+                  if audio else
                   expected_launches(cfg, params, ticks,
                                     ticks - (engine.mixed_ticks - mixed0),
                                     span))
@@ -3573,10 +3872,11 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
             for r in reqs:
                 ref = reference_decode(cfg, params, r.prompt,
                                        r.max_new_tokens, max_len=max_len,
-                                       device=DEVICE)
+                                       frames=r.frames, device=DEVICE)
                 if r.output != ref:
                     step, margin = first_divergence(
-                        torch, cfg, params, r.prompt, r.output, max_len)
+                        torch, cfg, params, r.prompt, r.output, max_len,
+                        r.frames)
                     mismatches.append({"rid": r.rid, "step": step,
                                        "oracle_top2_margin": margin})
             log(f"  token streams equal to reference_decode: "
@@ -3595,6 +3895,9 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
     cc = engine.cache_compiles
     graphs = {f"{k[0]}-{k[1]}": t for k, t in engine.capture_seconds.items()}
     ticked = [k for k in cc.keys() if k[0] != "insert"]
+    if audio:
+        need(("admit", cfg.encoder_frames) in ticked,
+             f"{path}: no ('admit', {cfg.encoder_frames}) graph")
     log(f"  compile cache: {sorted(cc.keys())} ({cc.hits} hits, misses by "
         f"kind {cc.misses_by_name}); budget {engine.compile_budget}; "
         f"graphs captured {len(graphs)}, capture s {graphs}")
@@ -3602,8 +3905,8 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
          f"{path}: {cc.misses} misses > compile_budget "
          f"{engine.compile_budget}")
     need(sorted(engine.capture_seconds) == sorted(ticked),
-         f"{path}: the mixed, decode and cow keys {ticked} are not each one "
-         f"captured graph ({sorted(engine.capture_seconds)})")
+         f"{path}: the mixed, decode, cow and admit keys {ticked} are not "
+         f"each one captured graph ({sorted(engine.capture_seconds)})")
     same_as_slot = (None if slot_streams is None else
                     sum(a == b for a, b in zip(first, slot_streams)))
     if same_as_slot is not None:
@@ -3645,6 +3948,10 @@ def replay_without_sync(torch, engine, path):
             if name == "cow":
                 null = np.array([engine._null_block], np.int64)
                 tick(engine.params, engine.cache, src=null, dst=null)
+            elif name == "admit":
+                tick(engine.params, engine._admit_row,
+                     frames=np.zeros((1, bucket, engine.cfg.d_model),
+                                     np.float32))
             else:
                 tick(engine.params, engine.cache, **engine._dead_inputs(
                     None if name == "decode" else bucket))
@@ -3658,7 +3965,7 @@ def replay_without_sync(torch, engine, path):
         "set_sync_debug_mode(\"error\"): no host synchronisation")
     copies = {}
     for name, bucket in keys:
-        if name == "cow":
+        if name in ("cow", "admit"):
             continue
         tick = engine.cache_compiles.get(name, bucket, None)
         dead = engine._dead_inputs(None if name == "decode" else bucket)
@@ -4153,12 +4460,13 @@ def serve_restart(torch, cfg, params, results, path, oracle):
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
                 "starcoder2-dense", "granite-moe-dense", "qwen3-8b-dense",
-                "gemma-2b-dense")
+                "gemma-2b-dense", "whisper-dense")
 TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense",
-               "granite-moe-dense", "gemma-2b-dense")
-# no served transformer tick copies a tensor this large (a tied LM head
-# read through a transposed copy would: 151 MB a tick on granite)
-LARGE_COPY_BYTES = 100 << 20
+               "granite-moe-dense", "gemma-2b-dense", "whisper-dense")
+# no served transformer tick or admission copies a tensor this large (a
+# tied LM head read through a transposed copy would: 151 MB a tick on
+# granite, 79.7 MB on whisper)
+LARGE_COPY_BYTES = 64 << 20
 
 
 def live_inputs(engine, name, width, rng):
@@ -4198,6 +4506,47 @@ def live_inputs(engine, name, width, rng):
     return host
 
 
+def check_admit_replay(torch, engine, params, frames_n, path):
+    """The ``("admit", F)`` graph replayed on the engine's static row
+    against its function run eagerly on a copy, from the same seeded
+    frames: every leaf of the row bitwise equal; no copy of
+    ``LARGE_COPY_BYTES`` or more in the captured function; the replay's
+    device ms (CUDA events, median of 5) and host ms."""
+    import numpy as np
+    tick = engine.cache_compiles.get("admit", frames_n, None)
+    row = engine._admit_row
+    frames = audio_frames(engine.cfg, 1, seed=9)[0][None]
+    dev = torch.from_numpy(frames).to(DEVICE)
+    copy = clone_tree(row)
+    big = large_copies(torch, lambda: tick.fn(params, copy, frames=dev))
+    tick(params, row, frames=frames)
+    torch.cuda.synchronize()
+    diff = differing_slices(torch, copy, row)
+    ms, host = [], []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        tick(params, row, frames=frames)
+        e.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    out = {"cache_slices_differing": diff, "large_copies": big,
+           "replay_ms": float(np.median(ms)), "host_ms": float(np.median(host))}
+    log(f"  admit-{frames_n}: replay vs eager, row slices differing {diff}; "
+        f"copies of >= {LARGE_COPY_BYTES >> 20} MiB {big or 'none'}; replay "
+        f"{out['replay_ms']:.3f} ms on the device, {out['host_ms']:.3f} ms "
+        "on the host (median of 5)")
+    need(not diff, f"{path} admit-{frames_n}: the graph replay is not "
+         "bitwise the eager admission")
+    need(not big, f"{path} admit-{frames_n}: the admission copies {big}")
+    del copy
+    return out
+
+
 def clone_tree(tree):
     return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
@@ -4235,6 +4584,10 @@ def check_graph_replay(torch, engine, params, results, path):
         need(same and not diff, f"{path} {key}: the graph replay is not "
              "bitwise the eager step")
         del copy
+    for name, bucket in sorted(engine.cache_compiles.keys()):
+        if name == "admit":
+            out[f"admit-{bucket}"] = check_admit_replay(torch, engine,
+                                                        params, bucket, path)
     results.setdefault("graph_replay", {})[path] = out
 
 
@@ -4518,7 +4871,12 @@ def check_no_sync(torch, cfg, params, results, path):
     from repro_torch.models import api
     from repro_torch.serving.engine import _mixed_executable_spec
     b, c = 4, 16
-    cache = api.init_cache(cfg, b, 64, DEVICE)
+    cache = fresh_cache(torch, cfg, params, b, 64)
+    audio = cfg.family == "audio"
+    if audio:
+        row = api.init_cache(cfg, 1, 64, DEVICE)
+        frames = torch.from_numpy(audio_frames(cfg, 1, seed=3)[0][None]).to(
+            DEVICE)
     g = torch.Generator(device=DEVICE).manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (b, c), generator=g,
                            device=DEVICE)
@@ -4545,6 +4903,9 @@ def check_no_sync(torch, cfg, params, results, path):
                    q_lens.clamp(max=8), **kw)
         if share:
             api.copy_pool_block(cfg, cache, blocks[0], blocks[1])
+        if audio:
+            api.admit_into(cfg, params, row, {"frames": frames})
+            api.insert_request(cfg, cache, row, 2)
     except RuntimeError as e:
         raise SmokeFailure(f"{path}: a step synchronised with the host: "
                            f"{e}") from None
@@ -4555,6 +4916,7 @@ def check_no_sync(torch, cfg, params, results, path):
     log("  a mixed step, a decode step"
         + (", a verify tick" if api.supports_speculation(cfg) else "")
         + (" and a copy-on-write" if share else "")
+        + (" and an admission (encoder, cross K/V, insert)" if audio else "")
         + " under set_sync_debug_mode(\"error\"): no host synchronisation")
 
 
@@ -4587,13 +4949,15 @@ def expected_full_launches(cfg, params, calls, prefills=0):
     return out
 
 
-def greedy_after_prefill(torch, cfg, params, prompt, n_new, max_len):
-    """Prefill one prompt, then decode greedily: the first ``n_new``
-    tokens."""
+def greedy_after_prefill(torch, cfg, params, prompt, n_new, max_len,
+                         frames=None):
+    """Prefill one prompt (and its audio ``frames``), then decode greedily:
+    the first ``n_new`` tokens."""
     from repro_torch.models import api
-    logits, cache = api.prefill(
-        cfg, params, {"tokens": torch.tensor(prompt[None], device=DEVICE)},
-        max_len)
+    batch = {"tokens": torch.tensor(prompt[None], device=DEVICE)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames[None]).to(DEVICE)
+    logits, cache = api.prefill(cfg, params, batch, max_len)
     out, n = [], len(prompt)
     while True:
         out.append(int(logits[0].argmax()))
@@ -4604,12 +4968,12 @@ def greedy_after_prefill(torch, cfg, params, prompt, n_new, max_len):
             cfg, params, cache, torch.tensor([[out[-1]]], device=DEVICE), [n])
 
 
-def oracle_margin(torch, cfg, params, prompt, stream, step):
+def oracle_margin(torch, cfg, params, prompt, stream, step, frames=None):
     """Top-2 logit margin of the sequential oracle where it picks
     ``stream[step]``: the prompt and ``stream[:step]`` fed one token at a
     time through ``decode_step``."""
     from repro_torch.models import api
-    cache = api.init_cache(cfg, 1, SERVE_MAX_LEN, DEVICE)
+    cache = start_cache(torch, cfg, params, SERVE_MAX_LEN, frames)
     for n, tok in enumerate(list(prompt) + list(stream[:step]), start=1):
         logits, cache = api.decode_step(
             cfg, params, cache, torch.tensor([[int(tok)]], device=DEVICE),
@@ -4618,14 +4982,15 @@ def oracle_margin(torch, cfg, params, prompt, stream, step):
     return float(top[0] - top[1])
 
 
-def check_stream(torch, cfg, params, prompt, got, want, bound, what):
+def check_stream(torch, cfg, params, prompt, got, want, bound, what,
+                 frames=None):
     """``got`` equals the engine's ``want`` (which phase 5 held equal to
     the oracle); or, where it leaves it, the oracle's top-2 margin is below
     ``bound`` (a near tie that two routes' bf16 roundings may flip)."""
     if got == want:
         return {"equal": True}
     step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-    margin = oracle_margin(torch, cfg, params, prompt, want, step)
+    margin = oracle_margin(torch, cfg, params, prompt, want, step, frames)
     log(f"  {what}: first divergence at step {step}, oracle top-2 margin "
         f"{margin} (bound {bound:.4g})")
     need(margin < bound, f"{what}: diverges from the engine at step {step} "
@@ -4700,6 +5065,64 @@ def check_prefill_forward(torch, cfg, params, results, path, counts,
         f"engine's stream (200-token prompt): {res['c']}")
     if cfg.name == "qwen-7b":
         res["d"] = check_chunked_prefill(torch, cfg, params)
+    torch.cuda.empty_cache()
+
+
+def check_audio_prefill(torch, cfg, params, results, path, counts,
+                        engine_stream):
+    """Phase 6 on the audio family: (a) ``forward`` and the slot
+    ``prefill`` at B=2, S=256 over seeded frames: the last position's
+    logits bitwise equal, launch counts exact (the encoder, each decoder
+    layer's cross K/V, kernel 7 causal and over the audio; the prefill's
+    ``kv_write`` a layer); (c) greedy prefill + decode of phase 5's
+    200-token request (with its frames) against the engine's stream."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api
+    res = results.setdefault("prefill", {}).setdefault(path, {})
+    rng = np.random.default_rng(6)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                        device=DEVICE)
+    batch = {"tokens": toks, "frames": torch.from_numpy(np.stack(
+        audio_frames(cfg, 2, seed=6))).to(DEVICE)}
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    logits, aux = api.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last, cache = api.prefill(cfg, params, batch, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    got = dict(launches)
+    counts[f"{path}-prefill"] = got
+    expect = expected_launches_audio(cfg, params, 2, 2, full_sequence=True)
+    expect["kv_write"] = cfg.n_layers
+    same = torch.equal(logits[:, -1], last)
+    log(f"  (a) forward B=2 S=256 over {cfg.encoder_frames} frames "
+        f"{t_fwd * 1e3:.1f} ms, prefill {t_pre * 1e3:.1f} ms; logits "
+        f"{tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())};"
+        f" last position bitwise = prefill {same}; launches {got} expected "
+        f"{expect}")
+    res["a"] = {"forward_s": t_fwd, "prefill_s": t_pre, "bitwise": same,
+                "launches": got, "expected_launches": expect}
+    need(logits.shape == (2, 256, cfg.vocab_size)
+         and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+         f"{path}: forward logits are not finite of shape (2, 256, V)")
+    need(same, f"{path}: forward's last position is not bitwise prefill's")
+    need(got == expect, f"{path}: forward + prefill launches {got} != "
+         f"{expect}")
+    del logits, cache
+    prompts = workload(cfg)
+    frames = audio_frames(cfg, len(prompts))[-1]
+    stream = greedy_after_prefill(torch, cfg, params, prompts[-1],
+                                  SERVE_NEW_TOKENS, SERVE_MAX_LEN, frames)
+    res["c"] = check_stream(torch, cfg, params, prompts[-1], stream,
+                            engine_stream, PREFILL_TOL, f"{path} (c)",
+                            frames)
+    log(f"  (c) greedy prefill + {SERVE_NEW_TOKENS - 1} decode steps vs the "
+        f"engine's stream (200-token prompt and its frames): {res['c']}")
     torch.cuda.empty_cache()
 
 
@@ -5005,7 +5428,8 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("mixtral-dense", "mixtral-8x22b", "dense"),
           ("qwen1.5-4b-dense", "qwen1.5-4b", "dense"),
           ("qwen3-8b-dense", "qwen3-8b", "dense"),
-          ("gemma-2b-dense", "gemma-2b", "dense"))
+          ("gemma-2b-dense", "gemma-2b", "dense"),
+          ("whisper-dense", "whisper-small", "dense"))
 # config overrides of a model's paths: the MoE paths serve at the dropless
 # capacity factor n_experts / top_k (a chunk then drops nothing, so mixed
 # and sequential steps agree; the published 1.25 stays in the configs and
@@ -5016,7 +5440,8 @@ MODEL_OVERRIDES = {
     "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2)}
 # the paths whose MoE drops at the published factor phase 4 (d) records
 MOE_DROP_PATHS = ("granite-moe-dense",)
-PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense", "gemma-2b-dense")
+PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense", "gemma-2b-dense",
+                 "whisper-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
@@ -5027,7 +5452,10 @@ KV_PATHS = {"strategy2": (
     # kernel 3's int8 paged variant at head dim 256 on a served path
     "gemma-2b-dense": (
     ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
-                        kv_pool_blocks=20, kv_quant="int8")),)}
+                        kv_pool_blocks=20, kv_quant="int8")),),
+    # the audio family's decoder self-attention on the paged pool
+    "whisper-dense": (
+    ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),)}
 # engines served with a model's weights after its cache paths, with their
 # own workload: (path suffix, config overrides, engine arguments)
 ENGINE_PATHS = {
@@ -5132,6 +5560,7 @@ def main() -> int:
             if model in PREFILL_PATHS:
                 log(f"phase 6 [{model}]: {arch}, prefill and forward")
                 check = (check_xlstm_prefill if cfg.family == "ssm" else
+                         check_audio_prefill if cfg.family == "audio" else
                          check_prefill_forward)
                 check(torch, cfg, params, results, model, counts,
                       streams[model][-1])

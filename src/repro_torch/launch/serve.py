@@ -137,6 +137,11 @@ def main(argv=None) -> None:
               kv_pool_blocks=args.kv_pool_blocks)
     cfg = (get_config(args.arch, **kv) if args.full
            else get_smoke_config(args.arch, **kv))
+    if cfg.family == "audio":
+        raise SystemExit(f"{args.arch} serves requests with audio frames: "
+                         "the launcher's audio workload comes in a later "
+                         "slice (serve it through Engine with "
+                         "Request(frames=...))")
     if cfg.family == "ssm" and args.kv_layout == "paged":
         raise SystemExit(f"{args.arch} keeps a recurrent state and no KV "
                          "cache: --kv-layout paged does not apply")

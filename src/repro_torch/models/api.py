@@ -1,5 +1,5 @@
-"""Model API of the port: the dense, moe and ssm (xLSTM) families of
-``repro/models/api.py``.
+"""Model API of the port: the dense, moe, ssm (xLSTM) and audio (Whisper)
+families of ``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
     forward(cfg, params, batch)               -> (logits (B, S, V), aux)
@@ -10,6 +10,7 @@
     insert_request(cfg, cache, row, slot)     -> cache with row at slot
     evict_slot(cfg, cache, slot, max_len)     -> cache with slot reset
     request_cache(cfg, params, batch, max_len, device) -> admission row
+    admit_into(cfg, params, row, batch)       -> row with its audio's K/V
     needs_admission_insert(cfg)               -> reset a slot at admission?
     mixed_step(cfg, params, cache, tokens, lengths, q_lens, page_table=,
                all_logits=)
@@ -20,7 +21,8 @@
     export_cache(cfg, cache)                  -> host copy of every leaf
     load_cache_(cfg, cache, arrays)           -> cache, leaves loaded in place
 
-``batch`` is a dict ``{"tokens": (B, S)}``.  Dense and moe families (the
+``batch`` is a dict ``{"tokens": (B, S)}``, plus ``{"frames": (B, F, d)}``
+for the audio family.  Dense and moe families (the
 moe family swaps each block's MLP for ``models/moe.py``): ``forward`` and
 the slot layout's ``prefill`` run the whole sequence through the
 full-sequence flash attention (``ops.attention``); a prompt longer than
@@ -41,6 +43,13 @@ recurrent state, and the KV options are ignored, as in the reference.
 time (``_mixed_step_scan``), each row advancing only while the position is
 below its ``q_lens``, so the state is bitwise that of sequential decode.
 
+The audio family (``whisper``) keeps a decoder self-attention cache (slot
+or paged) and each request's cross-attention K/V (``"cross"``, a slot axis
+on every layout), which ``request_cache`` encodes once from the request's
+frames and admission copies into the slot.  Its ``mixed_step`` is the scan
+as well, as in the reference; ``prefill`` is the slot layout's whole-prompt
+pass (a paged pool has none, as in the reference).
+
 ``mixed_step`` advances row ``b`` by ``q_lens[b]`` tokens (1 = decoding
 row, up to C = mid-prefill row, 0 = idle) in one call; ``all_logits``
 returns every chunk position's logits, the surface a speculating engine
@@ -56,7 +65,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models import attention, transformer, xlstm_stack
+from repro_torch.models import attention, transformer, whisper, xlstm_stack
 from repro_torch.train.checkpoint import VIEW_DTYPES, dtype_name, tree_paths
 
 Params = dict[str, Any]
@@ -70,22 +79,31 @@ def _ssm(cfg) -> bool:
     return cfg.family == "ssm"
 
 
+def _audio(cfg) -> bool:
+    return cfg.family == "audio"
+
+
 def init_params(cfg, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``."""
     attention.check_supported(cfg)
     if _ssm(cfg):
         return xlstm_stack.init_params(cfg, gen)
+    if _audio(cfg):
+        return whisper.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
 def forward(cfg, params: Params, batch: dict):
-    """tokens (B, S) -> (logits (B, S, V), aux loss: the MoE load-balance
-    loss summed over layers, 0 for the other families)."""
+    """tokens (B, S) (and the audio family's frames (B, F, d)) -> (logits
+    (B, S, V), aux loss: the MoE load-balance loss summed over layers, 0
+    for the other families)."""
     attention.check_supported(cfg)
     if batch.get("vision_embeds") is not None:
         raise NotImplementedError("vision embeddings come with the vlm family")
     if _ssm(cfg):
         return xlstm_stack.forward(cfg, params, batch["tokens"])
+    if _audio(cfg):
+        return whisper.forward(cfg, params, batch["frames"], batch["tokens"])
     return transformer.forward(cfg, params, batch["tokens"])
 
 
@@ -105,8 +123,11 @@ def _bulk_prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):
 
 def prefill(cfg, params: Params, batch: dict, max_len: int):
     """Prefill a fresh cache of ``max_len`` with ``batch["tokens"]`` (B, S):
-    returns (logits (B, V) of the last prompt token, cache)."""
+    returns (logits (B, V) of the last prompt token, cache).  The audio
+    family takes ``batch["frames"]`` too (slot layout only)."""
     tokens = batch["tokens"]
+    if _audio(cfg):
+        return whisper.prefill(cfg, params, batch["frames"], tokens, max_len)
     if has_paged_kv(cfg) or _ssm(cfg):
         return _bulk_prefill(cfg, params, tokens, max_len)
     return transformer.prefill(cfg, params, tokens, max_len)
@@ -115,6 +136,8 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:
     if _ssm(cfg):
         return xlstm_stack.init_cache(cfg, batch, max_len, device)
+    if _audio(cfg):
+        return whisper.init_cache(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device)
 
 
@@ -129,6 +152,8 @@ def cache_slot_axes(cfg) -> Params:
     shared-pool leaf, which has none."""
     if _ssm(cfg):
         return xlstm_stack.cache_slot_axes(cfg)
+    if _audio(cfg):
+        return whisper.cache_slot_axes(cfg)
     return transformer.cache_slot_axes(cfg)
 
 
@@ -164,9 +189,22 @@ def evict_slot(cfg, cache: Params, slot: int, max_len: int) -> Params:
 def request_cache(cfg, params: Params, batch: dict, max_len: int,
                   device="cuda") -> Params:
     """Batch-1 cache a request's chunked admission starts from: a pristine
-    ``init_cache`` row (audio's cross-attention K/V come with that
-    family)."""
+    ``init_cache`` row, plus, for the audio family, the cross-attention K/V
+    encoded once from ``batch["frames"]`` (1, F, d)."""
+    if _audio(cfg):
+        return whisper.request_cache(cfg, params, batch["frames"], max_len,
+                                     device)
     return init_cache(cfg, 1, max_len, device)
+
+
+def admit_into(cfg, params: Params, row: Params, batch: dict) -> Params:
+    """The audio family's admission work, in place: encode
+    ``batch["frames"]`` (B, F, d) and write every decoder layer's cross K/V
+    into ``row`` (a cache of B rows, ``init_cache``'s); nothing else of
+    ``row`` changes."""
+    if not _audio(cfg):
+        raise ValueError(f"family {cfg.family!r} has no frames to admit")
+    return whisper.admit_into(cfg, params, row, batch["frames"])
 
 
 def needs_admission_insert(cfg) -> bool:
@@ -200,11 +238,10 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
         return xlstm_stack.decode_step(cfg, params, cache, tokens,
                                        write_mask=write_mask)
     b = tokens.shape[0]
-    return transformer.decode_step(cfg, params, cache, tokens,
-                                   _rows(lengths, b, tokens.device),
-                                   page_table=_table(page_table,
-                                                     tokens.device),
-                                   write_mask=write_mask)
+    step = whisper.decode_step if _audio(cfg) else transformer.decode_step
+    return step(cfg, params, cache, tokens, _rows(lengths, b, tokens.device),
+                page_table=_table(page_table, tokens.device),
+                write_mask=write_mask)
 
 
 def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
@@ -229,9 +266,9 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
             page_table=page_table, write_mask=active)
         out = torch.where(active[:, None], logits, torch.zeros_like(logits))
         return (out[:, None] if all_logits else out), cache
-    if _ssm(cfg):
+    if _ssm(cfg) or _audio(cfg):
         return _mixed_step_scan(cfg, params, cache, tokens, lengths, q_lens,
-                                all_logits=all_logits)
+                                page_table=page_table, all_logits=all_logits)
     return transformer.mixed_step(cfg, params, cache, tokens, lengths, q_lens,
                                   page_table=page_table,
                                   all_logits=all_logits)
@@ -239,16 +276,18 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
 
 def _mixed_step_scan(cfg, params: Params, cache: Params,
                      tokens: torch.Tensor, lengths: torch.Tensor,
-                     q_lens: torch.Tensor, all_logits: bool = False):
-    """Mixed step of a recurrent family: the chunk's positions one
-    ``decode_step`` at a time, every position of the chunk (C steps, as
-    the reference's scan), row ``b`` advancing only while ``j <
-    q_lens[b]`` (the kernels leave masked rows' state untouched, the
-    reference's per-row select).  Recurrences are order-exact, so the
-    state is bitwise that of feeding the tokens one ``decode_step`` at a
-    time; the logits are each row's at position ``q_lens - 1`` (zeros for
-    an idle row), or with ``all_logits`` every position's (B, C, V), zeros
-    past a row's ``q_lens``."""
+                     q_lens: torch.Tensor, page_table=None,
+                     all_logits: bool = False):
+    """Mixed step of a recurrent family and of the audio family: the
+    chunk's positions one ``decode_step`` at a time, every position of the
+    chunk (C steps, as the reference's scan), row ``b`` advancing only
+    while ``j < q_lens[b]`` (the step's ``write_mask``: the kernels leave
+    masked rows' state and K/V untouched, the reference's per-row select;
+    ``page_table`` routes paged K/V as in every step).  The state is
+    bitwise that of feeding the tokens one ``decode_step`` at a time; the
+    logits are each row's at position ``q_lens - 1`` (zeros for an idle
+    row), or with ``all_logits`` every position's (B, C, V), zeros past a
+    row's ``q_lens``."""
     b, c = tokens.shape
     shape = (b, c, cfg.vocab_size) if all_logits else (b, cfg.vocab_size)
     logits = torch.zeros(shape, dtype=cfg.dtype, device=tokens.device)
@@ -257,7 +296,7 @@ def _mixed_step_scan(cfg, params: Params, cache: Params,
         lg, cache = decode_step(
             cfg, params, cache, tokens[:, j:j + 1],
             lengths + torch.clamp(q_lens, min=1).clamp(max=j + 1),
-            write_mask=active)
+            page_table=page_table, write_mask=active)
         lg = lg.to(cfg.dtype)
         if all_logits:
             logits[:, j] = torch.where(active[:, None], lg,

@@ -2,7 +2,9 @@
 the dense path of ``repro/models/attention.py``).  The full-sequence path
 (``attn_apply``, ``attn_prefill``) runs ``ops.attention``; the serving
 steps (``attn_mixed``, ``attn_decode``) run ``ops.mixed_attention``
-against the cache.
+against the cache.  Whisper's decoder cross-attention (``cross_kv``,
+``cross_attn_apply``) runs ``ops.attention`` without a mask over the
+request's encoder K/V.
 
 The cache is updated IN PLACE, which JAX could not do: in the serving steps
 ``ops.qkv_rope_write`` takes a layer's raw q/k/v projections, adds their
@@ -51,12 +53,16 @@ def check_supported(cfg, device=None) -> None:
     CUDA device (the CPU's plain version takes any).  The ssm family has no
     KV cache and ignores the KV options, as in the reference; a ``moe``
     config with no experts is a dense model, as in the reference."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
-            "only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
+            "audio only)")
     if cfg.family == "ssm":
         return
+    if cfg.family == "audio" and cfg.rope_type != "none":
+        raise NotImplementedError(
+            f"an audio config with rope_type {cfg.rope_type!r} is not ported "
+            "(Whisper's positions are sinusoids added to its inputs)")
     if cfg.kv_quant not in ("none", "int8"):
         raise NotImplementedError(f"kv_quant {cfg.kv_quant!r} is not ported")
     if cfg.rope_type not in ("standard", "none"):
@@ -371,3 +377,34 @@ def attn_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                              window=index.window, page_table=index.page_table,
                              ones=index.attn_q_lens, **_scales(cache))
     return linear(_merge_heads(cfg, o), p["wo"]), cache
+
+
+# -- cross attention (Whisper decoder) ----------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg) -> Params:
+    return attn_init(gen, cfg)
+
+
+def cross_kv(cfg, p: Params, enc_out: torch.Tensor):
+    """Cross-attention K/V (b, hkv, s_enc, hd) of the encoder's output
+    (b, s_enc, d), computed once a request; views of the projections."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = linear(enc_out, p["wk"], p.get("bk"))
+    v = linear(enc_out, p["wv"], p.get("bv"))
+    return (k.reshape(b, s, hkv, hd).transpose(1, 2),
+            v.reshape(b, s, hkv, hd).transpose(1, 2))
+
+
+def cross_attn_apply(cfg, p: Params, x: torch.Tensor,
+                     enc_kv: tuple) -> torch.Tensor:
+    """x (b, s, d) attends, without a mask, to the encoder K/V (b, hkv,
+    s_enc, hd) through ``ops.attention`` (the flash kernel on the card).
+    A layer's K/V sliced from the cache's (layers, b, hkv, s_enc, hd)
+    stack is contiguous, so the kernel reads it in place."""
+    b, s, _ = x.shape
+    hd, hq = cfg.head_dim, cfg.n_heads
+    q = linear(x, p["wq"], p.get("bq")).reshape(b, s, hq, hd).transpose(1, 2)
+    k, v = enc_kv
+    o = ops.attention(q.contiguous(), k, v, causal=False)
+    return linear(_merge_heads(cfg, o), p["wo"])

@@ -1,7 +1,7 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
-Mirrors ``repro/models/config.py`` for the fields the dense, MoE and
-xLSTM (``ssm``) serving paths read, the slot and paged KV layouts and the int8 KV
+Mirrors ``repro/models/config.py`` for the fields the dense, MoE, xLSTM
+(``ssm``) and Whisper (``audio``) serving paths read, the slot and paged KV layouts and the int8 KV
 cache included (the ``ssm`` family has no KV cache and ignores them).  The
 ``family`` field is kept so a configuration can name a family the port does
 not serve yet; the model and engine raise ``NotImplementedError`` for it.
@@ -45,6 +45,10 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
 
     slstm_every: int = 0              # xLSTM: one sLSTM block in N (0: none)
+
+    # Whisper: encoder depth and the audio frames a request brings
+    n_encoder_layers: int = 0
+    encoder_frames: int = 1500
 
     kv_quant: str = "none"            # none | int8 (per-token absmax scale)
     kv_layout: str = "slot"           # slot | paged

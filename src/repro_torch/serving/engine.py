@@ -70,6 +70,19 @@ Port of the core of ``repro/serving/engine.py`` (EdgeLLM §IV-B):
   position at a time (``api.mixed_step``), so ``dispatched_columns``
   counts the token columns each tick dispatched: the chunk bucket of a
   mixed tick, one for a decode tick.
+* **The audio family** (Whisper): a request brings its frames (F, d).
+  Admission runs the ``("admit", F)`` executable (on the card one captured
+  graph: the encoder and every decoder layer's cross K/V, from a static
+  frames input into a static batch-1 row, staged through a pinned buffer
+  like a tick's inputs; its warm-up writes only that row), then the
+  ``("insert", B)`` copy of the row into the slot, so a reused slot never
+  attends the previous request's audio; nothing is read back.  Every
+  request's F is the config's ``encoder_frames``, so there is one admit
+  key, and ``compile_budget`` counts it.  Mixed ticks step the chunk one position at a time, as the
+  xLSTM's; speculation works, prefix sharing falls back (a block's K/V
+  depends on the request's audio).  Durable serving of audio (frames in
+  the snapshot and journal) is a later slice: an audio engine with a
+  ``snapshot_dir`` raises ``NotImplementedError``.
 
 The engine ≡ oracle contract holds: every token stream equals
 ``reference_decode`` (batch-1 sequential decode), because the kernels reduce
@@ -200,6 +213,7 @@ class Request:
     rid: int
     prompt: np.ndarray               # (len,) int32
     max_new_tokens: int = 32
+    frames: np.ndarray | None = None  # (F, d) audio family only
     priority: int = 0                # higher = admitted/kept first
     deadline_s: float | None = None  # seconds after submit; None = none
     # filled by the engine:
@@ -334,6 +348,15 @@ def _insert_executable(cfg):
     return fn
 
 
+def _admit_executable(cfg):
+    # the encoder and every layer's cross K/V written into ``c``, the
+    # engine's static batch-1 row of this frame count (never a live cache)
+    def fn(p, c, frames):
+        api.admit_into(cfg, p, c, {"frames": frames})
+        return ()
+    return fn
+
+
 def _cow_executable(cfg):
     # one function for every copy-on-write: block ids are device tensors
     def fn(p, c, src, dst):
@@ -438,6 +461,11 @@ class Engine:
                 f"max_preemptions must be >= 0, got {max_preemptions}")
         self.device = torch.device(device)
         check_supported(cfg, self.device)
+        if cfg.family == "audio" and snapshot_dir is not None:
+            raise NotImplementedError(
+                "durable serving of the audio family (frames in the snapshot "
+                "and journal, the admit key at restore) comes in a later "
+                "slice of the port: no snapshot_dir for an audio engine")
         self.cfg = cfg
         self.params = params
         self.batch = batch_size
@@ -481,10 +509,17 @@ class Engine:
         self.cache = api.init_cache(cfg, batch_size, max_len, self.device)
         self._slots = [_Slot() for _ in range(batch_size)]
         self.paged = api.has_paged_kv(cfg)
-        # the pristine row an admission copies into its slot
+        # the pristine row an admission copies into its slot; the audio
+        # family's comes from its ("admit", F) executable, into one static
+        # batch-1 row (a paged row's pool is a stub: inserts skip it)
+        self._audio = cfg.family == "audio"
         self._fresh_row = (api.request_cache(cfg, params, {}, max_len,
                                              self.device)
-                           if api.needs_admission_insert(cfg) else None)
+                           if api.needs_admission_insert(cfg)
+                           and not self._audio else None)
+        self._admit_row = (api.init_cache(
+            dataclasses.replace(cfg, kv_pool_blocks=1) if self.paged else cfg,
+            1, max_len, self.device) if self._audio else None)
         if self.paged:
             self.block_size, self.n_pages = paged_geometry(cfg, max_len)
             self.pool_blocks = paged_pool_blocks(cfg, batch_size, max_len)
@@ -564,6 +599,12 @@ class Engine:
     def submit(self, req: Request) -> None:
         if len(req.prompt) == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
+        if self._audio:
+            want = (self.cfg.encoder_frames, self.cfg.d_model)
+            got = None if req.frames is None else np.shape(req.frames)
+            if got != want:
+                raise ValueError(f"request {req.rid}: the audio family takes "
+                                 f"frames of shape {want}, got {got}")
         if req.max_new_tokens < 1:
             raise ValueError(f"request {req.rid}: max_new_tokens must be "
                              f">= 1, got {req.max_new_tokens}")
@@ -780,9 +821,15 @@ class Engine:
                 self.alloc.incref(blk)
                 self._page_table[idx, page] = blk
             self._slot_blocks[idx] = shared
-        if self._fresh_row is not None:
+        row = self._fresh_row
+        if self._audio:
+            row = self._admit_row
+            admit = self._entry("admit", self.cfg.encoder_frames)
+            admit(self.params, row,
+                  frames=np.asarray(req.frames, np.float32)[None])
+        if row is not None:
             insert = self._entry("insert", self.batch)
-            self.cache = insert(self.cache, self._fresh_row, idx)
+            self.cache = insert(self.cache, row, idx)
         self._admit_seq += 1
         req.status = "running"
         self._slots[idx] = _Slot(req=req, seq=self._admit_seq)
@@ -957,8 +1004,9 @@ class Engine:
         """Upper bound on compile-cache misses (captured graphs and the
         insert entry) this engine can cause: n_chunk_buckets (mixed
         widths) + decode + insert, + the ``("cow", 0)`` copy when
-        sharing."""
+        sharing, + the audio family's one ``("admit", F)`` encoder."""
         return (len(self.chunk_buckets.all_buckets()) + 2 +
+                (1 if self._audio else 0) +
                 (1 if self.prefix_sharing else 0))
 
     # -- executables (memoized: misses bounded by compile_budget) -----------
@@ -991,14 +1039,14 @@ class Engine:
 
     def _entry(self, name: str, bucket: int):
         """The memoized entry of any key: ``("mixed", W)``, ``("decode",
-        B)``, ``("insert", B)`` or ``("cow", 0)`` (a restore builds the
-        saved keys through it)."""
+        B)``, ``("insert", B)``, ``("cow", 0)`` or ``("admit", F)`` (a
+        restore builds the saved keys through it)."""
         if name == "insert":
             return self.cache_compiles.get(
                 "insert", bucket, lambda: _insert_executable(self.cfg))
-        if name == "cow":
+        if name in ("cow", "admit"):
             return self.cache_compiles.get(
-                "cow", bucket, lambda: self._build_tick("cow", bucket, None))
+                name, bucket, lambda: self._build_tick(name, bucket, None))
         if name == "decode":
             if bucket != self.batch:
                 raise ValueError(f"decode key ({name!r}, {bucket}) of "
@@ -1021,12 +1069,19 @@ class Engine:
     def _build_tick(self, name: str, bucket: int, width: int | None):
         """On the card the key's function captured as a graph over static
         inputs that write nothing live (a dispatch with every row dead;
-        for ``cow`` the null block copied onto itself); on the CPU the
-        function run eagerly."""
+        for ``cow`` the null block copied onto itself; for ``admit`` zero
+        frames encoded into the static row ``_admit_row``); on the CPU
+        the function run eagerly."""
+        cache = self.cache
         if name == "cow":
             fn = _cow_executable(self.cfg)
             null = np.array([self._null_block], np.int64)
             dead = {"src": null, "dst": null}
+        elif name == "admit":
+            fn = _admit_executable(self.cfg)
+            cache = self._admit_row
+            dead = {"frames": np.zeros((1, bucket, self.cfg.d_model),
+                                       np.float32)}
         else:
             fn = (_decode_executable(self.cfg) if name == "decode" else
                   _mixed_executable_spec(self.cfg) if self.spec_k else
@@ -1039,7 +1094,7 @@ class Engine:
             self._graph_pool = torch.cuda.graph_pool_handle()
         inputs = {k: torch.from_numpy(a).to(self.device)
                   for k, a in dead.items()}
-        tick = _CapturedTick(fn, self.params, self.cache, inputs,
+        tick = _CapturedTick(fn, self.params, cache, inputs,
                              self._graph_pool)
         self.capture_seconds[(name, bucket)] = tick.capture_s
         return tick
@@ -1643,18 +1698,26 @@ class Engine:
 
 def reference_decode(cfg, params: Any, prompt: np.ndarray,
                      max_new_tokens: int, *, max_len: int = 512,
-                     eos_id: int | None = None, device="cuda") -> list[int]:
+                     eos_id: int | None = None,
+                     frames: np.ndarray | None = None,
+                     device="cuda") -> list[int]:
     """Per-request batch-1 greedy decode — the exact numerics oracle.
 
     Teacher-forces the prompt through ``api.decode_step`` one token at a
     time (true positions and lengths), then decodes greedily.  A paged or
     int8 configuration runs through its own batch-1 cache (paged: a pool
-    under the default linear page table).  The engine must match it token
-    for token."""
+    under the default linear page table); the audio family's starts from
+    ``api.request_cache`` of the request's ``frames`` (F, d).  The engine
+    must match it token for token."""
     if len(prompt) > max_len:
         raise ValueError(f"prompt length {len(prompt)} exceeds {max_len}")
     dev = torch.device(device)
-    cache = api.init_cache(cfg, 1, max_len, dev)
+    if cfg.family == "audio":
+        f = torch.from_numpy(np.asarray(frames, np.float32).reshape(
+            1, -1, cfg.d_model)).to(dev)
+        cache = api.request_cache(cfg, params, {"frames": f}, max_len, dev)
+    else:
+        cache = api.init_cache(cfg, 1, max_len, dev)
     logits = None
     n_cached = 0
     for t in np.asarray(prompt).tolist():

@@ -209,8 +209,9 @@ def cfg_from_dict(d: dict) -> ModelConfig:
 
 def _no_frames(rid: int, frames) -> None:
     if frames is not None:
-        raise ValueError(f"request {rid} carries audio frames: the port "
-                         "serves no audio family")
+        raise ValueError(f"request {rid} carries audio frames: durable "
+                         "serving of the audio family comes in a later "
+                         "slice of the port")
 
 
 def _dump_req(req: Request, now: float) -> dict:

@@ -3012,3 +3012,131 @@ def test_gemma_head_dim_256_mixed_equals_sequential_on_card(cuda, kv):
     assert torch.equal(got, want)
     for n in seq:
         assert torch.equal(seq[n], mix[n]), n
+
+
+# -- the audio family (whisper-small) -----------------------------------------
+
+# (B, hq = hkv, Sq, Skv, causal): the encoder's self-attention over 1500
+# frames, the decoder's cross-attention of a decode step over a request's
+# audio, and the decoder's causal self-attention of a 256-token prefill
+WHISPER_FLASH = {"encoder": (1, 12, 1500, 1500, False),
+                 "cross-decode": (4, 12, 1, 1500, False),
+                 "decoder-causal": (2, 12, 256, 256, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WHISPER_FLASH))
+def test_flash_kernel_at_whisper_shapes(cuda, dtype, case):
+    """Kernel 7 at whisper-small's shapes (d 64) against its plain version
+    at the kernel's tiles; the K/V read as layer 1's view of a (layers, B,
+    hkv, S, hd) stack, in place, gives bitwise what a contiguous copy
+    gives."""
+    b, h, sq, skv, causal = WHISPER_FLASH[case]
+    gen = torch.Generator(device="cuda").manual_seed(sq)
+    q = _rand(gen, b, h, sq, 64, dtype=dtype)
+    kv = _rand(gen, 2, 3, b, h, skv, 64, dtype=dtype)
+    k, v = kv[0, 1], kv[1, 1]
+    before = _build.launches["flash_attention"]
+    got = ops.attention(q, k, v, causal=causal)
+    assert _build.launches["flash_attention"] == before + 1
+    _close(got, flash_attention_torch(q, k, v, causal=causal,
+                                      block_q=BLOCK_Q, block_kv=BLOCK_KV),
+           dtype)
+    assert torch.equal(got, ops.attention(q, k.clone(), v.clone(),
+                                          causal=causal))
+    # a row of the batch alone is the row inside it
+    assert torch.equal(got[-1:], ops.attention(q[-1:], k[-1:], v[-1:],
+                                               causal=causal))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+@pytest.mark.parametrize("chunk", [1, 64])
+def test_attention_kernel_at_whisper_heads(cuda, paged, chunk):
+    """bf16 kernel 3 at whisper-small's decoder self-attention (12 query
+    heads over 12 KV heads of 64, rep 1), slot and 16-token pages under a
+    scrambled table, decode and a 64-wide chunk, against its plain
+    version; paged is bitwise the slot kernel at ``block_kv = 16``."""
+    gen = torch.Generator(device="cuda").manual_seed(64 + chunk)
+    b, h, s, page = 4, 12, 448, 16
+    leaves, pool, table = _attention_operands(
+        gen, torch.bfloat16, b, h, s, 64, page, False)
+    q = _rand(gen, b, h, chunk, 64, dtype=torch.bfloat16)
+    lengths = torch.tensor([37, 200, 5, 447], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([1, chunk, min(chunk, 5), max(chunk - 47, 1)],
+                          dtype=torch.int32, device="cuda")
+    cache, kw = (pool, {"page_table": table}) if paged else (leaves, {})
+    name = VARIANTS_NAMES[(paged, False)]
+    before = _build.launches[name]
+    got = _attend(q, cache, lengths, q_lens, **kw)
+    assert _build.launches[name] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, _attend(q, cache, lengths, q_lens, impl="torch", **kw),
+           torch.bfloat16)
+    if paged:
+        assert torch.equal(got, _attend(q, leaves, lengths, q_lens,
+                                        block_kv=page))
+
+
+def test_whisper_sinusoid_table_on_the_card_matches_the_cpus(cuda):
+    """The position table built on the card (CUDA's exp, sin and cos) at
+    1500 x 768 against the CPU's: row p within 1e-6 + 2 p 2^-23, the bound
+    that holds the CPU table to the reference's."""
+    from repro_torch.models import whisper
+    card = whisper.sinusoid_table(1500, 768, "cuda").cpu().double()
+    host = whisper.sinusoid_table(1500, 768, "cpu").double()
+    p = torch.arange(1500, dtype=torch.float64)[:, None]
+    assert bool(((card - host).abs() <= 1e-6 + 2 * p * 2.0 ** -23).all())
+
+
+def _whisper_engine(**over):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine
+    cfg = get_smoke_config("whisper-small", dtype=torch.bfloat16, **over)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    engine = Engine(cfg, params, batch_size=2, max_len=48, chunk_size=16,
+                    audit_every=1, device="cuda")
+    return cfg, params, engine
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_whisper_admit_graph_replay_equals_eager(cuda, layout):
+    """whisper-small-smoke in bf16 served on captured graphs, slots reused:
+    every stream equals ``reference_decode`` with the request's frames; the
+    ``("admit", F)`` graph replayed on the engine's static row equals its
+    function run eagerly on a copy, every leaf bitwise."""
+    from repro_torch.serving.engine import Request, reference_decode
+    over = {} if layout == "slot" else dict(kv_layout="paged",
+                                            kv_block_size=8)
+    cfg, params, engine = _whisper_engine(**over)
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 20))),
+                    max_new_tokens=int(rng.integers(2, 8)),
+                    frames=rng.normal(size=(cfg.encoder_frames,
+                                            cfg.d_model)).astype(np.float32))
+            for i in range(5)]
+    for r in reqs:
+        engine.submit(r)
+    assert len(engine.run()) == len(reqs)
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=48,
+                                            frames=r.frames), r.rid
+    key = ("admit", cfg.encoder_frames)
+    assert key in engine.capture_seconds
+    assert engine.cache_compiles.misses <= engine.compile_budget
+    tick = engine.cache_compiles.get(*key, None)
+    row = engine._admit_row
+    frames = rng.normal(size=(1, cfg.encoder_frames, cfg.d_model)).astype(
+        np.float32)
+    copy = _clone_tree(row)
+    tick.fn(params, copy, frames=torch.from_numpy(frames).cuda())
+    tick(params, row, frames=frames)
+    torch.cuda.synchronize()
+    for a, g in zip(_cache_leaves(copy), _cache_leaves(row)):
+        assert torch.equal(a, g)
+    assert bool(row["cross"]["k"].abs().amax() > 0)

@@ -137,13 +137,28 @@ def test_mixed_step_equals_sequential_decode(models):
 
 @pytest.mark.parametrize("override", [{"family": "hybrid"},
                                       {"rope_type": "mrope"},
-                                      {"family": "audio"}])
+                                      {"family": "vlm"}])
 def test_unported_configs_raise(override):
     cfg = get_smoke_config("qwen-7b", **override)
     with pytest.raises(NotImplementedError, match="later slice|not ported"):
         api.init_cache(cfg, 1, 16, "cpu")
     with pytest.raises(NotImplementedError):
         api.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_vision_embeddings_and_an_audio_config_with_rope_raise():
+    """The vlm family's vision embeddings are refused at ``forward``; an
+    audio config with RoPE (Whisper's positions are sinusoids) at
+    construction."""
+    cfg = get_smoke_config("qwen-7b")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="vlm"):
+        api.forward(cfg, params, {"tokens": tokens,
+                                  "vision_embeds": torch.zeros(1, 2, 64)})
+    audio = get_smoke_config("whisper-small", rope_type="standard")
+    with pytest.raises(NotImplementedError, match="rope_type"):
+        api.init_cache(audio, 1, 16, "cpu")
 
 
 def test_unported_arch_raises():
