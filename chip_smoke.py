@@ -147,8 +147,30 @@ Phases (any failure ends the run with a nonzero exit code):
                  7 without a mask at the encoder's Sq = Skv = 1500 and the
                  cross-attention's decode shape (B=4, Sq=1, Skv=1500), and
                  causal at the decoder's prefill (B=2, S=256), d 64, in
-                 ``FLASH_CASES``;
-  4. model    — whisper-small (the audio family: 12 encoder and 12
+                 ``FLASH_CASES``; zamba2-7b's (``check_hybrid_kernels``,
+                 bf16): kernel 1 at in_proj (3584 -> 14576, a ragged last
+                 column block) and out_proj (7168 -> 3584) at T=4 and 256,
+                 the Mamba2 cell (``mamba_cell``: conv, state update,
+                 readout; B=4, 112 heads of 64 x 64) against its plain
+                 version with an inactive row's window and state kept and
+                 row 2 alone bitwise row 2 of B=4, the gated norm
+                 (``rmsnorm_gated``, 4 x 7168, z a strided view of the
+                 in_proj row) bitwise its chain, each beside its bound,
+                 plain version and library call or yardstick; kernel 3's
+                 slot and paged fp variants at 32 over 32 heads of 112
+                 (rows staged 128 wide) in ``ATTENTION_SHAPES``; kernel 7
+                 at head dim 112 (causal S=2048, ragged S=300; float32
+                 refused) in ``FLASH_CASES``;
+  4. model    — zamba2-7b (the hybrid family: 81 Mamba2 layers, d 3584,
+                 13 shared-block sites of 32 heads of 112, "dense") on the
+                 slot cache and a 20-block pool of 16-token pages
+                 (``zamba2-dense``, ``zamba2-dense-paged``), through
+                 (a)-(c) and phase 5 as every transformer path (every
+                 conv window, SSM state and K/V leaf held bitwise; (c)
+                 with ``rmsnorm_gated`` against its chain), graph replay
+                 vs eager, traced (each hybrid kernel's in-graph ms,
+                 ``hybrid_trace``), prefilled;
+                 whisper-small (the audio family: 12 encoder and 12
                  decoder layers, d 768, 1500 frames, "dense") on the slot
                  cache and a 20-block pool of 16-token pages
                  (``whisper-dense``, ``whisper-dense-paged``), its caches
@@ -175,9 +197,11 @@ Phases (any failure ends the run with a nonzero exit code):
                  through (a)-(c) and phase 5 as every transformer path;
                  qwen-7b at full width and depth, random weights from a
                  seeded generator, quantized "dense" (W4A16), "strategy2"
-                 and "strategy3" (log-scale sparse), chatglm-6b (the
-                 paper's ChatGLM2-6B, "dense"), xlstm-1.3b ("dense", 48
-                 blocks, the path ``xlstm-dense``), qwen-7b with 16-bit
+                 (16 of its 32 layers, ``STRATEGY2_SERVED_LAYERS``) and
+                 "strategy3" (log-scale sparse), chatglm-6b (the
+                 paper's ChatGLM2-6B, "dense"), xlstm-1.3b ("dense", 16
+                 of its 48 blocks, ``XLSTM_SERVED_BLOCKS``, the path
+                 ``xlstm-dense``), qwen-7b with 16-bit
                  weights (``none``) and starcoder2-7b (LayerNorm, the
                  ungated gelu FFN with biases; ``starcoder2-none``,
                  ``starcoder2-dense`` and ``starcoder2-strategy2``, whose
@@ -307,7 +331,12 @@ Phases (any failure ends the run with a nonzero exit code):
                  recurrent steps); in float32, forward's last position
                  within ``XLSTM_PREFILL_TOL`` of prefill's (bf16's gap
                  recorded); greedy prefill + decode equal to the engine's
-                 stream.  On whisper-small (``check_audio_prefill``):
+                 stream.  On zamba2-7b (``check_hybrid_prefill``):
+                 forward at B=2 x S=256 (the chunked SSD and kernel 7 at
+                 head dim 112) with exact launches (the path
+                 ``zamba2-dense-prefill``) against prefill (256 recurrent
+                 steps): the same top token, the bf16 gap recorded;
+                 greedy prefill + decode equal to the engine's stream.  On whisper-small (``check_audio_prefill``):
                  forward and the slot prefill at B=2, S=256 over seeded
                  frames, the last position bitwise, launch counts exact
                  (the encoder and the cross K/V once a call), greedy
@@ -597,6 +626,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_dense_kernels(torch, timer, randn, tol, rows, results))
     line.update(check_moe_kernels(torch, timer, randn, tol, rows))
     check_whisper_kernels(torch, timer, randn, tol, rows)
+    line.update(check_hybrid_kernels(torch, timer, randn, tol, rows))
 
     # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
     # only, hkv=2 (chatglm-6b's rep 16)
@@ -1699,6 +1729,9 @@ ATTENTION_SHAPES = (
          dtypes=("bfloat16",), slot_yardstick=False, in_line=False),
     dict(model="whisper-small", hq=12, hkv=12, hd=64,
          variants=((False, False), (True, False)),
+         dtypes=("bfloat16",), slot_yardstick=False, in_line=False),
+    dict(model="zamba2-7b", hq=32, hkv=32, hd=112,
+         variants=((False, False), (True, False)),
          dtypes=("bfloat16",), slot_yardstick=False, in_line=False))
 
 
@@ -1878,6 +1911,9 @@ FLASH_CASES = {
                                               None),
     "gemma-2b causal S=2048 d=256": (1, 8, 1, 2048, 2048, 256, True, None),
     "gemma-2b ragged S=300 d=256": (1, 8, 1, 300, 300, 256, True, None),
+    "zamba2-7b causal S=2048 d=112": (1, 32, 32, 2048, 2048, 112, True,
+                                      None),
+    "zamba2-7b ragged S=300 d=112": (1, 32, 32, 300, 300, 112, True, None),
 }
 
 
@@ -1888,7 +1924,7 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
     plain and ``scaled_dot_product_attention`` times beside the bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
-        BLOCK_KV, BLOCK_Q, flash_attention_torch)
+        BLOCK_KV, BLOCK_Q, HEAD_DIMS, flash_attention_torch)
     line = {}
     for name, (b, hq, hkv, sq, skv, d, causal, window) in FLASH_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1897,6 +1933,19 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
             k = randn(b, hkv, skv, d, dtype=dtype)
             v = randn(b, hkv, skv, d, dtype=dtype)
             kw = dict(causal=causal, window=window)
+            if d not in HEAD_DIMS[dtype]:
+                # refused before the device (float32 at 112)
+                try:
+                    ops.attention(q, k, v, **kw)
+                    refused = False
+                except ValueError:
+                    refused = True
+                need(refused, f"flash_attention {name} {dname}: a head dim "
+                     "the kernel is not instantiated at was not refused")
+                log(f"  flash_attention {name} {dname}: refused before the "
+                    "device, as its wrapper says")
+                del q, k, v
+                continue
             got = ops.attention(q, k, v, **kw)
             errs = {}
             for what, want in (
@@ -1953,7 +2002,8 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
     # last 300 queries of a 1024-query call (a ragged query tiling) are
     # those queries alone (bf16, d = 128 and 64)
     for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128),
-                     (torch.bfloat16, 64), (torch.bfloat16, 256)):
+                     (torch.bfloat16, 64), (torch.bfloat16, 256),
+                     (torch.bfloat16, 112)):
         q = randn(3, 32, 512, d, dtype=dtype)
         k = randn(3, 4, 512, d, dtype=dtype)
         v = randn(3, 4, 512, d, dtype=dtype)
@@ -1964,7 +2014,7 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
                                                          v)),
              f"flash_attention {dtype} d={d}: the last 64 queries differ "
              "alone")
-    for d in (128, 64, 256):
+    for d in (128, 64, 256, 112):
         q = randn(1, 32, 1024, d)
         k = randn(1, 4, 1024, d)
         v = randn(1, 4, 1024, d)
@@ -1973,9 +2023,9 @@ def check_flash_attention(torch, timer, randn, tol, rows) -> dict:
              f"flash_attention bf16 d={d}: the last 300 of 1024 queries "
              "differ alone")
     log("  flash_attention: a row of B=3 bitwise equal to B=1; the last 64 "
-        "queries bitwise equal alone (bf16 d=128, 64 and 256, f32 d=128); "
-        "the last 300 of 1024 queries bitwise equal alone (bf16 d=128, 64 "
-        "and 256)")
+        "queries bitwise equal alone (bf16 d=128, 64, 256 and 112, f32 "
+        "d=128); the last 300 of 1024 queries bitwise equal alone (bf16 "
+        "d=128, 64, 256 and 112)")
     return line
 
 
@@ -3049,6 +3099,167 @@ def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
     torch.cuda.empty_cache()
 
 
+# zamba2-7b's widths: d_model, d_inner, SSM heads of P with state N, conv
+# taps, in_proj's columns (z | xBC | dt)
+ZAMBA_D, ZAMBA_DI, ZAMBA_H, ZAMBA_P, ZAMBA_N, ZAMBA_K = (3584, 7168, 112, 64,
+                                                         64, 4)
+ZAMBA_PROJ = 2 * ZAMBA_DI + 2 * ZAMBA_N + ZAMBA_H
+
+
+def mamba_inputs(torch, randn, b):
+    """A decode step's operands of the Mamba2 cell at zamba2-7b's widths:
+    the in_proj row, a lived-in window and state, random A_log, D,
+    dt_bias and conv taps."""
+    f32 = torch.float32
+    conv_dim = ZAMBA_DI + 2 * ZAMBA_N
+    return dict(proj=randn(b, ZAMBA_PROJ),
+                window=randn(b, ZAMBA_K - 1, conv_dim),
+                conv_w=(randn(ZAMBA_K, conv_dim, dtype=f32) * 0.3).to(
+                    torch.bfloat16),
+                conv_b=(randn(conv_dim, dtype=f32) * 0.1).to(torch.bfloat16),
+                A_log=randn(ZAMBA_H, dtype=f32) * 0.5,
+                D=randn(ZAMBA_H, dtype=f32) * 0.3 + 1,
+                dt_bias=randn(ZAMBA_H, dtype=f32) * 0.5,
+                state=randn(b, ZAMBA_H, ZAMBA_N, ZAMBA_P, dtype=f32) * 0.5)
+
+
+def mamba_call(ops, inp, impl="auto", active=None, copy=True):
+    """The cell on ``inp`` (copied first unless ``copy`` is False): (y,
+    window, state)."""
+    t = {k: v.clone() for k, v in inp.items()} if copy else inp
+    y = ops.mamba_cell(t["proj"], t["window"], t["conv_w"], t["conv_b"],
+                       t["A_log"], t["D"], t["dt_bias"], t["state"],
+                       n_state=ZAMBA_N, head_dim=ZAMBA_P, active=active,
+                       impl=impl)
+    return y, t["window"], t["state"]
+
+
+def check_hybrid_kernels(torch, timer, randn, tol, rows) -> dict:
+    """The hybrid path's kernels at zamba2-7b's widths, bf16, against their
+    plain versions, each beside its bound, plain version and library call
+    (or yardstick): kernel 1 at in_proj (3584 -> 14576: 113 whole 128-column
+    blocks and a ragged one of 112) and out_proj (7168 -> 3584), T = 4 and
+    256; the Mamba2 cell at B = 4 (y and the state within the bf16
+    tolerance, the shifted window bitwise; an inactive row's window and
+    state untouched; row 2 alone bitwise row 2 of the batch; no PyTorch
+    call computes the step, so its yardstick is the plain chain); the gated
+    norm at 4 x 7168 bitwise the chain (the rmsnorm kernel, ``F.silu``, the
+    product), timed beside ``F.rms_norm`` then ``F.silu`` and the
+    product."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.w4a16_matmul import (
+        w4a16_matmul_cuda, w4a16_matmul_torch)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    line = {}
+
+    def record(row, kernel, plain, library, nbytes, flops, what):
+        row["ms"] = timer.ms(kernel, 20)
+        row["plain_ms"] = timer.ms(plain, 3)
+        row["library_ms"] = (timer.ms(library, 10) if library is not None
+                             else None)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+        rows.append(row)
+        log(f"  zamba2 {what}: max_abs {row['max_abs_err']:.3g} rel "
+            f"{row['max_rel_err']:.3g}  kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms "
+            + (f"library {row['library_ms']:.4f} ms "
+               if row["library_ms"] is not None else "(yardstick: plain) ")
+            + f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+    for d_in, o, name in ((ZAMBA_D, ZAMBA_PROJ, "in_proj"),
+                          (ZAMBA_DI, ZAMBA_D, "out_proj")):
+        w = quantize(randn(d_in, o, dtype=f32) * 0.02)
+        for t in (4, 256):
+            x = randn(t, d_in)
+            err, rel = max_errs(w4a16_matmul_cuda(x, w),
+                                w4a16_matmul_torch(x, w))
+            need(rel <= tol["bfloat16"], f"zamba2 w4a16 {name} T={t}: rel "
+                 f"err {rel:.3g}")
+            row = {"kernel": "w4a16_matmul", "model": "zamba2-7b",
+                   "weight": name, "dtype": "bfloat16", "T": t, "in": d_in,
+                   "out": o, "max_abs_err": err, "max_rel_err": rel}
+            record(row, lambda: w4a16_matmul_cuda(x, w),
+                   lambda: w4a16_matmul_torch(x, w),
+                   lambda: x @ dequantize(w, bf16),
+                   x.numel() * 2 + w.nbytes_model + t * o * 2,
+                   2 * t * d_in * o, f"w4a16_matmul {name} T={t} "
+                   f"{d_in}->{o}")
+        need(torch.equal(w4a16_matmul_cuda(x[:4], w),
+                         w4a16_matmul_cuda(x, w)[:4]),
+             f"zamba2 w4a16 {name}: rows differ between 4 and 256 rows")
+        del w
+    # the Mamba2 cell
+    b = 4
+    inp = mamba_inputs(torch, randn, b)
+    active = torch.tensor([True, True, True, False], device="cuda")
+    y, win, st = mamba_call(ops, inp, active=active)
+    yw, winw, stw = mamba_call(ops, inp, impl="torch", active=active)
+    err, rel = max_errs(y, yw)
+    s_err, s_rel = max_errs(st, stw)
+    need(rel <= tol["bfloat16"] and s_rel <= tol["bfloat16"],
+         f"mamba_cell: y rel {rel:.3g}, state rel {s_rel:.3g} > "
+         f"{tol['bfloat16']}")
+    need(torch.equal(win, winw), "mamba_cell: the shifted window is not "
+         "bitwise its plain version's")
+    need(torch.equal(win[3], inp["window"][3])
+         and torch.equal(st[3], inp["state"][3]),
+         "mamba_cell: an inactive row's window or state changed")
+    one = {k: (v[2:3].contiguous() if k in ("proj", "window", "state")
+               else v) for k, v in inp.items()}
+    y2, win2, st2 = mamba_call(ops, one)
+    need(torch.equal(y2[0], y[2]) and torch.equal(st2[0], st[2])
+         and torch.equal(win2[0], win[2]),
+         "mamba_cell: row 2 alone differs from row 2 of B = 4")
+    conv_dim = ZAMBA_DI + 2 * ZAMBA_N
+    state_bytes = b * ZAMBA_H * ZAMBA_N * ZAMBA_P * 4
+    nbytes = (2 * state_bytes + b * (conv_dim + ZAMBA_H) * 2
+              + 2 * b * (ZAMBA_K - 1) * conv_dim * 2
+              + (ZAMBA_K + 1) * conv_dim * 2 + 3 * ZAMBA_H * 4
+              + b * ZAMBA_DI * 2)
+    # per (row, head, n, p): the update's 2 products and add, C's product
+    # and add; the conv's K products and adds a channel
+    flops = b * ZAMBA_H * ZAMBA_N * ZAMBA_P * 5 + b * conv_dim * 2 * ZAMBA_K
+    row = {"kernel": "mamba_cell", "model": "zamba2-7b", "dtype": "bfloat16",
+           "B": b, "heads": ZAMBA_H, "P": ZAMBA_P, "N": ZAMBA_N,
+           "max_abs_err": err, "max_rel_err": rel, "state_max_abs_err": s_err,
+           "state_max_rel_err": s_rel, "tol_rel": tol["bfloat16"],
+           "inactive_row_untouched": True, "row_alone_bitwise": True}
+    work = {k: v.clone() for k, v in inp.items()}
+    record(row, lambda: mamba_call(ops, work, copy=False),
+           lambda: mamba_call(ops, work, impl="torch", copy=False), None,
+           nbytes, flops, f"mamba_cell B={b} {ZAMBA_H} heads of "
+           f"{ZAMBA_N} x {ZAMBA_P}")
+    line["mamba_cell"] = row
+    del inp, work, one
+    # the gated norm: z is the in_proj row's first d_inner columns
+    proj = randn(b, ZAMBA_PROJ) * 2
+    z = proj[:, :ZAMBA_DI]
+    yv = randn(b, ZAMBA_DI)
+    gamma = (1 + 0.1 * randn(ZAMBA_DI, dtype=f32)).to(bf16)
+    got = ops.rmsnorm_gated(yv, gamma, z)
+    want = ops.rmsnorm_gated(yv, gamma, z, impl="torch")
+    err, rel = max_errs(got, want)
+    need(bitwise(torch, got, want), "rmsnorm_gated is not bitwise the "
+         "rmsnorm kernel, F.silu and the product")
+    need(torch.equal(ops.rmsnorm_gated(yv[2:3], gamma, z[2:3]), got[2:3]),
+         "rmsnorm_gated: row 2 alone differs from row 2 of B = 4")
+    row = {"kernel": "rmsnorm_gated", "model": "zamba2-7b",
+           "dtype": "bfloat16", "rows": b, "d": ZAMBA_DI,
+           "max_abs_err": err, "max_rel_err": rel, "bitwise_chain": True}
+    lib = getattr(F, "rms_norm", None)
+    record(row, lambda: ops.rmsnorm_gated(yv, gamma, z),
+           lambda: ops.rmsnorm_gated(yv, gamma, z, impl="torch"),
+           (lambda: lib(yv, (ZAMBA_DI,), gamma, 1e-6) * F.silu(z))
+           if lib is not None else None,
+           3 * b * ZAMBA_DI * 2 + ZAMBA_DI * 2, 8 * b * ZAMBA_DI,
+           f"rmsnorm_gated {b} x {ZAMBA_DI}")
+    line["rmsnorm_gated"] = row
+    torch.cuda.empty_cache()
+    return line
+
+
 # -- phase 4 and 5: the model and the engine --------------------------------
 
 def build_model(torch, arch, strategy, **overrides):
@@ -3065,6 +3276,18 @@ def build_model(torch, arch, strategy, **overrides):
                  for k, v in params[g].items()
                  if k in ("up_x", "wq", "w_i", "down", "w_gates", "r_gates")}
         shape = f"sLSTM every {cfg.slstm_every}"
+    elif cfg.family == "hybrid":
+        mam, sh = params["mamba_main"]["mamba"], params["shared"]
+        kinds = {f"{g}.{k}": type(v).__name__ for g, grp in (
+            ("mamba", mam), ("attn", sh["attn"]), ("mlp", sh["mlp"]))
+            for k, v in grp.items()
+            if k in ("in_proj", "out_proj", "conv_w", "wq", "wo", "gate",
+                     "down")}
+        shape = (f"d_inner={cfg.d_inner} ({cfg.ssm_heads} SSM heads of "
+                 f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), a shared "
+                 f"block every {cfg.shared_attn_every} layers (of "
+                 f"{cfg.n_shared_blocks}), head dim {cfg.head_dim}, "
+                 f"d_ff={cfg.d_ff}")
     elif cfg.family == "audio":
         dec = params["dec_blocks"]
         kinds = {f"{g}.{k}": type(v).__name__ for g in ("self_attn",
@@ -3130,7 +3353,7 @@ def scrambled_table(torch, cfg, rng, b, max_len):
     order, for a paged cache of ``max_len`` a row."""
     from repro_torch.models import api
     leaves = api.init_cache(cfg, b, max_len, DEVICE)
-    pool = leaves.get("self", leaves)["k"].shape[1] - 1
+    pool = leaves.get("self", leaves.get("kv", leaves))["k"].shape[1] - 1
     del leaves
     pages = -(-max_len // cfg.kv_block_size)
     return torch.tensor(rng.permutation(pool)[:b * pages].reshape(b, pages),
@@ -3243,7 +3466,7 @@ def check_all_logits(torch, cfg, params, results, path):
 
 
 FUSED_OPS = ("add_rmsnorm", "add_layernorm", "qkv_rope_write",
-             "moe_router_route", "combine_add_rmsnorm")
+             "moe_router_route", "combine_add_rmsnorm", "rmsnorm_gated")
 
 
 def chain_router_route(x, router, group, top_k, capacity, q_lens=None):
@@ -3273,7 +3496,8 @@ def plain_glue():
     norm and write are the rmsnorm, layernorm and ``kv_write`` kernels, a
     ``qk_norm`` config's q/k norms the rmsnorm kernel too; an
     MoE layer's router ``dense_matmul`` and route, and its combine, are
-    their kernels); every other op keeps its kernel."""
+    their kernels; the gated norm is the rmsnorm kernel, ``F.silu`` and
+    the product); every other op keeps its kernel."""
     import functools
     from repro_torch.kernels import kv_write as kvw
     from repro_torch.kernels import layernorm as ln
@@ -3281,8 +3505,9 @@ def plain_glue():
     from repro_torch.kernels import rmsnorm as rms
     saved = (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
              ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
-             ops.combine_add_rmsnorm_cuda)
+             ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda)
     ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
+    ops.rmsnorm_gated_cuda = rms.rmsnorm_gated_torch
     ops.add_layernorm_cuda = ln.add_layernorm_torch
     ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
                                                 write=ops.kv_write,
@@ -3294,7 +3519,7 @@ def plain_glue():
     finally:
         (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
          ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
-         ops.combine_add_rmsnorm_cuda) = saved
+         ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda) = saved
 
 
 def check_fused_equals_plain(torch, cfg, params, results, path):
@@ -3697,6 +3922,54 @@ def expected_launches_ssm(cfg, params, steps, full_sequence=False):
     return {k: steps * n for k, n in per.items()}
 
 
+def expected_launches_hybrid(cfg, params, steps, full_sequence=False):
+    """Launches per kernel for ``steps`` decode steps of the hybrid
+    backbone (a mixed tick steps its whole chunk width: the engine's
+    ``dispatched_columns``), read from the weights' leaf types.  A step:
+    per Mamba2 layer in_proj and out_proj by type, ``mamba_cell`` and
+    ``rmsnorm_gated``; per shared-block site q/k/v/o by type, the q/k/v
+    epilogue (``qkv_rope_write``), kernel 3 of the cache's variant, the
+    fused FFN and its down; the norms: the first layer's ``ln`` alone
+    (``rmsnorm``) and every later one with the residual add before it
+    (``add_rmsnorm``, the last add into ``ln_f``); the lm_head.
+    ``full_sequence``: one ``forward`` call instead, where a Mamba2 layer
+    runs the chunked SSD as torch ops (its gated norm still the kernel) and
+    a site kernel 7 with no epilogue."""
+    from repro_torch.kernels.decode_flash import VARIANTS
+    from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
+    from repro_torch.models.transformer import layer_params
+    sites = cfg.n_layers // cfg.shared_attn_every
+    L = cfg.n_layers
+    per = {}
+
+    def add(kernel, n):
+        per[kernel] = per.get(kernel, 0) + n
+    mam = params["mamba_main"]["mamba"]
+    for name in ("in_proj", "out_proj"):
+        add(matmul_kernel(mam[name], name), L)
+    add("rmsnorm_gated", L)
+    attn, mlp = params["shared"]["attn"], params["shared"]["mlp"]
+    for name in ("wq", "wk", "wv", "wo"):
+        add(matmul_kernel(attn[name], name), sites)
+    one = layer_params(mlp, 0)
+    variant = fused_variant(one.get("gate"), one["up"], one["down"],
+                            cfg.activation)
+    key = (variant, cfg.activation in GATED_ACTIVATIONS)
+    need(key in FFN_KERNELS, f"the FFN weights take no CUDA path {key}")
+    add(FFN_KERNELS[key], sites)
+    add(matmul_kernel(mlp["down"], "down"), sites)
+    add("rmsnorm", 1)
+    add("add_rmsnorm", L + 2 * sites)
+    add(matmul_kernel(params["lm_head"], "lm_head"), 1)
+    if full_sequence:
+        add("flash_attention", sites)
+        return {k: steps * n for k, n in per.items()}
+    add("mamba_cell", L)
+    add("qkv_rope_write", sites)
+    add(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")], sites)
+    return {k: steps * n for k, n in per.items()}
+
+
 SERVE_MAX_LEN, SERVE_NEW_TOKENS = 512, 16
 
 
@@ -3795,6 +4068,8 @@ def serve(torch, cfg, params, results, path, slot_streams=None,
                 else max_len)
         expect = (expected_launches_ssm(cfg, params, cols)
                   if cfg.family == "ssm" else
+                  expected_launches_hybrid(cfg, params, cols)
+                  if cfg.family == "hybrid" else
                   expected_launches_audio(cfg, params, cols, len(reqs))
                   if audio else
                   expected_launches(cfg, params, ticks,
@@ -4460,9 +4735,10 @@ def serve_restart(torch, cfg, params, results, path, oracle):
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
                 "starcoder2-dense", "granite-moe-dense", "qwen3-8b-dense",
-                "gemma-2b-dense", "whisper-dense")
+                "gemma-2b-dense", "whisper-dense", "zamba2-dense")
 TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense",
-               "granite-moe-dense", "gemma-2b-dense", "whisper-dense")
+               "granite-moe-dense", "gemma-2b-dense", "whisper-dense",
+               "zamba2-dense")
 # no served transformer tick or admission copies a tensor this large (a
 # tied LM head read through a transposed copy would: 151 MB a tick on
 # granite, 79.7 MB on whisper)
@@ -4670,6 +4946,47 @@ def moe_trace(torch, prof, cfg):
                             for kernel, _ in MOE_KERNELS)}
 
 
+# the hybrid path's kernels as a trace names them: the cell's two passes,
+# the gated norm (``add_rmsnorm_kernel<T, 3>``), kernel 3 at head dim 112
+# (its split kernel) and the W4A16 tile of kernels 1 and 2 (in_proj and
+# out_proj; q, k, v, o, the FFN's gate/up and down); (name, pattern,
+# launches a step per Mamba2 layer, per site)
+HYBRID_KERNELS = (("mamba_cell conv", r"mamba_conv_kernel", 1, 0),
+                  ("mamba_cell state", r"mamba_state_kernel", 1, 0),
+                  ("rmsnorm_gated", r"add_rmsnorm_kernel<[^>]*, 3>\(", 1, 0),
+                  ("mixed_flash_attention d=112",
+                   r"mixed_flash_mma_kernel<112", 0, 1),
+                  ("w4a16_mma", r"w4a16_mma_kernel", 2, 6))
+
+
+def hybrid_trace(torch, prof, cfg, columns):
+    """None outside the hybrid family; else each hybrid kernel's device ms
+    and launches in a profiled window of a tick of ``columns`` decode
+    steps, the launches the tick makes of each and whether the window saw
+    them all (``complete``: the in-graph ms of a window that lost events
+    is an undercount)."""
+    import re
+    if cfg.family != "hybrid":
+        return None
+    sites = cfg.n_layers // cfg.shared_attn_every
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kernel, pattern, _, _ in HYBRID_KERNELS:
+            if re.search(pattern, e.name):
+                ms, n = out.get(kernel, (0.0, 0))
+                out[kernel] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+                break
+    expected = {k: columns * (a * cfg.n_layers + b * sites)
+                for k, _, a, b in HYBRID_KERNELS}
+    expected["w4a16_mma"] += columns       # the lm_head
+    return {"ms": out, "expected": expected,
+            "complete": all(out.get(k, (0.0, 0))[1] >= n
+                            for k, n in expected.items())}
+
+
 # device operations of the glue the fused kernels replaced, by a piece of
 # their kernel names: RoPE's cos, sin and cat, and bf16 adds (the q/k/v
 # bias and residual adds)
@@ -4792,6 +5109,7 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
             # the profiler can lose a replay's events: an in-graph ms
             # summed over fewer launches than the tick made is marked
             moe = moe_trace(torch, prof, engine.cfg)
+            hyb = hybrid_trace(torch, prof, engine.cfg, width or 1)
             glue = glue_census(torch, prof)
             row = {"host_ms": float(np.median(host_ms)),
                    "wall_ms": float(np.median(wall_ms)),
@@ -4806,6 +5124,10 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                     kernel in moe["ms"] for kernel, _ in MOE_KERNELS),
                     f"{path} {key} {mode}: the trace names no launch of "
                     f"{[k for k, _ in MOE_KERNELS if k not in moe['ms']]}")
+            if hyb is not None:
+                row["hybrid_ms"] = hyb["ms"]
+                row["hybrid_expected"] = hyb["expected"]
+                row["hybrid_complete"] = hyb["complete"]
             out[f"{key}-{mode}"] = row
             log(f"  {key} {mode}: host {row['host_ms']:.3f} ms, wall "
                 f"{row['wall_ms']:.3f} ms, device busy "
@@ -4846,6 +5168,12 @@ def trace_ticks(torch, engine, params, results, path, strict=True):
                      f"{n_ops} device operations > {DENSE_DECODE_OPS}")
                 for name, ms, n in top:
                     log(f"    {ms:8.3f} ms {n:6d}x {name}")
+                for kernel, (ms, n) in row.get("hybrid_ms", {}).items():
+                    want = row["hybrid_expected"][kernel]
+                    log(f"    in the graph: {kernel} {ms:.4f} ms over {n} "
+                        f"launches (a tick makes {want})"
+                        + ("" if n >= want else
+                           " (the trace lost some: an undercount)"))
                 for kernel, (ms, n) in row.get("moe_ms", {}).items():
                     log(f"    in the graph: {kernel} {ms:.4f} ms over {n} "
                         f"launches ({row['moe_expected']} layers)"
@@ -5128,7 +5456,8 @@ def check_audio_prefill(torch, cfg, params, results, path, counts,
 
 # forward (the mLSTM's parallel and chunked forms, kernel 8 over the
 # sequence) against prefill (512 recurrent steps): two forms of one function
-# through 48 blocks, relative to the largest |logit|, held in float32.  The
+# through the path's blocks, relative to the largest |logit|, held in
+# float32 (the bound was set through all 48).  The
 # gap grows with depth: the mLSTM readout divides by max(|q . n|, e^-m),
 # which random weights bring near zero, so a rounding apart in one block is
 # amplified by the next.  In bf16 (the served dtype) the two forms part
@@ -5215,6 +5544,83 @@ def check_xlstm_prefill(torch, cfg, params, results, path, counts,
     log(f"  (c) greedy prefill + {SERVE_NEW_TOKENS - 1} decode steps vs the "
         f"engine's stream (200-token prompt): {res['c']}")
     need(stream == engine_stream, f"{path} (c): greedy prefill + decode "
+         f"{stream} != the engine's {engine_stream}")
+    torch.cuda.empty_cache()
+
+
+HYBRID_PREFILL_LEN = 256     # two of the chunked SSD's 128-token chunks
+
+
+def check_hybrid_prefill(torch, cfg, params, results, path, counts,
+                         engine_stream):
+    """Phase 6 on the hybrid: (a) ``forward`` at B=2 x S=256 (the chunked
+    SSD as torch ops over two 128-token chunks, the gated norm kernel,
+    kernel 7 at head dim 112 in the sites), launches exact, and
+    ``prefill`` (256 recurrent steps) with its own launches; forward's
+    last position against prefill's logits in bf16: the same top token
+    for each row, the gap recorded (the two forms round in other places
+    -- taps summed one at a time in bf16 against in f32, the state by
+    chunks against step by step -- and part with depth in bf16 in the
+    reference as in the port, while in float32 they agree to 1e-5:
+    ``tests/test_torch_hybrid.py::test_forms_part_with_depth_in_bf16_in_
+    both_packages``; float32 cannot run here, kernels 3 and 7 refuse it
+    at head dim 112 and the gated norm's 7168-wide f32 row is past its
+    stage); (b) greedy prefill + decode of phase 5's 200-token prompt
+    equal to the engine's stream (the same row-invariant recurrent steps,
+    so bitwise)."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api
+    res = results.setdefault("prefill", {}).setdefault(path, {})
+    rng = np.random.default_rng(6)
+    s = HYBRID_PREFILL_LEN
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, s)),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    logits, aux = api.forward(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_fwd, got_fwd = time.perf_counter() - t0, dict(launches)
+    need(logits.shape == (2, s, cfg.vocab_size)
+         and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+         f"{path}: forward logits are not finite of shape (2, {s}, V)")
+    launches.clear()
+    t0 = time.perf_counter()
+    last, _ = api.prefill(cfg, params, {"tokens": toks}, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    t_pre, got_pre = time.perf_counter() - t0, dict(launches)
+    counts[f"{path}-prefill"] = got_fwd
+    want_fwd = expected_launches_hybrid(cfg, params, 1, full_sequence=True)
+    want_pre = expected_launches_hybrid(cfg, params, toks.shape[1])
+    err, rel = max_errs(logits[:, -1], last)
+    same_top = bool(torch.equal(logits[:, -1].argmax(-1), last.argmax(-1)))
+    log(f"  (a) forward B=2 S={s} {t_fwd * 1e3:.1f} ms, launches {got_fwd} "
+        f"expected {want_fwd}; prefill ({s} recurrent steps) "
+        f"{t_pre * 1e3:.1f} ms, launches {got_pre} expected {want_pre}; "
+        f"bf16 last position vs prefill max_abs {err:.4g} rel {rel:.4g} "
+        f"(recorded: the forms part in bf16), same top token {same_top}")
+    res["a"] = {"forward_s": t_fwd, "prefill_s": t_pre, "bf16_max_abs": err,
+                "bf16_rel": rel, "same_argmax": same_top,
+                "forward_launches": got_fwd,
+                "expected_forward_launches": want_fwd,
+                "prefill_launches": got_pre,
+                "expected_prefill_launches": want_pre}
+    need(got_fwd == want_fwd, f"{path}: forward launches {got_fwd} != "
+         f"{want_fwd}")
+    need(got_pre == want_pre, f"{path}: prefill launches {got_pre} != "
+         f"{want_pre}")
+    need(same_top, f"{path} (a): forward's last position picks another "
+         f"token than prefill's (rel gap {rel:.4g})")
+    del logits, last
+    torch.cuda.empty_cache()
+    prompt = workload(cfg)[-1]
+    stream = greedy_after_prefill(torch, cfg, params, prompt,
+                                  SERVE_NEW_TOKENS, SERVE_MAX_LEN)
+    res["b"] = {"equal": stream == engine_stream}
+    log(f"  (b) greedy prefill + {SERVE_NEW_TOKENS - 1} decode steps vs the "
+        f"engine's stream (200-token prompt): {res['b']}")
+    need(stream == engine_stream, f"{path} (b): greedy prefill + decode "
          f"{stream} != the engine's {engine_stream}")
     torch.cuda.empty_cache()
 
@@ -5413,6 +5819,13 @@ KERNEL_META = {
                             "src/repro/models/layers.py:65 rmsnorm (XLA in "
                             "the reference, no Pallas kernel)",
                             "granite-moe-dense"),
+    "mamba_cell": ("src/repro_torch/kernels/csrc/mamba_cell.cu",
+                   "src/repro/models/ssm.py:152-176 (XLA in the reference, "
+                   "no Pallas kernel)", "zamba2-dense"),
+    "rmsnorm_gated": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/models/ssm.py:79, :177 and "
+                      "src/repro/models/layers.py:65 (XLA in the reference, "
+                      "no Pallas kernel)", "zamba2-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -5429,7 +5842,14 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("qwen1.5-4b-dense", "qwen1.5-4b", "dense"),
           ("qwen3-8b-dense", "qwen3-8b", "dense"),
           ("gemma-2b-dense", "gemma-2b", "dense"),
-          ("whisper-dense", "whisper-small", "dense"))
+          ("whisper-dense", "whisper-small", "dense"),
+          ("zamba2-dense", "zamba2-7b", "dense"))
+# the depth of two earlier weight sets, cut so the hybrid paths fit the
+# script's time (phase 3 still holds their kernels at full width):
+# xlstm-1.3b's blocks, 16 of 48 (2 segments of 7 mLSTM and 1 sLSTM), and
+# qwen-7b's strategy2 layers, 16 of 32, which its nine engine paths serve
+XLSTM_SERVED_BLOCKS = 16
+STRATEGY2_SERVED_LAYERS = 16
 # config overrides of a model's paths: the MoE paths serve at the dropless
 # capacity factor n_experts / top_k (a chunk then drops nothing, so mixed
 # and sequential steps agree; the published 1.25 stays in the configs and
@@ -5437,11 +5857,13 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
 # 141 B parameters are ~70.5 GB at int4 before scales, KV and workspace)
 MODEL_OVERRIDES = {
     "granite-moe-dense": dict(moe_capacity_factor=40 / 8),
-    "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2)}
+    "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2),
+    "xlstm-dense": dict(n_layers=XLSTM_SERVED_BLOCKS),
+    "strategy2": dict(n_layers=STRATEGY2_SERVED_LAYERS)}
 # the paths whose MoE drops at the published factor phase 4 (d) records
 MOE_DROP_PATHS = ("granite-moe-dense",)
 PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense", "gemma-2b-dense",
-                 "whisper-dense")
+                 "whisper-dense", "zamba2-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
@@ -5455,6 +5877,9 @@ KV_PATHS = {"strategy2": (
                         kv_pool_blocks=20, kv_quant="int8")),),
     # the audio family's decoder self-attention on the paged pool
     "whisper-dense": (
+    ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),),
+    # the hybrid family's shared-block sites on the paged pool
+    "zamba2-dense": (
     ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),)}
 # engines served with a model's weights after its cache paths, with their
 # own workload: (path suffix, config overrides, engine arguments)
@@ -5560,6 +5985,7 @@ def main() -> int:
             if model in PREFILL_PATHS:
                 log(f"phase 6 [{model}]: {arch}, prefill and forward")
                 check = (check_xlstm_prefill if cfg.family == "ssm" else
+                         check_hybrid_prefill if cfg.family == "hybrid" else
                          check_audio_prefill if cfg.family == "audio" else
                          check_prefill_forward)
                 check(torch, cfg, params, results, model, counts,

@@ -42,12 +42,13 @@ SPARSE_STRATEGIES: dict[str, dict[str, float]] = {
 }
 STRATEGIES = ("none", *SPARSE_STRATEGIES)
 
-# weight names -> layer kind (dense and xLSTM families).  The xLSTM's gate
-# projections w_i / w_f (one column per head), the sLSTM's block-diagonal
-# recurrent r_gates and every norm and bias stay 16-bit, as in the reference
+# weight names -> layer kind (dense, xLSTM and Mamba2 families).  The
+# xLSTM's gate projections w_i / w_f (one column per head), the sLSTM's
+# block-diagonal recurrent r_gates, Mamba2's conv taps, A_log, D and
+# dt_bias, and every norm and bias stay in their dtype, as in the reference
 _KIND_BY_NAME = {"wq": "qkv", "wk": "qkv", "wv": "qkv", "wo": "o",
                  "gate": "h_to_4h", "up": "h_to_4h", "down": "4h_to_h",
-                 "lm_head": "head",
+                 "lm_head": "head", "in_proj": "other", "out_proj": "other",
                  "up_x": "h_to_4h", "up_z": "h_to_4h", "w_gates": "other"}
 
 

@@ -375,8 +375,8 @@ static_assert(kMfSplit == 2 * kMfStep, "two steps a split");
 // their f32 scales.
 template <int D, bool QUANT>
 struct MfSmem {
-  static constexpr int kQ = kMfRows * D * 2;
-  static constexpr int kKV = kMfSplit * D * 2;
+  static constexpr int kQ = kMfRows * staged_dim(D) * 2;
+  static constexpr int kKV = kMfSplit * staged_dim(D) * 2;
   static constexpr int k8 = QUANT ? kMfSplit * D : 0;
   static constexpr int kSc = QUANT ? kMfSplit * 4 : 0;
   static constexpr int kK = kQ, kV = kQ + kKV, kK8 = kQ + 2 * kKV,
@@ -419,8 +419,9 @@ __device__ __forceinline__ size_t key_row(int p, int s0, int b, int h,
 }
 
 // cp.async keys k0 .. k0 + 63 of a K or V leaf into split rows r0 .. r0 + 63
-// (bf16: swizzled chunks; int8: plain rows of D bytes) and, for int8, their
-// scales; a key outside [lo, hi) is zero-filled and never read.
+// (bf16: swizzled chunks in rows staged_dim(D) wide; int8: plain rows of D
+// bytes) and, for int8, their scales; a key outside [lo, hi) is zero-filled
+// and never read.
 template <int D, bool QUANT, bool PAGED>
 __device__ __forceinline__ void mf_load_step(
     unsigned char* dst, float* sc_dst, const void* __restrict__ src,
@@ -428,6 +429,7 @@ __device__ __forceinline__ void mf_load_step(
     int s0, int b, int h, int hkv, int max_len, int bs, const int* pages) {
   constexpr int kElt = QUANT ? 1 : 2;
   constexpr int RC = D * kElt / 16;      // 16-byte chunks a key
+  constexpr int RS = staged_dim(D) / 8;  // bf16: chunks a staged row
   const unsigned char* base = static_cast<const unsigned char*>(src);
   for (int i = threadIdx.x; i < kMfStep * RC; i += kMfThreads) {
     const int kr = i / RC, c = i % RC, p = k0 + kr, row = r0 + kr;
@@ -440,7 +442,7 @@ __device__ __forceinline__ void mf_load_step(
     if constexpr (QUANT)
       to = dst + row * D + c * 16;
     else
-      to = dst + (row * RC + swz<RC>(row, c)) * 16;
+      to = dst + (row * RS + swz<RS>(row, c)) * 16;
     cp_async16(to, from, ok ? 16 : 0);
   }
   if constexpr (QUANT) {
@@ -460,7 +462,7 @@ __device__ __forceinline__ void mf_load_step(
 template <int D>
 __device__ __forceinline__ void mf_convert_step(__nv_bfloat16* dst,
                                                 const int8_t* src, int r0) {
-  constexpr int R = D / 8, R8 = D / 16;
+  constexpr int R = staged_dim(D) / 8, R8 = D / 16;
   for (int i = threadIdx.x; i < kMfStep * R8; i += kMfThreads) {
     const int row = r0 + i / R8, c = i % R8;
     const uint4 raw = *reinterpret_cast<const uint4*>(src + row * D + c * 16);
@@ -497,7 +499,8 @@ __global__ void __launch_bounds__(kMfThreads)
   using S = MfSmem<D, QUANT>;
   static_assert(S::kBytes + 4 * (2 * kMfWarps + kMfSplit / 8) <= 232448,
                 "a split's staging and the static arrays past the opt-in");
-  constexpr int R = D / 8;     // 16-byte bf16 chunks a row
+  constexpr int R = staged_dim(D) / 8;   // 16-byte chunks a staged row
+  constexpr int RC = D / 8;              // ... of them holding the row
   constexpr int KS = D / 16;   // k16 steps of Q.K^T over d
   constexpr int ND = D / 8;    // n8 fragments of the output
   extern __shared__ __align__(128) unsigned char mf_smem[];
@@ -560,8 +563,8 @@ __global__ void __launch_bounds__(kMfThreads)
   const bool warp_any = wlo < whi;
 
   // group 0: Q and step 0's K; 1: step 0's V; 2, 3: step 1's K, V
-  for (int i = threadIdx.x; i < kMfRows * R; i += kMfThreads) {
-    const int rr = i / R, c = i % R, r = row0 + rr;
+  for (int i = threadIdx.x; i < kMfRows * RC; i += kMfThreads) {
+    const int rr = i / RC, c = i % RC, r = row0 + rr;
     const bool ok = r < rows;
     const __nv_bfloat16* from =
         ok ? q + (((size_t)b * hq + h * rep + r / cs) * chunk + j0 + r % cs) *
@@ -766,7 +769,8 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
                             __nv_bfloat16* __restrict__ out, int hq, int hkv,
                             int chunk, int j0, int cs, int max_len, int span,
                             int n_split, int window) {
-  constexpr int kDpl = D / 32;    // output dims a lane
+  constexpr int kDpl = (D + 31) / 32;    // output dims a lane (the last
+                                         // lanes idle at D = 112)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const int rep = hq / hkv, rows = rep * cs;
@@ -789,7 +793,9 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
       l = fmaf(l, a, ml.y * c);
       const float* pa = part_acc + row * D + lane * kDpl;
 #pragma unroll
-      for (int e = 0; e < kDpl; ++e) acc[e] = fmaf(acc[e], a, pa[e] * c);
+      for (int e = 0; e < kDpl; ++e)
+        if (D % 32 == 0 || lane * kDpl + e < D)
+          acc[e] = fmaf(acc[e], a, pa[e] * c);
       m = m_new;
     }
   }
@@ -798,7 +804,9 @@ __global__ void __launch_bounds__(32 * kFoldWarps)
       out + (((size_t)b * hq + h * rep + r / cs) * chunk + j0 + r % cs) * D +
       lane * kDpl;
 #pragma unroll
-  for (int e = 0; e < kDpl; ++e) orow[e] = __float2bfloat16_rn(acc[e] / denom);
+  for (int e = 0; e < kDpl; ++e)
+    if (D % 32 == 0 || lane * kDpl + e < D)
+      orow[e] = __float2bfloat16_rn(acc[e] / denom);
 }
 
 template <int D, bool QUANT, bool PAGED>
@@ -835,6 +843,8 @@ int dispatch_head_dim_mma(int d, const AttnArgs& a, cudaStream_t s) {
       return launch_mixed_mma<32, QUANT, PAGED>(a, s);
     case 64:
       return launch_mixed_mma<64, QUANT, PAGED>(a, s);
+    case 112:
+      return launch_mixed_mma<112, QUANT, PAGED>(a, s);
     case 128:
       return launch_mixed_mma<128, QUANT, PAGED>(a, s);
     case 256:

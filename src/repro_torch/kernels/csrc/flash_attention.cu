@@ -367,23 +367,25 @@ constexpr bool kFaQInRegs = D <= 128;
 // dim 128 also Q's own 64 rows.
 template <int D>
 constexpr int fa_mma_smem_bytes() {
-  return (2 * 2 * kFaBk + (kFaQInRegs<D> ? 0 : kFaBq)) * D *
+  return (2 * 2 * kFaBk + (kFaQInRegs<D> ? 0 : kFaBq)) * staged_dim(D) *
          (int)sizeof(__nv_bfloat16);
 }
 
 // cp.async rows row0 .. row0 + n_rows - 1 of a row-major (rows, D) bf16
-// operand into a ROWS-row tile of swizzled 16-byte chunks; zeros past
-// n_rows.
+// operand into a ROWS-row tile of swizzled 16-byte chunks, rows
+// staged_dim(D) wide; zeros past n_rows.
 template <int D, int ROWS>
 __device__ __forceinline__ void fa_mma_load(__nv_bfloat16* dst,
                                             const __nv_bfloat16* src,
                                             int row0, int n_rows) {
-  constexpr int R = D / 8;
+  constexpr int R = D / 8;                 // chunks a row holds
+  constexpr int RS = staged_dim(D) / 8;    // chunks a staged row
+  static_assert(ROWS * R % kFmThreads == 0, "whole copies a thread");
   auto load = [&](int j) {
     const int i = threadIdx.x + j * kFmThreads;
     const int r = i / R, c = i % R;
     const bool ok = r < n_rows;
-    cp_async16(dst + (r * R + swz<R>(r, c)) * 8,
+    cp_async16(dst + (r * RS + swz<RS>(r, c)) * 8,
                ok ? src + (size_t)(row0 + r) * D + c * 8 : src, ok ? 16 : 0);
   };
   if constexpr (kFaQInRegs<D>) {
@@ -458,10 +460,10 @@ __global__ void __launch_bounds__(kFmThreads)
                                __nv_bfloat16* __restrict__ out, int hq,
                                int hkv, int sq, int skv, float scale_log2,
                                int causal, int window) {
-  constexpr int R = D / 8;         // 16-byte chunks a row
+  constexpr int R = staged_dim(D) / 8;   // 16-byte chunks a staged row
   constexpr int KS = D / 16;       // k16 steps of Q.K^T over d
   constexpr int ND = D / 8;        // n8 fragments of the output
-  constexpr int kTile = kFaBk * D;
+  constexpr int kTile = kFaBk * staged_dim(D);
   extern __shared__ __align__(16) unsigned char fa_mma_smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(fa_mma_smem);
 
@@ -650,6 +652,9 @@ int dispatch_head_dim_mma(int d, const void* q, const void* k, const void* v,
     case 64:
       return launch_flash_mma<64>(q, k, v, out, batch, hq, hkv, sq, skv,
                                   scale, causal, window, s);
+    case 112:
+      return launch_flash_mma<112>(q, k, v, out, batch, hq, hkv, sq, skv,
+                                   scale, causal, window, s);
     case 128:
       return launch_flash_mma<128>(q, k, v, out, batch, hq, hkv, sq, skv,
                                    scale, causal, window, s);

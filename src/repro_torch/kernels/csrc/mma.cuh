@@ -25,6 +25,17 @@ __device__ __forceinline__ int swz(int r, int c) {
   }
 }
 
+// The width, in values, a bf16 row of D values is staged at in shared
+// memory: D itself where its D / 8 chunks are 2, 4 or whole 8-chunk groups,
+// else the next multiple of 64 (head dim 112: 14 chunks staged in a row of
+// 16).  swz<R> only moves a chunk within its group of 8, so in a 16-chunk
+// row every one of the 14 chunks lands inside the row (8 rows at one
+// logical chunk still hit 8 distinct slots: ldmatrix stays conflict-free);
+// the 2 slots no chunk maps to are never written nor read.
+__host__ __device__ constexpr int staged_dim(int d) {
+  return (d / 8) % 8 == 0 || d / 8 <= 4 ? d : (d + 63) / 64 * 64;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -34,8 +34,16 @@
 // row; then the one f32 add with x and one rounding, so s is bitwise
 // moe_combine followed by add_rmsnorm's add, and the combined output is
 // never written.  The reduction and the output loop are the same code.
-// What bounds it: bytes, one read of x, h (or the k expert rows) and gamma
-// and one write of out (and of s).  At a decode tick's 4 rows it is a
+// rmsnorm_gated is Mamba2's gated norm (src/repro/models/ssm.py:79, :177,
+// XLA in the reference): out = rmsnorm(y) * silu(z), rounded where that
+// chain rounds -- the normed row to y's type (the rmsnorm kernel's value),
+// silu(z) = z / (1 + exp(-z)) in f32 to y's type (as F.silu rounds it), and
+// their f32 product to y's type -- so it is bitwise the rmsnorm kernel
+// followed by F.silu and the product.  z is read in the output loop with
+// 16-byte loads at its own row stride (a view of the in_proj row).  The
+// reduction is the same code as rmsnorm's.
+// What bounds it: bytes, one read of x, h (or the k expert rows, or z) and
+// gamma and one write of out (and of s).  At a decode tick's 4 rows it is a
 // launch's latency.
 #include "common.cuh"
 
@@ -50,18 +58,21 @@ constexpr int kStageBytes = 47 * 1024;
 constexpr int kMaxTopK = 32;
 constexpr int kCombineLoads = 8;     // expert rows a thread keeps in flight
 
-// What is added to x before the norm.
-enum NormAdd : int { kAddNone = 0, kAddH = 1, kAddCombine = 2 };
+// What is added to x before the norm (kGate: nothing; h is the gate z that
+// multiplies the normed row).
+enum NormAdd : int { kAddNone = 0, kAddH = 1, kAddCombine = 2, kGate = 3 };
 
 // sum_out null: s is not written.  kAddCombine: h is y (rows, d), and slot
-// and topw (rows of x, k) say which rows of y the row adds.
+// and topw (rows of x, k) say which rows of y the row adds.  kGate: h is z,
+// row r at h + r * h_stride.
 template <typename T, int ADD>
 __global__ void __launch_bounds__(kNormThreads)
     add_rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ h,
                        const T* __restrict__ gamma, T* __restrict__ sum_out,
                        T* __restrict__ out, int d, float eps,
                        const int* __restrict__ slot,
-                       const float* __restrict__ topw, int k) {
+                       const float* __restrict__ topw, int k,
+                       int h_stride) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* srow = reinterpret_cast<T*>(smem_raw);
@@ -76,6 +87,10 @@ __global__ void __launch_bounds__(kNormThreads)
   uint4* sr = sum_out != nullptr ? reinterpret_cast<uint4*>(sum_out + base)
                                  : nullptr;
   uint4* orow = reinterpret_cast<uint4*>(out + base);
+  const uint4* zr =
+      ADD == kGate
+          ? reinterpret_cast<const uint4*>(h + (size_t)blockIdx.x * h_stride)
+          : nullptr;
   if constexpr (ADD == kAddCombine) {
     if (threadIdx.x < k) {
       s_slot[threadIdx.x] = slot[(size_t)blockIdx.x * k + threadIdx.x];
@@ -149,9 +164,19 @@ __global__ void __launch_bounds__(kNormThreads)
     const T* se = reinterpret_cast<const T*>(&sv);
     const T* ge = reinterpret_cast<const T*>(&gv);
     T* oe = reinterpret_cast<T*>(&ov);
+    if constexpr (ADD == kGate) {
+      const uint4 zv = zr[c];
+      const T* ze = reinterpret_cast<const T*>(&zv);
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      oe[e] = from_f32<T>(to_f32(se[e]) * r * to_f32(ge[e]));
+      for (int e = 0; e < V; ++e)
+        oe[e] = from_f32<T>(__fmul_rn(
+            round_to<T>(to_f32(se[e]) * r * to_f32(ge[e])),
+            round_to<T>(silu(to_f32(ze[e])))));
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        oe[e] = from_f32<T>(to_f32(se[e]) * r * to_f32(ge[e]));
+    }
     orow[c] = ov;
   }
 }
@@ -160,16 +185,17 @@ template <typename T, int ADD>
 int launch(const void* x, const void* h, const void* gamma, void* sum_out,
            void* out, int rows, int d, float eps, cudaStream_t s,
            const int* slot = nullptr, const float* topw = nullptr,
-           int k = 0) {
+           int k = 0, int h_stride = 0) {
   const size_t bytes = 2 * (size_t)d * sizeof(T);
   if (bytes > (size_t)kStageBytes || (d * sizeof(T)) % 16 != 0 ||
       ((uintptr_t)x | (uintptr_t)h | (uintptr_t)gamma | (uintptr_t)sum_out |
-       (uintptr_t)out) % 16 != 0 || k < 0 || k > kMaxTopK)
+       (uintptr_t)out) % 16 != 0 || k < 0 || k > kMaxTopK ||
+      (ADD == kGate && (h_stride < d || (h_stride * sizeof(T)) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   add_rmsnorm_kernel<T, ADD><<<rows, kNormThreads, bytes, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(h),
       static_cast<const T*>(gamma), static_cast<T*>(sum_out),
-      static_cast<T*>(out), d, eps, slot, topw, k);
+      static_cast<T*>(out), d, eps, slot, topw, k, h_stride);
   return (int)cudaGetLastError();
 }
 
@@ -217,4 +243,21 @@ extern "C" int combine_add_rmsnorm_launch(const void* x, const void* y,
                                               rows, d, eps, s, slot, topw, k);
   return launch<float, kAddCombine>(x, y, gamma, sum_out, out, rows, d, eps,
                                     s, slot, topw, k);
+}
+
+// y, gamma, out: (rows, d) / (d,) of the activation type; z: rows of d of
+// that type, row r at z + r * z_stride (z_stride >= d, a multiple of 16
+// bytes).
+extern "C" int rmsnorm_gated_launch(const void* y, const void* gamma,
+                                    const void* z, int z_stride, void* out,
+                                    int rows, int d, float eps, int dtype,
+                                    void* stream) {
+  using namespace repro;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch<__nv_bfloat16, kGate>(y, z, gamma, nullptr, out, rows, d,
+                                        eps, s, nullptr, nullptr, 0,
+                                        z_stride);
+  return launch<float, kGate>(y, z, gamma, nullptr, out, rows, d, eps, s,
+                              nullptr, nullptr, 0, z_stride);
 }

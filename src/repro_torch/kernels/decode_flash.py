@@ -51,11 +51,12 @@ VARIANTS = {(False, False): NAME, (False, True): NAME + "_int8",
             (True, False): NAME + "_paged", (True, True): NAME + "_paged_int8"}
 DEFAULT_BLOCK_KV = 128
 # the head dims the kernels are instantiated at: bfloat16 (the tensor-core
-# kernel) takes 256 too; float32's CUDA-core kernel would stage 266 KB of
-# K/V tiles there, past the 227 KB a block can hold.  Another head dim
-# (zamba2-7b's 112) would leave a 14-chunk row that the 8-row XOR swizzle
-# of csrc/mma.cuh does not tile.
-HEAD_DIMS = {torch.bfloat16: (32, 64, 128, 256), torch.float32: (32, 64, 128)}
+# kernel) takes 112 (zamba2-7b's: its rows staged 128 wide, csrc/mma.cuh's
+# staged_dim) and 256 too; float32's CUDA-core kernel gives each lane D / 32
+# output dims (so not 112) and would stage 266 KB of K/V tiles at 256, past
+# the 227 KB a block can hold.
+HEAD_DIMS = {torch.bfloat16: (32, 64, 112, 128, 256),
+             torch.float32: (32, 64, 128)}
 PAGE_SIZES = range(8, 129)       # the reference's kernel wants >= 8; the tile
 #                                  holds at most 128 keys
 # A split of the key axis: the most whole KV tiles within this many keys (at

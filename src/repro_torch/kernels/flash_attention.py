@@ -28,10 +28,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.w4a16_matmul import DTYPE_CODES, check_activation
 
 NAME = "flash_attention"
-# the kernel's instantiations; another head dim (zamba2-7b's 112) would
-# leave a 14-chunk row that the 8-row XOR swizzle of csrc/mma.cuh does not
-# tile
-HEAD_DIMS = (32, 64, 128, 256)
+# the kernel's instantiations: bfloat16 (the tensor-core kernel) also takes
+# zamba2-7b's 112, its rows staged 128 wide (csrc/mma.cuh's staged_dim);
+# float32's CUDA-core kernel gives each thread D / 16 dims in chunks of 4
+# (so not 112)
+HEAD_DIMS = {torch.bfloat16: (32, 64, 112, 128, 256),
+             torch.float32: (32, 64, 128, 256)}
 # the CUDA kernel's tiles: 64 query rows per block, 64-key K/V tiles
 BLOCK_Q = 64
 BLOCK_KV = 64
@@ -119,8 +121,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: need 4-D q and k, v alike")
     b, hq, sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    if q.dtype in HEAD_DIMS and d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(
+            f"head_dim {d} in {q.dtype}: the kernel takes "
+            + "; ".join(f"{str(t).split('.')[1]} {dims}"
+                        for t, dims in HEAD_DIMS.items()))
     check_activation(q, NAME)
     bk_, hkv, skv, dk = k.shape
     if bk_ != b or dk != d:

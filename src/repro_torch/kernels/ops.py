@@ -37,6 +37,7 @@ from repro_torch.kernels.kv_write import (
     qkv_rope_write_torch)
 from repro_torch.kernels.layernorm import (
     add_layernorm_cuda, add_layernorm_torch, layernorm_cuda, layernorm_torch)
+from repro_torch.kernels.mamba_cell import mamba_cell_cuda, mamba_cell_torch
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.moe_experts import moe_ffn_cuda, moe_ffn_torch
 from repro_torch.kernels.moe_route import (
@@ -44,7 +45,8 @@ from repro_torch.kernels.moe_route import (
     moe_router_route_cuda)
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm_cuda, add_rmsnorm_torch, combine_add_rmsnorm_cuda,
-    combine_add_rmsnorm_torch, rmsnorm)
+    combine_add_rmsnorm_torch, rmsnorm, rmsnorm_gated_cuda,
+    rmsnorm_gated_torch)
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -56,7 +58,7 @@ __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
            "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write",
            "moe_route", "moe_router_route", "moe_ffn_w4a16", "moe_combine",
-           "combine_add_rmsnorm"]
+           "combine_add_rmsnorm", "mamba_cell", "rmsnorm_gated"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -169,6 +171,29 @@ def mlstm_cell(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, *, active=None,
     impl = _resolve(impl, q)
     fn = mlstm_cell_cuda if impl == "cuda" else mlstm_cell_torch
     return fn(xp, q, k, v, w_i, w_f, b_i, b_f, C, n, m, active)
+
+
+def mamba_cell(proj, window, conv_w, conv_b, A_log, D, dt_bias, state, *,
+               n_state: int, head_dim: int, active=None,
+               impl: str = "auto") -> torch.Tensor:
+    """One Mamba2 decode step after ``in_proj``: the causal conv over the
+    window (shifted in place), the SSM state update (in place) and its
+    readout ``y (B, d_inner)`` before the gated norm
+    (``kernels/mamba_cell.py``).  The plain version is the reference's
+    algebra, so ``"ref"`` takes it too."""
+    impl = _resolve(impl, proj)
+    fn = mamba_cell_cuda if impl == "cuda" else mamba_cell_torch
+    return fn(proj, window, conv_w, conv_b, A_log, D, dt_bias, state,
+              n_state=n_state, head_dim=head_dim, active=active)
+
+
+def rmsnorm_gated(y: torch.Tensor, gamma: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-6, *, impl: str = "auto") -> torch.Tensor:
+    """Mamba2's gated norm ``rmsnorm(y) * silu(z)``, rounded as that chain
+    rounds (bitwise it).  One launch on the card."""
+    impl = _resolve(impl, y)
+    fn = rmsnorm_gated_cuda if impl == "cuda" else rmsnorm_gated_torch
+    return fn(y, gamma, z, eps)
 
 
 def add_rmsnorm(x: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,

@@ -13,7 +13,9 @@ rounded to x's dtype, as PyTorch's add rounds it), so its ``n`` is bitwise
 ``rmsnorm(x + h)``.  ``combine_add_rmsnorm`` adds an MoE layer's output
 without its own launch: the k expert rows of each token's route, summed
 with ``moe_combine``'s roundings as they fill the staged row, so its
-``(s, n)`` are bitwise ``moe_combine`` followed by ``add_rmsnorm``.  The
+``(s, n)`` are bitwise ``moe_combine`` followed by ``add_rmsnorm``.  ``rmsnorm_gated`` is
+Mamba2's gated norm (``repro/models/ssm.py:79, :177``), ``rmsnorm(y) *
+silu(z)`` with the chain's three roundings, bitwise that chain.  The
 kernel stages a row and gamma in shared memory with 16-byte copies: the
 wrappers refuse a width above ``STAGE_BYTES`` or off a multiple of 16
 bytes, and operands off a 16-byte boundary.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_route import MAX_TOP_K, moe_combine_torch
@@ -33,12 +36,16 @@ from repro_torch.kernels.w4a16_matmul import (
 NAME = "rmsnorm"
 ADD_NAME = "add_rmsnorm"
 COMBINE_NAME = "combine_add_rmsnorm"
+GATED_NAME = "rmsnorm_gated"
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
              + [ctypes.c_int] + [ctypes.c_void_p])
 _ADD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                  + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
 _COMBINE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                      + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
+_GATED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int]
+                   + [ctypes.c_void_p])
 STAGE_BYTES = 47 * 1024     # a row and gamma in shared memory (rmsnorm.cu)
 
 
@@ -179,3 +186,40 @@ def combine_add_rmsnorm_cuda(x: torch.Tensor, y: torch.Tensor,
         _build.check(NAME, rc)
         _build.launches[COMBINE_NAME] += 1
     return (s.reshape(x.shape) if keep_sum else None), out.reshape(x.shape)
+
+
+def rmsnorm_gated_torch(y: torch.Tensor, gamma: torch.Tensor,
+                        z: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: the chain ``rmsnorm(y) * F.silu(z)`` (the norm by
+    device, on a CUDA tensor the rmsnorm kernel)."""
+    return rmsnorm(y, gamma, eps) * F.silu(z)
+
+
+def rmsnorm_gated_cuda(y: torch.Tensor, gamma: torch.Tensor,
+                       z: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Launch the gated norm of ``csrc/rmsnorm.cu``: ``rmsnorm(y) *
+    silu(z)``.  ``z`` may be a view whose rows are strided (the in_proj
+    row's ``z`` part, read in place); each of its rows must be contiguous
+    and start on a 16-byte boundary."""
+    _check_gamma(y, gamma, GATED_NAME)
+    d = y.shape[-1]
+    if z.shape != y.shape or z.dtype != y.dtype or z.device != y.device:
+        raise ValueError(f"{GATED_NAME}: z {tuple(z.shape)} {z.dtype} must "
+                         f"match y {tuple(y.shape)} {y.dtype}")
+    y2 = y.reshape(-1, d).contiguous()
+    z2 = z.reshape(-1, d)
+    z_stride = z2.stride(0) if z2.shape[0] > 1 else d
+    if z2.stride(-1) != 1 or (z_stride * z.element_size()) % 16:
+        raise ValueError(f"{GATED_NAME}: z's rows must be contiguous and "
+                         "16-byte strided")
+    gamma = gamma.contiguous()
+    out = torch.empty_like(y2)
+    check_aligned(GATED_NAME, y2, z2, gamma)
+    if y2.shape[0]:
+        fn = _build.function(NAME, "rmsnorm_gated_launch", _GATED_ARGTYPES)
+        rc = fn(y2.data_ptr(), gamma.data_ptr(), z2.data_ptr(), z_stride,
+                out.data_ptr(), y2.shape[0], d, eps, DTYPE_CODES[y.dtype],
+                _build.stream_ptr(y.device))
+        _build.check(NAME, rc)
+        _build.launches[GATED_NAME] += 1
+    return out.reshape(y.shape)

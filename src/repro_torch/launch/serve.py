@@ -3,13 +3,15 @@
 ``--full --arch starcoder2-7b --strategy strategy2`` (LayerNorm and the
 ungated gelu FFN with biases), ``--full --arch qwen1.5-4b``, ``qwen3-8b``
 (the per-head q/k norm) or ``gemma-2b`` (head dim 256, GeGLU, a tied
-head), ``--full --arch granite-moe-3b-a800m`` for the MoE family, or
-``--full --arch xlstm-1.3b`` for the xLSTM family.
+head), ``--full --arch granite-moe-3b-a800m`` for the MoE family,
+``--full --arch xlstm-1.3b`` for the xLSTM family, or ``--full --arch
+zamba2-7b`` for the hybrid family (Mamba2 with shared attention blocks).
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none`` (16-bit weights), ``dense``
 W4A16, or the log-scale sparse ``strategy1``-``strategy3`` of paper Table
-II; the xLSTM takes ``none`` and ``dense``), starts the continuous-batching
+II; the xLSTM, MoE and hybrid families take ``none`` and ``dense``),
+starts the continuous-batching
 engine over a slot cache or, with ``--kv-layout paged``, a shared block
 pool (refused for the xLSTM, which has no KV cache), and runs a synthetic
 request workload (prompts of 4–32 tokens from
@@ -145,8 +147,8 @@ def main(argv=None) -> None:
     if cfg.family == "ssm" and args.kv_layout == "paged":
         raise SystemExit(f"{args.arch} keeps a recurrent state and no KV "
                          "cache: --kv-layout paged does not apply")
-    if cfg.family in ("ssm", "moe") and args.strategy not in ("none",
-                                                               "dense"):
+    if (cfg.family in ("ssm", "moe", "hybrid")
+            and args.strategy not in ("none", "dense")):
         raise SystemExit(f"{args.arch} is served with --strategy none or "
                          "dense (the log-scale sparse strategies are ported "
                          "for the dense family only)")

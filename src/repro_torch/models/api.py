@@ -1,5 +1,5 @@
-"""Model API of the port: the dense, moe, ssm (xLSTM) and audio (Whisper)
-families of ``repro/models/api.py``.
+"""Model API of the port: the dense, moe, ssm (xLSTM), hybrid (Zamba2) and
+audio (Whisper) families of ``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
     forward(cfg, params, batch)               -> (logits (B, S, V), aux)
@@ -43,6 +43,12 @@ recurrent state, and the KV options are ignored, as in the reference.
 time (``_mixed_step_scan``), each row advancing only while the position is
 below its ``q_lens``, so the state is bitwise that of sequential decode.
 
+The hybrid family (``zamba``) carries both: every Mamba2 block's conv
+window and SSM state, and each shared-block site's K/V (slot or paged).
+``forward`` runs the chunked SSD scan and the full-sequence flash
+attention; ``prefill`` and ``mixed_step`` take the recurrent family's
+routes (``_bulk_prefill``, ``_mixed_step_scan``), as in the reference.
+
 The audio family (``whisper``) keeps a decoder self-attention cache (slot
 or paged) and each request's cross-attention K/V (``"cross"``, a slot axis
 on every layout), which ``request_cache`` encodes once from the request's
@@ -65,7 +71,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models import attention, transformer, whisper, xlstm_stack
+from repro_torch.models import (
+    attention, transformer, whisper, xlstm_stack, zamba)
 from repro_torch.train.checkpoint import VIEW_DTYPES, dtype_name, tree_paths
 
 Params = dict[str, Any]
@@ -83,6 +90,10 @@ def _audio(cfg) -> bool:
     return cfg.family == "audio"
 
 
+def _hybrid(cfg) -> bool:
+    return cfg.family == "hybrid"
+
+
 def init_params(cfg, gen: torch.Generator) -> Params:
     """Random weights from ``gen`` on ``gen.device``."""
     attention.check_supported(cfg)
@@ -90,6 +101,8 @@ def init_params(cfg, gen: torch.Generator) -> Params:
         return xlstm_stack.init_params(cfg, gen)
     if _audio(cfg):
         return whisper.init_params(cfg, gen)
+    if _hybrid(cfg):
+        return zamba.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
@@ -104,6 +117,8 @@ def forward(cfg, params: Params, batch: dict):
         return xlstm_stack.forward(cfg, params, batch["tokens"])
     if _audio(cfg):
         return whisper.forward(cfg, params, batch["frames"], batch["tokens"])
+    if _hybrid(cfg):
+        return zamba.forward(cfg, params, batch["tokens"])
     return transformer.forward(cfg, params, batch["tokens"])
 
 
@@ -128,7 +143,7 @@ def prefill(cfg, params: Params, batch: dict, max_len: int):
     tokens = batch["tokens"]
     if _audio(cfg):
         return whisper.prefill(cfg, params, batch["frames"], tokens, max_len)
-    if has_paged_kv(cfg) or _ssm(cfg):
+    if has_paged_kv(cfg) or _ssm(cfg) or _hybrid(cfg):
         return _bulk_prefill(cfg, params, tokens, max_len)
     return transformer.prefill(cfg, params, tokens, max_len)
 
@@ -138,6 +153,8 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:
         return xlstm_stack.init_cache(cfg, batch, max_len, device)
     if _audio(cfg):
         return whisper.init_cache(cfg, batch, max_len, device)
+    if _hybrid(cfg):
+        return zamba.init_cache(cfg, batch, max_len, device)
     return transformer.init_cache(cfg, batch, max_len, device)
 
 
@@ -154,6 +171,8 @@ def cache_slot_axes(cfg) -> Params:
         return xlstm_stack.cache_slot_axes(cfg)
     if _audio(cfg):
         return whisper.cache_slot_axes(cfg)
+    if _hybrid(cfg):
+        return zamba.cache_slot_axes(cfg)
     return transformer.cache_slot_axes(cfg)
 
 
@@ -238,7 +257,8 @@ def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
         return xlstm_stack.decode_step(cfg, params, cache, tokens,
                                        write_mask=write_mask)
     b = tokens.shape[0]
-    step = whisper.decode_step if _audio(cfg) else transformer.decode_step
+    step = (whisper.decode_step if _audio(cfg) else
+            zamba.decode_step if _hybrid(cfg) else transformer.decode_step)
     return step(cfg, params, cache, tokens, _rows(lengths, b, tokens.device),
                 page_table=_table(page_table, tokens.device),
                 write_mask=write_mask)
@@ -266,7 +286,7 @@ def mixed_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
             page_table=page_table, write_mask=active)
         out = torch.where(active[:, None], logits, torch.zeros_like(logits))
         return (out[:, None] if all_logits else out), cache
-    if _ssm(cfg) or _audio(cfg):
+    if _ssm(cfg) or _hybrid(cfg) or _audio(cfg):
         return _mixed_step_scan(cfg, params, cache, tokens, lengths, q_lens,
                                 page_table=page_table, all_logits=all_logits)
     return transformer.mixed_step(cfg, params, cache, tokens, lengths, q_lens,
@@ -278,7 +298,7 @@ def _mixed_step_scan(cfg, params: Params, cache: Params,
                      tokens: torch.Tensor, lengths: torch.Tensor,
                      q_lens: torch.Tensor, page_table=None,
                      all_logits: bool = False):
-    """Mixed step of a recurrent family and of the audio family: the
+    """Mixed step of the recurrent families and of the audio family: the
     chunk's positions one ``decode_step`` at a time, every position of the
     chunk (C steps, as the reference's scan), row ``b`` advancing only
     while ``j < q_lens[b]`` (the step's ``write_mask``: the kernels leave

@@ -53,10 +53,10 @@ def check_supported(cfg, device=None) -> None:
     CUDA device (the CPU's plain version takes any).  The ssm family has no
     KV cache and ignores the KV options, as in the reference; a ``moe``
     config with no experts is a dense model, as in the reference."""
-    if cfg.family not in ("dense", "moe", "ssm", "audio"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
-            "audio only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm, "
+            "hybrid and audio only)")
     if cfg.family == "ssm":
         return
     if cfg.family == "audio" and cfg.rope_type != "none":

@@ -1,8 +1,9 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
 Mirrors ``repro/models/config.py`` for the fields the dense, MoE, xLSTM
-(``ssm``) and Whisper (``audio``) serving paths read, the slot and paged KV layouts and the int8 KV
-cache included (the ``ssm`` family has no KV cache and ignores them).  The
+(``ssm``), Zamba2 (``hybrid``) and Whisper (``audio``) serving paths read,
+the slot and paged KV layouts and the int8 KV cache included (the ``ssm``
+family has no KV cache and ignores them).  The
 ``family`` field is kept so a configuration can name a family the port does
 not serve yet; the model and engine raise ``NotImplementedError`` for it.
 """
@@ -44,7 +45,15 @@ class ModelConfig:
     top_k: int = 0
     moe_capacity_factor: float = 1.25
 
+    # SSM: Mamba2 (hybrid) state width, head width, expansion and conv
+    # taps; xLSTM's sLSTM cadence; Zamba2's shared attention blocks
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
     slstm_every: int = 0              # xLSTM: one sLSTM block in N (0: none)
+    shared_attn_every: int = 6        # Zamba2: a shared block every N layers
+    n_shared_blocks: int = 2          # Zamba2: distinct shared blocks
 
     # Whisper: encoder depth and the audio frames a request brings
     n_encoder_layers: int = 0
@@ -70,3 +79,12 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

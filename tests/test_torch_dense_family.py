@@ -27,8 +27,8 @@ against the JAX reference, on the CPU.
   qwen3 step puts the q/k norm inside the epilogue (no ``rmsnorm`` beyond
   layer 0's), a gemma step runs the tied head through ``dense_matmul``.
 * The launcher with ``--arch`` for each config; the CUDA wrappers refusing
-  float32 at head dim 256 in kernel 3 and head dim 112 in kernels 3 and 7,
-  on CPU tensors.
+  float32 at head dim 256 in kernel 3, float32 at 112 and an uninstantiated
+  head dim in kernels 3 and 7, on CPU tensors.
 
     PYTHONPATH=src python -m pytest tests/test_torch_dense_family.py -q
 """
@@ -298,22 +298,27 @@ def test_kernel7_plain_at_head_dim_256_matches_pallas(mode):
 
 def test_cuda_wrappers_refuse_head_dims_their_kernels_lack():
     """Checked before the device: float32 at 256 in kernel 3 (its
-    CUDA-core kernel's tiles would need 266 KB of shared memory), head dim
-    112 in kernels 3 and 7 (a 14-chunk row the XOR swizzle does not
-    tile); bf16 at 256 passes the head-dim check and then meets the
-    device's."""
+    CUDA-core kernel's tiles would need 266 KB of shared memory), float32
+    at 112 in kernels 3 and 7 (their CUDA-core kernels split d by 32 and
+    16 lanes' chunks of 4), and a head dim no kernel is instantiated at
+    (starcoder2-7b-smoke's 36); bf16 at 112 (rows staged 128 wide) and 256
+    pass the head-dim check and then meet the device's."""
     one = torch.ones(2, dtype=torch.int32)
     for dtype, d, match in ((torch.float32, 256, "266 KB"),
                             (torch.float32, 112, "head_dim 112"),
-                            (torch.bfloat16, 112, "head_dim 112"),
+                            (torch.bfloat16, 36, "head_dim 36"),
+                            (torch.bfloat16, 112, "CUDA tensors"),
                             (torch.bfloat16, 256, "CUDA tensors")):
         q = torch.zeros(2, 4, 1, d, dtype=dtype)
         kv = torch.zeros(2, 1, 16, d, dtype=dtype)
         with pytest.raises(ValueError, match=match):
             mixed_flash_attention_cuda(q, kv, kv, one, one)
-    for d, match in ((112, "head_dim 112"), (256, "CUDA tensors")):
-        q = torch.zeros(1, 4, 8, d, dtype=torch.bfloat16)
-        kv = torch.zeros(1, 1, 8, d, dtype=torch.bfloat16)
+    for dtype, d, match in ((torch.float32, 112, "head_dim 112"),
+                            (torch.bfloat16, 36, "head_dim 36"),
+                            (torch.bfloat16, 112, "CUDA tensors"),
+                            (torch.bfloat16, 256, "CUDA tensors")):
+        q = torch.zeros(1, 4, 8, d, dtype=dtype)
+        kv = torch.zeros(1, 1, 8, d, dtype=dtype)
         with pytest.raises(ValueError, match=match):
             flash_attention_cuda(q, kv, kv)
 

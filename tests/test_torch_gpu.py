@@ -1994,7 +1994,7 @@ def test_starcoder2_full_sequence_fused_equals_plain_on_card(cuda, route,
                            want_cache[n].view(torch.uint8)), n
 
 
-@pytest.mark.parametrize("hd", [36, 128])
+@pytest.mark.parametrize("hd", [36, 112, 128])
 @pytest.mark.parametrize("chunk", [1, 16])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
@@ -3140,3 +3140,181 @@ def test_whisper_admit_graph_replay_equals_eager(cuda, layout):
     for a, g in zip(_cache_leaves(copy), _cache_leaves(row)):
         assert torch.equal(a, g)
     assert bool(row["cross"]["k"].abs().amax() > 0)
+
+
+# -- the hybrid family (zamba2-7b): head dim 112, the Mamba2 cell, the gated
+# norm ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged,quant", ATTN_VARIANTS, ids=ATTN_IDS)
+@pytest.mark.parametrize("chunk", [1, 64])
+def test_attention_kernel_at_head_dim_112(cuda, paged, quant, chunk):
+    """bf16 kernel 3 at zamba2-7b's shared attention (32 query heads over
+    32 KV heads of 112, rows staged 128 wide), all four variants, decode
+    and a 64-wide chunk, against its plain version; paged is bitwise the
+    slot kernel at ``block_kv = 16``; each query of the chunk is its own
+    decode and rows 0-1 alone are those rows of the batch."""
+    gen = torch.Generator(device="cuda").manual_seed(112 + chunk + 2 * paged
+                                                     + quant)
+    b, h, s, d, page = 4, 32, 512, 112, 16
+    leaves, pool, table = _attention_operands(gen, torch.bfloat16, b, h, s,
+                                              d, page, quant)
+    q = _rand(gen, b, h, chunk, d, dtype=torch.bfloat16)
+    lengths = torch.tensor([37, 200, 5, 511], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([1, chunk, min(chunk, 5), max(chunk - 47, 1)],
+                          dtype=torch.int32, device="cuda")
+    cache, kw = (pool, {"page_table": table}) if paged else (leaves, {})
+    name = VARIANTS_NAMES[(paged, quant)]
+    before = _build.launches[name]
+    got = _attend(q, cache, lengths, q_lens, **kw)
+    assert _build.launches[name] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, _attend(q, cache, lengths, q_lens, impl="torch", **kw),
+           torch.bfloat16)
+    if paged:
+        assert torch.equal(got, _attend(q, leaves, lengths, q_lens,
+                                        block_kv=page))
+    if chunk == 64:
+        for j in (0, 31, 63):
+            at = torch.tensor([200 - 64 + j + 1], dtype=torch.int32,
+                              device="cuda")
+            one_kw = {"page_table": table[1:2]} if paged else {}
+            one_cache = pool if paged else {n: t[1:2] for n, t in
+                                            leaves.items()}
+            one = _attend(q[1:2, :, j:j + 1].contiguous(), one_cache, at,
+                          torch.ones_like(at), **one_kw)
+            assert torch.equal(got[1, :, j], one[0, :, 0]), j
+    two_kw = {"page_table": table[:2]} if paged else {}
+    two = pool if paged else {n: t[:2] for n, t in leaves.items()}
+    assert torch.equal(_attend(q[:2], two, lengths[:2], q_lens[:2],
+                               **two_kw), got[:2])
+
+
+@pytest.mark.parametrize("sq,skv,b", [(2048, 2048, 1), (300, 300, 1),
+                                      (64, 64, 3)])
+def test_flash_kernel_at_head_dim_112(cuda, sq, skv, b):
+    """bf16 kernel 7 at zamba2-7b's shared attention (32 heads of 112,
+    causal) against its plain version at the kernel's tiles; a row of the
+    batch alone is the row inside it; float32 at 112 is refused."""
+    gen = torch.Generator(device="cuda").manual_seed(sq + b)
+    bf = torch.bfloat16
+    q = _rand(gen, b, 32, sq, 112, dtype=bf)
+    k = _rand(gen, b, 32, skv, 112, dtype=bf)
+    v = _rand(gen, b, 32, skv, 112, dtype=bf)
+    before = _build.launches["flash_attention"]
+    got = ops.attention(q, k, v, causal=True)
+    assert _build.launches["flash_attention"] == before + 1
+    _close(got, flash_attention_torch(q, k, v, causal=True, block_q=BLOCK_Q,
+                                      block_kv=BLOCK_KV), bf)
+    assert torch.equal(got[-1:], ops.attention(q[-1:], k[-1:], v[-1:],
+                                               causal=True))
+    with pytest.raises(ValueError, match="head_dim 112"):
+        ops.attention(q.float(), k.float(), v.float(), causal=True)
+
+
+def _mamba_operands(gen, b, h, p, n, dtype, k=4):
+    di = h * p
+    conv_dim = di + 2 * n
+    return dict(
+        proj=_rand(gen, b, di + conv_dim + h, dtype=dtype),
+        window=_rand(gen, b, k - 1, conv_dim, dtype=dtype),
+        conv_w=(_rand(gen, k, conv_dim) * 0.3).to(dtype),
+        conv_b=(_rand(gen, conv_dim) * 0.1).to(dtype),
+        A_log=_rand(gen, h) * 0.5, D=_rand(gen, h) * 0.3 + 1,
+        dt_bias=_rand(gen, h) * 0.5,
+        state=_rand(gen, b, h, n, p) * 0.5)
+
+
+def _mamba_call(ops_impl, inp, n, p, active=None):
+    t = {k: v.clone() for k, v in inp.items()}
+    y = ops.mamba_cell(t["proj"], t["window"], t["conv_w"], t["conv_b"],
+                       t["A_log"], t["D"], t["dt_bias"], t["state"],
+                       n_state=n, head_dim=p, active=active, impl=ops_impl)
+    return y, t["window"], t["state"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,n", [(112, 64, 64), (8, 32, 16), (3, 4, 5)])
+def test_mamba_cell_kernel_matches_plain(cuda, dtype, h, p, n):
+    """The cell's two passes against its plain version (zamba2-7b's 112
+    heads of 64 x 64, the smoke's 8 of 32 x 16, and a ragged one): y,
+    window and state; an inactive row keeps its window and state bitwise;
+    row 2 alone is bitwise row 2 of B = 4; one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(h + p + n)
+    inp = _mamba_operands(gen, 4, h, p, n, dtype)
+    active = torch.tensor([True, True, True, False], device="cuda")
+    before = _build.launches["mamba_cell"]
+    y, win, st = _mamba_call("cuda", inp, n, p, active)
+    assert _build.launches["mamba_cell"] == before + 1
+    yw, winw, stw = _mamba_call("torch", inp, n, p, active)
+    _close(y, yw, dtype)
+    _close(st, stw, torch.float32 if dtype == torch.float32 else dtype)
+    assert torch.equal(win, winw)        # a shift of the taps: exact
+    assert torch.equal(win[3], inp["window"][3])
+    assert torch.equal(st[3], inp["state"][3])
+    one = {k: (v[2:3].contiguous() if v.dim() and v.shape[0] == 4
+               and k not in ("conv_w",) else v) for k, v in inp.items()}
+    y2, win2, st2 = _mamba_call("cuda", one, n, p)
+    assert torch.equal(y2[0], y[2]) and torch.equal(st2[0], st[2])
+    assert torch.equal(win2[0], win[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4, 7168), (300, 256), (1, 4096)])
+def test_rmsnorm_gated_kernel_is_the_chain_bitwise(cuda, dtype, rows, d):
+    """The gated norm bitwise the chain it stands for (the rmsnorm kernel,
+    ``F.silu`` and the product), z a strided view of an in_proj row;
+    float32 above the 47 KB stage is refused."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + d)
+    y = _rand(gen, rows, d, dtype=dtype)
+    proj = (_rand(gen, rows, 2 * d + 48) * 2).to(dtype)
+    z = proj[:, :d]
+    g = (_rand(gen, d) * 0.2 + 1).to(dtype)
+    if 2 * d * y.element_size() > 47 * 1024:
+        with pytest.raises(ValueError, match="row of"):
+            ops.rmsnorm_gated(y, g, z)
+        return
+    before = _build.launches["rmsnorm_gated"]
+    got = ops.rmsnorm_gated(y, g, z)
+    assert _build.launches["rmsnorm_gated"] == before + 1
+    want = ops.rmsnorm_gated(y, g, z, impl="torch")
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_zamba_engine_matches_oracle_on_card(cuda, dtype, layout):
+    """zamba2-smoke ("dense" W4A16: 5 Mamba2 layers, 2 shared-block sites)
+    on the card: every stream equals ``reference_decode`` with 3 slots
+    reused by 6 requests; every step launches ``mamba_cell`` and
+    ``rmsnorm_gated`` once a Mamba layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    kv = (dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=10)
+          if layout == "paged" else {})
+    cfg = get_smoke_config("zamba2-7b", dtype=dtype, **kv)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
+                    audit_every=1, device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+    for r in reqs:
+        engine.submit(r)
+    _build.launches.clear()
+    assert len(engine.run()) == 6
+    steps = engine.dispatched_columns
+    assert _build.launches["mamba_cell"] == cfg.n_layers * steps
+    assert _build.launches["rmsnorm_gated"] == cfg.n_layers * steps
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda"), r.rid

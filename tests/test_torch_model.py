@@ -135,7 +135,7 @@ def test_mixed_step_equals_sequential_decode(models):
     assert int(ml.argmax()) == int(sl.argmax())
 
 
-@pytest.mark.parametrize("override", [{"family": "hybrid"},
+@pytest.mark.parametrize("override", [{"kv_quant": "fp8"},
                                       {"rope_type": "mrope"},
                                       {"family": "vlm"}])
 def test_unported_configs_raise(override):
@@ -163,7 +163,7 @@ def test_vision_embeddings_and_an_audio_config_with_rope_raise():
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_smoke_config("zamba2-7b")
+        get_smoke_config("qwen2-vl-7b")
 
 
 def test_init_params_from_generator_is_deterministic():

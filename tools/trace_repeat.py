@@ -7,7 +7,8 @@ kernel's in-graph time over the windows that saw every launch:
 
 For each path (full width and depth, random weights from seed 0,
 ``chip_smoke.py`` phase 5's engine and workload; ``PATHS`` names them:
-qwen-7b, xlstm-1.3b and gemma-2b, each "dense"), the decode tick and the
+qwen-7b, xlstm-1.3b, gemma-2b and zamba2-7b, each "dense"), the decode
+tick and the
 widest mixed tick are replayed on the same live inputs ``--repeats``
 times, each replay with the engine's fetch under the profiler as
 ``chip_smoke.trace_ticks`` does, once as it is and once with a spin
@@ -16,7 +17,9 @@ profiler is recording before the tick's first launch; the spin is left
 out of every sum).  Each window gives its device operations, the
 device-to-host copies the profiler saw and, on a transformer path, each
 hand kernel's device ms and launches (``KERNEL_NAMES``) against the
-launches the tick makes (``chip_smoke.expected_launches``).  A window is
+launches the tick makes (``chip_smoke.expected_launches``; on the hybrid
+``chip_smoke.expected_launches_hybrid`` times the tick's columns, the
+Mamba2 cell's two passes and the gated norm counted too).  A window is
 complete when every counted kernel shows all of its launches; the row
 gives the medians of the complete windows' kernel ms and busy ms.
 Beside them, the copies the tick asked for at PyTorch's dispatcher
@@ -35,11 +38,13 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "chiprun_out")
 PATHS = {"dense": ("qwen-7b", "dense"), "xlstm-dense": ("xlstm-1.3b", "dense"),
-         "gemma-2b-dense": ("gemma-2b", "dense")}
+         "gemma-2b-dense": ("gemma-2b", "dense"),
+         "zamba2-dense": ("zamba2-7b", "dense")}
 # a hand kernel's launch counter (``chip_smoke.expected_launches``) by a
 # pattern of its traced name; the W4A16 tile's last template argument is
 # its epilogue (0 and 4, the bias: kernel 1; 1 swiglu, 2 geglu: kernel 2's
-# gate/up), the norm's its residual add (0: ``rmsnorm``, 1: ``add_rmsnorm``)
+# gate/up), the norm's its residual add (0: ``rmsnorm``, 1: ``add_rmsnorm``,
+# 3: ``rmsnorm_gated``); the Mamba2 cell's two passes
 KERNEL_NAMES = (
     ("w4a16_matmul", r"w4a16_mma_kernel<.*, [04]>\("),
     ("ffn_fused_w4a16", r"w4a16_mma_kernel<.*, [12]>\("),
@@ -48,6 +53,9 @@ KERNEL_NAMES = (
     ("attention fold", r"mixed_flash_fold_kernel<"),
     ("add_rmsnorm", r"add_rmsnorm_kernel<[^>]*, 1>\("),
     ("rmsnorm", r"add_rmsnorm_kernel<[^>]*, 0>\("),
+    ("rmsnorm_gated", r"add_rmsnorm_kernel<[^>]*, 3>\("),
+    ("mamba_cell conv", r"mamba_conv_kernel<"),
+    ("mamba_cell state", r"mamba_state_kernel<"),
     ("qkv_rope_write", r"qkv_rope_write_kernel<"))
 
 
@@ -77,14 +85,20 @@ def busy_ms(events) -> float:
     return busy / 1e3
 
 
-def expected_per_tick(cs, cfg, params) -> dict | None:
-    """Launches a tick makes of each ``KERNEL_NAMES`` kernel (the
-    attention's variant under its plain name, its fold once a launch);
-    None on the xLSTM stack."""
+def expected_per_tick(cs, cfg, params, columns) -> dict | None:
+    """Launches a tick of ``columns`` token columns makes of each
+    ``KERNEL_NAMES`` kernel (the attention's variant under its plain
+    name, its fold once a launch; the hybrid's mixed tick steps each of
+    its columns); None on the xLSTM stack."""
     from repro_torch.kernels.decode_flash import VARIANTS
     if cfg.family == "ssm":
         return None
-    per = dict(cs.expected_launches(cfg, params, 1))
+    if cfg.family == "hybrid":
+        per = dict(cs.expected_launches_hybrid(cfg, params, columns))
+        cell = per.pop("mamba_cell")
+        per["mamba_cell conv"] = per["mamba_cell state"] = cell
+    else:
+        per = dict(cs.expected_launches(cfg, params, 1))
     for name in VARIANTS.values():
         if name in per:
             per["attention"] = per.pop(name)
@@ -121,12 +135,12 @@ def main() -> int:
             engine.submit(Request(rid=i, prompt=p.astype(np.int32),
                                   max_new_tokens=cs.SERVE_NEW_TOKENS))
         engine.run()
-        expected = expected_per_tick(cs, cfg, params)
         rng = np.random.default_rng(10)
         keys = cs.tick_keys(engine)
         mixed = [k for k in keys if k[0] == "mixed"]
         for name, width in [k for k in keys if k[0] == "decode"] + mixed[-1:]:
             tick = engine._executable(name, width)
+            expected = expected_per_tick(cs, cfg, params, width or 1)
             host = cs.live_inputs(engine, name, width or engine.batch, rng)
             served = lambda: engine._fetch(  # noqa: E731
                 *tick(params, engine.cache, **host), False)
