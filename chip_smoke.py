@@ -155,8 +155,12 @@ Phases (any failure ends the run with a nonzero exit code):
                  version with an inactive row's window and state kept and
                  row 2 alone bitwise row 2 of B=4, the gated norm
                  (``rmsnorm_gated``, 4 x 7168, z a strided view of the
-                 in_proj row) bitwise its chain, each beside its bound,
-                 plain version and library call or yardstick; kernel 3's
+                 in_proj row) bitwise its chain, the fused step the
+                 served path takes (``mamba_cell_gated``: both in one
+                 launch, B=4) bitwise the two kernels it replaced (the
+                 gated row, window and state; an inactive row, row 2
+                 alone), each beside its bound, plain version and library
+                 call or yardstick (the fused step's: the pair); kernel 3's
                  slot and paged fp variants at 32 over 32 heads of 112
                  (rows staged 128 wide) in ``ATTENTION_SHAPES``; kernel 7
                  at head dim 112 (causal S=2048, ragged S=300; float32
@@ -167,7 +171,8 @@ Phases (any failure ends the run with a nonzero exit code):
                  (``zamba2-dense``, ``zamba2-dense-paged``), through
                  (a)-(c) and phase 5 as every transformer path (every
                  conv window, SSM state and K/V leaf held bitwise; (c)
-                 with ``rmsnorm_gated`` against its chain), graph replay
+                 with ``mamba_cell_gated`` against its chain, the cell
+                 kernel then ``rmsnorm_gated``'s), graph replay
                  vs eager, traced (each hybrid kernel's in-graph ms,
                  ``hybrid_trace``), prefilled;
                  whisper-small (the audio family: 12 encoder and 12
@@ -3256,8 +3261,105 @@ def check_hybrid_kernels(torch, timer, randn, tol, rows) -> dict:
            3 * b * ZAMBA_DI * 2 + ZAMBA_DI * 2, 8 * b * ZAMBA_DI,
            f"rmsnorm_gated {b} x {ZAMBA_DI}")
     line["rmsnorm_gated"] = row
+    del proj, z, yv
+    line["mamba_cell_gated"] = check_mamba_cell_gated(torch, timer, randn,
+                                                      tol, record)
     torch.cuda.empty_cache()
     return line
+
+
+def gated_call(ops, inp, gamma, impl="auto", active=None, copy=True,
+               chain=False):
+    """The fused step on ``inp`` (copied first unless ``copy`` is False),
+    or (``chain``) the two kernels it replaced, ``mamba_cell`` then
+    ``rmsnorm_gated``: (gated row, window, state)."""
+    t = {k: v.clone() for k, v in inp.items()} if copy else inp
+    args = (t["proj"], t["window"], t["conv_w"], t["conv_b"], t["A_log"],
+            t["D"], t["dt_bias"], t["state"], gamma)
+    kw = dict(n_state=ZAMBA_N, head_dim=ZAMBA_P, active=active)
+    out = (chain_mamba_cell_gated(*args, **kw) if chain else
+           ops.mamba_cell_gated(*args, impl=impl, **kw))
+    return out, t["window"], t["state"]
+
+
+def check_mamba_cell_gated(torch, timer, randn, tol, record) -> dict:
+    """The served Mamba2 step (``mamba_cell_gated``: the cell and the gated
+    norm in one launch) at zamba2-7b's widths, B = 4, bf16, with an
+    inactive row (its window and state untouched) and without: against its
+    plain version on the same inputs (the cell's plain chain, then the
+    rmsnorm kernel, ``F.silu`` and the product), the gated row and the
+    state within the bf16 tolerance, the shifted window bitwise; and
+    bitwise the two kernels it replaced (the gated row, the window, the
+    state); row 2 alone bitwise row 2 of the batch; one launch a call.
+    Timed beside that plain version and the pair it replaced (``pair_ms``,
+    the yardstick; no PyTorch call computes the step)."""
+    from repro_torch.kernels import _build, ops
+    bf16, f32 = torch.bfloat16, torch.float32
+    b = 4
+    inp = mamba_inputs(torch, randn, b)
+    gamma = (1 + 0.1 * randn(ZAMBA_DI, dtype=f32)).to(bf16)
+    err = rel = s_err = s_rel = 0.0
+    for active in (torch.tensor([True, True, True, False], device="cuda"),
+                   None):
+        n0 = _build.launches["mamba_cell_gated"]
+        got, win, st = gated_call(ops, inp, gamma, active=active)
+        need(_build.launches["mamba_cell_gated"] == n0 + 1,
+             "mamba_cell_gated: not one launch a call")
+        plain, winp, stp = gated_call(ops, inp, gamma, impl="torch",
+                                      active=active)
+        e, r = max_errs(got, plain)
+        se, sr = max_errs(st, stp)
+        need(r <= tol["bfloat16"] and sr <= tol["bfloat16"],
+             f"mamba_cell_gated: gated row rel {r:.3g}, state rel {sr:.3g} "
+             f"> {tol['bfloat16']} against its plain version (active "
+             f"{active is not None})")
+        need(torch.equal(win, winp), "mamba_cell_gated: the shifted window "
+             "is not bitwise its plain version's")
+        err, rel = max(err, e), max(rel, r)
+        s_err, s_rel = max(s_err, se), max(s_rel, sr)
+        want, winw, stw = gated_call(ops, inp, gamma, active=active,
+                                     chain=True)
+        need(bitwise(torch, got, want) and bitwise(torch, win, winw)
+             and bitwise(torch, st, stw),
+             "mamba_cell_gated is not bitwise mamba_cell then rmsnorm_gated "
+             f"(active {active is not None})")
+        need(active is None or (torch.equal(win[3], inp["window"][3])
+                                and torch.equal(st[3], inp["state"][3])),
+             "mamba_cell_gated: an inactive row's window or state changed")
+    one = {k: (v[2:3].contiguous() if k in ("proj", "window", "state")
+               else v) for k, v in inp.items()}
+    got2, win2, st2 = gated_call(ops, one, gamma)
+    need(torch.equal(got2[0], got[2]) and torch.equal(st2[0], st[2])
+         and torch.equal(win2[0], win[2]),
+         "mamba_cell_gated: row 2 alone differs from row 2 of B = 4")
+    conv_dim = ZAMBA_DI + 2 * ZAMBA_N
+    state_bytes = b * ZAMBA_H * ZAMBA_N * ZAMBA_P * 4
+    # the state read and written, the in_proj row (z, xBC, dt) read, the
+    # window read and written, the weights (conv taps and bias, A_log, D,
+    # dt_bias, gamma) read, the gated row written
+    nbytes = (2 * state_bytes + b * ZAMBA_PROJ * 2
+              + 2 * b * (ZAMBA_K - 1) * conv_dim * 2
+              + (ZAMBA_K + 1) * conv_dim * 2 + 3 * ZAMBA_H * 4
+              + ZAMBA_DI * 2 + b * ZAMBA_DI * 2)
+    flops = (b * ZAMBA_H * ZAMBA_N * ZAMBA_P * 5
+             + b * conv_dim * 2 * ZAMBA_K + 8 * b * ZAMBA_DI)
+    row = {"kernel": "mamba_cell_gated", "model": "zamba2-7b",
+           "dtype": "bfloat16", "B": b, "heads": ZAMBA_H, "P": ZAMBA_P,
+           "N": ZAMBA_N, "d": ZAMBA_DI, "max_abs_err": err,
+           "max_rel_err": rel, "state_max_abs_err": s_err,
+           "state_max_rel_err": s_rel, "tol_rel": tol["bfloat16"],
+           "window_bitwise_plain": True, "bitwise_pair": True,
+           "inactive_row_untouched": True, "row_alone_bitwise": True}
+    work = {k: v.clone() for k, v in inp.items()}
+    row["pair_ms"] = timer.ms(
+        lambda: gated_call(ops, work, gamma, copy=False, chain=True), 20)
+    record(row, lambda: gated_call(ops, work, gamma, copy=False),
+           lambda: gated_call(ops, work, gamma, impl="torch", copy=False),
+           None, nbytes, flops, f"mamba_cell_gated B={b} {ZAMBA_H} heads "
+           f"of {ZAMBA_N} x {ZAMBA_P}, one launch")
+    log(f"    the pair it replaced (mamba_cell, rmsnorm_gated): "
+        f"{row['pair_ms']:.4f} ms")
+    return row
 
 
 # -- phase 4 and 5: the model and the engine --------------------------------
@@ -3466,7 +3568,8 @@ def check_all_logits(torch, cfg, params, results, path):
 
 
 FUSED_OPS = ("add_rmsnorm", "add_layernorm", "qkv_rope_write",
-             "moe_router_route", "combine_add_rmsnorm", "rmsnorm_gated")
+             "moe_router_route", "combine_add_rmsnorm", "rmsnorm_gated",
+             "mamba_cell_gated")
 
 
 def chain_router_route(x, router, group, top_k, capacity, q_lens=None):
@@ -3476,6 +3579,19 @@ def chain_router_route(x, router, group, top_k, capacity, q_lens=None):
     from repro_torch.kernels.moe_route import moe_route_cuda
     logits = ops.dense_matmul(x, router)
     return logits, moe_route_cuda(logits, group, top_k, capacity, q_lens)
+
+
+def chain_mamba_cell_gated(proj, window, conv_w, conv_b, A_log, D, dt_bias,
+                           state, gamma, *, n_state, head_dim, active=None,
+                           eps=1e-6):
+    """The chain ``mamba_cell_gated`` replaced, on the card: the cell
+    kernel, then ``ops.rmsnorm_gated`` (its kernel; inside ``plain_glue``
+    its chain: the rmsnorm kernel, ``F.silu``, the product)."""
+    from repro_torch.kernels import ops
+    y = ops.mamba_cell(proj, window, conv_w, conv_b, A_log, D, dt_bias,
+                       state, n_state=n_state, head_dim=head_dim,
+                       active=active)
+    return ops.rmsnorm_gated(y, gamma, proj[:, :y.shape[1]], eps)
 
 
 def chain_combine_add_rmsnorm(x, y, slot, topw, gamma, eps=1e-6,
@@ -3497,7 +3613,8 @@ def plain_glue():
     ``qk_norm`` config's q/k norms the rmsnorm kernel too; an
     MoE layer's router ``dense_matmul`` and route, and its combine, are
     their kernels; the gated norm is the rmsnorm kernel, ``F.silu`` and
-    the product); every other op keeps its kernel."""
+    the product; the fused Mamba2 step is the cell kernel and that gated
+    chain); every other op keeps its kernel."""
     import functools
     from repro_torch.kernels import kv_write as kvw
     from repro_torch.kernels import layernorm as ln
@@ -3505,9 +3622,11 @@ def plain_glue():
     from repro_torch.kernels import rmsnorm as rms
     saved = (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
              ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
-             ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda)
+             ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda,
+             ops.mamba_cell_gated_cuda)
     ops.add_rmsnorm_cuda = rms.add_rmsnorm_torch
     ops.rmsnorm_gated_cuda = rms.rmsnorm_gated_torch
+    ops.mamba_cell_gated_cuda = chain_mamba_cell_gated
     ops.add_layernorm_cuda = ln.add_layernorm_torch
     ops.qkv_rope_write_cuda = functools.partial(kvw.qkv_rope_write_torch,
                                                 write=ops.kv_write,
@@ -3519,7 +3638,8 @@ def plain_glue():
     finally:
         (ops.add_rmsnorm_cuda, ops.add_layernorm_cuda,
          ops.qkv_rope_write_cuda, ops.moe_router_route_cuda,
-         ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda) = saved
+         ops.combine_add_rmsnorm_cuda, ops.rmsnorm_gated_cuda,
+         ops.mamba_cell_gated_cuda) = saved
 
 
 def check_fused_equals_plain(torch, cfg, params, results, path):
@@ -3926,15 +4046,16 @@ def expected_launches_hybrid(cfg, params, steps, full_sequence=False):
     """Launches per kernel for ``steps`` decode steps of the hybrid
     backbone (a mixed tick steps its whole chunk width: the engine's
     ``dispatched_columns``), read from the weights' leaf types.  A step:
-    per Mamba2 layer in_proj and out_proj by type, ``mamba_cell`` and
-    ``rmsnorm_gated``; per shared-block site q/k/v/o by type, the q/k/v
-    epilogue (``qkv_rope_write``), kernel 3 of the cache's variant, the
-    fused FFN and its down; the norms: the first layer's ``ln`` alone
-    (``rmsnorm``) and every later one with the residual add before it
-    (``add_rmsnorm``, the last add into ``ln_f``); the lm_head.
+    per Mamba2 layer in_proj and out_proj by type and
+    ``mamba_cell_gated`` (the cell and the gated norm); per shared-block
+    site q/k/v/o by type, the q/k/v epilogue (``qkv_rope_write``), kernel
+    3 of the cache's variant, the fused FFN and its down; the norms: the
+    first layer's ``ln`` alone (``rmsnorm``) and every later one with the
+    residual add before it (``add_rmsnorm``, the last add into ``ln_f``);
+    the lm_head.
     ``full_sequence``: one ``forward`` call instead, where a Mamba2 layer
-    runs the chunked SSD as torch ops (its gated norm still the kernel) and
-    a site kernel 7 with no epilogue."""
+    runs the chunked SSD as torch ops and the gated norm
+    (``rmsnorm_gated``), and a site kernel 7 with no epilogue."""
     from repro_torch.kernels.decode_flash import VARIANTS
     from repro_torch.kernels.ffn_fused import GATED_ACTIVATIONS, fused_variant
     from repro_torch.models.transformer import layer_params
@@ -3947,7 +4068,6 @@ def expected_launches_hybrid(cfg, params, steps, full_sequence=False):
     mam = params["mamba_main"]["mamba"]
     for name in ("in_proj", "out_proj"):
         add(matmul_kernel(mam[name], name), L)
-    add("rmsnorm_gated", L)
     attn, mlp = params["shared"]["attn"], params["shared"]["mlp"]
     for name in ("wq", "wk", "wv", "wo"):
         add(matmul_kernel(attn[name], name), sites)
@@ -3962,9 +4082,10 @@ def expected_launches_hybrid(cfg, params, steps, full_sequence=False):
     add("add_rmsnorm", L + 2 * sites)
     add(matmul_kernel(params["lm_head"], "lm_head"), 1)
     if full_sequence:
+        add("rmsnorm_gated", L)
         add("flash_attention", sites)
         return {k: steps * n for k, n in per.items()}
-    add("mamba_cell", L)
+    add("mamba_cell_gated", L)
     add("qkv_rope_write", sites)
     add(VARIANTS[(cfg.kv_layout == "paged", cfg.kv_quant == "int8")], sites)
     return {k: steps * n for k, n in per.items()}
@@ -4946,14 +5067,12 @@ def moe_trace(torch, prof, cfg):
                             for kernel, _ in MOE_KERNELS)}
 
 
-# the hybrid path's kernels as a trace names them: the cell's two passes,
-# the gated norm (``add_rmsnorm_kernel<T, 3>``), kernel 3 at head dim 112
-# (its split kernel) and the W4A16 tile of kernels 1 and 2 (in_proj and
-# out_proj; q, k, v, o, the FFN's gate/up and down); (name, pattern,
-# launches a step per Mamba2 layer, per site)
-HYBRID_KERNELS = (("mamba_cell conv", r"mamba_conv_kernel", 1, 0),
-                  ("mamba_cell state", r"mamba_state_kernel", 1, 0),
-                  ("rmsnorm_gated", r"add_rmsnorm_kernel<[^>]*, 3>\(", 1, 0),
+# the hybrid path's kernels as a trace names them: the fused Mamba2 step
+# (the cell and the gated norm), kernel 3 at head dim 112 (its split
+# kernel) and the W4A16 tile of kernels 1 and 2 (in_proj and out_proj; q,
+# k, v, o, the FFN's gate/up and down); (name, pattern, launches a step per
+# Mamba2 layer, per site)
+HYBRID_KERNELS = (("mamba_cell_gated", r"mamba_cell_gated_kernel", 1, 0),
                   ("mixed_flash_attention d=112",
                    r"mixed_flash_mma_kernel<112", 0, 1),
                   ("w4a16_mma", r"w4a16_mma_kernel", 2, 6))
@@ -5821,11 +5940,15 @@ KERNEL_META = {
                             "granite-moe-dense"),
     "mamba_cell": ("src/repro_torch/kernels/csrc/mamba_cell.cu",
                    "src/repro/models/ssm.py:152-176 (XLA in the reference, "
-                   "no Pallas kernel)", "zamba2-dense"),
+                   "no Pallas kernel)", None),
     "rmsnorm_gated": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                       "src/repro/models/ssm.py:79, :177 and "
                       "src/repro/models/layers.py:65 (XLA in the reference, "
-                      "no Pallas kernel)", "zamba2-dense"),
+                      "no Pallas kernel)", "zamba2-dense-prefill"),
+    "mamba_cell_gated": ("src/repro_torch/kernels/csrc/mamba_cell.cu",
+                         "src/repro/models/ssm.py:152-177 and "
+                         "src/repro/models/layers.py:65 (XLA in the "
+                         "reference, no Pallas kernel)", "zamba2-dense"),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)

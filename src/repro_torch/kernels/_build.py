@@ -114,7 +114,7 @@ def prepare(names=KERNEL_SOURCES) -> None:
     """Build and load the named libraries and run their one-time host
     calls (kernel 8's cluster attributes and occupancy query, the
     layernorm bodies' shared-memory opt-in, the route kernels' cluster and
-    shared-memory attributes), so that a
+    shared-memory attributes, the Mamba2 step's arrival counters), so that a
     CUDA graph capture that follows starts no ``nvcc``, loads no library
     and makes no such call: inside a capture each wrapper only launches."""
     build(names)
@@ -132,6 +132,9 @@ def prepare(names=KERNEL_SOURCES) -> None:
     if "moe_route" in names:
         from repro_torch.kernels import moe_route
         moe_route.prepare()
+    if "mamba_cell" in names:
+        from repro_torch.kernels import mamba_cell
+        mamba_cell.prepare()
 
 
 def function(name: str, symbol: str, argtypes: list):

@@ -37,7 +37,9 @@ from repro_torch.kernels.kv_write import (
     qkv_rope_write_torch)
 from repro_torch.kernels.layernorm import (
     add_layernorm_cuda, add_layernorm_torch, layernorm_cuda, layernorm_torch)
-from repro_torch.kernels.mamba_cell import mamba_cell_cuda, mamba_cell_torch
+from repro_torch.kernels.mamba_cell import (
+    mamba_cell_cuda, mamba_cell_gated_cuda, mamba_cell_gated_torch,
+    mamba_cell_torch)
 from repro_torch.kernels.mlstm_cell import mlstm_cell_cuda, mlstm_cell_torch
 from repro_torch.kernels.moe_experts import moe_ffn_cuda, moe_ffn_torch
 from repro_torch.kernels.moe_route import (
@@ -58,7 +60,8 @@ __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
            "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write",
            "moe_route", "moe_router_route", "moe_ffn_w4a16", "moe_combine",
-           "combine_add_rmsnorm", "mamba_cell", "rmsnorm_gated"]
+           "combine_add_rmsnorm", "mamba_cell", "mamba_cell_gated",
+           "rmsnorm_gated"]
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -185,6 +188,22 @@ def mamba_cell(proj, window, conv_w, conv_b, A_log, D, dt_bias, state, *,
     fn = mamba_cell_cuda if impl == "cuda" else mamba_cell_torch
     return fn(proj, window, conv_w, conv_b, A_log, D, dt_bias, state,
               n_state=n_state, head_dim=head_dim, active=active)
+
+
+def mamba_cell_gated(proj, window, conv_w, conv_b, A_log, D, dt_bias, state,
+                     gamma, *, n_state: int, head_dim: int, active=None,
+                     eps: float = 1e-6, impl: str = "auto") -> torch.Tensor:
+    """One Mamba2 decode step between ``in_proj`` and ``out_proj``: the
+    ``mamba_cell`` step (window and state advanced in place) and the gated
+    norm ``rmsnorm(y) * silu(z)`` with ``gamma``, ``z`` the first
+    ``d_inner`` columns of ``proj``; returns the gated row ``(B,
+    d_inner)``.  One launch on the card, bitwise ``mamba_cell`` followed
+    by ``rmsnorm_gated``; the plain version is that chain, so ``"ref"``
+    takes it too."""
+    impl = _resolve(impl, proj)
+    fn = mamba_cell_gated_cuda if impl == "cuda" else mamba_cell_gated_torch
+    return fn(proj, window, conv_w, conv_b, A_log, D, dt_bias, state, gamma,
+              n_state=n_state, head_dim=head_dim, active=active, eps=eps)
 
 
 def rmsnorm_gated(y: torch.Tensor, gamma: torch.Tensor, z: torch.Tensor,

@@ -12,10 +12,11 @@ A whole sequence (``mamba_apply``) runs the chunked algorithm
 an inter-chunk state recurrence, as plain torch ops on every device (no
 Pallas kernel covers it; it is ``forward``'s route, not the engine's).  One
 decode step (``mamba_decode``) is, on the card, kernel 1 for ``in_proj``,
-``ops.mamba_cell`` (the conv, the state update in place and the readout,
-``kernels/mamba_cell.py``), ``ops.rmsnorm_gated`` and kernel 1 for
-``out_proj``.  State math is f32; projections run in the model dtype and
-are quantizable (W4A16).
+``ops.mamba_cell_gated`` (the conv, the state update in place, the readout
+and the gated norm, one launch, ``kernels/mamba_cell.py``) and kernel 1 for
+``out_proj``; ``mamba_apply`` gates its rows with ``ops.rmsnorm_gated``.
+State math is f32; projections run in the model dtype and are quantizable
+(W4A16).
 """
 
 from __future__ import annotations
@@ -157,9 +158,9 @@ def mamba_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     the window and state advanced in place for the rows in ``active`` (all
     when None)."""
     proj = linear(x, p["in_proj"])[:, 0]
-    y = ops.mamba_cell(proj, cache["conv"], p["conv_w"], p["conv_b"],
-                       p["A_log"], p["D"], p["dt_bias"], cache["state"],
-                       n_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-                       active=active)
-    y = ops.rmsnorm_gated(y, p["norm"], proj[:, :cfg.d_inner])
+    y = ops.mamba_cell_gated(proj, cache["conv"], p["conv_w"], p["conv_b"],
+                             p["A_log"], p["D"], p["dt_bias"],
+                             cache["state"], p["norm"],
+                             n_state=cfg.ssm_state,
+                             head_dim=cfg.ssm_head_dim, active=active)
     return linear(y[:, None], p["out_proj"]), cache

@@ -16,7 +16,7 @@ block's ``ln`` and mixer, a site's ``ln_attn`` and attention, its
 ``ln_mlp`` and MLP.  The first norm is a norm alone; every later one takes
 the residual add before it (``layers.add_norm``: one launch on the card),
 and the last add goes into ``ln_f``.  A decode step updates the cache in
-place: the Mamba windows and states through ``ops.mamba_cell``, each
+place: the Mamba windows and states through ``ops.mamba_cell_gated``, each
 site's K/V through the fused q/k/v epilogue.
 """
 

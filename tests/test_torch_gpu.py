@@ -3259,6 +3259,138 @@ def test_mamba_cell_kernel_matches_plain(cuda, dtype, h, p, n):
     assert torch.equal(win2[0], win[2])
 
 
+def _gated_call(inp, gamma, n, p, active=None, chain=False):
+    """The fused step on copies of ``inp``, or (``chain``) the two kernels
+    it replaced: ``mamba_cell`` then ``rmsnorm_gated``; (out, window,
+    state)."""
+    t = {k: v.clone() for k, v in inp.items()}
+    args = (t["proj"], t["window"], t["conv_w"], t["conv_b"], t["A_log"],
+            t["D"], t["dt_bias"], t["state"])
+    if chain:
+        y = ops.mamba_cell(*args, n_state=n, head_dim=p, active=active)
+        out = ops.rmsnorm_gated(y, gamma, t["proj"][:, :y.shape[1]])
+    else:
+        out = ops.mamba_cell_gated(*args, gamma, n_state=n, head_dim=p,
+                                   active=active)
+    return out, t["window"], t["state"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,p,n", [(112, 64, 64), (8, 32, 16)])
+@pytest.mark.parametrize("b", [1, 3, 4])
+@pytest.mark.parametrize("masked", [False, True])
+def test_mamba_cell_gated_kernel_is_the_chain_bitwise(cuda, dtype, h, p, n, b,
+                                                      masked):
+    """The fused step (one launch) bitwise the two kernels it replaced,
+    ``mamba_cell`` then ``rmsnorm_gated``: the gated row, the window and
+    the state, at zamba2-7b's 112 heads of 64 x 64 and the smoke's 8 of 32
+    x 16; the last row inactive when ``masked`` (its window and state
+    untouched); row 2 alone bitwise row 2 of the batch.  float32 at 7168
+    is past the 46 KB the last block stages (y, the gate and gamma), so
+    there the fused step is refused, as the chain's gated norm is."""
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + h + p + n)
+    inp = _mamba_operands(gen, b, h, p, n, dtype)
+    gamma = (_rand(gen, h * p) * 0.2 + 1).to(dtype)
+    active = (torch.arange(b, device="cuda") != b - 1) if masked else None
+    before = dict(_build.launches)
+    if 3 * h * p * gamma.element_size() > 46 * 1024:
+        with pytest.raises(ValueError, match="row of y"):
+            _gated_call(inp, gamma, n, p, active)
+        with pytest.raises(ValueError, match="row of"):
+            _gated_call(inp, gamma, n, p, active, chain=True)
+        assert _build.launches["mamba_cell_gated"] == before.get(
+            "mamba_cell_gated", 0)
+        return
+    got, win, st = _gated_call(inp, gamma, n, p, active)
+    assert _build.launches["mamba_cell_gated"] == before.get(
+        "mamba_cell_gated", 0) + 1
+    assert _build.launches["mamba_cell"] == before.get("mamba_cell", 0)
+    want, want_win, want_st = _gated_call(inp, gamma, n, p, active,
+                                          chain=True)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(win), _bits(want_win))
+    assert torch.equal(_bits(st), _bits(want_st))
+    if masked:
+        assert torch.equal(win[-1], inp["window"][-1])
+        assert torch.equal(st[-1], inp["state"][-1])
+    if b > 2:
+        one = {k: (v[2:3].contiguous() if k in ("proj", "window", "state")
+                   else v) for k, v in inp.items()}
+        got2, win2, st2 = _gated_call(one, gamma, n, p,
+                                      None if active is None else active[2:3])
+        assert torch.equal(_bits(got2[0]), _bits(got[2]))
+        assert torch.equal(_bits(st2[0]), _bits(st[2]))
+        assert torch.equal(_bits(win2[0]), _bits(win[2]))
+
+
+def test_mamba_cell_gated_graph_replays_equal_eager(cuda):
+    """The fused step captured in a CUDA graph and replayed on new inputs
+    three times (the row's arrival counter must be back at zero after each
+    launch) equals the eager step each time, bitwise."""
+    h, p, n, b = 112, 64, 64, 4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    static = _mamba_operands(gen, b, h, p, n, bf)
+    gamma = (_rand(gen, h * p) * 0.2 + 1).to(bf)
+    _gated_call(static, gamma, n, p)          # counters made before capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.mamba_cell_gated(
+            static["proj"], static["window"], static["conv_w"],
+            static["conv_b"], static["A_log"], static["D"],
+            static["dt_bias"], static["state"], gamma, n_state=n,
+            head_dim=p)
+    for _ in range(3):
+        fresh = _mamba_operands(gen, b, h, p, n, bf)
+        want, want_win, want_st = _gated_call(fresh, gamma, n, p)
+        for k, v in fresh.items():
+            static[k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(want))
+        assert torch.equal(_bits(static["window"]), _bits(want_win))
+        assert torch.equal(_bits(static["state"]), _bits(want_st))
+
+
+def test_mamba_cell_gated_on_two_streams_at_once(cuda):
+    """Two streams launch the fused step at the same moment (each behind
+    a spin of about a millisecond, both spins queued before either launch),
+    twelve times over: each stream has counters of its own, so every
+    launch picks its rows' true last blocks and each result is bitwise the
+    chain on its own inputs; afterwards every counter is back at zero."""
+    from repro_torch.kernels import mamba_cell
+    h, p, n, b = 112, 64, 64, 4
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    gamma = (_rand(gen, h * p) * 0.2 + 1).to(bf)
+    sides = [torch.cuda.Stream(), torch.cuda.Stream()]
+    ptrs = {s.cuda_stream for s in sides}
+    for _ in range(12):
+        inps = [_mamba_operands(gen, b, h, p, n, bf) for _ in sides]
+        wants = [_gated_call(inp, gamma, n, p, chain=True) for inp in inps]
+        work = [{k: v.clone() for k, v in inp.items()} for inp in inps]
+        outs = []
+        torch.cuda.synchronize()
+        for side in sides:
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(2_000_000)
+        for side, t in zip(sides, work):
+            with torch.cuda.stream(side):
+                outs.append(ops.mamba_cell_gated(
+                    t["proj"], t["window"], t["conv_w"], t["conv_b"],
+                    t["A_log"], t["D"], t["dt_bias"], t["state"], gamma,
+                    n_state=n, head_dim=p))
+        torch.cuda.synchronize()
+        for out, t, (want, want_win, want_st) in zip(outs, work, wants):
+            assert torch.equal(_bits(out), _bits(want))
+            assert torch.equal(_bits(t["window"]), _bits(want_win))
+            assert torch.equal(_bits(t["state"]), _bits(want_st))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    a, c = (mamba_cell.arrivals(dev, ptr) for ptr in ptrs)
+    assert a.data_ptr() != c.data_ptr()
+    assert not a.any() and not c.any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(4, 7168), (300, 256), (1, 4096)])
 def test_rmsnorm_gated_kernel_is_the_chain_bitwise(cuda, dtype, rows, d):
@@ -3289,8 +3421,8 @@ def test_rmsnorm_gated_kernel_is_the_chain_bitwise(cuda, dtype, rows, d):
 def test_zamba_engine_matches_oracle_on_card(cuda, dtype, layout):
     """zamba2-smoke ("dense" W4A16: 5 Mamba2 layers, 2 shared-block sites)
     on the card: every stream equals ``reference_decode`` with 3 slots
-    reused by 6 requests; every step launches ``mamba_cell`` and
-    ``rmsnorm_gated`` once a Mamba layer."""
+    reused by 6 requests; every step launches ``mamba_cell_gated`` once a
+    Mamba layer, and neither of the two kernels it replaced."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.compiler import quantize_model
     from repro_torch.models import api
@@ -3312,8 +3444,9 @@ def test_zamba_engine_matches_oracle_on_card(cuda, dtype, layout):
     _build.launches.clear()
     assert len(engine.run()) == 6
     steps = engine.dispatched_columns
-    assert _build.launches["mamba_cell"] == cfg.n_layers * steps
-    assert _build.launches["rmsnorm_gated"] == cfg.n_layers * steps
+    assert _build.launches["mamba_cell_gated"] == cfg.n_layers * steps
+    assert _build.launches["mamba_cell"] == 0
+    assert _build.launches["rmsnorm_gated"] == 0
     for r in reqs:
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,

@@ -4,11 +4,14 @@ attention blocks, zamba2-7b) against the JAX reference.
 * Configs field by field; the compiler packs ``in_proj`` / ``out_proj``
   and the shared blocks' projections bitwise as the reference does, and
   interop keeps the nested stacks and int4 leaves.
-* The Mamba2 step: ``ssm.mamba_decode`` (the ``mamba_cell`` plain version
-  and ``rmsnorm_gated``) against the reference's ``mamba_decode`` from a
-  lived-in state, output, conv window and state, in float32 and bfloat16;
-  ``rmsnorm_gated`` bitwise its chain; ``_ssd_chunked`` and ``mamba_apply``
-  against JAX and ``_ssd_chunked`` against the step-by-step recurrence.
+* The Mamba2 step: ``ssm.mamba_decode`` (the ``mamba_cell_gated`` plain
+  version: the ``mamba_cell`` plain version, then ``rmsnorm_gated``)
+  against the reference's ``mamba_decode`` from a lived-in state, output,
+  conv window and state, in float32 and bfloat16; ``mamba_cell_gated``
+  bitwise that chain, inactive rows included, and its CUDA wrapper's
+  refusals before the device; ``rmsnorm_gated`` bitwise its chain;
+  ``_ssd_chunked`` and ``mamba_apply`` against JAX and ``_ssd_chunked``
+  against the step-by-step recurrence.
 * Model level on ``zamba2-smoke`` (5 layers: 2 segments of 2 and a tail of
   1, d 128, head dim 32, state 16, float32, weights from the reference
   through numpy), unquantized and "dense" W4A16, slot and paged K/V:
@@ -234,10 +237,15 @@ def _block_params(jcfg, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_mamba_decode_matches_jax(dtype):
-    """``ssm.mamba_decode`` (in_proj, the ``mamba_cell`` plain version,
-    ``rmsnorm_gated``, out_proj) from a lived-in window and state against
-    the reference's ``mamba_decode``: output, window and state."""
+def test_mamba_decode_matches_jax(dtype, monkeypatch):
+    """``ssm.mamba_decode`` (in_proj, ``ops.mamba_cell_gated``'s plain
+    version: the cell, then the gated norm, out_proj) from a lived-in
+    window and state against the reference's ``mamba_decode``: output,
+    window and state; the step calls the fused op once."""
+    calls = []
+    fused = ops.mamba_cell_gated
+    monkeypatch.setattr(ops, "mamba_cell_gated",
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
     jcfg = jax_smoke_config(ARCH, dtype=getattr(jnp, dtype))
     tcfg = get_smoke_config(ARCH, dtype=getattr(torch, dtype))
     tol = F32_TOL * 10 if dtype == "float32" else BF16_TOL
@@ -250,6 +258,7 @@ def test_mamba_decode_matches_jax(dtype):
     tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     tc = interop.params_from_numpy(jax.tree.map(np.asarray, jc), "cpu")
     got, gc = ssm.mamba_decode(tcfg, tp, _t(x, tcfg.dtype), tc)
+    assert calls == [1]
     assert got.dtype == tcfg.dtype and gc["conv"].dtype == tcfg.dtype
     _close(got, want, tol)
     _close(gc["conv"], wc["conv"], tol)     # its last tap: in_proj's
@@ -336,6 +345,90 @@ def test_mamba_cell_cuda_wrapper_refuses_before_the_device():
         16, 32)
     assert not mamba_cell.cell_shape_ok(64, 48)      # 12 groups of 4
     assert not mamba_cell.cell_shape_ok(64, 2048)
+
+
+def _run_gated(tcfg, inp, gamma, active=None, impl="auto"):
+    inp = {k: v.clone() for k, v in inp.items()}
+    out = ops.mamba_cell_gated(
+        inp["proj"], inp["window"], inp["conv_w"], inp["conv_b"],
+        inp["A_log"], inp["D"], inp["dt_bias"], inp["state"], gamma,
+        n_state=tcfg.ssm_state, head_dim=tcfg.ssm_head_dim, active=active,
+        impl=impl)
+    return out, inp["window"], inp["state"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_mamba_cell_gated_plain_is_the_cell_then_the_gated_norm(dtype, masked,
+                                                                impl):
+    """``ops.mamba_cell_gated`` on the CPU (and its ``"ref"``) is bitwise
+    ``mamba_cell`` followed by ``rmsnorm_gated`` on z = the in_proj row's
+    first d_inner columns: the gated row, the shifted window and the
+    state; an inactive row keeps its window and state."""
+    tdt = getattr(torch, dtype)
+    tcfg = get_smoke_config(ARCH, dtype=tdt)
+    inp = _cell_inputs(tcfg, 3, 11)
+    gamma = _t(np.random.default_rng(12).normal(1, 0.2, tcfg.d_inner), tdt)
+    active = torch.tensor([True, False, True]) if masked else None
+    got, win, st = _run_gated(tcfg, inp, gamma, active, impl)
+    y, win_c, st_c = _run_cell(tcfg, inp, active)
+    want = ops.rmsnorm_gated(y, gamma, inp["proj"][:, :tcfg.d_inner])
+    assert got.dtype == tdt and got.shape == (3, tcfg.d_inner)
+    assert torch.equal(got, want)
+    assert torch.equal(win, win_c) and torch.equal(st, st_c)
+    if masked:
+        assert torch.equal(win[1], inp["window"][1])
+        assert torch.equal(st[1], inp["state"][1])
+
+
+def test_mamba_cell_gated_cuda_wrapper_refuses_before_the_device():
+    """The fused kernel's widths: the state pass's, a row of whole 16-byte
+    groups whose y, gate and gamma the last block stages in 46 KB, and at
+    most 47 KB of shared memory (the state tile, B, C, x and y's partials,
+    or those three rows); refused widths raise on CPU tensors already, CPU
+    tensors of good widths raise for the device."""
+    tcfg = get_smoke_config(ARCH, dtype=torch.bfloat16)
+    inp = _cell_inputs(tcfg, 2, 13)
+    gamma = torch.ones(tcfg.d_inner, dtype=torch.bfloat16)
+    kw = dict(n_state=tcfg.ssm_state, head_dim=tcfg.ssm_head_dim)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mamba_cell.mamba_cell_gated_cuda(*inp.values(), gamma, **kw)
+    # 3 heads of 4: a 24-byte bf16 row, which the norm's loads cannot take
+    h, p, n, k = 3, 4, 5, 4
+    conv_dim = h * p + 2 * n
+    bf = torch.bfloat16
+    ragged = dict(proj=torch.zeros(2, h * p + conv_dim + h, dtype=bf),
+                  window=torch.zeros(2, k - 1, conv_dim, dtype=bf),
+                  conv_w=torch.zeros(k, conv_dim, dtype=bf),
+                  conv_b=torch.zeros(conv_dim, dtype=bf),
+                  A_log=torch.zeros(h), D=torch.zeros(h),
+                  dt_bias=torch.zeros(h), state=torch.zeros(2, h, n, p))
+    with pytest.raises(ValueError, match="16-byte groups"):
+        mamba_cell.mamba_cell_gated_cuda(*ragged.values(),
+                                         torch.ones(h * p, dtype=bf),
+                                         n_state=n, head_dim=p)
+    # zamba2-7b's widths in f32: y, the gate and gamma take 84 KB
+    f32 = dict(proj=torch.zeros(1, 2 * 7168 + 2 * 64 + 112),
+               window=torch.zeros(1, 3, 7168 + 128),
+               conv_w=torch.zeros(4, 7168 + 128),
+               conv_b=torch.zeros(7168 + 128),
+               A_log=torch.zeros(112), D=torch.zeros(112),
+               dt_bias=torch.zeros(112), state=torch.zeros(1, 112, 64, 64))
+    with pytest.raises(ValueError, match="row of y, the gate and gamma"):
+        mamba_cell.mamba_cell_gated_cuda(*f32.values(), torch.ones(7168),
+                                         n_state=64, head_dim=64)
+    ok = mamba_cell.gated_shape_ok
+    assert ok(112, 64, 64, 2) and not ok(112, 64, 64, 4)  # zamba2-7b
+    assert ok(tcfg.ssm_heads, tcfg.ssm_state, tcfg.ssm_head_dim, 2)
+    assert ok(tcfg.ssm_heads, tcfg.ssm_state, tcfg.ssm_head_dim, 4)
+    assert not ok(3, 5, 4, 2)
+    assert not ok(8, 128, 128, 4)                        # a 64 KB tile
+    assert not ok(112, 64, 48, 2)                        # 12 groups of 4
+    # zamba2-7b: bf16 stages y, the gate and gamma (3 x 14 KB)
+    assert mamba_cell.gated_smem_bytes(112, 64, 64, 2) == 3 * 7168 * 2
+    assert mamba_cell.gated_smem_bytes(8, 16, 32, 4) == 4 * (
+        16 * 32 + 2 * 16 + 32 + 16 * 32)                 # the state pass's
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -699,6 +792,79 @@ def dense_model():
     tparams = interop.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                         "cpu")
     return jcfg, jparams, get_smoke_config(ARCH), tparams
+
+
+def test_card_dispatch_takes_the_fused_step_once_a_layer(dense_model,
+                                                         monkeypatch):
+    """On the card's dispatch (``ops._resolve`` answering "cuda", the
+    kernels stubbed), a decode step and a W = 4 mixed step (its columns
+    stepped one at a time) launch ``mamba_cell_gated`` once a Mamba2 layer
+    a step and neither of the two kernels it replaced, as
+    ``chip_smoke.expected_launches_hybrid`` counts them; ``forward`` gates
+    its rows with ``rmsnorm_gated`` once a layer."""
+    import chip_smoke
+    from repro_torch.kernels import mamba_cell as mc
+    from repro_torch.kernels import rmsnorm as rms
+    _, _, cfg, params = dense_model
+    calls = []
+
+    def record(name, fn):
+        def stub(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return stub
+
+    def zeros_q(q, *a, **kw):
+        return torch.zeros_like(q)
+    monkeypatch.setattr(ops, "_resolve",
+                        lambda impl, x: "cuda" if impl == "auto" else impl)
+    monkeypatch.setattr(ops, "w4a16_matmul_cuda", record(
+        "w4a16_matmul", lambda x, w: torch.zeros(*x.shape[:-1], w.shape[1])))
+    monkeypatch.setattr(ops, "ffn_w4a16_cuda", record(
+        "ffn", lambda x, *a, **kw: torch.zeros_like(x)))
+    monkeypatch.setattr(ops, "mixed_flash_attention_cuda",
+                        record("attention", zeros_q))
+    monkeypatch.setattr(ops, "flash_attention_cuda",
+                        record("flash_attention", zeros_q))
+    monkeypatch.setattr(ops, "add_rmsnorm_cuda", record(
+        "add_rmsnorm", lambda x, h, g, eps, keep: (
+            torch.zeros_like(x) if keep else None, torch.zeros_like(x))))
+    monkeypatch.setattr(ops, "qkv_rope_write_cuda", record(
+        "qkv_rope_write", lambda cache, q, k, v, bias, **kw: torch.zeros(
+            q.shape[0], kw["n_heads"], q.shape[1], cfg.head_dim)))
+    monkeypatch.setattr(layers, "_rmsnorm", record(
+        "rmsnorm", lambda x, g, eps: torch.zeros_like(x)))
+    monkeypatch.setattr(ops, "mamba_cell_gated_cuda", record(
+        "mamba_cell_gated", mc.mamba_cell_gated_torch))
+    monkeypatch.setattr(ops, "mamba_cell_cuda", record(
+        "mamba_cell", mc.mamba_cell_torch))
+    monkeypatch.setattr(ops, "rmsnorm_gated_cuda", record(
+        "rmsnorm_gated", rms.rmsnorm_gated_torch))
+    b, c, L = 2, 4, cfg.n_layers
+    cache = api.init_cache(cfg, b, 32, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (b, c),
+                           generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([3, 9], dtype=torch.int32)
+    mamba = ("mamba_cell_gated", "mamba_cell", "rmsnorm_gated")
+    for steps in (1, c):
+        calls.clear()
+        if steps == 1:
+            api.decode_step(cfg, params, cache, tokens[:, :1], lengths + 1)
+        else:
+            api.mixed_step(cfg, params, cache, tokens, lengths,
+                           torch.tensor([c, 2], dtype=torch.int32))
+        want = chip_smoke.expected_launches_hybrid(cfg, params, steps)
+        assert {k: calls.count(k) for k in mamba} == {
+            k: want.get(k, 0) for k in mamba} == {
+            "mamba_cell_gated": L * steps, "mamba_cell": 0,
+            "rmsnorm_gated": 0}
+    calls.clear()
+    api.forward(cfg, params, {"tokens": tokens})
+    want = chip_smoke.expected_launches_hybrid(cfg, params, 1,
+                                               full_sequence=True)
+    assert {k: calls.count(k) for k in mamba} == {
+        k: want.get(k, 0) for k in mamba} == {
+        "mamba_cell_gated": 0, "mamba_cell": 0, "rmsnorm_gated": L}
 
 
 @pytest.mark.parametrize("layout", ["slot", "paged"])

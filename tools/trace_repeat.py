@@ -19,9 +19,9 @@ device-to-host copies the profiler saw and, on a transformer path, each
 hand kernel's device ms and launches (``KERNEL_NAMES``) against the
 launches the tick makes (``chip_smoke.expected_launches``; on the hybrid
 ``chip_smoke.expected_launches_hybrid`` times the tick's columns, the
-Mamba2 cell's two passes and the gated norm counted too).  A window is
-complete when every counted kernel shows all of its launches; the row
-gives the medians of the complete windows' kernel ms and busy ms.
+fused Mamba2 step counted too).  A window is complete when every counted
+kernel shows all of its launches; the row gives the medians of the
+complete windows' kernel ms and busy ms.
 Beside them, the copies the tick asked for at PyTorch's dispatcher
 (``chip_smoke.host_copies``).  One JSON line per (path, key, lead-in) goes
 to ``chiprun_out/trace_repeat.jsonl``.  Needs one card; imports nothing of
@@ -44,7 +44,8 @@ PATHS = {"dense": ("qwen-7b", "dense"), "xlstm-dense": ("xlstm-1.3b", "dense"),
 # pattern of its traced name; the W4A16 tile's last template argument is
 # its epilogue (0 and 4, the bias: kernel 1; 1 swiglu, 2 geglu: kernel 2's
 # gate/up), the norm's its residual add (0: ``rmsnorm``, 1: ``add_rmsnorm``,
-# 3: ``rmsnorm_gated``); the Mamba2 cell's two passes
+# 3: ``rmsnorm_gated``); the fused Mamba2 step, and the cell's two passes
+# (the chain it replaced, ``tools/hybrid_ab.py``)
 KERNEL_NAMES = (
     ("w4a16_matmul", r"w4a16_mma_kernel<.*, [04]>\("),
     ("ffn_fused_w4a16", r"w4a16_mma_kernel<.*, [12]>\("),
@@ -54,6 +55,7 @@ KERNEL_NAMES = (
     ("add_rmsnorm", r"add_rmsnorm_kernel<[^>]*, 1>\("),
     ("rmsnorm", r"add_rmsnorm_kernel<[^>]*, 0>\("),
     ("rmsnorm_gated", r"add_rmsnorm_kernel<[^>]*, 3>\("),
+    ("mamba_cell_gated", r"mamba_cell_gated_kernel<"),
     ("mamba_cell conv", r"mamba_conv_kernel<"),
     ("mamba_cell state", r"mamba_state_kernel<"),
     ("qkv_rope_write", r"qkv_rope_write_kernel<"))
@@ -95,8 +97,6 @@ def expected_per_tick(cs, cfg, params, columns) -> dict | None:
         return None
     if cfg.family == "hybrid":
         per = dict(cs.expected_launches_hybrid(cfg, params, columns))
-        cell = per.pop("mamba_cell")
-        per["mamba_cell conv"] = per["mamba_cell state"] = cell
     else:
         per = dict(cs.expected_launches(cfg, params, 1))
     for name in VARIANTS.values():
