@@ -164,11 +164,33 @@ Phases (any failure ends the run with a nonzero exit code):
                  slot and paged fp variants at 32 over 32 heads of 112
                  (rows staged 128 wide) in ``ATTENTION_SHAPES``; kernel 7
                  at head dim 112 (causal S=2048, ragged S=300; float32
-                 refused) in ``FLASH_CASES``;
-  4. model    — zamba2-7b (the hybrid family: 81 Mamba2 layers, d 3584,
-                 13 shared-block sites of 32 heads of 112, "dense") on the
-                 slot cache and a 20-block pool of 16-token pages
-                 (``zamba2-dense``, ``zamba2-dense-paged``), through
+                 refused) in ``FLASH_CASES``; qwen2-vl-7b's
+                 (``check_vlm_kernels``, bf16, T=4 and 64): kernel 1 at
+                 wq/wo (3584^2), wk/wv (3584 -> 512), the down (18944 ->
+                 3584) and the lm_head (3584 -> 152064), kernel 2's
+                 gate/up (3584 -> 2 x 18944) with the whole FFN timed,
+                 each beside its library call (also on weights
+                 dequantized once) and bound; the epilogue as an M-RoPE
+                 config's steps call it bitwise the ``apply_mrope`` chain
+                 at equal ids (``check_mrope_epilogue``: 28 over 4 heads,
+                 slot and paged, bf16 and int8, C=1 and 64), and at
+                 those heads in ``EPILOGUE_HEADS``; kernel 3's slot bf16
+                 and paged int8 variants at rep 7 in ``ATTENTION_SHAPES``;
+                 kernel 7 over an image and text (B=2, S=556, rep 7) in
+                 ``FLASH_CASES``;
+  4. model    — qwen2-vl-7b (the vlm family: 28 layers, d 3584, 28 over 4
+                 heads of 128, M-RoPE, "dense") at full width and depth
+                 on the slot cache and a 20-block pool of 16-token pages
+                 in int8 (``qwen2-vl-dense``, ``qwen2-vl-dense-paged-
+                 int8``), text only as the reference serves it, through
+                 (a)-(c) and phase 5 as every transformer path, graph
+                 replay vs eager, traced, prefilled;
+                 zamba2-7b (the hybrid family: d 3584, shared-block
+                 sites of 32 heads of 112, "dense"; 27 of its 81 Mamba2
+                 layers, 4 of its 13 sites and the tail,
+                 ``ZAMBA2_SERVED_LAYERS``) on the slot cache and a
+                 20-block pool of 16-token pages (``zamba2-dense``,
+                 ``zamba2-dense-paged``), through
                  (a)-(c) and phase 5 as every transformer path (every
                  conv window, SSM state and K/V leaf held bitwise; (c)
                  with ``mamba_cell_gated`` against its chain, the cell
@@ -244,7 +266,7 @@ Phases (any failure ends the run with a nonzero exit code):
                  captured key's graph replayed once against its function
                  run eagerly on a copy of the cache, logits and every
                  leaf bitwise equal;
-  5. serving  — with each of the fifteen weight sets, the engine serves 9
+  5. serving  — with each of the seventeen weight sets, the engine serves 9
                  requests twice (whisper's with seeded frames each,
                  ``audio_frames``, the oracle ``reference_decode`` with
                  them; launches ``expected_launches_audio``: per-step
@@ -341,7 +363,16 @@ Phases (any failure ends the run with a nonzero exit code):
                  head dim 112) with exact launches (the path
                  ``zamba2-dense-prefill``) against prefill (256 recurrent
                  steps): the same top token, the bf16 gap recorded;
-                 greedy prefill + decode equal to the engine's stream.  On whisper-small (``check_audio_prefill``):
+                 greedy prefill + decode equal to the engine's stream.
+                 On qwen2-vl-7b (``check_vlm_prefill``): the dense
+                 family's checks on text, then ``forward`` with 256
+                 seeded patch embeddings of a 16 x 16 image before 300
+                 tokens (B=2, S=556) at the image's distinct M-RoPE ids,
+                 each layer's kernel 7 call held against its plain
+                 version (rep 7), launches exact (the path
+                 ``qwen2-vl-dense-vision``), the ids moving the logits;
+                 and embedding rows as vision embeddings bitwise the same
+                 tokens looked up.  On whisper-small (``check_audio_prefill``):
                  forward and the slot prefill at B=2, S=256 over seeded
                  frames, the last position bitwise, launch counts exact
                  (the encoder and the cross K/V once a call), greedy
@@ -632,6 +663,7 @@ def check_kernels(torch, timer, results: dict) -> dict:
     line.update(check_moe_kernels(torch, timer, randn, tol, rows))
     check_whisper_kernels(torch, timer, randn, tol, rows)
     line.update(check_hybrid_kernels(torch, timer, randn, tol, rows))
+    check_vlm_kernels(torch, timer, randn, tol, rows)
 
     # -- attention: B=4, hq=32, d=128, MAX=512; hkv=4 (qwen-7b) and, bf16
     # only, hkv=2 (chatglm-6b's rep 16)
@@ -1129,8 +1161,9 @@ EPILOGUE_HEADS = (("qwen-7b", 32, 4, 128, 1e4, False),
                   ("chatglm-6b", 32, 2, 128, 1e4, False),
                   ("starcoder2-7b", 36, 4, 128, 1e5, False),
                   ("qwen3-8b", 32, 8, 128, 1e6, True),
-                  ("gemma-2b", 8, 1, 256, 1e4, False))
-EPILOGUE_TIMED = ("qwen-7b", "qwen3-8b", "gemma-2b")
+                  ("gemma-2b", 8, 1, 256, 1e4, False),
+                  ("qwen2-vl-7b", 28, 4, 128, 1e6, False))
+EPILOGUE_TIMED = ("qwen-7b", "qwen3-8b", "gemma-2b", "qwen2-vl-7b")
 
 
 def epilogue_case(torch, g, layout, quant, chunk, hq, hkv, hd=128, b=4,
@@ -1737,6 +1770,9 @@ ATTENTION_SHAPES = (
          dtypes=("bfloat16",), slot_yardstick=False, in_line=False),
     dict(model="zamba2-7b", hq=32, hkv=32, hd=112,
          variants=((False, False), (True, False)),
+         dtypes=("bfloat16",), slot_yardstick=False, in_line=False),
+    dict(model="qwen2-vl-7b", hq=28, hkv=4, hd=128,
+         variants=((False, False), (True, True)),
          dtypes=("bfloat16",), slot_yardstick=False, in_line=False))
 
 
@@ -1919,6 +1955,9 @@ FLASH_CASES = {
     "zamba2-7b causal S=2048 d=112": (1, 32, 32, 2048, 2048, 112, True,
                                       None),
     "zamba2-7b ragged S=300 d=112": (1, 32, 32, 300, 300, 112, True, None),
+    # a 16 x 16 image's patches before 300 text tokens, rep 7
+    "qwen2-vl-7b image+text B=2 S=556 rep 7": (2, 28, 4, 556, 556, 128, True,
+                                               None),
 }
 
 
@@ -3003,56 +3042,50 @@ def check_sinusoid_table(torch, rows) -> None:
          f"{row['max_abs_err']:.3g} from the CPU's, over 1e-6 + 2 p 2^-23")
 
 
-def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
-    """The audio path's GEMM kernels at whisper-small's widths, bf16,
-    against their plain versions, each timed beside its library call and
-    its bound: kernel 1 at 768 -> 768 (q/k/v/o, self and cross; the cross
-    K/V at the encoder's 1500 rows) and the down 3072 -> 768 with its f32
-    bias, kernel 2g (768 -> 3072, gelu with the up bias) at T = 4 and
-    1500, and ``dense_matmul`` on the tied head read in place (``embed.T``,
-    768 -> 51865) at T = 4."""
+def timed_row(timer, rows, tol, label, row, kernel, plain, library, nbytes,
+              flops, what, library_once=None):
+    """Time a bf16 kernel check's ``row``: the kernel, its plain version,
+    its library call and, where given, ``library_once``, the library chain
+    on weights dequantized once beforehand (no dequantization in the timed
+    call); the bound of ``nbytes`` and ``flops``; append and log it."""
+    row["ms"] = timer.ms(kernel, 20)
+    row["plain_ms"] = timer.ms(plain, 3)
+    row["library_ms"] = timer.ms(library, 10)
+    if library_once is not None:
+        row["library_once_ms"] = timer.ms(library_once, 10)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
+    rows.append(row)
+    log(f"  {label} {what}: max_abs {row['max_abs_err']:.3g} rel "
+        f"{row['max_rel_err']:.3g} (tol {tol['bfloat16']})  kernel "
+        f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+        f"{row['library_ms']:.4f} ms"
+        + (f" (on weights dequantized once {row['library_once_ms']:.4f}"
+           " ms)" if library_once is not None else "")
+        + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
+def check_w4a16_widths(torch, randn, tol, record, model, cases,
+                       tokens) -> None:
+    """Kernel 1 (bf16) against its plain version at ``model``'s widths,
+    ``cases`` of (in, out, with an f32 bias), at each row count of
+    ``tokens``; each timed by ``record`` beside ``F.linear`` on the weight
+    dequantized in the call and on it dequantized once, and its bound."""
     from repro_torch.core.quant import dequantize, quantize
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ffn_fused import (
-        ffn_gate_up_cuda, ffn_gate_up_torch)
     from repro_torch.kernels.w4a16_matmul import (
         w4a16_matmul_cuda, w4a16_matmul_torch)
     F = torch.nn.functional
     bf16, f32 = torch.bfloat16, torch.float32
-    d, f, v = WHISPER_D, WHISPER_F, WHISPER_VOCAB
-
-    def record(row, kernel, plain, library, nbytes, flops, what,
-               library_once=None):
-        # library_once: the library chain on weights dequantized once
-        # beforehand (no dequantization in the timed call)
-        row["ms"] = timer.ms(kernel, 20)
-        row["plain_ms"] = timer.ms(plain, 3)
-        row["library_ms"] = timer.ms(library, 10)
-        if library_once is not None:
-            row["library_once_ms"] = timer.ms(library_once, 10)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
-        rows.append(row)
-        log(f"  whisper {what}: max_abs {row['max_abs_err']:.3g} rel "
-            f"{row['max_rel_err']:.3g} (tol {tol['bfloat16']})  kernel "
-            f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
-            f"{row['library_ms']:.4f} ms"
-            + (f" (on weights dequantized once {row['library_once_ms']:.4f}"
-               " ms)" if library_once is not None else "")
-            + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-
-    check_sinusoid_table(torch, rows)
-
-    for (d_in, o), biased in (((d, d), False), ((f, d), True)):
+    for d_in, o, biased in cases:
         w = quantize(randn(d_in, o, dtype=f32) * 0.02)
         b = randn(o, dtype=f32) * 0.1 if biased else None
         w16, b16 = dequantize(w, bf16).T, None if b is None else b.to(bf16)
-        for t in (4, WHISPER_FRAMES):
+        for t in tokens:
             x = randn(t, d_in)
             err, rel = max_errs(w4a16_matmul_cuda(x, w, b),
                                 w4a16_matmul_torch(x, w, b))
-            need(rel <= tol["bfloat16"], f"whisper w4a16 T={t} {d_in}->{o}: "
+            need(rel <= tol["bfloat16"], f"{model} w4a16 T={t} {d_in}->{o}: "
                  f"rel err {rel:.3g}")
-            row = {"kernel": "w4a16_matmul", "model": "whisper-small",
+            row = {"kernel": "w4a16_matmul", "model": model,
                    "dtype": "bfloat16", "T": t, "in": d_in, "out": o,
                    "bias": biased, "max_abs_err": err, "max_rel_err": rel}
             record(row, lambda: w4a16_matmul_cuda(x, w, b),
@@ -3065,6 +3098,31 @@ def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
                    + (" with its bias" if biased else ""),
                    lambda: F.linear(x, w16, b16))
         del w, w16
+        torch.cuda.empty_cache()
+
+
+def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
+    """The audio path's GEMM kernels at whisper-small's widths, bf16,
+    against their plain versions, each timed beside its library call and
+    its bound: kernel 1 at 768 -> 768 (q/k/v/o, self and cross; the cross
+    K/V at the encoder's 1500 rows) and the down 3072 -> 768 with its f32
+    bias, kernel 2g (768 -> 3072, gelu with the up bias) at T = 4 and
+    1500, and ``dense_matmul`` on the tied head read in place (``embed.T``,
+    768 -> 51865) at T = 4."""
+    import functools
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, f, v = WHISPER_D, WHISPER_F, WHISPER_VOCAB
+    record = functools.partial(timed_row, timer, rows, tol, "whisper")
+
+    check_sinusoid_table(torch, rows)
+
+    check_w4a16_widths(torch, randn, tol, record, "whisper-small",
+                       ((d, d, False), (f, d, True)), (4, WHISPER_FRAMES))
     up = quantize(randn(d, f, dtype=f32) * 0.02)
     ub = (randn(f, dtype=f32) * 0.1).to(bf16)
     up16 = dequantize(up, bf16).T
@@ -3102,6 +3160,129 @@ def check_whisper_kernels(torch, timer, randn, tol, rows) -> None:
            f"dense_matmul tied head T=4 {d}->{v} (embed.T in place)")
     del embed, head
     torch.cuda.empty_cache()
+
+
+# qwen2-vl-7b's widths: d_model, d_ff, vocab, query and KV heads of 128,
+# M-RoPE theta and sections
+QWEN2VL_D, QWEN2VL_F, QWEN2VL_VOCAB = 3584, 18944, 152064
+QWEN2VL_HQ, QWEN2VL_HKV, QWEN2VL_THETA = 28, 4, 1e6
+QWEN2VL_SECTIONS = (16, 24, 24)
+
+
+def check_vlm_kernels(torch, timer, randn, tol, rows) -> None:
+    """The vlm path's GEMM kernels at qwen2-vl-7b's widths, bf16, against
+    their plain versions, each timed beside its library call (also on
+    weights dequantized once) and its bound, at T = 4 (a decode tick) and
+    64 (a mixed chunk): kernel 1 at wq / wo (3584 -> 3584), wk / wv (3584
+    -> 512), the down (18944 -> 3584, 148 groups) and the lm_head (3584
+    -> 152064), kernel 2's gate/up stage (3584 -> 2 x 18944, swiglu) with
+    the whole FFN timed beside it; then the q/k/v epilogue on an M-RoPE
+    config against the ``apply_mrope`` chain (``check_mrope_epilogue``)."""
+    import functools
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ffn_fused import (
+        ffn_gate_up_cuda, ffn_gate_up_torch)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, f, v = QWEN2VL_D, QWEN2VL_F, QWEN2VL_VOCAB
+    kv = QWEN2VL_HKV * 128
+    record = functools.partial(timed_row, timer, rows, tol, "qwen2-vl-7b")
+    check_w4a16_widths(torch, randn, tol, record, "qwen2-vl-7b",
+                       ((d, d, False), (d, kv, False), (f, d, False),
+                        (d, v, False)), (4, 64))
+    gate, up = (quantize(randn(d, f, dtype=f32) * 0.02) for _ in range(2))
+    down = quantize(randn(f, d, dtype=f32) * 0.02)
+    g16, u16 = (dequantize(w, bf16).T for w in (gate, up))
+    for t in (4, 64):
+        x = randn(t, d)
+        err, rel = max_errs(ffn_gate_up_cuda(x, gate, up, "swiglu"),
+                            ffn_gate_up_torch(x, gate, up, "swiglu"))
+        ferr, frel = max_errs(ops.ffn_w4a16(x, gate, up, down),
+                              ops.ffn_w4a16(x, gate, up, down, impl="torch"))
+        need(rel <= tol["bfloat16"] and frel <= tol["bfloat16"],
+             f"qwen2-vl-7b ffn T={t}: hidden rel {rel:.3g}, out rel "
+             f"{frel:.3g}")
+        row = {"kernel": "ffn_fused_w4a16", "model": "qwen2-vl-7b",
+               "dtype": "bfloat16", "T": t, "d": d, "f": f,
+               "max_abs_err": err, "max_rel_err": rel,
+               "ffn_max_abs_err": ferr, "ffn_max_rel_err": frel}
+        record(row, lambda: ffn_gate_up_cuda(x, gate, up, "swiglu"),
+               lambda: ffn_gate_up_torch(x, gate, up, "swiglu"),
+               lambda: F.silu(F.linear(x, dequantize(gate, bf16).T))
+               * F.linear(x, dequantize(up, bf16).T),
+               x.numel() * 2 + gate.nbytes_model + up.nbytes_model
+               + t * f * 2, 2 * 2 * t * d * f,
+               f"ffn_fused_w4a16 (gate/up stage) T={t} {d}->2x{f}",
+               lambda: F.silu(F.linear(x, g16)) * F.linear(x, u16))
+        row["ffn_ms"] = timer.ms(lambda: ops.ffn_w4a16(x, gate, up, down), 20)
+        row["ffn_bound_ms"], _ = bound(
+            x.numel() * 4 + sum(w.nbytes_model for w in (gate, up, down)),
+            3 * 2 * t * d * f, "bfloat16")
+        log(f"    whole FFN (kernel 2, then kernel 1 for down) "
+            f"{row['ffn_ms']:.4f} ms, bound {row['ffn_bound_ms']:.4f} ms")
+    del gate, up, down, g16, u16
+    torch.cuda.empty_cache()
+    check_mrope_epilogue(torch, rows)
+
+
+def check_mrope_epilogue(torch, rows) -> None:
+    """The q/k/v epilogue as an M-RoPE config's served steps call it (the
+    config's theta: a serving step's three id streams are equal, so the
+    rotation is the standard one) bitwise against the chain the unfused
+    route runs: the bias adds, ``apply_mrope`` at the step's (3, B, C)
+    ids, ``quantize_kv`` and the ``kv_write`` kernel; q at every live
+    position and every leaf, at qwen2-vl-7b's heads (28 over 4 of 128),
+    slot and paged, bf16 and int8, decode and a 64-wide chunk."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.kv_write import quantize_kv
+    from repro_torch.kernels.rope import apply_mrope
+    g = torch.Generator(device="cuda").manual_seed(35)
+    hq, hkv, hd = QWEN2VL_HQ, QWEN2VL_HKV, 128
+    for layout in ("slot", "paged"):
+        for quant in (False, True):
+            for chunk in (1, 64):
+                (cache, q, k, v, bias, rope_base, starts, q_lens,
+                 table) = epilogue_case(torch, g, layout, quant, chunk, hq,
+                                        hkv, hd=hd)
+                want = {n: t.clone() for n, t in cache.items()}
+                got_q = ops.qkv_rope_write(
+                    cache, q, k, v, bias, n_heads=hq, theta=QWEN2VL_THETA,
+                    rope_base=rope_base, starts=starts, q_lens=q_lens,
+                    page_table=table)
+                b = q.shape[0]
+                pos = rope_base[:, None] + torch.arange(
+                    chunk, dtype=torch.int32, device="cuda")[None]
+                ids = pos[None].expand(3, b, chunk)
+
+                def heads(t, bt, h):          # linear's bias add, split
+                    return (t + bt).reshape(b, chunk, h, hd).transpose(1, 2)
+                want_q = apply_mrope(heads(q, bias[0], hq), ids,
+                                     QWEN2VL_THETA, QWEN2VL_SECTIONS)
+                kk = apply_mrope(heads(k, bias[1], hkv), ids, QWEN2VL_THETA,
+                                 QWEN2VL_SECTIONS)
+                vv = heads(v, bias[2], hkv)
+                new = {"k": kk, "v": vv}
+                if quant:
+                    (kq, ks), (vq, vs) = quantize_kv(kk), quantize_kv(vv)
+                    new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+                ops.kv_write(want, new, starts, q_lens, page_table=table)
+                torch.cuda.synchronize()
+                what = (f"qkv_rope_write qwen2-vl-7b M-RoPE {layout} "
+                        f"{'int8' if quant else 'bf16'} C={chunk}")
+                need(all(bitwise(torch, got_q[r, :, :n], want_q[r, :, :n])
+                         for r, n in enumerate(q_lens.tolist())),
+                     f"{what}: q is not bitwise the apply_mrope chain's")
+                for n in cache:
+                    need(bitwise(torch, cache[n], want[n]),
+                         f"{what}: leaf {n} is not bitwise the apply_mrope "
+                         "chain's")
+                rows.append({"kernel": "qkv_rope_write", "model":
+                             "qwen2-vl-7b", "rope": "mrope", "layout": layout,
+                             "kind": "int8" if quant else "bf16", "C": chunk,
+                             "bitwise_apply_mrope_chain": True})
+                log(f"  {what}: q and every leaf bitwise = the apply_mrope "
+                    "chain at equal ids")
 
 
 # zamba2-7b's widths: d_model, d_inner, SSM heads of P with state N, conv
@@ -4856,10 +5037,11 @@ def serve_restart(torch, cfg, params, results, path, oracle):
 # the paths whose graphs are held against eager steps, and traced
 REPLAY_PATHS = ("dense", "dense-spec", "strategy2-paged-int8", "xlstm-dense",
                 "starcoder2-dense", "granite-moe-dense", "qwen3-8b-dense",
-                "gemma-2b-dense", "whisper-dense", "zamba2-dense")
+                "gemma-2b-dense", "whisper-dense", "zamba2-dense",
+                "qwen2-vl-dense")
 TRACE_PATHS = ("dense", "strategy2-paged", "xlstm-dense", "starcoder2-dense",
                "granite-moe-dense", "gemma-2b-dense", "whisper-dense",
-               "zamba2-dense")
+               "zamba2-dense", "qwen2-vl-dense")
 # no served transformer tick or admission copies a tensor this large (a
 # tied LM head read through a transposed copy would: 151 MB a tick on
 # granite, 79.7 MB on whisper)
@@ -5515,6 +5697,123 @@ def check_prefill_forward(torch, cfg, params, results, path, counts,
     torch.cuda.empty_cache()
 
 
+VLM_IMAGE_SIDE, VLM_TEXT = 16, 300     # a 16 x 16 patch grid, then text
+
+
+def vlm_grid_ids(torch, b, side, n_text):
+    """M-RoPE ids (3, B, side^2 + n_text) of a ``side`` x ``side`` image's
+    patches followed by text, as Qwen2-VL lays them out: the image's
+    temporal id 0, its height and width ids the patch's row and column;
+    the text continues all three streams from ``side``."""
+    r = torch.arange(side * side, dtype=torch.int32,
+                     device=DEVICE) // side
+    c = torch.arange(side * side, dtype=torch.int32, device=DEVICE) % side
+    img = torch.stack([torch.zeros_like(r), r, c])
+    text = torch.arange(n_text, dtype=torch.int32, device=DEVICE) + side
+    ids = torch.cat([img, text[None].expand(3, n_text)], dim=1)
+    return ids[:, None].expand(3, b, ids.shape[1]).contiguous()
+
+
+@contextlib.contextmanager
+def flash_held_against_plain(errs):
+    """Inside the block every ``ops.attention`` call on the card is also
+    run through kernel 7's plain version on the same inputs (which
+    launches nothing), and its relative error appended to ``errs``."""
+    from repro_torch.kernels import ops
+    saved = ops.attention
+
+    def held(q, k, v, **kw):
+        got = saved(q, k, v, **kw)
+        errs.append(max_errs(got, saved(q, k, v, impl="torch", **kw))[1])
+        return got
+    ops.attention = held
+    try:
+        yield
+    finally:
+        ops.attention = saved
+
+
+def check_vlm_prefill(torch, cfg, params, results, path, counts,
+                      engine_stream):
+    """Phase 6 on the vlm family: the text-only checks of every dense
+    model (``check_prefill_forward``: forward's last position bitwise
+    prefill's, launches, the two prefill routes, greedy prefill + decode
+    against the engine); then ``forward`` with the stubbed frontend's
+    output: (v) B = 2, 256 seeded patch embeddings of a 16 x 16 image
+    before 300 text tokens (S = 556, ragged against kernel 7's tiles) at
+    the image's distinct M-RoPE ids, every layer's kernel 7 call held
+    against its plain version on the same rotated q/k (rep 7), launches
+    exact (the path ``<model>-vision``), logits finite, and the ids
+    reaching the rotation (the canonical equal ids give other logits);
+    (w) embeddings that are the embedding table's rows of 256 tokens, at
+    the canonical ids, give bitwise ``forward`` of those tokens before
+    the text."""
+    import numpy as np
+    from repro_torch.kernels._build import launches
+    from repro_torch.models import api, transformer
+    check_prefill_forward(torch, cfg, params, results, path, counts,
+                          engine_stream)
+    res = results["prefill"][path]
+    rng = np.random.default_rng(35)
+    b, n = 2, VLM_IMAGE_SIDE ** 2
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (b, VLM_TEXT)),
+                        device=DEVICE)
+    vis = torch.from_numpy(
+        (rng.standard_normal((b, n, cfg.d_model)) * 0.02).astype(
+            np.float32)).to(DEVICE)
+    ids = vlm_grid_ids(torch, b, VLM_IMAGE_SIDE, VLM_TEXT)
+    errs = []
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    with flash_held_against_plain(errs):
+        logits, _ = transformer.forward(cfg, params, toks, positions=ids,
+                                        vision_embeds=vis)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    got = dict(launches)
+    counts[f"{path}-vision"] = got
+    expect = expected_full_launches(cfg, params, 1)
+    canon, _ = api.forward(cfg, params, {"tokens": toks,
+                                         "vision_embeds": vis})
+    moved = not torch.equal(canon[:, -1], logits[:, -1])
+    s = n + VLM_TEXT
+    log(f"  (v) forward B={b} with {n} patch embeddings + {VLM_TEXT} tokens "
+        f"(S={s}) at the image's M-RoPE ids {t_fwd * 1e3:.1f} ms (kernel 7 "
+        f"held per call); logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; kernel 7 vs its plain "
+        f"version over {len(errs)} calls: max rel {max(errs):.3g} (tol "
+        f"1e-2); equal ids give other logits {moved}; launches {got} "
+        f"expected {expect}")
+    res["v"] = {"forward_s": t_fwd, "S": s, "flash_calls": len(errs),
+                "flash_max_rel_err": max(errs), "ids_move_logits": moved,
+                "launches": got, "expected_launches": expect}
+    need(logits.shape == (b, s, cfg.vocab_size)
+         and bool(torch.isfinite(logits).all()),
+         f"{path}: the vision forward's logits are not finite of shape "
+         f"({b}, {s}, V)")
+    need(len(errs) == cfg.n_layers and max(errs) <= 1e-2,
+         f"{path}: kernel 7 over the image and text differs from its plain "
+         f"version by {max(errs):.3g} (> 1e-2) in {len(errs)} calls")
+    need(got == expect, f"{path}: the vision forward's launches {got} != "
+         f"{expect}")
+    need(moved, f"{path}: the image's M-RoPE ids do not reach the logits")
+    del logits, canon
+    img = torch.tensor(rng.integers(0, cfg.vocab_size, (b, n)),
+                       device=DEVICE)
+    as_vis, _ = api.forward(cfg, params, {
+        "tokens": toks, "vision_embeds": params["embed"][img]})
+    as_text, _ = api.forward(cfg, params, {
+        "tokens": torch.cat([img, toks], dim=1)})
+    same = torch.equal(as_vis, as_text)
+    log(f"  (w) the embedding rows of 256 tokens as vision embeddings "
+        f"bitwise forward of those tokens before the text: {same}")
+    res["w"] = {"bitwise": same}
+    need(same, f"{path}: embeddings put before the tokens differ from the "
+         "same rows looked up")
+    torch.cuda.empty_cache()
+
+
 def check_audio_prefill(torch, cfg, params, results, path, counts,
                         engine_stream):
     """Phase 6 on the audio family: (a) ``forward`` and the slot
@@ -5966,13 +6265,18 @@ MODELS = (("dense", "qwen-7b", "dense"), ("strategy2", "qwen-7b", "strategy2"),
           ("qwen3-8b-dense", "qwen3-8b", "dense"),
           ("gemma-2b-dense", "gemma-2b", "dense"),
           ("whisper-dense", "whisper-small", "dense"),
-          ("zamba2-dense", "zamba2-7b", "dense"))
-# the depth of two earlier weight sets, cut so the hybrid paths fit the
-# script's time (phase 3 still holds their kernels at full width):
-# xlstm-1.3b's blocks, 16 of 48 (2 segments of 7 mLSTM and 1 sLSTM), and
-# qwen-7b's strategy2 layers, 16 of 32, which its nine engine paths serve
+          ("zamba2-dense", "zamba2-7b", "dense"),
+          ("qwen2-vl-dense", "qwen2-vl-7b", "dense"))
+# the depth of three earlier weight sets, cut so the hybrid and vlm paths
+# fit the script's time (phase 3 still holds their kernels at full width):
+# xlstm-1.3b's blocks, 16 of 48 (2 segments of 7 mLSTM and 1 sLSTM),
+# qwen-7b's strategy2 layers, 16 of 32, which its nine engine paths serve,
+# and zamba2-7b's Mamba2 layers, 27 of 81 (4 shared-block sites, both
+# blocks in turn, and the 3-layer tail, as the 81 have 13 sites and the
+# tail): the host-bound hybrid paths took 241 s of 1,044 at full depth
 XLSTM_SERVED_BLOCKS = 16
 STRATEGY2_SERVED_LAYERS = 16
+ZAMBA2_SERVED_LAYERS = 27
 # config overrides of a model's paths: the MoE paths serve at the dropless
 # capacity factor n_experts / top_k (a chunk then drops nothing, so mixed
 # and sequential steps agree; the published 1.25 stays in the configs and
@@ -5982,11 +6286,12 @@ MODEL_OVERRIDES = {
     "granite-moe-dense": dict(moe_capacity_factor=40 / 8),
     "mixtral-dense": dict(n_layers=4, moe_capacity_factor=8 / 2),
     "xlstm-dense": dict(n_layers=XLSTM_SERVED_BLOCKS),
-    "strategy2": dict(n_layers=STRATEGY2_SERVED_LAYERS)}
+    "strategy2": dict(n_layers=STRATEGY2_SERVED_LAYERS),
+    "zamba2-dense": dict(n_layers=ZAMBA2_SERVED_LAYERS)}
 # the paths whose MoE drops at the published factor phase 4 (d) records
 MOE_DROP_PATHS = ("granite-moe-dense",)
 PREFILL_PATHS = ("dense", "chatglm-dense", "xlstm-dense", "gemma-2b-dense",
-                 "whisper-dense", "zamba2-dense")
+                 "whisper-dense", "zamba2-dense", "qwen2-vl-dense")
 # cache configurations served with a model's weights besides the slot fp
 # cache: (path suffix, config overrides)
 KV_PATHS = {"strategy2": (
@@ -6003,7 +6308,12 @@ KV_PATHS = {"strategy2": (
     ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),),
     # the hybrid family's shared-block sites on the paged pool
     "zamba2-dense": (
-    ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),)}
+    ("paged", dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)),),
+    # kernel 3's int8 paged variant at rep 7 (28 over 4 heads) on a served
+    # path
+    "qwen2-vl-dense": (
+    ("paged-int8", dict(kv_layout="paged", kv_block_size=16,
+                        kv_pool_blocks=20, kv_quant="int8")),)}
 # engines served with a model's weights after its cache paths, with their
 # own workload: (path suffix, config overrides, engine arguments)
 ENGINE_PATHS = {
@@ -6110,6 +6420,7 @@ def main() -> int:
                 check = (check_xlstm_prefill if cfg.family == "ssm" else
                          check_hybrid_prefill if cfg.family == "hybrid" else
                          check_audio_prefill if cfg.family == "audio" else
+                         check_vlm_prefill if cfg.family == "vlm" else
                          check_prefill_forward)
                 check(torch, cfg, params, results, model, counts,
                       streams[model][-1])

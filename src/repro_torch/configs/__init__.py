@@ -5,8 +5,10 @@ biases, qwen3 the per-head q/k norm, gemma head dim 256, MQA, GeGLU and
 scaled, tied embeddings), ``granite-moe-3b-a800m`` and
 ``mixtral-8x22b`` (family ``moe``), ``xlstm-1.3b`` (family ``ssm``),
 ``zamba2-7b`` (family ``hybrid``: a Mamba2 backbone with shared attention
-blocks) and ``whisper-small`` (family ``audio``: an encoder-decoder whose
-requests bring audio frames).
+blocks), ``whisper-small`` (family ``audio``: an encoder-decoder whose
+requests bring audio frames) and ``qwen2-vl-7b`` (family ``vlm``: the dense
+backbone with M-RoPE, its patch frontend a stub), every architecture of the
+reference's registry.
 
 ``get_config(name)`` gives the full-size configuration and
 ``get_smoke_config(name)`` the reduced same-family one the CPU tests use;
@@ -19,23 +21,24 @@ import dataclasses
 
 from repro_torch.configs import (
     chatglm_6b, gemma_2b, granite_moe_3b_a800m, mixtral_8x22b, qwen1_5_4b,
-    qwen3_8b, qwen_7b, starcoder2_7b, whisper_small, xlstm_1_3b, zamba2_7b)
+    qwen2_vl_7b, qwen3_8b, qwen_7b, starcoder2_7b, whisper_small, xlstm_1_3b,
+    zamba2_7b)
 
 _MODULES = {"qwen-7b": qwen_7b, "chatglm-6b": chatglm_6b,
             "starcoder2-7b": starcoder2_7b, "qwen1.5-4b": qwen1_5_4b,
             "qwen3-8b": qwen3_8b, "gemma-2b": gemma_2b,
             "granite-moe-3b-a800m": granite_moe_3b_a800m,
             "mixtral-8x22b": mixtral_8x22b, "xlstm-1.3b": xlstm_1_3b,
-            "whisper-small": whisper_small, "zamba2-7b": zamba2_7b}
+            "whisper-small": whisper_small, "zamba2-7b": zamba2_7b,
+            "qwen2-vl-7b": qwen2_vl_7b}
 
 
 def _module(name: str):
     try:
         return _MODULES[name]
     except KeyError:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (the port serves the dense, "
-            f"moe, ssm, hybrid and audio families: {sorted(_MODULES)})") from None
+        raise ValueError(f"unknown arch {name!r} (the port's: "
+                         f"{sorted(_MODULES)})") from None
 
 
 def get_config(name: str, **overrides):

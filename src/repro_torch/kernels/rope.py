@@ -1,7 +1,8 @@
-"""Rotary position embeddings: the plain ``apply_rope`` and the cos/sin table
-the fused q/k/v epilogue (``kv_write.qkv_rope_write_cuda``) reads.
+"""Rotary position embeddings: the plain ``apply_rope``, the multimodal
+``apply_mrope`` and the cos/sin table the fused q/k/v epilogue
+(``kv_write.qkv_rope_write_cuda``) reads.
 
-The reference computes RoPE inline (``repro/models/layers.py:99-111``).
+The reference computes RoPE inline (``repro/models/layers.py:99-140``).
 The table's row ``p`` holds ``cos`` and ``sin`` of ``float(p) * freq_i``,
 made with ``apply_rope``'s own operations (``rope_freqs``, the f32 product,
 ``torch.cos`` / ``torch.sin``), so each entry is bitwise what ``apply_rope``
@@ -31,15 +32,41 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     return positions[:, None, :, None].to(torch.float32) * freqs
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (b, h, s, d); positions (b, s) int.  Angles in f32 from the int
-    positions, as the reference computes them."""
-    angles = rope_angles(positions, x.shape[-1], theta)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (b, h, s, d) rotated by f32 ``angles`` (b, 1, s, d / 2): the
+    halves' pairs (i, i + d/2), in f32, rounded back to x's dtype."""
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (b, h, s, d); positions (b, s) int.  Angles in f32 from the int
+    positions, as the reference computes them."""
+    return _rotate(x, rope_angles(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): x (b, h, s, d); positions (3, b, s) int,
+    the temporal, height and width ids.  The d/2 frequency slots are split
+    into ``sections`` (summing to d/2); slot i of section j turns by stream
+    j's position.  Each angle is ``float(p) * freq_i``, the product
+    ``apply_rope`` takes, so with the three streams equal this is bitwise
+    ``apply_rope`` of one of them (the serving steps' case)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"half the head dim ({half})")
+    freqs = rope_freqs(x.shape[-1], theta, positions.device)
+    _, b, s = positions.shape
+    # each slot's position, (b, s, half): stream j repeated over section j
+    # (built from views, no index tensor, so nothing is copied to the card)
+    pos = torch.cat([positions[j, :, :, None].expand(b, s, n)
+                     for j, n in enumerate(sections)], dim=-1)
+    return _rotate(x, pos[:, None].to(torch.float32) * freqs)
 
 
 def rope_table(head_dim: int, theta: float, rows: int,

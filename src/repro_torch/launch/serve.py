@@ -4,8 +4,11 @@
 ungated gelu FFN with biases), ``--full --arch qwen1.5-4b``, ``qwen3-8b``
 (the per-head q/k norm) or ``gemma-2b`` (head dim 256, GeGLU, a tied
 head), ``--full --arch granite-moe-3b-a800m`` for the MoE family,
-``--full --arch xlstm-1.3b`` for the xLSTM family, or ``--full --arch
-zamba2-7b`` for the hybrid family (Mamba2 with shared attention blocks).
+``--full --arch xlstm-1.3b`` for the xLSTM family, ``--full --arch
+zamba2-7b`` for the hybrid family (Mamba2 with shared attention blocks),
+or ``--full --arch qwen2-vl-7b`` for the vlm family, whose text requests
+it serves as the dense family's (M-RoPE with equal id streams; the vision
+frontend is a stub, reached through ``api.forward`` only).
 
 Builds the model from a seeded ``torch.Generator``, quantizes it with the
 port's compiler (``--strategy``: ``none`` (16-bit weights), ``dense``

@@ -1,5 +1,5 @@
-"""Model API of the port: the dense, moe, ssm (xLSTM), hybrid (Zamba2) and
-audio (Whisper) families of ``repro/models/api.py``.
+"""Model API of the port: the dense, moe, vlm (Qwen2-VL), ssm (xLSTM), hybrid
+(Zamba2) and audio (Whisper) families of ``repro/models/api.py``.
 
     init_params(cfg, gen)                     -> params tree
     forward(cfg, params, batch)               -> (logits (B, S, V), aux)
@@ -22,8 +22,12 @@ audio (Whisper) families of ``repro/models/api.py``.
     load_cache_(cfg, cache, arrays)           -> cache, leaves loaded in place
 
 ``batch`` is a dict ``{"tokens": (B, S)}``, plus ``{"frames": (B, F, d)}``
-for the audio family.  Dense and moe families (the
-moe family swaps each block's MLP for ``models/moe.py``): ``forward`` and
+for the audio family; ``forward`` of a transformer family also takes
+``{"vision_embeds": (B, N, d)}``, the patch embeddings of the vlm family's
+stubbed frontend, put before the tokens'.  The transformer families (the
+moe family swaps each block's MLP for ``models/moe.py``; the vlm family is
+the dense model with M-RoPE, whose serving routes take text only, as the
+reference's): ``forward`` and
 the slot layout's ``prefill`` run the whole sequence through the
 full-sequence flash attention (``ops.attention``); a prompt longer than
 ``transformer.PREFILL_CHUNK`` prefills chunk by chunk.  A paged cache has no
@@ -78,7 +82,7 @@ from repro_torch.train.checkpoint import VIEW_DTYPES, dtype_name, tree_paths
 Params = dict[str, Any]
 
 
-# the reference's transformer families (the port serves "dense" of them)
+# the reference's transformer families
 _TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -107,19 +111,19 @@ def init_params(cfg, gen: torch.Generator) -> Params:
 
 
 def forward(cfg, params: Params, batch: dict):
-    """tokens (B, S) (and the audio family's frames (B, F, d)) -> (logits
-    (B, S, V), aux loss: the MoE load-balance loss summed over layers, 0
-    for the other families)."""
+    """tokens (B, S) (and the audio family's frames (B, F, d), a
+    transformer family's ``vision_embeds`` (B, N, d)) -> (logits (B, N + S,
+    V), aux loss: the MoE load-balance loss summed over layers, 0 for the
+    other families)."""
     attention.check_supported(cfg)
-    if batch.get("vision_embeds") is not None:
-        raise NotImplementedError("vision embeddings come with the vlm family")
+    if cfg.family in _TRANSFORMER_FAMILIES:
+        return transformer.forward(cfg, params, batch["tokens"],
+                                   vision_embeds=batch.get("vision_embeds"))
     if _ssm(cfg):
         return xlstm_stack.forward(cfg, params, batch["tokens"])
     if _audio(cfg):
         return whisper.forward(cfg, params, batch["frames"], batch["tokens"])
-    if _hybrid(cfg):
-        return zamba.forward(cfg, params, batch["tokens"])
-    return transformer.forward(cfg, params, batch["tokens"])
+    return zamba.forward(cfg, params, batch["tokens"])
 
 
 def _bulk_prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):

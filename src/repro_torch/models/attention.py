@@ -1,10 +1,10 @@
-"""Attention: GQA, RoPE, slot or paged KV cache, fp or int8 K/V (port of
-the dense path of ``repro/models/attention.py``).  The full-sequence path
-(``attn_apply``, ``attn_prefill``) runs ``ops.attention``; the serving
-steps (``attn_mixed``, ``attn_decode``) run ``ops.mixed_attention``
-against the cache.  Whisper's decoder cross-attention (``cross_kv``,
-``cross_attn_apply``) runs ``ops.attention`` without a mask over the
-request's encoder K/V.
+"""Attention: GQA, RoPE or M-RoPE, slot or paged KV cache, fp or int8 K/V
+(port of the dense path of ``repro/models/attention.py``).  The
+full-sequence path (``attn_apply``, ``attn_prefill``) runs
+``ops.attention``; the serving steps (``attn_mixed``, ``attn_decode``) run
+``ops.mixed_attention`` against the cache.  Whisper's decoder
+cross-attention (``cross_kv``, ``cross_attn_apply``) runs
+``ops.attention`` without a mask over the request's encoder K/V.
 
 The cache is updated IN PLACE, which JAX could not do: in the serving steps
 ``ops.qkv_rope_write`` takes a layer's raw q/k/v projections, adds their
@@ -53,9 +53,9 @@ def check_supported(cfg, device=None) -> None:
     CUDA device (the CPU's plain version takes any).  The ssm family has no
     KV cache and ignores the KV options, as in the reference; a ``moe``
     config with no experts is a dense model, as in the reference."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm, "
+            f"family {cfg.family!r} is not ported (dense, moe, vlm, ssm, "
             "hybrid and audio only)")
     if cfg.family == "ssm":
         return
@@ -65,7 +65,7 @@ def check_supported(cfg, device=None) -> None:
             "(Whisper's positions are sinusoids added to its inputs)")
     if cfg.kv_quant not in ("none", "int8"):
         raise NotImplementedError(f"kv_quant {cfg.kv_quant!r} is not ported")
-    if cfg.rope_type not in ("standard", "none"):
+    if cfg.rope_type not in ("standard", "mrope", "none"):
         raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not ported")
     if (cfg.kv_layout == "paged" and device is not None
             and torch.device(device).type == "cuda"
@@ -98,6 +98,9 @@ def attn_init(gen: torch.Generator, cfg) -> Params:
 
 
 def _project_qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """q (contiguous), k, v (b, h, s, hd) of x (b, s, d), biased, normed
+    (``qk_norm``) and rotated at ``positions``: (b, s), or (3, b, s) ids
+    for M-RoPE."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = linear(x, p["wq"], p.get("bq")).reshape(b, s, hq, hd)
@@ -112,6 +115,11 @@ def _project_qkv(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
     if cfg.rope_type == "standard":
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_type == "mrope":
+        q = layers.apply_mrope(q, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = layers.apply_mrope(k, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
     return q.contiguous(), k, v
 
 
@@ -316,16 +324,19 @@ def _qkv_into_cache(cfg, p: Params, x: torch.Tensor, cache: Params,
     bias-free projections, a ``qk_norm`` config's per-head q/k norm (between
     the bias and RoPE) inside it.  A rolling window's decode keeps the
     unfused chain: its positions run past the epilogue's RoPE table (the
-    cache span)."""
+    cache span).  A serving step's position ids come from the row lengths,
+    so an M-RoPE config's three streams are equal there, and M-RoPE is
+    the standard rotation (``apply_mrope``): the epilogue reads the
+    standard table."""
     if index.rolling:
         c = x.shape[1]
         positions = index.rope_base[:, None] + torch.arange(
             c, dtype=index.rope_base.dtype, device=x.device)[None, :]
-        q, k, v = _project_qkv(cfg, p, x, positions)
+        q, k, v = _project_qkv(cfg, p, x, layers.rope_ids(cfg, positions))
         ops.kv_write(cache, _new_kv(cfg, k, v), index.starts, index.q_lens,
                      page_table=index.page_table)
         return q
-    theta = cfg.rope_theta if cfg.rope_type == "standard" else None
+    theta = None if cfg.rope_type == "none" else cfg.rope_theta
     return ops.qkv_rope_write(
         cache, linear(x, p["wq"]), linear(x, p["wk"]), linear(x, p["wv"]),
         (p.get("bq"), p.get("bk"), p.get("bv")), n_heads=cfg.n_heads,

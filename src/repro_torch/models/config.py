@@ -1,11 +1,13 @@
 """Model configuration dataclass (the port's own copy, torch dtypes).
 
 Mirrors ``repro/models/config.py`` for the fields the dense, MoE, xLSTM
-(``ssm``), Zamba2 (``hybrid``) and Whisper (``audio``) serving paths read,
-the slot and paged KV layouts and the int8 KV cache included (the ``ssm``
-family has no KV cache and ignores them).  The
-``family`` field is kept so a configuration can name a family the port does
-not serve yet; the model and engine raise ``NotImplementedError`` for it.
+(``ssm``), Zamba2 (``hybrid``), Whisper (``audio``) and Qwen2-VL (``vlm``:
+the dense backbone with M-RoPE, its patch frontend a stub in both packages)
+serving paths read, the slot and paged KV layouts and the int8 KV cache
+included (the ``ssm`` family has no KV cache and ignores them).  The
+reference's execution knobs (``remat``, ``scan_layers``, ``use_kernels``)
+have no counterpart here.  A ``family`` the port does not know is refused
+by the model and engine with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ class ModelConfig:
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     qkv_bias: bool = False
     qk_norm: bool = False
-    rope_type: str = "standard"       # standard | none
+    rope_type: str = "standard"       # standard | mrope | none
     rope_theta: float = 1_000_000.0
+    # M-RoPE: the head's d/2 frequency slots split into sections, each
+    # rotated by its own (temporal, height, width) position stream
+    mrope_sections: tuple[int, ...] = (16, 24, 24)
     window: int | None = None         # sliding-window attention
     tie_embeddings: bool = False
     embed_scale: bool = False         # scale embeddings by sqrt(d)

@@ -23,7 +23,8 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.core.sparsity import SparseQuantizedTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
-from repro_torch.kernels.rope import apply_rope, rope_freqs  # noqa: F401
+from repro_torch.kernels.rope import (  # noqa: F401
+    apply_mrope, apply_rope, rope_freqs)
 
 Params = dict[str, Any]
 
@@ -107,18 +108,25 @@ def add_norm(cfg, p: Params, x: torch.Tensor, h, *, keep_sum: bool = True):
 
 # -- rotary embeddings -----------------------------------------------------
 
-# ``rope_freqs`` and ``apply_rope`` live in ``kernels/rope.py`` beside the
-# table the fused q/k/v epilogue reads, and are this module's names too.
+# ``rope_freqs``, ``apply_rope`` and ``apply_mrope`` live in
+# ``kernels/rope.py`` beside the table the fused q/k/v epilogue reads, and
+# are this module's names too.
+
+
+def rope_ids(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """The config's rotary ids of positions (b, s): themselves, or for
+    M-RoPE the three streams equal, (3, b, s), as text tokens carry them."""
+    if cfg.rope_type == "mrope":
+        return positions[None].expand(3, *positions.shape)
+    return positions
 
 
 def positions_for(cfg, batch: int, seq: int, offset: int = 0,
                   device=None) -> torch.Tensor:
-    """Position ids (batch, seq) ``offset .. offset + seq - 1`` of every row
-    (standard RoPE; M-RoPE's 3-axis ids come with the vlm family)."""
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE positions come with the vlm family")
+    """Position ids ``offset .. offset + seq - 1`` of every row: (batch,
+    seq), or (3, batch, seq) equal streams for M-RoPE."""
     base = torch.arange(seq, dtype=torch.int32, device=device) + offset
-    return base[None, :].expand(batch, seq)
+    return rope_ids(cfg, base[None, :].expand(batch, seq))
 
 
 # -- FFN -------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Decoder-only transformer (port of the dense and MoE paths of
+"""Decoder-only transformer (port of the dense, MoE and vlm paths of
 ``repro/models/transformer.py``): ``forward`` and whole-prompt ``prefill``
 over the full sequence, ``mixed_step`` and ``decode_step`` for serving.
 An MoE config (``cfg.is_moe``) has ``moe`` in place of ``mlp`` in every
 block (``models/moe.py``), and ``forward`` returns its summed
-load-balance loss.
+load-balance loss.  A vlm config is the dense model with M-RoPE:
+``forward`` takes the stubbed frontend's patch embeddings and (3, B, S)
+position ids; the serving routes take text only, their three id streams
+equal.
 
 Block parameters are stacked along a leading layer axis, as in the
 reference; the layers run as a Python loop over views of the stacked
@@ -151,10 +154,18 @@ def _final_norm(cfg, params: Params, x: torch.Tensor, m) -> torch.Tensor:
 
 # -- full sequence ------------------------------------------------------------
 
-def forward(cfg, params: Params, tokens: torch.Tensor, positions=None):
-    """tokens (B, S) -> (logits (B, S, V), aux loss: the MoE layers'
-    load-balance losses summed, 0 for the dense family)."""
+def forward(cfg, params: Params, tokens: torch.Tensor, positions=None,
+            vision_embeds: torch.Tensor | None = None):
+    """tokens (B, S) -> (logits (B, N + S, V), aux loss: the MoE layers'
+    load-balance losses summed, 0 for the dense family).
+    ``vision_embeds`` (B, N, d), the patch embeddings of the stubbed vision
+    frontend, are cast to the embeddings' dtype and put before the tokens'.
+    ``positions``: (B, N + S) ids, or (3, B, N + S) for M-RoPE, whose
+    streams may differ (an image's temporal / height / width ids); None
+    gives ``layers.positions_for``'s."""
     x = embed_tokens(cfg, params, tokens)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     if positions is None:
         positions = layers.positions_for(cfg, b, s, device=tokens.device)

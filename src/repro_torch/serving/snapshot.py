@@ -197,13 +197,23 @@ def cfg_to_dict(cfg: ModelConfig) -> dict:
     return d
 
 
+# the reference's execution knobs (JAX's remat, layer scan and Pallas
+# switch): a config it wrote loads without them
+_REFERENCE_ONLY = ("remat", "scan_layers", "use_kernels")
+
+
 def cfg_from_dict(d: dict) -> ModelConfig:
-    d = dict(d)
+    """The config of ``cfg_to_dict``'s JSON, the port's or the reference's
+    (whose execution knobs ``_REFERENCE_ONLY`` are dropped); any other
+    field the port lacks raises ``ValueError``."""
+    d = {k: v for k, v in d.items() if k not in _REFERENCE_ONLY}
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     if set(d) - known:
         raise ValueError(f"config fields {sorted(set(d) - known)} are not "
                          "the port's")
     d["dtype"] = getattr(torch, d["dtype"])
+    if isinstance(d.get("mrope_sections"), list):       # JSON has no tuple
+        d["mrope_sections"] = tuple(d["mrope_sections"])
     return ModelConfig(**d)
 
 

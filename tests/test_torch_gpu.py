@@ -3451,3 +3451,160 @@ def test_zamba_engine_matches_oracle_on_card(cuda, dtype, layout):
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
                                             device="cuda"), r.rid
+
+
+# -- the vlm family (qwen2-vl-7b) ---------------------------------------------
+
+@pytest.mark.parametrize("variant", [(False, False), (True, True)],
+                         ids=["slot-bf16", "paged-int8"])
+@pytest.mark.parametrize("chunk", [1, 64])
+def test_attention_kernel_at_qwen2_vl_heads(cuda, variant, chunk):
+    """bf16 kernel 3 at qwen2-vl-7b's heads (28 query heads over 4 KV
+    heads of 128, rep 7), on the slot bf16 cache and the paged int8 pool
+    (16-token pages under a scrambled table), decode and a 64-wide chunk,
+    against its plain version; paged is bitwise the slot kernel at
+    ``block_kv = 16``; a row alone is the row inside the batch."""
+    paged, quant = variant
+    gen = torch.Generator(device="cuda").manual_seed(7 + chunk)
+    b, hq, hkv, s, page = 4, 28, 4, 512, 16
+    leaves, pool, table = _attention_operands(
+        gen, torch.bfloat16, b, hkv, s, 128, page, quant)
+    q = _rand(gen, b, hq, chunk, 128, dtype=torch.bfloat16)
+    lengths = torch.tensor([37, 200, 5, 511], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([1, chunk, min(chunk, 5), max(chunk - 47, 1)],
+                          dtype=torch.int32, device="cuda")
+    cache, kw = (pool, {"page_table": table}) if paged else (leaves, {})
+    name = VARIANTS_NAMES[variant]
+    before = _build.launches[name]
+    got = _attend(q, cache, lengths, q_lens, **kw)
+    assert _build.launches[name] == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, _attend(q, cache, lengths, q_lens, impl="torch", **kw),
+           torch.bfloat16)
+    if paged:
+        assert torch.equal(got, _attend(q, leaves, lengths, q_lens,
+                                        block_kv=page))
+    one = {"page_table": table[1:2]} if paged else {}
+    alone = _attend(q[1:2], cache if paged else {
+        n: t[1:2] for n, t in cache.items()}, lengths[1:2], q_lens[1:2],
+        **one)
+    assert torch.equal(alone, got[1:2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_over_a_prepended_image_at_rep_7(cuda, dtype):
+    """Kernel 7 at qwen2-vl-7b's heads (28 over 4 of 128) over the
+    sequence ``forward`` gives it with a 16 x 16 image before 300 text
+    tokens (B = 2, S = 556, ragged against the 64-row tiles), causal,
+    against its plain version at the kernel's tiles; a row of the batch
+    alone is the row inside it, and in bf16 the last 300 queries alone
+    (the text, a ragged query tiling) are those rows of the whole call."""
+    gen = torch.Generator(device="cuda").manual_seed(556)
+    b, hq, hkv, s = 2, 28, 4, 256 + 300
+    q = _rand(gen, b, hq, s, 128, dtype=dtype)
+    k = _rand(gen, b, hkv, s, 128, dtype=dtype)
+    v = _rand(gen, b, hkv, s, 128, dtype=dtype)
+    before = _build.launches["flash_attention"]
+    got = ops.attention(q, k, v, causal=True)
+    assert _build.launches["flash_attention"] == before + 1
+    _close(got, flash_attention_torch(q, k, v, causal=True, block_q=BLOCK_Q,
+                                      block_kv=BLOCK_KV), dtype)
+    assert torch.equal(got[1:], ops.attention(q[1:], k[1:], v[1:]))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got[:, :, -300:],
+                           ops.attention(q[:, :, -300:].contiguous(), k, v))
+
+
+@pytest.mark.parametrize("chunk", [1, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_qkv_rope_write_on_an_mrope_config_is_the_apply_mrope_chain(
+        cuda, paged, quant, chunk):
+    """The fused epilogue as a qwen2-vl-7b layer's served steps call it
+    (``attention._qkv_into_cache``: 7 query heads over one KV head of 128,
+    the config's theta 1e6, sections 16/24/24, bf16) is bitwise the
+    unfused chain at the step's (3, B, C) equal ids: ``_project_qkv``'s
+    bias add and ``apply_mrope``, ``quantize_kv``, the ``kv_write``
+    kernel; q at every live position and every cache leaf.  An epilogue
+    that did not rotate would differ."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api, attention, layers
+    kv = dict(kv_quant="int8" if quant else "none")
+    if paged:
+        kv.update(kv_layout="paged", kv_block_size=16, kv_pool_blocks=20)
+    cfg = get_smoke_config("qwen2-vl-7b", d_model=512, n_heads=7,
+                           n_kv_heads=1, head_dim=128,
+                           mrope_sections=(16, 24, 24), dtype=torch.bfloat16,
+                           **kv)
+    gen = torch.Generator(device="cuda").manual_seed(35 + chunk)
+    p = {"wq": _rand(gen, 512, 7 * 128, dtype=torch.bfloat16) * 0.05,
+         "wk": _rand(gen, 512, 128, dtype=torch.bfloat16) * 0.05,
+         "wv": _rand(gen, 512, 128, dtype=torch.bfloat16) * 0.05,
+         "bq": _rand(gen, 7 * 128, dtype=torch.bfloat16),
+         "bk": _rand(gen, 128, dtype=torch.bfloat16),
+         "bv": _rand(gen, 128, dtype=torch.bfloat16)}
+    b, max_len = 4, 80
+    fused = {n: t[0] for n, t in api.init_cache(cfg, b, max_len,
+                                                "cuda").items()}
+    plain = {n: t.clone() for n, t in fused.items()}
+    x = _rand(gen, b, chunk, 512, dtype=torch.bfloat16)
+    lengths = torch.tensor([0, 9, 40, 79 - chunk], dtype=torch.int32,
+                           device="cuda")
+    q_lens = torch.tensor([chunk, 0, min(chunk, 5), chunk],
+                          dtype=torch.int32, device="cuda")
+    index = attention.mixed_index(cfg, fused, b, lengths, q_lens)
+    before = _build.launches["qkv_rope_write"]
+    q = attention._qkv_into_cache(cfg, p, x, fused, index)
+    assert _build.launches["qkv_rope_write"] == before + 1
+    pos = lengths[:, None] + torch.arange(chunk, dtype=torch.int32,
+                                          device="cuda")[None]
+    qp, k, v = attention._project_qkv(cfg, p, x, layers.rope_ids(cfg, pos))
+    ops.kv_write(plain, attention._new_kv(cfg, k, v), index.starts,
+                 index.q_lens, page_table=index.page_table)
+    for r, ql in enumerate(q_lens.tolist()):
+        assert torch.equal(q[r, :, :ql].view(torch.uint8),
+                           qp[r, :, :ql].view(torch.uint8)), r
+    for n in fused:
+        assert torch.equal(fused[n].view(torch.uint8),
+                           plain[n].view(torch.uint8)), n
+    flat = dataclasses.replace(cfg, rope_type="none")
+    q0, _, _ = attention._project_qkv(flat, p, x, pos)
+    assert not torch.equal(q[3], q0[3])     # positions 79 - chunk on
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged-int8"])
+def test_vlm_engine_matches_oracle_on_card(cuda, layout):
+    """qwen2-vl-smoke in bf16 ("dense" W4A16, widened to d 256 and vocab
+    512 so every W4A16 width is whole 128-row groups and the head's
+    columns a multiple of 4) served on captured graphs: every
+    stream equals ``reference_decode`` with 3 slots reused by 6 requests;
+    each step launches the epilogue once a layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compiler import quantize_model
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Engine, Request, reference_decode
+    kv = (dict(kv_layout="paged", kv_block_size=16, kv_pool_blocks=16,
+               kv_quant="int8") if layout != "slot" else {})
+    cfg = get_smoke_config("qwen2-vl-7b", d_model=256, head_dim=128,
+                           mrope_sections=(16, 24, 24), vocab_size=512,
+                           dtype=torch.bfloat16, **kv)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = quantize_model(api.init_params(cfg, gen), "dense")
+    engine = Engine(cfg, params, batch_size=3, max_len=64, chunk_size=16,
+                    audit_every=1, device="cuda")
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(3, 40))),
+                    max_new_tokens=int(rng.integers(2, 8)))
+            for i in range(6)]
+    for r in reqs:
+        engine.submit(r)
+    _build.launches.clear()
+    assert len(engine.run()) == 6
+    assert _build.launches["qkv_rope_write"] == cfg.n_layers * engine.steps
+    for r in reqs:
+        assert r.output == reference_decode(cfg, params, r.prompt,
+                                            r.max_new_tokens, max_len=64,
+                                            device="cuda"), r.rid

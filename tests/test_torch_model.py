@@ -135,9 +135,7 @@ def test_mixed_step_equals_sequential_decode(models):
     assert int(ml.argmax()) == int(sl.argmax())
 
 
-@pytest.mark.parametrize("override", [{"kv_quant": "fp8"},
-                                      {"rope_type": "mrope"},
-                                      {"family": "vlm"}])
+@pytest.mark.parametrize("override", [{"kv_quant": "fp8"}])
 def test_unported_configs_raise(override):
     cfg = get_smoke_config("qwen-7b", **override)
     with pytest.raises(NotImplementedError, match="later slice|not ported"):
@@ -147,23 +145,36 @@ def test_unported_configs_raise(override):
 
 
 def test_vision_embeddings_and_an_audio_config_with_rope_raise():
-    """The vlm family's vision embeddings are refused at ``forward``; an
-    audio config with RoPE (Whisper's positions are sinusoids) at
-    construction."""
+    """``forward`` of a transformer family takes vision embeddings (B, N,
+    d) before the tokens, as the reference's does: the logits of all N + S
+    positions within 1e-4 of the reference's; an audio config with RoPE
+    (Whisper's positions are sinusoids) is refused at construction."""
+    jcfg = jax_smoke_config("qwen-7b")
+    jparams = jax_quantize(japi.init_params(jcfg, jax.random.PRNGKey(0)),
+                           "dense")
     cfg = get_smoke_config("qwen-7b")
-    params = api.init_params(cfg, torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="vlm"):
-        api.forward(cfg, params, {"tokens": tokens,
-                                  "vision_embeds": torch.zeros(1, 2, 64)})
+    params = interop.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       "cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int32)
+    vis = rng.normal(size=(2, 3, cfg.d_model)).astype(np.float32)
+    jl, _ = japi.forward(jcfg, jparams, {"tokens": jnp.asarray(toks),
+                                         "vision_embeds": jnp.asarray(vis)})
+    tl, _ = api.forward(cfg, params, {
+        "tokens": torch.from_numpy(toks).long(),
+        "vision_embeds": torch.from_numpy(vis)})
+    assert tl.shape == (2, 7, cfg.vocab_size)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     audio = get_smoke_config("whisper-small", rope_type="standard")
     with pytest.raises(NotImplementedError, match="rope_type"):
         api.init_cache(audio, 1, 16, "cpu")
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_smoke_config("qwen2-vl-7b")
+    """Every architecture of the reference's registry is the port's; an
+    arch name outside it raises."""
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_smoke_config("qwen2-vl-72b")
 
 
 def test_init_params_from_generator_is_deterministic():

@@ -211,8 +211,13 @@ def test_positions_for_matches_reference():
     got = layers.positions_for(cfg, 3, 5, offset=7)
     want = jlayers.positions_for(jax_smoke_config("qwen-7b"), 3, 5, offset=7)
     assert np.array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        layers.positions_for(dataclasses.replace(cfg, rope_type="mrope"), 1, 2)
+    # M-RoPE: three equal (temporal, height, width) streams, (3, B, S)
+    got = layers.positions_for(dataclasses.replace(cfg, rope_type="mrope"),
+                               2, 4, offset=3)
+    want = jlayers.positions_for(dataclasses.replace(
+        jax_smoke_config("qwen-7b"), rope_type="mrope"), 2, 4, offset=3)
+    assert got.shape == (3, 2, 4)
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -164,7 +164,7 @@ def test_engine_refuses_unported_configs(setup):
     _, _, tcfg, tparams = setup
     import dataclasses
     with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(dataclasses.replace(tcfg, family="vlm"), tparams,
+        Engine(dataclasses.replace(tcfg, family="diffusion"), tparams,
                device="cpu")
     for bs in (4, 129):
         cfg = dataclasses.replace(tcfg, kv_layout="paged", kv_block_size=bs)

@@ -7,12 +7,11 @@ kernel's in-graph time over the windows that saw every launch:
 
 For each path (full width and depth, random weights from seed 0,
 ``chip_smoke.py`` phase 5's engine and workload; ``PATHS`` names them:
-qwen-7b, xlstm-1.3b, gemma-2b and zamba2-7b, each "dense"), the decode
-tick and the
-widest mixed tick are replayed on the same live inputs ``--repeats``
-times, each replay with the engine's fetch under the profiler as
-``chip_smoke.trace_ticks`` does, once as it is and once with a spin
-kernel queued ahead of the tick inside the window (``lead_in``: the
+qwen-7b, xlstm-1.3b, gemma-2b, zamba2-7b and qwen2-vl-7b, each "dense"),
+the decode tick and the widest mixed tick are replayed on the same live
+inputs ``--repeats`` times, each replay with the engine's fetch under the
+profiler as ``chip_smoke.trace_ticks`` does, once as it is and once with a
+spin kernel queued ahead of the tick inside the window (``lead_in``: the
 profiler is recording before the tick's first launch; the spin is left
 out of every sum).  Each window gives its device operations, the
 device-to-host copies the profiler saw and, on a transformer path, each
@@ -39,7 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "chiprun_out")
 PATHS = {"dense": ("qwen-7b", "dense"), "xlstm-dense": ("xlstm-1.3b", "dense"),
          "gemma-2b-dense": ("gemma-2b", "dense"),
-         "zamba2-dense": ("zamba2-7b", "dense")}
+         "zamba2-dense": ("zamba2-7b", "dense"),
+         "qwen2-vl-dense": ("qwen2-vl-7b", "dense")}
 # a hand kernel's launch counter (``chip_smoke.expected_launches``) by a
 # pattern of its traced name; the W4A16 tile's last template argument is
 # its epilogue (0 and 4, the bias: kernel 1; 1 swiglu, 2 geglu: kernel 2's
