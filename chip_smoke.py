@@ -378,6 +378,30 @@ Phases (any failure ends the run with a nonzero exit code):
                  (the encoder and the cross K/V once a call), greedy
                  prefill + decode of the 200-token request equal to the
                  engine's stream;
+  7. training — after every served model is freed (``check_training``):
+                 (a) kernel 7's backward (``flash_attention_bwd.cu``)
+                 against its plain version on the o and lse of kernel 7's
+                 training forward, whose output is bitwise the serving
+                 forward's, at qwen3-8b's training shape (B=8, 32 / 8 heads
+                 of 128, S=256), S=2048 rep 4, window 256, ragged S=300,
+                 d=64, non-causal 448 x 1500, d=32 and rows that see no
+                 key; bitwise repeatable and a row of B=3 bitwise alone;
+                 the RMSNorm backward (``rmsnorm_bwd.cu``) at 2048 x 4096,
+                 the q and k heads' rows and ragged rows; kernel, plain and
+                 autograd-through-SDPA / ``F.rms_norm`` times beside the
+                 bound, and the training forward's time beside the serving
+                 forward's; (b) one step of qwen3-8b at full width, 4 of its
+                 36 layers (2.02 B parameters, f32 masters), through the
+                 kernels against the same step through every op's plain
+                 version: loss, gradient norm and each leaf's gradient
+                 within ``TRAIN_*_TOL``, the step's launches exactly
+                 ``expected_train_launches`` (the path ``qwen3-8b-train``);
+                 (c) ten AdamW steps twice from one seed: losses finite,
+                 step 0 near ln V + 1/2, the two runs bitwise equal, the
+                 median step, tokens/s, peak memory and 6 N tokens / step
+                 time against the bf16 peak; (d) ``run_resumable`` at
+                 qwen3-8b-smoke in bf16, preempted after step 3 and resumed
+                 to 6, bitwise an uninterrupted run;
   then the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
@@ -6147,6 +6171,483 @@ def check_prefill_caches(torch, cfg, params, results, streams):
 
 # kernel: (source, TPU kernel it replaces, the served path whose own run
 # gives its "launches": the path of the slice that ported it)
+# -- phase 7: training -------------------------------------------------------
+
+# qwen3-8b at full width and 4 of its 36 layers: f32 masters, m and v and
+# the bf16 params and grads of all 36 (8.2 B parameters) need ~164 GB; the
+# 4 layers and the head are 2.02 B parameters, ~33 GB of state.  The
+# launcher's default batch, 8 x 256 tokens.
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-8b", 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 10
+TRAIN_PATH = "qwen3-8b-train"
+# the step through the kernels against the same step through their plain
+# versions (same masters, same batch): bf16 activations rounded at other
+# places compound over 4 layers and the 151,936-way softmax
+TRAIN_LOSS_TOL = 2e-2              # absolute, on a loss of ~12.4
+TRAIN_GNORM_TOL = 0.02             # relative
+TRAIN_LEAF_TOL = 3e-2              # relative L2, each leaf's gradient
+# kernel 7's backward against its plain version on the same o and lse: P
+# and dS rounded to bf16 before their products in both, from scores summed
+# in another order (one bf16 rounding, 2^-8, may fall the other way), then
+# one more rounding of the output
+FA_BWD_TOL = 2e-2
+# name: (B, hq, hkv, Sq, Skv, d, causal, window)
+FA_BWD_CASES = {
+    "qwen3-8b training B=8 S=256": (8, 32, 8, 256, 256, 128, True, None),
+    "causal S=2048 rep 4": (1, 32, 8, 2048, 2048, 128, True, None),
+    "window 256 S=1024": (1, 32, 8, 1024, 1024, 128, True, 256),
+    "ragged S=300": (1, 32, 8, 300, 300, 128, True, None),
+    "d=64 B=2 S=512": (2, 16, 4, 512, 512, 64, True, None),
+    "non-causal Sq=448 Skv=1500 d=64": (1, 12, 12, 448, 1500, 64, False,
+                                        None),
+    "qwen3-8b-smoke d=32": (2, 4, 2, 64, 64, 32, True, None),
+    "rows with no key Sq=96 Skv=64": (1, 8, 2, 96, 64, 64, True, None),
+}
+FA_BWD_TIMED = ("qwen3-8b training B=8 S=256", "causal S=2048 rep 4")
+# (rows, d, what): the training step's norms at qwen3-8b's widths, ragged
+# rows, and the smoke config's q/k heads
+RMS_BWD_CASES = ((2048, 4096, "ln_attn / ln_mlp / ln_f rows"),
+                 (2048 * 32, 128, "q heads"), (2048 * 8, 128, "k heads"),
+                 (300, 4096, "ragged 300 rows"), (2 * 16 * 4, 32,
+                                                  "qwen3-8b-smoke q heads"))
+RMS_BWD_TIMED = ("ln_attn / ln_mlp / ln_f rows", "q heads")
+# dx is rounded to bf16 (2^-8); dgamma is an f32 sum over the rows in
+# another order
+RMS_BWD_TOL = {"dx": 1e-2, "dgamma": 1e-4}
+
+
+def backward_ms(torch, timer, fn, inputs):
+    """Device time of the backward alone of ``fn(*inputs)`` (inputs that
+    require grad): the forward once, ``torch.autograd.grad`` timed with
+    ``retain_graph``."""
+    out = fn(*inputs)
+    dout = torch.randn_like(out)
+    ms = timer.ms(lambda: torch.autograd.grad(out, inputs, dout,
+                                              retain_graph=True), 10)
+    del out
+    return ms
+
+
+def check_attention_backward(torch, timer, randn, rows) -> dict:
+    """Kernel 7's backward against its plain version at ``FA_BWD_CASES``,
+    on the o and lse of kernel 7's training forward, whose output is held
+    bitwise to the serving forward's and whose lse to the plain version's;
+    bitwise repeatable; a row of B=3 bitwise the row alone.  Kernel, plain
+    and SDPA-backward times beside the bound at ``FA_BWD_TIMED``, with the
+    training forward's time beside the serving forward's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_KV, BLOCK_Q, flash_attention_cuda, flash_attention_torch)
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_torch)
+    line = {}
+    for name, (b, hq, hkv, sq, skv, d, causal, window) in \
+            FA_BWD_CASES.items():
+        q, do = randn(b, hq, sq, d), randn(b, hq, sq, d)
+        k, v = randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        need(torch.equal(o, flash_attention_cuda(q, k, v, **kw)),
+             f"flash_attention {name}: the training forward's output is "
+             "not bitwise the serving forward's")
+        _, plse = flash_attention_torch(q, k, v, block_q=BLOCK_Q,
+                                        block_kv=BLOCK_KV, return_lse=True,
+                                        **kw)
+        dead = torch.isinf(lse)
+        need(torch.equal(dead, torch.isinf(plse)) and bool(
+            (lse[dead] > 0).all()), f"flash_attention {name}: lse's +inf "
+             "rows differ from the plain version's")
+        lse_err = float((lse[~dead] - plse[~dead]).abs().max()) \
+            if bool((~dead).any()) else 0.0
+        need(lse_err <= 1e-3, f"flash_attention {name}: lse differs from "
+             f"the plain version's by {lse_err:.3g}")
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        want = flash_attention_bwd_torch(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        errs = {w: max_errs(g, p) for w, g, p in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+        need(all(e[1] <= FA_BWD_TOL for e in errs.values())
+             and all(bool(torch.isfinite(g).all()) for g in got),
+             f"flash_attention_bwd {name}: rel err "
+             f"{ {w: e[1] for w, e in errs.items()} } > {FA_BWD_TOL}")
+        again = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+        need(all(torch.equal(a, g) for a, g in zip(again, got)),
+             f"flash_attention_bwd {name}: two calls differ")
+        if bool(dead.any()):
+            need(bool((got[0][dead] == 0).all()), f"flash_attention_bwd "
+                 f"{name}: a row that sees no key has a nonzero dq")
+        row = {"kernel": "flash_attention_bwd", "case": name, "B": b,
+               "hq": hq, "hkv": hkv, "Sq": sq, "Skv": skv, "d": d,
+               "causal": causal, "window": window,
+               "max_abs_err": max(e[0] for e in errs.values()),
+               "max_rel_err": max(e[1] for e in errs.values()),
+               "errs": {w: {"max_abs": e[0], "max_rel": e[1]}
+                        for w, e in errs.items()},
+               "lse_max_abs_err": lse_err, "tol_rel": FA_BWD_TOL,
+               "bitwise_repeat": True}
+        msg = ""
+        if name in FA_BWD_TIMED:
+            row["ms"] = timer.ms(lambda: flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, **kw), 10)
+            row["plain_ms"] = timer.ms(lambda: flash_attention_bwd_torch(
+                q, k, v, o, do, lse, **kw), 1)
+            qkv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            row["library_ms"] = backward_ms(
+                torch, timer, lambda q_, k_, v_: sdpa_full(
+                    torch, q_, k_, v_, causal, window), qkv)
+            del qkv
+            pairs = visible_pairs(sq, skv, causal, window)
+            row["visible_pairs"] = pairs
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * (4 * b * hq * sq * d + 4 * b * hkv * skv * d)
+                + 4 * b * hq * sq, 10 * d * b * hq * pairs, "bfloat16")
+            row["forward_lse_ms"] = timer.ms(lambda: flash_attention_cuda(
+                q, k, v, return_lse=True, **kw), 10)
+            row["forward_ms"] = timer.ms(lambda: flash_attention_cuda(
+                q, k, v, **kw), 10)
+            row["forward_lse_plain_ms"] = timer.ms(
+                lambda: flash_attention_torch(q, k, v, return_lse=True,
+                                              **kw), 1)
+            row["forward_library_ms"] = timer.ms(
+                lambda: sdpa_full(torch, q, k, v, causal, window), 10)
+            row["forward_bound_ms"], row["forward_bound_by"] = bound(
+                2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+                + 4 * b * hq * sq, 4 * d * b * hq * pairs, "bfloat16")
+            msg = (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                   f" ms sdpa backward {row['library_ms']:.4f} ms bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}); forward "
+                   f"with lse {row['forward_lse_ms']:.4f} ms (serving "
+                   f"forward {row['forward_ms']:.4f}, plain "
+                   f"{row['forward_lse_plain_ms']:.4f}, sdpa "
+                   f"{row['forward_library_ms']:.4f}, bound "
+                   f"{row['forward_bound_ms']:.4f} ms "
+                   f"({row['forward_bound_by']}))")
+            if name == FA_BWD_TIMED[0]:
+                line["flash_attention_bwd"] = row
+        rows.append(row)
+        log(f"  flash_attention_bwd {name}: rel dq {errs['dq'][1]:.3g} dk "
+            f"{errs['dk'][1]:.3g} dv {errs['dv'][1]:.3g} (tol {FA_BWD_TOL})"
+            f"; lse {lse_err:.3g}; forward with lse bitwise the serving "
+            "one; two calls bitwise" + msg)
+        del q, k, v, do, o, lse, plse, got, want, again
+        torch.cuda.empty_cache()
+    # batch invariance: a row of B=3 is the row alone
+    for d in (128, 64, 32):
+        q, do = randn(3, 32, 256, d), randn(3, 32, 256, d)
+        k, v = randn(3, 8, 256, d), randn(3, 8, 256, d)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        full = flash_attention_bwd_cuda(q, k, v, o, do, lse)
+        one = flash_attention_bwd_cuda(q[1:2], k[1:2], v[1:2], o[1:2],
+                                       do[1:2], lse[1:2])
+        need(all(torch.equal(f[1:2], g) for f, g in zip(full, one)),
+             f"flash_attention_bwd d={d}: row 1 of B=3 differs alone")
+    log("  flash_attention_bwd: a row of B=3 bitwise the row alone (d=128, "
+        "64, 32)")
+    return line
+
+
+def check_rmsnorm_backward(torch, timer, rows) -> dict:
+    """The RMSNorm backward kernel against its plain version at
+    ``RMS_BWD_CASES``, bitwise repeatable, a row's dx bitwise the row
+    alone; kernel, plain and ``F.rms_norm``-backward times beside the byte
+    bound at ``RMS_BWD_TIMED``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm_bwd import (
+        rmsnorm_bwd_cuda, rmsnorm_bwd_torch)
+    g = torch.Generator(device="cuda").manual_seed(36)
+    lib = getattr(F, "rms_norm", None)
+    line = {}
+    for n, d, what in RMS_BWD_CASES:
+        x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
+        dy = torch.randn(n, d, generator=g, device="cuda").bfloat16()
+        gamma = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")
+                 ).bfloat16()
+        dx, dg = rmsnorm_bwd_cuda(x, gamma, dy)
+        pdx, pdg = rmsnorm_bwd_torch(x, gamma, dy)
+        torch.cuda.synchronize()
+        ex, eg = max_errs(dx, pdx), max_errs(dg, pdg)
+        case = f"rmsnorm_bwd {n}x{d} ({what})"
+        need(ex[1] <= RMS_BWD_TOL["dx"] and eg[1] <= RMS_BWD_TOL["dgamma"]
+             and bool(torch.isfinite(dx).all()), f"{case}: rel dx "
+             f"{ex[1]:.3g} dgamma {eg[1]:.3g} > {RMS_BWD_TOL}")
+        dx2, dg2 = rmsnorm_bwd_cuda(x, gamma, dy)
+        need(torch.equal(dx, dx2) and torch.equal(dg, dg2),
+             f"{case}: two calls differ")
+        r = min(5, n - 1)
+        need(torch.equal(rmsnorm_bwd_cuda(x[r:r + 1], gamma, dy[r:r + 1])[0],
+                         dx[r:r + 1]), f"{case}: row {r}'s dx differs alone")
+        row = {"kernel": "rmsnorm_bwd", "dtype": "bfloat16", "rows": n,
+               "d": d, "case": what, "max_abs_err": max(ex[0], eg[0]),
+               "max_rel_err": max(ex[1], eg[1]),
+               "errs": {"dx": ex, "dgamma": eg}, "tol_rel": RMS_BWD_TOL,
+               "bitwise_repeat": True, "library_ms": None}
+        msg = ""
+        if what in RMS_BWD_TIMED:
+            row["ms"] = timer.ms(lambda: rmsnorm_bwd_cuda(x, gamma, dy), 20)
+            row["plain_ms"] = timer.ms(lambda: rmsnorm_bwd_torch(
+                x, gamma, dy), 5)
+            if lib is not None:
+                xg = [x.clone().requires_grad_(True),
+                      gamma.clone().requires_grad_(True)]
+                row["library_ms"] = backward_ms(
+                    torch, timer, lambda x_, g_: lib(x_, (d,), g_, 1e-6), xg)
+                del xg
+            row["bound_ms"], row["bound_by"] = bound(
+                3 * n * d * 2 + d * 2 + d * 4, 10 * n * d, "bfloat16")
+            msg = (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                   f" ms F.rms_norm backward {row['library_ms']} ms bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            if what == RMS_BWD_TIMED[0]:
+                line["rmsnorm_bwd"] = row
+        rows.append(row)
+        log(f"  {case}: rel dx {ex[1]:.3g} dgamma {eg[1]:.3g}; two calls "
+            f"bitwise; row {r} alone bitwise" + msg)
+    return line
+
+
+def expected_train_launches(cfg) -> dict:
+    """One training step's launches from the config: each layer's forward
+    twice under remat "block" (the forward, then its recompute in the
+    backward) with kernel 7 and the rmsnorm kernel at ln_attn, ln_mlp and
+    (qk_norm) the q and k heads; ln_f once; each backward once.  No other
+    kernel (the 16-bit products are cuBLAS's, the MLP unfused)."""
+    fwd = 2 if cfg.remat == "block" else 1
+    norms = 2 + (2 if cfg.qk_norm else 0)
+    return {"flash_attention": fwd * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "rmsnorm": fwd * norms * cfg.n_layers + 1,
+            "rmsnorm_bwd": norms * cfg.n_layers + 1}
+
+
+def train_config(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    cfg = get_config(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(DEVICE)
+                for k, v in data.batch(i).items()}
+    return cfg, batch
+
+
+def flat_norm(torch, grads: dict) -> float:
+    return float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                for g in grads.values())))
+
+
+def check_train_step(torch, results, counts) -> None:
+    """(b): one step's loss and gradients through the kernels against the
+    same step through every op's plain version on the card (``ops._resolve``
+    answering "torch"), from the same f32 masters and batch; the step's
+    launches exactly ``expected_train_launches``; the plain step launches
+    nothing."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    from repro_torch.train.trainer import (
+        compute_params, init_train_state, loss_and_grads)
+    cfg, batch = train_config(torch)
+    params, _ = init_train_state(cfg, AdamW(), torch.Generator(
+        device=DEVICE).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    compute = compute_params(params, cfg.dtype)
+    del params
+    torch.cuda.empty_cache()
+    b0 = batch(0)
+    _build.launches.clear()
+    loss, _, grads = loss_and_grads(cfg, compute, b0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    counts[TRAIN_PATH] = dict(launches)
+    want = expected_train_launches(cfg)
+    need(launches == want, f"training step launches {launches}, expected "
+         f"{want}")
+    real = ops._resolve
+    ops._resolve = lambda impl, x: "torch" if impl == "auto" else real(
+        impl, x)
+    try:
+        _build.launches.clear()
+        ploss, _, pgrads = loss_and_grads(cfg, compute, b0)
+        torch.cuda.synchronize()
+        need(not any(_build.launches.values()), "the plain-version step "
+             f"launched {dict(_build.launches)}")
+    finally:
+        ops._resolve = real
+    dloss = abs(float(loss) - float(ploss))
+    gn, pgn = flat_norm(torch, grads), flat_norm(torch, pgrads)
+    leaf_err = {p: float(torch.linalg.vector_norm((g.float() - pgrads[p]
+                                                   .float()))
+                         / torch.linalg.vector_norm(pgrads[p].float())
+                         .clamp_min(1e-30)) for p, g in grads.items()}
+    worst = max(leaf_err, key=leaf_err.get)
+    results["train_step"] = {
+        "arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss": float(loss),
+        "plain_loss": float(ploss), "grad_norm": gn, "plain_grad_norm": pgn,
+        "leaf_rel_l2": leaf_err, "launches": launches,
+        "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL,
+                "leaf": TRAIN_LEAF_TOL}}
+    log(f"  step at {TRAIN_ARCH} width, {TRAIN_LAYERS} layers ({n_params:,} "
+        f"parameters), B={TRAIN_BATCH} S={TRAIN_SEQ}: loss {float(loss):.5f}"
+        f" (plain {float(ploss):.5f}), grad norm {gn:.5g} (plain {pgn:.5g})"
+        f", worst leaf rel L2 {leaf_err[worst]:.3g} ({worst}); launches "
+        f"{launches} as expected")
+    need(dloss <= TRAIN_LOSS_TOL, f"training step: loss {float(loss)} vs "
+         f"plain {float(ploss)}")
+    need(abs(gn - pgn) <= TRAIN_GNORM_TOL * pgn, f"training step: grad norm "
+         f"{gn} vs plain {pgn}")
+    need(leaf_err[worst] <= TRAIN_LEAF_TOL, f"training step: {worst}'s "
+         f"gradient rel L2 {leaf_err[worst]:.3g} > {TRAIN_LEAF_TOL}")
+    need(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+         "training step: a gradient is not finite")
+
+
+def check_train_run(torch, results) -> None:
+    """(c): ``TRAIN_STEPS`` AdamW steps (cosine schedule, peak 3e-4, 20
+    warmup steps), twice from the same seed: every loss finite, step 0
+    near the loss of this init (ln V + 1/2: the logits of a unit-RMS
+    final row against N(0, 1/d) head weights have variance ~1), the two
+    runs' losses bitwise equal; the median step time, tokens/s, peak
+    memory and 6 N tokens / step time against the card's bf16 peak."""
+    import math
+    import statistics
+    from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_leaves
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg, batch = train_config(torch)
+    opt = AdamW(lr=cosine_schedule(3e-4, 20, TRAIN_STEPS))
+    runs = []
+    for run in range(2):
+        params, state = init_train_state(cfg, opt, torch.Generator(
+            device=DEVICE).manual_seed(0))
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for i in range(TRAIN_STEPS):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b, i)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            log(f"  run {run} step {i}: loss {losses[-1]:.6f} "
+                f"({secs[-1] * 1e3:.1f} ms)")
+        peak = torch.cuda.max_memory_allocated()
+        runs.append((losses, secs, peak))
+        del params, state, step, m
+        torch.cuda.empty_cache()
+    (l0, s0, p0), (l1, s1, _) = runs
+    need(all(math.isfinite(x) for x in l0 + l1), "training run: a loss is "
+         "not finite")
+    expect = math.log(cfg.vocab_size) + 0.5
+    need(abs(l0[0] - expect) <= 0.5, f"training run: step 0's loss {l0[0]} "
+         f"is not within 0.5 of ln V + 1/2 = {expect:.4f}")
+    need(l0 == l1, f"training run: two runs from one seed differ: {l0} vs "
+         f"{l1}")
+    med = statistics.median(s0[1:] + s1[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * n_params * tokens / med / PEAK_FLOPS["bfloat16"]
+    results["train_run"] = {
+        "losses": l0, "losses_run2": l1, "step_s": s0, "step_s_run2": s1,
+        "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+        "peak_memory_bytes": p0, "model_flops_share": share,
+        "params": n_params, "ln_vocab": math.log(cfg.vocab_size)}
+    log(f"  {TRAIN_STEPS} steps twice: losses bitwise equal across runs, "
+        f"step 0 {l0[0]:.4f} (ln V {math.log(cfg.vocab_size):.4f}), last "
+        f"{l0[-1]:.4f}; median step {med * 1e3:.2f} ms (steps 1-9 of both "
+        f"runs), {tokens / med:,.0f} tokens/s, peak memory "
+        f"{p0 / 2**30:.2f} GiB, 6 N tokens / step time {share:.4f} of the "
+        "bf16 peak")
+
+
+def check_resumable(torch, results) -> None:
+    """(d): ``run_resumable`` at qwen3-8b-smoke in bf16 on the card,
+    preempted through ``PreemptionGuard.request()`` after step 3 and
+    resumed to step 6: params and optimizer state bitwise an uninterrupted
+    6-step run's."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import PreemptionGuard, run_resumable
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg = get_smoke_config(TRAIN_ARCH, dtype=torch.bfloat16)
+    opt = AdamW(lr=cosine_schedule(3e-4, 2, 6))
+    step = make_train_step(cfg, opt)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4))
+
+    def init():
+        p, s = init_train_state(cfg, opt, torch.Generator(
+            device=DEVICE).manual_seed(0))
+        return {"params": p, "opt": s}
+
+    def step_fn(state, i):
+        b = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch(i).items()}
+        p, s, m = step(state["params"], state["opt"], b, i)
+        return {"params": p, "opt": s}, m
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        whole, last, done = run_resumable(
+            ckpt_dir=os.path.join(root, "whole"), total_steps=6,
+            init_state=init, step_fn=step_fn, ckpt_every=100)
+        need(done and last == 6, "resumable: the whole run did not finish")
+        guard = PreemptionGuard(signals=())
+
+        def preempting(state, i):
+            if i == 2:
+                guard.request()
+            return step_fn(state, i)
+        _, last, done = run_resumable(
+            ckpt_dir=os.path.join(root, "cut"), total_steps=6,
+            init_state=init, step_fn=preempting, ckpt_every=100,
+            guard=guard)
+        need(not done and last == 3, f"resumable: preemption stopped at "
+             f"{last} (done {done}), expected 3")
+        resumed, last, done = run_resumable(
+            ckpt_dir=os.path.join(root, "cut"), total_steps=6,
+            init_state=init, step_fn=step_fn, ckpt_every=100)
+        need(done and last == 6, "resumable: the resumed run did not finish")
+        want = dict(ckpt.tree_paths(whole))
+        got = dict(ckpt.tree_paths(resumed))
+        need(set(got) == set(want) and all(torch.equal(got[p], want[p])
+                                           for p in want),
+             "resumable: the resumed state is not bitwise the whole run's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results["train_resumable"] = {"arch": cfg.name, "leaves": len(want),
+                                  "bitwise": True}
+    log(f"  run_resumable at {cfg.name} bf16: preempted after step 3, "
+        f"resumed to 6; all {len(want)} leaves of params and optimizer "
+        "state bitwise the uninterrupted run's")
+
+
+def check_training(torch, results, counts) -> dict:
+    """Phase 7 (a)-(d); returns the backward kernels' rows for the
+    ``kernels`` line."""
+    timer = Timer(torch)
+    g = torch.Generator(device=DEVICE).manual_seed(3600)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    rows: list = []
+    results["training_kernels"] = rows
+    line = check_attention_backward(torch, timer, randn, rows)
+    line.update(check_rmsnorm_backward(torch, timer, rows))
+    del timer
+    torch.cuda.empty_cache()
+    check_train_step(torch, results, counts)
+    torch.cuda.empty_cache()
+    check_train_run(torch, results)
+    check_resumable(torch, results)
+    return line
+
+
 KERNEL_META = {
     "w4a16_matmul": ("src/repro_torch/kernels/csrc/w4a16_matmul.cu",
                      "src/repro/kernels/w4a16_matmul.py:78", "dense"),
@@ -6248,6 +6749,16 @@ KERNEL_META = {
                          "src/repro/models/ssm.py:152-177 and "
                          "src/repro/models/layers.py:65 (XLA in the "
                          "reference, no Pallas kernel)", "zamba2-dense"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "the backward of src/repro/kernels/"
+                            "flash_attention.py:101, which has no VJP (the "
+                            "reference's training differentiates "
+                            "src/repro/kernels/xla_attention.py:333 in XLA)",
+                            TRAIN_PATH),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "the backward of src/repro/models/layers.py:65 (XLA in "
+                    "the reference, no Pallas kernel)", TRAIN_PATH),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -6430,6 +6941,11 @@ def main() -> int:
             del params
             torch.cuda.empty_cache()
             log(f"  ({time.perf_counter() - t_start:.0f} s so far)")
+
+        log(f"phase 7: training ({TRAIN_ARCH} at full width, "
+            f"{TRAIN_LAYERS} layers)")
+        line.update(check_training(torch, results, counts))
+        log(f"  ({time.perf_counter() - t_start:.0f} s so far)")
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         write_details(results)

@@ -24,5 +24,5 @@ def smoke_config() -> ModelConfig:
         d_ff=256, vocab_size=256, head_dim=64,
         activation="geglu", norm="rmsnorm",
         rope_theta=10000.0, tie_embeddings=True, embed_scale=True,
-        dtype=torch.float32,
+        dtype=torch.float32, remat="none",
     )

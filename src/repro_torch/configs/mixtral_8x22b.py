@@ -25,5 +25,5 @@ def smoke_config() -> ModelConfig:
         d_ff=256, vocab_size=256, head_dim=32,
         activation="swiglu", norm="rmsnorm",
         rope_theta=1e6, window=64,
-        n_experts=4, top_k=2, dtype=torch.float32,
+        n_experts=4, top_k=2, dtype=torch.float32, remat="none",
     )

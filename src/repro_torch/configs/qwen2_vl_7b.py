@@ -26,5 +26,5 @@ def smoke_config() -> ModelConfig:
         d_ff=256, vocab_size=256, head_dim=32,
         activation="swiglu", norm="rmsnorm", qkv_bias=True,
         rope_type="mrope", mrope_sections=(4, 6, 6), rope_theta=1e6,
-        dtype=torch.float32,
+        dtype=torch.float32, remat="none",
     )

@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
         n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
         d_ff=256, vocab_size=256, head_dim=32,
         activation="swiglu", norm="rmsnorm", qk_norm=True,
-        rope_theta=1e6, dtype=torch.float32,
+        rope_theta=1e6, dtype=torch.float32, remat="none",
     )

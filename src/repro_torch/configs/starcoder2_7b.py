@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
         n_layers=2, d_model=144, n_heads=4, n_kv_heads=2,
         d_ff=288, vocab_size=256, head_dim=36,
         activation="gelu", norm="layernorm", qkv_bias=True,
-        rope_theta=1e5, dtype=torch.float32,
+        rope_theta=1e5, dtype=torch.float32, remat="none",
     )

@@ -26,5 +26,5 @@ def smoke_config() -> ModelConfig:
         d_ff=256, vocab_size=256, head_dim=32,
         activation="gelu", norm="layernorm", rope_type="none",
         n_encoder_layers=2, encoder_frames=32,
-        dtype=torch.float32,
+        dtype=torch.float32, remat="none",
     )

@@ -23,5 +23,5 @@ def smoke_config() -> ModelConfig:
         n_layers=4, d_model=128, n_heads=2, n_kv_heads=2,
         d_ff=0, vocab_size=256, head_dim=64,
         norm="rmsnorm", rope_type="none", slstm_every=2,
-        dtype=torch.float32,
+        dtype=torch.float32, remat="none",
     )

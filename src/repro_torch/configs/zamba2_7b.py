@@ -30,5 +30,5 @@ def smoke_config() -> ModelConfig:
         rope_theta=10000.0,
         ssm_state=16, ssm_head_dim=32, ssm_expand=2, ssm_conv=4,
         shared_attn_every=2, n_shared_blocks=2,
-        dtype=torch.float32,
+        dtype=torch.float32, remat="none",
     )

@@ -35,7 +35,8 @@ KERNEL_SOURCES = ("w4a16_matmul", "ffn_fused", "decode_flash", "rmsnorm",
                   "sparse_w4a16", "ffn_fused_sparse", "flash_attention",
                   "slstm_scan", "mlstm_cell", "dense_matmul",
                   "ffn_fused_dense", "layernorm", "kv_write", "moe_route",
-                  "moe_experts", "mamba_cell")
+                  "moe_experts", "mamba_cell", "flash_attention_bwd",
+                  "rmsnorm_bwd")
 
 launches: "collections.Counter[str]" = collections.Counter()
 

@@ -11,6 +11,10 @@
 // probabilities rounded to the activation dtype before P.V; output
 // acc / l (l == 0 -> 1) in q's dtype.  A masked key contributes p = 0, so a
 // row that sees no key at all (causal with Sq > Skv) returns zeros.
+// flash_attention_lse_launch (bfloat16, the training forward) also writes
+// each row's log-sum-exp ln(sum_j exp(s_j * scale)) in f32, +inf for a row
+// that sees no key; the serving entry passes no lse pointer and its output
+// is bitwise the same.
 //
 // Unlike the TPU kernel, which needs Sq % min(256, Sq) == 0 and
 // Skv % min(512, Skv) == 0, this one masks ragged edges itself: rows past
@@ -98,6 +102,7 @@ constexpr int kFaBq = 64;          // query rows per block
 constexpr int kFaBk = 64;          // keys per K/V tile
 constexpr int kFaPs = kFaBk + 4;   // padded row of the probability tile
 constexpr float kFaNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Q, K and V tiles as f32 rows of D + 4, and the probability tile.
 template <int D>
@@ -459,7 +464,8 @@ __global__ void __launch_bounds__(kFmThreads)
                                const __nv_bfloat16* __restrict__ v,
                                __nv_bfloat16* __restrict__ out, int hq,
                                int hkv, int sq, int skv, float scale_log2,
-                               int causal, int window) {
+                               int causal, int window,
+                               float* __restrict__ lse) {
   constexpr int R = staged_dim(D) / 8;   // 16-byte chunks a staged row
   constexpr int KS = D / 16;       // k16 steps of Q.K^T over d
   constexpr int ND = D / 8;        // n8 fragments of the output
@@ -622,13 +628,21 @@ __global__ void __launch_bounds__(kFmThreads)
     for (int dn = 0; dn < ND; ++dn)
       *reinterpret_cast<uint32_t*>(orow + 8 * dn + 2 * t) =
           pack_bf16x2(acc[dn][2 * hh] / denom, acc[dn][2 * hh + 1] / denom);
+    // the row's log-sum-exp in the natural domain (m is in log2 units);
+    // +inf for a row that saw no key, so the backward's p = exp(s - lse)
+    // is 0 there.  The quad's 4 lanes hold the same m and l.
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * hq + h) * sq + q0 + r] =
+          l[hh] == 0.0f ? __int_as_float(0x7f800000)
+                       : (m[hh] + log2f(l[hh])) * kLn2;
   }
 }
 
 template <int D>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* out,
-                     int batch, int hq, int hkv, int sq, int skv, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     float* lse, int batch, int hq, int hkv, int sq, int skv,
+                     float scale, int causal, int window,
+                     cudaStream_t stream) {
   auto kernel = flash_attention_mma_kernel<D>;
   constexpr int smem = fa_mma_smem_bytes<D>();
   REPRO_SMEM_OPT_IN(kernel, smem);
@@ -637,30 +651,31 @@ int launch_flash_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      hq, hkv, sq, skv, scale * kLog2e, causal, window);
+      hq, hkv, sq, skv, scale * kLog2e, causal, window, lse);
   return (int)cudaGetLastError();
 }
 
+// lse null: the serving forward (no log-sum-exp written)
 int dispatch_head_dim_mma(int d, const void* q, const void* k, const void* v,
-                          void* out, int batch, int hq, int hkv, int sq,
-                          int skv, float scale, int causal, int window,
-                          cudaStream_t s) {
+                          void* out, float* lse, int batch, int hq, int hkv,
+                          int sq, int skv, float scale, int causal,
+                          int window, cudaStream_t s) {
   switch (d) {
     case 32:
-      return launch_flash_mma<32>(q, k, v, out, batch, hq, hkv, sq, skv,
+      return launch_flash_mma<32>(q, k, v, out, lse, batch, hq, hkv, sq, skv,
                                   scale, causal, window, s);
     case 64:
-      return launch_flash_mma<64>(q, k, v, out, batch, hq, hkv, sq, skv,
+      return launch_flash_mma<64>(q, k, v, out, lse, batch, hq, hkv, sq, skv,
                                   scale, causal, window, s);
     case 112:
-      return launch_flash_mma<112>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                   scale, causal, window, s);
+      return launch_flash_mma<112>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                   skv, scale, causal, window, s);
     case 128:
-      return launch_flash_mma<128>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                   scale, causal, window, s);
+      return launch_flash_mma<128>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                   skv, scale, causal, window, s);
     case 256:
-      return launch_flash_mma<256>(q, k, v, out, batch, hq, hkv, sq, skv,
-                                   scale, causal, window, s);
+      return launch_flash_mma<256>(q, k, v, out, lse, batch, hq, hkv, sq,
+                                   skv, scale, causal, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -681,8 +696,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return dispatch_head_dim_mma(head_dim, q, k, v, out, batch, hq, hkv, sq,
-                                 skv, scale, causal, window, s);
+    return dispatch_head_dim_mma(head_dim, q, k, v, out, nullptr, batch, hq,
+                                 hkv, sq, skv, scale, causal, window, s);
   return dispatch_head_dim<float>(head_dim, q, k, v, out, batch, hq, hkv, sq,
                                   skv, scale, causal, window, s);
+}
+
+// The training forward: the bfloat16 kernel above, which also writes each
+// query row's log-sum-exp (B, hq, Sq) f32 for the backward
+// (flash_attention_bwd.cu).  The output is bitwise the serving call's.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          void* lse, int batch, int hq,
+                                          int hkv, int sq, int skv,
+                                          int head_dim, float scale,
+                                          int causal, int window,
+                                          void* stream) {
+  using namespace repro;
+  if (batch < 1 || sq < 1 || skv < 1 || hkv < 1 || hq % hkv || batch > 65535 ||
+      hq > 65535 || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_head_dim_mma(head_dim, q, k, v, out,
+                               static_cast<float*>(lse), batch, hq, hkv, sq,
+                               skv, scale, causal, window,
+                               static_cast<cudaStream_t>(stream));
 }

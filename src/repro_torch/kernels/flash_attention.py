@@ -16,6 +16,15 @@ dtype.  A masked key adds p = 0, which equals the reference bit for bit on
 every row that sees at least one key; a row that sees none (causal with
 Sq > Skv) returns zeros, where the TPU kernel returns a tile-dependent mean
 of v and the dense oracle NaN.
+
+The training forward (``return_lse=True``, on the kernel and the plain
+version) also returns each query row's log-sum-exp
+``lse = ln(sum_j exp(s_j * scale))`` over its visible keys, f32 (B, hq,
+Sq), +inf for a row that sees no key, so that the backward
+(``kernels/flash_attention_bwd.py``) recomputes ``p = exp(s * scale -
+lse)`` as 0 there and gives that row zero gradients.  The bfloat16 kernel
+keeps m in log2 units and converts once, ``lse = (m + log2 l) * ln 2``.
+Its output is bitwise the serving forward's.
 """
 
 from __future__ import annotations
@@ -41,18 +50,22 @@ _NEG_INF = -1e30
 _GRID_LIMIT = 65535              # hq and B ride grid axes y and z
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_LSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           scale: float | None = None, block_q: int = 256,
-                          block_kv: int = 512) -> torch.Tensor:
+                          block_kv: int = 512, return_lse: bool = False):
     """Plain version: the TPU kernel's tiles in its order, vectorised over
     batch and heads (GQA as (hkv, rep) groups).  For each ``block_q`` query
     tile the ``block_kv`` key tiles are walked in ascending order, skipping
     those wholly above the causal diagonal or wholly before the window;
     f32 ``s * scale`` with the -1e30 mask, online m/l/acc in f32, p rounded
-    to v's dtype before P·V.  Ragged last tiles are simply shorter."""
+    to v's dtype before P·V.  Ragged last tiles are simply shorter.
+    ``return_lse``: ``(out, lse)`` with ``lse = m + ln l`` (B, hq, Sq) f32,
+    +inf where ``l == 0``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -65,6 +78,8 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     q_off = skv - sq
     out = torch.empty((b, hkv, rep, sq, d), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, hkv, rep, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     zero = torch.zeros((), device=dev)
     for q0 in range(0, sq, bq):
         qb = q5[:, :, :, q0:q0 + bq]
@@ -100,7 +115,12 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
             m = m_new
         safe = torch.where(l == 0, torch.ones((), device=dev), l)
         out[:, :, :, q0:q0 + n] = (acc / safe[..., None]).to(q.dtype)
-    return out.reshape(b, hq, sq, d)
+        if return_lse:
+            lse[:, :, :, q0:q0 + n] = torch.where(
+                l == 0, torch.full((), torch.inf, device=dev),
+                m + torch.log(safe))
+    out = out.reshape(b, hq, sq, d)
+    return (out, lse.reshape(b, hq, sq)) if return_lse else out
 
 
 def _operand(t: torch.Tensor, like: torch.Tensor, what: str) -> torch.Tensor:
@@ -113,10 +133,12 @@ def _operand(t: torch.Tensor, like: torch.Tensor, what: str) -> torch.Tensor:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on the current stream.  Every
     shape, dtype and device the kernel does not take raises here (the head
-    dim first, so the refusal shows on any device)."""
+    dim first, so the refusal shows on any device).  ``return_lse``: the
+    training forward (bfloat16 only), ``(out, lse)``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: need 4-D q and k, v alike")
@@ -138,16 +160,28 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise ValueError(f"B={b}, hq={hq}: at most {_GRID_LIMIT} each")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if return_lse and q.dtype != torch.bfloat16:
+        raise ValueError(f"{NAME}: the log-sum-exp forward takes bfloat16, "
+                         f"got {q.dtype}")
     scale = scale if scale is not None else float(1.0 / d ** 0.5)
     q = _operand(q, q, "q")
     k = _operand(k, q, "k")
     v = _operand(v, q, "v")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b and sq:
-        fn = _build.function(NAME, "flash_attention_launch", _ARGTYPES)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, scale, int(causal), window or 0,
-                DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+        if return_lse:
+            fn = _build.function(NAME, "flash_attention_lse_launch",
+                                 _LSE_ARGTYPES)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), b, hq, hkv, sq, skv, d, scale,
+                    int(causal), window or 0, _build.stream_ptr(q.device))
+        else:
+            fn = _build.function(NAME, "flash_attention_launch", _ARGTYPES)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, hq, hkv, sq, skv, d, scale, int(causal), window or 0,
+                    DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
         _build.check(NAME, rc)
         _build.launches[NAME] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -9,6 +9,15 @@ Each op picks its implementation by the tensors' device (``impl="auto"``):
   and on the card only when asked for, to compare a kernel with it.
 * ``"ref"``   — the dense oracle of ``kernels/ref.py``.
 
+Under autograd (grad enabled and an input that requires grad, ``needs_grad``)
+``attention`` and ``rmsnorm`` are ``torch.autograd.Function``s whose forward
+is the kernel (kernel 7 with its log-sum-exp, the rmsnorm kernel) and whose
+backward is a kernel too (``kernels/flash_attention_bwd.py``,
+``kernels/rmsnorm_bwd.py``); ``impl="torch"`` uses both plain versions and
+``impl="ref"`` differentiates the dense oracle.  Without grad every op takes
+the path it always took.  On the card an op with no backward kernel
+(``layernorm``) raises under autograd.
+
 ``add_rmsnorm``, ``add_layernorm`` and ``qkv_rope_write`` fuse the PyTorch
 glue of a step into a kernel; their plain versions are the former chains,
 whose inner ops dispatch by device as before.  ``moe_router_route``,
@@ -24,6 +33,7 @@ import torch
 
 from repro_torch.core.quant import QuantizedTensor
 from repro_torch.core.sparsity import SparseQuantizedTensor
+from repro_torch.kernels import flash_attention_bwd as _fa_bwd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_flash import (
     DEFAULT_BLOCK_KV, mixed_attention_torch, mixed_flash_attention_cuda)
@@ -47,8 +57,11 @@ from repro_torch.kernels.moe_route import (
     moe_router_route_cuda)
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm_cuda, add_rmsnorm_torch, combine_add_rmsnorm_cuda,
-    combine_add_rmsnorm_torch, rmsnorm, rmsnorm_gated_cuda,
-    rmsnorm_gated_torch)
+    combine_add_rmsnorm_torch, rmsnorm_cuda, rmsnorm_gated_cuda,
+    rmsnorm_gated_torch, rmsnorm_torch)
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_by_device
+from repro_torch.kernels.rmsnorm_bwd import (
+    check_supported as rmsnorm_bwd_check, rmsnorm_bwd_cuda, rmsnorm_bwd_torch)
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_torch
 from repro_torch.kernels.sparse_w4a16 import (
     sparse_w4a16_matmul_cuda, sparse_w4a16_matmul_torch)
@@ -56,7 +69,8 @@ from repro_torch.kernels.w4a16_matmul import (
     w4a16_matmul_cuda, w4a16_matmul_torch)
 
 __all__ = ["w4a16_matmul", "sparse_w4a16_matmul", "dense_matmul",
-           "ffn_w4a16", "layernorm", "attention", "decode_attention",
+           "ffn_w4a16", "layernorm", "rmsnorm", "attention",
+           "decode_attention",
            "mixed_attention", "gather_paged_cache", "kv_write", "slstm_scan",
            "mlstm_cell", "add_rmsnorm", "add_layernorm", "qkv_rope_write",
            "moe_route", "moe_router_route", "moe_ffn_w4a16", "moe_combine",
@@ -70,6 +84,62 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
     if impl not in ("cuda", "torch", "ref"):
         raise ValueError(f"unknown impl {impl!r}")
     return impl
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad is enabled and one of ``tensors`` (non-tensors and None
+    skipped) requires it: the training route."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 7 with its log-sum-exp forward, kernel 7's backward (or the
+    two plain versions, ``impl="torch"``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, impl):
+        kw = dict(causal=causal, window=window, scale=scale)
+        if impl == "cuda":
+            _fa_bwd.check_supported(q)      # refuse before the forward runs
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = flash_attention_torch(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw, ctx.impl = kw, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = (_fa_bwd.flash_attention_bwd_cuda if ctx.impl == "cuda"
+              else _fa_bwd.flash_attention_bwd_torch)
+        dq, dk, dv = fn(q, k, v, out, dout, lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The rmsnorm kernel forward, the rmsnorm backward kernel (or the two
+    plain versions, ``impl="torch"``); dgamma cast to gamma's dtype, as the
+    reference's f32 cotangent is."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, impl):
+        if impl == "cuda":
+            rmsnorm_bwd_check(x)             # refuse before the forward runs
+            out = rmsnorm_cuda(x, gamma, eps)
+        else:
+            out = rmsnorm_torch(x, gamma, eps)
+        ctx.save_for_backward(x, gamma)
+        ctx.eps, ctx.impl = eps, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        fn = rmsnorm_bwd_cuda if ctx.impl == "cuda" else rmsnorm_bwd_torch
+        dx, dgamma = fn(x, gamma, dy, ctx.eps)
+        return dx, dgamma.to(gamma.dtype), None, None
 
 
 def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
@@ -114,8 +184,25 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     deviations).  The plain version is the reference's formula, so
     ``"ref"`` takes it too."""
     impl = _resolve(impl, x)
+    if impl == "cuda" and needs_grad(x, gamma, beta):
+        raise NotImplementedError(
+            "layernorm under autograd on the card: there is no layernorm "
+            "backward kernel yet (ROADMAP queue 1, item 6b)")
     fn = layernorm_cuda if impl == "cuda" else layernorm_torch
     return fn(x, gamma, beta, eps)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
+            impl: str = "auto") -> torch.Tensor:
+    """f32 RMSNorm with a fixed reduction order per row; under autograd a
+    function whose backward is the rmsnorm backward kernel.  The plain
+    version is the reference's formula, so ``"ref"`` takes it too."""
+    impl = _resolve(impl, x)
+    if needs_grad(x, gamma):
+        return _RMSNorm.apply(x, gamma, eps,
+                              "cuda" if impl == "cuda" else "torch")
+    fn = rmsnorm_cuda if impl == "cuda" else rmsnorm_torch
+    return fn(x, gamma, eps)
 
 
 def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
@@ -138,9 +225,14 @@ def ffn_w4a16(x, gate, up, down, *, activation="swiglu", up_bias=None,
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               scale: float | None = None, impl: str = "auto") -> torch.Tensor:
     """Full-sequence flash attention (forward, whole-prompt prefill).  q
-    (b, hq, sq, d), k/v (b, hkv, skv, d); the q block ends the context."""
+    (b, hq, sq, d), k/v (b, hkv, skv, d); the q block ends the context.
+    Under autograd (``needs_grad``) the forward also keeps the rows'
+    log-sum-exp and the backward is kernel 7's backward (``"ref"``:
+    autograd through the dense oracle)."""
     impl = _resolve(impl, q)
     kw = dict(causal=causal, window=window, scale=scale)
+    if needs_grad(q, k, v) and impl != "ref":
+        return _FlashAttention.apply(q, k, v, causal, window, scale, impl)
     if impl == "cuda":
         return flash_attention_cuda(q, k, v, **kw)
     if impl == "torch":
@@ -264,7 +356,7 @@ def qkv_rope_write(cache: dict, q: torch.Tensor, k: torch.Tensor,
     if impl == "cuda":
         return qkv_rope_write_cuda(cache, q, k, v, bias, **kw)
     return qkv_rope_write_torch(cache, q, k, v, bias, write=kv_write,
-                                norm=rmsnorm, **kw)
+                                norm=_rmsnorm_by_device, **kw)
 
 
 def moe_route(logits: torch.Tensor, *, group: int, top_k: int,

@@ -3,6 +3,7 @@
 
     init_params(cfg, gen)                     -> params tree
     forward(cfg, params, batch)               -> (logits (B, S, V), aux)
+    loss_fn(cfg, params, batch, aux_weight)   -> (loss + aux term, metrics)
     prefill(cfg, params, batch, max_len)      -> (last logits (B, V), cache)
     init_cache(cfg, batch, max_len, device)   -> cache (updated in place)
     has_paged_kv(cfg)                         -> shared-pool layout?
@@ -124,6 +125,37 @@ def forward(cfg, params: Params, batch: dict):
     if _audio(cfg):
         return whisper.forward(cfg, params, batch["frames"], batch["tokens"])
     return zamba.forward(cfg, params, batch["tokens"])
+
+
+# the families whose training route is ported (ROADMAP queue 1, item 6a
+# adds the rest)
+TRAINED_FAMILIES = ("dense",)
+
+
+def loss_fn(cfg, params: Params, batch: dict, aux_weight: float = 0.01):
+    """Next-token cross-entropy + MoE aux loss (``repro/models/api.py:88``):
+    f32 log-softmax of the logits of the first ``labels.shape[1]``
+    positions, the labels' log-probabilities, their mean (or, with
+    ``batch["mask"]``, their masked sum over ``max(mask.sum(), 1)``).
+    Returns ``(loss + aux_weight * aux, {"loss": loss, "aux": aux})``.
+    Differentiable for the dense family (``forward``'s training route);
+    the others raise ``NotImplementedError``."""
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported (ROADMAP "
+            "queue 1, item 6a); the dense family trains")
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    logits = logits[:, : labels.shape[1]]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    else:
+        loss = nll.mean()
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 def _bulk_prefill(cfg, params: Params, tokens: torch.Tensor, max_len: int):

@@ -4,9 +4,11 @@ Mirrors ``repro/models/config.py`` for the fields the dense, MoE, xLSTM
 (``ssm``), Zamba2 (``hybrid``), Whisper (``audio``) and Qwen2-VL (``vlm``:
 the dense backbone with M-RoPE, its patch frontend a stub in both packages)
 serving paths read, the slot and paged KV layouts and the int8 KV cache
-included (the ``ssm`` family has no KV cache and ignores them).  The
-reference's execution knobs (``remat``, ``scan_layers``, ``use_kernels``)
-have no counterpart here.  A ``family`` the port does not know is refused
+included (the ``ssm`` family has no KV cache and ignores them), and the
+training route's ``remat`` (``"block"``: each layer under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).  The
+reference's other execution knobs (``scan_layers``, ``use_kernels``) have no
+counterpart here.  A ``family`` the port does not know is refused
 by the model and engine with ``NotImplementedError``.
 """
 
@@ -70,6 +72,7 @@ class ModelConfig:
     kv_pool_blocks: int = 0           # shared-pool blocks (0 = B * pages/slot)
 
     dtype: torch.dtype = torch.bfloat16
+    remat: str = "block"              # none | block (the training route)
 
     def __post_init__(self):
         if self.head_dim == 0:

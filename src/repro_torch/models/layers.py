@@ -7,6 +7,15 @@ parameter type: a dense tensor (the 16-bit op, ``ops.dense_matmul``), a
 goes through a kernel whose reduction order per row is fixed, whatever the
 number of rows (cuBLAS and PyTorch's reductions may pick their split from
 the row count, which would break the engine's bitwise oracle parity).
+
+Under autograd (``ops.needs_grad``: grad enabled and an input that requires
+it, the training route) a 16-bit ``linear`` is ``torch.matmul`` (cuBLAS on
+the card: the reference computes these dots in XLA outside any Pallas
+kernel), the MLP is the unfused composition, ``rmsnorm`` is the rmsnorm
+kernel with its backward kernel, and the W4A16 and sparse linears and the
+layernorm, which have no backward kernel, raise on the card.  Without grad
+nothing changes.
+
 Quantizing a model for serving is a pure tree transform
 (``core/compiler.quantize_model``); no model code changes.  Random init
 takes an explicit ``torch.Generator``; its device is where the weights live.
@@ -48,7 +57,22 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 # -- linear ----------------------------------------------------------------
 
+def _no_packed_grad(x: torch.Tensor, ws, what: str) -> None:
+    """Under autograd on the card a W4A16 or sparse weight raises: no
+    backward kernel takes it."""
+    if x.is_cuda and any(isinstance(w, (QuantizedTensor,
+                                        SparseQuantizedTensor)) for w in ws):
+        raise NotImplementedError(
+            f"{what} with a W4A16 or sparse weight under autograd on the "
+            "card: the packed products have no backward kernel")
+
+
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+    if ops.needs_grad(x, w, b):
+        _no_packed_grad(x, (w,), "a linear")
+        if not isinstance(w, (QuantizedTensor, SparseQuantizedTensor)):
+            y = torch.matmul(x, w.to(x.dtype))
+            return y if b is None else y + b.to(y.dtype)
     if isinstance(w, QuantizedTensor):
         y = ops.w4a16_matmul(x, w)
     elif isinstance(w, SparseQuantizedTensor):
@@ -64,7 +88,10 @@ def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """f32 RMSNorm; on the card through the fixed-order kernel."""
+    """f32 RMSNorm; on the card through the fixed-order kernel (under
+    autograd with its backward kernel, ``ops.rmsnorm``)."""
+    if ops.needs_grad(x, gamma):
+        return ops.rmsnorm(x, gamma, eps)
     return _rmsnorm(x, gamma, eps)
 
 
@@ -155,8 +182,17 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     differentiable: on the card a 16-bit MLP takes kernel 6, which applies
     the activation to f32 sums and rounds the hidden once, where the unfused
     composition rounds each projection to x's dtype (the two agree within
-    the reference's own ``tests/test_ffn_fused.py`` tolerance).  A training
-    path keeps the unfused composition."""
-    return ops.ffn_w4a16(x, p.get("gate"), p["up"], p["down"],
-                         activation=cfg.activation, up_bias=p.get("up_bias"),
-                         down_bias=p.get("down_bias"))
+    the reference's own ``tests/test_ffn_fused.py`` tolerance).
+
+    The training rule: under autograd (``ops.needs_grad``) every MLP is the
+    unfused composition (``impl="ref"``: three products in x's dtype, the
+    activation between them, on the card ``torch.matmul``), as the
+    reference's training is; kernel 6 and the fused W4A16 kernels have no
+    backward, so a W4A16 or sparse MLP raises on the card."""
+    ws = (p.get("gate"), p["up"], p["down"])
+    biases = dict(up_bias=p.get("up_bias"), down_bias=p.get("down_bias"))
+    train = ops.needs_grad(x, *ws, *biases.values())
+    if train:
+        _no_packed_grad(x, ws, "an MLP")
+    return ops.ffn_w4a16(x, *ws, activation=cfg.activation,
+                         impl="ref" if train else "auto", **biases)

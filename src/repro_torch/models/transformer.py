@@ -8,6 +8,14 @@ load-balance loss.  A vlm config is the dense model with M-RoPE:
 position ids; the serving routes take text only, their three id streams
 equal.
 
+``forward`` under autograd (a parameter that requires grad, grad enabled:
+the training route) runs the reference's unfused ``block_apply`` a layer
+(``x + attn(norm(x))``, then ``x + mlp(norm(x))``, the norms and kernel 7
+with their backward kernels), each layer under
+``torch.utils.checkpoint`` when ``cfg.remat == "block"`` (the reference's
+``jax.checkpoint``), then ``ln_f`` and the head; the dense and vlm families
+only.  Without grad every route runs as it always did.
+
 Block parameters are stacked along a leading layer axis, as in the
 reference; the layers run as a Python loop over views of the stacked
 tensors (``layer_params``), and the KV cache stacks one layer's leaves
@@ -19,10 +27,12 @@ place.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import Params
+from repro_torch.train.checkpoint import tree_paths
 
 
 def block_init(gen: torch.Generator, cfg) -> Params:
@@ -81,6 +91,47 @@ def layer_params(blocks: Params, i: int) -> Params:
     """Layer ``i``'s parameters as views of the stacked tensors."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in blocks.items()}
+
+
+def _unbind_layers(blocks: Params, n: int) -> list[Params]:
+    """Every layer's parameters as views of the stacked tensors, taken with
+    one ``unbind`` a leaf, whose backward stacks the layers' gradients once
+    (``layer_params``'s ``v[i]`` would add a zero-filled stack a layer)."""
+    out: list[Params] = [{} for _ in range(n)]
+    for k, v in blocks.items():
+        parts = (_unbind_layers(v, n) if isinstance(v, dict)
+                 else v.unbind(0))
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def block_apply(cfg, p: Params, x: torch.Tensor, positions) -> torch.Tensor:
+    """One block as the reference's ``block_apply`` (unfused residual adds;
+    dense and vlm configs): the training route's layer."""
+    h = attention.attn_apply(cfg, p["attn"],
+                             layers.apply_norm(cfg, p["ln_attn"], x),
+                             positions)
+    x = x + h
+    return x + layers.mlp_apply(cfg, p["mlp"],
+                                layers.apply_norm(cfg, p["ln_mlp"], x))
+
+
+def _forward_grad(cfg, params: Params, x: torch.Tensor, positions):
+    """The training route's layers, ``ln_f`` and head (see the module
+    note)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "training an MoE config (the router's gradient and the "
+            "load-balance loss) is not ported (ROADMAP queue 1, item 6a)")
+    for bp in _unbind_layers(params["blocks"], cfg.n_layers):
+        if cfg.remat == "block":
+            x = torch.utils.checkpoint.checkpoint(
+                block_apply, cfg, bp, x, positions, use_reentrant=False)
+        else:
+            x = block_apply(cfg, bp, x, positions)
+    x = layers.apply_norm(cfg, params["ln_f"], x)
+    return unembed(cfg, params, x), torch.zeros((), device=x.device)
 
 
 def embed_tokens(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -169,6 +220,8 @@ def forward(cfg, params: Params, tokens: torch.Tensor, positions=None,
     b, s, _ = x.shape
     if positions is None:
         positions = layers.positions_for(cfg, b, s, device=tokens.device)
+    if ops.needs_grad(x, *(t for _, t in tree_paths(params))):
+        return _forward_grad(cfg, params, x, positions)
     aux = [] if cfg.is_moe else None
     x, m = _walk_layers(cfg, params, x, lambda i, bp, n:
                         attention.attn_apply(cfg, bp["attn"], n, positions),

@@ -197,9 +197,9 @@ def cfg_to_dict(cfg: ModelConfig) -> dict:
     return d
 
 
-# the reference's execution knobs (JAX's remat, layer scan and Pallas
-# switch): a config it wrote loads without them
-_REFERENCE_ONLY = ("remat", "scan_layers", "use_kernels")
+# the reference's execution knobs the port has no field for (JAX's layer
+# scan and Pallas switch): a config it wrote loads without them
+_REFERENCE_ONLY = ("scan_layers", "use_kernels")
 
 
 def cfg_from_dict(d: dict) -> ModelConfig:

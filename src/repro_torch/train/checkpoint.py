@@ -1,5 +1,6 @@
-"""The checkpoint leaf codec (port of ``write_state`` / ``read_state`` in
-``repro/train/checkpoint.py``), over a dict tree of torch tensors.
+"""Checkpoints (port of ``repro/train/checkpoint.py``) over a dict tree of
+torch tensors: the leaf codec (``write_state`` / ``read_state``) and the
+step-directory checkpointer (``save``, ``latest_step``, ``restore``).
 
 On-disk format, the reference's exactly, so either package reads what the
 other wrote::
@@ -16,15 +17,21 @@ pattern (``t.view(torch.int16)``, saved as ``uint16``) tagged
 other numpy dtypes go as they are.  Nothing is cast by value.
 
 Writes go through ``core.atomic.atomic_dir``.  The serving snapshot store
-writes the engine's cache with this codec.  The reference's step-directory
-checkpointer and its ``QuantizedTensor`` / ``SparseQuantizedTensor`` leaves
-wait for the training slice of the port.
+writes the engine's cache with this codec.  A training checkpoint is one
+such directory per step, ``<ckpt_dir>/step_%09d``, and ``save`` keeps the
+newest ``keep`` of them; a checkpoint of ``{"params", "opt"}`` written by
+either package restores in the other (the optimizer state's leaves are
+``opt/step``, ``opt/m/...`` and ``opt/v/...`` in both).  The reference's
+packed ``QuantizedTensor`` / ``SparseQuantizedTensor`` leaves are not
+written here: training state is dense.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 from typing import Any, Iterator
 
 import numpy as np
@@ -122,3 +129,52 @@ def read_state(d: str, like: dict[str, Any]
                              f"{tuple(leaf.shape)}")
         out[path] = arr
     return out, manifest["extra"]
+
+
+def save(ckpt_dir: str, step: int, state: dict[str, Any],
+         extra: dict | None = None, keep: int = 3) -> str:
+    """Write ``state`` (a dict tree of tensors) as ``step_%09d`` and prune
+    all but the newest ``keep`` step directories."""
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    write_state(final, state, extra, step)
+    _prune(ckpt_dir, keep)
+    return final
+
+
+def _prune(ckpt_dir: str, keep: int) -> None:
+    steps = sorted(
+        (d for d in os.listdir(ckpt_dir) if re.match(r"step_\d+$", d)))
+    for d in steps[:-keep] if keep else []:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if re.match(r"step_\d+$", d)]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like: dict[str, Any]
+            ) -> tuple[dict[str, Any], dict]:
+    """Step ``step``'s state as a new tree of tensors with ``like``'s
+    structure, shapes, dtypes and devices (``read_state``'s checks: nothing
+    is cast), and its ``extra``."""
+    arrays, extra = read_state(os.path.join(ckpt_dir, f"step_{step:09d}"),
+                               like)
+
+    def load(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = load(v, f"{prefix}{k}/")
+                continue
+            arr = np.asarray(arrays[f"{prefix}{k}"], order="C")
+            bits = VIEW_DTYPES.get(dtype_name(v.dtype), (None,))[0]
+            t = (torch.from_numpy(arr) if bits is None else
+                 torch.from_numpy(arr.view(dtype_name(bits))).view(v.dtype))
+            out[k] = t.to(v.device)
+        return out
+
+    return load(like, ""), extra

@@ -3608,3 +3608,120 @@ def test_vlm_engine_matches_oracle_on_card(cuda, layout):
         assert r.output == reference_decode(cfg, params, r.prompt,
                                             r.max_new_tokens, max_len=64,
                                             device="cuda"), r.rid
+
+
+# -- the training route: kernel 7's backward and the RMSNorm backward ---------
+
+# kernel 7's backward against its plain version on the same o and lse: P
+# and dS rounded to bf16 before their products in both, from scores summed
+# in another order, then the output's rounding (chip_smoke.py: FA_BWD_TOL)
+FA_BWD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("case", [
+    (2, 8, 2, 256, 256, 128, True, None), (1, 8, 2, 300, 300, 128, True, 64),
+    (2, 4, 4, 70, 130, 64, False, None), (2, 4, 2, 96, 64, 32, True, None)],
+    ids=["causal-d128", "ragged-window", "cross-d64", "no-key-rows-d32"])
+def test_attention_backward_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda, flash_attention_bwd_torch)
+    b, hq, hkv, sq, skv, d, causal, window = case
+    gen = torch.Generator(device="cuda").manual_seed(sq)
+    q, do = (_rand(gen, b, hq, sq, d, dtype=torch.bfloat16) for _ in "qo")
+    k, v = (_rand(gen, b, hkv, skv, d, dtype=torch.bfloat16) for _ in "kv")
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, **kw))
+    before = _build.launches["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    assert _build.launches["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_torch(q, k, v, o, do, lse, **kw)
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max()
+        assert float(err) <= FA_BWD_TOL * float(w.float().abs().max()), err
+    # bitwise repeatable; a batch row alone is the row inside the batch
+    assert all(torch.equal(a, g) for a, g in zip(
+        flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw), got))
+    one = flash_attention_bwd_cuda(q[-1:], k[-1:], v[-1:], o[-1:], do[-1:],
+                                   lse[-1:], **kw)
+    assert all(torch.equal(g[-1:], x) for g, x in zip(got, one))
+
+
+@pytest.mark.parametrize("rows,d", [(300, 4096), (4096, 128), (64, 32)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d):
+    from repro_torch.kernels.rmsnorm_bwd import (
+        rmsnorm_bwd_cuda, rmsnorm_bwd_torch)
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x, dy = (_rand(gen, rows, d, dtype=torch.bfloat16) for _ in "xy")
+    gamma = (1 + 0.1 * _rand(gen, d)).to(torch.bfloat16)
+    dx, dg = rmsnorm_bwd_cuda(x, gamma, dy)
+    pdx, pdg = rmsnorm_bwd_torch(x, gamma, dy)
+    _close(dx, pdx, torch.bfloat16)
+    assert float((dg - pdg).abs().max()) <= 1e-4 * float(pdg.abs().max())
+    dx2, dg2 = rmsnorm_bwd_cuda(x, gamma, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
+    assert torch.equal(rmsnorm_bwd_cuda(x[3:4], gamma, dy[3:4])[0], dx[3:4])
+
+
+def test_smoke_train_step_through_the_kernels_matches_the_plain_step(cuda):
+    """qwen3-8b-smoke in bf16: one step's loss and gradients through the
+    kernels against the same step through every op's plain version on the
+    card, from the same masters and batch; the step launches exactly the
+    four training kernels (remat "none": each forward once)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import (
+        compute_params, init_train_state, loss_and_grads)
+    cfg = get_smoke_config("qwen3-8b", dtype=torch.bfloat16)
+    params, _ = init_train_state(cfg, AdamW(), torch.Generator(
+        device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticTokens(
+        DataConfig(cfg.vocab_size, 64, 4)).batch(0).items()}
+    compute = compute_params(params, cfg.dtype)
+    _build.launches.clear()
+    loss, _, grads = loss_and_grads(cfg, compute, batch)
+    torch.cuda.synchronize()
+    norms = 4 * cfg.n_layers + 1
+    assert {k: v for k, v in _build.launches.items() if v} == {
+        "flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+        "rmsnorm": norms, "rmsnorm_bwd": norms}
+    real = ops._resolve
+    ops._resolve = lambda impl, x: "torch" if impl == "auto" else real(
+        impl, x)
+    try:
+        _build.launches.clear()
+        ploss, _, pgrads = loss_and_grads(cfg, compute, batch)
+        assert not any(_build.launches.values())
+    finally:
+        ops._resolve = real
+    assert abs(float(loss) - float(ploss)) <= 2e-2
+    for path, g in grads.items():
+        w = pgrads[path].float()
+        rel = torch.linalg.vector_norm(g.float() - w) / \
+            torch.linalg.vector_norm(w).clamp_min(1e-30)
+        assert float(rel) <= 3e-2, (path, float(rel))
+
+
+def test_training_route_refuses_what_has_no_backward_kernel(cuda):
+    """On the card under grad: kernel 7's backward refuses f32 and head
+    dim 256 before its forward runs, a layernorm and a W4A16 linear
+    refuse; without grad the same calls serve."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 256)):
+        q = _rand(gen, 1, 4, 64, d, dtype=dtype).requires_grad_(True)
+        k = _rand(gen, 1, 2, 64, d, dtype=dtype)
+        before = _build.launches["flash_attention"]
+        with pytest.raises(ValueError, match="head dims"):
+            ops.attention(q, k, k)
+        assert _build.launches["flash_attention"] == before
+        with torch.no_grad():
+            assert ops.attention(q, k, k).shape == q.shape
+    x = _rand(gen, 8, 256).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="layernorm"):
+        layers.layernorm(x, torch.ones(256, device="cuda"),
+                         torch.zeros(256, device="cuda"))
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        layers.linear(x, quantize(_rand(gen, 256, 128) * 0.05))
