@@ -117,7 +117,8 @@ Phases (any failure ends the run with a nonzero exit code):
                  yardstick (the fused two beside the chains they
                  replaced, ``chain_ms``); a token's layer
                  output alone bitwise inside the chunk; kernels 1 and 2
-                 at 32- and 64-row groups with their tile invariance; the
+                 at 32- and 64-row groups with their tile invariance (the
+                 library call also on weights dequantized once); the
                  tied LM head (the 49155 x 1536 embedding read in place)
                  against its plain version and the copied weight; the
                  dense family's rest: kernel 3's four variants at
@@ -149,7 +150,8 @@ Phases (any failure ends the run with a nonzero exit code):
                  causal at the decoder's prefill (B=2, S=256), d 64, in
                  ``FLASH_CASES``; zamba2-7b's (``check_hybrid_kernels``,
                  bf16): kernel 1 at in_proj (3584 -> 14576, a ragged last
-                 column block) and out_proj (7168 -> 3584) at T=4 and 256,
+                 column block) and out_proj (7168 -> 3584) at T=4 and 256
+                 (the library call also on the weight dequantized once),
                  the Mamba2 cell (``mamba_cell``: conv, state update,
                  readout; B=4, 112 heads of 64 x 64) against its plain
                  version with an inactive row's window and state kept and
@@ -169,8 +171,9 @@ Phases (any failure ends the run with a nonzero exit code):
                  wq/wo (3584^2), wk/wv (3584 -> 512), the down (18944 ->
                  3584) and the lm_head (3584 -> 152064), kernel 2's
                  gate/up (3584 -> 2 x 18944) with the whole FFN timed,
-                 each beside its library call (also on weights
-                 dequantized once) and bound; the epilogue as an M-RoPE
+                 each (the whole FFN too) beside its library call (also
+                 on weights dequantized once) and bound; the epilogue as
+                 an M-RoPE
                  config's steps call it bitwise the ``apply_mrope`` chain
                  at equal ids (``check_mrope_epilogue``: 28 over 4 heads,
                  slot and paged, bf16 and int8, C=1 and 64), and at
@@ -379,18 +382,26 @@ Phases (any failure ends the run with a nonzero exit code):
                  prefill + decode of the 200-token request equal to the
                  engine's stream;
   7. training — after every served model is freed (``check_training``):
-                 (a) kernel 7's backward (``flash_attention_bwd.cu``)
-                 against its plain version on the o and lse of kernel 7's
-                 training forward, whose output is bitwise the serving
-                 forward's, at qwen3-8b's training shape (B=8, 32 / 8 heads
-                 of 128, S=256), S=2048 rep 4, window 256, ragged S=300,
-                 d=64, non-causal 448 x 1500, d=32 and rows that see no
-                 key; bitwise repeatable and a row of B=3 bitwise alone;
-                 the RMSNorm backward (``rmsnorm_bwd.cu``) at 2048 x 4096,
-                 the q and k heads' rows and ragged rows; kernel, plain and
-                 autograd-through-SDPA / ``F.rms_norm`` times beside the
-                 bound, and the training forward's time beside the serving
-                 forward's; (b) one step of qwen3-8b at full width, 4 of its
+                 (a) kernel 7's backward (``flash_attention_bwd.cu``:
+                 wgmma, TMA rings, two launches) against its plain version
+                 on the o and lse of kernel 7's training forward, whose
+                 output is bitwise the serving forward's, at qwen3-8b's
+                 training shape (B=8, 32 / 8 heads of 128, S=256), S=2048
+                 rep 4, window 256, ragged S=300, d=64, non-causal 448 x
+                 1500, d=32, rows that see no key, chatglm-6b's rep 16
+                 (32 / 2 heads, S=2048), qwen1.5-4b's rep 1 (20 / 20
+                 heads, B=8, S=256) and ragged S=200 (past the dQ block's
+                 128 rows); bitwise repeatable and a row of B=3 bitwise
+                 alone; the RMSNorm backward (``rmsnorm_bwd.cu``) at 2048 x
+                 4096, the q and k heads' rows, ragged rows and 8192 wide;
+                 kernel, plain and autograd-through-SDPA / ``F.rms_norm``
+                 times beside the bound, the training forward's time
+                 beside the serving forward's, and at the timed shapes the
+                 first designs (``flash_attention_bwd_sync.cu``,
+                 ``rmsnorm_bwd_serial.cu``, on no path) held to the same
+                 plain versions and timed between two timings of the
+                 kernel (kernel / yardstick); (b) one step of qwen3-8b at
+                 full width, 4 of its
                  36 layers (2.02 B parameters, f32 masters), through the
                  kernels against the same step through every op's plain
                  version: loss, gradient norm and each leaf's gradient
@@ -399,9 +410,13 @@ Phases (any failure ends the run with a nonzero exit code):
                  (c) ten AdamW steps twice from one seed: losses finite,
                  step 0 near ln V + 1/2, the two runs bitwise equal, the
                  median step, tokens/s, peak memory and 6 N tokens / step
-                 time against the bf16 peak; (d) ``run_resumable`` at
-                 qwen3-8b-smoke in bf16, preempted after step 3 and resumed
-                 to 6, bitwise an uninterrupted run;
+                 time against the bf16 peak; one more step traced
+                 (``trace_train_step``): device-busy ms and the device ms
+                 of kernel 7 and its backward, the RMSNorm pair, cuBLAS's
+                 products, AdamW's passes and the loss; (d)
+                 ``run_resumable`` at qwen3-8b-smoke in bf16, preempted
+                 after step 3 and resumed to 6, bitwise an uninterrupted
+                 run;
   then the ``kernels`` JSON line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.  A kernel's ``launches`` is the
      count of one path's own run (``launches_path``: the path of the slice
@@ -2384,13 +2399,15 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
     line = {}
 
     def record(row, kernel, plain, library, nbytes, flops, iters=20,
-               chain=None):
+               chain=None, library_once=None):
         row["ms"] = timer.ms(kernel, iters)
         if chain is not None:
             row["chain_ms"] = timer.ms(chain, iters)
         row["plain_ms"] = timer.ms(plain, 2)
         row["library_ms"] = (timer.ms(library, 3) if library is not None
                              else None)
+        if library_once is not None:
+            row["library_once_ms"] = timer.ms(library_once, 10)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
         before = MOE_GRID_MS.get((row["kernel"], row["case"]))
         if before is not None:
@@ -2405,8 +2422,10 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
             + "plain "
             f"{row['plain_ms']:.4f} ms library "
             + (f"{row['library_ms']:.4f} ms" if library is not None else
-               "none") + f" bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+               "none")
+            + (f" (on weights dequantized once {row['library_once_ms']:.4f}"
+               " ms)" if library_once is not None else "")
+            + f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     cases = (("granite", "decode T=4", 4, 1, None),
              ("granite", "chunk 4x64", 4, 64, None),
@@ -2623,6 +2642,7 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
                       group_size=group)
         g2, u2 = (quantize(randn(d, f, dtype=torch.float32) * 0.03,
                            group_size=group) for _ in range(2))
+        w16, g16, u16 = (dequantize(w, bf16) for w in (w1, g2, u2))
         for t in (4, 256):
             x1, x2 = randn(t, f), randn(t, d)
             got, want = w4a16_matmul_cuda(x1, w1), w4a16_matmul_torch(x1, w1)
@@ -2635,7 +2655,7 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
                    lambda: w4a16_matmul_torch(x1, w1),
                    lambda: x1 @ dequantize(w1, bf16),
                    x1.numel() * 2 + w1.nbytes_model + t * d * 2,
-                   2 * t * f * d)
+                   2 * t * f * d, library_once=lambda: x1 @ w16)
             got = ffn_gate_up_cuda(x2, g2, u2, "swiglu")
             want = ffn_gate_up_torch(x2, g2, u2, "swiglu")
             err, rel = max_errs(got, want)
@@ -2649,14 +2669,16 @@ def check_moe_kernels(torch, timer, randn, tol, rows) -> dict:
                        x2 @ dequantize(g2, bf16)) * (x2 @ dequantize(u2,
                                                                      bf16)),
                    x2.numel() * 2 + g2.nbytes_model + u2.nbytes_model
-                   + t * f * 2, 2 * 2 * t * d * f)
+                   + t * f * 2, 2 * 2 * t * d * f,
+                   library_once=lambda: torch.nn.functional.silu(
+                       x2 @ g16) * (x2 @ u16))
         check_tile_invariance(torch, lambda v: w4a16_matmul_cuda(v, w1),
                               randn(INVARIANCE_ROWS, f),
                               f"w4a16_matmul g={group} {f}x{d}")
         check_tile_invariance(
             torch, lambda v: ffn_gate_up_cuda(v, g2, u2, "swiglu"),
             randn(INVARIANCE_ROWS, d), f"ffn_fused_w4a16 g={group} gate/up")
-        del w1, g2, u2
+        del w1, g2, u2, w16, g16, u16
 
     # -- the tied LM head: the (V, d) embedding read in place
     emb = randn(GRANITE_VOCAB, d) * 0.02
@@ -3217,7 +3239,7 @@ def check_vlm_kernels(torch, timer, randn, tol, rows) -> None:
                         (d, v, False)), (4, 64))
     gate, up = (quantize(randn(d, f, dtype=f32) * 0.02) for _ in range(2))
     down = quantize(randn(f, d, dtype=f32) * 0.02)
-    g16, u16 = (dequantize(w, bf16).T for w in (gate, up))
+    g16, u16, d16 = (dequantize(w, bf16).T for w in (gate, up, down))
     for t in (4, 64):
         x = randn(t, d)
         err, rel = max_errs(ffn_gate_up_cuda(x, gate, up, "swiglu"),
@@ -3243,9 +3265,18 @@ def check_vlm_kernels(torch, timer, randn, tol, rows) -> None:
         row["ffn_bound_ms"], _ = bound(
             x.numel() * 4 + sum(w.nbytes_model for w in (gate, up, down)),
             3 * 2 * t * d * f, "bfloat16")
+        row["ffn_library_ms"] = timer.ms(lambda: F.linear(
+            F.silu(F.linear(x, dequantize(gate, bf16).T))
+            * F.linear(x, dequantize(up, bf16).T),
+            dequantize(down, bf16).T), 10)
+        row["ffn_library_once_ms"] = timer.ms(lambda: F.linear(
+            F.silu(F.linear(x, g16)) * F.linear(x, u16), d16), 10)
         log(f"    whole FFN (kernel 2, then kernel 1 for down) "
-            f"{row['ffn_ms']:.4f} ms, bound {row['ffn_bound_ms']:.4f} ms")
-    del gate, up, down, g16, u16
+            f"{row['ffn_ms']:.4f} ms, bound {row['ffn_bound_ms']:.4f} ms, "
+            f"library (dequantize + 3 F.linear + silu * up) "
+            f"{row['ffn_library_ms']:.4f} ms, on weights dequantized once "
+            f"{row['ffn_library_once_ms']:.4f} ms")
+    del gate, up, down, g16, u16, d16
     torch.cuda.empty_cache()
     check_mrope_epilogue(torch, rows)
 
@@ -3364,11 +3395,14 @@ def check_hybrid_kernels(torch, timer, randn, tol, rows) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     line = {}
 
-    def record(row, kernel, plain, library, nbytes, flops, what):
+    def record(row, kernel, plain, library, nbytes, flops, what,
+               library_once=None):
         row["ms"] = timer.ms(kernel, 20)
         row["plain_ms"] = timer.ms(plain, 3)
         row["library_ms"] = (timer.ms(library, 10) if library is not None
                              else None)
+        if library_once is not None:
+            row["library_once_ms"] = timer.ms(library_once, 10)
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bfloat16")
         rows.append(row)
         log(f"  zamba2 {what}: max_abs {row['max_abs_err']:.3g} rel "
@@ -3376,11 +3410,15 @@ def check_hybrid_kernels(torch, timer, randn, tol, rows) -> dict:
             f"{row['plain_ms']:.4f} ms "
             + (f"library {row['library_ms']:.4f} ms "
                if row["library_ms"] is not None else "(yardstick: plain) ")
+            + (f"(on the weight dequantized once "
+               f"{row['library_once_ms']:.4f} ms) "
+               if library_once is not None else "")
             + f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     for d_in, o, name in ((ZAMBA_D, ZAMBA_PROJ, "in_proj"),
                           (ZAMBA_DI, ZAMBA_D, "out_proj")):
         w = quantize(randn(d_in, o, dtype=f32) * 0.02)
+        w16 = dequantize(w, bf16)
         for t in (4, 256):
             x = randn(t, d_in)
             err, rel = max_errs(w4a16_matmul_cuda(x, w),
@@ -3395,11 +3433,11 @@ def check_hybrid_kernels(torch, timer, randn, tol, rows) -> dict:
                    lambda: x @ dequantize(w, bf16),
                    x.numel() * 2 + w.nbytes_model + t * o * 2,
                    2 * t * d_in * o, f"w4a16_matmul {name} T={t} "
-                   f"{d_in}->{o}")
+                   f"{d_in}->{o}", lambda: x @ w16)
         need(torch.equal(w4a16_matmul_cuda(x[:4], w),
                          w4a16_matmul_cuda(x, w)[:4]),
              f"zamba2 w4a16 {name}: rows differ between 4 and 256 rows")
-        del w
+        del w, w16
     # the Mamba2 cell
     b = 4
     inp = mamba_inputs(torch, randn, b)
@@ -6202,14 +6240,21 @@ FA_BWD_CASES = {
                                         None),
     "qwen3-8b-smoke d=32": (2, 4, 2, 64, 64, 32, True, None),
     "rows with no key Sq=96 Skv=64": (1, 8, 2, 96, 64, 64, True, None),
+    # chatglm-6b's 32 over 2 heads and qwen1.5-4b's 20 over 20; a ragged
+    # length past the dQ block's 128 rows and the 64-key tile (128 + 72)
+    "chatglm-6b rep 16 S=2048": (1, 32, 2, 2048, 2048, 128, True, None),
+    "qwen1.5-4b rep 1 B=8 S=256": (8, 20, 20, 256, 256, 128, True, None),
+    "ragged S=200": (1, 32, 8, 200, 200, 128, True, None),
 }
-FA_BWD_TIMED = ("qwen3-8b training B=8 S=256", "causal S=2048 rep 4")
+FA_BWD_TIMED = ("qwen3-8b training B=8 S=256", "causal S=2048 rep 4",
+                "chatglm-6b rep 16 S=2048", "qwen1.5-4b rep 1 B=8 S=256")
 # (rows, d, what): the training step's norms at qwen3-8b's widths, ragged
 # rows, and the smoke config's q/k heads
 RMS_BWD_CASES = ((2048, 4096, "ln_attn / ln_mlp / ln_f rows"),
                  (2048 * 32, 128, "q heads"), (2048 * 8, 128, "k heads"),
                  (300, 4096, "ragged 300 rows"), (2 * 16 * 4, 32,
-                                                  "qwen3-8b-smoke q heads"))
+                                                  "qwen3-8b-smoke q heads"),
+                 (300, 8192, "8192 wide: 8 warps a row, 4 chunks a thread"))
 RMS_BWD_TIMED = ("ln_attn / ln_mlp / ln_f rows", "q heads")
 # dx is rounded to bf16 (2^-8); dgamma is an f32 sum over the rows in
 # another order
@@ -6239,7 +6284,8 @@ def check_attention_backward(torch, timer, randn, rows) -> dict:
     from repro_torch.kernels.flash_attention import (
         BLOCK_KV, BLOCK_Q, flash_attention_cuda, flash_attention_torch)
     from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_bwd_cuda, flash_attention_bwd_torch)
+        flash_attention_bwd_cuda, flash_attention_bwd_sync_cuda,
+        flash_attention_bwd_torch)
     line = {}
     for name, (b, hq, hkv, sq, skv, d, causal, window) in \
             FA_BWD_CASES.items():
@@ -6322,8 +6368,33 @@ def check_attention_backward(torch, timer, randn, rows) -> dict:
                    f"{row['forward_library_ms']:.4f}, bound "
                    f"{row['forward_bound_ms']:.4f} ms "
                    f"({row['forward_bound_by']}))")
+            # the mma.sync yardstick on the same inputs, in this call
+            sync = flash_attention_bwd_sync_cuda(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            serrs = [max_errs(g, p) for g, p in zip(sync, want)]
+            need(all(e[1] <= FA_BWD_TOL for e in serrs),
+                 f"flash_attention_bwd_sync {name}: rel err "
+                 f"{[e[1] for e in serrs]} > {FA_BWD_TOL}")
+            row["yardstick_ms"] = timer.ms(
+                lambda: flash_attention_bwd_sync_cuda(q, k, v, o, do, lse,
+                                                      **kw), 10)
+            row["ms_after_yardstick"] = timer.ms(
+                lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw),
+                10)
+            row["over_yardstick"] = (row["ms"] + row["ms_after_yardstick"]
+                                     ) / 2 / row["yardstick_ms"]
+            row["over_library"] = row["ms"] / row["library_ms"]
+            msg += (f"; the mma.sync yardstick {row['yardstick_ms']:.4f} ms"
+                    f" (kernel / yardstick {row['over_yardstick']:.3f}, "
+                    f"kernel / sdpa backward {row['over_library']:.3f})")
             if name == FA_BWD_TIMED[0]:
                 line["flash_attention_bwd"] = row
+                line["flash_attention_bwd_sync"] = {
+                    "max_abs_err": max(e[0] for e in serrs),
+                    "ms": row["yardstick_ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]}
+            del sync
         rows.append(row)
         log(f"  flash_attention_bwd {name}: rel dq {errs['dq'][1]:.3g} dk "
             f"{errs['dk'][1]:.3g} dv {errs['dv'][1]:.3g} (tol {FA_BWD_TOL})"
@@ -6353,7 +6424,7 @@ def check_rmsnorm_backward(torch, timer, rows) -> dict:
     bound at ``RMS_BWD_TIMED``."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm_bwd import (
-        rmsnorm_bwd_cuda, rmsnorm_bwd_torch)
+        rmsnorm_bwd_cuda, rmsnorm_bwd_serial_cuda, rmsnorm_bwd_torch)
     g = torch.Generator(device="cuda").manual_seed(36)
     lib = getattr(F, "rms_norm", None)
     line = {}
@@ -6394,11 +6465,33 @@ def check_rmsnorm_backward(torch, timer, rows) -> dict:
                 del xg
             row["bound_ms"], row["bound_by"] = bound(
                 3 * n * d * 2 + d * 2 + d * 4, 10 * n * d, "bfloat16")
+            # the one-row-in-flight yardstick on the same inputs
+            sdx, sdg = rmsnorm_bwd_serial_cuda(x, gamma, dy)
+            torch.cuda.synchronize()
+            sx, sg = max_errs(sdx, pdx), max_errs(sdg, pdg)
+            need(sx[1] <= RMS_BWD_TOL["dx"] and sg[1] <= RMS_BWD_TOL[
+                "dgamma"], f"{case}: the yardstick's rel dx {sx[1]:.3g} "
+                 f"dgamma {sg[1]:.3g} > {RMS_BWD_TOL}")
+            row["yardstick_ms"] = timer.ms(
+                lambda: rmsnorm_bwd_serial_cuda(x, gamma, dy), 20)
+            row["ms_after_yardstick"] = timer.ms(
+                lambda: rmsnorm_bwd_cuda(x, gamma, dy), 20)
+            row["over_yardstick"] = (row["ms"] + row["ms_after_yardstick"]
+                                     ) / 2 / row["yardstick_ms"]
+            row["over_bound"] = row["ms"] / row["bound_ms"]
             msg = (f"  kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
                    f" ms F.rms_norm backward {row['library_ms']} ms bound "
-                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}, kernel / "
+                   f"bound {row['over_bound']:.3f}); the one-row yardstick "
+                   f"{row['yardstick_ms']:.4f} ms (kernel / yardstick "
+                   f"{row['over_yardstick']:.3f})")
             if what == RMS_BWD_TIMED[0]:
                 line["rmsnorm_bwd"] = row
+                line["rmsnorm_bwd_serial"] = {
+                    "max_abs_err": max(sx[0], sg[0]),
+                    "ms": row["yardstick_ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]}
         rows.append(row)
         log(f"  {case}: rel dx {ex[1]:.3g} dgamma {eg[1]:.3g}; two calls "
             f"bitwise; row {r} alone bitwise" + msg)
@@ -6503,6 +6596,68 @@ def check_train_step(torch, results, counts) -> None:
          "training step: a gradient is not finite")
 
 
+# a traced training step's kernel groups by the names the profiler gives
+# them, case aside (the rest is "other": casts, among them the logits' to
+# f32 for the loss, residual adds, the MLP's silu and product, fills, the
+# embedding and its gradient); AdamW's passes are the kernels inside the
+# "adamw" range on the card's timeline (optim/adamw.py)
+TRAIN_TRACE_GROUPS = (
+    ("kernel 7 and its backward", r"flash_attention|fb_dq_kernel|"
+                                  r"fb_dkv_kernel"),
+    ("the RMSNorm pair", r"rmsnorm"),
+    ("cuBLAS products", r"gemm|nvjet|xmma|cutlass"),
+    ("the 151,936-way loss's log-softmax and gather, both ways",
+     r"softmax|gather|scatter"))
+
+
+def trace_train_step(torch, step, params, state, batch, i) -> dict:
+    """One step under ``torch.profiler``: device-busy ms (the union of the
+    card's kernel and copy intervals), operations, and the device ms of
+    each ``TRAIN_TRACE_GROUPS`` group and of AdamW's passes (kernels that
+    start inside the ``adamw`` range's span on the card; "not measured"
+    when the profiler records no such span)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch, i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e for e in dev if getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in dev if not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    adamw = [(e.time_range.start, e.time_range.end) for e in marks
+             if e.name == "adamw"]
+    groups = {name: 0.0 for name, _ in TRAIN_TRACE_GROUPS}
+    adamw_ms, other = 0.0, {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        if any(a <= e.time_range.start < b for a, b in adamw):
+            adamw_ms += ms
+            continue
+        for name, pattern in TRAIN_TRACE_GROUPS:
+            if re.search(pattern, e.name, re.IGNORECASE):
+                groups[name] += ms
+                break
+        else:
+            other[e.name] = other.get(e.name, 0.0) + ms
+    out = {"busy_ms": busy / 1e3, "device_ops": len(kernels),
+           "groups_ms": groups,
+           "adamw_ms": adamw_ms if adamw else None,
+           "other_ms": sum(other.values()),
+           "other_top": sorted(((n[:90], ms) for n, ms in other.items()),
+                               key=lambda kv: -kv[1])[:8]}
+    need(kernels, "training trace: the profiler saw no device activity")
+    return out
+
+
 def check_train_run(torch, results) -> None:
     """(c): ``TRAIN_STEPS`` AdamW steps (cosine schedule, peak 3e-4, 20
     warmup steps), twice from the same seed: every loss finite, step 0
@@ -6536,6 +6691,21 @@ def check_train_run(torch, results) -> None:
                 f"({secs[-1] * 1e3:.1f} ms)")
         peak = torch.cuda.max_memory_allocated()
         runs.append((losses, secs, peak))
+        if run == 1:
+            # one more step, traced: where a step's device time goes
+            trace = trace_train_step(torch, step, params, state,
+                                     batch(TRAIN_STEPS), TRAIN_STEPS)
+            results["train_trace"] = trace
+            log(f"  a traced step: device busy {trace['busy_ms']:.2f} ms over "
+                f"{trace['device_ops']} operations; "
+                + ", ".join(f"{k} {v:.2f}" for k, v in
+                            trace["groups_ms"].items())
+                + ", AdamW's passes "
+                + (f"{trace['adamw_ms']:.2f}" if trace["adamw_ms"] is not None
+                   else "not measured")
+                + f", other {trace['other_ms']:.2f} ms (top: "
+                + "; ".join(f"{n} {ms:.2f}" for n, ms in trace["other_top"])
+                + ")")
         del params, state, step, m
         torch.cuda.empty_cache()
     (l0, s0, p0), (l1, s1, _) = runs
@@ -6759,6 +6929,16 @@ KERNEL_META = {
     "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                     "the backward of src/repro/models/layers.py:65 (XLA in "
                     "the reference, no Pallas kernel)", TRAIN_PATH),
+    "flash_attention_bwd_sync": ("src/repro_torch/kernels/csrc/"
+                                 "flash_attention_bwd_sync.cu",
+                                 "the backward of src/repro/kernels/"
+                                 "flash_attention.py:101 (no VJP; the mma."
+                                 "sync design, phase 7's yardstick)", None),
+    "rmsnorm_bwd_serial": ("src/repro_torch/kernels/csrc/"
+                           "rmsnorm_bwd_serial.cu",
+                           "the backward of src/repro/models/layers.py:65 "
+                           "(XLA in the reference; the one-row design, "
+                           "phase 7's yardstick)", None),
 }
 # each model is built, checked (phase 4), served (phase 5), prefilled
 # (phase 6, where listed) and freed in turn: (path, arch, strategy)
@@ -6957,7 +7137,7 @@ def main() -> int:
 
     kernels = []
     for kname, (source, replaces, path) in KERNEL_META.items():
-        # path None: phase 3's yardstick, on no served path
+        # path None: a yardstick (phase 3's or 7's), on no served path
         r = line[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,

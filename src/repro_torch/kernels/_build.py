@@ -36,7 +36,8 @@ KERNEL_SOURCES = ("w4a16_matmul", "ffn_fused", "decode_flash", "rmsnorm",
                   "slstm_scan", "mlstm_cell", "dense_matmul",
                   "ffn_fused_dense", "layernorm", "kv_write", "moe_route",
                   "moe_experts", "mamba_cell", "flash_attention_bwd",
-                  "rmsnorm_bwd")
+                  "rmsnorm_bwd", "flash_attention_bwd_sync",
+                  "rmsnorm_bwd_serial")
 
 launches: "collections.Counter[str]" = collections.Counter()
 

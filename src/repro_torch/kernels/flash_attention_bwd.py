@@ -6,8 +6,11 @@ No Pallas kernel of the reference has a backward: ``flash_attention_pallas``
 training differentiates its XLA twin (``repro/kernels/xla_attention.py:333``
 ``attention_chunked``).  The port's training forward is kernel 7
 (``flash_attention_cuda(..., return_lse=True)``), so its gradient is the
-hand-written ``csrc/flash_attention_bwd.cu`` (its note says how the work is
-split and what bounds it).
+hand-written ``csrc/flash_attention_bwd.cu`` (wgmma fed by TMA; its note
+says how the work is split and what bounds it).  The first, ``mma.sync``
+design stays as ``csrc/flash_attention_bwd_sync.cu``
+(``flash_attention_bwd_sync_cuda``), off the training path: the yardstick
+the kernel is timed against.
 
 Contract: q, o, dO (B, hq, Sq, d), k, v (B, hkv, Skv, d), lse (B, hq, Sq)
 f32 from the forward (+inf for a row that saw no key); the forward's
@@ -30,10 +33,12 @@ from repro_torch.kernels.flash_attention import _operand
 from repro_torch.kernels.w4a16_matmul import check_activation
 
 NAME = "flash_attention_bwd"
+SYNC_NAME = "flash_attention_bwd_sync"
 # the kernel's instantiations (bfloat16 only; float32 and head dims 112
 # and 256 wait in ROADMAP queue 1, item 6c)
 HEAD_DIMS = (32, 64, 128)
 BLOCK = 64                # the kernel's query and key tiles
+STATS = 2 * BLOCK         # a query tile's lse (log2 units) and D
 _GRID_LIMIT = 65535
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -69,9 +74,10 @@ def flash_attention_bwd_torch(q, k, v, o, do, lse, *, causal: bool = True,
                               block: int = BLOCK):
     """Plain version in the kernel's tile order, f32, vectorised over batch
     and KV heads: dQ walks each ``block``-row query tile's live key tiles
-    ascending; dK and dV walk the query heads of a KV head in order and,
-    in each, the query tiles ascending.  Returns (dq, dk, dv) in q's
-    dtype."""
+    ascending; dK and dV walk the query heads r of a KV head in order and,
+    in each, the query tiles iq ascending, into two partials by the parity
+    of r + iq (the kernel's two warpgroups), added at the end.  Returns
+    (dq, dk, dv) in q's dtype."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -113,28 +119,29 @@ def flash_attention_bwd_torch(q, k, v, o, do, lse, *, causal: bool = True,
                                      ds.to(dt).to(f32), kt)
         dq[:, :, :, q0:q0 + n] = acc * scale
 
-    dk = torch.zeros((b, hkv, skv, d), dtype=f32, device=dev)
-    dv = torch.zeros((b, hkv, skv, d), dtype=f32, device=dev)
+    dk = [torch.zeros((b, hkv, skv, d), dtype=f32, device=dev)
+          for _ in range(2)]
+    dv = [torch.zeros((b, hkv, skv, d), dtype=f32, device=dev)
+          for _ in range(2)]
     for r in range(rep):
-        for q0 in range(0, sq, block):
-            n = min(block, sq - q0)
+        for iq, q0 in enumerate(range(0, sq, block)):
+            n, w = min(block, sq - q0), (r + iq) % 2
             qb, dob = q5[:, :, r, q0:q0 + n], do5[:, :, r, q0:q0 + n]
             s = torch.einsum("bgqd,bgkd->bgqk", qb, kf) * scale
             p = probs(s, mask[q0:q0 + n], lse5[:, :, r, q0:q0 + n])
             dp = torch.einsum("bgqd,bgkd->bgqk", dob, vf)
             ds = p * (dp - delta[:, :, r, q0:q0 + n, None])
-            dv = dv + torch.einsum("bgqk,bgqd->bgkd", p.to(dt).to(f32), dob)
-            dk = dk + torch.einsum("bgqk,bgqd->bgkd", ds.to(dt).to(f32), qb)
-    return (dq.reshape(b, hq, sq, d).to(dt), (dk * scale).to(dt),
-            dv.to(dt))
+            dv[w] = dv[w] + torch.einsum("bgqk,bgqd->bgkd",
+                                         p.to(dt).to(f32), dob)
+            dk[w] = dk[w] + torch.einsum("bgqk,bgqd->bgkd",
+                                         ds.to(dt).to(f32), qb)
+    return (dq.reshape(b, hq, sq, d).to(dt),
+            ((dk[0] + dk[1]) * scale).to(dt), (dv[0] + dv[1]).to(dt))
 
 
-def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
-                             window: int | None = None,
-                             scale: float | None = None):
-    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream (three
-    kernels: D, then dK/dV and dQ).  Returns (dq, dk, dv).  Every shape,
-    dtype and device the kernel does not take raises here."""
+def _checked(q, k, v, o, do, lse, window):
+    """The operands the kernels take (contiguous, on q's device), or
+    raise: every shape, dtype and device the kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: need 4-D q and k, v alike")
@@ -156,24 +163,56 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                          f"most {_GRID_LIMIT} rows and heads")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    scale = scale if scale is not None else float(1.0 / d ** 0.5)
     q = _operand(q, q, "q")
     k, v = _operand(k, q, "k"), _operand(v, q, "v")
     o, do = _operand(o, q, "o"), _operand(do, q, "dO")
-    lse = lse.contiguous()
+    return q, k, v, o, do, lse.contiguous()
+
+
+def _launch(name, symbol, scratch, q, k, v, o, do, lse, causal, window,
+            scale):
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else float(1.0 / d ** 0.5)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b and sq:
-        delta = torch.empty((b, hq, sq), dtype=torch.float32,
-                            device=q.device)
-        fn = _build.function(NAME, "flash_attention_bwd_launch", _ARGTYPES)
+        stats = torch.empty(scratch, dtype=torch.float32, device=q.device)
+        fn = _build.function(name, symbol, _ARGTYPES)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
                 skv, d, scale, int(causal), window or 0,
                 _build.stream_ptr(q.device))
-        _build.check(NAME, rc)
-        _build.launches[NAME] += 1
+        _build.check(name, rc)
+        _build.launches[name] += 1
     else:
         dk.zero_()
         dv.zero_()
     return dq, dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int | None = None,
+                             scale: float | None = None):
+    """Launch ``csrc/flash_attention_bwd.cu`` on the current stream (two
+    kernels: dQ with each row's D, then dK/dV).  Returns (dq, dk, dv).
+    Every shape, dtype and device the kernel does not take raises here."""
+    q, k, v, o, do, lse = _checked(q, k, v, o, do, lse, window)
+    b, hq, sq, _ = q.shape
+    return _launch(NAME, "flash_attention_bwd_launch",
+                   (b * hq * -(-sq // BLOCK) * STATS,), q, k, v, o, do, lse,
+                   causal, window, scale)
+
+
+def flash_attention_bwd_sync_cuda(q, k, v, o, do, lse, *,
+                                  causal: bool = True,
+                                  window: int | None = None,
+                                  scale: float | None = None):
+    """Launch the ``mma.sync`` yardstick ``csrc/flash_attention_bwd_sync.cu``
+    (three kernels: D, then dK/dV and dQ), the same contract; on no
+    training path."""
+    q, k, v, o, do, lse = _checked(q, k, v, o, do, lse, window)
+    b, hq, sq, _ = q.shape
+    return _launch(SYNC_NAME, "flash_attention_bwd_sync_launch",
+                   (b * hq * sq,), q, k, v, o, do, lse, causal, window,
+                   scale)

@@ -65,7 +65,13 @@ class AdamW:
     def update(self, grads: dict, state: dict, params: dict):
         """Returns ``(params, state, metrics)``: the params and moments
         updated in place, ``state["step"]`` advanced, metrics
-        ``{"grad_norm", "lr"}``."""
+        ``{"grad_norm", "lr"}``.  Runs under a ``torch.profiler`` range
+        named ``adamw``, so a traced step can tell the update's kernels
+        from the loss's."""
+        with torch.profiler.record_function("adamw"):
+            return self._update(grads, state, params)
+
+    def _update(self, grads: dict, state: dict, params: dict):
         f32 = torch.float32
         step = state["step"] + 1
         gnorm = global_norm(grads)

@@ -3620,8 +3620,12 @@ FA_BWD_TOL = 2e-2
 
 @pytest.mark.parametrize("case", [
     (2, 8, 2, 256, 256, 128, True, None), (1, 8, 2, 300, 300, 128, True, 64),
-    (2, 4, 4, 70, 130, 64, False, None), (2, 4, 2, 96, 64, 32, True, None)],
-    ids=["causal-d128", "ragged-window", "cross-d64", "no-key-rows-d32"])
+    (2, 4, 4, 70, 130, 64, False, None), (2, 4, 2, 96, 64, 32, True, None),
+    (1, 32, 2, 512, 512, 128, True, None),
+    (2, 20, 20, 256, 256, 128, True, None),
+    (2, 8, 2, 200, 200, 128, True, None)],
+    ids=["causal-d128", "ragged-window", "cross-d64", "no-key-rows-d32",
+         "rep16-d128", "rep1-d128", "ragged-200-d128"])
 def test_attention_backward_kernel_matches_plain(cuda, case):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import (
@@ -3648,7 +3652,8 @@ def test_attention_backward_kernel_matches_plain(cuda, case):
     assert all(torch.equal(g[-1:], x) for g, x in zip(got, one))
 
 
-@pytest.mark.parametrize("rows,d", [(300, 4096), (4096, 128), (64, 32)])
+@pytest.mark.parametrize("rows,d", [(300, 4096), (4096, 128), (64, 32),
+                                    (77, 2048), (300, 8192)])
 def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d):
     from repro_torch.kernels.rmsnorm_bwd import (
         rmsnorm_bwd_cuda, rmsnorm_bwd_torch)
@@ -3662,6 +3667,39 @@ def test_rmsnorm_backward_kernel_matches_plain(cuda, rows, d):
     dx2, dg2 = rmsnorm_bwd_cuda(x, gamma, dy)
     assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
     assert torch.equal(rmsnorm_bwd_cuda(x[3:4], gamma, dy[3:4])[0], dx[3:4])
+
+
+@pytest.mark.parametrize("d", [128, 64, 32])
+def test_backward_yardsticks_match_plain(cuda, d):
+    """The first designs of the two backward kernels, kept off the training
+    path as phase 7's yardsticks, still hold to the plain versions and are
+    bitwise repeatable."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_sync_cuda, flash_attention_bwd_torch)
+    from repro_torch.kernels.rmsnorm_bwd import (
+        rmsnorm_bwd_serial_cuda, rmsnorm_bwd_torch)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, do = (_rand(gen, 2, 8, 200, d, dtype=torch.bfloat16) for _ in "qo")
+    k, v = (_rand(gen, 2, 2, 200, d, dtype=torch.bfloat16) for _ in "kv")
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = _build.launches["flash_attention_bwd_sync"]
+    got = flash_attention_bwd_sync_cuda(q, k, v, o, do, lse)
+    assert _build.launches["flash_attention_bwd_sync"] == before + 1
+    want = flash_attention_bwd_torch(q, k, v, o, do, lse)
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max()
+        assert float(err) <= FA_BWD_TOL * float(w.float().abs().max()), err
+    assert all(torch.equal(a, g) for a, g in zip(
+        flash_attention_bwd_sync_cuda(q, k, v, o, do, lse), got))
+    x, dy = (_rand(gen, 300, 32 * d, dtype=torch.bfloat16) for _ in "xy")
+    gamma = (1 + 0.1 * _rand(gen, 32 * d)).to(torch.bfloat16)
+    dx, dg = rmsnorm_bwd_serial_cuda(x, gamma, dy)
+    pdx, pdg = rmsnorm_bwd_torch(x, gamma, dy)
+    _close(dx, pdx, torch.bfloat16)
+    assert float((dg - pdg).abs().max()) <= 1e-4 * float(pdg.abs().max())
+    dx2, dg2 = rmsnorm_bwd_serial_cuda(x, gamma, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
 
 
 def test_smoke_train_step_through_the_kernels_matches_the_plain_step(cuda):

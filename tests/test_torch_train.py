@@ -560,6 +560,11 @@ ATTN_BWD_CASES = {
     "rep 4": (1, 8, 2, 64, 64, 32, True, None),
     "ragged 300": (1, 2, 1, 300, 300, 16, True, None),
     "chunk ends the context": (1, 4, 2, 40, 200, 32, True, None),
+    # 16 query heads over one KV head: the kernel's two dK/dV partials
+    # split by the parity of head + query tile
+    "rep 16": (1, 16, 1, 80, 80, 16, True, None),
+    # past the kernel's 64-key tile and its 128-row dQ block (128 + 72)
+    "ragged 200": (1, 2, 1, 200, 200, 16, True, None),
 }
 
 
@@ -689,7 +694,23 @@ def test_rmsnorm_backward_plan_and_widths():
         v = 16 // torch.empty((), dtype=dtype).element_size()
         group = rmsnorm_bwd.THREADS // min(rmsnorm_bwd.THREADS, d // v)
         assert per % group == 0 and blocks == -(-rows // per)
-        assert blocks <= rmsnorm_bwd.TARGET_BLOCKS and (blocks - 1) * per < rows
+        # one wave (the launch is cooperative): two blocks an SM, one where
+        # a thread holds 4 chunks, on the card's SM count
+        target = rmsnorm_bwd.target_blocks(d, dtype)
+        assert target == (rmsnorm_bwd.SMS if d // v > 2 * rmsnorm_bwd.THREADS
+                          else 2 * rmsnorm_bwd.SMS)
+        assert blocks <= target and (blocks - 1) * per < rows
+        per, blocks = rmsnorm_bwd.plan(rows, d, dtype, sms=114)
+        assert per % group == 0 and blocks == -(-rows // per)
+        assert blocks <= rmsnorm_bwd.target_blocks(d, dtype, 114)
+        # the yardstick's plan: two blocks an SM at every width
+        per, blocks = rmsnorm_bwd.plan(rows, d, dtype,
+                                       rmsnorm_bwd.SERIAL_TARGET_BLOCKS)
+        assert per % group == 0 and blocks == -(-rows // per)
+        assert blocks <= 2 * rmsnorm_bwd.SMS and (blocks - 1) * per < rows
+    sms = rmsnorm_bwd.SMS
+    assert rmsnorm_bwd.target_blocks(8192, torch.bfloat16) == sms
+    assert rmsnorm_bwd.target_blocks(4096, torch.bfloat16) == 2 * sms
 
 
 # -- the training route's rules -----------------------------------------------------
@@ -755,6 +776,9 @@ def test_card_refusals_are_checked_before_the_device():
             flash_attention_bwd.flash_attention_bwd_cuda(
                 q, q, q, q, q, torch.zeros(1, 2, 4))
         with pytest.raises(ValueError, match="head dims"):
+            flash_attention_bwd.flash_attention_bwd_sync_cuda(
+                q, q, q, q, q, torch.zeros(1, 2, 4))
+        with pytest.raises(ValueError, match="head dims"):
             ops.attention(q.requires_grad_(True), q, q, impl="cuda")
     for d in (64, 128):
         flash_attention_bwd.check_supported(torch.zeros(1, 1, 1, d,
@@ -763,12 +787,15 @@ def test_card_refusals_are_checked_before_the_device():
     with pytest.raises(ValueError, match="width 2560"):
         rmsnorm_bwd.rmsnorm_bwd_cuda(x, x[0], x)
     with pytest.raises(ValueError, match="width 2560"):
+        rmsnorm_bwd.rmsnorm_bwd_serial_cuda(x, x[0], x)
+    with pytest.raises(ValueError, match="width 2560"):
         ops.rmsnorm(x.requires_grad_(True), x[0].detach(), impl="cuda")
     x = torch.zeros(4, 64, requires_grad=True)
     with pytest.raises(NotImplementedError, match="layernorm"):
         ops.layernorm(x, torch.ones(64), torch.zeros(64), impl="cuda")
-    assert "flash_attention_bwd" in _build.KERNEL_SOURCES
-    assert "rmsnorm_bwd" in _build.KERNEL_SOURCES
+    for name in ("flash_attention_bwd", "rmsnorm_bwd",
+                 "flash_attention_bwd_sync", "rmsnorm_bwd_serial"):
+        assert name in _build.KERNEL_SOURCES
 
 
 def test_launcher_trains_the_smoke_config_on_the_cpu(tmp_path, capsys):
